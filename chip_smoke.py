@@ -2,22 +2,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the flagship 4-part pairwise ensemble
-through ``SPSVS.svs_ensemble`` at the verbatim widths of ``bench.py``
-(random weights from a seeded generator), and holds every hand-written
-kernel of that path against its plain PyTorch version on the card.
-Phases, each printing JSON lines:
+Drives the port's two paths at the verbatim widths of the flagship
+(random weights from a seeded generator): serving, the 4-part pairwise
+ensemble through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and
+training, the multitrack acoustic train step as ``bench_train.py`` runs
+it.  It holds every hand-written kernel of those paths against its plain
+PyTorch version on the card.  Phases, each printing JSON lines:
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build;
-2. the LSTM recurrence kernel against its plain version at the path's
-   shapes (B = 4, T = 6656, H = 62, 64, 256, 512), with and without the
-   cell-sequence output, with times, the bound and a library yardstick;
-3. the slice: engine build, a warm-up, then three timed ``svs_ensemble``
+1. the card (``nvidia-smi`` name and power limit) and the kernel build
+   (one ``nvcc`` per source, run at once);
+2. ``kernel``: the LSTM recurrence kernel against its plain version at the
+   serving shapes (B = 4, T = 6656, H = 62, 64, 256, 512), with and without
+   the cell-sequence output, with times, the bound and a library
+   yardstick;
+3. ``train_kernel``: the recurrence (both modes), the BPTT kernel and the
+   dW_h kernel against their plain versions at the training shapes
+   (B = 64; T = 256, and T = 64 for the AR decoder's H = 256 cell);
+4. ``slice``: engine build, a warm-up, then three timed ``svs_ensemble``
    calls on 4 copies of the 31.2 s fixture with the launch count reset
    just before and read just after;
-4. the same modules on the CPU (plain recurrence) against the card on a
-   shortened input, and the AR lf0 decoder against a float64 oracle;
-5. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
+5. ``reference``: the same modules on the CPU (plain recurrence) against
+   the card on a shortened input, and the AR lf0 decoder against a
+   float64 oracle;
+6. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
+   Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
+   reset just before and read just after, then one step split into
+   forward, backward and optimizer;
+7. ``train_reference``: one step at full width without dropout, B = 4,
+   on the card against the same step on the CPU (loss, every gradient,
+   the new batch statistics);
+8. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or the JAX package.
@@ -48,11 +62,29 @@ PEAK_FP32_FLOP_PER_S = 67e12
 
 KERNEL_ATOL = 1e-4   # float32 kernel vs plain loop, other summation order
 MODULE_ATOL = 1e-3   # full-width modules, card vs CPU, several layers deep
+DWH_RTOL = 1e-4     # dW_h sums B(T-1) = 16,320 terms: relative to its max
 # AR lf0 decoder, float32 against a float64 oracle (PARITY.md, "AR parity
 # under chaos"): the card may sit no farther from the oracle than 3x the
 # CPU's own float32 run, or within AR_ABS_ATOL when the loop is tame
 AR_HEADROOM = 3.0
 AR_ABS_ATOL = 5e-4
+# one train step, card against CPU, dropout off: the loss, the updated
+# running statistics, and each gradient within TRAIN_GRAD_RTOL of its
+# largest entry.  Two gradients are judged otherwise:
+# * one that is zero in exact arithmetic (a conv bias in front of a
+#   training-mode batch norm, whose mean removes it) holds only rounding
+#   noise, so each gradient's scale is at least GRAD_SCALE_FLOOR of the
+#   largest gradient entry of the model;
+# * a conv weight in front of a training-mode batch norm gets a gradient
+#   that is a small difference of large terms, which float32 resolves
+#   only to a few digits on any device.  So the step also runs in float64
+#   on the CPU, as an oracle, and a gradient passes where the card's
+#   distance from the oracle is at most AR_HEADROOM times the CPU float32
+#   run's own (PARITY.md's criterion for chaotic paths).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+GRAD_SCALE_FLOOR = 1e-4
+TRAIN_STATS_ATOL = 1e-4
 N_TRACKS = 4
 N_CALLS = 3
 # single-direction LSTM recurrences per svs_ensemble call, by hidden width
@@ -62,6 +94,19 @@ LAUNCHES_BY_HIDDEN = {512: 6, 256: 4, 64: 8, 62: 4}
 LAUNCHES_PER_CALL = sum(LAUNCHES_BY_HIDDEN.values())
 RECURRENCE_SHAPES = [62, 64, 256, 512]
 T_FRAMES = 6656   # 6240 frames of the fixture, rounded up to FRAME_BUCKET
+# bench_train.py's geometry: 64 pairs x 256-frame crops, Adam at 1e-3
+TRAIN_B, TRAIN_T = 64, 256
+TRAIN_STEPS = 5
+REF_B = 4
+# single-direction LSTM recurrences per train step, by (hidden width,
+# sequence length): each track pass runs the encoder (512 x 3 x 2), the
+# lf0 model's biLSTM (64 x 2 x 2) and AR decoder cell (256, at the
+# reduced rate T / 4), and mgc / vuv / bap (256 / 64 / 62, 2 x 2 each);
+# the main and the sub track make two passes.  Each runs the forward
+# kernel (want_c), the BPTT kernel and the dW_h kernel once.
+TRAIN_LAUNCHES_BY_SHAPE = {(512, 256): 12, (256, 256): 8, (256, 64): 2,
+                           (64, 256): 16, (62, 256): 8}
+TRAIN_LAUNCHES_PER_STEP = sum(TRAIN_LAUNCHES_BY_SHAPE.values())
 
 
 def emit(obj):
@@ -240,6 +285,24 @@ def recurrence_bound_times(B, T, H, want_c):
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
 
 
+def bptt_bound_times(B, T, H):
+    """(bytes time, operations time) in ms for the BPTT kernel's work: xw,
+    W_h, h, c and dy read once, dxw written once; the gate recompute
+    (h_{t-1} W_h) and dz W_h^T multiply-adds plus about 30 elementwise
+    operations per unit and step."""
+    nbytes = 4 * (2 * B * T * 4 * H + H * 4 * H + 3 * B * T * H)
+    flops = 2 * 2 * B * T * H * 4 * H + 30 * B * T * H
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
+
+
+def dwh_bound_times(B, T, H):
+    """(bytes time, operations time) in ms for dW_h = sum h_{t-1}^T dz_t:
+    h and dz read once, dW_h written once; 2 B (T-1) H 4H operations."""
+    nbytes = 4 * (B * T * H + B * T * 4 * H + H * 4 * H)
+    flops = 2 * B * (T - 1) * H * 4 * H
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
+
+
 def bound(t_bytes, t_ops):
     """The least time, the larger of the two, and which one it is."""
     return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
@@ -267,15 +330,49 @@ def cudnn_lstm_ms(xw, w_h, reps):
                 cuda_ms(lambda: torch.nn.functional.linear(xw, eye), reps))
 
 
+def cudnn_lstm_bwd_ms(xw, w_h, dy, reps):
+    """Yardstick: (ms of cuDNN LSTM's backward alone, data and weight
+    gradients, for the same recurrence as ``cudnn_lstm_ms`` sets it up; ms
+    of its input-side work that the port's BPTT does not do: dx = dz W_ih
+    and dW_ih = dz^T x, two (B*T, 4H) x (4H, 4H) float32 GEMMs, timed
+    alone).  Timed here only; the port never calls either."""
+    B, T, H4 = xw.shape
+    H = H4 // 4
+    lstm = torch.nn.LSTM(H4, H, batch_first=True).cuda()
+    eye = torch.eye(H4, device="cuda")
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(eye)
+        lstm.weight_hh_l0.copy_(w_h.t())
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+    x = xw.detach().clone().requires_grad_(True)
+    out, _ = lstm(x)
+    inputs = [x, *lstm.parameters()]
+
+    def backward():
+        torch.autograd.grad(out, inputs, dy, retain_graph=True)
+
+    dz = xw.reshape(B * T, H4)
+
+    def input_gemms():
+        torch.matmul(dz, eye)
+        torch.matmul(dz.t(), dz)
+
+    backward()
+    input_gemms()
+    return cuda_ms(backward, reps), cuda_ms(input_gemms, reps)
+
+
 # ------------------------------------------------------------------ phases
 def phase_build(lr):
     t0 = time.time()
-    lib = lr.build()
+    libs = lr.build()
     build_s = time.time() - t0
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in lib.with_suffix(".log").read_text()
+                    .splitlines() if "registers" in ln or "spill" in ln]
+             for name, lib in libs.items()}
     emit({"phase": "build", "card": card_line(), "kernel_build_s": build_s,
-          "library": lib.name, "ptxas": ptxas,
+          "libraries": [lib.name for lib in libs.values()], "ptxas": ptxas,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
@@ -309,6 +406,82 @@ def phase_kernels(lr):
             assert np.isfinite(err) and err < KERNEL_ATOL, row
             results[(H, want_c)] = row
     return results
+
+
+def phase_train_kernels(lr):
+    """The training path's kernels at its shapes (TRAIN_LAUNCHES_BY_SHAPE,
+    batch TRAIN_B): the recurrence in both modes, the BPTT kernel (dxw)
+    and the dW_h kernel, each against its plain version."""
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    B = TRAIN_B
+    for H, T in TRAIN_LAUNCHES_BY_SHAPE:
+        xw = torch.randn(B, T, 4 * H, device="cuda", generator=g)
+        w_h = torch.randn(H, 4 * H, device="cuda", generator=g) / H ** 0.5
+        dy = torch.randn(B, T, H, device="cuda", generator=g)
+        base = {"phase": "train_kernel", "B": B, "T": T, "H": H}
+        library_ms, gemm_ms = cudnn_lstm_ms(xw, w_h, 10)
+        for want_c in (False, True):
+            got = lr.lstm_recurrence(xw, w_h, want_c)
+            ref = lr.lstm_recurrence_reference(xw, w_h, want_c)
+            pairs = zip(got, ref) if want_c else [(got, ref)]
+            err = max((a - b).abs().max().item() for a, b in pairs)
+            t_bytes, t_ops = recurrence_bound_times(B, T, H, want_c)
+            row = {**base, "name": "lstm_recurrence", "want_c": want_c,
+                   "max_abs_err": err, "atol": KERNEL_ATOL,
+                   "ms": cuda_ms(lambda: lr.lstm_recurrence(xw, w_h, want_c),
+                                 10),
+                   "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_reference(
+                       xw, w_h, want_c), 1),
+                   "bytes_ms": t_bytes, "operations_ms": t_ops,
+                   "library_ms": library_ms, "library_input_gemm_ms": gemm_ms}
+            row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
+            emit(row)
+            assert np.isfinite(err) and err < KERNEL_ATOL, row
+            rows["lstm_recurrence", H, T, want_c] = row
+
+        h, c = lr.lstm_recurrence(xw, w_h, want_c=True)
+        dxw = lr.lstm_bptt(xw, w_h, h, c, dy)
+        dxw_ref, dwh_ref = lr.lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+        err = (dxw - dxw_ref).abs().max().item()
+        t_bytes, t_ops = bptt_bound_times(B, T, H)
+        library_ms, gemm_ms = cudnn_lstm_bwd_ms(xw, w_h, dy, 5)
+        row = {**base, "name": "lstm_bptt", "max_abs_err": err,
+               "atol": KERNEL_ATOL,
+               "ms": cuda_ms(lambda: lr.lstm_bptt(xw, w_h, h, c, dy), 10),
+               "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_bwd_reference(
+                   xw, w_h, h, c, dy), 1),
+               "bytes_ms": t_bytes, "operations_ms": t_ops,
+               "library_ms": library_ms, "library_input_gemm_ms": gemm_ms}
+        row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
+        emit(row)
+        assert np.isfinite(err) and err < KERNEL_ATOL, row
+        rows["lstm_bptt", H, T, None] = row
+
+        # dW_h alone on the plain loop's dz, and the two kernels together
+        # against the loop's own dW_h
+        dwh = lr.lstm_dwh(h, dxw_ref)
+        dwh_plain = lr.lstm_dwh_reference(h, dxw_ref)
+        scale = dwh_plain.abs().max().item()
+        err = (dwh - dwh_plain).abs().max().item()
+        err_loop = (lr.lstm_dwh(h, dxw) - dwh_ref).abs().max().item()
+        hprev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        t_bytes, t_ops = dwh_bound_times(B, T, H)
+        row = {**base, "name": "lstm_dwh", "max_abs_err": err,
+               "max_rel_err": err / scale, "max_rel_err_vs_loop":
+               err_loop / scale, "rtol_of_max": DWH_RTOL,
+               "ms": cuda_ms(lambda: lr.lstm_dwh(h, dxw_ref), 10),
+               "plain_ms": cuda_ms(lambda: lr.lstm_dwh_reference(h, dxw_ref),
+                                   10),
+               "bytes_ms": t_bytes, "operations_ms": t_ops,
+               "library_ms": cuda_ms(lambda: torch.matmul(
+                   hprev.reshape(-1, H).t(), dxw_ref.reshape(-1, 4 * H)), 10)}
+        row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
+        emit(row)
+        assert np.isfinite(err) and err <= DWH_RTOL * scale, row
+        assert err_loop <= DWH_RTOL * scale, row
+        rows["lstm_dwh", H, T, None] = row
+    return rows
 
 
 def phase_slice(lr, weights, labels):
@@ -433,29 +606,239 @@ def phase_reference(engine, weights, labels):
         assert torch.isfinite(got[k]).all(), k
 
 
-def kernels_line(kernel_rows, launches):
-    """The recurrence kernel's entry: ``launches`` from the slice's run of
-    N_CALLS calls; ms, plain_ms, library_ms and the bound summed over one
-    call's launches at the path's shapes (LAUNCHES_BY_HIDDEN), from the
-    kernel phase's rows."""
-    rows = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
+def train_batch(B: int, T: int, out_dim: int):
+    """bench_train.py's batch (its lines 102-111): numpy seed 0."""
+    rng = np.random.default_rng(0)
+    return {
+        "in_feats0": rng.uniform(0, 1, (B, T, 86)).astype(np.float32),
+        "out_feats0": rng.normal(size=(B, T, out_dim)).astype(np.float32),
+        "in_feats1": rng.uniform(0, 1, (B, T, 86)).astype(np.float32),
+        "out_feats1": rng.normal(size=(B, T, out_dim)).astype(np.float32),
+        "spks0": np.zeros((B,), np.int32),
+        "spks1": np.ones((B,), np.int32),
+        "lengths": np.full((B,), T, dtype=np.int32),
+    }
 
-    def per_call(key):
-        return sum(n * rows[H][key] for H, n in LAUNCHES_BY_HIDDEN.items())
 
-    bound_ms, bound_by = bound(per_call("bytes_ms"), per_call("operations_ms"))
-    return {"kernels": [{
-        "name": "lstm_recurrence", "route": "cuda",
-        "source": "ensemble_svs_with_interactions_tpu_torch/csrc/lstm_recurrence.cu",
-        "replaces": "ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:30",
-        "launches": launches, "calls": N_CALLS,
-        "launches_per_call": launches // N_CALLS,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": per_call("ms"), "plain_ms": per_call("plain_ms"),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": per_call("library_ms"),
-        "library_input_gemm_ms": per_call("library_input_gemm_ms"),
-    }]}
+def build_trainer(cfg, ss, state_dict, device, dtype=torch.float32):
+    """(module, train_step) of the flagship acoustic model: Adam at 1e-3,
+    pitch_reg_weight 1, sub_require_grad True, clip 1.0 (bench_train.py)."""
+    from ensemble_svs_with_interactions_tpu_torch.train.loop import (
+        build_optimizer,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.train.multitrack import (
+        create_multitrack_acoustic_train_step,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+
+    module = instantiate(cfg)
+    module.load_state_dict(state_dict)
+    module.to(dtype)
+    opt, sched = build_optimizer(module.parameters(),
+                                 {"name": "Adam", "params": {"lr": 1e-3}})
+    step, _ = create_multitrack_acoustic_train_step(
+        module, opt, {"stream_sizes": list(ss)}, scheduler=sched,
+        clip_norm=1.0, pitch_reg_weight=1.0, sub_require_grad=True,
+        device=device)
+    return module, step
+
+
+def seeded_state_dict(cfg, seed):
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return instantiate(cfg).state_dict()
+
+
+TRAIN_WEIGHTS = {"logf0_diff": 1.0, "mgc_diff": 1.0}
+TRAIN_COUNTERS = ("lstm_recurrence", "lstm_bptt", "lstm_dwh")
+
+
+def phase_train(lr):
+    """bench_train.py's flagship step: 2 warm-up steps, TRAIN_STEPS timed
+    ones (host clock around a step that ends in a host copy of its
+    metrics), with the kernel launch counts reset just before and read just
+    after, then one step synchronized after each phase."""
+    ac, ss = flagship_acoustic_config(4)
+    _, step = build_trainer(ac["netG"], ss, seeded_state_dict(ac["netG"], SEED),
+                            "cuda")
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             train_batch(TRAIN_B, TRAIN_T, sum(ss)).items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses = []
+    t0 = time.time()
+    for _ in range(2):
+        losses.append(step(batch, TRAIN_WEIGHTS, gen)["Loss"])
+    warm_s = time.time() - t0
+
+    for name in TRAIN_COUNTERS:
+        getattr(lr, name).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(batch, TRAIN_WEIGHTS, gen)["Loss"])
+        step_s.append(time.perf_counter() - t0)
+    launches = {name: getattr(lr, name).launches for name in TRAIN_COUNTERS}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    losses.append(step(batch, TRAIN_WEIGHTS, gen,
+                       blocked_phase_times=True)["Loss"])
+    median = float(np.median(step_s))
+    emit({"phase": "train", "B": TRAIN_B, "T": TRAIN_T, "warmup_s": warm_s,
+          "steps_s": step_s, "median_step_s": median,
+          "frames_per_s": TRAIN_B * TRAIN_T / median,
+          "split_s": step.last_phase_times, "losses": losses,
+          "peak_mem_gib": peak, "steps": TRAIN_STEPS,
+          "launches": launches,
+          "launches_per_step": {k: v / TRAIN_STEPS
+                                for k, v in launches.items()},
+          "expected_per_step": TRAIN_LAUNCHES_PER_STEP})
+    assert all(np.isfinite(x) for x in losses), losses
+    for name, n in launches.items():
+        assert n == TRAIN_LAUNCHES_PER_STEP * TRAIN_STEPS, (name, n)
+    return launches
+
+
+def phase_train_reference():
+    """One step at full width with dropout off, B = REF_B, on the card
+    against the same step on the CPU (plain recurrence and BPTT loops) in
+    float32 and in float64: the loss, each parameter's (clipped) gradient,
+    and the running statistics after the step (see TRAIN_GRAD_RTOL)."""
+    ac, ss = flagship_acoustic_config(4)
+    cfg = copy.deepcopy(ac["netG"])
+    cfg["mgc_model"]["dropout"] = cfg["vuv_model"]["dropout"] = 0.0
+    cfg["lf0_model"]["prenet_dropout"] = 0.0
+    state = seeded_state_dict(cfg, SEED)
+    batch = train_batch(REF_B, TRAIN_T, sum(ss))
+    t0 = time.time()
+    runs = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
+                       ("cpu", torch.float64)):
+        module, step = build_trainer(cfg, ss, state, dev, dtype)
+        metrics = step(batch, TRAIN_WEIGHTS,
+                       torch.Generator(device=dev).manual_seed(SEED))
+        runs[dev, dtype] = (metrics,
+                            {n: p.grad.detach().cpu().double()
+                             for n, p in module.named_parameters()},
+                            {n: b.detach().cpu().double()
+                             for n, b in module.named_buffers()})
+    m_gpu, g_gpu, s_gpu = runs["cuda", torch.float32]
+    m_cpu, g_cpu, s_cpu = runs["cpu", torch.float32]
+    _, g_64, _ = runs["cpu", torch.float64]
+    loss_rel = abs(m_gpu["Loss"] - m_cpu["Loss"]) / abs(m_cpu["Loss"])
+    floor = GRAD_SCALE_FLOOR * max(g.abs().max().item() for g in g_64.values())
+    grads = {}
+    for n, g in g_64.items():
+        scale = max(g.abs().max().item(), floor)
+        card = (g_gpu[n] - g_cpu[n]).abs().max().item()
+        card_64 = (g_gpu[n] - g).abs().max().item()
+        cpu_64 = (g_cpu[n] - g).abs().max().item()
+        grads[n] = {"rel_of_max": card / scale,
+                    "card_vs_f64": card_64, "cpu_f32_vs_f64": cpu_64,
+                    "ok": card / scale < TRAIN_GRAD_RTOL
+                    or card_64 <= AR_HEADROOM * cpu_64}
+    stats_err = max((s_gpu[n] - v).abs().max().item()
+                    for n, v in s_cpu.items())
+    worst = max(grads, key=lambda n: grads[n]["rel_of_max"])
+    by_oracle = {n: v for n, v in grads.items()
+                 if v["rel_of_max"] >= TRAIN_GRAD_RTOL}
+    emit({"phase": "train_reference", "B": REF_B, "T": TRAIN_T,
+          "loss": [m_gpu["Loss"], m_cpu["Loss"]], "loss_rel_err": loss_rel,
+          "grad_norm": [m_gpu["GradNorm"], m_cpu["GradNorm"]],
+          "params": len(grads),
+          "max_grad_rel_err": grads[worst]["rel_of_max"], "worst_grad": worst,
+          "judged_by_f64_oracle": by_oracle,
+          "grads_at_scale_floor": sum(
+              g.abs().max().item() < floor for g in g_64.values()),
+          "stats_max_abs_err": stats_err,
+          "limits": {"loss_rtol": TRAIN_LOSS_RTOL,
+                     "grad_rtol_of_max": TRAIN_GRAD_RTOL,
+                     "grad_f64_headroom": AR_HEADROOM,
+                     "stats_atol": TRAIN_STATS_ATOL},
+          "seconds": time.time() - t0})
+    assert np.isfinite(m_gpu["Loss"]) and loss_rel < TRAIN_LOSS_RTOL
+    bad = [n for n, v in grads.items() if not v["ok"]]
+    assert not bad, {n: grads[n] for n in bad}
+    assert stats_err < TRAIN_STATS_ATOL, stats_err
+
+
+def _sum_rows(rows, counts, keys):
+    """{key: sum of count * row[key]} over rows weighted by counts."""
+    return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
+
+
+TIMES = ("ms", "plain_ms", "bytes_ms", "operations_ms", "library_ms")
+
+
+def _entry(name, source, sums, **extra):
+    bound_ms, bound_by = bound(sums["bytes_ms"], sums["operations_ms"])
+    return {"name": name, "route": "cuda",
+            "source": f"ensemble_svs_with_interactions_tpu_torch/csrc/{source}",
+            **extra, "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sums["library_ms"]}
+
+
+def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
+    """One entry per kernel.  ``launches`` counts the kernel's launches in
+    the paths' runs (N_CALLS svs_ensemble calls, TRAIN_STEPS train steps).
+    The recurrence's times, bound and yardstick are summed over one
+    svs_ensemble call's launches (LAUNCHES_BY_HIDDEN), with the same sums
+    over one train step (TRAIN_LAUNCHES_BY_SHAPE, the want_c mode) under
+    ``train_step``; the BPTT and dW_h kernels' are summed over one train
+    step.  All come from the kernel phases' rows; the recurrence's
+    training-shape yardstick is cuDNN's forward, which gives no cell
+    sequence."""
+    serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
+    serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
+                      TIMES + ("library_input_gemm_ms",))
+
+    def train_sums(name, want_c=None, keys=TIMES):
+        rows = {s: train_rows[name, *s, want_c]
+                for s in TRAIN_LAUNCHES_BY_SHAPE}
+        return _sum_rows(rows, TRAIN_LAUNCHES_BY_SHAPE, keys), rows
+
+    fwd, _ = train_sums("lstm_recurrence", True)
+    fwd_bound = bound(fwd["bytes_ms"], fwd["operations_ms"])
+    bptt, bptt_rows = train_sums("lstm_bptt", keys=TIMES + (
+        "library_input_gemm_ms",))
+    dwh, dwh_rows = train_sums("lstm_dwh")
+    rec_err = max(r["max_abs_err"] for r in list(kernel_rows.values())
+                  + [r for k, r in train_rows.items()
+                     if k[0] == "lstm_recurrence"])
+    per_step = TRAIN_LAUNCHES_PER_STEP
+    return {"kernels": [
+        _entry("lstm_recurrence", "lstm_recurrence.cu", serve,
+               replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:30",
+               launches=slice_launches + train_launches["lstm_recurrence"],
+               launches_by_path={"svs_ensemble": slice_launches,
+                                 "train": train_launches["lstm_recurrence"]},
+               calls=N_CALLS, launches_per_call=slice_launches // N_CALLS,
+               train_steps=TRAIN_STEPS, launches_per_step=per_step,
+               max_abs_err=rec_err,
+               library_input_gemm_ms=serve["library_input_gemm_ms"],
+               train_step={"ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+                           "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                           "library_ms": fwd["library_ms"]}),
+        _entry("lstm_bptt", "lstm_bptt.cu", bptt,
+               replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
+               launches=train_launches["lstm_bptt"], calls=TRAIN_STEPS,
+               launches_per_step=per_step,
+               max_abs_err=max(r["max_abs_err"] for r in bptt_rows.values()),
+               library_input_gemm_ms=bptt["library_input_gemm_ms"]),
+        _entry("lstm_dwh", "lstm_bptt.cu", dwh,
+               replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
+               launches=train_launches["lstm_dwh"], calls=TRAIN_STEPS,
+               launches_per_step=per_step,
+               max_abs_err=max(r["max_abs_err"] for r in dwh_rows.values()),
+               max_rel_err=max(r["max_rel_err"] for r in dwh_rows.values())),
+    ]}
 
 
 def main() -> int:
@@ -474,12 +857,16 @@ def main() -> int:
         return 2
     phase_build(lr)
     kernel_rows = phase_kernels(lr)
+    train_rows = phase_train_kernels(lr)
 
     weights = random_state_dicts(flagship_phases()[1], SEED)
     labels = [hts.load(FIXTURE) for _ in range(N_TRACKS)]
     engine, launches = phase_slice(lr, weights, labels)
     phase_reference(engine, weights, labels)
-    emit(kernels_line(kernel_rows, launches))
+    del engine
+    train_launches = phase_train(lr)
+    phase_train_reference()
+    emit(kernels_line(kernel_rows, train_rows, launches, train_launches))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

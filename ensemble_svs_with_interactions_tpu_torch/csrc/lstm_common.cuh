@@ -1,0 +1,107 @@
+// Pieces shared by the LSTM recurrence kernels (lstm_recurrence.cu, the
+// forward; lstm_bptt.cu, the reverse-time backward): the activations, the
+// grid-wide barrier, and the residency plan that keeps a cooperative
+// launch within what the card holds at once.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+
+namespace lstm {
+
+constexpr int kThreads = 256;
+constexpr int kMaxRows = 4;  // batch rows per dot-product pass
+
+__device__ __forceinline__ float sigmoid_f32(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Every block of one grid row arrives once per step; step s is complete
+// when the row's counter reaches nblk * (s + 1).
+__device__ __forceinline__ void grid_barrier(unsigned int* counter,
+                                             unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    while (load_acquire(counter) < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Units per block and the split of each gate column's dot product: a block
+// owns U hidden units, i.e. the K = 4U gate columns {j, H+j, 2H+j, 3H+j};
+// thread (k, s) of the gate sums adds column k over the hidden units
+// s, s + S, ...  The shared slice of W_h is stored column-major with a row
+// pitch == S (mod 32), so the lanes of a warp hit distinct banks.
+struct Split {
+  int U, nblk, S, pitch;
+};
+
+inline Split make_split(int H) {
+  Split p;
+  p.U = H <= 64 ? H : std::max(4, (H + 127) / 128);
+  p.nblk = (H + p.U - 1) / p.U;
+  const int K = 4 * p.U;
+  p.S = 1;
+  while (p.S < 32 && K * p.S * 2 <= kThreads) p.S *= 2;
+  p.pitch = H + (((p.S - H) % 32) + 32) % 32;
+  return p;
+}
+
+// Batch rows go to grid rows (blockIdx.y) in groups of kMaxRows.  A
+// multi-block launch spins at a grid barrier, so every block must be
+// resident at once: when nblk * groups blocks do not fit, each grid row
+// takes `gpb` groups and loops over them inside every step.  A block runs
+// one cell thread per (row, unit), so gpb * kMaxRows * U <= kThreads.
+struct Rows {
+  int groups, gpb, grid_rows;
+};
+
+// smem_for(gpb) is the dynamic shared memory of a block taking gpb groups.
+template <typename Kernel, typename SmemFor>
+cudaError_t plan_rows(Kernel kernel, int B, int U, int nblk, SmemFor smem_for,
+                      Rows* out) {
+  Rows r;
+  r.groups = (B + kMaxRows - 1) / kMaxRows;
+  r.gpb = 1;
+  r.grid_rows = r.groups;
+  if (nblk > 1) {
+    const int max_gpb = kThreads / (kMaxRows * U);
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem_for(max_gpb))) != cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, smem_for(max_gpb))) != cudaSuccess)
+      return err;
+    const int rows_fit = per_sm * sms / nblk;
+    if (rows_fit < 1) return cudaErrorCooperativeLaunchTooLarge;
+    const int grid_rows = r.groups < rows_fit ? r.groups : rows_fit;
+    r.gpb = (r.groups + grid_rows - 1) / grid_rows;
+    if (r.gpb > max_gpb) return cudaErrorCooperativeLaunchTooLarge;
+    r.grid_rows = (r.groups + r.gpb - 1) / r.gpb;
+  }
+  *out = r;
+  return cudaSuccess;
+}
+
+}  // namespace lstm

@@ -30,68 +30,44 @@
 //   * at H <= 64 one block owns all units (W_h is 64 KB), h stays in shared
 //     memory and no grid barrier is needed;
 //   * batch rows are independent: groups of up to kMaxRows rows run as
-//     separate grid rows (blockIdx.y), each with its own barrier counter;
+//     separate grid rows (blockIdx.y), each with its own barrier counter.
+//     When the card cannot hold nblk blocks for every group (a training
+//     batch: B = 64 at H = 512 asks for 2048 blocks), a grid row takes
+//     several groups and runs the gate sums once per group inside each step
+//     (lstm_common.cuh: plan_rows).  That is the kGrouped instantiation; a
+//     grid row of one group runs the other, whose code is the single-group
+//     kernel as it was before grouping existed;
 //   * the xw values of step t+1 are loaded while step t finishes, so their
 //     global-memory latency is off the critical path.
 // Inside a block, thread (k, s) sums column k of W_h over the hidden units
-// h = s, s+S, ...; the S partial sums meet with warp shuffles.  The shared
-// W_h slice is stored column-major with a row pitch == S (mod 32), so the
-// lanes of a warp hit distinct banks.
+// h = s, s+S, ...; the S partial sums meet with warp shuffles.
 
-#include <cuda_runtime.h>
-
-#include <algorithm>
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxRows = 4;  // batch rows per block
+using namespace lstm;
 
-__device__ __forceinline__ float sigmoid_f32(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Every block of one batch group arrives once per step; step t is complete
-// when the counter reaches nblk * (t + 1).
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    while (load_acquire(counter) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
+template <bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
     lstm_recurrence_kernel(const float* __restrict__ xw,
                            const float* __restrict__ wh, float* y, float* cseq,
                            unsigned int* counters, int B, int T, int H, int U,
-                           int S, int pitch) {
+                           int S, int pitch, int gpb) {
   extern __shared__ float smem[];
   const int K = 4 * U;
   const int H4 = 4 * H;
   float* ws = smem;                    // [K][pitch]: this block's W_h columns
-  float* hs = ws + K * pitch;          // [kMaxRows][H]: h_{t-1}
-  float* gs = hs + kMaxRows * H;       // [kMaxRows][K]: recurrent gate sums
+  float* hs = ws + K * pitch;          // [kMaxRows][H]: h_{t-1} of one group
+  float* gs = hs + kMaxRows * H;       // [gpb * kMaxRows][K]: gate sums
 
   const int tid = threadIdx.x;
   const int nblk = gridDim.x;
   const int j0 = blockIdx.x * U;
-  const int b0 = blockIdx.y * kMaxRows;
-  const int rows = min(kMaxRows, B - b0);
+  const int R = kGrouped ? gpb * kMaxRows : kMaxRows;  // rows per grid row
+  const int b0 = blockIdx.y * R;
+  const int rows = min(R, B - b0);
+  const int ngroups = kGrouped ? (rows + kMaxRows - 1) / kMaxRows : 1;
 
   // column k of the slice is gate k / U of unit j0 + k % U
   for (int idx = tid; idx < K * H; idx += kThreads) {
@@ -107,9 +83,9 @@ __global__ void __launch_bounds__(kThreads)
   const bool dot_active = k1 < K;
   const float* wk = ws + (dot_active ? k1 : 0) * pitch;
 
-  // cell role: batch row b2 of the group, unit j2
+  // cell role: batch row b2 of the grid row, unit j2
   const int b2 = tid / U, j2 = j0 + tid % U;
-  const bool cell_active = tid < kMaxRows * U && b2 < rows && j2 < H;
+  const bool cell_active = tid < R * U && b2 < rows && j2 < H;
   const float* xrow =
       cell_active ? xw + (size_t)(b0 + b2) * T * H4 + j2 : xw;
   float c = 0.0f;
@@ -121,35 +97,40 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    if (nblk > 1 && t > 0) {
-      for (int idx = tid; idx < rows * H; idx += kThreads) {
-        const int b = idx / H, h = idx - (idx / H) * H;
-        hs[b * H + h] = __ldcg(y + ((size_t)(b0 + b) * T + (t - 1)) * H + h);
+    for (int grp = 0; grp < ngroups; ++grp) {
+      const int gb = kGrouped ? grp * kMaxRows : 0;
+      if (nblk > 1 && t > 0) {
+        const int grows = kGrouped ? min(kMaxRows, rows - gb) : rows;
+        for (int idx = tid; idx < grows * H; idx += kThreads) {
+          const int b = idx / H, h = idx - (idx / H) * H;
+          hs[b * H + h] =
+              __ldcg(y + ((size_t)(b0 + gb + b) * T + (t - 1)) * H + h);
+        }
+        __syncthreads();
+      }
+
+      float acc[kMaxRows];
+#pragma unroll
+      for (int b = 0; b < kMaxRows; ++b) acc[b] = 0.0f;
+      if (dot_active) {
+        for (int h = s1; h < H; h += S) {
+          const float w = wk[h];
+#pragma unroll
+          for (int b = 0; b < kMaxRows; ++b)
+            acc[b] = fmaf(hs[b * H + h], w, acc[b]);
+        }
+      }
+      for (int off = S >> 1; off > 0; off >>= 1) {
+#pragma unroll
+        for (int b = 0; b < kMaxRows; ++b)
+          acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
+      }
+      if (dot_active && s1 == 0) {
+#pragma unroll
+        for (int b = 0; b < kMaxRows; ++b) gs[(gb + b) * K + k1] = acc[b];
       }
       __syncthreads();
     }
-
-    float acc[kMaxRows];
-#pragma unroll
-    for (int b = 0; b < kMaxRows; ++b) acc[b] = 0.0f;
-    if (dot_active) {
-      for (int h = s1; h < H; h += S) {
-        const float w = wk[h];
-#pragma unroll
-        for (int b = 0; b < kMaxRows; ++b)
-          acc[b] = fmaf(hs[b * H + h], w, acc[b]);
-      }
-    }
-    for (int off = S >> 1; off > 0; off >>= 1) {
-#pragma unroll
-      for (int b = 0; b < kMaxRows; ++b)
-        acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-    }
-    if (dot_active && s1 == 0) {
-#pragma unroll
-      for (int b = 0; b < kMaxRows; ++b) gs[b * K + k1] = acc[b];
-    }
-    __syncthreads();
 
     if (cell_active) {
       const int u = tid % U;
@@ -178,23 +159,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct Plan {
-  int U, nblk, S, pitch, groups;
-  size_t smem;
-};
-
-Plan make_plan(int B, int H) {
-  Plan p;
-  p.U = H <= 64 ? H : std::max(4, (H + 127) / 128);
-  p.nblk = (H + p.U - 1) / p.U;
+size_t smem_bytes(const Split& p, int H, int gpb) {
   const int K = 4 * p.U;
-  p.S = 1;
-  while (p.S < 32 && K * p.S * 2 <= kThreads) p.S *= 2;
-  p.pitch = H + (((p.S - H) % 32) + 32) % 32;
-  p.groups = (B + kMaxRows - 1) / kMaxRows;
-  p.smem = sizeof(float) *
-           ((size_t)K * p.pitch + (size_t)kMaxRows * H + (size_t)kMaxRows * K);
-  return p;
+  return sizeof(float) * ((size_t)K * p.pitch + (size_t)kMaxRows * H +
+                          (size_t)gpb * kMaxRows * K);
 }
 
 }  // namespace
@@ -202,44 +170,48 @@ Plan make_plan(int B, int H) {
 extern "C" {
 
 // Returns a cudaError_t (0 on success).  `counters` must hold
-// ceil(B / 4) zeroed uint32 values; `cseq` may be null.
+// lstm_recurrence_counters(B) zeroed uint32 values; `cseq` may be null.
 int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
                            float* cseq, unsigned int* counters, int B, int T,
                            int H, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  Plan p = make_plan(B, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_recurrence_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)p.smem);
+  const Split p = make_split(H);
+  const auto smem_for = [&](int gpb) { return smem_bytes(p, H, gpb); };
+  // one group per grid row if the single-group kernel fits, else groups
+  Rows r;
+  cudaError_t err = plan_rows(lstm_recurrence_kernel<false>, B, p.U, p.nblk,
+                              smem_for, &r);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.nblk, p.groups);
+  auto* kernel = lstm_recurrence_kernel<false>;
+  if (r.gpb > 1) {
+    kernel = lstm_recurrence_kernel<true>;
+    err = plan_rows(kernel, B, p.U, p.nblk, smem_for, &r);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t smem = smem_for(r.gpb);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.nblk, r.grid_rows);
   const cudaStream_t st = (cudaStream_t)stream;
   if (p.nblk == 1) {
-    lstm_recurrence_kernel<<<grid, kThreads, p.smem, st>>>(
-        xw, wh, y, cseq, counters, B, T, H, p.U, p.S, p.pitch);
+    kernel<<<grid, kThreads, smem, st>>>(xw, wh, y, cseq, counters, B, T, H,
+                                         p.U, p.S, p.pitch, r.gpb);
     return (int)cudaGetLastError();
   }
-  // the spin barrier needs every block resident at once
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, lstm_recurrence_kernel, kThreads, p.smem)) != cudaSuccess)
-    return (int)err;
-  if ((long long)per_sm * sms < (long long)p.nblk * p.groups)
-    return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&xw, (void*)&wh,    (void*)&y,   (void*)&cseq,
+  int U = p.U, S = p.S, pitch = p.pitch, gpb = r.gpb;
+  void* args[] = {(void*)&xw, (void*)&wh, (void*)&y,     (void*)&cseq,
                   (void*)&counters, (void*)&B, (void*)&T, (void*)&H,
-                  (void*)&p.U, (void*)&p.S,  (void*)&p.pitch};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_recurrence_kernel, grid,
-                                    dim3(kThreads), args, p.smem, st);
+                  (void*)&U,  (void*)&S,  (void*)&pitch, (void*)&gpb};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, grid,
+                                    dim3(kThreads), args, smem, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Number of barrier counters the launch needs for a batch of B rows.
+// Number of barrier counters the launch needs for a batch of B rows (one
+// per group of kMaxRows rows: enough for any grid-row plan).
 int lstm_recurrence_counters(int B) { return (B + kMaxRows - 1) / kMaxRows; }
 
 const char* lstm_recurrence_error_string(int err) {

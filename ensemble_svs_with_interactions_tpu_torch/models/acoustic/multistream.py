@@ -1,7 +1,6 @@
 """The flagship multitrack acoustic model,
 ``MultiTrackMultistreamSeparateF0ParametricModel`` (counterpart in
-``ensemble_svs_with_interactions_tpu/models/acoustic/multistream.py``),
-inference only.
+``ensemble_svs_with_interactions_tpu/models/acoustic/multistream.py``).
 
 p(MGC, LF0, VUV, BAP | C) = p(LF0|C) p(MGC|LF0,C) p(VUV|LF0,C) p(BAP|LF0,C):
 the cross-track lf0 model runs first, the multitrack encoder output is
@@ -22,15 +21,22 @@ from ensemble_svs_with_interactions_tpu_torch.base import (
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
     point_estimate,
 )
+from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
+    split_streams,
+)
 
 
 class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
     """Sub-models arrive built (``utils.config.instantiate`` builds nested
     ``_target_`` nodes first).  The ensemble uses each track once as the
-    main track, so the port serves :meth:`inference_main` only.  The lf0
-    fields (``in_lf0_*``, ``out_lf0_*``) belong to the lf0 sub-model's own
-    config, and teacher forcing to training; both are accepted and
-    unused."""
+    main track, so it serves :meth:`inference_main`; :meth:`forward` runs
+    both tracks, as training does.  The lf0 fields (``in_lf0_*``,
+    ``out_lf0_*``) belong to the lf0 sub-model's own config and are
+    accepted and unused.
+
+    ``compat_sub_encoder_outs=True`` feeds the MAIN track's encoder output
+    to the sub-track decoders, as the reference does (for its
+    checkpoints); the default routes the sub track's own."""
 
     def __init__(self, in_dim: int, out_dim: int, stream_sizes: Sequence[int],
                  reduction_factor: int, encoder: Any, mgc_model: Any,
@@ -40,10 +46,14 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
                  in_lf0_max: float = 6.491111, out_lf0_idx: int = 180,
                  out_lf0_mean: float = 5.953093881972361,
                  out_lf0_scale: float = 0.23435173188961034,
-                 lf0_teacher_forcing: bool = True):
+                 lf0_teacher_forcing: bool = True,
+                 compat_sub_encoder_outs: bool = False):
         super().__init__()
         self.out_dim = out_dim
+        self.stream_sizes = list(stream_sizes)
         self.in_rest_idx = in_rest_idx
+        self.lf0_teacher_forcing = lf0_teacher_forcing
+        self.compat_sub_encoder_outs = compat_sub_encoder_outs
         self.encoder = encoder
         self.lf0_model = lf0_model
         self.mgc_model = mgc_model
@@ -59,6 +69,56 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
         if e.ndim == 2:
             e = e[:, None, :]
         return e.expand(e.shape[0], T, e.shape[-1])
+
+    def forward(self, x_main, x_sub, spks, lengths=None, ys=None,
+                train: bool = False, generator=None):
+        """Both tracks.  With targets ``ys = (y_main, y_sub)`` the lf0
+        model is teacher-forced and the result is ``((out_main,
+        lf0_res_main), (out_sub, lf0_res_sub))``; without, ``(out_main,
+        out_sub)``.  Each output is (B, T, D) = [mgc | lf0 | vuv | bap].
+        Dropout masks come from ``generator``."""
+        is_inference = ys is None
+        if is_inference:
+            y_m = y_s = [None] * 4
+        else:
+            y_m = split_streams(ys[0], self.stream_sizes)
+            y_s = split_streams(ys[1], self.stream_sizes)
+        T = x_main.shape[1]
+        spk_m = self._expand_spk(spks[0], T)
+        spk_s = self._expand_spk(spks[1], T)
+        lf0_m, res_m = self.lf0_model(x_main, x_sub, spk_m, spk_s, lengths,
+                                      y_m[1], train, generator)
+        lf0_s, res_s = self.lf0_model(x_sub, x_main, spk_s, spk_m, lengths,
+                                      y_s[1], train, generator)
+        if is_inference:
+            lf0_m, lf0_s = point_estimate(lf0_m), point_estimate(lf0_s)
+        enc_m = self.encoder(x_main, x_sub, spk_embs=(spk_m, spk_s),
+                             lengths=lengths, train=train,
+                             generator=generator)
+        enc_s = self.encoder(x_sub, x_main, spk_embs=(spk_s, spk_m),
+                             lengths=lengths, train=train,
+                             generator=generator)
+        forced = self.lf0_teacher_forcing and not is_inference
+        enc_m = torch.cat([enc_m, x_main[:, :, self.in_rest_idx][..., None],
+                           y_m[1] if forced else lf0_m], dim=-1)
+        enc_s = torch.cat([enc_s, x_sub[:, :, self.in_rest_idx][..., None],
+                           y_s[1] if forced else lf0_s], dim=-1)
+        enc_for_sub = enc_m if self.compat_sub_encoder_outs else enc_s
+        outs = {}
+        for track, enc in (("m", enc_m), ("s", enc_for_sub)):
+            for name in ("mgc", "vuv", "bap"):
+                outs[name, track] = getattr(self, f"{name}_model")(
+                    enc, lengths, train=train, generator=generator)
+        out_m = torch.cat([outs["mgc", "m"], lf0_m, outs["vuv", "m"],
+                           outs["bap", "m"]], dim=-1)
+        out_s = torch.cat([outs["mgc", "s"], lf0_s, outs["vuv", "s"],
+                           outs["bap", "s"]], dim=-1)
+        if out_m.shape[-1] != self.out_dim:
+            raise ValueError(f"streams give {out_m.shape[-1]} dims, config "
+                             f"says {self.out_dim}")
+        if is_inference:
+            return out_m, out_s
+        return (out_m, res_m), (out_s, res_s)
 
     def inference_main(self, x_main, x_sub, spks, lengths=None,
                        generator=None):

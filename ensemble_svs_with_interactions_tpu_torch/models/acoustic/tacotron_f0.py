@@ -1,7 +1,6 @@
 """The interaction F0 model: ``MultiTrackBiLSTMResF0NonAttentiveDecoder``
 and its ``_SinsyEncoder`` (counterparts in
-``ensemble_svs_with_interactions_tpu/models/acoustic/tacotron_f0.py``),
-inference only.
+``ensemble_svs_with_interactions_tpu/models/acoustic/tacotron_f0.py``).
 
 Both tracks go through a shared phoneme embedding, get their speaker
 embeddings added and are summed; an FF -> Conv(+BN) -> biLSTM encoder sees
@@ -25,6 +24,7 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
     MaskedBatchNorm,
     PhonemeContextEmbedding,
     ReflectConv1d,
+    time_mask,
 )
 from ensemble_svs_with_interactions_tpu_torch.models.tacotron import (
     _ARDecoderCore,
@@ -50,24 +50,31 @@ class _SinsyEncoder(nn.Module):
             setattr(self, f"MaskedBatchNorm_{i}",
                     MaskedBatchNorm(conv_hidden_dim))
         self.LSTM_0 = LSTM(conv_hidden_dim, lstm_hidden_dim,
-                           num_layers=num_lstm_layers, bidirectional=True)
+                           num_layers=num_lstm_layers, bidirectional=True,
+                           dropout=dropout)
 
-    def forward(self, x, lf0_scores, lengths=None):
+    def forward(self, x, lf0_scores, lengths=None, train: bool = False,
+                generator=None):
         h = x
         for i in range(3):
             h = torch.relu(getattr(self, f"Dense_{i}")(h))
         h = torch.cat([h] + list(lf0_scores), dim=-1)
+        mask = time_mask(lengths, h.shape[1], h.device)
         for i in range(3):
             h = getattr(self, f"ReflectConv1d_{i}")(h)
-            h = torch.relu(getattr(self, f"MaskedBatchNorm_{i}")(h))
-        return self.LSTM_0(h, lengths)
+            h = torch.relu(getattr(self, f"MaskedBatchNorm_{i}")(
+                h, mask=mask, train=train))
+        return self.LSTM_0(h, lengths, train, generator)
 
 
 class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
     """The interaction F0 model (decoder ``in_lf0_idx = -2``: the main
     track's score lf0).  Ported: the flagship's decoder (no prenet, no
     zoneout, no MDN head, conv downsampling by r > 1); other settings
-    raise.  Dropout is off at inference except the prenet dropout."""
+    raise (zoneout's training masks would put the cell state back in a
+    per-step loop).  Without targets ``y`` it decodes free-running; with
+    them it is teacher-forced.  The prenet dropout on the fed-back frame
+    applies in both, the encoder's dropout only with ``train=True``."""
 
     def __init__(self, in_dim: int = 512, ff_hidden_dim: int = 2048,
                  conv_hidden_dim: int = 1024, lstm_hidden_dim: int = 256,
@@ -120,7 +127,7 @@ class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
         return PredictionType.DETERMINISTIC
 
     def encode(self, x_main, x_sub, spk_emb_main=None, spk_emb_sub=None,
-               lengths=None):
+               lengths=None, train: bool = False, generator=None):
         """The non-autoregressive front: (B, T, 2 * lstm_hidden + 2)
         encoder features ending in the main and sub score lf0."""
         lf0_main = x_main[:, :, self.in_lf0_idx][..., None]
@@ -132,14 +139,16 @@ class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
             x_main = x_main + spk_emb_main
         if spk_emb_sub is not None:
             x_sub = x_sub + spk_emb_sub
-        h = self._SinsyEncoder_0(x_main + x_sub, [lf0_main, lf0_sub], lengths)
+        h = self._SinsyEncoder_0(x_main + x_sub, [lf0_main, lf0_sub], lengths,
+                                 train, generator)
         return torch.cat([h, lf0_main, lf0_sub], dim=-1)
 
     def forward(self, x_main, x_sub, spk_emb_main=None, spk_emb_sub=None,
-                lengths=None, generator=None):
-        h = self.encode(x_main, x_sub, spk_emb_main, spk_emb_sub, lengths)
+                lengths=None, y=None, train: bool = False, generator=None):
+        h = self.encode(x_main, x_sub, spk_emb_main, spk_emb_sub, lengths,
+                        train, generator)
         return ar_decode(self, h, -2, (self.in_lf0_min, self.in_lf0_max),
-                         generator)
+                         generator, targets=y)
 
     def inference(self, x_main, x_sub, spk_emb_main=None, spk_emb_sub=None,
                   lengths=None, generator=None):

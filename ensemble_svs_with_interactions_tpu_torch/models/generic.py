@@ -2,11 +2,13 @@
 FFConvLSTM decoder, the (multitrack) variance predictors that serve as
 timing models, and the multitrack biLSTM encoder.  Counterparts of the
 classes of the same names in
-``ensemble_svs_with_interactions_tpu/models/generic.py`` (inference only).
+``ensemble_svs_with_interactions_tpu/models/generic.py``.
 
 Constructor arguments are the JAX configs' fields; the input widths that
-flax infers lazily are derived from them here.  Dropout is off at
-inference, so ``dropout`` fields are accepted and unused.
+flax infers lazily are derived from them here.  The FFConvLSTM decoders and
+the multitrack encoder also train (``train=True`` with a dropout
+``generator``); the variance predictors serve inference only, so their
+``dropout`` fields are accepted and unused.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
     MaskedBatchNorm,
     PhonemeContextEmbedding,
     ReflectConv1d,
+    time_mask,
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.mdn import (
     MDNLayer,
@@ -67,7 +70,7 @@ class SpeakerEmbedding(BaseModel):
 
 
 class _ConvBNReLUStack(nn.Module):
-    """Conv1d(k=7) + BatchNorm + ReLU, ``num_layers`` times."""
+    """Conv1d(k=7) + masked BatchNorm + ReLU, ``num_layers`` times."""
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 3):
         super().__init__()
@@ -78,10 +81,11 @@ class _ConvBNReLUStack(nn.Module):
                                   hidden_dim, kernel_size=7))
             setattr(self, f"MaskedBatchNorm_{i}", MaskedBatchNorm(hidden_dim))
 
-    def forward(self, x):
+    def forward(self, x, mask=None, train: bool = False):
         for i in range(self.num_layers):
             x = getattr(self, f"ReflectConv1d_{i}")(x)
-            x = torch.relu(getattr(self, f"MaskedBatchNorm_{i}")(x))
+            x = torch.relu(getattr(self, f"MaskedBatchNorm_{i}")(
+                x, mask=mask, train=train))
         return x
 
 
@@ -113,7 +117,7 @@ class FFConvLSTM(BaseModel):
                                                    conv_hidden_dim)
         self.LSTM_0 = LSTM(conv_hidden_dim, lstm_hidden_dim,
                            num_layers=num_lstm_layers,
-                           bidirectional=bidirectional)
+                           bidirectional=bidirectional, dropout=dropout)
         if use_mdn:
             self.MDNLayer_0 = MDNLayer(self.LSTM_0.out_dim, out_dim,
                                        num_gaussians, dim_wise)
@@ -124,7 +128,8 @@ class FFConvLSTM(BaseModel):
         return (PredictionType.PROBABILISTIC if self.use_mdn
                 else PredictionType.DETERMINISTIC)
 
-    def forward(self, x, lengths=None, spk_embs=None):
+    def forward(self, x, lengths=None, spk_embs=None, train: bool = False,
+                generator=None):
         if self.PhonemeContextEmbedding_0 is not None:
             x = self.PhonemeContextEmbedding_0(x)
         if spk_embs is not None:
@@ -132,8 +137,9 @@ class FFConvLSTM(BaseModel):
         h = x
         for i in range(3):
             h = torch.relu(getattr(self, f"Dense_{i}")(h))
-        h = self._ConvBNReLUStack_0(h)
-        h = self.LSTM_0(h, lengths)
+        h = self._ConvBNReLUStack_0(
+            h, time_mask(lengths, h.shape[1], h.device), train)
+        h = self.LSTM_0(h, lengths, train, generator)
         if self.use_mdn:
             return self.MDNLayer_0(h)
         return self.Dense_3(h)
@@ -283,12 +289,13 @@ class MultiTrackLSTMEncoder(BaseModel):
         else:
             self.PhonemeContextEmbedding_0 = None
         self.LSTM_0 = LSTM(2 * width, hidden_dim, num_layers=num_layers,
-                           bidirectional=bidirectional)
+                           bidirectional=bidirectional, dropout=dropout)
         self.Dense_0 = nn.Linear(self.LSTM_0.out_dim, out_dim)
 
-    def forward(self, x_main, x_sub, spk_embs, lengths=None):
+    def forward(self, x_main, x_sub, spk_embs, lengths=None,
+                train: bool = False, generator=None):
         if self.PhonemeContextEmbedding_0 is not None:
             x_main = self.PhonemeContextEmbedding_0(x_main)
             x_sub = self.PhonemeContextEmbedding_0(x_sub)
         x = torch.cat([x_main + spk_embs[0], x_sub + spk_embs[1]], dim=-1)
-        return self.Dense_0(self.LSTM_0(x, lengths))
+        return self.Dense_0(self.LSTM_0(x, lengths, train, generator))

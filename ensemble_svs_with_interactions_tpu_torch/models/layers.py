@@ -1,11 +1,15 @@
 """Reusable layers: masked (bi)LSTMs over the hand-written recurrence
-kernel, masked batch norm (inference), reflection-padded convs and the
+kernels, masked batch norm, dropout, reflection-padded convs and the
 phoneme-context embedding.  Counterparts of
 ``ensemble_svs_with_interactions_tpu/models/layers.py``.
 
 Features are (B, T, C), feature-last, as in the JAX package.  Submodules
 carry the flax scope names (``Dense_0``, ``LSTM_0``, ``l0_fwd`` ...) so
 that ``utils.flax_port.flax_to_torch`` maps weights by path.
+
+Training is selected per call with ``train=True``, as in the JAX package
+(the module's own ``training`` flag is not read), and random masks come
+from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -16,7 +20,33 @@ from torch import nn
 
 from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence,
+    lstm_recurrence_trainable,
 )
+
+
+def recurrence(xw, w_h):
+    """The LSTM recurrence over input projections ``xw``: through the
+    differentiable :class:`ops.lstm_recurrence.LSTMRecurrence` (forward
+    and BPTT kernels on the card) whenever a gradient is required, the
+    forward alone otherwise."""
+    if torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad):
+        return lstm_recurrence_trainable(xw, w_h)
+    return lstm_recurrence(xw, w_h)
+
+
+def dropout(x, p: float, generator):
+    """flax ``nn.Dropout`` in training: keep each unit with probability
+    1 - p and scale it by 1 / (1 - p).  The mask is drawn on the
+    ``generator``'s device and moved to ``x``'s."""
+    if p <= 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < (1.0 - p)
+    return torch.where(keep.to(x.device), x / (1.0 - p), torch.zeros_like(x))
 
 
 def reverse_padded(x, lengths):
@@ -62,20 +92,21 @@ class _MaskedLSTMLayer(nn.Module):
 
     def forward(self, x, mask):
         xw = torch.matmul(x, self.w_x) + self.b
-        return lstm_recurrence(xw, self.w_h) * mask[:, :, None].to(x.dtype)
+        return recurrence(xw, self.w_h) * mask[:, :, None].to(x.dtype)
 
 
 class LSTM(nn.Module):
     """Multi-layer (bi)LSTM with mask-based variable lengths, matching torch
     ``nn.LSTM`` over packed sequences: outputs at padded steps are zero and
     the backward direction starts at each sequence's own last valid frame.
-    Inference only (inter-layer dropout is off)."""
+    With ``train=True``, dropout ``dropout`` applies between layers."""
 
     def __init__(self, in_dim: int, hidden_dim: int, num_layers: int = 1,
-                 bidirectional: bool = True):
+                 bidirectional: bool = True, dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         self.bidirectional = bidirectional
+        self.dropout = dropout
         width = in_dim
         for layer in range(num_layers):
             setattr(self, f"l{layer}_fwd", _MaskedLSTMLayer(width, hidden_dim))
@@ -85,7 +116,7 @@ class LSTM(nn.Module):
             width = hidden_dim * (2 if bidirectional else 1)
         self.out_dim = width
 
-    def forward(self, x, lengths=None):
+    def forward(self, x, lengths=None, train: bool = False, generator=None):
         B, T = x.shape[0], x.shape[1]
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.long, device=x.device)
@@ -99,11 +130,27 @@ class LSTM(nn.Module):
                 h = torch.cat([fwd, reverse_padded(bwd, lengths)], dim=-1)
             else:
                 h = fwd
+            if train and layer < self.num_layers - 1:
+                h = dropout(h, self.dropout, generator)
         return h * mask[:, :, None].to(h.dtype)
 
 
+def time_mask(lengths, T: int, device):
+    """(B, T) bool mask of valid steps, or None without lengths."""
+    if lengths is None:
+        return None
+    return torch.arange(T, device=device)[None, :] < lengths[:, None]
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (B, T, C) with running statistics (inference)."""
+    """BatchNorm over (B, T, C).  At inference it uses the running
+    statistics.  With ``train=True`` it normalizes with the batch's
+    statistics over the valid steps of ``mask`` (biased variance,
+    E[x^2] - E[x]^2) and updates the running ones in place, in the flax
+    convention ``running = momentum * running + (1 - momentum) * batch``,
+    with the Bessel-corrected variance over the valid count."""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -113,9 +160,24 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x):
-        inv = torch.rsqrt(self.running_var + self.epsilon)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+    def forward(self, x, mask=None, train: bool = False):
+        if not train:
+            mean, var = self.running_mean, self.running_var
+        else:
+            m = (torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
+                 if mask is None else mask.to(x.dtype))[:, :, None]
+            count = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dim=(0, 1)) / count
+            var = torch.clamp((x * x * m).sum(dim=(0, 1)) / count
+                              - mean * mean, min=0.0)
+            with torch.no_grad():
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                self.running_mean.mul_(self.momentum).add_(
+                    (1.0 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_(
+                    (1.0 - self.momentum) * unbiased)
+        inv = torch.rsqrt(var + self.epsilon)
+        return (x - mean) * inv * self.weight + self.bias
 
 
 class ReflectConv1d(nn.Module):

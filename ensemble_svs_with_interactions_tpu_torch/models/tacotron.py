@@ -1,11 +1,18 @@
-"""Duration-informed autoregressive decoder, inference only: the
-counterpart of ``_ARDecoderCore`` and ``ar_decode`` in
+"""Duration-informed autoregressive decoder: the counterpart of
+``_ARDecoderCore`` and ``ar_decode`` in
 ``ensemble_svs_with_interactions_tpu/models/tacotron.py``.
 
-The decode is a Python loop over the T / r reduced steps.  The parts of
+Inference is a Python loop over the T / r reduced steps.  The parts of
 each step that do not depend on the fed-back frame (the encoder's share of
 the first cell's input projection and of the output projection) are
 computed for all steps in one matmul before the loop.
+
+Teacher forcing (training, or evaluation with targets) feeds back the
+previous target frame, the go frame 0 at the first step.  Without zoneout
+every input of the decoder's LSTM cells is then known before the loop, so
+each cell runs as one recurrence over the whole sequence (the hand-written
+forward and BPTT kernels on the card) and the output projection and the
+residual-F0 head run batched: there is no per-step Python loop.
 
 Stochastic at inference: without a prenet, the fed-back frame passes
 through Bernoulli dropout with p = ``prenet_dropout`` (0.5 in the flagship
@@ -23,7 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ensemble_svs_with_interactions_tpu_torch.models.layers import (
+    dropout,
     lstm_weights_init,
+    recurrence,
 )
 
 _MAX_LF0_RATIO = 600.0 * np.log(2) / 1200.0
@@ -36,6 +45,11 @@ class LSTMCell(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int):
         super().__init__()
         self.w_x, self.w_h, self.b = lstm_weights_init(in_dim, hidden_dim)
+
+    def sequence(self, x):
+        """Hidden states (B, T, H) of the cell run over x (B, T, C) from a
+        zero state."""
+        return recurrence(torch.matmul(x, self.w_x) + self.b, self.w_h)
 
     @staticmethod
     def update(z, c):
@@ -56,7 +70,8 @@ def prenet_dropout_scales(shape, p: float, generator, device):
 
 class _ARDecoderCore(nn.Module):
     """Decoder LSTM cells ``cell{i}`` and the bias-free ``feat_out``
-    projection; :meth:`forward` runs the whole inference loop."""
+    projection; :meth:`forward` runs the whole inference loop and
+    :meth:`teacher_forced` the decoder over known targets."""
 
     def __init__(self, enc_dim: int, out_dim: int, layers: int,
                  hidden_dim: int, prenet_dropout: float,
@@ -119,12 +134,38 @@ class _ARDecoderCore(nn.Module):
             ress.append(res)
         return torch.stack(outs, dim=1), torch.stack(ress, dim=1)
 
+    def teacher_forced(self, enc, tgt, lf0_den, generator=None):
+        """enc (B, T, C) reduced-rate encoder outputs, tgt (B, T, D) the
+        targets at the reduced rate, lf0_den (B, T, r) -> outs
+        (B, T, r, D), res (B, T, r).  The fed-back frames pass through
+        Bernoulli dropout with p = ``prenet_dropout`` (masks from
+        ``generator``)."""
+        B, T, _ = enc.shape
+        D, r = self.out_dim, self.r
+        fed = torch.cat([tgt.new_zeros(B, 1, D), tgt[:, :-1]], dim=1)
+        if self.prenet_dropout > 0 and generator is None:
+            raise ValueError("prenet dropout needs a torch.Generator")
+        h = torch.cat([enc, dropout(fed, self.prenet_dropout, generator)],
+                      dim=-1)
+        for i in range(self.layers):
+            h = getattr(self, f"cell{i}").sequence(h)
+        out = self.feat_out(torch.cat([h, enc], dim=-1)).reshape(
+            B, T, D, r).transpose(2, 3)
+        k = self.out_lf0_idx
+        res = _MAX_LF0_RATIO * torch.tanh(out[..., k])
+        lf0 = (lf0_den + res - self.out_lf0_mean) / self.out_lf0_scale
+        out = torch.cat([out[..., :k], lf0[..., None], out[..., k + 1:]],
+                        dim=-1)
+        return out, res
+
 
 def ar_decode(parent, encoder_outs, in_lf0_idx: int, lf0_params,
-              generator=None):
-    """Residual-F0 AR inference for a decoder module ``parent`` that owns
+              generator=None, targets=None):
+    """Residual-F0 AR decode for a decoder module ``parent`` that owns
     ``conv_downsample`` (the depthwise stride-r conv that takes the
-    encoder to the reduced rate) and ``ar_core``.
+    encoder to the reduced rate) and ``ar_core``: free-running inference,
+    or teacher-forced over ``targets`` (B, T, D), of which every r-th frame
+    (``[:, r-1::r]``) is the reduced-rate target.
 
     encoder_outs (B, T, C) -> (outs (B, T, D), lf0_residual (B, T, 1)).
     """
@@ -133,12 +174,19 @@ def ar_decode(parent, encoder_outs, in_lf0_idx: int, lf0_params,
     pad = (-T_orig) % r
     if pad:
         encoder_outs = F.pad(encoder_outs, (0, 0, 0, pad))
+        if targets is not None:
+            targets = F.pad(targets, (0, 0, 0, pad))
     in_lf0_min, in_lf0_max = lf0_params
     lf0_score = encoder_outs[:, :, in_lf0_idx]
     lf0_den = (lf0_score * (in_lf0_max - in_lf0_min) + in_lf0_min).reshape(
         B, -1, r)
     enc = parent.conv_downsample(encoder_outs.transpose(1, 2)).transpose(1, 2)
-    outs, res = parent.ar_core(enc, lf0_den[:, : enc.shape[1]], generator)
+    lf0_den = lf0_den[:, : enc.shape[1]]
+    if targets is None:
+        outs, res = parent.ar_core(enc, lf0_den, generator)
+    else:
+        outs, res = parent.ar_core.teacher_forced(
+            enc, targets[:, r - 1:: r].to(enc.dtype), lf0_den, generator)
     T = enc.shape[1]
     outs = outs.reshape(B, T * r, -1)[:, :T_orig]
     return outs, res.reshape(B, T * r, 1)[:, :T_orig]

@@ -1,22 +1,34 @@
-"""LSTM recurrence over precomputed input projections: the Hopper kernel
-and its plain PyTorch version.
+"""LSTM recurrence over precomputed input projections, and its reverse-time
+backward: the Hopper kernels, their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
 
 Replaces ``ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py``:
-``_lstm_kernel`` (hidden sequence only) and, with ``want_c=True``,
-``_lstm_fwd_kernel`` (hidden and cell sequences, the residual a BPTT
-backward needs).  The kernel is ``csrc/lstm_recurrence.cu``, compiled for
-``sm_90a`` with ``nvcc`` into ``_build/`` at first use and called through
-a plain C interface with ``ctypes``.
 
-What bounds it on the card: the sequential time loop.  Each of the T steps
-needs the whole previous hidden vector, and its (B, H) x (H, 4H) product is
-far too small to fill the card, so a step costs its latency (reading
-h_{t-1}, the product, the cell update, and at H > 64 a grid-wide barrier),
-not bytes or FLOPs.  The design keeps everything that does not change
-across steps on chip: each block holds its slice of W_h in shared memory
-for the whole sequence, the hidden units are split across blocks so the
-barrier is the only cross-block traffic, and at H <= 64 one block owns all
-units and needs no barrier at all (see the header of the CUDA source).
+* ``_lstm_kernel`` (hidden sequence only) and, with ``want_c=True``,
+  ``_lstm_fwd_kernel`` (hidden and cell sequences, the residual the backward
+  needs): :func:`lstm_recurrence`, kernel ``csrc/lstm_recurrence.cu``;
+* ``_lstm_bwd_kernel`` (reverse-time BPTT: the gate gradient dxw and dW_h):
+  :func:`lstm_bptt` and :func:`lstm_dwh`, kernels ``csrc/lstm_bptt.cu``;
+* the custom VJP ``lstm_recurrence_trainable``:
+  :class:`LSTMRecurrence` / :func:`lstm_recurrence_trainable`.  The v5e
+  block sizing ``trainable_auto_blocks`` has no counterpart: the kernels
+  plan their own launch (``csrc/lstm_common.cuh``).
+
+Each CUDA source is compiled for ``sm_90a`` with its own ``nvcc`` (the two
+run at once) into ``_build/`` at first use and called through a plain C
+interface with ``ctypes``.
+
+What bounds the kernels on the card: the sequential time loop.  Each of the
+T steps needs the whole previous hidden vector (forward) or the whole
+previous gate gradient (backward), and its (B, H) x (H, 4H) products are
+far too small to fill the card, so a step costs its latency, not bytes or
+FLOPs.  The design keeps everything that does not change across steps on
+chip: each block holds its slices of W_h in shared memory for the whole
+sequence, the hidden units are split across blocks so the per-step
+exchange and a grid barrier are the only cross-block traffic, and at
+H <= 64 one block owns all units and needs no barrier at all (see the
+headers of the CUDA sources).  dW_h is a tiled reduction over all steps,
+run after the loop, bound by the float32 rate.
 
 Gate math is flax ``OptimizedLSTMCell``'s (order i, f, g, o, all f32):
 ``c' = sig(f) c + sig(i) tanh(g)``, ``h' = sig(o) tanh(c')``, with
@@ -36,7 +48,10 @@ from pathlib import Path
 import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "lstm_recurrence.cu"
+CSRC = _PKG_DIR / "csrc"
+SOURCES = {"lstm_recurrence": CSRC / "lstm_recurrence.cu",
+           "lstm_bptt": CSRC / "lstm_bptt.cu"}
+HEADERS = (CSRC / "lstm_common.cuh",)
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,11 +59,12 @@ NVCC_FLAGS = (
 )
 
 
+# ------------------------------------------------------------ plain versions
 def lstm_recurrence_reference(xw, w_h, want_c: bool = False):
     """Plain PyTorch loop over T: the kernel's arithmetic, step by step.
 
-    xw (B, T, 4H) f32, w_h (H, 4H) f32 -> y (B, T, H), and also the cell
-    sequence c (B, T, H) when ``want_c``.
+    xw (B, T, 4H), w_h (H, 4H) -> y (B, T, H), and also the cell sequence
+    c (B, T, H) when ``want_c``.  Any float dtype (float64 for gradcheck).
     """
     B, T, H4 = xw.shape
     H = H4 // 4
@@ -67,6 +83,50 @@ def lstm_recurrence_reference(xw, w_h, want_c: bool = False):
     return (ys, cs) if want_c else ys
 
 
+def _shift(seq):
+    """seq (B, T, H) -> the same one step later, zero at t = 0."""
+    return torch.cat([torch.zeros_like(seq[:, :1]), seq[:, :-1]], dim=1)
+
+
+def lstm_recurrence_bwd_reference(xw, w_h, h, c, dy):
+    """Plain reverse-time BPTT loop, ``_lstm_bwd_kernel``'s arithmetic.
+
+    xw (B, T, 4H), w_h (H, 4H), h and c (B, T, H) from the forward, dy
+    (B, T, H) the gradient into h -> (dxw (B, T, 4H), dwh (H, 4H)).  Gates
+    are recomputed from ``xw_t + h_{t-1} W_h``; any float dtype.
+    """
+    B, T, H4 = xw.shape
+    H = H4 // 4
+    hprev, cprev = _shift(h), _shift(c)
+    dxw = torch.empty_like(xw)
+    dwh = torch.zeros_like(w_h)
+    dh_next = xw.new_zeros(B, H)
+    dc_next = xw.new_zeros(B, H)
+    for t in range(T - 1, -1, -1):
+        z = xw[:, t] + hprev[:, t] @ w_h
+        zi, zf, zg, zo = z.split(H, dim=1)
+        i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
+        g = torch.tanh(zg)
+        tc = torch.tanh(c[:, t])
+        dh = dy[:, t] + dh_next
+        dc = dh * o * (1.0 - tc * tc) + dc_next
+        dz = torch.cat([dc * g * i * (1.0 - i),
+                        dc * cprev[:, t] * f * (1.0 - f),
+                        dc * i * (1.0 - g * g),
+                        dh * tc * o * (1.0 - o)], dim=1)
+        dxw[:, t] = dz
+        dwh += hprev[:, t].t() @ dz
+        dh_next = dz @ w_h.t()
+        dc_next = dc * f
+    return dxw, dwh
+
+
+def lstm_dwh_reference(h, dz):
+    """dW_h (H, 4H) = sum over b, t of h_{t-1}^T dz_t (h_{-1} = 0)."""
+    return torch.einsum("bti,btn->in", _shift(h), dz)
+
+
+# ------------------------------------------------------------------- build
 def _find_nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -76,51 +136,115 @@ def _find_nvcc() -> str:
             return str(nvcc)
     nvcc = shutil.which("nvcc")
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the LSTM recurrence kernel "
-                           "cannot be built")
+        raise RuntimeError("nvcc not found: the LSTM kernels cannot be built")
     return nvcc
 
 
-def build() -> Path:
-    """Compile the kernel into ``_build/`` (keyed by the source's hash, so
-    an edited source is rebuilt) and return the shared library's path.
-    nvcc's report (registers, shared memory, spills) is kept beside it as
-    ``.log``."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"liblstm_recurrence_{digest}.so"
-    if lib.exists():
-        return lib
+def _library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + b"".join(
+        p.read_bytes() for p in HEADERS)).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build() -> dict:
+    """Compile every kernel source into ``_build/`` (keyed by the hash of
+    the source and the shared header, so an edit is rebuilt), one ``nvcc``
+    per source, all started together.  Returns {name: library path}.
+    nvcc's report (registers, shared memory, spills) is kept beside each
+    library as ``.log``."""
+    libs = {name: _library_path(name) for name in SOURCES}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+    nvcc = _find_nvcc()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}) on "
+                            f"{SOURCES[name]}:\n{out}")
+            continue
+        libs[name].with_suffix(".log").write_text(out)
+        os.replace(tmp, libs[name])  # atomic: no one sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+def _bind(lib, name, *argtypes, restype=_INT):
+    fn = getattr(lib, name)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build()))
-    lib.lstm_recurrence_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.lstm_recurrence_launch.restype = ctypes.c_int
-    lib.lstm_recurrence_counters.argtypes = [ctypes.c_int]
-    lib.lstm_recurrence_counters.restype = ctypes.c_int
-    lib.lstm_recurrence_error_string.argtypes = [ctypes.c_int]
-    lib.lstm_recurrence_error_string.restype = ctypes.c_char_p
+    lib = ctypes.CDLL(str(build()["lstm_recurrence"]))
+    _bind(lib, "lstm_recurrence_launch", *[_PTR] * 5, _INT, _INT, _INT, _PTR)
+    _bind(lib, "lstm_recurrence_counters", _INT)
+    _bind(lib, "lstm_recurrence_error_string", _INT, restype=ctypes.c_char_p)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bptt_library():
+    lib = ctypes.CDLL(str(build()["lstm_bptt"]))
+    _bind(lib, "lstm_bptt_launch", *[_PTR] * 7, _INT, _INT, _INT, _PTR)
+    _bind(lib, "lstm_bptt_counters", _INT)
+    _bind(lib, "lstm_dwh_splits", _INT, _INT, _INT)
+    _bind(lib, "lstm_dwh_launch", *[_PTR] * 4, _INT, _INT, _INT, _INT, _PTR)
+    _bind(lib, "lstm_bptt_error_string", _INT, restype=ctypes.c_char_p)
+    return lib
+
+
+# ---------------------------------------------------------------- wrappers
+def _check_cuda(fn: str, ref, **tensors):
+    """Raise unless every tensor is contiguous float32 on ``ref``'s CUDA
+    device."""
+    if ref.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {ref.device}")
+    for name, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous float32, got "
+                             f"{t.dtype}")
+        if t.device != ref.device:
+            raise ValueError(f"{fn}: {name} on {t.device}, not {ref.device}")
+
+
+def _check_shapes(fn: str, xw, w_h, **seqs):
+    B, T, H4 = xw.shape
+    H = H4 // 4
+    ok = H4 == 4 * H and tuple(w_h.shape) == (H, H4) and all(
+        tuple(s.shape) == (B, T, H) for s in seqs.values())
+    if not ok:
+        shapes = {k: tuple(v.shape) for k, v in seqs.items()}
+        raise ValueError(
+            f"{fn}: xw {tuple(xw.shape)}, w_h {tuple(w_h.shape)} and "
+            f"{shapes} do not form (B, T, 4H), (H, 4H) and (B, T, H)")
+    return B, T, H
+
+
+def _raise_launch(fn, lib_err, err, **dims):
+    msg = lib_err(err).decode()
+    where = ", ".join(f"{k}={v}" for k, v in dims.items())
+    raise RuntimeError(f"{fn} kernel ({where}) failed to launch: CUDA error "
+                       f"{err}: {msg}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def lstm_recurrence(xw, w_h, want_c: bool = False):
@@ -130,22 +254,8 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
     or raises; there is no fallback."""
     if xw.device.type == "cpu":
         return lstm_recurrence_reference(xw, w_h, want_c)
-    if xw.device.type != "cuda":
-        raise ValueError(f"lstm_recurrence: unsupported device {xw.device}")
-    B, T, H4 = xw.shape
-    H = H4 // 4
-    if H4 != 4 * H or tuple(w_h.shape) != (H, H4):
-        raise ValueError(
-            f"lstm_recurrence: xw {tuple(xw.shape)} and w_h "
-            f"{tuple(w_h.shape)} do not form (B, T, 4H) and (H, 4H)"
-        )
-    for name, t in (("xw", xw), ("w_h", w_h)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"lstm_recurrence: {name} must be contiguous "
-                             f"float32, got {t.dtype}")
-        if t.device != xw.device:
-            raise ValueError("lstm_recurrence: xw and w_h on different "
-                             "devices")
+    B, T, H = _check_shapes("lstm_recurrence", xw, w_h)
+    _check_cuda("lstm_recurrence", xw, xw=xw, w_h=w_h)
     y = torch.empty(B, T, H, device=xw.device, dtype=torch.float32)
     c = torch.empty_like(y) if want_c else None
     if B == 0 or T == 0:
@@ -156,18 +266,102 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
     err = lib.lstm_recurrence_launch(
         xw.data_ptr(), w_h.data_ptr(), y.data_ptr(),
         c.data_ptr() if want_c else None, counters.data_ptr(), B, T, H,
-        torch.cuda.current_stream(xw.device).cuda_stream,
-    )
+        _stream(xw))
     if err != 0:
-        msg = lib.lstm_recurrence_error_string(err).decode()
-        raise RuntimeError(
-            f"lstm_recurrence kernel (B={B}, T={T}, H={H}) failed to "
-            f"launch: CUDA error {err}: {msg}"
-        )
+        _raise_launch("lstm_recurrence", lib.lstm_recurrence_error_string,
+                      err, B=B, T=T, H=H)
     lstm_recurrence.launches += 1
     return (y, c) if want_c else y
 
 
-# kernel launches since the count was last reset (the plain version and
+def lstm_bptt(xw, w_h, h, c, dy):
+    """The gate gradient dxw (B, T, 4H) of the reverse-time BPTT: the
+    hand-written kernel on a CUDA tensor, the plain loop on a CPU tensor.
+    Inputs as :func:`lstm_recurrence_bwd_reference`."""
+    if xw.device.type == "cpu":
+        return lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)[0]
+    B, T, H = _check_shapes("lstm_bptt", xw, w_h, h=h, c=c, dy=dy)
+    _check_cuda("lstm_bptt", xw, xw=xw, w_h=w_h, h=h, c=c, dy=dy)
+    dxw = torch.empty_like(xw)
+    if B == 0 or T == 0:
+        return dxw
+    lib = _bptt_library()
+    counters = torch.zeros(lib.lstm_bptt_counters(B), device=xw.device,
+                           dtype=torch.int32)
+    err = lib.lstm_bptt_launch(
+        xw.data_ptr(), w_h.data_ptr(), h.data_ptr(), c.data_ptr(),
+        dy.data_ptr(), dxw.data_ptr(), counters.data_ptr(), B, T, H,
+        _stream(xw))
+    if err != 0:
+        _raise_launch("lstm_bptt", lib.lstm_bptt_error_string, err,
+                      B=B, T=T, H=H)
+    lstm_bptt.launches += 1
+    return dxw
+
+
+def lstm_dwh(h, dz):
+    """dW_h (H, 4H) = sum over b, t of h_{t-1}^T dz_t: the hand-written
+    tiled reduction on a CUDA tensor, the plain version on a CPU tensor."""
+    if h.device.type == "cpu":
+        return lstm_dwh_reference(h, dz)
+    B, T, H = h.shape
+    if tuple(dz.shape) != (B, T, 4 * H):
+        raise ValueError(f"lstm_dwh: h {tuple(h.shape)} and dz "
+                         f"{tuple(dz.shape)} do not form (B, T, H) and "
+                         "(B, T, 4H)")
+    _check_cuda("lstm_dwh", h, h=h, dz=dz)
+    dwh = torch.empty(H, 4 * H, device=h.device, dtype=torch.float32)
+    if B == 0 or T == 0:
+        return dwh.zero_()
+    lib = _bptt_library()
+    splits = lib.lstm_dwh_splits(B, T, H)
+    part = (torch.empty(splits, H, 4 * H, device=h.device,
+                        dtype=torch.float32) if splits > 1 else None)
+    err = lib.lstm_dwh_launch(h.data_ptr(), dz.data_ptr(), dwh.data_ptr(),
+                              part.data_ptr() if part is not None else None,
+                              B, T, H, splits, _stream(h))
+    if err != 0:
+        _raise_launch("lstm_dwh", lib.lstm_bptt_error_string, err,
+                      B=B, T=T, H=H)
+    lstm_dwh.launches += 1
+    return dwh
+
+
+def lstm_recurrence_bwd(xw, w_h, h, c, dy):
+    """(dxw, dwh) of the recurrence: :func:`lstm_bptt` then
+    :func:`lstm_dwh` on the card, the plain loop on the CPU."""
+    if xw.device.type == "cpu":
+        return lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    return dxw, lstm_dwh(h, dxw)
+
+
+# kernel launches since the count was last reset (the plain versions and
 # failed launches are not counted)
 lstm_recurrence.launches = 0
+lstm_bptt.launches = 0
+lstm_dwh.launches = 0
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """The differentiable recurrence, counterpart of the custom VJP
+    ``lstm_recurrence_trainable``: the forward runs
+    :func:`lstm_recurrence` with ``want_c`` and saves (xw, W_h, h, c); the
+    backward runs :func:`lstm_recurrence_bwd`: the BPTT and dW_h kernels
+    on a CUDA tensor, the plain loop on a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, xw, w_h):
+        h, c = lstm_recurrence(xw, w_h, want_c=True)
+        ctx.save_for_backward(xw, w_h, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, dy):
+        xw, w_h, h, c = ctx.saved_tensors
+        return lstm_recurrence_bwd(xw, w_h, h, c, dy.contiguous())
+
+
+def lstm_recurrence_trainable(xw, w_h):
+    """(B, T, H) hidden states, differentiable in ``xw`` and ``w_h``."""
+    return LSTMRecurrence.apply(xw, w_h)

@@ -1,5 +1,6 @@
-"""Mixture density network head and most-probable-component selection
-(``ensemble_svs_with_interactions_tpu/ops/mdn.py``, inference part).
+"""Mixture density network head, its negative log-likelihood, and
+most-probable-component selection
+(``ensemble_svs_with_interactions_tpu/ops/mdn.py``).
 
 ``log_pi`` is (B, T, G), or (B, T, G, D) with ``dim_wise`` mixtures;
 ``log_sigma`` and ``mu`` are (B, T, G, D).
@@ -34,6 +35,30 @@ class MDNLayer(nn.Module):
         log_sigma = self.log_sigma(x).reshape(B, T, G, D)
         mu = self.mu(x).reshape(B, T, G, D)
         return log_pi, log_sigma, mu
+
+
+_LOG_2PI = 1.8378770664093453
+
+
+def mdn_loss(log_pi, log_sigma, mu, target, log_pi_min: float = -7.0,
+             log_sigma_min: float = -7.0, reduce: bool = True):
+    """Negative log-likelihood of a diagonal MoG: log_sigma and log_pi are
+    clamped from below, residuals clipped to +-5 sigma, and the mixture
+    marginalized with logsumexp.  Returns (B,) if ``reduce`` else (B, T)
+    (or (B, T, D) with dim-wise mixtures)."""
+    dim_wise = log_pi.ndim == 4
+    log_sigma = torch.clamp(log_sigma, min=log_sigma_min)
+    log_pi = torch.clamp(log_pi, min=log_pi_min)
+    scale = torch.exp(log_sigma)
+    edge = 5.0 * scale
+    centered = torch.minimum(torch.maximum(target[:, :, None, :] - mu, -edge),
+                             edge)
+    log_prob = -0.5 * (_LOG_2PI + 2.0 * log_sigma + (centered / scale) ** 2)
+    joint = log_prob + log_pi if dim_wise else log_prob.sum(dim=3) + log_pi
+    nll = -torch.logsumexp(joint, dim=2)
+    if reduce:
+        return nll.mean(dim=tuple(range(1, nll.ndim)))
+    return nll
 
 
 def mdn_get_most_probable_sigma_and_mu(log_pi, log_sigma, mu):

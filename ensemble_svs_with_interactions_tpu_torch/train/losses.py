@@ -1,0 +1,105 @@
+"""Training losses: masked feature criteria, the multistream dispatch and
+the pitch regularization, as ``ensemble_svs_with_interactions_tpu/train/
+losses.py`` defines them.  Plain torch ops on the training device."""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ensemble_svs_with_interactions_tpu_torch.ops.mdn import mdn_loss
+from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
+    split_streams,
+)
+
+
+def masked_mean(x, mask):
+    """Mean of x over positions where mask (broadcastable) is 1."""
+    mask = torch.broadcast_to(mask, x.shape)
+    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _error(pred, target, kind: str):
+    if kind in ("l2", "mse"):
+        return (pred - target) ** 2
+    if kind in ("l1", "mae"):
+        return torch.abs(pred - target)
+    raise ValueError(f"unsupported criterion: {kind}")
+
+
+def feats_criterion(pred, target, mask, kind: str = "mse"):
+    return masked_mean(_error(pred, target, kind), mask)
+
+
+def get_stream_weight(stream_weights: Optional[Sequence[float]],
+                      stream_sizes: Sequence[int]):
+    if stream_weights is not None:
+        return list(stream_weights)
+    total = float(sum(stream_sizes))
+    return [s / total for s in stream_sizes]
+
+
+def is_refinement_list(pred, stream_sizes: Sequence[int]) -> bool:
+    """True when ``pred`` is a Post-Net wrapper's ``[coarse, fine, ...]``
+    list of CONCATENATED outputs (each item full-width), as opposed to a
+    per-stream list whose item widths match ``stream_sizes``."""
+    if not isinstance(pred, list) or not pred:
+        return False
+    widths = [p.shape[-1] if getattr(p, "ndim", 0) else None for p in pred]
+    if len(pred) == len(stream_sizes) and widths == list(stream_sizes):
+        return False
+    total = sum(stream_sizes)
+    return all(w == total for w in widths)
+
+
+def multistream_loss(pred_streams, out_feats, mask,
+                     stream_sizes: Sequence[int], criterion: str = "mse",
+                     stream_wise: bool = False,
+                     stream_weights: Optional[Sequence[float]] = None):
+    """Sum of per-stream losses.  A stream's prediction is an array (the
+    criterion), a list (Post-Net stages, each supervised), a 3-tuple (MDN
+    NLL) or a 2-tuple (diffusion noise against its reconstruction).
+    Without ``stream_wise`` the sum is over every element and is divided
+    by the total count of valid elements."""
+    streams = split_streams(out_feats, list(stream_sizes))
+    if len(streams) != len(pred_streams):
+        raise ValueError(f"{len(pred_streams)} predicted streams for "
+                         f"{len(streams)} target streams")
+    weights = (get_stream_weight(stream_weights, stream_sizes)
+               if stream_wise else None)
+    loss = 0.0
+    total_n = 0.0
+
+    def add(i, err, m):
+        nonlocal loss, total_n
+        m = torch.broadcast_to(m, err.shape)
+        if stream_wise:
+            loss = loss + weights[i] * masked_mean(err, m)
+        else:
+            loss = loss + (err * m).sum()
+            total_n = total_n + m.sum()
+
+    for i, (pred, target) in enumerate(zip(pred_streams, streams)):
+        if isinstance(pred, list):
+            for p in pred:
+                add(i, _error(p, target, criterion), mask)
+        elif isinstance(pred, tuple) and len(pred) == 3:
+            nll = mdn_loss(*pred, target, reduce=False)
+            add(i, nll, mask if nll.ndim == 3 else mask[..., 0])
+        elif isinstance(pred, tuple) and len(pred) == 2:
+            noise, x_recon = pred
+            add(i, (noise - x_recon) ** 2, mask)
+        else:
+            add(i, _error(pred, target, criterion), mask)
+    if not stream_wise:
+        loss = loss / torch.clamp(torch.as_tensor(total_n), min=1.0)
+    return loss
+
+
+def pitch_regularization_loss(lf0_residual, mask, pitch_reg_dyn_ws=1.0):
+    """L1 penalty on the residual log-F0 with per-frame dynamic weights."""
+    if isinstance(lf0_residual, (list, tuple)):
+        return sum(masked_mean(pitch_reg_dyn_ws * torch.abs(r), mask)
+                   for r in lf0_residual)
+    return masked_mean(pitch_reg_dyn_ws * torch.abs(lf0_residual), mask)

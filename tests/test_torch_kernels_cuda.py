@@ -7,17 +7,28 @@ nor the JAX package, so on the card machine it runs with
 
 (tests/conftest.py imports JAX, which that machine does not have).
 
-Tolerance 1e-4: float32 against float32 with another summation order;
-the errors measured on an H100 are below 5e-7.
+Tolerances: 1e-4 absolute for h, c and the gate gradient dxw (float32
+against float32 with another summation order); dW_h sums B(T-1) terms, so
+it is held to 1e-4 of its largest entry.
 """
 
 import pytest
 import torch
 
 from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
+    lstm_bptt,
+    lstm_dwh,
+    lstm_dwh_reference,
     lstm_recurrence,
+    lstm_recurrence_bwd,
+    lstm_recurrence_bwd_reference,
     lstm_recurrence_reference,
+    lstm_recurrence_trainable,
 )
+
+ATOL = 1e-4
+DWH_RTOL = 1e-4
+FLAGSHIP_H = [62, 64, 256, 512]
 
 
 @pytest.fixture
@@ -27,25 +38,96 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H", [
-    (4, 333, 62), (4, 333, 64), (4, 333, 256), (4, 333, 512),  # the path
-    (1, 1, 8), (5, 37, 8),  # one block, batch groups of 4 and a ragged one
-    (9, 41, 100), (3, 29, 1024),  # multi-block with a ragged last block
-])
-def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
-    g = torch.Generator(device=cuda).manual_seed(B * 1000 + H)
+def _inputs(cuda, B, T, H, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     xw = torch.randn(B, T, 4 * H, device=cuda, generator=g)
     w_h = torch.randn(H, 4 * H, device=cuda, generator=g) / H ** 0.5
+    dy = torch.randn(B, T, H, device=cuda, generator=g)
+    return xw, w_h, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
+    (4, 333, 62), (4, 333, 64), (4, 333, 256), (4, 333, 512),  # inference
+    (1, 1, 8), (5, 37, 8),  # one block, batch groups of 4 and a ragged one
+    (9, 41, 100), (3, 29, 1024),  # multi-block with a ragged last block
+    # training batches: more blocks than the card holds at one group per
+    # grid row, so grid rows take several groups (and 67 a ragged one)
+    *[(B, 256, H) for B in (64, 67) for H in FLAGSHIP_H],
+    (128, 16, 512),
+])
+def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
+    xw, w_h, _ = _inputs(cuda, B, T, H, B * 1000 + H)
     before = lstm_recurrence.launches
     y, c = lstm_recurrence(xw, w_h, want_c=True)
     y_only = lstm_recurrence(xw, w_h)
     y_ref, c_ref = lstm_recurrence_reference(xw, w_h, want_c=True)
     torch.cuda.synchronize()
     assert lstm_recurrence.launches == before + 2
-    assert (y - y_ref).abs().max().item() < 1e-4
-    assert (c - c_ref).abs().max().item() < 1e-4
+    assert (y - y_ref).abs().max().item() < ATOL
+    assert (c - c_ref).abs().max().item() < ATOL
     assert torch.equal(y, y_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
+    (1, 1, 8), (5, 37, 8), (3, 20, 62), (9, 41, 100),
+    *[(4, 200, H) for H in FLAGSHIP_H],
+    *[(B, 256, H) for B in (64, 67) for H in FLAGSHIP_H],
+])
+def test_lstm_bptt_and_dwh_kernels_match_plain(cuda, B, T, H):
+    xw, w_h, dy = _inputs(cuda, B, T, H, B * 7 + H)
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    before = (lstm_bptt.launches, lstm_dwh.launches)
+    dxw, dwh = lstm_recurrence_bwd(xw, w_h, h, c, dy)
+    dxw_ref, dwh_ref = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    dwh_own = lstm_dwh_reference(h, dxw_ref)
+    torch.cuda.synchronize()
+    assert (lstm_bptt.launches, lstm_dwh.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert (dxw - dxw_ref).abs().max().item() < ATOL
+    scale = max(dwh_ref.abs().max().item(), 1e-30)
+    assert (dwh - dwh_ref).abs().max().item() < DWH_RTOL * scale
+    # the dW_h kernel alone against its own plain version, same dz
+    dwh_k = lstm_dwh(h, dxw_ref)
+    assert (dwh_k - dwh_own).abs().max().item() < DWH_RTOL * scale
+
+
+@pytest.mark.cuda
+def test_bptt_padding_suffix_gives_zero_gradient(cuda):
+    """A row whose dy is zero on a suffix gets dxw = 0 there, and the same
+    valid-step gradients as the row cut to its valid length."""
+    B, T, H = 3, 40, 256
+    xw, w_h, dy = _inputs(cuda, B, T, H, 11)
+    dy[1, 25:] = 0.0
+    h, c = lstm_recurrence(xw, w_h, want_c=True)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    assert not dxw[1, 25:].any()
+    cut = lstm_bptt(xw[1:2, :25].contiguous(), w_h, h[1:2, :25].contiguous(),
+                    c[1:2, :25].contiguous(), dy[1:2, :25].contiguous())
+    assert (dxw[1:2, :25] - cut).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [64, 256])
+def test_autograd_function_gradients_on_the_card(cuda, H):
+    """The Function's gradients (BPTT and dW_h kernels) against autograd
+    through the plain loop in float64 on the same card."""
+    B, T = 6, 50
+    xw, w_h, dy = _inputs(cuda, B, T, H, 5)
+    xw.requires_grad_(True)
+    w_h.requires_grad_(True)
+    before = lstm_bptt.launches
+    y = lstm_recurrence_trainable(xw, w_h)
+    gx, gw = torch.autograd.grad((y * dy).sum(), (xw, w_h))
+    assert lstm_bptt.launches == before + 1
+    xw64 = xw.detach().double().requires_grad_(True)
+    w64 = w_h.detach().double().requires_grad_(True)
+    y64 = lstm_recurrence_reference(xw64, w64)
+    rx, rw = torch.autograd.grad((y64 * dy.double()).sum(), (xw64, w64))
+    assert (y.double() - y64).abs().max().item() < ATOL
+    assert (gx.double() - rx).abs().max().item() < ATOL
+    assert (gw.double() - rw).abs().max().item() < DWH_RTOL * rw.abs().max()
 
 
 @pytest.mark.cuda
@@ -58,3 +140,21 @@ def test_lstm_recurrence_rejects_what_the_kernel_does_not_take(cuda):
         lstm_recurrence(xw.transpose(0, 1), w_h)
     with pytest.raises(ValueError, match="do not form"):
         lstm_recurrence(xw, w_h[:, :16])
+
+
+@pytest.mark.cuda
+def test_backward_kernels_reject_what_they_do_not_take(cuda):
+    xw = torch.randn(2, 5, 32, device=cuda)
+    w_h = torch.randn(8, 32, device=cuda)
+    h = torch.randn(2, 5, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        lstm_bptt(xw, w_h, h, h, h.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_bptt(xw, w_h, h, h.transpose(0, 1).contiguous().transpose(0, 1),
+                  h)
+    with pytest.raises(ValueError, match="do not form"):
+        lstm_bptt(xw, w_h, h, h, h[:, :4])
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_dwh(h, xw.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="float32"):
+        lstm_dwh(h.half(), xw.half())

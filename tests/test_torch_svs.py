@@ -244,13 +244,17 @@ def test_instantiate_maps_jax_targets_to_port():
 
 
 def test_port_imports_no_jax():
-    """The port, and chip_smoke.py's own imports, leave JAX, flax and the
-    JAX package out of the process.  The port's name starts with the JAX
+    """The port (the serving path and the training slice), and
+    chip_smoke.py's own imports, leave JAX, flax and the JAX package out
+    of the process.  The port's name starts with the JAX
     package's, so the check is on exact names and the ``pkg.`` prefix."""
     code = (
         "import sys\n"
         "import ensemble_svs_with_interactions_tpu_torch.svs\n"
         "import ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence\n"
+        "import ensemble_svs_with_interactions_tpu_torch.train.multitrack\n"
+        "import ensemble_svs_with_interactions_tpu_torch.train.loop\n"
+        "import ensemble_svs_with_interactions_tpu_torch.models.acoustic\n"
         "import chip_smoke\n"
         "jp = 'ensemble_svs_with_interactions_tpu'\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', jp)\n"
