@@ -13,11 +13,13 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    (one ``nvcc`` per source, run at once);
 2. ``kernel``: the LSTM recurrence kernel against its plain version at the
    serving shapes (B = 4, T = 6656, H = 62, 64, 256, 512), with and without
-   the cell-sequence output, with times, the bound and a library
-   yardstick;
+   the cell-sequence output, with times (and microseconds per step), the
+   bound and a library yardstick;
 3. ``train_kernel``: the recurrence (both modes), the BPTT kernel and the
    dW_h kernel against their plain versions at the training shapes
-   (B = 64; T = 256, and T = 64 for the AR decoder's H = 256 cell);
+   (B = 64; T = 256, and T = 64 for the AR decoder's H = 256 cell); dW_h
+   also gives its achieved TFLOP/s and checks that two launches agree
+   bitwise;
 4. ``slice``: engine build, a warm-up, then three timed ``svs_ensemble``
    calls on 4 copies of the 31.2 s fixture with the launch count reset
    just before and read just after;
@@ -59,6 +61,7 @@ SEED = 0
 # card peaks for the bound (NVIDIA H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_3XTF32_FLOP_PER_S = 495e12 / 3  # TF32 tensor cores, 3 products each
 
 KERNEL_ATOL = 1e-4   # float32 kernel vs plain loop, other summation order
 MODULE_ATOL = 1e-3   # full-width modules, card vs CPU, several layers deep
@@ -295,12 +298,19 @@ def bptt_bound_times(B, T, H):
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
 
 
+def dwh_flops(B, T, H):
+    """Operations of dW_h = sum h_{t-1}^T dz_t: 2 B (T-1) H 4H."""
+    return 2 * B * (T - 1) * H * 4 * H
+
+
 def dwh_bound_times(B, T, H):
-    """(bytes time, operations time) in ms for dW_h = sum h_{t-1}^T dz_t:
-    h and dz read once, dW_h written once; 2 B (T-1) H 4H operations."""
+    """(bytes time, operations time) in ms for dW_h: h and dz read once,
+    dW_h written once; its operations at the rate of the instruction the
+    kernel uses, 3xTF32 on the tensor cores (three TF32 products per
+    float32 product: PEAK_3XTF32_FLOP_PER_S)."""
     nbytes = 4 * (B * T * H + B * T * 4 * H + H * 4 * H)
-    flops = 2 * B * (T - 1) * H * 4 * H
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
+    return (1e3 * nbytes / PEAK_BYTES_PER_S,
+            1e3 * dwh_flops(B, T, H) / PEAK_3XTF32_FLOP_PER_S)
 
 
 def bound(t_bytes, t_ops):
@@ -364,12 +374,24 @@ def cudnn_lstm_bwd_ms(xw, w_h, dy, reps):
 
 
 # ------------------------------------------------------------------ phases
+def ptxas_report(log: str) -> list:
+    """One entry per compiled kernel (every template instantiation) from
+    nvcc's ``-Xptxas -v`` report: its mangled name, then its registers,
+    stack, spill and shared-memory lines."""
+    out = []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            out.append({"kernel": ln.split("'")[1], "ptxas": []})
+        elif out and ("registers" in ln or "spill" in ln):
+            out[-1]["ptxas"].append(ln.strip())
+    return out
+
+
 def phase_build(lr):
     t0 = time.time()
     libs = lr.build()
     build_s = time.time() - t0
-    ptxas = {name: [ln.strip() for ln in lib.with_suffix(".log").read_text()
-                    .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_report(lib.with_suffix(".log").read_text())
              for name, lib in libs.items()}
     emit({"phase": "build", "card": card_line(), "kernel_build_s": build_s,
           "libraries": [lib.name for lib in libs.values()], "ptxas": ptxas,
@@ -397,7 +419,8 @@ def phase_kernels(lr):
                                    else cudnn_lstm_ms(xw, w_h, 5))
             row = {"phase": "kernel", "name": "lstm_recurrence", "B": B,
                    "T": T, "H": H, "want_c": want_c, "max_abs_err": err,
-                   "atol": KERNEL_ATOL, "ms": ms, "plain_ms": plain_ms,
+                   "atol": KERNEL_ATOL, "ms": ms, "us_per_step": 1e3 * ms / T,
+                   "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "bytes_ms": t_bytes, "operations_ms": t_ops,
                    "library_ms": library_ms,
@@ -427,10 +450,10 @@ def phase_train_kernels(lr):
             pairs = zip(got, ref) if want_c else [(got, ref)]
             err = max((a - b).abs().max().item() for a, b in pairs)
             t_bytes, t_ops = recurrence_bound_times(B, T, H, want_c)
+            ms = cuda_ms(lambda: lr.lstm_recurrence(xw, w_h, want_c), 10)
             row = {**base, "name": "lstm_recurrence", "want_c": want_c,
                    "max_abs_err": err, "atol": KERNEL_ATOL,
-                   "ms": cuda_ms(lambda: lr.lstm_recurrence(xw, w_h, want_c),
-                                 10),
+                   "ms": ms, "us_per_step": 1e3 * ms / T,
                    "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_reference(
                        xw, w_h, want_c), 1),
                    "bytes_ms": t_bytes, "operations_ms": t_ops,
@@ -466,11 +489,14 @@ def phase_train_kernels(lr):
         err = (dwh - dwh_plain).abs().max().item()
         err_loop = (lr.lstm_dwh(h, dxw) - dwh_ref).abs().max().item()
         hprev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        dwh_again = lr.lstm_dwh(h, dxw_ref)
         t_bytes, t_ops = dwh_bound_times(B, T, H)
+        ms = cuda_ms(lambda: lr.lstm_dwh(h, dxw_ref), 10)
         row = {**base, "name": "lstm_dwh", "max_abs_err": err,
                "max_rel_err": err / scale, "max_rel_err_vs_loop":
                err_loop / scale, "rtol_of_max": DWH_RTOL,
-               "ms": cuda_ms(lambda: lr.lstm_dwh(h, dxw_ref), 10),
+               "bitwise_repeatable": bool(torch.equal(dwh, dwh_again)),
+               "ms": ms, "tflops": dwh_flops(B, T, H) / ms / 1e9,
                "plain_ms": cuda_ms(lambda: lr.lstm_dwh_reference(h, dxw_ref),
                                    10),
                "bytes_ms": t_bytes, "operations_ms": t_ops,
@@ -480,6 +506,7 @@ def phase_train_kernels(lr):
         emit(row)
         assert np.isfinite(err) and err <= DWH_RTOL * scale, row
         assert err_loop <= DWH_RTOL * scale, row
+        assert row["bitwise_repeatable"], row
         rows["lstm_dwh", H, T, None] = row
     return rows
 

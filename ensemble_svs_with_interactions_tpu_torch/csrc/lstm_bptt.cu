@@ -16,12 +16,16 @@
 //     (h_{-1} = 0), split over the reduction and summed in a fixed order.
 //
 // What bounds it.  The BPTT loop is latency bound like the forward (each
-// step needs dz_{t+1} of all 4H columns) and does three times the
-// forward's multiply-adds per step: the gate recompute, dz W_h^T, and (in
-// the second kernel) h^T dz.  dW_h is a (H x B(T-1)) x (B(T-1) x 4H)
-// product, operations bound on the card's float32 rate.
+// step needs dz_{t+1} of all 4H columns) and does twice the forward's
+// multiply-adds per step: the gate recompute and dz W_h^T.  dW_h is a
+// (H x B(T-1)) x (B(T-1) x 4H) product, operations bound: on the float32
+// SIMT rate (67 TFLOP/s) for a plain kernel, on the TF32 tensor cores'
+// rate over 3 (495 / 3 = 165 TFLOP/s of float32-accurate products) for the
+// 3xTF32 kernel here, whose design and precision argument stand above it.
 //
-// Design.  The forward's layout carries over: a block owns the gate columns
+// Design.  The multi-block forward's layout carries over (at H <= 64 as one
+// block with every unit; the forward's own H <= 64 kernel is another
+// design): a block owns the gate columns
 // {j, H+j, 2H+j, 3H+j} of U hidden units for a group of batch rows, and
 // keeps two slices of W_h in shared memory for the whole sequence: those
 // columns (H x 4U, for the recompute) and the rows of its units (U x 4H,
@@ -237,83 +241,249 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dW_h tile: 64 rows (hidden units i) x 64 columns (gate columns n) per
-// block; each thread accumulates a 4 x 4 micro-tile of outer products over
-// 16 reduction steps at a time.  blockIdx.z takes one slice of the
-// reduction; with more than one slice the partial sums go to `out`
-// [splits][H][4H] and lstm_dwh_reduce_kernel adds them in slice order.
-constexpr int kTile = 64;
-constexpr int kTileK = 16;
+// ---------------------------------------------------------------- dW_h
+// C (H, 4H) = sum over m = (b, tt), tt < T - 1, of A[m]^T B[m], with
+// A[m] = h[b, tt, :] and B[m] = dz[b, tt + 1, :]: both operands have the
+// reduction as their outer dimension and the output dimensions contiguous.
+//
+// Block tile kBI hidden units x kBN = 128 gate columns (kBI = 128, or 64 at
+// H <= 64, where H fills no more), 8 warps as 2 (units) x 4 (columns), each
+// warp (kBI / 2) x 32 of mma.sync.m16n8k8 TF32 tiles.  The reduction walks
+// batch row b, then step tt, kBK = 16 steps per k-tile: a tile row is one
+// contiguous run of h and one of dz, whose address each loading thread
+// advances once per k-tile (no division per element).  Tiles stream
+// through a kStagesD-deep cp.async ring, 16-byte copies where rows and
+// pointers are 16-byte aligned (H % 4 == 0), 4-byte copies otherwise;
+// ragged edges are zero-filled by the copy.
+// Shared rows have a pitch == 8 (mod 32) floats, so the fragment loads of a
+// warp hit 32 distinct banks.
+//
+// 3xTF32: each operand x is split into a TF32 high part hi (x with its 13
+// low mantissa bits cleared, one AND) and the remainder lo = x - hi, exact
+// in f32 with |lo| < 2^-10 |x|; the tensor core reads lo as TF32, dropping
+// its own 13 low bits, an error below 2^-10 |lo| < 2^-20 |x|.  a b is
+// taken as lo_a hi_b + hi_a lo_b + hi_a hi_b (small terms first); TF32 x
+// TF32 products are exact in f32, and the dropped lo_a lo_b and truncation
+// terms stay below 2^-18 |a b|.  The tensor core's f32 accumulator does not
+// round to nearest, and its error grows with the number of products summed
+// into one register, so it only sums one k8 step (8 products x 3 terms)
+// from zero; an ordinary f32 add, rounded to nearest, adds that partial to
+// the running sum, which then loses what a float32 SIMT sum loses.  The
+// card tests hold dW_h to 1e-4 of its largest entry, as they held the
+// float32 SIMT kernel.
+//
+// blockIdx.z takes one slice of the reduction; with more than one slice the
+// partial sums go to `out` [splits][H][4H] and lstm_dwh_reduce_kernel adds
+// them in slice order: deterministic, no atomics.  One block per SM: its
+// 128 x 128 tile's accumulators, fragments and per-k8 partials need about
+// 220 registers, and two blocks per SM (128 registers each) spilled and ran
+// slower.  At the flagship shapes it reaches about a third of the 3xTF32
+// bound, and a 128 x 256 tile, with half the fragment loads and splits per
+// product, does no better: the limit is not the operand traffic but, most
+// likely, the legacy mma.sync path.  Hopper's full tensor-core rate needs
+// wgmma, a later design.
+constexpr int kBK = 16;
+constexpr int kBN = 128;
+constexpr int kStagesD = 3;
+constexpr int kPadD = 8;
+constexpr int kThreadsD = 256;
+constexpr int kMinRun = 256;  // reduction rows per slice, at least
 
-__global__ void __launch_bounds__(kThreads)
+// hi keeps the sign, exponent and 10 mantissa bits of x (a TF32 value);
+// lo = x - hi is exact in f32, and the tensor core reads its top 19 bits.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int kBI>
+constexpr size_t dwh_smem_bytes() {
+  return sizeof(float) * kStagesD * kBK * ((kBI + kPadD) + (kBN + kPadD));
+}
+
+template <int kBI, bool kVec>
+__global__ void __launch_bounds__(kThreadsD, 1)
     lstm_dwh_kernel(const float* __restrict__ hseq,
                     const float* __restrict__ dz, float* out, int B, int T,
                     int H, int m_per_split) {
-  __shared__ __align__(16) float ha[kTileK][kTile];  // h_{t-1}[m][i]
-  __shared__ __align__(16) float za[kTileK][kTile];  // dz_t[m][n]
+  constexpr int PA = kBI + kPadD, PB = kBN + kPadD;
+  constexpr int MT = kBI / 32;  // m16 tiles per warp
+  constexpr int NQ = kBN / 32;  // n8 tiles per warp
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                         // [kStagesD][kBK][PA]: h
+  float* Bs = smem + kStagesD * kBK * PA;   // [kStagesD][kBK][PB]: dz
+
   const int H4 = 4 * H;
-  const int Tm = T - 1;
-  const int M = B * Tm;
-  const int i0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int M = B * (T - 1);
+  const int Tm = max(T - 1, 1);  // T = 1: M = 0, no tile is loaded
+  const int i0 = blockIdx.y * kBI, n0 = blockIdx.x * kBN;
   const int m_begin = blockIdx.z * m_per_split;
   const int m_end = min(M, m_begin + m_per_split);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int ktiles = max(0, (m_end - m_begin + kBK - 1) / kBK);
 
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
+  // loading role: reduction row kr of every tile, columns from lane c16
+  const int kr = threadIdx.x >> 4, c16 = threadIdx.x & 15;
+  int m = m_begin + kr;
+  int b = m / Tm, tt = m - (m / Tm) * Tm;
 
-  for (int m0 = m_begin; m0 < m_end; m0 += kTileK) {
-    for (int e = threadIdx.x; e < kTileK * kTile; e += kThreads) {
-      const int mk = e / kTile, col = e - (e / kTile) * kTile;
-      const int m = m0 + mk;
-      float av = 0.0f, bv = 0.0f;
-      if (m < m_end) {
-        const int b = m / Tm, tt = m - (m / Tm) * Tm;
-        const size_t step = (size_t)b * T + tt;  // h at t - 1 = tt
-        if (i0 + col < H) av = hseq[step * H + i0 + col];
-        if (n0 + col < H4) bv = dz[(step + 1) * H4 + n0 + col];
+  auto load_tile = [&](int stage) {
+    const bool valid = m < m_end;
+    const size_t step = (size_t)b * T + tt;
+    const float* arow = hseq + step * H;
+    const float* brow = dz + (step + 1) * H4;
+    float* ad = As + (stage * kBK + kr) * PA;
+    float* bd = Bs + (stage * kBK + kr) * PB;
+    if (kVec) {
+#pragma unroll
+      for (int j = 0; j < kBI / 64; ++j) {
+        const int col = 4 * (c16 + 16 * j);
+        const bool in = valid && i0 + col < H;
+        cp_async16(ad + col, in ? arow + i0 + col : hseq, in ? 16 : 0);
       }
-      ha[mk][col] = av;
-      za[mk][col] = bv;
+#pragma unroll
+      for (int j = 0; j < kBN / 64; ++j) {
+        const int col = 4 * (c16 + 16 * j);
+        const bool in = valid && n0 + col < H4;
+        cp_async16(bd + col, in ? brow + n0 + col : dz, in ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kBI / 16; ++j) {
+        const int col = c16 + 16 * j;
+        const bool in = valid && i0 + col < H;
+        cp_async4(ad + col, in ? arow + i0 + col : hseq, in ? 4 : 0);
+      }
+#pragma unroll
+      for (int j = 0; j < kBN / 16; ++j) {
+        const int col = c16 + 16 * j;
+        const bool in = valid && n0 + col < H4;
+        cp_async4(bd + col, in ? brow + n0 + col : dz, in ? 4 : 0);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int mk = 0; mk < kTileK; ++mk) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&ha[mk][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&za[mk][tx * 4]);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+    // the next k-tile's row: kBK steps on, across batch rows as needed
+    m += kBK;
+    tt += kBK;
+    while (tt >= Tm) {
+      tt -= Tm;
+      ++b;
     }
-    __syncthreads();
+  };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wi = (warp >> 2) * (kBI / 2), wn = (warp & 3) * (kBN / 4);
+  const int gid = lane >> 2, tig = lane & 3;
+  float acc[MT][NQ][4];
+#pragma unroll
+  for (int p = 0; p < MT; ++p)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][q][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < kStagesD - 1; ++st) {
+    if (st < ktiles) load_tile(st);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStagesD - 2>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + kStagesD - 1 < ktiles) load_tile((kt + kStagesD - 1) % kStagesD);
+    cp_async_commit();
+    const float* as = As + (kt % kStagesD) * kBK * PA + wi + gid;
+    const float* bs = Bs + (kt % kStagesD) * kBK * PB + wn + gid;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      const float* a0 = as + (kk + tig) * PA;
+      const float* a4 = a0 + 4 * PA;
+      const float* b0 = bs + (kk + tig) * PB;
+      const float* b4 = b0 + 4 * PB;
+      unsigned bh[NQ][2], bl[NQ][2];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        split_tf32(b0[8 * q], bh[q][0], bl[q][0]);
+        split_tf32(b4[8 * q], bh[q][1], bl[q][1]);
+      }
+#pragma unroll
+      for (int p = 0; p < MT; ++p) {
+        unsigned ah[4], al[4];
+        split_tf32(a0[16 * p], ah[0], al[0]);
+        split_tf32(a0[16 * p + 8], ah[1], al[1]);
+        split_tf32(a4[16 * p], ah[2], al[2]);
+        split_tf32(a4[16 * p + 8], ah[3], al[3]);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(d, al, bh[q]);
+          mma_tf32(d, ah, bl[q]);
+          mma_tf32(d, ah, bh[q]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][q][e] += d[e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
 
   float* slab = out + (size_t)blockIdx.z * H * H4;
 #pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int i = i0 + ty * 4 + p;
-    if (i >= H) continue;
+  for (int p = 0; p < MT; ++p) {
+    const int i = i0 + wi + 16 * p + gid;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx * 4 + q;
-      if (n < H4) slab[(size_t)i * H4 + n] = acc[p][q];
+    for (int q = 0; q < NQ; ++q) {
+      const int n = n0 + wn + 8 * q + 2 * tig;  // even, and H4 is even
+      if (n >= H4) continue;
+      if (i < H)
+        *reinterpret_cast<float2*>(slab + (size_t)i * H4 + n) =
+            make_float2(acc[p][q][0], acc[p][q][1]);
+      if (i + 8 < H)
+        *reinterpret_cast<float2*>(slab + (size_t)(i + 8) * H4 + n) =
+            make_float2(acc[p][q][2], acc[p][q][3]);
     }
   }
 }
 
-__global__ void lstm_dwh_reduce_kernel(const float* __restrict__ part,
-                                       float* dwh, int splits, int size) {
+// dwh = part[0] + part[1] + ... in slice order, 4 floats a thread; the
+// unrolled loop keeps several slices' loads in flight ahead of the sums.
+__global__ void lstm_dwh_reduce_kernel(const float4* __restrict__ part,
+                                       float4* dwh, int splits, int size4) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= size) return;
-  float s = 0.0f;
-  for (int z = 0; z < splits; ++z) s += part[(size_t)z * size + idx];
+  if (idx >= size4) return;
+  float4 s = part[idx];
+#pragma unroll 8
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = part[(size_t)z * size4 + idx];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
   dwh[idx] = s;
+}
+
+template <int kBI, bool kVec>
+cudaError_t launch_dwh(const float* h, const float* dz, float* out, int B,
+                       int T, int H, int splits, int m_per_split,
+                       cudaStream_t st) {
+  constexpr size_t smem = dwh_smem_bytes<kBI>();
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_dwh_kernel<kBI, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((4 * H + kBN - 1) / kBN, (H + kBI - 1) / kBI, splits);
+  lstm_dwh_kernel<kBI, kVec><<<grid, kThreadsD, smem, st>>>(
+      h, dz, out, B, T, H, m_per_split);
+  return cudaGetLastError();
 }
 
 struct BpttPlan {
@@ -387,19 +557,18 @@ int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
 
 int lstm_bptt_counters(int B) { return (B + kMaxRows - 1) / kMaxRows; }
 
-// Number of reduction slices lstm_dwh_launch uses: enough blocks for about
-// two waves on the card, each slice at least 256 steps long.  With more
-// than one, the caller passes `part` of splits * H * 4H floats.
+// Number of reduction slices lstm_dwh_launch uses: enough blocks to fill
+// the card once at the kernel's one block per SM, each slice at least
+// kMinRun steps long.  With more than one, the caller passes `part` of
+// splits * H * 4H floats.
 int lstm_dwh_splits(int B, int T, int H) {
   const int M = B * (T - 1);
-  const int tiles = ((4 * H + kTile - 1) / kTile) * ((H + kTile - 1) / kTile);
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int splits = (2 * sms + tiles - 1) / tiles;
-  const int max_splits = (M + 255) / 256;
-  if (splits > max_splits) splits = max_splits;
-  return splits < 1 ? 1 : splits;
+  const int bi = H <= 64 ? 64 : 128;
+  const int tiles = ((4 * H + kBN - 1) / kBN) * ((H + bi - 1) / bi);
+  int sms = 132;
+  sm_count(&sms);
+  const int splits = std::min(sms / tiles, (M + kMinRun - 1) / kMinRun);
+  return std::max(splits, 1);
 }
 
 // dwh (H, 4H) = sum over b and t >= 1 of h[b, t-1]^T dz[b, t].
@@ -408,19 +577,21 @@ int lstm_dwh_launch(const float* h, const float* dz, float* dwh, float* part,
   if (B <= 0 || T <= 0 || H <= 0 || splits < 1)
     return (int)cudaErrorInvalidValue;
   const int M = B * (T - 1);
-  int m_per_split = (M + splits - 1) / splits;
-  m_per_split = (m_per_split + kTileK - 1) / kTileK * kTileK;
+  const int m_per_split =
+      std::max(kBK, ((M + splits - 1) / splits + kBK - 1) / kBK * kBK);
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((4 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile,
-                  splits);
-  lstm_dwh_kernel<<<grid, kThreads, 0, st>>>(h, dz, splits > 1 ? part : dwh,
-                                             B, T, H,
-                                             m_per_split > 0 ? m_per_split : 1);
-  cudaError_t err = cudaGetLastError();
+  float* out = splits > 1 ? part : dwh;
+  const bool vec = H % 4 == 0 && aligned16(h) && aligned16(dz);
+  const auto launch =
+      H <= 64 ? (vec ? launch_dwh<64, true> : launch_dwh<64, false>)
+              : (vec ? launch_dwh<128, true> : launch_dwh<128, false>);
+  cudaError_t err = launch(h, dz, out, B, T, H, splits, m_per_split, st);
   if (err != cudaSuccess || splits == 1) return (int)err;
-  const int size = H * 4 * H;
-  lstm_dwh_reduce_kernel<<<(size + kThreads - 1) / kThreads, kThreads, 0,
-                           st>>>(part, dwh, splits, size);
+  const int size4 = H * H;  // H x 4H floats as float4
+  lstm_dwh_reduce_kernel<<<(size4 + kThreads - 1) / kThreads, kThreads, 0,
+                           st>>>(reinterpret_cast<const float4*>(part),
+                                 reinterpret_cast<float4*>(dwh), splits,
+                                 size4);
   return (int)cudaGetLastError();
 }
 

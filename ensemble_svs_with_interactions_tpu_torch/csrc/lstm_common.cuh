@@ -1,12 +1,16 @@
 // Pieces shared by the LSTM recurrence kernels (lstm_recurrence.cu, the
-// forward; lstm_bptt.cu, the reverse-time backward): the activations, the
-// grid-wide barrier, and the residency plan that keeps a cooperative
-// launch within what the card holds at once.
+// forward; lstm_bptt.cu, the reverse-time backward and dW_h): the
+// activations, asynchronous global-to-shared copies, the grid-wide barrier
+// of the multi-block kernels, and the residency plan that keeps their
+// cooperative launch within what the card holds at once.  The forward at
+// H <= 64 has its own kernel, one block per batch row (lstm_recurrence.cu);
+// the BPTT kernel still runs H <= 64 in one block through make_split.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
 
 namespace lstm {
 
@@ -15,6 +19,48 @@ constexpr int kMaxRows = 4;  // batch rows per dot-product pass
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// cp.async (sm_80+): copy global -> shared without a register round trip.
+// `bytes` < the copy size zero-fills the rest (0: nothing is read, and
+// `src` need only be a valid address).  The 16-byte form bypasses L1 (.cg)
+// and needs 16-byte aligned addresses; the 4-byte form takes any float.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes = 16) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight;
+// a __syncthreads after it makes every thread's finished copies visible.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+}
+
+inline cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
 __device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
@@ -80,12 +126,9 @@ cudaError_t plan_rows(Kernel kernel, int B, int U, int nblk, SmemFor smem_for,
   r.grid_rows = r.groups;
   if (nblk > 1) {
     const int max_gpb = kThreads / (kMaxRows * U);
-    int dev = 0, sms = 0, per_sm = 0;
+    int sms = 0, per_sm = 0;
     cudaError_t err;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return err;
+    if ((err = sm_count(&sms)) != cudaSuccess) return err;
     if ((err = cudaFuncSetAttribute(
              kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
              (int)smem_for(max_gpb))) != cudaSuccess)

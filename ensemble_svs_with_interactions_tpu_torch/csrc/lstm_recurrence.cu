@@ -12,11 +12,40 @@
 // What bounds it: not bytes and not FLOPs.  Every step depends on the whole
 // previous hidden vector, so the T steps run one after another; each step is
 // a (B, H) x (H, 4H) product that is tiny next to the card, and its time is
-// the latency of one step: reading h_{t-1}, the product, the cell update, and
-// (for H > 64) a grid-wide barrier.
+// the latency of one step: reading h_{t-1}, the product, the cell update, a
+// barrier, and (for H > 64) an exchange of h through L2 between blocks.
 //
-// Design.  The TPU kernel keeps one VMEM-resident W_h; on Hopper W_h is
-// 4 MiB at H = 512 against 227 KB of shared memory per block.  So:
+// Two designs, chosen by H.
+//
+// H <= 64 (lstm_recurrence_small_kernel): W_h is at most 64 KB, so one block
+// holds all of it, in registers.  The block's width is a compile-time
+// padded HP = 32 or 64 (H = 62 runs as 64; padded units have zero weights,
+// stay at h = c = 0 and are never written out).  Thread (u, s), 2 HP of
+// them, holds the 4 gate columns of unit u over half s of the hidden units
+// (2 HP weights): a step's dot product is 8 chains of HP / 4 FMAs over h
+// read as float4 broadcasts, and the two halves meet with one __shfl_xor,
+// after which both threads hold all 4 gate sums of their unit, so the cell
+// update needs no trip through shared memory.  h_t goes to a
+// double-buffered vector in shared memory, which leaves one __syncthreads
+// per step.  What bounds a step, found on an H100 by taking its parts out
+// one at a time: each scheduler runs one warp, so a step costs that warp's
+// instruction stream with every dependent stall exposed (two rows in one
+// block take twice as long as one).  The dot product is the largest part,
+// then the activation chain.  So the per-step path is kept short: few
+// warps with many columns each (16 HP threads of one column over a
+// quarter of h took four times as long a step), activations from the
+// hardware exp2 and reciprocal, and the step's xw loads issued before its
+// dot product from a ring that is zero wherever nothing is copied, with no
+// branch (read after the shuffles, in a branch per gate, they nearly
+// doubled the step).  A block takes one batch row, so B = 4 runs on 4 SMs
+// and B = 64 on 64; rows never meet, so no grid barrier is needed, and
+// blocks past what the card holds at once queue: they cost no more than
+// more rows per block would, since two rows in one block take twice as
+// long as one.  xw rows stream in through an 8-step cp.async ring, far
+// ahead of the step that reads them.
+//
+// H > 64 (lstm_recurrence_kernel): W_h is 4 MiB at H = 512 against 227 KB of
+// shared memory per block.  So:
 //   * the hidden units are split across the blocks of the grid (blockIdx.x);
 //     a block owns the gate columns {j, H+j, 2H+j, 3H+j} of its U units, so
 //     the cell update stays local, and keeps that (H, 4U) slice of W_h in
@@ -27,20 +56,17 @@
 //     writes h_t into y, and meets the other blocks at a grid barrier (a
 //     monotonic atomic counter; the launch is cooperative, so every block
 //     is resident and the spin cannot deadlock);
-//   * at H <= 64 one block owns all units (W_h is 64 KB), h stays in shared
-//     memory and no grid barrier is needed;
 //   * batch rows are independent: groups of up to kMaxRows rows run as
 //     separate grid rows (blockIdx.y), each with its own barrier counter.
 //     When the card cannot hold nblk blocks for every group (a training
 //     batch: B = 64 at H = 512 asks for 2048 blocks), a grid row takes
 //     several groups and runs the gate sums once per group inside each step
 //     (lstm_common.cuh: plan_rows).  That is the kGrouped instantiation; a
-//     grid row of one group runs the other, whose code is the single-group
-//     kernel as it was before grouping existed;
+//     grid row of one group runs the other;
 //   * the xw values of step t+1 are loaded while step t finishes, so their
 //     global-memory latency is off the critical path.
-// Inside a block, thread (k, s) sums column k of W_h over the hidden units
-// h = s, s+S, ...; the S partial sums meet with warp shuffles.
+//   Inside a block, thread (k, s) sums column k of W_h over the hidden units
+//   h = s, s+S, ...; the S partial sums meet with warp shuffles.
 
 #include "lstm_common.cuh"
 
@@ -48,6 +74,140 @@ namespace {
 
 using namespace lstm;
 
+// ------------------------------------------------------------------ H <= 64
+constexpr int kSmallH = 64;       // widest H of the one-block kernel
+constexpr int kXwStages = 8;      // xw ring depth: steps in flight ahead
+
+constexpr int kSlices = 2;        // threads per unit: halves of the h sum
+
+// Activations from the hardware exp2 and reciprocal (ex2.approx.ftz,
+// rcp.approx.ftz): a few ulp from expf and an IEEE division, which the card
+// tests hold to 1e-4 over T = 6656 steps; they saturate to 0 / 1 and
+// -1 / 1 as |x| grows (ex2 gives 0 or inf, rcp of inf gives 0).
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return rcp_approx(1.0f + ex2_approx(-kLog2e * x));
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.0f - 2.0f * rcp_approx(1.0f + ex2_approx(2.0f * kLog2e * x));
+}
+
+// Thread tid is (unit u, slice s) = (tid / 2, tid % 2): it holds the 4 gate
+// columns of unit u over the hidden units 4 (2q + s) + e, q < HP / 8.
+// Block b runs batch row b.
+template <int HP>
+__global__ void __launch_bounds__(kSlices * HP)
+    lstm_recurrence_small_kernel(const float* __restrict__ xw,
+                                 const float* __restrict__ wh, float* y,
+                                 float* cseq, int T, int H) {
+  constexpr int kThreadsS = kSlices * HP;
+  constexpr int kChunks = HP / (4 * kSlices);  // float4 chunks of h a slice
+  __shared__ __align__(16) float hbuf[2][HP];            // h_{t-1} | h_t
+  __shared__ __align__(16) float xs[kXwStages][4 * HP];  // xw ring
+
+  const int tid = threadIdx.x;
+  const int s = tid & 1, u = tid >> 1;
+  const int H4 = 4 * H;
+  const size_t row = blockIdx.x;
+  const bool unit = u < H;
+
+  float w[4][kChunks][4];  // W_h[4 (2q + s) + e][g H + u] in w[g][q][e]
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = 4 * (2 * q + s) + e;
+        w[g][q][e] =
+            (unit && hh < H) ? wh[(size_t)hh * H4 + g * H + u] : 0.0f;
+      }
+  for (int i = tid; i < 2 * HP; i += kThreadsS) (&hbuf[0][0])[i] = 0.0f;
+  // the ring starts zeroed: columns past 4H are never copied, so they stay
+  // 0, and a padded unit reads its xw there
+  for (int i = tid; i < kXwStages * 4 * HP; i += kThreadsS)
+    (&xs[0][0])[i] = 0.0f;
+  int xo[4];  // this unit's xw columns in a ring row
+#pragma unroll
+  for (int g = 0; g < 4; ++g) xo[g] = unit ? g * H + u : 4 * H;
+  __syncthreads();
+
+  // xw copy role: thread tid < H moves 16 bytes (4 gate columns) a step
+  const bool copier = tid < H;
+  const float* xsrc = xw + row * T * H4 + 4 * (copier ? tid : 0);
+  auto fetch = [&](int t) {  // one commit group per step, empty past T
+    if (copier && t < T)
+      cp_async16(&xs[t % kXwStages][4 * tid], xsrc + (size_t)t * H4);
+    cp_async_commit();
+  };
+  for (int t = 0; t < kXwStages - 1; ++t) fetch(t);
+
+  // this thread's output: h from slice 0, c from slice 1
+  float* base = s == 0 ? y : cseq;
+  float* out = (base != nullptr && unit) ? base + row * T * H + u : nullptr;
+  float c = 0.0f;
+  cp_async_wait<kXwStages - 2>();
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    const float* xt = xs[t % kXwStages];
+    float xv[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xv[g] = xt[xo[g]];
+    float acc[4][2] = {};  // two FMA chains per gate
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const float4 hv =
+          *reinterpret_cast<const float4*>(&hbuf[cur][4 * (2 * q + s)]);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float& a = acc[g][q & 1];
+        a = fmaf(hv.x, w[g][q][0], a);
+        a = fmaf(hv.y, w[g][q][1], a);
+        a = fmaf(hv.z, w[g][q][2], a);
+        a = fmaf(hv.w, w[g][q][3], a);
+      }
+    }
+    float z[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      z[g] = acc[g][0] + acc[g][1];
+      z[g] += __shfl_xor_sync(0xffffffffu, z[g], 1);
+      z[g] += xv[g];
+    }
+    c = sigmoid_fast(z[1]) * c + sigmoid_fast(z[0]) * tanh_fast(z[2]);
+    const float h = sigmoid_fast(z[3]) * tanh_fast(c);
+    if (s == 0) hbuf[cur ^ 1][u] = unit ? h : 0.0f;
+    if (out != nullptr) {
+      *out = s == 0 ? h : c;
+      out += H;
+    }
+    fetch(t + kXwStages - 1);  // into the slot step t - 1 read
+    cp_async_wait<kXwStages - 2>();
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------------- H > 64
+// Its one-block branches (nblk == 1) are no longer taken, since H <= 64 has
+// its own kernel.  They stay: without them the single-group instantiation
+// compiles to 57 registers instead of 64 and ran 6-9% slower at B = 4 on
+// an H100.
 template <bool kGrouped>
 __global__ void __launch_bounds__(kThreads)
     lstm_recurrence_kernel(const float* __restrict__ xw,
@@ -170,11 +330,21 @@ size_t smem_bytes(const Split& p, int H, int gpb) {
 extern "C" {
 
 // Returns a cudaError_t (0 on success).  `counters` must hold
-// lstm_recurrence_counters(B) zeroed uint32 values; `cseq` may be null.
+// lstm_recurrence_counters(B, H) zeroed uint32 values; `cseq` may be null.
+// At H <= 64 xw must be 16-byte aligned (any tensor that starts at a row).
 int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
                            float* cseq, unsigned int* counters, int B, int T,
                            int H, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (H <= kSmallH) {
+    if (!aligned16(xw)) return (int)cudaErrorMisalignedAddress;
+    const int hp = H <= 32 ? 32 : 64;
+    auto* kernel = hp == 32 ? lstm_recurrence_small_kernel<32>
+                            : lstm_recurrence_small_kernel<64>;
+    kernel<<<B, kSlices * hp, 0, st>>>(xw, wh, y, cseq, T, H);
+    return (int)cudaGetLastError();
+  }
   const Split p = make_split(H);
   const auto smem_for = [&](int gpb) { return smem_bytes(p, H, gpb); };
   // one group per grid row if the single-group kernel fits, else groups
@@ -194,12 +364,6 @@ int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.nblk, r.grid_rows);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (p.nblk == 1) {
-    kernel<<<grid, kThreads, smem, st>>>(xw, wh, y, cseq, counters, B, T, H,
-                                         p.U, p.S, p.pitch, r.gpb);
-    return (int)cudaGetLastError();
-  }
   int U = p.U, S = p.S, pitch = p.pitch, gpb = r.gpb;
   void* args[] = {(void*)&xw, (void*)&wh, (void*)&y,     (void*)&cseq,
                   (void*)&counters, (void*)&B, (void*)&T, (void*)&H,
@@ -210,9 +374,12 @@ int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
   return (int)cudaGetLastError();
 }
 
-// Number of barrier counters the launch needs for a batch of B rows (one
-// per group of kMaxRows rows: enough for any grid-row plan).
-int lstm_recurrence_counters(int B) { return (B + kMaxRows - 1) / kMaxRows; }
+// Number of barrier counters the launch needs for a batch of B rows at
+// width H: none at H <= 64, else one per group of kMaxRows rows (enough
+// for any grid-row plan).
+int lstm_recurrence_counters(int B, int H) {
+  return H <= kSmallH ? 0 : (B + kMaxRows - 1) / kMaxRows;
+}
 
 const char* lstm_recurrence_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

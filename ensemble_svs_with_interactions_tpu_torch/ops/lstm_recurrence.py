@@ -18,17 +18,26 @@ Each CUDA source is compiled for ``sm_90a`` with its own ``nvcc`` (the two
 run at once) into ``_build/`` at first use and called through a plain C
 interface with ``ctypes``.
 
-What bounds the kernels on the card: the sequential time loop.  Each of the
-T steps needs the whole previous hidden vector (forward) or the whole
-previous gate gradient (backward), and its (B, H) x (H, 4H) products are
-far too small to fill the card, so a step costs its latency, not bytes or
-FLOPs.  The design keeps everything that does not change across steps on
-chip: each block holds its slices of W_h in shared memory for the whole
-sequence, the hidden units are split across blocks so the per-step
-exchange and a grid barrier are the only cross-block traffic, and at
-H <= 64 one block owns all units and needs no barrier at all (see the
-headers of the CUDA sources).  dW_h is a tiled reduction over all steps,
-run after the loop, bound by the float32 rate.
+What bounds the recurrence kernels on the card: the sequential time loop.
+Each of the T steps needs the whole previous hidden vector (forward) or
+the whole previous gate gradient (backward), and its (B, H) x (H, 4H)
+products are far too small to fill the card, so a step costs its latency,
+not bytes or FLOPs.  The designs keep everything that does not change
+across steps on chip (see the headers of the CUDA sources):
+
+* forward, H <= 64: one block per batch row owns all units, W_h sits in
+  registers at a compile-time padded width of 32 or 64, the gate sums and
+  the cell update meet through warp shuffles, and a step ends at one
+  ``__syncthreads``;
+* forward, H > 64, and the BPTT kernel: each block holds its slices of
+  W_h in shared memory for the whole sequence, the hidden units are split
+  across blocks so the per-step exchange and a grid barrier are the only
+  cross-block traffic (the BPTT kernel runs H <= 64 in one block).
+
+dW_h is a tiled product over all steps, run after the loop, bound by the
+tensor cores' rate: 3xTF32 ``mma.sync`` (float32-accurate), fed by a
+``cp.async`` ring and split over the reduction with a fixed-order sum, so
+it is deterministic.
 
 Gate math is flax ``OptimizedLSTMCell``'s (order i, f, g, o, all f32):
 ``c' = sig(f) c + sig(i) tanh(g)``, ``h' = sig(o) tanh(c')``, with
@@ -193,7 +202,7 @@ def _bind(lib, name, *argtypes, restype=_INT):
 def _library():
     lib = ctypes.CDLL(str(build()["lstm_recurrence"]))
     _bind(lib, "lstm_recurrence_launch", *[_PTR] * 5, _INT, _INT, _INT, _PTR)
-    _bind(lib, "lstm_recurrence_counters", _INT)
+    _bind(lib, "lstm_recurrence_counters", _INT, _INT)
     _bind(lib, "lstm_recurrence_error_string", _INT, restype=ctypes.c_char_p)
     return lib
 
@@ -261,7 +270,7 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
     if B == 0 or T == 0:
         return (y, c) if want_c else y
     lib = _library()
-    counters = torch.zeros(lib.lstm_recurrence_counters(B),
+    counters = torch.zeros(lib.lstm_recurrence_counters(B, H),
                            device=xw.device, dtype=torch.int32)
     err = lib.lstm_recurrence_launch(
         xw.data_ptr(), w_h.data_ptr(), y.data_ptr(),

@@ -8,8 +8,9 @@ nor the JAX package, so on the card machine it runs with
 (tests/conftest.py imports JAX, which that machine does not have).
 
 Tolerances: 1e-4 absolute for h, c and the gate gradient dxw (float32
-against float32 with another summation order); dW_h sums B(T-1) terms, so
-it is held to 1e-4 of its largest entry.
+against float32 with another summation order); dW_h sums B(T-1) 3xTF32
+products (float32-accurate, csrc/lstm_bptt.cu), so it is held to 1e-4 of
+its largest entry.
 """
 
 import pytest
@@ -49,7 +50,7 @@ def _inputs(cuda, B, T, H, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H", [
     (4, 333, 62), (4, 333, 64), (4, 333, 256), (4, 333, 512),  # inference
-    (1, 1, 8), (5, 37, 8),  # one block, batch groups of 4 and a ragged one
+    (1, 1, 8), (5, 37, 8),  # H <= 64: one block per batch row
     (9, 41, 100), (3, 29, 1024),  # multi-block with a ragged last block
     # training batches: more blocks than the card holds at one group per
     # grid row, so grid rows take several groups (and 67 a ragged one)
@@ -67,6 +68,124 @@ def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
     assert (y - y_ref).abs().max().item() < ATOL
     assert (c - c_ref).abs().max().item() < ATOL
     assert torch.equal(y, y_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
+    # every padded width (32: H = 1, 8, 32; 64: H = 62, 64) at one step, an
+    # odd length and the serving length; batches of one block up to nearly
+    # one block per SM
+    *[(B, T, H) for H in (1, 8, 32, 62, 64)
+      for B in (1, 3, 4, 5, 64, 67, 128) for T in (1, 37)],
+    *[(4, 6656, H) for H in (1, 8, 32, 62, 64)],
+    # more rows than the card holds blocks at once: later blocks queue
+    (301, 17, 62), (600, 9, 64), (1200, 5, 32),
+])
+def test_small_width_forward_matches_plain(cuda, B, T, H):
+    """The H <= 64 forward kernel (W_h in registers, one block per batch
+    row) against the plain loop, both modes."""
+    xw, w_h, _ = _inputs(cuda, B, T, H, B * 100 + T + H)
+    before = lstm_recurrence.launches
+    y, c = lstm_recurrence(xw, w_h, want_c=True)
+    y_only = lstm_recurrence(xw, w_h)
+    y_ref, c_ref = lstm_recurrence_reference(xw, w_h, want_c=True)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + 2
+    assert (y - y_ref).abs().max().item() < ATOL
+    assert (c - c_ref).abs().max().item() < ATOL
+    assert torch.equal(y, y_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [8, 62, 64])
+def test_small_width_forward_saturates_like_the_plain_loop(cuda, H):
+    """Gate pre-activations far outside [-1, 1] (up to about +-200): the
+    H <= 64 kernel's hardware exp2 / reciprocal activations saturate to the
+    same 0, 1 and -1 as expf and tanhf."""
+    xw, w_h, _ = _inputs(cuda, 3, 50, H, 13)
+    xw *= 40.0
+    w_h *= 10.0
+    y, c = lstm_recurrence(xw, w_h, want_c=True)
+    y_ref, c_ref = lstm_recurrence_reference(xw, w_h, want_c=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(c).all()
+    assert (y - y_ref).abs().max().item() < ATOL
+    assert (c - c_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
+    (1, 2, 62), (1, 2, 100), (1, 2, 8), (1, 1, 64),  # one step, or none
+    (3, 50, 62), (5, 37, 100), (2, 300, 36),  # ragged tiles and k-tiles
+    (64, 256, 62), (64, 64, 256),
+])
+def test_dwh_kernel_ragged_shapes(cuda, B, T, H):
+    """dW_h alone against its plain version where the reduction, the tile
+    or the 16-byte rows are ragged (H = 62: 4-byte copies)."""
+    g = torch.Generator(device=cuda).manual_seed(B + T + H)
+    h = torch.randn(B, T, H, device=cuda, generator=g)
+    dz = torch.randn(B, T, 4 * H, device=cuda, generator=g)
+    before = lstm_dwh.launches
+    got = lstm_dwh(h, dz)
+    ref = lstm_dwh_reference(h, dz)
+    torch.cuda.synchronize()
+    assert lstm_dwh.launches == before + 1
+    if T == 1:
+        assert not got.any()
+        return
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() < DWH_RTOL * scale
+
+
+@pytest.mark.cuda
+def test_dwh_kernel_stays_float32_accurate_over_a_long_reduction(cuda):
+    """16,368 steps per slice at H = 512: the tensor core's accumulator
+    sums one k8 step at a time, so the error does not grow with the slice
+    (in an accumulator carried over the whole slice it grows with the
+    slice's length)."""
+    B, T, H = 64, 1024, 512
+    g = torch.Generator(device=cuda).manual_seed(7)
+    h = torch.randn(B, T, H, device=cuda, generator=g)
+    dz = torch.randn(B, T, 4 * H, device=cuda, generator=g)
+    got = lstm_dwh(h, dz)
+    ref = lstm_dwh_reference(h, dz)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() < DWH_RTOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_dwh_kernel_takes_rows_that_are_not_16_byte_aligned(cuda):
+    """Operands that start 4 bytes into their storage take the 4-byte
+    copies; the result is the same sum."""
+    B, T, H = 3, 40, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    hbuf = torch.randn(B * T * H + 1, device=cuda, generator=g)
+    zbuf = torch.randn(B * T * 4 * H + 1, device=cuda, generator=g)
+    h = hbuf[1:].view(B, T, H)
+    dz = zbuf[1:].view(B, T, 4 * H)
+    got = lstm_dwh(h, dz)
+    aligned = lstm_dwh(h.clone(), dz.clone())
+    ref = lstm_dwh_reference(h, dz)
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    assert (got - ref).abs().max().item() < DWH_RTOL * scale
+    assert (aligned - ref).abs().max().item() < DWH_RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
+    *[(64, 256, H) for H in FLAGSHIP_H], (64, 64, 256),
+])
+def test_dwh_kernel_is_deterministic(cuda, B, T, H):
+    """Two launches on the same inputs give bitwise equal dW_h: the split
+    over the reduction is summed in a fixed order, with no atomics."""
+    g = torch.Generator(device=cuda).manual_seed(H + T)
+    h = torch.randn(B, T, H, device=cuda, generator=g)
+    dz = torch.randn(B, T, 4 * H, device=cuda, generator=g)
+    first = lstm_dwh(h, dz)
+    second = lstm_dwh(h, dz)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -140,6 +259,10 @@ def test_lstm_recurrence_rejects_what_the_kernel_does_not_take(cuda):
         lstm_recurrence(xw.transpose(0, 1), w_h)
     with pytest.raises(ValueError, match="do not form"):
         lstm_recurrence(xw, w_h[:, :16])
+    # the H <= 64 kernel streams xw rows in 16-byte copies
+    unaligned = torch.randn(2 * 5 * 32 + 1, device=cuda)[1:].view(2, 5, 32)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        lstm_recurrence(unaligned, w_h)
 
 
 @pytest.mark.cuda
