@@ -17,9 +17,10 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    bound and a library yardstick;
 3. ``train_kernel``: the recurrence (both modes), the BPTT kernel and the
    dW_h kernel against their plain versions at the training shapes
-   (B = 64; T = 256, and T = 64 for the AR decoder's H = 256 cell); dW_h
-   also gives its achieved TFLOP/s and checks that two launches agree
-   bitwise;
+   (B = 64; T = 256, and T = 64 for the AR decoder's H = 256 cell); BPTT
+   rows give microseconds per step and, at H <= 64, the gate pre-pass
+   timed and checked alone; dW_h also gives its achieved TFLOP/s and
+   checks that two launches agree bitwise;
 4. ``slice``: engine build, a warm-up, then three timed ``svs_ensemble``
    calls on 4 copies of the 31.2 s fixture with the launch count reset
    just before and read just after;
@@ -298,6 +299,15 @@ def bptt_bound_times(B, T, H):
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
 
 
+def gates_bound_times(B, T, H):
+    """(bytes time, operations time) in ms for the BPTT's gate pre-pass: xw,
+    h and W_h read once, the gates written once; the h_{t-1} W_h
+    multiply-adds plus the bias add over the float32 rate."""
+    nbytes = 4 * (2 * B * T * 4 * H + B * T * H + H * 4 * H)
+    flops = 2 * B * T * H * 4 * H + B * T * 4 * H
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
+
+
 def dwh_flops(B, T, H):
     """Operations of dW_h = sum h_{t-1}^T dz_t: 2 B (T-1) H 4H."""
     return 2 * B * (T - 1) * H * 4 * H
@@ -469,16 +479,19 @@ def phase_train_kernels(lr):
         err = (dxw - dxw_ref).abs().max().item()
         t_bytes, t_ops = bptt_bound_times(B, T, H)
         library_ms, gemm_ms = cudnn_lstm_bwd_ms(xw, w_h, dy, 5)
+        ms = cuda_ms(lambda: lr.lstm_bptt(xw, w_h, h, c, dy), 10)
         row = {**base, "name": "lstm_bptt", "max_abs_err": err,
-               "atol": KERNEL_ATOL,
-               "ms": cuda_ms(lambda: lr.lstm_bptt(xw, w_h, h, c, dy), 10),
+               "atol": KERNEL_ATOL, "ms": ms, "us_per_step": 1e3 * ms / T,
                "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_bwd_reference(
                    xw, w_h, h, c, dy), 1),
                "bytes_ms": t_bytes, "operations_ms": t_ops,
-               "library_ms": library_ms, "library_input_gemm_ms": gemm_ms}
+               "library_ms": library_ms, "library_input_gemm_ms": gemm_ms,
+               **prepass_row(lr, xw, w_h, h)}
         row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
         emit(row)
         assert np.isfinite(err) and err < KERNEL_ATOL, row
+        if row["prepass_ms"]:
+            assert row["prepass_max_abs_err"] < KERNEL_ATOL, row
         rows["lstm_bptt", H, T, None] = row
 
         # dW_h alone on the plain loop's dz, and the two kernels together
@@ -509,6 +522,24 @@ def phase_train_kernels(lr):
         assert row["bitwise_repeatable"], row
         rows["lstm_dwh", H, T, None] = row
     return rows
+
+
+def prepass_row(lr, xw, w_h, h):
+    """At H <= 64, the BPTT's gate pre-pass alone: its error against its
+    plain version, its time, the plain version's and its bound (its part
+    of the row's ``ms`` and ``bound_ms``).  Zero above, where the BPTT
+    kernel recomputes the gates in its loop."""
+    B, T, H = h.shape
+    if H > 64:
+        return {"prepass_ms": 0.0, "prepass_max_abs_err": None,
+                "prepass_plain_ms": None, "prepass_bound_ms": None}
+    err = (lr.lstm_gates(xw, w_h, h)
+           - lr.lstm_gates_reference(xw, w_h, h)).abs().max().item()
+    return {"prepass_ms": cuda_ms(lambda: lr.lstm_gates(xw, w_h, h), 10),
+            "prepass_max_abs_err": err,
+            "prepass_plain_ms": cuda_ms(
+                lambda: lr.lstm_gates_reference(xw, w_h, h), 1),
+            "prepass_bound_ms": bound(*gates_bound_times(B, T, H))[0]}
 
 
 def phase_slice(lr, weights, labels):
@@ -819,9 +850,10 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
     svs_ensemble call's launches (LAUNCHES_BY_HIDDEN), with the same sums
     over one train step (TRAIN_LAUNCHES_BY_SHAPE, the want_c mode) under
     ``train_step``; the BPTT and dW_h kernels' are summed over one train
-    step.  All come from the kernel phases' rows; the recurrence's
-    training-shape yardstick is cuDNN's forward, which gives no cell
-    sequence."""
+    step, the BPTT's with the part its gate pre-pass takes at H <= 64
+    (``prepass_ms``).  All come from the kernel phases' rows; the
+    recurrence's training-shape yardstick is cuDNN's forward, which gives no
+    cell sequence."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -834,7 +866,7 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
     fwd, _ = train_sums("lstm_recurrence", True)
     fwd_bound = bound(fwd["bytes_ms"], fwd["operations_ms"])
     bptt, bptt_rows = train_sums("lstm_bptt", keys=TIMES + (
-        "library_input_gemm_ms",))
+        "library_input_gemm_ms", "prepass_ms"))
     dwh, dwh_rows = train_sums("lstm_dwh")
     rec_err = max(r["max_abs_err"] for r in list(kernel_rows.values())
                   + [r for k, r in train_rows.items()
@@ -858,7 +890,8 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
                launches=train_launches["lstm_bptt"], calls=TRAIN_STEPS,
                launches_per_step=per_step,
                max_abs_err=max(r["max_abs_err"] for r in bptt_rows.values()),
-               library_input_gemm_ms=bptt["library_input_gemm_ms"]),
+               library_input_gemm_ms=bptt["library_input_gemm_ms"],
+               prepass_ms=bptt["prepass_ms"]),
         _entry("lstm_dwh", "lstm_bptt.cu", dwh,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
                launches=train_launches["lstm_dwh"], calls=TRAIN_STEPS,

@@ -2,37 +2,41 @@
 //
 // Replaces the Pallas TPU kernel ensemble_svs_with_interactions_tpu/ops/
 // pallas_lstm.py:_lstm_bwd_kernel (launched by _recurrence_bwd_pallas), the
-// backward of the custom VJP lstm_recurrence_trainable.  Two kernels:
+// backward of the custom VJP lstm_recurrence_trainable.  The work:
 //
-//   lstm_bptt_kernel: dz = dxw (B, T, 4H), the gate gradient, in reverse time
+//   dz = dxw (B, T, 4H), the gate gradient, in reverse time
 //     inputs : xw (B, T, 4H), wh (H, 4H), h and c (B, T, H) from the forward,
 //              dy (B, T, H) the gradient into h
 //     step t : recompute the gates from xw_t + h_{t-1} W_h;
 //              dh = dy_t + dz_{t+1} W_h^T;  dc = dh o (1 - tanh^2 c_t) + dc_next;
 //              dz_i = dc g i (1-i), dz_f = dc c_{t-1} f (1-f),
 //              dz_g = dc i (1-g^2), dz_o = dh tanh(c_t) o (1-o);  dc_next = dc f
+//     H <= 64: lstm_gates_kernel, then lstm_bptt_small_kernel (below);
+//     H > 64 : lstm_bptt_kernel
 //   lstm_dwh_kernel (+ lstm_dwh_reduce_kernel): dW_h = sum over (b, t) of
 //     h_{t-1}^T dz_t, a tiled reduction over the B(T-1) steps with t >= 1
 //     (h_{-1} = 0), split over the reduction and summed in a fixed order.
 //
 // What bounds it.  The BPTT loop is latency bound like the forward (each
-// step needs dz_{t+1} of all 4H columns) and does twice the forward's
-// multiply-adds per step: the gate recompute and dz W_h^T.  dW_h is a
+// step needs dz_{t+1} of all 4H columns).  Only dh = dy_t + dz_{t+1} W_h^T
+// and the cell arithmetic are on that chain: the gate recompute of step t
+// needs only h_{t-1}, which the forward stored.  dW_h is a
 // (H x B(T-1)) x (B(T-1) x 4H) product, operations bound: on the float32
 // SIMT rate (67 TFLOP/s) for a plain kernel, on the TF32 tensor cores'
 // rate over 3 (495 / 3 = 165 TFLOP/s of float32-accurate products) for the
 // 3xTF32 kernel here, whose design and precision argument stand above it.
 //
-// Design.  The multi-block forward's layout carries over (at H <= 64 as one
-// block with every unit; the forward's own H <= 64 kernel is another
-// design): a block owns the gate columns
+// Design, H > 64 (lstm_bptt_kernel).  The multi-block forward's layout
+// carries over: a block owns the gate columns
 // {j, H+j, 2H+j, 3H+j} of U hidden units for a group of batch rows, and
 // keeps two slices of W_h in shared memory for the whole sequence: those
 // columns (H x 4U, for the recompute) and the rows of its units (U x 4H,
 // for dz W_h^T; 32 KB each at H = 512, U = 4).  At each step it writes its
 // columns of dz into dxw[:, t], meets the other blocks at a grid barrier
 // and reads the whole dxw[:, t] back through L2 (__ldcg) for the next
-// step's dh.  Residency follows the forward's plan (lstm_common.cuh).
+// step's dh, recomputing its gates inside the loop.  Residency follows the
+// forward's plan (lstm_common.cuh).  The H <= 64 design stands above its
+// two kernels.
 // dW_h is a second kernel, not an accumulation inside the loop: the loop's
 // blocks split the batch, so an in-loop sum would need a cross-block pass
 // anyway, and a separate tiled product keeps work off the sequential path.
@@ -75,6 +79,9 @@ __device__ __forceinline__ void load_rows(V* dst, const V* src, size_t stride,
   }
 }
 
+// Its one-block branch (nblk == 1) is no longer taken, since H <= 64 has
+// its own kernels.  The body stays as measured: small edits to these
+// kernels have moved their times by 6-26% on an H100 (PERF.md).
 __global__ void __launch_bounds__(kThreads)
     lstm_bptt_kernel(const float* __restrict__ xw,
                      const float* __restrict__ wh,
@@ -239,6 +246,278 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
     }
   }
+}
+
+// ------------------------------------------------------------------ H <= 64
+// Two kernels, one after the other on the caller's stream.
+//
+// lstm_gates_kernel, the gate pre-pass: for every (b, t) at once, the
+// activated gates i, f, g, o = act(xw_t + h_{t-1} W_h) (h_{-1} = 0), a
+// (B T x H) x (H x 4H) product with the activations in its epilogue,
+// written into dxw itself.  A float32 SIMT tiling: a block takes kGateRows
+// rows (b, t) and all 4H columns, keeps W_h (64 KB at H = 64) and the
+// rows' h_{t-1} in shared memory, and thread (tx, ty) sums columns
+// tx + 64 c (c < 4, conflict-free reads of W_h) for rows ty * 16 + r (r <
+// 16, h read as float4 broadcasts): 64 sums of 4 FMAs per 8 shared loads.
+// It takes about 65 us of device time at B = 64, T = 256, H = 62 / 64 on
+// an H100, six times its bound; loading xw into the sums before the
+// product made it slower.
+//
+// lstm_bptt_small_kernel<HP>, the reverse-time loop, the forward's H <= 64
+// layout (lstm_recurrence.cu) turned around: one block per batch row (rows
+// never meet: no grid barrier, and blocks past what the card holds
+// queue), at a compile-time padded width HP = 32 or 64 (H = 62 runs as
+// 64; padded units have zero weights and operands, so their dz is 0, and
+// are never written out).  Thread (p, s), 2 HP of them, holds rows 2p and
+// 2p + 1 of W_h over quarter s of the 4 HP columns (2 HP weights) in
+// registers; dz_{t+1} sits in a double-buffered 4 HP vector in shared
+// memory in the padded layout g HP + j, read as float4 broadcasts, each
+// value used for both units.  A step's chain is short: 8 FMA chains (4 a
+// unit), a reduce-scatter of two __shfl_xor over the quarters (each
+// thread keeps the dh of one unit, u = 2p + s / 2), then dc = dh a +
+// dc_next and the unit's dz, with the coefficients a, b0, b1 computed from
+// the step's operands off the chain.  Thread (p, s) writes dz of gates
+// 2 gp and 2 gp + 1 (gp = s % 2) to the other shared buffer and to
+// dxw[b, t]; one __syncthreads a step.  The layout with one unit a thread
+// over half of the columns (one __shfl_xor, but 32 float4 reads a step
+// against 16, the same FMAs) took 0.82 us a step against 0.60 at B = 64,
+// T = 256, H = 64 on an H100.  The operands of step t (its 4 gates, c_t, dy_t;
+// c_{t-1} is the next step's c) stream in through a kStagesB-deep cp.async
+// ring in reverse time, zero wherever nothing is copied, so no load sits
+// behind a branch: gate rows (4H floats, 16H bytes) in 16-byte copies, c
+// and dy rows (H floats, 248 bytes at H = 62) in 4-byte ones.  The ring
+// takes step t's gates from dxw[b, t] several steps before the loop writes
+// dz_t there, so the pre-pass needs no scratch.  Padding needs no mask, as
+// above.
+constexpr int kGateRows = 64;  // pre-pass rows (b, t) per block
+constexpr int kGateThreads = 256;
+constexpr int kStagesB = 8;    // loop operand ring: steps in flight ahead
+
+__host__ __device__ inline int padded4(int H) { return (H + 3) & ~3; }
+
+size_t gates_smem_bytes(int H) {
+  return sizeof(float) * (size_t)padded4(H) * (4 * H + kGateRows);
+}
+
+__global__ void __launch_bounds__(kGateThreads)
+    lstm_gates_kernel(const float* __restrict__ xw,
+                      const float* __restrict__ wh,
+                      const float* __restrict__ hseq,
+                      float* __restrict__ gates, int M, int T, int H) {
+  constexpr int kRowsT = kGateRows / (kGateThreads / 64);  // 16 a thread
+  extern __shared__ __align__(16) float smem[];
+  const int N = 4 * H;
+  const int Kp = padded4(H);
+  float* ws = smem;           // [Kp][N]: W_h, rows past H zero
+  float* hs = ws + Kp * N;    // [kGateRows][Kp]: h_{t-1} of the rows
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kGateRows;
+
+  // W_h is one contiguous run of H x 4H floats
+  const int nw = H * N;
+  if ((reinterpret_cast<std::uintptr_t>(wh) & 15u) == 0) {
+    for (int i = tid; i < nw / 4; i += kGateThreads)
+      reinterpret_cast<float4*>(ws)[i] =
+          __ldg(reinterpret_cast<const float4*>(wh) + i);
+  } else {
+    for (int i = tid; i < nw; i += kGateThreads) ws[i] = __ldg(wh + i);
+  }
+  for (int i = nw + tid; i < Kp * N; i += kGateThreads) ws[i] = 0.0f;
+  // row m = b T + t takes h row m - 1, or 0 at t = 0
+  for (int i = tid; i < kGateRows * Kp; i += kGateThreads) {
+    const int r = i / Kp, k = i - r * Kp;
+    const int m = m0 + r;
+    const bool in = k < H && m < M && m % T != 0;
+    hs[i] = in ? __ldg(hseq + (size_t)(m - 1) * H + k) : 0.0f;
+  }
+  __syncthreads();
+
+  const int tx = tid & 63, ty = tid >> 6;
+  int col[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) col[c] = tx + 64 * c < N ? tx + 64 * c : 0;
+  float acc[kRowsT][4];
+#pragma unroll
+  for (int r = 0; r < kRowsT; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+  const float* hrow = hs + ty * kRowsT * Kp;
+  for (int k = 0; k < Kp; k += 4) {
+    float w[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[kk][c] = ws[(k + kk) * N + col[c]];
+#pragma unroll
+    for (int r = 0; r < kRowsT; ++r) {
+      const float4 hv = *reinterpret_cast<const float4*>(hrow + r * Kp + k);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float& a = acc[r][c];
+        a = fmaf(hv.x, w[0][c], a);
+        a = fmaf(hv.y, w[1][c], a);
+        a = fmaf(hv.z, w[2][c], a);
+        a = fmaf(hv.w, w[3][c], a);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRowsT; ++r) {
+    const int m = m0 + ty * kRowsT + r;
+    if (m >= M) break;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = tx + 64 * c;
+      if (n >= N) break;
+      const size_t o = (size_t)m * N + n;
+      const float z = acc[r][c] + __ldg(xw + o);
+      gates[o] = n / H == 2 ? tanhf(z) : sigmoid_f32(z);
+    }
+  }
+}
+
+// Thread tid is (unit pair p, quarter s) = (tid / 4, tid % 4): it holds
+// W_h[2p + jj] (jj < 2) at the padded columns 4 (4q + s) + e, q < HP / 4.
+// Block b runs batch row b.
+template <int HP>
+__global__ void __launch_bounds__(2 * HP)
+    lstm_bptt_small_kernel(const float* __restrict__ wh,
+                           const float* __restrict__ cseq,
+                           const float* __restrict__ dy, float* dxw, int T,
+                           int H) {
+  constexpr int kThreadsS = 2 * HP;  // HP / 2 unit pairs x 4 quarters
+  constexpr int kChunks = HP / 4;  // float4 chunks of dz a quarter
+  constexpr int kC = 4 * HP, kDy = 5 * HP, kSlot = 6 * HP;  // gates | c | dy
+  __shared__ __align__(16) float dzs[2][4 * HP];  // dz_{t+1} | dz_t
+  __shared__ __align__(16) float ring[kStagesB][kSlot];
+
+  const int tid = threadIdx.x;
+  const int s = tid & 3, p = tid >> 2;
+  // cell role: unit u, gates 2 gp and 2 gp + 1
+  const int u = 2 * p + (s >> 1), gp = s & 1;
+  const int H4 = 4 * H;
+  const size_t base = (size_t)blockIdx.x * T;
+  const bool unit = u < H;
+
+  // padded column 16q + 4s + e is gate 16q / HP, unit 16q % HP + 4s + e
+  float w[2][kChunks][4];
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int uu = 2 * p + jj;
+        const int j = (16 * q) % HP + 4 * s + e;
+        w[jj][q][e] = (uu < H && j < H)
+                          ? wh[(size_t)uu * H4 + (16 * q / HP) * H + j]
+                          : 0.0f;
+      }
+  for (int i = tid; i < 2 * 4 * HP; i += kThreadsS) (&dzs[0][0])[i] = 0.0f;
+  // the ring starts zeroed: gate columns past 4H and units past H are never
+  // copied, so they stay 0, and a padded unit reads its gates there
+  for (int i = tid; i < kStagesB * kSlot; i += kThreadsS)
+    (&ring[0][0])[i] = 0.0f;
+  int gcol[4];  // this unit's gate columns in a ring slot
+#pragma unroll
+  for (int g = 0; g < 4; ++g) gcol[g] = unit ? g * H + u : H4;
+  __syncthreads();
+
+  // copy roles: thread tid < H moves gate columns 4 tid .. 4 tid + 3 and
+  // c[tid]; thread HP + j, j < H, moves dy[j]
+  const bool gcopy = tid < H;
+  const bool dcopy = tid >= HP && tid - HP < H;
+  const float* gsrc = dxw + base * H4 + 4 * (gcopy ? tid : 0);
+  const float* csrc = cseq + base * H + (gcopy ? tid : 0);
+  const float* dsrc = dy + base * H + (dcopy ? tid - HP : 0);
+  auto fetch = [&](int k) {  // step t = T - 1 - k; one group a step
+    if (k < T) {
+      const size_t t = T - 1 - k;
+      float* slot = ring[k % kStagesB];
+      if (gcopy) {
+        cp_async16(slot + 4 * tid, gsrc + t * H4);
+        cp_async4(slot + kC + tid, csrc + t * H, 4);
+      }
+      if (dcopy) cp_async4(slot + kDy + tid - HP, dsrc + t * H, 4);
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < kStagesB - 1; ++k) fetch(k);
+
+  float* out = unit ? dxw + base * H4 + 2 * gp * H + u : nullptr;
+  float dc_next = 0.0f;
+  cp_async_wait<kStagesB - 3>();  // steps 0 and 1 landed
+  __syncthreads();
+
+  for (int k = 0; k < T; ++k) {
+    const int cur = k & 1;
+    // step t's operands, and c_{t-1} from the next step's slot
+    const float* sl = ring[k % kStagesB];
+    const float gi = sl[gcol[0]], gf = sl[gcol[1]], gg = sl[gcol[2]],
+                go = sl[gcol[3]];
+    const float c_t = sl[kC + u], dy_t = sl[kDy + u];
+    const float c_p = ring[(k + 1) % kStagesB][kC + u];
+    // off the chain: dc = dh a + dc_next; this thread's dz are d0 = dc b0
+    // and d1 = (gp ? dh : dc) b1
+    const float tc = tanh_fast(c_t);
+    const float a = go * (1.0f - tc * tc);
+    const float b0 = gp == 0 ? gg * gi * (1.0f - gi) : gi * (1.0f - gg * gg);
+    const float b1 = gp == 0 ? (k + 1 < T ? c_p : 0.0f) * gf * (1.0f - gf)
+                             : tc * go * (1.0f - go);
+
+    float acc0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float acc1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(&dzs[cur][4 * (4 * q + s)]);
+      float& p0 = acc0[q & 3];
+      float& p1 = acc1[q & 3];
+      p0 = fmaf(v.x, w[0][q][0], p0);
+      p1 = fmaf(v.x, w[1][q][0], p1);
+      p0 = fmaf(v.y, w[0][q][1], p0);
+      p1 = fmaf(v.y, w[1][q][1], p1);
+      p0 = fmaf(v.z, w[0][q][2], p0);
+      p1 = fmaf(v.z, w[1][q][2], p1);
+      p0 = fmaf(v.w, w[0][q][3], p0);
+      p1 = fmaf(v.w, w[1][q][3], p1);
+    }
+    const float h0 = (acc0[0] + acc0[1]) + (acc0[2] + acc0[3]);
+    const float h1 = (acc1[0] + acc1[1]) + (acc1[2] + acc1[3]);
+    // reduce-scatter over the 4 quarters: keep the partial of own unit,
+    // pass the other unit's to the quarter s ^ 2, then add quarter s ^ 1's
+    float dh = (s >> 1) ? h1 : h0;
+    dh += __shfl_xor_sync(0xffffffffu, (s >> 1) ? h0 : h1, 2);
+    dh += __shfl_xor_sync(0xffffffffu, dh, 1);
+    dh += dy_t;
+    const float dc = fmaf(dh, a, dc_next);
+    const float d0 = dc * b0;
+    const float d1 = (gp == 0 ? dc : dh) * b1;
+    dc_next = dc * gf;
+    dzs[cur ^ 1][2 * gp * HP + u] = d0;
+    dzs[cur ^ 1][(2 * gp + 1) * HP + u] = d1;
+    if (out != nullptr) {
+      const size_t t = T - 1 - k;
+      out[t * H4] = d0;
+      out[t * H4 + H] = d1;
+    }
+    fetch(k + kStagesB - 1);  // into the slot step k - 1 read
+    cp_async_wait<kStagesB - 3>();
+    __syncthreads();
+  }
+}
+
+cudaError_t launch_gates(const float* xw, const float* wh, const float* h,
+                         float* gates, int B, int T, int H, cudaStream_t st) {
+  const size_t smem = gates_smem_bytes(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_gates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const int M = B * T;
+  lstm_gates_kernel<<<(M + kGateRows - 1) / kGateRows, kGateThreads, smem,
+                      st>>>(xw, wh, h, gates, M, T, H);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- dW_h
@@ -518,12 +797,26 @@ size_t bptt_smem_bytes(const BpttPlan& q, int H, int gpb) {
 extern "C" {
 
 // dz into dxw (B, T, 4H).  Returns a cudaError_t (0 on success).
-// `counters` must hold lstm_bptt_counters(B) zeroed uint32 values.
+// `counters` must hold lstm_bptt_counters(B, H) zeroed uint32 values.  At
+// H <= kSmallH the gate pre-pass writes dxw first and the loop reads it
+// back in 16-byte copies, so dxw must be 16-byte aligned (any tensor that
+// starts at a row); the inputs may start anywhere.
 int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
                      const float* c, const float* dy, float* dxw,
                      unsigned int* counters, int B, int T, int H,
                      void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (H <= kSmallH) {
+    if (!aligned16(dxw)) return (int)cudaErrorMisalignedAddress;
+    cudaError_t err = launch_gates(xw, wh, h, dxw, B, T, H, st);
+    if (err != cudaSuccess) return (int)err;
+    const int hp = H <= 32 ? 32 : 64;
+    auto* kernel = hp == 32 ? lstm_bptt_small_kernel<32>
+                            : lstm_bptt_small_kernel<64>;
+    kernel<<<B, 2 * hp, 0, st>>>(wh, c, dy, dxw, T, H);
+    return (int)cudaGetLastError();
+  }
   const BpttPlan q = make_bptt_plan(H);
   Rows r;
   cudaError_t err = plan_rows(
@@ -536,15 +829,8 @@ int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(q.p.nblk, r.grid_rows);
-  const cudaStream_t st = (cudaStream_t)stream;
   int U = q.p.U, S = q.p.S, pitch = q.p.pitch, S2 = q.S2, pitch2 = q.pitch2,
       gpb = r.gpb;
-  if (q.p.nblk == 1) {
-    lstm_bptt_kernel<<<grid, kThreads, smem, st>>>(
-        xw, wh, h, c, dy, dxw, counters, B, T, H, U, S, pitch, S2, pitch2,
-        gpb);
-    return (int)cudaGetLastError();
-  }
   void* args[] = {(void*)&xw,     (void*)&wh, (void*)&h,      (void*)&c,
                   (void*)&dy,     (void*)&dxw, (void*)&counters, (void*)&B,
                   (void*)&T,      (void*)&H,  (void*)&U,      (void*)&S,
@@ -555,7 +841,21 @@ int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
   return (int)cudaGetLastError();
 }
 
-int lstm_bptt_counters(int B) { return (B + kMaxRows - 1) / kMaxRows; }
+// Barrier counters lstm_bptt_launch needs: none at H <= kSmallH, else one
+// per group of kMaxRows rows.
+int lstm_bptt_counters(int B, int H) {
+  return H <= kSmallH ? 0 : (B + kMaxRows - 1) / kMaxRows;
+}
+
+// The gate pre-pass of lstm_bptt_launch alone (H <= kSmallH): gates
+// (B, T, 4H) = act(xw + h_{t-1} W_h), i, f, o through the sigmoid and g
+// through tanh.
+int lstm_gates_launch(const float* xw, const float* wh, const float* h,
+                      float* gates, int B, int T, int H, void* stream) {
+  if (B <= 0 || T <= 0 || H <= 0 || H > kSmallH)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_gates(xw, wh, h, gates, B, T, H, (cudaStream_t)stream);
+}
 
 // Number of reduction slices lstm_dwh_launch uses: enough blocks to fill
 // the card once at the kernel's one block per SM, each slice at least

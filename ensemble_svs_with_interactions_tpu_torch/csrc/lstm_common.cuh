@@ -2,9 +2,9 @@
 // forward; lstm_bptt.cu, the reverse-time backward and dW_h): the
 // activations, asynchronous global-to-shared copies, the grid-wide barrier
 // of the multi-block kernels, and the residency plan that keeps their
-// cooperative launch within what the card holds at once.  The forward at
-// H <= 64 has its own kernel, one block per batch row (lstm_recurrence.cu);
-// the BPTT kernel still runs H <= 64 in one block through make_split.
+// cooperative launch within what the card holds at once.  At H <= kSmallH
+// the forward and the BPTT each have their own kernels, one block per
+// batch row and no grid barrier; make_split and plan_rows serve H > kSmallH.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,9 +16,36 @@ namespace lstm {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 4;  // batch rows per dot-product pass
+constexpr int kSmallH = 64;  // widest H of the one-block-per-row kernels
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// Activations from the hardware exp2 and reciprocal (ex2.approx.ftz,
+// rcp.approx.ftz): a few ulp from expf and an IEEE division, which the card
+// tests hold to 1e-4 over T = 6656 steps; they saturate to 0 / 1 and
+// -1 / 1 as |x| grows (ex2 gives 0 or inf, rcp of inf gives 0).
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return rcp_approx(1.0f + ex2_approx(-kLog2e * x));
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.0f - 2.0f * rcp_approx(1.0f + ex2_approx(2.0f * kLog2e * x));
 }
 
 // cp.async (sm_80+): copy global -> shared without a register round trip.

@@ -75,36 +75,9 @@ namespace {
 using namespace lstm;
 
 // ------------------------------------------------------------------ H <= 64
-constexpr int kSmallH = 64;       // widest H of the one-block kernel
 constexpr int kXwStages = 8;      // xw ring depth: steps in flight ahead
 
 constexpr int kSlices = 2;        // threads per unit: halves of the h sum
-
-// Activations from the hardware exp2 and reciprocal (ex2.approx.ftz,
-// rcp.approx.ftz): a few ulp from expf and an IEEE division, which the card
-// tests hold to 1e-4 over T = 6656 steps; they saturate to 0 / 1 and
-// -1 / 1 as |x| grows (ex2 gives 0 or inf, rcp of inf gives 0).
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float rcp_approx(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float sigmoid_fast(float x) {
-  return rcp_approx(1.0f + ex2_approx(-kLog2e * x));
-}
-
-__device__ __forceinline__ float tanh_fast(float x) {
-  return 1.0f - 2.0f * rcp_approx(1.0f + ex2_approx(2.0f * kLog2e * x));
-}
 
 // Thread tid is (unit u, slice s) = (tid / 2, tid % 2): it holds the 4 gate
 // columns of unit u over the hidden units 4 (2q + s) + e, q < HP / 8.

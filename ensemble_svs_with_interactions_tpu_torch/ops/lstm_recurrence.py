@@ -8,7 +8,8 @@ Replaces ``ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py``:
   ``_lstm_fwd_kernel`` (hidden and cell sequences, the residual the backward
   needs): :func:`lstm_recurrence`, kernel ``csrc/lstm_recurrence.cu``;
 * ``_lstm_bwd_kernel`` (reverse-time BPTT: the gate gradient dxw and dW_h):
-  :func:`lstm_bptt` and :func:`lstm_dwh`, kernels ``csrc/lstm_bptt.cu``;
+  :func:`lstm_bptt` (at H <= 64 a gate pre-pass, :func:`lstm_gates`, then
+  the reverse loop) and :func:`lstm_dwh`, kernels ``csrc/lstm_bptt.cu``;
 * the custom VJP ``lstm_recurrence_trainable``:
   :class:`LSTMRecurrence` / :func:`lstm_recurrence_trainable`.  The v5e
   block sizing ``trainable_auto_blocks`` has no counterpart: the kernels
@@ -25,14 +26,15 @@ products are far too small to fill the card, so a step costs its latency,
 not bytes or FLOPs.  The designs keep everything that does not change
 across steps on chip (see the headers of the CUDA sources):
 
-* forward, H <= 64: one block per batch row owns all units, W_h sits in
-  registers at a compile-time padded width of 32 or 64, the gate sums and
-  the cell update meet through warp shuffles, and a step ends at one
-  ``__syncthreads``;
-* forward, H > 64, and the BPTT kernel: each block holds its slices of
-  W_h in shared memory for the whole sequence, the hidden units are split
-  across blocks so the per-step exchange and a grid barrier are the only
-  cross-block traffic (the BPTT kernel runs H <= 64 in one block).
+* H <= 64, forward and BPTT: one block per batch row owns all units, W_h
+  sits in registers at a compile-time padded width of 32 or 64, the sums
+  of a step meet through a warp shuffle, and a step ends at one
+  ``__syncthreads``; the BPTT first computes every step's gates in a
+  parallel pre-pass, so only dh and the cell arithmetic stay in its loop;
+* H > 64, forward and BPTT: each block holds its slices of W_h in shared
+  memory for the whole sequence, the hidden units are split across blocks
+  so the per-step exchange and a grid barrier are the only cross-block
+  traffic.
 
 dW_h is a tiled product over all steps, run after the loop, bound by the
 tensor cores' rate: 3xTF32 ``mma.sync`` (float32-accurate), fed by a
@@ -97,25 +99,34 @@ def _shift(seq):
     return torch.cat([torch.zeros_like(seq[:, :1]), seq[:, :-1]], dim=1)
 
 
-def lstm_recurrence_bwd_reference(xw, w_h, h, c, dy):
-    """Plain reverse-time BPTT loop, ``_lstm_bwd_kernel``'s arithmetic.
+def lstm_gates_reference(xw, w_h, h):
+    """The activated gates (B, T, 4H) the BPTT recomputes: i, f, g, o =
+    sig, sig, tanh, sig of ``xw_t + h_{t-1} W_h`` (h_{-1} = 0), the gate
+    pre-pass's arithmetic.  xw (B, T, 4H), w_h (H, 4H), h (B, T, H) from
+    the forward; any float dtype."""
+    T, H = xw.shape[1], xw.shape[2] // 4
+    hprev = _shift(h)
+    gates = torch.empty_like(xw)
+    for t in range(T):
+        zi, zf, zg, zo = (xw[:, t] + hprev[:, t] @ w_h).split(H, dim=1)
+        gates[:, t] = torch.cat([torch.sigmoid(zi), torch.sigmoid(zf),
+                                 torch.tanh(zg), torch.sigmoid(zo)], dim=1)
+    return gates
 
-    xw (B, T, 4H), w_h (H, 4H), h and c (B, T, H) from the forward, dy
-    (B, T, H) the gradient into h -> (dxw (B, T, 4H), dwh (H, 4H)).  Gates
-    are recomputed from ``xw_t + h_{t-1} W_h``; any float dtype.
-    """
-    B, T, H4 = xw.shape
+
+def lstm_bptt_loop_reference(gates, w_h, c, dy):
+    """Plain reverse-time loop over the gates of :func:`lstm_gates_reference`:
+    gates (B, T, 4H), w_h (H, 4H), c (B, T, H) from the forward, dy
+    (B, T, H) the gradient into h -> dxw (B, T, 4H), the loop kernel's
+    arithmetic; any float dtype."""
+    B, T, H4 = gates.shape
     H = H4 // 4
-    hprev, cprev = _shift(h), _shift(c)
-    dxw = torch.empty_like(xw)
-    dwh = torch.zeros_like(w_h)
-    dh_next = xw.new_zeros(B, H)
-    dc_next = xw.new_zeros(B, H)
+    cprev = _shift(c)
+    dxw = torch.empty_like(gates)
+    dh_next = gates.new_zeros(B, H)
+    dc_next = gates.new_zeros(B, H)
     for t in range(T - 1, -1, -1):
-        z = xw[:, t] + hprev[:, t] @ w_h
-        zi, zf, zg, zo = z.split(H, dim=1)
-        i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
-        g = torch.tanh(zg)
+        i, f, g, o = gates[:, t].split(H, dim=1)
         tc = torch.tanh(c[:, t])
         dh = dy[:, t] + dh_next
         dc = dh * o * (1.0 - tc * tc) + dc_next
@@ -124,9 +135,27 @@ def lstm_recurrence_bwd_reference(xw, w_h, h, c, dy):
                         dc * i * (1.0 - g * g),
                         dh * tc * o * (1.0 - o)], dim=1)
         dxw[:, t] = dz
-        dwh += hprev[:, t].t() @ dz
         dh_next = dz @ w_h.t()
         dc_next = dc * f
+    return dxw
+
+
+def lstm_recurrence_bwd_reference(xw, w_h, h, c, dy):
+    """Plain reverse-time BPTT, ``_lstm_bwd_kernel``'s arithmetic: the gates
+    recomputed from ``xw_t + h_{t-1} W_h`` (:func:`lstm_gates_reference`),
+    the reverse loop (:func:`lstm_bptt_loop_reference`) and dW_h summed
+    step by step in reverse time.
+
+    xw (B, T, 4H), w_h (H, 4H), h and c (B, T, H) from the forward, dy
+    (B, T, H) the gradient into h -> (dxw (B, T, 4H), dwh (H, 4H)); any
+    float dtype.
+    """
+    dxw = lstm_bptt_loop_reference(lstm_gates_reference(xw, w_h, h), w_h,
+                                   c, dy)
+    hprev = _shift(h)
+    dwh = torch.zeros_like(w_h)
+    for t in range(xw.shape[1] - 1, -1, -1):
+        dwh += hprev[:, t].t() @ dxw[:, t]
     return dxw, dwh
 
 
@@ -211,7 +240,8 @@ def _library():
 def _bptt_library():
     lib = ctypes.CDLL(str(build()["lstm_bptt"]))
     _bind(lib, "lstm_bptt_launch", *[_PTR] * 7, _INT, _INT, _INT, _PTR)
-    _bind(lib, "lstm_bptt_counters", _INT)
+    _bind(lib, "lstm_bptt_counters", _INT, _INT)
+    _bind(lib, "lstm_gates_launch", *[_PTR] * 4, _INT, _INT, _INT, _PTR)
     _bind(lib, "lstm_dwh_splits", _INT, _INT, _INT)
     _bind(lib, "lstm_dwh_launch", *[_PTR] * 4, _INT, _INT, _INT, _INT, _PTR)
     _bind(lib, "lstm_bptt_error_string", _INT, restype=ctypes.c_char_p)
@@ -285,17 +315,19 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
 
 def lstm_bptt(xw, w_h, h, c, dy):
     """The gate gradient dxw (B, T, 4H) of the reverse-time BPTT: the
-    hand-written kernel on a CUDA tensor, the plain loop on a CPU tensor.
-    Inputs as :func:`lstm_recurrence_bwd_reference`."""
+    hand-written kernels on a CUDA tensor (at H <= 64 the gate pre-pass and
+    the reverse loop, both counted as one launch), the plain loop on a CPU
+    tensor.  Inputs as :func:`lstm_recurrence_bwd_reference`."""
     if xw.device.type == "cpu":
-        return lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)[0]
+        return lstm_bptt_loop_reference(lstm_gates_reference(xw, w_h, h), w_h,
+                                        c, dy)
     B, T, H = _check_shapes("lstm_bptt", xw, w_h, h=h, c=c, dy=dy)
     _check_cuda("lstm_bptt", xw, xw=xw, w_h=w_h, h=h, c=c, dy=dy)
     dxw = torch.empty_like(xw)
     if B == 0 or T == 0:
         return dxw
     lib = _bptt_library()
-    counters = torch.zeros(lib.lstm_bptt_counters(B), device=xw.device,
+    counters = torch.zeros(lib.lstm_bptt_counters(B, H), device=xw.device,
                            dtype=torch.int32)
     err = lib.lstm_bptt_launch(
         xw.data_ptr(), w_h.data_ptr(), h.data_ptr(), c.data_ptr(),
@@ -306,6 +338,28 @@ def lstm_bptt(xw, w_h, h, c, dy):
                       B=B, T=T, H=H)
     lstm_bptt.launches += 1
     return dxw
+
+
+def lstm_gates(xw, w_h, h):
+    """The gate pre-pass of :func:`lstm_bptt` alone, for tests and timing:
+    the hand-written kernel on a CUDA tensor (H <= 64 only), the plain
+    version on a CPU tensor.  Same contract as
+    :func:`lstm_gates_reference`."""
+    if xw.device.type == "cpu":
+        return lstm_gates_reference(xw, w_h, h)
+    B, T, H = _check_shapes("lstm_gates", xw, w_h, h=h)
+    _check_cuda("lstm_gates", xw, xw=xw, w_h=w_h, h=h)
+    gates = torch.empty_like(xw)
+    if B == 0 or T == 0:
+        return gates
+    lib = _bptt_library()
+    err = lib.lstm_gates_launch(xw.data_ptr(), w_h.data_ptr(), h.data_ptr(),
+                                gates.data_ptr(), B, T, H, _stream(xw))
+    if err != 0:
+        _raise_launch("lstm_gates", lib.lstm_bptt_error_string, err,
+                      B=B, T=T, H=H)
+    lstm_gates.launches += 1
+    return gates
 
 
 def lstm_dwh(h, dz):
@@ -349,6 +403,7 @@ def lstm_recurrence_bwd(xw, w_h, h, c, dy):
 # failed launches are not counted)
 lstm_recurrence.launches = 0
 lstm_bptt.launches = 0
+lstm_gates.launches = 0
 lstm_dwh.launches = 0
 
 

@@ -20,6 +20,8 @@ from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
     lstm_bptt,
     lstm_dwh,
     lstm_dwh_reference,
+    lstm_gates,
+    lstm_gates_reference,
     lstm_recurrence,
     lstm_recurrence_bwd,
     lstm_recurrence_bwd_reference,
@@ -30,6 +32,7 @@ from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
 ATOL = 1e-4
 DWH_RTOL = 1e-4
 FLAGSHIP_H = [62, 64, 256, 512]
+SMALL_H = [1, 8, 32, 62, 64]  # every padded width of the H <= 64 kernels
 
 
 @pytest.fixture
@@ -213,10 +216,98 @@ def test_lstm_bptt_and_dwh_kernels_match_plain(cuda, B, T, H):
 
 
 @pytest.mark.cuda
-def test_bptt_padding_suffix_gives_zero_gradient(cuda):
+@pytest.mark.parametrize("B,T,H", [
+    # every padded width at one and two steps, an odd length; batches of
+    # one block up to nearly one block per SM
+    *[(B, T, H) for H in SMALL_H
+      for B in (1, 3, 4, 5, 64, 67, 128) for T in (1, 2, 37)],
+    (64, 256, 62), (64, 256, 64),  # the train step's shapes
+    *[(4, 1000, H) for H in SMALL_H],  # reverse-time error growth
+    # more rows than the card holds blocks at once: later blocks queue
+    (301, 17, 62), (600, 9, 64), (1200, 5, 32),
+])
+def test_small_width_bptt_matches_plain(cuda, B, T, H):
+    """The H <= 64 BPTT (gate pre-pass, then the loop with W_h in registers,
+    one block per batch row) against the plain loop."""
+    xw, w_h, dy = _inputs(cuda, B, T, H, B * 10 + T + H)
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    before = (lstm_bptt.launches, lstm_gates.launches)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    dxw_ref, _ = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    torch.cuda.synchronize()
+    assert (lstm_bptt.launches, lstm_gates.launches) == (before[0] + 1,
+                                                         before[1])
+    assert (dxw - dxw_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
+    (1, 1, 1), (3, 37, 8), (5, 2, 32), (67, 37, 62), (64, 256, 64),
+    (4, 1000, 62), (600, 9, 64),
+])
+def test_gate_prepass_matches_plain(cuda, B, T, H):
+    """The gate pre-pass alone: act(xw_t + h_{t-1} W_h) for every step."""
+    xw, w_h, _ = _inputs(cuda, B, T, H, B + T + H)
+    h = torch.rand(B, T, H, device=cuda) * 2.0 - 1.0
+    before = lstm_gates.launches
+    got = lstm_gates(xw, w_h, h)
+    ref = lstm_gates_reference(xw, w_h, h)
+    torch.cuda.synchronize()
+    assert lstm_gates.launches == before + 1
+    assert (got - ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [8, 62, 64])
+def test_small_width_bptt_saturates_like_the_plain_loop(cuda, H):
+    """Gate pre-activations up to about +-200: the pre-pass's activations
+    and the loop's tanh of c saturate as the plain loop's do."""
+    xw, w_h, dy = _inputs(cuda, 3, 50, H, 17)
+    xw *= 40.0
+    w_h *= 10.0
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    gates = lstm_gates(xw, w_h, h)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    dxw_ref, _ = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dxw).all()
+    assert (gates - lstm_gates_reference(xw, w_h, h)).abs().max().item() < ATOL
+    assert (dxw - dxw_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [62, 64])
+def test_small_width_bptt_takes_inputs_that_are_not_16_byte_aligned(cuda, H):
+    """Every input starting 4 bytes into its storage is taken (the pre-pass
+    reads floats, the loop copies c and dy rows 4 bytes at a time, and
+    reads the gates back from dxw, which the wrapper allocates): the same
+    result as from aligned copies."""
+    B, T = 3, 40
+    xw, w_h, dy = _inputs(cuda, B, T, H, 23)
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+
+    def unaligned(t):
+        v = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        return v.copy_(t)
+
+    args = [unaligned(t) for t in (xw, w_h, h, c, dy)]
+    assert all(a.data_ptr() % 16 for a in args)
+    got = lstm_bptt(*args)
+    aligned = lstm_bptt(xw, w_h, h, c, dy)
+    gates = lstm_gates(*args[:3])
+    dxw_ref, _ = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(got, aligned)
+    assert torch.equal(gates, lstm_gates(xw, w_h, h))
+    assert (got - dxw_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [62, 64, 256])
+def test_bptt_padding_suffix_gives_zero_gradient(cuda, H):
     """A row whose dy is zero on a suffix gets dxw = 0 there, and the same
     valid-step gradients as the row cut to its valid length."""
-    B, T, H = 3, 40, 256
+    B, T = 3, 40
     xw, w_h, dy = _inputs(cuda, B, T, H, 11)
     dy[1, 25:] = 0.0
     h, c = lstm_recurrence(xw, w_h, want_c=True)
@@ -228,7 +319,7 @@ def test_bptt_padding_suffix_gives_zero_gradient(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [64, 256])
+@pytest.mark.parametrize("H", [62, 64, 256])
 def test_autograd_function_gradients_on_the_card(cuda, H):
     """The Function's gradients (BPTT and dW_h kernels) against autograd
     through the plain loop in float64 on the same card."""
@@ -281,3 +372,8 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
         lstm_dwh(h, xw.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="float32"):
         lstm_dwh(h.half(), xw.half())
+    # the gate pre-pass alone serves H <= 64 only
+    wide = torch.randn(2, 5, 4 * 100, device=cuda)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        lstm_gates(wide, torch.randn(100, 400, device=cuda),
+                   torch.randn(2, 5, 100, device=cuda))

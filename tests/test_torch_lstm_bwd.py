@@ -1,7 +1,9 @@
 """The port's BPTT against the JAX package: the plain reverse-time loop
 (what ``lstm_bptt`` / ``lstm_dwh`` run on a CPU tensor) against
-``_recurrence_bwd_pallas`` in interpret mode, and the autograd Function's
-gradients against the flax scan, at the shapes of tests/test_pallas_lstm.py.
+``_recurrence_bwd_pallas`` in interpret mode, the plain gate pre-pass
+against the gates ``_lstm_bwd_kernel`` recomputes, and the autograd
+Function's gradients against the flax scan, at the shapes of
+tests/test_pallas_lstm.py.
 
 Tolerance atol 2e-5, the gradient tolerance of tests/test_pallas_lstm.py
 (float32 with another summation order; dW_h sums B*T terms).
@@ -22,9 +24,14 @@ from ensemble_svs_with_interactions_tpu.ops.pallas_lstm import (
 from ensemble_svs_with_interactions_tpu_torch.models.layers import LSTM
 from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
     LSTMRecurrence,
+    _shift,
     lstm_bptt,
+    lstm_bptt_loop_reference,
     lstm_dwh,
+    lstm_gates,
+    lstm_gates_reference,
     lstm_recurrence_bwd_reference,
+    lstm_recurrence_reference,
     lstm_recurrence_trainable,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
@@ -64,6 +71,84 @@ def test_plain_bptt_matches_pallas_interpret(B, T, H, chunk, b_blk, seed):
     np.testing.assert_allclose(lstm_dwh(args[2], dxw).numpy(), dwh.numpy(),
                                atol=ATOL)
     assert (lstm_bptt.launches, lstm_dwh.launches) == before
+
+
+@pytest.mark.parametrize("B,T,H,seed", [
+    (2, 24, 8, 7), (1, 13, 8, 9), (3, 16, 5, 3), (2, 9, 62, 4),
+])
+def test_plain_gates_match_jax_formula(B, T, H, seed):
+    """The gate pre-pass's plain version against the gates
+    ``_lstm_bwd_kernel`` recomputes (pallas_lstm.py:174-180): jax.nn.sigmoid
+    and jnp.tanh of ``xw + hprev @ w_h``, hprev = h one step later."""
+    rng = np.random.default_rng(seed)
+    xw = rng.normal(size=(B, T, 4 * H)).astype(np.float32)
+    w_h = (rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    h = rng.normal(size=(B, T, H)).astype(np.float32)
+    hprev = jnp.concatenate([jnp.zeros((B, 1, H)), jnp.asarray(h)[:, :-1]],
+                            axis=1)
+    z = jnp.asarray(xw) + jnp.einsum("bth,hn->btn", hprev, jnp.asarray(w_h),
+                                     preferred_element_type=jnp.float32)
+    want = jnp.concatenate([jax.nn.sigmoid(z[..., 0 * H:1 * H]),
+                            jax.nn.sigmoid(z[..., 1 * H:2 * H]),
+                            jnp.tanh(z[..., 2 * H:3 * H]),
+                            jax.nn.sigmoid(z[..., 3 * H:4 * H])], axis=-1)
+    got = lstm_gates_reference(_t(xw), _t(w_h), _t(h))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    # the wrapper takes the plain version for CPU tensors, uncounted
+    before = lstm_gates.launches
+    np.testing.assert_array_equal(lstm_gates(_t(xw), _t(w_h), _t(h)).numpy(),
+                                  got.numpy())
+    assert lstm_gates.launches == before
+
+
+def _bwd_reference_unsplit(xw, w_h, h, c, dy):
+    """``lstm_recurrence_bwd_reference`` as one loop, before it was split
+    into the gate pre-pass and the reverse loop."""
+    B, T, H4 = xw.shape
+    H = H4 // 4
+    hprev, cprev = _shift(h), _shift(c)
+    dxw = torch.empty_like(xw)
+    dwh = torch.zeros_like(w_h)
+    dh_next = xw.new_zeros(B, H)
+    dc_next = xw.new_zeros(B, H)
+    for t in range(T - 1, -1, -1):
+        z = xw[:, t] + hprev[:, t] @ w_h
+        zi, zf, zg, zo = z.split(H, dim=1)
+        i, f, o = torch.sigmoid(zi), torch.sigmoid(zf), torch.sigmoid(zo)
+        g = torch.tanh(zg)
+        tc = torch.tanh(c[:, t])
+        dh = dy[:, t] + dh_next
+        dc = dh * o * (1.0 - tc * tc) + dc_next
+        dz = torch.cat([dc * g * i * (1.0 - i),
+                        dc * cprev[:, t] * f * (1.0 - f),
+                        dc * i * (1.0 - g * g),
+                        dh * tc * o * (1.0 - o)], dim=1)
+        dxw[:, t] = dz
+        dwh += hprev[:, t].t() @ dz
+        dh_next = dz @ w_h.t()
+        dc_next = dc * f
+    return dxw, dwh
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("B,T,H,seed", [
+    (2, 24, 8, 7), (3, 16, 5, 3), (4, 40, 62, 1), (2, 9, 64, 2), (1, 1, 3, 5),
+])
+def test_split_plain_bptt_composes_to_the_unsplit_loop(B, T, H, seed, dtype):
+    """The gate pre-pass and the reverse loop, composed, give bitwise what
+    the one-loop plain BPTT gave; so does ``lstm_bptt`` on a CPU tensor."""
+    rng = np.random.default_rng(seed)
+    xw = torch.from_numpy(rng.normal(size=(B, T, 4 * H)).astype(dtype))
+    w_h = torch.from_numpy((rng.normal(size=(H, 4 * H)) / np.sqrt(H))
+                           .astype(dtype))
+    dy = torch.from_numpy(rng.normal(size=(B, T, H)).astype(dtype))
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    dxw_ref, dwh_ref = _bwd_reference_unsplit(xw, w_h, h, c, dy)
+    dxw, dwh = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    assert torch.equal(dxw, dxw_ref) and torch.equal(dwh, dwh_ref)
+    gates = lstm_gates_reference(xw, w_h, h)
+    assert torch.equal(lstm_bptt_loop_reference(gates, w_h, c, dy), dxw_ref)
+    assert torch.equal(lstm_bptt(xw, w_h, h, c, dy), dxw_ref)
 
 
 def _flax_scan(x, params):
