@@ -18,9 +18,10 @@ PyTorch version on the card.  Phases, each printing JSON lines:
 3. ``train_kernel``: the recurrence (both modes), the BPTT kernel and the
    dW_h kernel against their plain versions at the training shapes
    (B = 64; T = 256, and T = 64 for the AR decoder's H = 256 cell); BPTT
-   rows give microseconds per step and, at H <= 64, the gate pre-pass
-   timed and checked alone; dW_h also gives its achieved TFLOP/s and
-   checks that two launches agree bitwise;
+   rows give microseconds per step, the bound of the reverse loop alone,
+   and the gate pre-pass timed and checked alone beside its bound and a
+   ``torch.addmm`` of the same product; dW_h also gives its achieved
+   TFLOP/s and checks that two launches agree bitwise;
 4. ``slice``: engine build, a warm-up, then three timed ``svs_ensemble``
    calls on 4 copies of the 31.2 s fixture with the launch count reset
    just before and read just after;
@@ -290,21 +291,34 @@ def recurrence_bound_times(B, T, H, want_c):
 
 
 def bptt_bound_times(B, T, H):
-    """(bytes time, operations time) in ms for the BPTT kernel's work: xw,
-    W_h, h, c and dy read once, dxw written once; the gate recompute
-    (h_{t-1} W_h) and dz W_h^T multiply-adds plus about 30 elementwise
-    operations per unit and step."""
+    """(bytes time, operations time) in ms for the whole BPTT launch: xw,
+    W_h, h, c and dy read once, dxw written once; the gates' operations
+    (``gates_bound_times``) plus the loop's (``bptt_loop_bound_times``),
+    each at the rate of the instruction that does them."""
     nbytes = 4 * (2 * B * T * 4 * H + H * 4 * H + 3 * B * T * H)
-    flops = 2 * 2 * B * T * H * 4 * H + 30 * B * T * H
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
+    return (1e3 * nbytes / PEAK_BYTES_PER_S,
+            gates_bound_times(B, T, H)[1] + bptt_loop_bound_times(B, T, H)[1])
 
 
 def gates_bound_times(B, T, H):
     """(bytes time, operations time) in ms for the BPTT's gate pre-pass: xw,
     h and W_h read once, the gates written once; the h_{t-1} W_h
-    multiply-adds plus the bias add over the float32 rate."""
+    multiply-adds plus the bias add at the rate of the instruction the
+    pre-pass uses: float32 FMA at H <= 64, 3xTF32 on the tensor cores above
+    (PEAK_3XTF32_FLOP_PER_S, as ``dwh_bound_times``)."""
     nbytes = 4 * (2 * B * T * 4 * H + B * T * H + H * 4 * H)
     flops = 2 * B * T * H * 4 * H + B * T * 4 * H
+    rate = PEAK_FP32_FLOP_PER_S if H <= 64 else PEAK_3XTF32_FLOP_PER_S
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / rate
+
+
+def bptt_loop_bound_times(B, T, H):
+    """(bytes time, operations time) in ms for the BPTT's reverse loop
+    after the pre-pass: the gates, c and dy read once and W_h once, dz
+    written once; the dz_{t+1} W_h^T multiply-adds plus about 30
+    elementwise operations per unit and step over the float32 rate."""
+    nbytes = 4 * (2 * B * T * 4 * H + H * 4 * H + 2 * B * T * H)
+    flops = 2 * B * T * 4 * H * H + 30 * B * T * H
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
 
 
@@ -486,12 +500,12 @@ def phase_train_kernels(lr):
                    xw, w_h, h, c, dy), 1),
                "bytes_ms": t_bytes, "operations_ms": t_ops,
                "library_ms": library_ms, "library_input_gemm_ms": gemm_ms,
+               "loop_bound_ms": bound(*bptt_loop_bound_times(B, T, H))[0],
                **prepass_row(lr, xw, w_h, h)}
         row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
         emit(row)
         assert np.isfinite(err) and err < KERNEL_ATOL, row
-        if row["prepass_ms"]:
-            assert row["prepass_max_abs_err"] < KERNEL_ATOL, row
+        assert row["prepass_max_abs_err"] < KERNEL_ATOL, row
         rows["lstm_bptt", H, T, None] = row
 
         # dW_h alone on the plain loop's dz, and the two kernels together
@@ -525,21 +539,27 @@ def phase_train_kernels(lr):
 
 
 def prepass_row(lr, xw, w_h, h):
-    """At H <= 64, the BPTT's gate pre-pass alone: its error against its
-    plain version, its time, the plain version's and its bound (its part
-    of the row's ``ms`` and ``bound_ms``).  Zero above, where the BPTT
-    kernel recomputes the gates in its loop."""
+    """The BPTT's gate pre-pass alone (its part of the row's ``ms``): its
+    error against its plain version, its time, the plain version's, its
+    bound, and as its yardstick one ``torch.addmm`` of the same product in
+    float32 (TF32 off), without the activations; timed here only."""
     B, T, H = h.shape
-    if H > 64:
-        return {"prepass_ms": 0.0, "prepass_max_abs_err": None,
-                "prepass_plain_ms": None, "prepass_bound_ms": None}
     err = (lr.lstm_gates(xw, w_h, h)
            - lr.lstm_gates_reference(xw, w_h, h)).abs().max().item()
+    hprev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    a, x = hprev.reshape(-1, H), xw.reshape(-1, 4 * H)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        library_ms = cuda_ms(lambda: torch.addmm(x, a, w_h), 10)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     return {"prepass_ms": cuda_ms(lambda: lr.lstm_gates(xw, w_h, h), 10),
             "prepass_max_abs_err": err,
             "prepass_plain_ms": cuda_ms(
                 lambda: lr.lstm_gates_reference(xw, w_h, h), 1),
-            "prepass_bound_ms": bound(*gates_bound_times(B, T, H))[0]}
+            "prepass_bound_ms": bound(*gates_bound_times(B, T, H))[0],
+            "prepass_library_ms": library_ms}
 
 
 def phase_slice(lr, weights, labels):
@@ -832,6 +852,7 @@ def _sum_rows(rows, counts, keys):
 
 
 TIMES = ("ms", "plain_ms", "bytes_ms", "operations_ms", "library_ms")
+PREPASS = ("prepass_ms", "prepass_bound_ms", "prepass_library_ms")
 
 
 def _entry(name, source, sums, **extra):
@@ -850,10 +871,11 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
     svs_ensemble call's launches (LAUNCHES_BY_HIDDEN), with the same sums
     over one train step (TRAIN_LAUNCHES_BY_SHAPE, the want_c mode) under
     ``train_step``; the BPTT and dW_h kernels' are summed over one train
-    step, the BPTT's with the part its gate pre-pass takes at H <= 64
-    (``prepass_ms``).  All come from the kernel phases' rows; the
-    recurrence's training-shape yardstick is cuDNN's forward, which gives no
-    cell sequence."""
+    step, the BPTT's with the part its gate pre-pass takes (``prepass_ms``,
+    with its bound and its ``torch.addmm`` yardstick) and the bound of its
+    reverse loop alone (``loop_bound_ms``).  All come from the kernel
+    phases' rows; the recurrence's training-shape yardstick is cuDNN's
+    forward, which gives no cell sequence."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -866,7 +888,7 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
     fwd, _ = train_sums("lstm_recurrence", True)
     fwd_bound = bound(fwd["bytes_ms"], fwd["operations_ms"])
     bptt, bptt_rows = train_sums("lstm_bptt", keys=TIMES + (
-        "library_input_gemm_ms", "prepass_ms"))
+        "library_input_gemm_ms", "loop_bound_ms") + PREPASS)
     dwh, dwh_rows = train_sums("lstm_dwh")
     rec_err = max(r["max_abs_err"] for r in list(kernel_rows.values())
                   + [r for k, r in train_rows.items()
@@ -891,7 +913,8 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
                launches_per_step=per_step,
                max_abs_err=max(r["max_abs_err"] for r in bptt_rows.values()),
                library_input_gemm_ms=bptt["library_input_gemm_ms"],
-               prepass_ms=bptt["prepass_ms"]),
+               loop_bound_ms=bptt["loop_bound_ms"],
+               **{k: bptt[k] for k in PREPASS}),
         _entry("lstm_dwh", "lstm_bptt.cu", dwh,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
                launches=train_launches["lstm_dwh"], calls=TRAIN_STEPS,

@@ -7,36 +7,30 @@
 //   dz = dxw (B, T, 4H), the gate gradient, in reverse time
 //     inputs : xw (B, T, 4H), wh (H, 4H), h and c (B, T, H) from the forward,
 //              dy (B, T, H) the gradient into h
-//     step t : recompute the gates from xw_t + h_{t-1} W_h;
-//              dh = dy_t + dz_{t+1} W_h^T;  dc = dh o (1 - tanh^2 c_t) + dc_next;
+//     gates  : i, f, g, o = act(xw_t + h_{t-1} W_h) for every step at once,
+//              a parallel pre-pass written into dxw;
+//     step t : dh = dy_t + dz_{t+1} W_h^T;  dc = dh o (1 - tanh^2 c_t) + dc_next;
 //              dz_i = dc g i (1-i), dz_f = dc c_{t-1} f (1-f),
 //              dz_g = dc i (1-g^2), dz_o = dh tanh(c_t) o (1-o);  dc_next = dc f
-//     H <= 64: lstm_gates_kernel, then lstm_bptt_small_kernel (below);
-//     H > 64 : lstm_bptt_kernel
+//     H <= 64 : lstm_gates_kernel, then lstm_bptt_small_kernel (below);
+//     64 < H <= kMaxGroupH (512): lstm_gates_mma_kernel, then
+//               lstm_bptt_group_kernel (the H > 64 section below);
+//     wider: refused (the group kernel's rows of W_h outgrow its registers)
 //   lstm_dwh_kernel (+ lstm_dwh_reduce_kernel): dW_h = sum over (b, t) of
 //     h_{t-1}^T dz_t, a tiled reduction over the B(T-1) steps with t >= 1
 //     (h_{-1} = 0), split over the reduction and summed in a fixed order.
 //
 // What bounds it.  The BPTT loop is latency bound like the forward (each
 // step needs dz_{t+1} of all 4H columns).  Only dh = dy_t + dz_{t+1} W_h^T
-// and the cell arithmetic are on that chain: the gate recompute of step t
-// needs only h_{t-1}, which the forward stored.  dW_h is a
-// (H x B(T-1)) x (B(T-1) x 4H) product, operations bound: on the float32
-// SIMT rate (67 TFLOP/s) for a plain kernel, on the TF32 tensor cores'
-// rate over 3 (495 / 3 = 165 TFLOP/s of float32-accurate products) for the
-// 3xTF32 kernel here, whose design and precision argument stand above it.
-//
-// Design, H > 64 (lstm_bptt_kernel).  The multi-block forward's layout
-// carries over: a block owns the gate columns
-// {j, H+j, 2H+j, 3H+j} of U hidden units for a group of batch rows, and
-// keeps two slices of W_h in shared memory for the whole sequence: those
-// columns (H x 4U, for the recompute) and the rows of its units (U x 4H,
-// for dz W_h^T; 32 KB each at H = 512, U = 4).  At each step it writes its
-// columns of dz into dxw[:, t], meets the other blocks at a grid barrier
-// and reads the whole dxw[:, t] back through L2 (__ldcg) for the next
-// step's dh, recomputing its gates inside the loop.  Residency follows the
-// forward's plan (lstm_common.cuh).  The H <= 64 design stands above its
-// two kernels.
+// and the cell arithmetic are on that chain: the gates of step t need only
+// h_{t-1}, which the forward stored, so a pre-pass computes them all in
+// parallel, a (BT x H) x (H x 4H) product.  That product and dW_h, a
+// (H x B(T-1)) x (B(T-1) x 4H) product, are operations bound: on the
+// float32 SIMT rate (67 TFLOP/s) for a plain kernel, on the TF32 tensor
+// cores' rate over 3 (495 / 3 = 165 TFLOP/s of float32-accurate products)
+// for the 3xTF32 kernels here, whose design and precision argument stand
+// above lstm_dwh_kernel.  The designs of the loops stand above their
+// kernels.
 // dW_h is a second kernel, not an accumulation inside the loop: the loop's
 // blocks split the batch, so an in-loop sum would need a cross-block pass
 // anyway, and a separate tiled product keeps work off the sequential path.
@@ -49,204 +43,6 @@
 namespace {
 
 using namespace lstm;
-
-// Copy `rows` rows of `width` elements, `stride` elements apart in global
-// memory, into consecutive rows of `dst` in shared memory.  Each thread
-// issues up to kBatch loads before it stores any, so a copy costs about one
-// round trip to L2 rather than one per element.  kCg reads through L2 only
-// (__ldcg), for data that other blocks wrote during this launch.
-template <typename V, bool kCg>
-__device__ __forceinline__ void load_rows(V* dst, const V* src, size_t stride,
-                                          int rows, int width) {
-  constexpr int kBatch = 8;
-  const int n = rows * width;
-  for (int base = threadIdx.x; base < n; base += kBatch * kThreads) {
-    V v[kBatch];
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int idx = base + i * kThreads;
-      if (idx < n) {
-        const int r = idx / width;
-        const V* p = src + r * stride + (idx - r * width);
-        v[i] = kCg ? __ldcg(p) : __ldg(p);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBatch; ++i) {
-      const int idx = base + i * kThreads;
-      if (idx < n) dst[idx] = v[i];
-    }
-  }
-}
-
-// Its one-block branch (nblk == 1) is no longer taken, since H <= 64 has
-// its own kernels.  The body stays as measured: small edits to these
-// kernels have moved their times by 6-26% on an H100 (PERF.md).
-__global__ void __launch_bounds__(kThreads)
-    lstm_bptt_kernel(const float* __restrict__ xw,
-                     const float* __restrict__ wh,
-                     const float* __restrict__ hseq,
-                     const float* __restrict__ cseq,
-                     const float* __restrict__ dy, float* dxw,
-                     unsigned int* counters, int B, int T, int H, int U, int S,
-                     int pitch, int S2, int pitch2, int gpb) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = 4 * U;
-  const int H4 = 4 * H;
-  const int R = gpb * kMaxRows;
-  const int W = S2 > 32 ? S2 / 32 : 1;  // warps per unit in the dh sums
-  float* wc = smem;                  // [K][pitch]: W_h columns of own gates
-  float* wr = wc + K * pitch;        // [U][pitch2]: W_h rows of own units
-  float* ds = wr + U * pitch2;       // [kMaxRows][4H]: dz_{t+1} of one group
-  float* hs = ds + kMaxRows * H4;    // [kMaxRows][H]: h_{t-1} of one group
-  float* gs = hs + kMaxRows * H;     // [R][K]: recomputed recurrent gate sums
-  float* es = gs + R * K;            // [R][U][W]: dz_{t+1} W_h^T, per warp
-
-  const int tid = threadIdx.x;
-  const int nblk = gridDim.x;
-  const int j0 = blockIdx.x * U;
-  const int b0 = blockIdx.y * R;
-  const int rows = min(R, B - b0);
-  const int ngroups = (rows + kMaxRows - 1) / kMaxRows;
-
-  for (int idx = tid; idx < K * H; idx += kThreads) {
-    const int k = idx / H, h = idx - (idx / H) * H;
-    const int j = j0 + k % U;
-    wc[k * pitch + h] =
-        (j < H) ? wh[(size_t)h * H4 + (k / U) * H + j] : 0.0f;
-  }
-  for (int idx = tid; idx < U * H4; idx += kThreads) {
-    const int u = idx / H4, n = idx - (idx / H4) * H4;
-    wr[u * pitch2 + n] = (j0 + u < H) ? wh[(size_t)(j0 + u) * H4 + n] : 0.0f;
-  }
-
-  for (int idx = tid; idx < kMaxRows * H4; idx += kThreads) ds[idx] = 0.0f;
-
-  // gate-sum role: column k1 over hidden units s1, s1 + S, ...
-  const int k1 = tid / S, s1 = tid - (tid / S) * S;
-  const bool dot_active = k1 < K;
-  const float* wk = wc + (dot_active ? k1 : 0) * pitch;
-  // dh role: own unit u3 over gate columns s3, s3 + S2, ... (S2 lanes,
-  // W warps when S2 > 32)
-  const int u3 = tid / S2, s3 = tid - (tid / S2) * S2;
-  const bool dh_active = u3 < U;
-  const float* wu = wr + (dh_active ? u3 : 0) * pitch2;
-  // cell role: batch row b2 of the grid row, unit j2
-  const int b2 = tid / U, u2 = tid % U, j2 = j0 + u2;
-  const bool cell_active = tid < R * U && b2 < rows && j2 < H;
-  const size_t row = (size_t)(b0 + (cell_active ? b2 : 0)) * T;
-
-  // the cell thread's operands of step t, loaded one step ahead
-  float xg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float c_t = 0.0f, c_prev = 0.0f, dy_t = 0.0f, dc_next = 0.0f;
-  if (cell_active) {
-    const int t = T - 1;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) xg[g] = xw[(row + t) * H4 + g * H + j2];
-    c_t = cseq[(row + t) * H + j2];
-    c_prev = t > 0 ? cseq[(row + t - 1) * H + j2] : 0.0f;
-    dy_t = dy[(row + t) * H + j2];
-  }
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    for (int grp = 0; grp < ngroups; ++grp) {
-      const int gb = grp * kMaxRows;
-      const int grows = min(kMaxRows, rows - gb);
-      // dz_{t+1} of the group's rows (rows past `grows` keep stale values:
-      // their sums land in gs / es rows that no cell thread reads)
-      if (t + 1 < T) {
-        load_rows<float4, true>(
-            reinterpret_cast<float4*>(ds),
-            reinterpret_cast<const float4*>(
-                dxw + ((size_t)(b0 + gb) * T + t + 1) * H4),
-            (size_t)T * H, grows, H);
-      }
-      if (t > 0) {
-        load_rows<float, false>(hs, hseq + ((size_t)(b0 + gb) * T + t - 1) * H,
-                                (size_t)T * H, grows, H);
-      } else {
-        for (int idx = tid; idx < kMaxRows * H; idx += kThreads) hs[idx] = 0.0f;
-      }
-      __syncthreads();
-
-      float acc[kMaxRows];
-#pragma unroll
-      for (int b = 0; b < kMaxRows; ++b) acc[b] = 0.0f;
-      if (dot_active) {
-        for (int h = s1; h < H; h += S) {
-          const float w = wk[h];
-#pragma unroll
-          for (int b = 0; b < kMaxRows; ++b)
-            acc[b] = fmaf(hs[b * H + h], w, acc[b]);
-        }
-      }
-      for (int off = S >> 1; off > 0; off >>= 1) {
-#pragma unroll
-        for (int b = 0; b < kMaxRows; ++b)
-          acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-      }
-      if (dot_active && s1 == 0) {
-#pragma unroll
-        for (int b = 0; b < kMaxRows; ++b) gs[(gb + b) * K + k1] = acc[b];
-      }
-
-      float acc2[kMaxRows];
-#pragma unroll
-      for (int b = 0; b < kMaxRows; ++b) acc2[b] = 0.0f;
-      if (dh_active) {
-        for (int n = s3; n < H4; n += S2) {
-          const float w = wu[n];
-#pragma unroll
-          for (int b = 0; b < kMaxRows; ++b)
-            acc2[b] = fmaf(ds[b * H4 + n], w, acc2[b]);
-        }
-      }
-      for (int off = min(S2, 32) >> 1; off > 0; off >>= 1) {
-#pragma unroll
-        for (int b = 0; b < kMaxRows; ++b)
-          acc2[b] += __shfl_xor_sync(0xffffffffu, acc2[b], off);
-      }
-      if (dh_active && (s3 & 31) == 0) {
-#pragma unroll
-        for (int b = 0; b < kMaxRows; ++b)
-          es[((gb + b) * U + u3) * W + s3 / 32] = acc2[b];
-      }
-      __syncthreads();
-    }
-
-    if (cell_active) {
-      const float* g_row = gs + b2 * K;
-      const float i = sigmoid_f32(xg[0] + g_row[u2]);
-      const float f = sigmoid_f32(xg[1] + g_row[U + u2]);
-      const float g = tanhf(xg[2] + g_row[2 * U + u2]);
-      const float o = sigmoid_f32(xg[3] + g_row[3 * U + u2]);
-      const float tc = tanhf(c_t);
-      float dh = dy_t;
-      for (int w = 0; w < W; ++w) dh += es[(b2 * U + u2) * W + w];
-      const float dc = dh * o * (1.0f - tc * tc) + dc_next;
-      float* dz = dxw + (row + t) * H4 + j2;
-      dz[0] = dc * g * i * (1.0f - i);
-      dz[H] = dc * c_prev * f * (1.0f - f);
-      dz[2 * H] = dc * i * (1.0f - g * g);
-      dz[3 * H] = dh * tc * o * (1.0f - o);
-      dc_next = dc * f;
-      if (t > 0) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          xg[q] = xw[(row + t - 1) * H4 + q * H + j2];
-        c_t = c_prev;
-        c_prev = t > 1 ? cseq[(row + t - 2) * H + j2] : 0.0f;
-        dy_t = dy[(row + t - 1) * H + j2];
-      }
-    }
-    if (nblk > 1) {
-      grid_barrier(counters + blockIdx.y, (unsigned int)(nblk * (T - t)));
-    } else {
-      __syncthreads();
-    }
-  }
-}
 
 // ------------------------------------------------------------------ H <= 64
 // Two kernels, one after the other on the caller's stream.
@@ -507,19 +303,6 @@ __global__ void __launch_bounds__(2 * HP)
   }
 }
 
-cudaError_t launch_gates(const float* xw, const float* wh, const float* h,
-                         float* gates, int B, int T, int H, cudaStream_t st) {
-  const size_t smem = gates_smem_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_gates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int M = B * T;
-  lstm_gates_kernel<<<(M + kGateRows - 1) / kGateRows, kGateThreads, smem,
-                      st>>>(xw, wh, h, gates, M, T, H);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------- dW_h
 // C (H, 4H) = sum over m = (b, tt), tt < T - 1, of A[m]^T B[m], with
 // A[m] = h[b, tt, :] and B[m] = dz[b, tt + 1, :]: both operands have the
@@ -765,95 +548,524 @@ cudaError_t launch_dwh(const float* h, const float* dz, float* out, int B,
   return cudaGetLastError();
 }
 
-struct BpttPlan {
-  Split p;
-  int S2, pitch2;
-};
+// ------------------------------------------------------------------- H > 64
+// Two kernels, one after the other on the caller's stream, at
+// 64 < H <= kMaxGroupH.
+//
+// lstm_gates_mma_kernel<kVec>, the gate pre-pass: act(xw + h_{t-1} W_h) for
+// every row m = (b, t) at once, a (BT x H) x (H x 4H) product whose
+// epilogue adds xw and applies the activations, written into dxw.  It is
+// lstm_dwh_kernel's 3xTF32 machinery (split_tf32, mma_tf32, each k8
+// partial added to an f32 sum; the same precision argument) on a 64 x 128
+// block tile of (rows, gate columns), 8 warps as 2 x 4 of 32 x 32, the
+// reduction over H in k-tiles of 16 through a 3-stage zero-filled cp.async
+// ring, two blocks per SM.  The A tile holds h rows m - 1 with the
+// reduction contiguous (a pitch of 20 floats: a warp's fragment loads hit
+// 32 distinct banks), zero on the rows with t = 0 (h_{-1} = 0); the B tile
+// holds rows of W_h, as lstm_dwh_kernel's B tile holds rows of dz.
+// 16-byte copies where H % 4 == 0 and h and W_h are 16-byte aligned,
+// 4-byte copies otherwise.  3xTF32 rather than a float32 SIMT tiling: 165
+// TFLOP/s of float32-accurate products against 67, with the ring and the
+// precision already proven on dW_h.  The reduction is short (H), so a
+// block's start and epilogue weigh: 128 x 128 tiles at one block per SM
+// took 0.94-0.95 ms at B = 64, T = 256, H = 512 on an H100, these
+// 0.72-0.73 in the same call (tools/bench_bptt_builds.py).
+//
+// lstm_bptt_group_kernel<NC>, the reverse-time loop, a cooperative launch
+// whose grid splits the units and the batch: block (x, y) owns kUnitsG = 16
+// units (all four gate columns of each) for the groups of kRowsG = 16
+// batch rows of grid row y.  The blocks of a grid row exchange only their
+// rows' dz and meet at their own barrier (counters[y]).  The rows of W_h
+// of the block's units (16 x 4H, 128 KB at H = 512) sit in registers for
+// the whole sequence: thread (warp w, lane (ug, kl)), ug < 4, kl < 8, holds
+// units j0 + 4 ug .. j0 + 4 ug + 3 at the float4 columns ks + 64 c (k slice
+// ks = 8 w + kl, c < NC, 4H <= 256 NC): 16 NC floats, 128 at NC = 8.  Each
+// step, for each of the block's groups:
+//   - each warp copies the dz_{t+1} columns its own lanes read (8 float4
+//     columns of every chunk c, 16 rows) from dxw[:, t + 1] into shared
+//     memory with cp.async.cg, which reads through L2 and so sees the
+//     other blocks' writes after the barrier: one commit group per chunk,
+//     kAheadG = 3 chunks ahead of the one being multiplied, and a warp
+//     waits only for its own copies (__syncwarp).  Issuing all NC chunks
+//     at once stalled the warps on the copies' issue (per-phase clocks of
+//     one block: 2,800-5,500 cycles a step of 13,800 at H = 512) and took
+//     1.66-1.72 ms a loop at B = 64, T = 256 against 1.58-1.59 in the
+//     same call on an H100;
+//   - the cell's operands of step t (its 4 gates from dxw[b, t] through
+//     __ldcg, as this launch overwrites them with dz_t; c_t, c_{t-1}, dy_t)
+//     are loaded before the product and used after it;
+//   - dh (16 rows x 16 units) = dz_{t+1} W_rows^T in two passes of 8 rows:
+//     each float4 of dz (one 128-byte broadcast read for the warp's 4 unit
+//     groups) meets the thread's 4 units, 16 FMAs a shared load, into 32
+//     sums; a reduce-scatter over the warp's 8 k-slice lanes (16 + 8 + 4
+//     __shfl_xor) leaves lane kl the sums of row kl, and the 8 warps'
+//     partials meet in shared memory, summed in warp order by thread
+//     (row, unit) = (tid / 16, tid % 16), one __syncthreads a group.  The
+//     same product as 3xTF32 mma.sync, with the same 128 registers of W_h
+//     as fragments, took 2.19-2.23 ms a loop against 1.74-1.76 at H = 512
+//     (0.94-0.95 against 1.17-1.21 at H = 256) in one call on an H100, so
+//     it stays SIMT;
+//   - that thread does the cell arithmetic and writes its dz_t into dxw.
+// Then the grid row's barrier.  When the card cannot hold every block at
+// once, a block takes gpb groups in turn inside each step (plan_groups;
+// dc_next of each group in shared memory); a launch that cannot fit
+// raises.  Units past H have zero weights and are not written; rows past B
+// are zero-filled by the copy and not written; c, dy and the gates are
+// read as floats, so rows of any length (H = 98: 392 bytes) and inputs at
+// any alignment are taken.  dxw, which the loop copies in 16-byte pieces,
+// is the caller's fresh allocation.  Padding needs no mask, as above.
+constexpr int kGBM = 64, kGBN = 128, kGBK = 16;  // pre-pass block tile
+constexpr int kStagesG = 3;
+constexpr int kPitchGA = kGBK + 4;  // == 20 (mod 32): conflict-free A frags
+constexpr int kPitchGB = kGBN + 8;
+constexpr int kMaxGroupH = 512;     // widest H of the group kernel
+constexpr int kUnitsG = 16;         // units per block
+constexpr int kRowsG = 16;          // batch rows per group
+constexpr int kSlicesG = 64;        // float4 column c is in k slice c % 64
+constexpr int kAheadG = 3;          // dz chunks in flight ahead of the one
+                                    // being multiplied
+constexpr int kWarpsG = kThreads / 32;
 
-// dh sums: S2 lanes per unit (a power of two, U * S2 <= kThreads), over
-// one or more warps.  W_h's row slice has a pitch == S2 (mod 32), which
-// spreads the units a warp covers over the banks and keeps the float4
-// alignment of the dz rows that follow it.
-BpttPlan make_bptt_plan(int H) {
-  BpttPlan q;
-  q.p = make_split(H);
-  q.S2 = 1;
-  while (q.p.U * q.S2 * 2 <= kThreads) q.S2 *= 2;
-  q.pitch2 = 4 * H + (((q.S2 - 4 * H) % 32) + 32) % 32;
-  return q;
+constexpr size_t gates_mma_smem_bytes() {
+  return sizeof(float) * kStagesG *
+         ((size_t)kGBM * kPitchGA + (size_t)kGBK * kPitchGB);
 }
 
-size_t bptt_smem_bytes(const BpttPlan& q, int H, int gpb) {
-  const int U = q.p.U, K = 4 * U;
-  const size_t R = (size_t)gpb * kMaxRows;
-  const size_t W = q.S2 > 32 ? q.S2 / 32 : 1;
-  return sizeof(float) * ((size_t)K * q.p.pitch + (size_t)U * q.pitch2 +
-                          (size_t)kMaxRows * H + (size_t)kMaxRows * 4 * H +
-                          R * K + R * U * W);
+template <bool kVec>
+__global__ void __launch_bounds__(kThreadsD, 2)
+    lstm_gates_mma_kernel(const float* __restrict__ xw,
+                          const float* __restrict__ wh,
+                          const float* __restrict__ hseq,
+                          float* __restrict__ gates, int M, int T, int H) {
+  constexpr int V = kVec ? 4 : 1;           // floats a copy
+  constexpr int ACOLS = kGBK / V;           // copies per A row
+  constexpr int AROWS = kThreadsD / ACOLS;  // A rows per pass
+  constexpr int NA = kGBM / AROWS;
+  constexpr int BCOLS = kGBN / V;
+  constexpr int BROWS = kThreadsD / BCOLS;
+  constexpr int NB = kGBK / BROWS;
+  constexpr int MT = kGBM / 32;  // m16 tiles per warp
+  constexpr int NQ = kGBN / 32;  // n8 tiles per warp
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                               // [stage][kGBM][kPitchGA]
+  float* Bs = smem + kStagesG * kGBM * kPitchGA;  // [stage][kGBK][kPitchGB]
+  const int N = 4 * H;
+  const int m0 = blockIdx.y * kGBM, n0 = blockIdx.x * kGBN;
+  const int ktiles = (H + kGBK - 1) / kGBK;
+  const int tid = threadIdx.x;
+
+  // row m of the product is h row m - 1, none (zero) where t = 0
+  const int ar = tid / ACOLS, ac = V * (tid % ACOLS);
+  const float* arow[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int m = m0 + ar + i * AROWS;
+    arow[i] = m < M && m % T != 0 ? hseq + (size_t)(m - 1) * H : nullptr;
+  }
+  const int br = tid / BCOLS, bc = V * (tid % BCOLS);
+
+  auto load_tile = [&](int stage, int k0) {
+    float* ad = As + stage * kGBM * kPitchGA;
+    float* bd = Bs + stage * kGBK * kPitchGB;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int k = k0 + ac;
+      const bool in = arow[i] != nullptr && k < H;
+      float* dst = ad + (ar + i * AROWS) * kPitchGA + ac;
+      const float* src = in ? arow[i] + k : hseq;
+      if (kVec) {
+        cp_async16(dst, src, in ? 16 : 0);
+      } else {
+        cp_async4(dst, src, in ? 4 : 0);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int k = k0 + br + i * BROWS, n = n0 + bc;
+      const bool in = k < H && n < N;
+      float* dst = bd + (br + i * BROWS) * kPitchGB + bc;
+      const float* src = in ? wh + (size_t)k * N + n : wh;
+      if (kVec) {
+        cp_async16(dst, src, in ? 16 : 0);
+      } else {
+        cp_async4(dst, src, in ? 4 : 0);
+      }
+    }
+  };
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 2) * (kGBM / 2), wn = (warp & 3) * (kGBN / 4);
+  const int gid = lane >> 2, tig = lane & 3;
+  float acc[MT][NQ][4];
+#pragma unroll
+  for (int p = 0; p < MT; ++p)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][q][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < kStagesG - 1; ++st) {
+    if (st < ktiles) load_tile(st, st * kGBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<kStagesG - 2>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + kStagesG - 1 < ktiles)
+      load_tile((kt + kStagesG - 1) % kStagesG, (kt + kStagesG - 1) * kGBK);
+    cp_async_commit();
+    const float* as =
+        As + (kt % kStagesG) * kGBM * kPitchGA + (wm + gid) * kPitchGA + tig;
+    const float* bs =
+        Bs + (kt % kStagesG) * kGBK * kPitchGB + tig * kPitchGB + wn + gid;
+#pragma unroll
+    for (int kk = 0; kk < kGBK; kk += 8) {
+      unsigned bh[NQ][2], bl[NQ][2];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        split_tf32(bs[kk * kPitchGB + 8 * q], bh[q][0], bl[q][0]);
+        split_tf32(bs[(kk + 4) * kPitchGB + 8 * q], bh[q][1], bl[q][1]);
+      }
+#pragma unroll
+      for (int p = 0; p < MT; ++p) {
+        const float* a = as + 16 * p * kPitchGA + kk;
+        unsigned ah[4], al[4];
+        split_tf32(a[0], ah[0], al[0]);                 // (gid, tig)
+        split_tf32(a[8 * kPitchGA], ah[1], al[1]);      // (gid + 8, tig)
+        split_tf32(a[4], ah[2], al[2]);                 // (gid, tig + 4)
+        split_tf32(a[8 * kPitchGA + 4], ah[3], al[3]);  // (gid + 8, tig + 4)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(d, al, bh[q]);
+          mma_tf32(d, ah, bl[q]);
+          mma_tf32(d, ah, bh[q]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][q][e] += d[e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int p = 0; p < MT; ++p)
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int m = m0 + wm + 16 * p + gid + 8 * e2;
+      if (m >= M) continue;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int n = n0 + wn + 8 * q + 2 * tig;  // even, and N is even
+        if (n >= N) continue;
+        const size_t o = (size_t)m * N + n;
+        float z[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          z[e] = acc[p][q][2 * e2 + e] + __ldg(xw + o + e);
+          z[e] = (n + e) / H == 2 ? tanhf(z[e]) : sigmoid_f32(z[e]);
+        }
+        *reinterpret_cast<float2*>(gates + o) = make_float2(z[0], z[1]);
+      }
+    }
+}
+
+template <bool kVec>
+cudaError_t launch_gates_mma(const float* xw, const float* wh, const float* h,
+                             float* gates, int M, int T, int H,
+                             cudaStream_t st) {
+  constexpr size_t smem = gates_mma_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_gates_mma_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((4 * H + kGBN - 1) / kGBN, (M + kGBM - 1) / kGBM);
+  lstm_gates_mma_kernel<kVec><<<grid, kThreadsD, smem, st>>>(xw, wh, h, gates,
+                                                             M, T, H);
+  return cudaGetLastError();
+}
+
+// The gate pre-pass into gates (B, T, 4H): lstm_gates_kernel at H <=
+// kSmallH, lstm_gates_mma_kernel above (which stores float pairs, so gates
+// must be 8-byte aligned there).
+cudaError_t launch_gates(const float* xw, const float* wh, const float* h,
+                         float* gates, int B, int T, int H, cudaStream_t st) {
+  const int M = B * T;
+  if (H > kSmallH) {
+    if ((reinterpret_cast<std::uintptr_t>(gates) & 7u) != 0)
+      return cudaErrorMisalignedAddress;
+    return H % 4 == 0 && aligned16(h) && aligned16(wh)
+               ? launch_gates_mma<true>(xw, wh, h, gates, M, T, H, st)
+               : launch_gates_mma<false>(xw, wh, h, gates, M, T, H, st);
+  }
+  const size_t smem = gates_smem_bytes(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_gates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  lstm_gates_kernel<<<(M + kGateRows - 1) / kGateRows, kGateThreads, smem,
+                      st>>>(xw, wh, h, gates, M, T, H);
+  return cudaGetLastError();
+}
+
+// One step of a reduce-scatter over the lanes `mask` apart: v[0, 2 kHalf)
+// becomes v[0, kHalf), the sums of the half this lane keeps (the upper one
+// where `upper`), its partner keeping the other.
+template <int kHalf>
+__device__ __forceinline__ void reduce_half(float* v, int mask, bool upper) {
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = upper ? v[i + kHalf] : v[i];
+    const float send = upper ? v[i] : v[i + kHalf];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+size_t group_smem_bytes(int nc, int gpb) {
+  return sizeof(float) * ((size_t)kRowsG * 4 * kSlicesG * nc +
+                          2 * kWarpsG * kRowsG * kUnitsG +
+                          (size_t)gpb * kThreads);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_bptt_group_kernel(const float* __restrict__ wh,
+                           const float* __restrict__ cseq,
+                           const float* __restrict__ dy, float* dxw,
+                           unsigned int* counters, int B, int T, int H,
+                           int gpb) {
+  constexpr int P = 4 * kSlicesG * NC;  // dz row pitch in floats, >= 4H
+  constexpr int RS = kRowsG * kUnitsG;  // dh sums of a group
+  extern __shared__ __align__(16) float smem[];
+  float* dzs = smem;                    // [kRowsG][P]: dz_{t+1} of a group
+  float* red = dzs + kRowsG * P;        // [2][kWarpsG][RS]: warps' dh sums
+  float* dcs = red + 2 * kWarpsG * RS;  // [gpb][kThreads]: dc_next
+
+  const int H4 = 4 * H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ug = lane >> 3, kl = lane & 7, ks = 8 * warp + kl;
+  const int j0 = blockIdx.x * kUnitsG;
+  const unsigned int nblk = gridDim.x;
+  const int g0 = blockIdx.y * gpb;
+  const int ngroups = min(gpb, (B + kRowsG - 1) / kRowsG - g0);
+
+  float4 w[4][NC];  // W_h[j0 + 4 ug + uu][4 (ks + 64 c) + e], zero past H, 4H
+#pragma unroll
+  for (int uu = 0; uu < 4; ++uu)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int jr = j0 + 4 * ug + uu, n = 4 * (ks + kSlicesG * c);
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e[i] = jr < H && n < H4 ? __ldg(wh + (size_t)jr * H4 + n + i) : 0.0f;
+      w[uu][c] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  for (int g = 0; g < ngroups; ++g) dcs[g * kThreads + tid] = 0.0f;
+  // cell role: row r of the group, unit j
+  const int r = tid / kUnitsG, j = j0 + tid % kUnitsG;
+  int buf = 0;
+
+  for (int t = T - 1; t >= 0; --t) {
+    const bool next = t + 1 < T;  // dz_T = 0
+    for (int grp = 0; grp < ngroups; ++grp) {
+      const int gb = (g0 + grp) * kRowsG;
+      const int grows = min(kRowsG, B - gb);
+      auto copy_chunk = [&](int c) {  // one commit group, empty past NC
+        if (c < NC) {
+          const int n = 4 * (ks + kSlicesG * c);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int rr = ug + 4 * q;
+            const bool in = rr < grows && n < H4;
+            cp_async16(
+                dzs + rr * P + n,
+                in ? dxw + ((size_t)(gb + rr) * T + t + 1) * H4 + n : dxw,
+                in ? 16 : 0);
+          }
+        }
+        cp_async_commit();
+      };
+      if (next) {
+#pragma unroll
+        for (int c = 0; c < kAheadG; ++c) copy_chunk(c);
+      }
+      const bool cell = r < grows && j < H;
+      const size_t row = (size_t)(gb + (cell ? r : 0)) * T + t;
+      float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f;
+      float c_t = 0.0f, c_p = 0.0f, dy_t = 0.0f;
+      if (cell) {
+        const float* gz = dxw + row * H4 + j;
+        gi = __ldcg(gz);
+        gf = __ldcg(gz + H);
+        gg = __ldcg(gz + 2 * H);
+        go = __ldcg(gz + 3 * H);
+        c_t = __ldg(cseq + row * H + j);
+        c_p = t > 0 ? __ldg(cseq + (row - 1) * H + j) : 0.0f;
+        dy_t = __ldg(dy + row * H + j);
+      }
+
+      float* rb = red + buf * kWarpsG * RS;
+#pragma unroll 1
+      for (int pass = 0; pass < 2; ++pass) {
+        float v[32];  // v[4 rr + uu]: row 8 pass + rr, unit j0 + 4 ug + uu
+#pragma unroll
+        for (int i = 0; i < 32; ++i) v[i] = 0.0f;
+        if (next) {
+          const float* col = dzs + 8 * pass * P + 4 * ks;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            if (pass == 0) {
+              copy_chunk(c + kAheadG);
+              cp_async_wait<kAheadG>();  // this lane's chunk c landed
+              __syncwarp();              // and the warp's
+            }
+#pragma unroll
+            for (int rr = 0; rr < 8; ++rr) {
+              const float4 d = *reinterpret_cast<const float4*>(
+                  col + rr * P + 4 * kSlicesG * c);
+#pragma unroll
+              for (int uu = 0; uu < 4; ++uu) {
+                float& a = v[4 * rr + uu];
+                a = fmaf(d.x, w[uu][c].x, a);
+                a = fmaf(d.y, w[uu][c].y, a);
+                a = fmaf(d.z, w[uu][c].z, a);
+                a = fmaf(d.w, w[uu][c].w, a);
+              }
+            }
+          }
+        }
+        reduce_half<16>(v, 4, kl & 4);
+        reduce_half<8>(v, 2, kl & 2);
+        reduce_half<4>(v, 1, kl & 1);
+        *reinterpret_cast<float4*>(rb + warp * RS + (8 * pass + kl) * kUnitsG +
+                                   4 * ug) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+      }
+      __syncthreads();
+
+      float dh = dy_t;
+#pragma unroll
+      for (int k = 0; k < kWarpsG; ++k) dh += rb[k * RS + tid];
+      if (cell) {
+        float& dc_next = dcs[grp * kThreads + tid];
+        const float tc = tanhf(c_t);
+        const float dc = dh * go * (1.0f - tc * tc) + dc_next;
+        float* dz = dxw + row * H4 + j;
+        dz[0] = dc * gg * gi * (1.0f - gi);
+        dz[H] = dc * c_p * gf * (1.0f - gf);
+        dz[2 * H] = dc * gi * (1.0f - gg * gg);
+        dz[3 * H] = dh * tc * go * (1.0f - go);
+        dc_next = dc * gf;
+      }
+      buf ^= 1;
+    }
+    if (t > 0) grid_barrier(counters + blockIdx.y, nblk * (unsigned)(T - t));
+  }
+}
+
+struct GroupPlan {
+  int gpb, grid_rows;
+  size_t smem;
+};
+
+// Groups of kRowsG batch rows go to grid rows.  Every block of the
+// cooperative launch must be resident at once, so when nblk blocks per
+// group do not fit, each grid row takes gpb groups in turn (its shared
+// memory growing by one dc_next vector a group).
+template <typename Kernel>
+cudaError_t plan_groups(Kernel kernel, int nc, int B, int nblk,
+                        GroupPlan* out) {
+  const int groups = (B + kRowsG - 1) / kRowsG;
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  for (int gpb = 1;;) {
+    const size_t smem = group_smem_bytes(nc, gpb);
+    int per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+      return err;
+    const int rows_fit = std::min(groups, per_sm * sms / nblk);
+    if (rows_fit < 1) return cudaErrorCooperativeLaunchTooLarge;
+    const int need = (groups + rows_fit - 1) / rows_fit;
+    if (need <= gpb) {
+      *out = {gpb, (groups + gpb - 1) / gpb, smem};
+      return cudaSuccess;
+    }
+    gpb = need;
+  }
+}
+
+template <int NC>
+cudaError_t launch_bptt_group(const float* wh, const float* c,
+                              const float* dy, float* dxw,
+                              unsigned int* counters, int B, int T, int H,
+                              cudaStream_t st) {
+  const auto kernel = lstm_bptt_group_kernel<NC>;
+  const int nblk = (H + kUnitsG - 1) / kUnitsG;
+  GroupPlan g;
+  cudaError_t err = plan_groups(kernel, NC, B, nblk, &g);
+  if (err != cudaSuccess) return err;
+  int gpb = g.gpb;
+  void* args[] = {(void*)&wh,       (void*)&c, (void*)&dy, (void*)&dxw,
+                  (void*)&counters, (void*)&B, (void*)&T,  (void*)&H,
+                  (void*)&gpb};
+  err = cudaLaunchCooperativeKernel((const void*)kernel,
+                                    dim3(nblk, g.grid_rows), dim3(kThreads),
+                                    args, g.smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dz into dxw (B, T, 4H).  Returns a cudaError_t (0 on success).
-// `counters` must hold lstm_bptt_counters(B, H) zeroed uint32 values.  At
-// H <= kSmallH the gate pre-pass writes dxw first and the loop reads it
-// back in 16-byte copies, so dxw must be 16-byte aligned (any tensor that
+// dz into dxw (B, T, 4H), H <= kMaxGroupH.  Returns a cudaError_t (0 on
+// success).  `counters` must hold lstm_bptt_counters(B, H) zeroed uint32
+// values.  The gate pre-pass writes dxw first and the loop reads it back
+// in 16-byte copies, so dxw must be 16-byte aligned (any tensor that
 // starts at a row); the inputs may start anywhere.
 int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
                      const float* c, const float* dy, float* dxw,
                      unsigned int* counters, int B, int T, int H,
                      void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxGroupH)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(dxw)) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (H <= kSmallH) {
-    if (!aligned16(dxw)) return (int)cudaErrorMisalignedAddress;
-    cudaError_t err = launch_gates(xw, wh, h, dxw, B, T, H, st);
-    if (err != cudaSuccess) return (int)err;
-    const int hp = H <= 32 ? 32 : 64;
-    auto* kernel = hp == 32 ? lstm_bptt_small_kernel<32>
-                            : lstm_bptt_small_kernel<64>;
-    kernel<<<B, 2 * hp, 0, st>>>(wh, c, dy, dxw, T, H);
-    return (int)cudaGetLastError();
+  cudaError_t err = launch_gates(xw, wh, h, dxw, B, T, H, st);
+  if (err != cudaSuccess) return (int)err;
+  if (H > kSmallH) {
+    const auto launch = H <= 128   ? launch_bptt_group<2>
+                        : H <= 256 ? launch_bptt_group<4>
+                                   : launch_bptt_group<8>;
+    return (int)launch(wh, c, dy, dxw, counters, B, T, H, st);
   }
-  const BpttPlan q = make_bptt_plan(H);
-  Rows r;
-  cudaError_t err = plan_rows(
-      lstm_bptt_kernel, B, q.p.U, q.p.nblk,
-      [&](int gpb) { return bptt_smem_bytes(q, H, gpb); }, &r);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem = bptt_smem_bytes(q, H, r.gpb);
-  err = cudaFuncSetAttribute(lstm_bptt_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(q.p.nblk, r.grid_rows);
-  int U = q.p.U, S = q.p.S, pitch = q.p.pitch, S2 = q.S2, pitch2 = q.pitch2,
-      gpb = r.gpb;
-  void* args[] = {(void*)&xw,     (void*)&wh, (void*)&h,      (void*)&c,
-                  (void*)&dy,     (void*)&dxw, (void*)&counters, (void*)&B,
-                  (void*)&T,      (void*)&H,  (void*)&U,      (void*)&S,
-                  (void*)&pitch,  (void*)&S2, (void*)&pitch2, (void*)&gpb};
-  err = cudaLaunchCooperativeKernel((const void*)lstm_bptt_kernel, grid,
-                                    dim3(kThreads), args, smem, st);
-  if (err != cudaSuccess) return (int)err;
+  const int hp = H <= 32 ? 32 : 64;
+  auto* kernel =
+      hp == 32 ? lstm_bptt_small_kernel<32> : lstm_bptt_small_kernel<64>;
+  kernel<<<B, 2 * hp, 0, st>>>(wh, c, dy, dxw, T, H);
   return (int)cudaGetLastError();
 }
 
 // Barrier counters lstm_bptt_launch needs: none at H <= kSmallH, else one
-// per group of kMaxRows rows.
+// per group of kRowsG rows.
 int lstm_bptt_counters(int B, int H) {
-  return H <= kSmallH ? 0 : (B + kMaxRows - 1) / kMaxRows;
+  return H <= kSmallH ? 0 : (B + kRowsG - 1) / kRowsG;
 }
 
-// The gate pre-pass of lstm_bptt_launch alone (H <= kSmallH): gates
-// (B, T, 4H) = act(xw + h_{t-1} W_h), i, f, o through the sigmoid and g
-// through tanh.
+// The gate pre-pass of lstm_bptt_launch alone (any H; above kSmallH gates
+// must be 8-byte aligned): gates (B, T, 4H) = act(xw + h_{t-1} W_h), i, f,
+// o through the sigmoid and g through tanh.
 int lstm_gates_launch(const float* xw, const float* wh, const float* h,
                       float* gates, int B, int T, int H, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H > kSmallH)
-    return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   return (int)launch_gates(xw, wh, h, gates, B, T, H, (cudaStream_t)stream);
 }
 

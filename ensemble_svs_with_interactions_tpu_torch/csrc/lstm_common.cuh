@@ -4,7 +4,9 @@
 // of the multi-block kernels, and the residency plan that keeps their
 // cooperative launch within what the card holds at once.  At H <= kSmallH
 // the forward and the BPTT each have their own kernels, one block per
-// batch row and no grid barrier; make_split and plan_rows serve H > kSmallH.
+// batch row and no grid barrier; make_split and plan_rows serve the
+// forward above kSmallH.  The BPTT above kSmallH (lstm_bptt.cu) has its
+// own layout and plan and shares the helpers and grid_barrier.
 #pragma once
 
 #include <cuda_runtime.h>

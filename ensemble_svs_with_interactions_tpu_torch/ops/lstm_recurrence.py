@@ -8,8 +8,8 @@ Replaces ``ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py``:
   ``_lstm_fwd_kernel`` (hidden and cell sequences, the residual the backward
   needs): :func:`lstm_recurrence`, kernel ``csrc/lstm_recurrence.cu``;
 * ``_lstm_bwd_kernel`` (reverse-time BPTT: the gate gradient dxw and dW_h):
-  :func:`lstm_bptt` (at H <= 64 a gate pre-pass, :func:`lstm_gates`, then
-  the reverse loop) and :func:`lstm_dwh`, kernels ``csrc/lstm_bptt.cu``;
+  :func:`lstm_bptt` (a gate pre-pass, :func:`lstm_gates`, then the reverse
+  loop; H <= 512) and :func:`lstm_dwh`, kernels ``csrc/lstm_bptt.cu``;
 * the custom VJP ``lstm_recurrence_trainable``:
   :class:`LSTMRecurrence` / :func:`lstm_recurrence_trainable`.  The v5e
   block sizing ``trainable_auto_blocks`` has no counterpart: the kernels
@@ -26,15 +26,20 @@ products are far too small to fill the card, so a step costs its latency,
 not bytes or FLOPs.  The designs keep everything that does not change
 across steps on chip (see the headers of the CUDA sources):
 
-* H <= 64, forward and BPTT: one block per batch row owns all units, W_h
-  sits in registers at a compile-time padded width of 32 or 64, the sums
-  of a step meet through a warp shuffle, and a step ends at one
-  ``__syncthreads``; the BPTT first computes every step's gates in a
-  parallel pre-pass, so only dh and the cell arithmetic stay in its loop;
-* H > 64, forward and BPTT: each block holds its slices of W_h in shared
-  memory for the whole sequence, the hidden units are split across blocks
-  so the per-step exchange and a grid barrier are the only cross-block
-  traffic.
+* the BPTT first computes every step's gates in a parallel pre-pass (at
+  H > 64 a 3xTF32 tensor-core product), so only dh and the cell
+  arithmetic stay in its loop;
+* H <= 64, forward and BPTT loop: one block per batch row owns all units,
+  W_h sits in registers at a compile-time padded width of 32 or 64, the
+  sums of a step meet through a warp shuffle, and a step ends at one
+  ``__syncthreads``;
+* H > 64, forward: each block holds its slice of W_h in shared memory for
+  the whole sequence, the hidden units are split across blocks so the
+  per-step exchange and a grid barrier are the only cross-block traffic;
+* 64 < H <= 512, BPTT loop: the grid splits the units and the batch, each
+  block holds the rows of W_h of its 16 units in registers, and only the
+  blocks that share 16 batch rows exchange dz and meet at a barrier.
+  Wider BPTTs raise: those rows outgrow the registers.
 
 dW_h is a tiled product over all steps, run after the loop, bound by the
 tensor cores' rate: 3xTF32 ``mma.sync`` (float32-accurate), fed by a
@@ -250,16 +255,16 @@ def _bptt_library():
 
 # ---------------------------------------------------------------- wrappers
 def _check_cuda(fn: str, ref, **tensors):
-    """Raise unless every tensor is contiguous float32 on ``ref``'s CUDA
-    device."""
+    """Raise unless every tensor is float32 on ``ref``'s CUDA device, and
+    return them contiguous (a copy where one is not)."""
     if ref.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {ref.device}")
     for name, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous float32, got "
-                             f"{t.dtype}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be float32, got {t.dtype}")
         if t.device != ref.device:
             raise ValueError(f"{fn}: {name} on {t.device}, not {ref.device}")
+    return [t.contiguous() for t in tensors.values()]
 
 
 def _check_shapes(fn: str, xw, w_h, **seqs):
@@ -286,6 +291,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+SMALL_H = 64  # kSmallH of csrc/lstm_common.cuh
+MAX_BPTT_H = 512  # kMaxGroupH of csrc/lstm_bptt.cu
+
+
 def lstm_recurrence(xw, w_h, want_c: bool = False):
     """The LSTM recurrence: the hand-written kernel on a CUDA tensor, the
     plain version on a CPU tensor.  Same contract as
@@ -294,18 +303,21 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
     if xw.device.type == "cpu":
         return lstm_recurrence_reference(xw, w_h, want_c)
     B, T, H = _check_shapes("lstm_recurrence", xw, w_h)
-    _check_cuda("lstm_recurrence", xw, xw=xw, w_h=w_h)
+    xw, w_h = _check_cuda("lstm_recurrence", xw, xw=xw, w_h=w_h)
+    if H <= SMALL_H and xw.data_ptr() % 16:
+        xw = xw.clone()  # that kernel streams xw rows in 16-byte copies
     y = torch.empty(B, T, H, device=xw.device, dtype=torch.float32)
     c = torch.empty_like(y) if want_c else None
     if B == 0 or T == 0:
         return (y, c) if want_c else y
     lib = _library()
-    counters = torch.zeros(lib.lstm_recurrence_counters(B, H),
-                           device=xw.device, dtype=torch.int32)
-    err = lib.lstm_recurrence_launch(
-        xw.data_ptr(), w_h.data_ptr(), y.data_ptr(),
-        c.data_ptr() if want_c else None, counters.data_ptr(), B, T, H,
-        _stream(xw))
+    with torch.cuda.device(xw.device):
+        counters = torch.zeros(lib.lstm_recurrence_counters(B, H),
+                               device=xw.device, dtype=torch.int32)
+        err = lib.lstm_recurrence_launch(
+            xw.data_ptr(), w_h.data_ptr(), y.data_ptr(),
+            c.data_ptr() if want_c else None, counters.data_ptr(), B, T, H,
+            _stream(xw))
     if err != 0:
         _raise_launch("lstm_recurrence", lib.lstm_recurrence_error_string,
                       err, B=B, T=T, H=H)
@@ -315,24 +327,29 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
 
 def lstm_bptt(xw, w_h, h, c, dy):
     """The gate gradient dxw (B, T, 4H) of the reverse-time BPTT: the
-    hand-written kernels on a CUDA tensor (at H <= 64 the gate pre-pass and
-    the reverse loop, both counted as one launch), the plain loop on a CPU
-    tensor.  Inputs as :func:`lstm_recurrence_bwd_reference`."""
+    hand-written kernels on a CUDA tensor (the gate pre-pass and the
+    reverse loop, both counted as one launch; H <= 512), the plain loop on
+    a CPU tensor.  Inputs as :func:`lstm_recurrence_bwd_reference`."""
     if xw.device.type == "cpu":
         return lstm_bptt_loop_reference(lstm_gates_reference(xw, w_h, h), w_h,
                                         c, dy)
     B, T, H = _check_shapes("lstm_bptt", xw, w_h, h=h, c=c, dy=dy)
-    _check_cuda("lstm_bptt", xw, xw=xw, w_h=w_h, h=h, c=c, dy=dy)
-    dxw = torch.empty_like(xw)
+    if H > MAX_BPTT_H:
+        raise ValueError(f"lstm_bptt: H = {H}, the kernels take H <= "
+                         f"{MAX_BPTT_H}")
+    xw, w_h, h, c, dy = _check_cuda("lstm_bptt", xw, xw=xw, w_h=w_h, h=h,
+                                    c=c, dy=dy)
+    dxw = torch.empty(B, T, 4 * H, device=xw.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return dxw
     lib = _bptt_library()
-    counters = torch.zeros(lib.lstm_bptt_counters(B, H), device=xw.device,
-                           dtype=torch.int32)
-    err = lib.lstm_bptt_launch(
-        xw.data_ptr(), w_h.data_ptr(), h.data_ptr(), c.data_ptr(),
-        dy.data_ptr(), dxw.data_ptr(), counters.data_ptr(), B, T, H,
-        _stream(xw))
+    with torch.cuda.device(xw.device):
+        counters = torch.zeros(lib.lstm_bptt_counters(B, H),
+                               device=xw.device, dtype=torch.int32)
+        err = lib.lstm_bptt_launch(
+            xw.data_ptr(), w_h.data_ptr(), h.data_ptr(), c.data_ptr(),
+            dy.data_ptr(), dxw.data_ptr(), counters.data_ptr(), B, T, H,
+            _stream(xw))
     if err != 0:
         _raise_launch("lstm_bptt", lib.lstm_bptt_error_string, err,
                       B=B, T=T, H=H)
@@ -342,19 +359,21 @@ def lstm_bptt(xw, w_h, h, c, dy):
 
 def lstm_gates(xw, w_h, h):
     """The gate pre-pass of :func:`lstm_bptt` alone, for tests and timing:
-    the hand-written kernel on a CUDA tensor (H <= 64 only), the plain
-    version on a CPU tensor.  Same contract as
-    :func:`lstm_gates_reference`."""
+    the hand-written kernel on a CUDA tensor (``lstm_gates_kernel`` at
+    H <= 64, ``lstm_gates_mma_kernel`` above), the plain version on a CPU
+    tensor.  Same contract as :func:`lstm_gates_reference`."""
     if xw.device.type == "cpu":
         return lstm_gates_reference(xw, w_h, h)
     B, T, H = _check_shapes("lstm_gates", xw, w_h, h=h)
-    _check_cuda("lstm_gates", xw, xw=xw, w_h=w_h, h=h)
-    gates = torch.empty_like(xw)
+    xw, w_h, h = _check_cuda("lstm_gates", xw, xw=xw, w_h=w_h, h=h)
+    gates = torch.empty(B, T, 4 * H, device=xw.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return gates
     lib = _bptt_library()
-    err = lib.lstm_gates_launch(xw.data_ptr(), w_h.data_ptr(), h.data_ptr(),
-                                gates.data_ptr(), B, T, H, _stream(xw))
+    with torch.cuda.device(xw.device):
+        err = lib.lstm_gates_launch(xw.data_ptr(), w_h.data_ptr(),
+                                    h.data_ptr(), gates.data_ptr(), B, T, H,
+                                    _stream(xw))
     if err != 0:
         _raise_launch("lstm_gates", lib.lstm_bptt_error_string, err,
                       B=B, T=T, H=H)
@@ -372,17 +391,19 @@ def lstm_dwh(h, dz):
         raise ValueError(f"lstm_dwh: h {tuple(h.shape)} and dz "
                          f"{tuple(dz.shape)} do not form (B, T, H) and "
                          "(B, T, 4H)")
-    _check_cuda("lstm_dwh", h, h=h, dz=dz)
+    h, dz = _check_cuda("lstm_dwh", h, h=h, dz=dz)
     dwh = torch.empty(H, 4 * H, device=h.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return dwh.zero_()
     lib = _bptt_library()
-    splits = lib.lstm_dwh_splits(B, T, H)
-    part = (torch.empty(splits, H, 4 * H, device=h.device,
-                        dtype=torch.float32) if splits > 1 else None)
-    err = lib.lstm_dwh_launch(h.data_ptr(), dz.data_ptr(), dwh.data_ptr(),
-                              part.data_ptr() if part is not None else None,
-                              B, T, H, splits, _stream(h))
+    with torch.cuda.device(h.device):
+        splits = lib.lstm_dwh_splits(B, T, H)
+        part = (torch.empty(splits, H, 4 * H, device=h.device,
+                            dtype=torch.float32) if splits > 1 else None)
+        err = lib.lstm_dwh_launch(
+            h.data_ptr(), dz.data_ptr(), dwh.data_ptr(),
+            part.data_ptr() if part is not None else None, B, T, H, splits,
+            _stream(h))
     if err != 0:
         _raise_launch("lstm_dwh", lib.lstm_bptt_error_string, err,
                       B=B, T=T, H=H)
@@ -423,7 +444,7 @@ class LSTMRecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xw, w_h, h, c = ctx.saved_tensors
-        return lstm_recurrence_bwd(xw, w_h, h, c, dy.contiguous())
+        return lstm_recurrence_bwd(xw, w_h, h, c, dy)
 
 
 def lstm_recurrence_trainable(xw, w_h):

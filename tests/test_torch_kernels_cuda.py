@@ -33,6 +33,10 @@ ATOL = 1e-4
 DWH_RTOL = 1e-4
 FLAGSHIP_H = [62, 64, 256, 512]
 SMALL_H = [1, 8, 32, 62, 64]  # every padded width of the H <= 64 kernels
+# the H > 64 group BPTT: its three register widths (NC = 2, 4, 8), rows of
+# h, c and dy that are not 16-byte multiples (98), unit blocks that are
+# ragged (98, 100)
+GROUP_H = [98, 100, 128, 256, 512]
 
 
 @pytest.fixture
@@ -242,8 +246,35 @@ def test_small_width_bptt_matches_plain(cuda, B, T, H):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H", [
+    # every register width and a ragged batch group; the train step's
+    # shapes; the reverse-time error over 1000 steps; more groups than the
+    # card holds at once (a block takes several in each step)
+    *[(B, T, H) for H in GROUP_H for B in (1, 3, 4, 5, 64, 67)
+      for T in (1, 2, 37)],
+    (64, 256, 256), (64, 256, 512), (4, 1000, 512),
+    (128, 16, 512), (300, 9, 512),
+])
+def test_group_bptt_matches_plain(cuda, B, T, H):
+    """The 64 < H <= 512 BPTT (the 3xTF32 gate pre-pass, then the loop
+    whose grid splits the units and the batch) against the plain loop."""
+    xw, w_h, dy = _inputs(cuda, B, T, H, B * 10 + T + H)
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    before = (lstm_bptt.launches, lstm_gates.launches)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    dxw_ref, _ = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    torch.cuda.synchronize()
+    assert (lstm_bptt.launches, lstm_gates.launches) == (before[0] + 1,
+                                                         before[1])
+    assert (dxw - dxw_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
     (1, 1, 1), (3, 37, 8), (5, 2, 32), (67, 37, 62), (64, 256, 64),
     (4, 1000, 62), (600, 9, 64),
+    # the tensor-core pre-pass: 4-byte copies (98, 100 is H % 4 == 0 but
+    # ragged tiles), the train step's shapes
+    (3, 37, 98), (5, 29, 100), (64, 256, 256), (64, 256, 512),
 ])
 def test_gate_prepass_matches_plain(cuda, B, T, H):
     """The gate pre-pass alone: act(xw_t + h_{t-1} W_h) for every step."""
@@ -276,6 +307,48 @@ def test_small_width_bptt_saturates_like_the_plain_loop(cuda, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 512])
+def test_group_bptt_saturates_like_the_plain_loop(cuda, H):
+    """Gate pre-activations up to about +-200 at H > 64: the tensor-core
+    pre-pass and the group loop saturate as the plain loop does."""
+    xw, w_h, dy = _inputs(cuda, 3, 50, H, 19)
+    xw *= 40.0
+    w_h *= 10.0
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    gates = lstm_gates(xw, w_h, h)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    dxw_ref, _ = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dxw).all()
+    assert (gates - lstm_gates_reference(xw, w_h, h)).abs().max().item() < ATOL
+    assert (dxw - dxw_ref).abs().max().item() < ATOL
+
+
+def _unaligned(t):
+    """A copy of ``t`` that starts 4 bytes into its storage."""
+    v = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return v.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [98, 512])
+def test_group_bptt_takes_inputs_that_are_not_16_byte_aligned(cuda, H):
+    """Every input 4 bytes into its storage, at H > 64: the pre-pass takes
+    the 4-byte copies, the loop reads c, dy and the gates as floats, and
+    the result is bitwise the aligned one."""
+    B, T = 5, 33
+    xw, w_h, dy = _inputs(cuda, B, T, H, 29)
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    args = [_unaligned(t) for t in (xw, w_h, h, c, dy)]
+    assert all(a.data_ptr() % 16 for a in args)
+    got = lstm_bptt(*args)
+    gates = lstm_gates(*args[:3])
+    torch.cuda.synchronize()
+    assert torch.equal(got, lstm_bptt(xw, w_h, h, c, dy))
+    assert torch.equal(gates, lstm_gates(xw, w_h, h))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("H", [62, 64])
 def test_small_width_bptt_takes_inputs_that_are_not_16_byte_aligned(cuda, H):
     """Every input starting 4 bytes into its storage is taken (the pre-pass
@@ -285,12 +358,7 @@ def test_small_width_bptt_takes_inputs_that_are_not_16_byte_aligned(cuda, H):
     B, T = 3, 40
     xw, w_h, dy = _inputs(cuda, B, T, H, 23)
     h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
-
-    def unaligned(t):
-        v = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
-        return v.copy_(t)
-
-    args = [unaligned(t) for t in (xw, w_h, h, c, dy)]
+    args = [_unaligned(t) for t in (xw, w_h, h, c, dy)]
     assert all(a.data_ptr() % 16 for a in args)
     got = lstm_bptt(*args)
     aligned = lstm_bptt(xw, w_h, h, c, dy)
@@ -303,7 +371,7 @@ def test_small_width_bptt_takes_inputs_that_are_not_16_byte_aligned(cuda, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [62, 64, 256])
+@pytest.mark.parametrize("H", [62, 64, 256, 512])
 def test_bptt_padding_suffix_gives_zero_gradient(cuda, H):
     """A row whose dy is zero on a suffix gets dxw = 0 there, and the same
     valid-step gradients as the row cut to its valid length."""
@@ -319,7 +387,7 @@ def test_bptt_padding_suffix_gives_zero_gradient(cuda, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [62, 64, 256])
+@pytest.mark.parametrize("H", [62, 64, 256, 512])
 def test_autograd_function_gradients_on_the_card(cuda, H):
     """The Function's gradients (BPTT and dW_h kernels) against autograd
     through the plain loop in float64 on the same card."""
@@ -346,14 +414,57 @@ def test_lstm_recurrence_rejects_what_the_kernel_does_not_take(cuda):
     w_h = torch.randn(8, 32, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         lstm_recurrence(xw.double(), w_h.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        lstm_recurrence(xw.transpose(0, 1), w_h)
     with pytest.raises(ValueError, match="do not form"):
         lstm_recurrence(xw, w_h[:, :16])
-    # the H <= 64 kernel streams xw rows in 16-byte copies
-    unaligned = torch.randn(2 * 5 * 32 + 1, device=cuda)[1:].view(2, 5, 32)
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        lstm_recurrence(unaligned, w_h)
+    # a non-contiguous xw, or one whose rows are not 16-byte aligned (the
+    # H <= 64 kernel streams them in 16-byte copies), is copied first
+    strided = xw.transpose(0, 1)
+    assert torch.equal(lstm_recurrence(strided, w_h),
+                       lstm_recurrence(strided.contiguous(), w_h))
+    assert torch.equal(lstm_recurrence(_unaligned(xw), w_h),
+                       lstm_recurrence(xw, w_h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [62, 64, 256])
+def test_lstm_recurrence_takes_any_layout_of_xw(cuda, H):
+    """A non-contiguous xw (a slice of a wider projection) and an xw 4 bytes
+    into its storage give bitwise the aligned, contiguous result, in both
+    modes."""
+    xw, w_h, _ = _inputs(cuda, 3, 40, H, 37)
+    wide = torch.cat([xw, xw[..., :8]], dim=-1)[..., :4 * H]
+    assert not wide.is_contiguous()
+    for want_c in (False, True):
+        want = lstm_recurrence(xw, w_h, want_c)
+        for got in (lstm_recurrence(wide, w_h, want_c),
+                    lstm_recurrence(_unaligned(xw), w_h, want_c)):
+            pairs = zip(got, want) if want_c else [(got, want)]
+            assert all(torch.equal(a, b) for a, b in pairs)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_device_of_their_tensors(cuda):
+    """With device 0 current, the forward, the BPTT and dW_h on cuda:1
+    tensors launch on cuda:1 and match their plain versions there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        for H in (64, 256, 512):
+            xw, w_h, dy = _inputs(dev, 5, 30, H, H)
+            y, c = lstm_recurrence(xw, w_h, want_c=True)
+            y_ref, c_ref = lstm_recurrence_reference(xw, w_h, want_c=True)
+            dxw, dwh = lstm_recurrence_bwd(xw, w_h, y_ref, c_ref, dy)
+            dxw_ref, dwh_ref = lstm_recurrence_bwd_reference(xw, w_h, y_ref,
+                                                             c_ref, dy)
+            torch.cuda.synchronize(dev)
+            assert torch.cuda.current_device() == 0
+            assert {t.device for t in (y, c, dxw, dwh)} == {dev}
+            assert (y - y_ref).abs().max().item() < ATOL
+            assert (c - c_ref).abs().max().item() < ATOL
+            assert (dxw - dxw_ref).abs().max().item() < ATOL
+            scale = dwh_ref.abs().max().item()
+            assert (dwh - dwh_ref).abs().max().item() < DWH_RTOL * scale
 
 
 @pytest.mark.cuda
@@ -363,17 +474,25 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
     h = torch.randn(2, 5, 8, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         lstm_bptt(xw, w_h, h, h, h.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        lstm_bptt(xw, w_h, h, h.transpose(0, 1).contiguous().transpose(0, 1),
-                  h)
     with pytest.raises(ValueError, match="do not form"):
         lstm_bptt(xw, w_h, h, h, h[:, :4])
-    with pytest.raises(ValueError, match="contiguous"):
-        lstm_dwh(h, xw.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="float32"):
         lstm_dwh(h.half(), xw.half())
-    # the gate pre-pass alone serves H <= 64 only
+    # the BPTT's W_h rows sit in registers: H <= 512
+    h_big = torch.randn(1, 2, 520, device=cuda)
+    with pytest.raises(ValueError, match="H <= 512"):
+        lstm_bptt(torch.randn(1, 2, 4 * 520, device=cuda),
+                  torch.randn(520, 4 * 520, device=cuda), h_big, h_big, h_big)
+    # non-contiguous inputs are copied first
+    strided = h.transpose(0, 1).contiguous().transpose(0, 1)
+    assert torch.equal(lstm_bptt(xw, w_h, h, strided, h),
+                       lstm_bptt(xw, w_h, h, h, h))
+    dz = xw.transpose(0, 1).contiguous().transpose(0, 1)
+    assert torch.equal(lstm_dwh(h, dz), lstm_dwh(h, xw))
+    # the gate pre-pass alone serves every H
     wide = torch.randn(2, 5, 4 * 100, device=cuda)
-    with pytest.raises(RuntimeError, match="failed to launch"):
-        lstm_gates(wide, torch.randn(100, 400, device=cuda),
-                   torch.randn(2, 5, 100, device=cuda))
+    w_wide = torch.randn(100, 400, device=cuda) / 10.0
+    h_wide = torch.rand(2, 5, 100, device=cuda) * 2.0 - 1.0
+    got = lstm_gates(wide, w_wide, h_wide)
+    want = lstm_gates_reference(wide, w_wide, h_wide)
+    assert (got - want).abs().max().item() < ATOL

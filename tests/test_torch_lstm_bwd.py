@@ -50,6 +50,7 @@ def _t(a):
     (2, 24, 8, 8, 2, 7),   # three time chunks
     (1, 13, 8, 13, 1, 9),  # the odd T
     (3, 16, 5, 4, 1, 3),   # three batch blocks, an H off the lane tiling
+    (2, 8, 128, 4, 1, 5),  # a width the H > 64 kernels take
 ])
 def test_plain_bptt_matches_pallas_interpret(B, T, H, chunk, b_blk, seed):
     rng = np.random.default_rng(seed)
@@ -75,6 +76,7 @@ def test_plain_bptt_matches_pallas_interpret(B, T, H, chunk, b_blk, seed):
 
 @pytest.mark.parametrize("B,T,H,seed", [
     (2, 24, 8, 7), (1, 13, 8, 9), (3, 16, 5, 3), (2, 9, 62, 4),
+    (2, 5, 100, 5), (1, 4, 128, 6),
 ])
 def test_plain_gates_match_jax_formula(B, T, H, seed):
     """The gate pre-pass's plain version against the gates
@@ -133,6 +135,7 @@ def _bwd_reference_unsplit(xw, w_h, h, c, dy):
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("B,T,H,seed", [
     (2, 24, 8, 7), (3, 16, 5, 3), (4, 40, 62, 1), (2, 9, 64, 2), (1, 1, 3, 5),
+    (2, 5, 100, 6), (1, 4, 128, 8),
 ])
 def test_split_plain_bptt_composes_to_the_unsplit_loop(B, T, H, seed, dtype):
     """The gate pre-pass and the reverse loop, composed, give bitwise what
