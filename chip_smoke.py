@@ -14,7 +14,8 @@ PyTorch version on the card.  Phases, each printing JSON lines:
 2. ``kernel``: the LSTM recurrence kernel against its plain version at the
    serving shapes (B = 4, T = 6656, H = 62, 64, 256, 512), with and without
    the cell-sequence output, with times (and microseconds per step), the
-   bound and a library yardstick;
+   bound and a library yardstick; each recurrence row names the kernel
+   the launch's dispatch chose for its shape;
 3. ``train_kernel``: the recurrence (both modes), the BPTT kernel and the
    dW_h kernel against their plain versions at the training shapes
    (B = 64; T = 256, and T = 64 for the AR decoder's H = 256 cell); BPTT
@@ -55,8 +56,6 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 FIXTURE = REPO / "tests" / "data" / "nit_song070" / "nitech_jp_song070_f001_004.lab"
-QST = (REPO / "ensemble_svs_with_interactions_tpu" / "recipes" / "_common"
-       / "hed" / "jp_dev_latest.hed")
 PKG = "ensemble_svs_with_interactions_tpu"
 SEED = 0
 
@@ -259,9 +258,12 @@ def random_state_dicts(phases, seed: int):
 
 def build_engine(device, weights):
     from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
 
     glob, phases = flagship_phases()
-    return SPSVS(glob, QST, {
+    return SPSVS(glob, packaged_question_path(), {
         name: {"model_config": cfg, "state_dict": weights[name],
                "in_scaler": sc_in, "out_scaler": sc_out}
         for name, (cfg, sc_in, sc_out) in phases.items()
@@ -441,7 +443,8 @@ def phase_kernels(lr):
             bound_ms, bound_by = bound(t_bytes, t_ops)
             library_ms, gemm_ms = ((None, None) if want_c
                                    else cudnn_lstm_ms(xw, w_h, 5))
-            row = {"phase": "kernel", "name": "lstm_recurrence", "B": B,
+            row = {"phase": "kernel", "name": "lstm_recurrence",
+                   "kernel": lr.lstm_recurrence_kernel_name(B, H), "B": B,
                    "T": T, "H": H, "want_c": want_c, "max_abs_err": err,
                    "atol": KERNEL_ATOL, "ms": ms, "us_per_step": 1e3 * ms / T,
                    "plain_ms": plain_ms,
@@ -475,8 +478,9 @@ def phase_train_kernels(lr):
             err = max((a - b).abs().max().item() for a, b in pairs)
             t_bytes, t_ops = recurrence_bound_times(B, T, H, want_c)
             ms = cuda_ms(lambda: lr.lstm_recurrence(xw, w_h, want_c), 10)
-            row = {**base, "name": "lstm_recurrence", "want_c": want_c,
-                   "max_abs_err": err, "atol": KERNEL_ATOL,
+            row = {**base, "name": "lstm_recurrence",
+                   "kernel": lr.lstm_recurrence_kernel_name(B, H),
+                   "want_c": want_c, "max_abs_err": err, "atol": KERNEL_ATOL,
                    "ms": ms, "us_per_step": 1e3 * ms / T,
                    "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_reference(
                        xw, w_h, want_c), 1),
@@ -903,6 +907,12 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
                calls=N_CALLS, launches_per_call=slice_launches // N_CALLS,
                train_steps=TRAIN_STEPS, launches_per_step=per_step,
                max_abs_err=rec_err,
+               kernel_by_shape={
+                   **{f"svs H={H}": serving[H]["kernel"]
+                      for H in RECURRENCE_SHAPES},
+                   **{f"train H={H} T={T}":
+                      train_rows["lstm_recurrence", H, T, True]["kernel"]
+                      for H, T in TRAIN_LAUNCHES_BY_SHAPE}},
                library_input_gemm_ms=serve["library_input_gemm_ms"],
                train_step={"ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
                            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],

@@ -618,8 +618,6 @@ constexpr int kGBM = 64, kGBN = 128, kGBK = 16;  // pre-pass block tile
 constexpr int kStagesG = 3;
 constexpr int kPitchGA = kGBK + 4;  // == 20 (mod 32): conflict-free A frags
 constexpr int kPitchGB = kGBN + 8;
-constexpr int kMaxGroupH = 512;     // widest H of the group kernel
-constexpr int kUnitsG = 16;         // units per block
 constexpr int kRowsG = 16;          // batch rows per group
 constexpr int kSlicesG = 64;        // float4 column c is in k slice c % 64
 constexpr int kAheadG = 3;          // dz chunks in flight ahead of the one
@@ -809,19 +807,6 @@ cudaError_t launch_gates(const float* xw, const float* wh, const float* h,
   return cudaGetLastError();
 }
 
-// One step of a reduce-scatter over the lanes `mask` apart: v[0, 2 kHalf)
-// becomes v[0, kHalf), the sums of the half this lane keeps (the upper one
-// where `upper`), its partner keeping the other.
-template <int kHalf>
-__device__ __forceinline__ void reduce_half(float* v, int mask, bool upper) {
-#pragma unroll
-  for (int i = 0; i < kHalf; ++i) {
-    const float keep = upper ? v[i + kHalf] : v[i];
-    const float send = upper ? v[i] : v[i + kHalf];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
-  }
-}
-
 size_t group_smem_bytes(int nc, int gpb) {
   return sizeof(float) * ((size_t)kRowsG * 4 * kSlicesG * nc +
                           2 * kWarpsG * kRowsG * kUnitsG +
@@ -965,42 +950,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-struct GroupPlan {
-  int gpb, grid_rows;
-  size_t smem;
-};
-
-// Groups of kRowsG batch rows go to grid rows.  Every block of the
-// cooperative launch must be resident at once, so when nblk blocks per
-// group do not fit, each grid row takes gpb groups in turn (its shared
-// memory growing by one dc_next vector a group).
-template <typename Kernel>
-cudaError_t plan_groups(Kernel kernel, int nc, int B, int nblk,
-                        GroupPlan* out) {
-  const int groups = (B + kRowsG - 1) / kRowsG;
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  for (int gpb = 1;;) {
-    const size_t smem = group_smem_bytes(nc, gpb);
-    int per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)smem)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-      return err;
-    const int rows_fit = std::min(groups, per_sm * sms / nblk);
-    if (rows_fit < 1) return cudaErrorCooperativeLaunchTooLarge;
-    const int need = (groups + rows_fit - 1) / rows_fit;
-    if (need <= gpb) {
-      *out = {gpb, (groups + gpb - 1) / gpb, smem};
-      return cudaSuccess;
-    }
-    gpb = need;
-  }
-}
-
 template <int NC>
 cudaError_t launch_bptt_group(const float* wh, const float* c,
                               const float* dy, float* dxw,
@@ -1009,7 +958,9 @@ cudaError_t launch_bptt_group(const float* wh, const float* c,
   const auto kernel = lstm_bptt_group_kernel<NC>;
   const int nblk = (H + kUnitsG - 1) / kUnitsG;
   GroupPlan g;
-  cudaError_t err = plan_groups(kernel, NC, B, nblk, &g);
+  cudaError_t err = plan_groups(
+      kernel, (B + kRowsG - 1) / kRowsG, nblk,
+      [](int gpb) { return group_smem_bytes(NC, gpb); }, &g);
   if (err != cudaSuccess) return err;
   int gpb = g.gpb;
   void* args[] = {(void*)&wh,       (void*)&c, (void*)&dy, (void*)&dxw,

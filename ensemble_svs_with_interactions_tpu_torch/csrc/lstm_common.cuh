@@ -1,12 +1,13 @@
 // Pieces shared by the LSTM recurrence kernels (lstm_recurrence.cu, the
 // forward; lstm_bptt.cu, the reverse-time backward and dW_h): the
 // activations, asynchronous global-to-shared copies, the grid-wide barrier
-// of the multi-block kernels, and the residency plan that keeps their
-// cooperative launch within what the card holds at once.  At H <= kSmallH
+// of the multi-block kernels, and the residency plans that keep their
+// cooperative launches within what the card holds at once.  At H <= kSmallH
 // the forward and the BPTT each have their own kernels, one block per
-// batch row and no grid barrier; make_split and plan_rows serve the
-// forward above kSmallH.  The BPTT above kSmallH (lstm_bptt.cu) has its
-// own layout and plan and shares the helpers and grid_barrier.
+// batch row and no grid barrier.  At 64 < H <= kMaxGroupH both have a
+// group kernel (kUnitsG units x a group of batch rows a block, W_h rows in
+// registers), planned by plan_groups.  make_split and plan_rows serve the
+// forward's older kernel, which keeps the widths above kMaxGroupH.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +20,8 @@ namespace lstm {
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 4;  // batch rows per dot-product pass
 constexpr int kSmallH = 64;  // widest H of the one-block-per-row kernels
+constexpr int kMaxGroupH = 512;  // widest H of the group kernels
+constexpr int kUnitsG = 16;      // units per block of the group kernels
 
 __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -81,6 +84,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// One step of a reduce-scatter over the lanes `mask` apart: v[0, 2 kHalf)
+// becomes v[0, kHalf), the sums of the half this lane keeps (the upper one
+// where `upper`), its partner keeping the other.
+template <int kHalf>
+__device__ __forceinline__ void reduce_half(float* v, int mask, bool upper) {
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = upper ? v[i + kHalf] : v[i];
+    const float send = upper ? v[i] : v[i + kHalf];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
@@ -112,6 +128,24 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter,
     while (load_acquire(counter) < target) {
     }
     __threadfence();
+  }
+  __syncthreads();
+}
+
+// The same barrier with the arrival as one release reduction and the wait
+// as acquire loads, and no fences: the __syncthreads before the release
+// orders the block's writes before it, and the one after the acquire
+// orders every read of the block after it (the arrive / wait pattern of
+// CUTLASS's GenericBarrier).  The 64 < H <= 512 forward uses it.
+__device__ __forceinline__ void grid_barrier_release(unsigned int* counter,
+                                                     unsigned int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(counter),
+                 "r"(1u)
+                 : "memory");
+    while (load_acquire(counter) < target) {
+    }
   }
   __syncthreads();
 }
@@ -174,6 +208,41 @@ cudaError_t plan_rows(Kernel kernel, int B, int U, int nblk, SmemFor smem_for,
   }
   *out = r;
   return cudaSuccess;
+}
+
+// The group kernels' plan.  Groups of rows go to grid rows.  Every block
+// of the cooperative launch must be resident at once, so when nblk blocks
+// per group do not fit, each grid row takes gpb groups in turn (its shared
+// memory, smem_for(gpb), growing by one carried vector a group).
+struct GroupPlan {
+  int gpb, grid_rows;
+  size_t smem;
+};
+
+template <typename Kernel, typename SmemFor>
+cudaError_t plan_groups(Kernel kernel, int groups, int nblk, SmemFor smem_for,
+                        GroupPlan* out) {
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  for (int gpb = 1;;) {
+    const size_t smem = smem_for(gpb);
+    int per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)smem)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+      return err;
+    const int rows_fit = std::min(groups, per_sm * sms / nblk);
+    if (rows_fit < 1) return cudaErrorCooperativeLaunchTooLarge;
+    const int need = (groups + rows_fit - 1) / rows_fit;
+    if (need <= gpb) {
+      *out = {gpb, (groups + gpb - 1) / gpb, smem};
+      return cudaSuccess;
+    }
+    gpb = need;
+  }
 }
 
 }  // namespace lstm

@@ -15,7 +15,10 @@
 // the latency of one step: reading h_{t-1}, the product, the cell update, a
 // barrier, and (for H > 64) an exchange of h through L2 between blocks.
 //
-// Two designs, chosen by H.
+// Three designs, chosen by H (the rule above lstm_recurrence_launch): one
+// block per batch row at H <= 64; at 64 < H <= 512 the group kernel (its
+// own section below: 16 units x a group of rows a block, W_h rows in
+// registers, a barrier per group of rows); above 512 the split kernel.
 //
 // H <= 64 (lstm_recurrence_small_kernel): W_h is at most 64 KB, so one block
 // holds all of it, in registers.  The block's width is a compile-time
@@ -44,8 +47,9 @@
 // long as one.  xw rows stream in through an 8-step cp.async ring, far
 // ahead of the step that reads them.
 //
-// H > 64 (lstm_recurrence_kernel): W_h is 4 MiB at H = 512 against 227 KB of
-// shared memory per block.  So:
+// H > 512 (lstm_recurrence_kernel): W_h is 4 MiB at H = 512 against 227 KB
+// of shared memory per block, and past 512 its rows outgrow the group
+// kernel's registers.  So:
 //   * the hidden units are split across the blocks of the grid (blockIdx.x);
 //     a block owns the gate columns {j, H+j, 2H+j, 3H+j} of its U units, so
 //     the cell update stays local, and keeps that (H, 4U) slice of W_h in
@@ -176,7 +180,7 @@ __global__ void __launch_bounds__(kSlices * HP)
   }
 }
 
-// ------------------------------------------------------------------- H > 64
+// ------------------------------------------------------------------ H > 512
 // Its one-block branches (nblk == 1) are no longer taken, since H <= 64 has
 // its own kernel.  They stay: without them the single-group instantiation
 // compiles to 57 registers instead of 64 and ran 6-9% slower at B = 4 on
@@ -298,6 +302,270 @@ size_t smem_bytes(const Split& p, int H, int gpb) {
                           (size_t)gpb * kMaxRows * K);
 }
 
+// -------------------------------------------------------- 64 < H <= 512
+// lstm_recurrence_group_kernel<NC, R>: a cooperative launch whose grid
+// splits the units and the batch.  Block (x, y) owns kUnitsG = 16 units,
+// j0 = 16 x .. 16 x + 15, all four gate columns of each (64 columns), for
+// the groups of R = 4, 8 or 16 batch rows of grid row y; the blocks of a
+// grid row exchange only their rows' h and meet at their own barrier
+// (counters[y]).  The rows of W_h for the block's columns sit in registers
+// for the whole sequence: thread (warp w, lane (cg, kq)), cg < 16, kq < 2,
+// holds the 4 gate columns of unit j0 + cg over the float4 rows of W_h in
+// k slice ks = 2 w + kq, i.e. W_h[4 (ks + 16 c) + e][g H + j0 + cg] for
+// c < NC (H <= 64 NC): 16 NC floats, 128 at H = 512.  Each step, for each
+// of the block's groups:
+//   - each warp copies the h_{t-1} float4 columns its own lanes read (two
+//     of every 16, all R rows) from y into shared memory with cp.async.cg,
+//     which reads through L2 and so sees the other blocks' writes after
+//     the barrier: one commit group per chunk c, kAheadF chunks ahead of
+//     the one being multiplied; a warp waits only for its own copies
+//     (__syncwarp), as lstm_bptt_group_kernel does with dz;
+//   - cell thread (row, unit) = (tid / 16, tid % 16) loads its four xw
+//     values of step t before the product and uses them after it;
+//   - the product, in passes of 4 rows (a pass whose rows are all past B
+//     is skipped, so B <= 4 does one pass whatever R is): each float4 of h
+//     (a 16-lane broadcast) meets the thread's 4 columns, 16 FMAs a shared
+//     load, into 16 sums; one reduce-scatter step over the lane pair kq
+//     leaves each lane the sums of two of the pass's rows, and the 8
+//     warps' partials meet in shared memory with the unit's four gates
+//     side by side, read back as one float4 a warp and summed in warp
+//     order (bitwise repeatable), one __syncthreads a group;
+//   - that thread forms i, f, g, o, updates c (kept in shared memory, one
+//     vector a group) and writes h (and c in the cseq mode).
+// Then the grid row's barrier (grid_barrier_release).  R is the smallest
+// of 4, 8, 16 at which every group of the batch has its own blocks
+// resident at once (launch_group); past that, R = 16 and a block takes
+// gpb groups in turn inside each step (plan_groups), and a launch that
+// cannot fit raises.  Units past H have zero weights and are not written;
+// rows past B are zero-filled and not written.  Where H is not a multiple
+// of 4 (rows of h not 16-byte aligned) each warp copies its columns with
+// __ldcg before the product instead (`vec` == 0).  What bounds it: the
+// same step latency as above, now a product of 16 FMAs a shared load
+// against W_h in registers, a barrier of H / 16 blocks, and h of the
+// group's rows (32 KB at H = 512, R = 16) through L2 a step.  Timed in one
+// call on an H100 against the first design (passes of 8 rows, 16-row
+// groups at B > 4, the fenced grid_barrier; 296 bytes of spill at H =
+// 512): 1.54 against 2.04 ms at B = 64, T = 256, H = 512 (6.0 us a step),
+// 0.76 against 1.11 at H = 256, 17.9 against 21.3 at B = 4, T = 6656,
+// H = 512; the release barrier alone is 17.9 against 20.1 ms there and
+// 1.54 against 1.62 at B = 64.
+constexpr int kSlicesF = 16;        // float4 row c of W_h is in k slice c % 16
+constexpr int kAheadF = 3;          // h chunks in flight ahead of the one
+                                    // being multiplied
+constexpr int kPassRows = 4;        // rows a pass
+constexpr int kWarpsF = kThreads / 32;
+constexpr int kRedPitch = 4 * kUnitsG + 8;  // == 8 (mod 16): conflict-free
+
+size_t group_smem_bytes(int nc, int R, int gpb) {
+  return sizeof(float) * ((size_t)R * 4 * kSlicesF * nc +
+                          2 * (size_t)kWarpsF * R * kRedPitch +
+                          (size_t)gpb * kThreads);
+}
+
+template <int NC, int R>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_recurrence_group_kernel(const float* __restrict__ xw,
+                                 const float* __restrict__ wh, float* y,
+                                 float* cseq, unsigned int* counters, int B,
+                                 int T, int H, int gpb, int vec) {
+  constexpr int P = 4 * kSlicesF * NC;  // h row pitch in floats, >= H
+  constexpr int RP = kPassRows;
+  constexpr int RQ = RP / 2;            // rows a lane keeps after the shuffle
+  constexpr int RS = R * kRedPitch;     // one warp's partial sums
+  extern __shared__ __align__(16) float smem[];
+  float* hs = smem;                     // [R][P]: h_{t-1} of a group
+  float* red = hs + R * P;              // [2][kWarpsF][R][kRedPitch]
+  float* cs = red + 2 * kWarpsF * RS;   // [gpb][kThreads]: c of each group
+
+  const int H4 = 4 * H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cg = lane >> 1, kq = lane & 1, ks = 2 * warp + kq;
+  const int j0 = blockIdx.x * kUnitsG;
+  const unsigned int nblk = gridDim.x;
+  const int g0 = blockIdx.y * gpb;
+  const int ngroups = min(gpb, (B + R - 1) / R - g0);
+
+  float4 w[4][NC];  // W_h[4 (ks + 16 c) + e][g H + j0 + cg], zero past H
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int jw = j0 + cg, k = 4 * (ks + kSlicesF * c);
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e[i] = jw < H && k + i < H ? __ldg(wh + (size_t)(k + i) * H4 +
+                                           g * H + jw)
+                                   : 0.0f;
+      w[g][c] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  for (int g = 0; g < ngroups; ++g) cs[g * kThreads + tid] = 0.0f;
+  // cell role: row r of the group, unit j
+  const int r = tid / kUnitsG, u = tid % kUnitsG, j = j0 + u;
+  int buf = 0;
+
+  for (int t = 0; t < T; ++t) {
+    for (int grp = 0; grp < ngroups; ++grp) {
+      const int gb = (g0 + grp) * R;
+      const int grows = min(R, B - gb);
+      // lane (cg, kq) copies row cg (and cg + 16 ...) of float4 column
+      // ks + 16 c: the columns its warp reads
+      const float* ysrc = y + ((size_t)gb * T + (t > 0 ? t - 1 : 0)) * H;
+      auto copy_chunk = [&](int c) {  // one commit group, empty past NC
+        if (c < NC) {
+          const int k = 4 * (ks + kSlicesF * c);
+#pragma unroll
+          for (int rr = cg; rr < R; rr += 16) {
+            const bool in = rr < grows && k < H;
+            cp_async16(hs + rr * P + k, in ? ysrc + (size_t)rr * T * H + k : y,
+                       in ? 16 : 0);
+          }
+        }
+        cp_async_commit();
+      };
+      if (t > 0) {
+        if (vec) {
+#pragma unroll
+          for (int c = 0; c < kAheadF; ++c) copy_chunk(c);
+        } else {
+          for (int c = 0; c < NC; ++c) {
+            const int k = 4 * (ks + kSlicesF * c);
+            for (int rr = cg; rr < R; rr += 16) {
+              const float* src = ysrc + (size_t)rr * T * H + k;
+              float e[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                e[i] = rr < grows && k + i < H ? __ldcg(src + i) : 0.0f;
+              *reinterpret_cast<float4*>(hs + rr * P + k) =
+                  make_float4(e[0], e[1], e[2], e[3]);
+            }
+          }
+          __syncwarp();
+        }
+      }
+      const bool cell = r < grows && j < H;
+      const size_t row = (size_t)(gb + (cell ? r : 0)) * T + t;
+      float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (cell) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) z[g] = __ldg(xw + row * H4 + g * H + j);
+      }
+
+      float* rb = red + buf * kWarpsF * RS;
+      if (t > 0) {
+#pragma unroll 1
+        for (int pass = 0; pass < R / RP; ++pass) {
+          if (pass > 0 && RP * pass >= grows) break;  // rows past B
+          float v[4 * RP];  // v[4 rr + g]: row RP pass + rr, gate g
+#pragma unroll
+          for (int i = 0; i < 4 * RP; ++i) v[i] = 0.0f;
+          const float* col = hs + RP * pass * P + 4 * ks;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            if (pass == 0 && vec) {
+              copy_chunk(c + kAheadF);
+              cp_async_wait<kAheadF>();  // this lane's chunk c landed
+              __syncwarp();              // and the warp's
+            }
+#pragma unroll
+            for (int rr = 0; rr < RP; ++rr) {
+              const float4 hv = *reinterpret_cast<const float4*>(
+                  col + rr * P + 4 * kSlicesF * c);
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                float& a = v[4 * rr + g];
+                a = fmaf(hv.x, w[g][c].x, a);
+                a = fmaf(hv.y, w[g][c].y, a);
+                a = fmaf(hv.z, w[g][c].z, a);
+                a = fmaf(hv.w, w[g][c].w, a);
+              }
+            }
+          }
+          reduce_half<2 * RP>(v, 1, kq);
+#pragma unroll
+          for (int i = 0; i < RQ; ++i)
+            *reinterpret_cast<float4*>(
+                rb + warp * RS + (RP * pass + RQ * kq + i) * kRedPitch +
+                4 * cg) = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                                      v[4 * i + 3]);
+        }
+      }
+      __syncthreads();
+
+      if (cell) {
+        if (t > 0) {
+#pragma unroll
+          for (int k = 0; k < kWarpsF; ++k) {
+            const float4 s = *reinterpret_cast<const float4*>(
+                rb + k * RS + r * kRedPitch + 4 * u);
+            z[0] += s.x;
+            z[1] += s.y;
+            z[2] += s.z;
+            z[3] += s.w;
+          }
+        }
+        float& c_ref = cs[grp * kThreads + tid];
+        const float c = sigmoid_fast(z[1]) * c_ref +
+                        sigmoid_fast(z[0]) * tanh_fast(z[2]);
+        const float h = sigmoid_fast(z[3]) * tanh_fast(c);
+        c_ref = c;
+        y[row * H + j] = h;
+        if (cseq != nullptr) cseq[row * H + j] = c;
+      }
+      buf ^= 1;
+    }
+    if (t + 1 < T)
+      grid_barrier_release(counters + blockIdx.y, nblk * (unsigned)(t + 1));
+  }
+}
+
+template <int NC, int R>
+cudaError_t plan_group(int B, int nblk, GroupPlan* g) {
+  return plan_groups(
+      lstm_recurrence_group_kernel<NC, R>, (B + R - 1) / R, nblk,
+      [](int gpb) { return group_smem_bytes(NC, R, gpb); }, g);
+}
+
+// Rows a group: the smallest R whose groups all have their own blocks at
+// once, else 16 with several groups a block.
+template <int NC>
+cudaError_t launch_group(const float* xw, const float* wh, float* y,
+                         float* cseq, unsigned int* counters, int B, int T,
+                         int H, cudaStream_t st) {
+  const int nblk = (H + kUnitsG - 1) / kUnitsG;
+  GroupPlan g;
+  cudaError_t err;
+  const void* kernel = (const void*)lstm_recurrence_group_kernel<NC, 4>;
+  if ((err = plan_group<NC, 4>(B, nblk, &g)) != cudaSuccess) return err;
+  if (g.gpb > 1) {
+    kernel = (const void*)lstm_recurrence_group_kernel<NC, 8>;
+    if ((err = plan_group<NC, 8>(B, nblk, &g)) != cudaSuccess) return err;
+  }
+  if (g.gpb > 1) {
+    kernel = (const void*)lstm_recurrence_group_kernel<NC, 16>;
+    if ((err = plan_group<NC, 16>(B, nblk, &g)) != cudaSuccess) return err;
+  }
+  int gpb = g.gpb;
+  int vec = H % 4 == 0 && aligned16(y);
+  void* args[] = {(void*)&xw, (void*)&wh, (void*)&y,   (void*)&cseq,
+                  (void*)&counters, (void*)&B, (void*)&T, (void*)&H,
+                  (void*)&gpb, (void*)&vec};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(nblk, g.grid_rows),
+                                    dim3(kThreads), args, g.smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The kernel a launch at (B, H) runs; see the rule above
+// lstm_recurrence_launch.
+enum class Kernel { kSmall, kGroup, kSplit };
+
+Kernel kernel_for(int B, int H) {
+  if (H <= kSmallH) return Kernel::kSmall;
+  if (H > kMaxGroupH) return Kernel::kSplit;
+  return Kernel::kGroup;
+}
+
 }  // namespace
 
 extern "C" {
@@ -305,18 +573,37 @@ extern "C" {
 // Returns a cudaError_t (0 on success).  `counters` must hold
 // lstm_recurrence_counters(B, H) zeroed uint32 values; `cseq` may be null.
 // At H <= 64 xw must be 16-byte aligned (any tensor that starts at a row).
+//
+// Which kernel serves (B, H) (kernel_for): lstm_recurrence_small_kernel at
+// H <= 64, lstm_recurrence_group_kernel at 64 < H <= 512 (its register
+// limit), lstm_recurrence_kernel above.  The group kernel was faster than
+// lstm_recurrence_kernel at every shape timed, by device time in turns in
+// one call on an H100 (tools/bench_forward_builds.py): B = 4, T = 6656
+// 17.90-17.92 ms against 25.91 at H = 512, 15.40 against 19.63 at 256;
+// B = 64 with c, T = 256, 1.537-1.543 against 6.159-6.165 at 512 and
+// 0.761-0.762 against 2.056-2.059 at 256; T = 64 0.189 against 0.526.
 int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
                            float* cseq, unsigned int* counters, int B, int T,
                            int H, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (H <= kSmallH) {
-    if (!aligned16(xw)) return (int)cudaErrorMisalignedAddress;
-    const int hp = H <= 32 ? 32 : 64;
-    auto* kernel = hp == 32 ? lstm_recurrence_small_kernel<32>
-                            : lstm_recurrence_small_kernel<64>;
-    kernel<<<B, kSlices * hp, 0, st>>>(xw, wh, y, cseq, T, H);
-    return (int)cudaGetLastError();
+  switch (kernel_for(B, H)) {
+    case Kernel::kSmall: {
+      if (!aligned16(xw)) return (int)cudaErrorMisalignedAddress;
+      const int hp = H <= 32 ? 32 : 64;
+      auto* kernel = hp == 32 ? lstm_recurrence_small_kernel<32>
+                              : lstm_recurrence_small_kernel<64>;
+      kernel<<<B, kSlices * hp, 0, st>>>(xw, wh, y, cseq, T, H);
+      return (int)cudaGetLastError();
+    }
+    case Kernel::kGroup: {
+      const auto launch = H <= 128   ? launch_group<2>
+                          : H <= 256 ? launch_group<4>
+                                     : launch_group<8>;
+      return (int)launch(xw, wh, y, cseq, counters, B, T, H, st);
+    }
+    case Kernel::kSplit:
+      break;
   }
   const Split p = make_split(H);
   const auto smem_for = [&](int gpb) { return smem_bytes(p, H, gpb); };
@@ -349,9 +636,22 @@ int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
 
 // Number of barrier counters the launch needs for a batch of B rows at
 // width H: none at H <= 64, else one per group of kMaxRows rows (enough
-// for any grid-row plan).
+// for any grid-row plan of either multi-block kernel).
 int lstm_recurrence_counters(int B, int H) {
   return H <= kSmallH ? 0 : (B + kMaxRows - 1) / kMaxRows;
+}
+
+// The name of the kernel lstm_recurrence_launch runs at (B, H).
+const char* lstm_recurrence_kernel_for(int B, int H) {
+  switch (kernel_for(B, H)) {
+    case Kernel::kSmall:
+      return "lstm_recurrence_small_kernel";
+    case Kernel::kGroup:
+      return "lstm_recurrence_group_kernel";
+    case Kernel::kSplit:
+      break;
+  }
+  return "lstm_recurrence_kernel";
 }
 
 const char* lstm_recurrence_error_string(int err) {

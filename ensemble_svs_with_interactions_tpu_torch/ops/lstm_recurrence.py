@@ -33,13 +33,14 @@ across steps on chip (see the headers of the CUDA sources):
   W_h sits in registers at a compile-time padded width of 32 or 64, the
   sums of a step meet through a warp shuffle, and a step ends at one
   ``__syncthreads``;
-* H > 64, forward: each block holds its slice of W_h in shared memory for
+* 64 < H <= 512, forward and BPTT loop: the grid splits the units and
+  the batch, each block holds the rows of W_h of its 16 units in
+  registers, and only the blocks that share a group of batch rows
+  exchange h (forward) or dz (BPTT) and meet at a barrier.  Wider BPTTs
+  raise: those rows outgrow the registers;
+* H > 512, forward: each block holds its slice of W_h in shared memory for
   the whole sequence, the hidden units are split across blocks so the
-  per-step exchange and a grid barrier are the only cross-block traffic;
-* 64 < H <= 512, BPTT loop: the grid splits the units and the batch, each
-  block holds the rows of W_h of its 16 units in registers, and only the
-  blocks that share 16 batch rows exchange dz and meet at a barrier.
-  Wider BPTTs raise: those rows outgrow the registers.
+  per-step exchange and a grid barrier are the only cross-block traffic.
 
 dW_h is a tiled product over all steps, run after the loop, bound by the
 tensor cores' rate: 3xTF32 ``mma.sync`` (float32-accurate), fed by a
@@ -237,6 +238,8 @@ def _library():
     lib = ctypes.CDLL(str(build()["lstm_recurrence"]))
     _bind(lib, "lstm_recurrence_launch", *[_PTR] * 5, _INT, _INT, _INT, _PTR)
     _bind(lib, "lstm_recurrence_counters", _INT, _INT)
+    _bind(lib, "lstm_recurrence_kernel_for", _INT, _INT,
+          restype=ctypes.c_char_p)
     _bind(lib, "lstm_recurrence_error_string", _INT, restype=ctypes.c_char_p)
     return lib
 
@@ -323,6 +326,13 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
                       err, B=B, T=T, H=H)
     lstm_recurrence.launches += 1
     return (y, c) if want_c else y
+
+
+def lstm_recurrence_kernel_name(B: int, H: int) -> str:
+    """The name of the kernel :func:`lstm_recurrence` launches for a batch
+    of B rows at width H (the rule in ``csrc/lstm_recurrence.cu``, above
+    ``lstm_recurrence_launch``).  Builds the library at first use."""
+    return _library().lstm_recurrence_kernel_for(B, H).decode()
 
 
 def lstm_bptt(xw, w_h, h, c, dy):

@@ -25,6 +25,7 @@ from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence,
     lstm_recurrence_bwd,
     lstm_recurrence_bwd_reference,
+    lstm_recurrence_kernel_name,
     lstm_recurrence_reference,
     lstm_recurrence_trainable,
 )
@@ -33,9 +34,9 @@ ATOL = 1e-4
 DWH_RTOL = 1e-4
 FLAGSHIP_H = [62, 64, 256, 512]
 SMALL_H = [1, 8, 32, 62, 64]  # every padded width of the H <= 64 kernels
-# the H > 64 group BPTT: its three register widths (NC = 2, 4, 8), rows of
-# h, c and dy that are not 16-byte multiples (98), unit blocks that are
-# ragged (98, 100)
+# the H > 64 group kernels (forward and BPTT): their three register widths
+# (NC = 2, 4, 8), rows of h, c and dy that are not 16-byte multiples (98),
+# unit blocks that are ragged (98, 100)
 GROUP_H = [98, 100, 128, 256, 512]
 
 
@@ -63,6 +64,13 @@ def _inputs(cuda, B, T, H, seed):
     # grid row, so grid rows take several groups (and 67 a ragged one)
     *[(B, 256, H) for B in (64, 67) for H in FLAGSHIP_H],
     (128, 16, 512),
+    # the group kernel (64 < H <= 512): every register width, one and two
+    # steps and an odd length, groups of 4 rows (B <= 4) and of 16, ragged
+    # last groups; blocks taking several groups (128, 300); the serving
+    # length; and the widths above 512 on the older kernel
+    *[(B, T, H) for H in GROUP_H for B in (1, 3, 4, 5, 16, 17, 64, 67)
+      for T in (1, 2, 37)],
+    (128, 37, 512), (300, 9, 512), (4, 6656, 512), (32, 9, 1024),
 ])
 def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
     xw, w_h, _ = _inputs(cuda, B, T, H, B * 1000 + H)
@@ -75,6 +83,50 @@ def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
     assert (y - y_ref).abs().max().item() < ATOL
     assert (c - c_ref).abs().max().item() < ATOL
     assert torch.equal(y, y_only)
+
+
+@pytest.mark.cuda
+def test_lstm_recurrence_dispatch(cuda):
+    """The kernel each width and batch runs: the train step's H = 256 and
+    512 forwards on the group kernel, H <= 64 on the one-row-a-block
+    kernel, H > 512 on the older split kernel."""
+    for B in (64, 67, 4):
+        assert lstm_recurrence_kernel_name(B, 62) == (
+            "lstm_recurrence_small_kernel")
+        assert lstm_recurrence_kernel_name(B, 1024) == "lstm_recurrence_kernel"
+    for H in (256, 512):
+        assert lstm_recurrence_kernel_name(64, H) == (
+            "lstm_recurrence_group_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [(67, 37, 98), (67, 40, 256), (4, 300, 512),
+                                   (300, 9, 512)])
+def test_lstm_recurrence_kernel_is_deterministic(cuda, B, T, H):
+    """Two launches on the same inputs give bitwise equal h and c: the
+    warps' partial sums meet in a fixed order, with no atomics."""
+    xw, w_h, _ = _inputs(cuda, B, T, H, 41)
+    y1, c1 = lstm_recurrence(xw, w_h, want_c=True)
+    y2, c2 = lstm_recurrence(xw, w_h, want_c=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(c1, c2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [(3, 50, 256), (3, 50, 512), (20, 50, 512)])
+def test_group_forward_saturates_like_the_plain_loop(cuda, B, T, H):
+    """Gate pre-activations up to about +-200 at 64 < H <= 512: the group
+    kernel's hardware exp2 / reciprocal activations saturate to the same
+    0, 1 and -1 as the plain loop's."""
+    xw, w_h, _ = _inputs(cuda, B, T, H, 43)
+    xw *= 40.0
+    w_h *= 10.0
+    y, c = lstm_recurrence(xw, w_h, want_c=True)
+    y_ref, c_ref = lstm_recurrence_reference(xw, w_h, want_c=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(c).all()
+    assert (y - y_ref).abs().max().item() < ATOL
+    assert (c - c_ref).abs().max().item() < ATOL
 
 
 @pytest.mark.cuda
@@ -426,7 +478,7 @@ def test_lstm_recurrence_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [62, 64, 256])
+@pytest.mark.parametrize("H", [62, 64, 98, 256, 512])
 def test_lstm_recurrence_takes_any_layout_of_xw(cuda, H):
     """A non-contiguous xw (a slice of a wider projection) and an xw 4 bytes
     into its storage give bitwise the aligned, contiguous result, in both

@@ -266,3 +266,21 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_question_set_is_the_jax_packages():
+    """The port keeps its own copy of the bundled question set, byte-equal
+    to the JAX package's."""
+    from ensemble_svs_with_interactions_tpu.utils import (
+        packaged_question_path as jax_question_path,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+
+    port = Path(packaged_question_path())
+    assert port.parent.parent.parent.name == (
+        "ensemble_svs_with_interactions_tpu_torch")
+    assert port.read_bytes() == Path(jax_question_path()).read_bytes()
+    with pytest.raises(FileNotFoundError):
+        packaged_question_path("no_such_set")

@@ -37,8 +37,16 @@ SHAPES = [(64, 256, 512), (64, 256, 256), (64, 64, 256), (67, 37, 98),
 TIMED_B = 64
 
 
-def build_all(sources: dict, out: Path) -> dict:
-    """{name: ctypes library}, one nvcc per source, all started at once."""
+def bind_bptt(lib):
+    lr._bind(lib, "lstm_bptt_launch", *[lr._PTR] * 7, lr._INT, lr._INT,
+             lr._INT, lr._PTR)
+    lr._bind(lib, "lstm_gates_launch", *[lr._PTR] * 4, lr._INT, lr._INT,
+             lr._INT, lr._PTR)
+
+
+def build_all(sources: dict, out: Path, bind=bind_bptt) -> dict:
+    """{name: ctypes library}, one nvcc per source, all started at once,
+    each library's entry points declared by ``bind``."""
     out.mkdir(parents=True, exist_ok=True)
     nvcc = lr._find_nvcc()
     procs = {name: subprocess.Popen(
@@ -53,10 +61,7 @@ def build_all(sources: dict, out: Path) -> dict:
             print(f"{name}: nvcc failed\n{log[-3000:]}", file=sys.stderr)
             continue
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lr._bind(lib, "lstm_bptt_launch", *[lr._PTR] * 7, lr._INT, lr._INT,
-                 lr._INT, lr._PTR)
-        lr._bind(lib, "lstm_gates_launch", *[lr._PTR] * 4, lr._INT, lr._INT,
-                 lr._INT, lr._PTR)
+        bind(lib)
         libs[name] = lib
     return libs
 

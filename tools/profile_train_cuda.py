@@ -31,6 +31,7 @@ import chip_smoke as cs  # noqa: E402
 from profile_svs_cuda import _device_us  # noqa: E402
 
 HAND_WRITTEN = ("lstm_recurrence_kernel", "lstm_recurrence_small_kernel",
+                "lstm_recurrence_group_kernel",
                 "lstm_gates_kernel", "lstm_bptt_small_kernel",
                 "lstm_gates_mma_kernel",
                 "lstm_bptt_group_kernel", "lstm_dwh_kernel",
