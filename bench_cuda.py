@@ -1,0 +1,165 @@
+"""Serving benchmark of the PyTorch/CUDA port: ``bench.py``'s workload on
+one NVIDIA GPU, through the port's normal entry point.
+
+    python3 bench_cuda.py
+
+The flagship of ``bench.py`` at its widths (``chip_smoke.flagship_phases``:
+the MultiTrackVariancePredictor timing models and the
+MultiTrackMultistreamSeparateF0ParametricModel acoustic model) gets random
+torch weights from seed 0, is written by ``utils/packing.pack_model`` into
+a temporary directory and opened by ``SPSVS(model_dir)``.  Four copies of
+``tests/data/nit_song070/nitech_jp_song070_f001_004.lab`` (31.2 s) render
+as a pairwise ring: one warm-up call, then 7 timed calls (host clock
+around a call that ends in a host copy of the int16 audio), then one call
+with ``blocked_stage_times=True``.
+
+Prints ONE JSON line: the median RTF under
+``metric: "rtf_4part_flagship_multitrack_48k"``, every run's seconds, the
+audio seconds, the median run's ``last_stage_times``, the blocked run's,
+the LSTM kernel launches per call and the kernel each width ran, the peak
+device memory, the pack and load seconds, and the card's name and power
+limit as ``nvidia-smi`` gives them.  No TPU number is a target here.
+
+``--device cpu --tiny`` (narrow widths, the first seconds of the fixture,
+two timed calls) exists for the CPU test only: it reports no device
+metric.  Without a card, the default device fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+import chip_smoke
+from chip_smoke import FIXTURE, N_TRACKS, SEED
+
+METRIC = "rtf_4part_flagship_multitrack_48k"
+WARMUP_CALLS = 1
+TIMED_CALLS = 7
+TINY_CALLS = 2
+TINY_SECONDS = 4.0
+
+
+def load_labels(tiny: bool):
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+
+    labels = hts.load(FIXTURE)
+    if tiny:
+        n = next(i for i, e in enumerate(labels.end_times)
+                 if e > TINY_SECONDS * 1e7)
+        labels = labels[:n]
+    return labels
+
+
+def card_info(device: torch.device) -> dict:
+    """The device the numbers were taken on; ``nvidia-smi``'s name and power
+    limit on a card."""
+    if device.type != "cuda":
+        return {"device": "cpu", "kind": "cpu", "count": 0, "card": None}
+    return {"device": "cuda", "kind": torch.cuda.get_device_name(device),
+            "count": torch.cuda.device_count(),
+            "card": chip_smoke.card_line()}
+
+
+def bench_device(name: str) -> torch.device:
+    """The device to measure on; the card unless the CPU is asked for, and
+    no card raises rather than measure the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the bench measures the card; "
+                           "--device cpu is for its CPU test")
+    return device
+
+
+def sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(device: torch.device, tiny: bool) -> dict:
+    from ensemble_svs_with_interactions_tpu_torch.ops import (
+        lstm_recurrence as lr,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    _, phases = chip_smoke.flagship_phases(tiny=tiny)
+    weights = chip_smoke.random_state_dicts(phases, SEED)
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.perf_counter()
+        chip_smoke.pack_flagship(model_dir, weights, tiny=tiny)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = SPSVS(model_dir, device=device)
+        sync(device)
+        load_s = time.perf_counter() - t0
+    on_device = all(p.device.type == device.type for m in (
+        engine.timelag_model, engine.duration_model, engine.acoustic_model)
+        for p in m.module.parameters())
+    labels = load_labels(tiny)
+    spk_ids = list(range(N_TRACKS))
+
+    def call(**kw):
+        return engine.svs_ensemble([labels.copy() for _ in range(N_TRACKS)],
+                                   spk_ids=spk_ids, **kw)
+
+    t0 = time.perf_counter()
+    for _ in range(WARMUP_CALLS):
+        call()
+    warmup_s = time.perf_counter() - t0
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    lr.lstm_recurrence.launches = 0
+    times, stages = [], []
+    calls = TINY_CALLS if tiny else TIMED_CALLS
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        wavs, sr = call()
+        times.append(time.perf_counter() - t0)
+        stages.append(dict(engine.last_stage_times))
+    launches = lr.lstm_recurrence.launches
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
+    call(blocked_stage_times=True)
+    blocked = dict(engine.last_stage_times)
+
+    order = int(np.argsort(times)[len(times) // 2])
+    audio_s = len(wavs[0]) / sr
+    widths = sorted({m.w_h.shape[0] for m in engine.acoustic_model.module
+                     .modules() if hasattr(m, "w_h")})
+    return {
+        "metric": METRIC, "value": times[order] / audio_s, "unit": "ratio",
+        "all_runs_sec": times, "audio_seconds": audio_s,
+        "rtf_all": [t / audio_s for t in times], "calls": calls,
+        "warmup_calls": WARMUP_CALLS, "warmup_sec": warmup_s,
+        "stages_sec": stages[order], "stages_blocked_sec": blocked,
+        "lstm_launches_per_call": launches / calls,
+        "lstm_kernel_by_hidden": (
+            {str(H): lr.lstm_recurrence_kernel_name(N_TRACKS, H)
+             for H in widths} if device.type == "cuda" else None),
+        "peak_mem_gib": peak, "pack_sec": pack_s, "load_sec": load_s,
+        "weights_on_device_before_first_call": on_device,
+        "wav_lengths": [len(w) for w in wavs], "tracks": N_TRACKS,
+        "fixture": FIXTURE.name, "tiny": tiny,
+        **card_info(device),
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--tiny", action="store_true",
+                   help="narrow widths and a short input (CPU test only)")
+    args = p.parse_args(argv)
+    print(json.dumps(run(bench_device(args.device), args.tiny)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,20 +23,28 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    and the gate pre-pass timed and checked alone beside its bound and a
    ``torch.addmm`` of the same product; dW_h also gives its achieved
    TFLOP/s and checks that two launches agree bitwise;
-4. ``slice``: engine build, a warm-up, then three timed ``svs_ensemble``
-   calls on 4 copies of the 31.2 s fixture with the launch count reset
-   just before and read just after;
-5. ``reference``: the same modules on the CPU (plain recurrence) against
+4. ``slice``: the random weights written by ``utils/packing.pack_model``
+   into a temporary directory and opened by ``SPSVS(model_dir)``, the
+   normal entry point (``pack_s``, ``load_s``), a warm-up, then three
+   timed ``svs_ensemble`` calls on 4 copies of the 31.2 s fixture with the
+   launch count reset just before and read just after;
+5. ``packed``: the same weights built in memory by ``SPSVS.from_parts``
+   render the fixture with durations and int16 audio bitwise equal to the
+   loaded engine's;
+6. ``reference``: the same modules on the CPU (plain recurrence) against
    the card on a shortened input, and the AR lf0 decoder against a
    float64 oracle;
-6. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
+7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
    forward, backward and optimizer;
-7. ``train_reference``: one step at full width without dropout, B = 4,
+8. ``train_reference``: one step at full width without dropout, B = 4,
    on the card against the same step on the CPU (loss, every gradient,
    the new batch statistics);
-8. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
+9. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
+
+``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
+configs, weights and kernel operation counts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or the JAX package.
@@ -48,6 +56,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -126,17 +135,27 @@ def card_line() -> str:
 
 # ----------------------------------------------------------- bench configs
 # verbatim copies of bench.py's flagship configs (flagship_acoustic_config,
-# the timelag/duration netGs and the scalers of build_flagship_engine)
-def flagship_acoustic_config(n_spk: int = 4):
+# the timelag/duration netGs and the scalers of build_flagship_engine).
+# ``tiny=True`` narrows every width for the benches' CPU tests (TINY); the
+# stream layout and the model classes stay.
+TINY = {"embed": 8, "enc_hidden": 8, "enc_out": 16, "enc_layers": 2,
+        "ff": 8, "conv": 8, "lstm": 4, "dec": 8, "spk": 8, "tl": 8, "du": 8,
+        "layers": 2}
+
+
+def flagship_acoustic_config(n_spk: int = 4, tiny: bool = False):
     MGC, BAP = 60, 5
+    w = TINY if tiny else {}
     SS = [MGC, 1, 1, BAP]
     OUT = sum(SS)
     lf0_model = {
         "_target_": f"{PKG}.models.acoustic.MultiTrackBiLSTMResF0NonAttentiveDecoder",
         "in_dim": 86, "out_dim": 1,
-        "in_ph_start_idx": 3, "in_ph_end_idx": 50, "embed_dim": 256,
-        "ff_hidden_dim": 256, "conv_hidden_dim": 128, "lstm_hidden_dim": 64,
-        "num_lstm_layers": 2, "decoder_layers": 1, "decoder_hidden_dim": 256,
+        "in_ph_start_idx": 3, "in_ph_end_idx": 50,
+        "embed_dim": w.get("embed", 256), "ff_hidden_dim": w.get("ff", 256),
+        "conv_hidden_dim": w.get("conv", 128),
+        "lstm_hidden_dim": w.get("lstm", 64), "num_lstm_layers": 2,
+        "decoder_layers": 1, "decoder_hidden_dim": w.get("dec", 256),
         "prenet_layers": 0, "prenet_hidden_dim": 16, "prenet_dropout": 0.5,
         "scaled_tanh": True, "zoneout": 0.0,
         "reduction_factor": 4, "downsample_by_conv": True,
@@ -147,17 +166,22 @@ def flagship_acoustic_config(n_spk: int = 4):
     encoder = {
         "_target_": f"{PKG}.models.MultiTrackLSTMEncoder",
         "in_dim": 86, "in_ph_start_idx": 3, "in_ph_end_idx": 50,
-        "embed_dim": 256, "hidden_dim": 512, "out_dim": 1024,
-        "num_layers": 3, "dropout": 0.0, "bidirectional": True,
-        "init_type": "kaiming_normal",
+        "embed_dim": w.get("embed", 256),
+        "hidden_dim": w.get("enc_hidden", 512),
+        "out_dim": w.get("enc_out", 1024),
+        "num_layers": w.get("enc_layers", 3), "dropout": 0.0,
+        "bidirectional": True, "init_type": "kaiming_normal",
     }
 
     def ffconvlstm(out_dim, ff, conv, lstm, dropout):
+        if tiny:
+            ff, conv, lstm = w["ff"], w["conv"], w["lstm"]
         return {
             "_target_": f"{PKG}.models.FFConvLSTM",
-            "in_dim": 1026, "ff_hidden_dim": ff, "conv_hidden_dim": conv,
-            "lstm_hidden_dim": lstm, "num_lstm_layers": 2,
-            "bidirectional": True, "out_dim": out_dim, "dropout": dropout,
+            "in_dim": encoder["out_dim"] + 2, "ff_hidden_dim": ff,
+            "conv_hidden_dim": conv, "lstm_hidden_dim": lstm,
+            "num_lstm_layers": 2, "bidirectional": True, "out_dim": out_dim,
+            "dropout": dropout,
         }
 
     ac = {
@@ -175,7 +199,8 @@ def flagship_acoustic_config(n_spk: int = 4):
             "bap_model": ffconvlstm(BAP, 256, 128, 62, 0.0),
             "speaker_embedding": {
                 "_target_": f"{PKG}.models.SpeakerEmbedding",
-                "num_embeddings": n_spk, "embedding_dim": 256, "std": 0.01,
+                "num_embeddings": n_spk,
+                "embedding_dim": w.get("spk", 256), "std": 0.01,
             },
         },
         "stream_sizes": SS,
@@ -185,7 +210,7 @@ def flagship_acoustic_config(n_spk: int = 4):
     return ac, SS
 
 
-def flagship_phases(n_spk: int = 4):
+def flagship_phases(n_spk: int = 4, tiny: bool = False):
     """(global config, {phase: (model_config, in_scaler, out_scaler)})."""
     from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
         MinMaxScaler,
@@ -197,7 +222,9 @@ def flagship_phases(n_spk: int = 4):
     tl = {
         "netG": {
             "_target_": f"{PKG}.models.MultiTrackVariancePredictor",
-            "in_dim": 82, "out_dim": 3, "hidden_dim": 32, "num_layers": 3,
+            "in_dim": 82, "out_dim": 3,
+            "hidden_dim": TINY["tl"] if tiny else 32,
+            "num_layers": TINY["layers"] if tiny else 3,
             "kernel_size": 3, "dropout": 0.5, "use_mdn": True,
             "num_gaussians": 4, "init_type": "kaiming_normal",
             "num_speaker": n_spk, "spk_embed_dim": 16,
@@ -209,7 +236,9 @@ def flagship_phases(n_spk: int = 4):
     du = {
         "netG": {
             "_target_": f"{PKG}.models.MultiTrackVariancePredictor",
-            "in_dim": 82, "out_dim": 1, "hidden_dim": 256, "num_layers": 5,
+            "in_dim": 82, "out_dim": 1,
+            "hidden_dim": TINY["du"] if tiny else 256,
+            "num_layers": TINY["layers"] if tiny else 5,
             "kernel_size": 5, "dropout": 0.5, "use_mdn": True,
             "num_gaussians": 4, "init_type": "kaiming_normal",
             "num_speaker": n_spk, "spk_embed_dim": 16,
@@ -218,7 +247,7 @@ def flagship_phases(n_spk: int = 4):
         "has_dynamic_features": [False],
         "num_windows": 1,
     }
-    ac, _ = flagship_acoustic_config(n_spk)
+    ac, _ = flagship_acoustic_config(n_spk, tiny)
     mean = np.zeros(OUT)
     scale = np.ones(OUT) * 0.1
     mean[MGC] = np.log(260.0)
@@ -257,17 +286,42 @@ def random_state_dicts(phases, seed: int):
 
 
 def build_engine(device, weights):
+    """The flagship engine built in memory (``SPSVS.from_parts``) from
+    state dicts."""
     from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
     from ensemble_svs_with_interactions_tpu_torch.utils import (
         packaged_question_path,
     )
 
     glob, phases = flagship_phases()
-    return SPSVS(glob, packaged_question_path(), {
+    return SPSVS.from_parts(glob, packaged_question_path(), {
         name: {"model_config": cfg, "state_dict": weights[name],
                "in_scaler": sc_in, "out_scaler": sc_out}
         for name, (cfg, sc_in, sc_out) in phases.items()
     }, device=device)
+
+
+def pack_flagship(model_dir, weights, tiny: bool = False):
+    """Write the flagship with the given state dicts as a packed model
+    directory (``utils/packing.pack_model``, through ``torch_to_flax``)."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.packing import (
+        pack_model,
+    )
+
+    glob, phases = flagship_phases(tiny=tiny)
+    parts = {}
+    for name, (cfg, sc_in, sc_out) in phases.items():
+        module = instantiate(cfg["netG"])
+        module.load_state_dict(weights[name])
+        parts[name] = {"model_config": cfg, "module": module,
+                       "in_scaler": sc_in, "out_scaler": sc_out}
+    return pack_model(model_dir, glob, packaged_question_path(), parts)
 
 
 # ------------------------------------------------------------------ timing
@@ -282,14 +336,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def recurrence_ops(B, T, H):
+    """Operations of the recurrence: the h @ W_h multiply-adds plus the gate
+    arithmetic, about 12 operations per unit and step."""
+    return 2 * B * T * H * 4 * H + 12 * B * T * H
+
+
+def gates_ops(B, T, H):
+    """Operations of the BPTT's gate pre-pass: the h_{t-1} W_h
+    multiply-adds plus the bias add."""
+    return 2 * B * T * H * 4 * H + B * T * 4 * H
+
+
+def bptt_loop_ops(B, T, H):
+    """Operations of the BPTT's reverse loop: the dz_{t+1} W_h^T
+    multiply-adds plus about 30 elementwise operations per unit and
+    step."""
+    return 2 * B * T * 4 * H * H + 30 * B * T * H
+
+
 def recurrence_bound_times(B, T, H, want_c):
     """(bytes time, operations time) in ms for the recurrence's work: each
-    input read once and each output written once over the memory rate; the
-    h @ W_h multiply-adds plus the gate arithmetic (about 12 operations per
-    unit and step) over the float32 rate."""
+    input read once and each output written once over the memory rate;
+    ``recurrence_ops`` over the float32 rate."""
     nbytes = 4 * (B * T * 4 * H + H * 4 * H + B * T * H * (2 if want_c else 1))
-    flops = 2 * B * T * H * 4 * H + 12 * B * T * H
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
+    return (1e3 * nbytes / PEAK_BYTES_PER_S,
+            1e3 * recurrence_ops(B, T, H) / PEAK_FP32_FLOP_PER_S)
 
 
 def bptt_bound_times(B, T, H):
@@ -309,9 +381,8 @@ def gates_bound_times(B, T, H):
     pre-pass uses: float32 FMA at H <= 64, 3xTF32 on the tensor cores above
     (PEAK_3XTF32_FLOP_PER_S, as ``dwh_bound_times``)."""
     nbytes = 4 * (2 * B * T * 4 * H + B * T * H + H * 4 * H)
-    flops = 2 * B * T * H * 4 * H + B * T * 4 * H
     rate = PEAK_FP32_FLOP_PER_S if H <= 64 else PEAK_3XTF32_FLOP_PER_S
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / rate
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * gates_ops(B, T, H) / rate
 
 
 def bptt_loop_bound_times(B, T, H):
@@ -320,8 +391,8 @@ def bptt_loop_bound_times(B, T, H):
     written once; the dz_{t+1} W_h^T multiply-adds plus about 30
     elementwise operations per unit and step over the float32 rate."""
     nbytes = 4 * (2 * B * T * 4 * H + H * 4 * H + 2 * B * T * H)
-    flops = 2 * B * T * 4 * H * H + 30 * B * T * H
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_FP32_FLOP_PER_S
+    return (1e3 * nbytes / PEAK_BYTES_PER_S,
+            1e3 * bptt_loop_ops(B, T, H) / PEAK_FP32_FLOP_PER_S)
 
 
 def dwh_flops(B, T, H):
@@ -567,10 +638,18 @@ def prepass_row(lr, xw, w_h, h):
 
 
 def phase_slice(lr, weights, labels):
-    t0 = time.time()
-    engine = build_engine("cuda", weights)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
+    """The engine through the normal entry point: the weights packed into a
+    temporary directory, then ``SPSVS(model_dir)``."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.time()
+        pack_flagship(model_dir, weights)
+        pack_s = time.time() - t0
+        t0 = time.time()
+        engine = SPSVS(model_dir, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
     t0 = time.time()
     engine.svs_ensemble([lab.copy() for lab in labels],
                         spk_ids=list(range(N_TRACKS)))
@@ -587,7 +666,8 @@ def phase_slice(lr, weights, labels):
     launches = lr.lstm_recurrence.launches
 
     audio_s = max(len(w) for w in wavs) / sr
-    emit({"phase": "slice", "engine_build_s": build_s, "warmup_s": warm_s,
+    emit({"phase": "slice", "pack_s": pack_s, "load_s": load_s,
+          "warmup_s": warm_s,
           "runs_s": [r["seconds"] for r in runs],
           "rtf": [r["seconds"] / audio_s for r in runs],
           "stages": runs[len(runs) // 2]["stages"], "audio_seconds": audio_s,
@@ -603,6 +683,32 @@ def phase_slice(lr, weights, labels):
                         blocked_stage_times=True)
     emit({"phase": "slice_blocked", "stages": engine.last_stage_times})
     return engine, launches
+
+
+def phase_packed(engine, weights, labels):
+    """The engine ``SPSVS.from_parts`` builds from the same weights renders
+    the fixture with durations and int16 audio bitwise equal to those of
+    the engine loaded from the packed directory."""
+    t0 = time.time()
+    parts = build_engine("cuda", weights)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    N = len(labels)
+    spk_ids, pairs = list(range(N)), [(i + 1) % N for i in range(N)]
+    durations = [
+        [(list(lab.start_times), list(lab.end_times))
+         for lab in e.predict_timing_multitrack_batch(
+             [lab.copy() for lab in labels], spk_ids, pairs)]
+        for e in (engine, parts)]
+    wavs = [e.svs_ensemble([lab.copy() for lab in labels], spk_ids=spk_ids)[0]
+            for e in (engine, parts)]
+    same_audio = [bool(np.array_equal(a, b)) for a, b in zip(*wavs)]
+    emit({"phase": "packed", "from_parts_build_s": build_s,
+          "durations_equal": durations[0] == durations[1],
+          "audio_bitwise_equal": same_audio,
+          "wav_lengths": [len(w) for w in wavs[1]]})
+    assert durations[0] == durations[1], "durations differ"
+    assert all(same_audio), same_audio
 
 
 def phase_reference(engine, weights, labels):
@@ -955,6 +1061,7 @@ def main() -> int:
     weights = random_state_dicts(flagship_phases()[1], SEED)
     labels = [hts.load(FIXTURE) for _ in range(N_TRACKS)]
     engine, launches = phase_slice(lr, weights, labels)
+    phase_packed(engine, weights, labels)
     phase_reference(engine, weights, labels)
     del engine
     train_launches = phase_train(lr)

@@ -3,17 +3,25 @@
 path, ``svs_ensemble`` over a multitrack (cross-conditioned) model with the
 device-resident postprocess and WORLD vocoder.
 
-The engine is built in memory from the same three things the JAX
-package's ``utils/packing.pack_model`` takes: a global config, the question
-set, and per-phase (model config, weights, scalers).  Weights are a torch
-``"state_dict"``; the JAX package's flax variables become one through
-``utils.flax_port.flax_to_torch``.
+``SPSVS(model_dir)`` opens a packed model directory, as written by the
+JAX package's ``utils/packing.pack_model`` or the port's own
+(``utils/packing.py``): ``config.yaml``, ``qst.hed``, per phase
+``{phase}_model.yaml`` and flax-msgpack ``{phase}_model.params``, and the
+scalers' ``.npy`` files.  It reads them with the port's own YAML and
+msgpack subsets (``utils/yaml_io.py``, ``utils/flax_msgpack.py``), so it
+needs neither ``yaml`` nor ``msgpack``, and carries the flax variables
+into the port's modules with ``utils/flax_port.flax_to_torch``.
+
+``SPSVS.from_parts`` builds the same engine in memory from the things
+``pack_model`` takes, with the weights as torch state dicts.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -26,13 +34,31 @@ from ensemble_svs_with_interactions_tpu_torch.ops.world.synthesis import (
     quantize_peak_norm_int16,
     synthesize_from_streams,
 )
+from ensemble_svs_with_interactions_tpu_torch.utils import flax_msgpack
 from ensemble_svs_with_interactions_tpu_torch.utils.config import (
     Config,
     instantiate,
+    load_config,
 )
+from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
+    flax_to_torch,
+)
+from ensemble_svs_with_interactions_tpu_torch.utils.logger import getLogger
 from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
     extract_static_scaler,
+    load_minmax_scaler,
+    load_standard_scaler,
 )
+
+# (phase, bucket) of the three models every engine holds
+_PHASES = (("timelag", gen.PHONE_BUCKET), ("duration", gen.PHONE_BUCKET),
+           ("acoustic", gen.FRAME_BUCKET))
+# packed parts the JAX package loads and the port does not have yet
+_UNPORTED = {"postfilter": "ensemble_svs_with_interactions_tpu/models/"
+                           "postfilters.py",
+             "vocoder": "ensemble_svs_with_interactions_tpu/models/vocoders/"}
+_VOCODER_TYPES = ("world", "pwg", "usfgan", "auto")
+_POST_FILTER_TYPES = ("merlin", "nnsvs", "gv", "none", "off", None)
 
 
 def build_model(phase: Dict, device, bucket: int) -> gen.ModelPack:
@@ -43,50 +69,111 @@ def build_model(phase: Dict, device, bucket: int) -> gen.ModelPack:
     return gen.ModelPack(module, cfg, bucket=bucket, device=device)
 
 
+def _torch_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("SPSVS(device='cuda'): no CUDA device; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 class SPSVS:
-    """Statistical-parametric SVS engine (multitrack ensemble path).
+    """Statistical-parametric SVS engine (multitrack ensemble path) over a
+    packed model directory.
 
     Args:
-        config: global config (sample_rate, frame_period, feature_type,
-            use_world_codec, relative_f0, spk_list, optional per-phase
-            sections), as ``pack_model``'s ``global_config``.
-        qst_path: HTS question set (.hed).
-        phases: ``{"timelag" | "duration" | "acoustic": {"model_config",
-            "state_dict", "in_scaler", "out_scaler"}}``.
+        model_dir: the packed directory (see the module docstring).  A
+            ``postfilter_model.yaml`` or ``vocoder_model.yaml`` in it raises
+            ``NotImplementedError``: those models are not ported.
+        verbose: logging level, as the JAX package's (``utils/logger``).
         device: where the models run; ``"cuda"`` unless asked otherwise.
     """
 
-    def __init__(self, config: Dict, qst_path, phases: Dict[str, Dict],
-                 device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SPSVS(device='cuda'): no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
-        self.config = Config(config)
+    def __init__(self, model_dir, verbose: int = 0, device="cuda"):
+        device = _torch_device(device)
+        self.model_dir = Path(model_dir)
+        for part, module in _UNPORTED.items():
+            if (self.model_dir / f"{part}_model.yaml").exists():
+                raise NotImplementedError(
+                    f"{self.model_dir}: a packed {part} model needs "
+                    f"{module}, which the port has not ported")
+        self._setup(load_config(self.model_dir / "config.yaml"),
+                    self.model_dir / "qst.hed", device, verbose)
+        for phase, bucket in _PHASES:
+            setattr(self, f"{phase}_model", self._load_model(phase, bucket))
+            setattr(self, f"in_{phase}_scaler",
+                    self._load_minmax(f"in_{phase}"))
+            setattr(self, f"out_{phase}_scaler",
+                    self._load_standard(f"out_{phase}"))
+        self._finish()
+
+    @classmethod
+    def from_parts(cls, config: Dict, qst_path, phases: Dict[str, Dict],
+                   device="cuda") -> "SPSVS":
+        """The engine from in-memory parts: the global config (as
+        ``pack_model``'s ``global_config``), the question set, and
+        ``phases``: ``{"timelag" | "duration" | "acoustic":
+        {"model_config", "state_dict", "in_scaler", "out_scaler"}}``."""
+        self = cls.__new__(cls)
+        self.model_dir = None
+        self._setup(Config(config), qst_path, _torch_device(device), 0)
+        for phase, bucket in _PHASES:
+            setattr(self, f"{phase}_model",
+                    build_model(phases[phase], self.device, bucket))
+            setattr(self, f"in_{phase}_scaler", phases[phase]["in_scaler"])
+            setattr(self, f"out_{phase}_scaler", phases[phase]["out_scaler"])
+        self._finish()
+        return self
+
+    def _setup(self, config: Config, qst_path, device: torch.device,
+               verbose: int):
+        self.logger = getLogger(verbose=verbose)
+        self.device = device
+        self.config = config
         self.feature_type = self.config.get("feature_type", "world")
         self.sample_rate = int(self.config.get("sample_rate", 48000))
         self.frame_period = float(self.config.get("frame_period", 5))
+        self.spk_list = list(self.config.get("spk_list", []) or [])
         self.binary_dict, self.numeric_dict = hts.load_question_set(qst_path)
         self.pitch_indices = hts.get_pitch_indices(self.binary_dict,
                                                    self.numeric_dict)
 
-        self.timelag_model = build_model(phases["timelag"], self.device,
-                                         gen.PHONE_BUCKET)
-        self.duration_model = build_model(phases["duration"], self.device,
-                                          gen.PHONE_BUCKET)
-        self.acoustic_model = build_model(phases["acoustic"], self.device,
-                                          gen.FRAME_BUCKET)
-        for ph in ("timelag", "duration", "acoustic"):
-            setattr(self, f"in_{ph}_scaler", phases[ph]["in_scaler"])
-            setattr(self, f"out_{ph}_scaler", phases[ph]["out_scaler"])
+    def _finish(self):
         cfg = self.acoustic_model.config
         self.acoustic_out_static_scaler = extract_static_scaler(
             self.out_acoustic_scaler, cfg.stream_sizes,
             cfg.has_dynamic_features, cfg.num_windows)
-        self.is_multitrack = hasattr(self.acoustic_model.module,
-                                     "inference_main")
+        # a multitrack (cross-conditioned) acoustic netG takes x_main, as
+        # the JAX package decides it
+        self.is_multitrack = "x_main" in inspect.signature(
+            self.acoustic_model.module.forward).parameters
         self._fused_cache = None
         self.last_stage_times = {}
+
+    # ------------------------------------------------------------- loading
+    def _load_model(self, phase: str,
+                    bucket: int = gen.FRAME_BUCKET) -> gen.ModelPack:
+        """``{phase}_model.yaml`` -> module; ``{phase}_model.params`` (flax
+        msgpack) -> its weights; then onto the device."""
+        cfg = load_config(self.model_dir / f"{phase}_model.yaml")
+        module = instantiate(dict(cfg["netG"]))
+        variables = flax_msgpack.from_bytes(
+            (self.model_dir / f"{phase}_model.params").read_bytes())
+        flax_to_torch(module, variables)
+        return gen.ModelPack(module, cfg, bucket=bucket, device=self.device)
+
+    def _load_minmax(self, prefix: str):
+        return load_minmax_scaler(self.model_dir / f"{prefix}_scaler")
+
+    def _load_standard(self, prefix: str):
+        return load_standard_scaler(self.model_dir / f"{prefix}_scaler")
+
+    def __repr__(self):
+        return (f"{type(self).__name__}(model_dir="
+                f"{str(self.model_dir) if self.model_dir else None!r}, "
+                f"sample_rate={self.sample_rate}, "
+                f"feature_type={self.feature_type!r}, vocoder='world', "
+                f"device={str(self.device)!r})")
 
     # ------------------------------------------------------ config lookups
     def _force_clip(self, phase: str) -> bool:
@@ -222,22 +309,41 @@ class SPSVS:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
-    def svs_ensemble(self, labels_list, post_filter_type: str = "gv",
-                     vuv_threshold: float = 0.5, spk_ids=None, pairs=None,
+    def svs_ensemble(self, labels_list, vocoder_type: str = "world",
+                     post_filter_type: str = "gv",
+                     vuv_threshold: float = 0.5, dtype=np.int16,
+                     spk_ids=None, pairs=None,
                      blocked_stage_times: bool = False):
         """Synthesize an N-part ensemble: every track is the MAIN track of
         one pair, conditioned on a sub track (``pairs[i]``, default the next
         track in a ring), and all N pairs run through the joint timing and
         acoustic models as single (N, T, D) batches.
 
-        ``last_stage_times`` gets the JAX package's keys; ``*_dispatch``
-        stages are enqueue times (the device wait lands in the vocoder),
-        and ``blocked_stage_times=True`` synchronizes after the acoustic
-        and postprocess stages to add ``*_blocked`` attributions.
+        The signature is the JAX package's.  ``last_stage_times`` gets its
+        keys; ``*_dispatch`` stages are enqueue times (the device wait
+        lands in the vocoder), and ``blocked_stage_times=True``
+        synchronizes after the acoustic and postprocess stages to add
+        ``*_blocked`` attributions.
 
-        The port renders through the WORLD vocoder to int16, the JAX
-        package's defaults.  Returns (list of int16 wavs, sample_rate).
+        The port renders through the WORLD vocoder to int16: another
+        ``vocoder_type`` (``"auto"`` is WORLD, the port packs no neural
+        vocoder) or ``dtype`` raises ``NotImplementedError``.  Returns
+        (list of int16 wavs, sample_rate).
         """
+        vocoder_type = str(vocoder_type).lower()
+        if vocoder_type not in _VOCODER_TYPES:
+            raise ValueError(f"Unknown vocoder type: {vocoder_type}")
+        if post_filter_type not in _POST_FILTER_TYPES:
+            raise ValueError(f"Unknown post-filter type: {post_filter_type}")
+        if vocoder_type not in ("world", "auto"):
+            raise NotImplementedError(
+                f"vocoder_type={vocoder_type!r} needs the neural vocoders of "
+                f"{_UNPORTED['vocoder']}, which the port has not ported")
+        if np.dtype(dtype) != np.int16:
+            raise NotImplementedError(
+                f"dtype={np.dtype(dtype)}: the port renders int16 only; other "
+                "output types need the JAX package's "
+                "SPSVS.postprocess_waveform, which the port has not ported")
         if not self.is_multitrack:
             raise NotImplementedError("the port's svs_ensemble covers "
                                       "multitrack (cross-conditioned) models")
@@ -292,4 +398,10 @@ class SPSVS:
                 "postproc_blocked": t_post_blocked - t_acoustic_blocked,
                 "vocoder": t_end - t_post_blocked,
             })
+        audio_s = max(len(w) for w in outs) / self.sample_rate
+        self.logger.info(
+            "ensemble: %d parts, %.2f s audio, total %.3f s, RTF %.4f (%s)",
+            N, audio_s, t_end - start, (t_end - start) / audio_s,
+            ", ".join(f"{k} {v:.3f}s" for k, v in
+                      self.last_stage_times.items()))
         return outs, self.sample_rate

@@ -4,13 +4,18 @@ Configs are the JAX package's own dicts: a ``_target_`` such as
 ``ensemble_svs_with_interactions_tpu.models.FFConvLSTM`` resolves to the
 port's class of the same module path
 (``ensemble_svs_with_interactions_tpu_torch.models.FFConvLSTM``), so one
-config dict builds both twins.  No YAML here: configs arrive in memory.
+config dict builds both twins.  ``load_config`` / ``save_config`` read and
+write the YAML files of packed model directories through the port's own
+subset reader and writer (``utils/yaml_io.py``), with no ``yaml`` import.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Any
+from pathlib import Path
+from typing import Any, Dict
+
+from ensemble_svs_with_interactions_tpu_torch.utils import yaml_io
 
 _JAX_PKG = "ensemble_svs_with_interactions_tpu"
 _PKG = "ensemble_svs_with_interactions_tpu_torch"
@@ -28,6 +33,17 @@ class Config(dict):
             v = Config(v)
             self[name] = v
         return v
+
+
+def load_config(path) -> Config:
+    """A YAML config file as a ``Config`` (an empty file gives ``{}``)."""
+    return Config(yaml_io.load(Path(path).read_text()) or {})
+
+
+def save_config(cfg: Dict, path) -> None:
+    """Write ``cfg`` as ``yaml.safe_dump(cfg, sort_keys=False)`` would
+    (tuples as lists)."""
+    Path(path).write_text(yaml_io.dump(cfg))
 
 
 def resolve_target(path: str) -> Any:

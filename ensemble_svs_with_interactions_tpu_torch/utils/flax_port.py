@@ -1,4 +1,5 @@
-"""Load the JAX package's flax variables into the port's modules.
+"""Carry weights between the JAX package's flax variables and the port's
+modules, both ways.
 
 The port's submodules carry the flax scope names, so a torch module path
 (``LSTM_0.l0_fwd``) is the flax path (``LSTM_0/l0_fwd``).  Each leaf
@@ -20,7 +21,12 @@ module converts its flax subtree to torch layouts:
   ``w_x (C, 4H)``, ``w_h (H, 4H)`` and ``b (4H,)``.
 
 Every flax leaf must be consumed and every torch parameter and buffer set,
-or ``flax_to_torch`` raises.
+or ``flax_to_torch`` raises.  ``torch_to_flax`` is its inverse: it splits
+the LSTM weights back into the per-gate Dense kernels (the bias on the h
+path), transposes the Dense and Conv kernels back and rebuilds
+``batch_stats``; it raises on any torch tensor it cannot place, and
+``flax_to_torch(m2, torch_to_flax(m1))`` reproduces every tensor of ``m1``
+bitwise.
 """
 
 from __future__ import annotations
@@ -149,3 +155,78 @@ def flax_to_torch(module: nn.Module, variables) -> nn.Module:
             f"{sorted(missing_p)}, flax batch_stats not consumed: "
             f"{sorted(missing_s)}, torch tensors not set: {sorted(unset)}")
     return module
+
+
+def _n(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy())
+
+
+def _to_flax(module):
+    """(flax params, flax batch stats, torch names used) of one leaf module,
+    the flax trees keyed by paths relative to the module; None for a
+    module that holds no weights of its own."""
+    if isinstance(module, nn.Linear):
+        p, used = {"kernel": _n(module.weight.t())}, ["weight"]
+        if module.bias is not None:
+            p["bias"] = _n(module.bias)
+            used.append("bias")
+        return p, {}, used
+    if isinstance(module, nn.Conv1d):
+        return ({"kernel": _n(module.weight.permute(2, 1, 0)),
+                 "bias": _n(module.bias)}, {}, ["weight", "bias"])
+    if isinstance(module, nn.Embedding):
+        return {"embedding": _n(module.weight)}, {}, ["weight"]
+    if isinstance(module, nn.LayerNorm):
+        return ({"scale": _n(module.weight), "bias": _n(module.bias)}, {},
+                ["weight", "bias"])
+    if isinstance(module, MaskedBatchNorm):
+        return ({"scale": _n(module.weight), "bias": _n(module.bias)},
+                {"mean": _n(module.running_mean),
+                 "var": _n(module.running_var)},
+                ["weight", "bias", "running_mean", "running_var"])
+    if isinstance(module, (_MaskedLSTMLayer, LSTMCell)):
+        w_x, w_h, b = (np.split(_n(t), 4, axis=-1)
+                       for t in (module.w_x, module.w_h, module.b))
+        cell = {}
+        for k, g in enumerate(_GATES):
+            cell[f"i{g}"] = {"kernel": np.ascontiguousarray(w_x[k])}
+        for k, g in enumerate(_GATES):
+            cell[f"h{g}"] = {"kernel": np.ascontiguousarray(w_h[k]),
+                             "bias": np.ascontiguousarray(b[k])}
+        if isinstance(module, _MaskedLSTMLayer):
+            cell = {"OptimizedLSTMCell_0": cell}
+        return cell, {}, ["w_x", "w_h", "b"]
+    return None
+
+
+def _put(tree: Dict, path, leaves: Dict):
+    if not leaves:
+        return
+    node = tree
+    for part in path:
+        node = node.setdefault(part, {})
+    node.update(leaves)
+
+
+@torch.no_grad()
+def torch_to_flax(module: nn.Module) -> Dict:
+    """The flax variables (``{"params": ..., "batch_stats": ...}``, nested
+    dicts of float32 numpy arrays; ``batch_stats`` only where the module
+    has batch norms) of the port's ``module``: the inverse of
+    ``flax_to_torch``."""
+    params, stats, placed = {}, {}, set()
+    for name, sub in module.named_modules():
+        conv = _to_flax(sub)
+        if conv is None:
+            continue
+        p, s, used = conv
+        path = name.split(".") if name else []
+        _put(params, path, p)
+        _put(stats, path, s)
+        placed |= {f"{name}.{k}" if name else k for k in used}
+    every = {n for n, _ in module.named_parameters()}
+    every |= {n for n, _ in module.named_buffers()}
+    if every - placed:
+        raise ValueError("torch_to_flax: torch tensors with no flax place: "
+                         f"{sorted(every - placed)}")
+    return {"params": params, **({"batch_stats": stats} if stats else {})}

@@ -1,6 +1,9 @@
 """Transform-only feature scalers (the inference half of
 ``ensemble_svs_with_interactions_tpu/utils/scalers.py``): NumPy in, NumPy
-out, with the same float32 fast paths."""
+out, with the same float32 fast paths; and their ``.npy`` files in a
+packed model directory (``{prefix}_min.npy`` / ``_scale.npy`` for a
+``MinMaxScaler``, ``{prefix}_mean.npy`` / ``_var.npy`` / ``_scale.npy`` for
+a ``StandardScaler``)."""
 
 from __future__ import annotations
 
@@ -77,3 +80,29 @@ def extract_static_scaler(out_scaler: StandardScaler,
 
     return StandardScaler(_static(out_scaler.mean_), _static(out_scaler.var_),
                           _static(out_scaler.scale_))
+
+
+def load_standard_scaler(prefix) -> StandardScaler:
+    """A StandardScaler from ``{prefix}_{mean,var,scale}.npy``."""
+    return StandardScaler(np.load(f"{prefix}_mean.npy"),
+                          np.load(f"{prefix}_var.npy"),
+                          np.load(f"{prefix}_scale.npy"))
+
+
+def load_minmax_scaler(prefix) -> MinMaxScaler:
+    """A MinMaxScaler from ``{prefix}_{min,scale}.npy``."""
+    return MinMaxScaler(np.load(f"{prefix}_min.npy"),
+                        np.load(f"{prefix}_scale.npy"))
+
+
+def save_scaler(scaler, prefix) -> None:
+    """Write a scaler's statistics as ``.npy`` files under ``prefix``."""
+    if isinstance(scaler, StandardScaler):
+        stats = {"mean": scaler.mean_, "var": scaler.var_,
+                 "scale": scaler.scale_}
+    elif isinstance(scaler, MinMaxScaler):
+        stats = {"min": scaler.min_, "scale": scaler.scale_}
+    else:
+        raise TypeError(f"unknown scaler type: {type(scaler)}")
+    for name, value in stats.items():
+        np.save(f"{prefix}_{name}.npy", value)

@@ -1,0 +1,126 @@
+"""The port's two benches on the CPU at tiny widths: each prints one JSON
+line with its keys.  Their numbers mean something only on the card
+(``python3 bench_cuda.py``, ``python3 bench_train_cuda.py``); here the
+line says the device was the CPU and carries no device metric."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import bench  # noqa: E402
+import bench_cuda  # noqa: E402
+import bench_train_cuda  # noqa: E402
+import chip_smoke  # noqa: E402
+
+
+def _one_json_line(script):
+    # two threads: tiny widths gain nothing from more, and the suite's
+    # other workers keep the cores
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    r = subprocess.run([sys.executable, script, "--device", "cpu", "--tiny"],
+                       cwd=REPO, capture_output=True, text=True, timeout=600,
+                       env=env)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 1, lines
+    return json.loads(lines[0])
+
+
+def test_bench_cuda_tiny_prints_one_json_line():
+    out = _one_json_line("bench_cuda.py")
+    assert out["metric"] == "rtf_4part_flagship_multitrack_48k"
+    assert out["unit"] == "ratio" and out["value"] > 0
+    assert len(out["all_runs_sec"]) == out["calls"] == bench_cuda.TINY_CALLS
+    assert out["audio_seconds"] > 3
+    assert out["value"] == sorted(out["all_runs_sec"])[
+        len(out["all_runs_sec"]) // 2] / out["audio_seconds"]
+    assert set(out["stages_sec"]) >= {
+        "timing_feats", "acoustic_dispatch", "postproc_dispatch", "vocoder",
+        "timing_models", "frame_feats", "vocoder_device", "vocoder_d2h"}
+    assert {"acoustic_blocked", "postproc_blocked"} <= set(
+        out["stages_blocked_sec"])
+    assert out["weights_on_device_before_first_call"] is True
+    assert out["pack_sec"] > 0 and out["load_sec"] > 0
+    assert out["tracks"] == 4 and len(out["wav_lengths"]) == 4
+    # on the CPU: no kernel launched and no device metric
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["lstm_launches_per_call"] == 0
+    assert out["lstm_kernel_by_hidden"] is None
+    assert out["peak_mem_gib"] is None
+
+
+def test_bench_train_cuda_tiny_prints_one_json_line():
+    out = _one_json_line("bench_train_cuda.py")
+    assert out["metric"] == "train_frames_per_sec_flagship_multitrack"
+    B, T = bench_train_cuda.TINY_B, bench_train_cuda.TINY_T
+    assert out["geometry"] == f"{B}x{T}"
+    assert len(out["all_step_sec"]) == out["steps"] == 5
+    assert out["frames_per_sec"] == out["value"] == B * T / out[
+        "median_step_sec"]
+    assert set(out["split_sec"]) == {"forward", "backward", "optimizer"}
+    assert out["flops_per_step"] == (out["flops_torch_ops"]
+                                     + out["flops_lstm_kernels"])
+    assert out["flops_torch_ops"] > 0 and out["flops_lstm_kernels"] > 0
+    assert "FlopCounterMode" in out["flops_convention"]
+    assert "67e12" in out["mfu_convention"]
+    assert all(isinstance(x, float) for x in out["losses"])
+    assert out["use_amp"] is False
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["mfu"] is None and out["tflops_per_sec"] is None
+    assert out["peak_mem_gib"] is None
+
+
+def test_bench_train_cuda_amp_raises():
+    with pytest.raises(NotImplementedError, match="amp"):
+        bench_train_cuda.main(["--amp"])
+
+
+def test_benches_need_a_card_unless_the_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for bench_main in (bench_cuda.main, bench_train_cuda.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_main(["--tiny"])
+
+
+def test_the_flagship_is_bench_py_s():
+    """The benches' flagship (``chip_smoke.flagship_acoustic_config``) is
+    ``bench.py``'s at its widths, and ``tiny=True`` keeps its classes and
+    stream layout."""
+    assert chip_smoke.flagship_acoustic_config(4) == \
+        bench.flagship_acoustic_config(4)
+    full, ss = chip_smoke.flagship_acoustic_config(4)
+    tiny, ss_tiny = chip_smoke.flagship_acoustic_config(4, tiny=True)
+    assert ss == ss_tiny == [60, 1, 1, 5]
+
+    def targets(node):
+        if isinstance(node, dict):
+            return [node.get("_target_")] + [
+                t for v in node.values() for t in targets(v)]
+        return []
+
+    assert targets(full) == targets(tiny)
+
+
+def test_train_lstm_shapes_give_the_launch_table():
+    """The LSTM runs a flagship train step makes, by (H, T), are the table
+    ``chip_smoke.py`` checks the card's launch counts against, and the
+    kernels' operation count follows from it."""
+    ac, _ = chip_smoke.flagship_acoustic_config(4)
+    shapes = bench_train_cuda.train_lstm_shapes(ac["netG"], chip_smoke.TRAIN_T)
+    assert shapes == chip_smoke.TRAIN_LAUNCHES_BY_SHAPE
+    B = chip_smoke.TRAIN_B
+    H, T = 512, 256
+    one = (2 * B * T * H * 4 * H + 12 * B * T * H          # forward
+           + 2 * B * T * H * 4 * H + B * T * 4 * H         # pre-pass
+           + 2 * B * T * 4 * H * H + 30 * B * T * H        # loop
+           + 2 * B * (T - 1) * H * 4 * H)                  # dW_h
+    assert bench_train_cuda.lstm_kernel_flops({(H, T): 1}, B) == one

@@ -1,6 +1,7 @@
 """The port's flagship slice, ``SPSVS.svs_ensemble``, against the JAX
-engine built from the same configs, weights and scalers, at tiny dims on
-a shortened fixture (4 tracks, pairwise ring).
+engine, both opening the same packed model directory (written by the JAX
+package's ``pack_model``), at tiny dims on a shortened fixture (4 tracks,
+pairwise ring).
 
 Durations must match exactly.  The acoustic model's output and the
 post-processed (mgc, lf0, vuv, bap) streams are compared at atol 1e-4:
@@ -35,14 +36,6 @@ from ensemble_svs_with_interactions_tpu.utils.scalers import (
 )
 from ensemble_svs_with_interactions_tpu_torch.io import hts
 from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
-from ensemble_svs_with_interactions_tpu_torch.utils.config import instantiate
-from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
-    flax_to_torch,
-)
-from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
-    MinMaxScaler,
-    StandardScaler,
-)
 from tests.util import HED, NIT_LAB
 
 SR = 24000
@@ -113,10 +106,10 @@ def _configs(mgc_dim=8, bap_dim=3):
     return timelag, timing, acoustic, ss
 
 
-@pytest.fixture(scope="module")
-def engines(tmp_path_factory):
-    """(JAX engine, port engine) from one set of configs, flax variables
-    (carried into the port's state dicts by flax_to_torch) and scalers."""
+def tiny_model():
+    """(global config, {phase: model config}, {phase: flax variables as
+    numpy}, {phase: (in_dim, out mean, out scale)}) of the tiny multitrack
+    model."""
     timelag, duration, acoustic, ss = _configs()
     rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
             "prenet": jax.random.PRNGKey(2)}
@@ -149,25 +142,30 @@ def engines(tmp_path_factory):
     glob = {"sample_rate": SR, "frame_period": 5, "feature_type": "world",
             "use_world_codec": True, "relative_f0": False,
             "spk_list": [f"spk{i}" for i in range(N_SPK)]}
+    return glob, cfgs, variables, stats
 
-    def phases(minmax, standard, weights):
-        return {
-            ph: {"model_config": cfgs[ph], **weights(ph),
-                 "in_scaler": minmax(np.zeros(d), np.ones(d)),
-                 "out_scaler": standard(m, s ** 2, s)}
-            for ph, (d, m, s) in stats.items()
-        }
 
-    def state_dict(ph):
-        module = instantiate(cfgs[ph]["netG"])
-        return {"state_dict": flax_to_torch(module, variables[ph]).state_dict()}
+def tiny_phases(cfgs, stats, minmax, standard, weights):
+    """``pack_model``'s phases: the scaler classes given, the weights
+    entries from ``weights(phase)``."""
+    return {
+        ph: {"model_config": cfgs[ph], **weights(ph),
+             "in_scaler": minmax(np.zeros(d), np.ones(d)),
+             "out_scaler": standard(m, s ** 2, s)}
+        for ph, (d, m, s) in stats.items()
+    }
 
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    """(JAX engine, port engine), both opening one directory that the JAX
+    package's ``pack_model`` wrote from the flax variables and scalers."""
+    glob, cfgs, variables, stats = tiny_model()
     model_dir = tmp_path_factory.mktemp("packed_mt4")
-    pack_model(model_dir, glob, HED, phases(
-        JaxMinMax, JaxStandard, lambda ph: {"variables": variables[ph]}))
-    return (JaxSPSVS(model_dir),
-            SPSVS(glob, HED, phases(MinMaxScaler, StandardScaler, state_dict),
-                  device="cpu"))
+    pack_model(model_dir, glob, HED, tiny_phases(
+        cfgs, stats, JaxMinMax, JaxStandard,
+        lambda ph: {"variables": variables[ph]}))
+    return JaxSPSVS(model_dir), SPSVS(model_dir, device="cpu")
 
 
 def _short_labels(mod, seconds=4.0):
@@ -176,8 +174,10 @@ def _short_labels(mod, seconds=4.0):
     return labels[: max(n, 10)]
 
 
-def test_svs_ensemble_slice_matches_jax(engines):
-    jax_engine, engine = engines
+def assert_slice_matches(jax_engine, engine):
+    """Durations exactly, frame features exactly, the acoustic output and
+    the post-processed streams at ATOL, and the port's rendered int16
+    audio of the right shape and content."""
     N = 4
     spk_ids, pairs = list(range(N)), [(i + 1) % N for i in range(N)]
 
@@ -231,6 +231,38 @@ def test_svs_ensemble_slice_matches_jax(engines):
         "timing_models", "frame_feats"}
 
 
+def test_svs_ensemble_slice_matches_jax(engines):
+    assert_slice_matches(*engines)
+
+
+def test_svs_ensemble_takes_the_jax_signature(engines):
+    """``svs_ensemble(labels, vocoder_type, post_filter_type, vuv_threshold,
+    dtype, spk_ids, pairs, blocked_stage_times)``: the positional
+    ``"world"`` renders what the keyword call renders; an unported vocoder
+    or output dtype raises, an unknown name raises ValueError."""
+    _, engine = engines
+    labels = [_short_labels(hts) for _ in range(4)]
+    wavs, sr = engine.svs_ensemble(labels, "world")
+    ref, sr_ref = engine.svs_ensemble(labels, vocoder_type="world",
+                                      post_filter_type="gv",
+                                      vuv_threshold=0.5, dtype=np.int16)
+    assert sr == sr_ref == SR
+    for a, b in zip(wavs, ref):
+        np.testing.assert_array_equal(a, b)
+    auto, _ = engine.svs_ensemble(labels, "auto", "gv", 0.5, np.int16,
+                                  list(range(4)), [1, 2, 3, 0])
+    for a, b in zip(auto, ref):
+        np.testing.assert_array_equal(a, b)
+    for kw in ({"vocoder_type": "pwg"}, {"vocoder_type": "usfgan"},
+               {"dtype": np.float32}, {"dtype": np.int32}):
+        with pytest.raises(NotImplementedError):
+            engine.svs_ensemble(labels, **kw)
+    with pytest.raises(ValueError, match="vocoder type"):
+        engine.svs_ensemble(labels, "hifigan")
+    with pytest.raises(ValueError, match="post-filter type"):
+        engine.svs_ensemble(labels, "world", "wiener")
+
+
 def test_instantiate_maps_jax_targets_to_port():
     from ensemble_svs_with_interactions_tpu_torch.models import FFConvLSTM
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
@@ -244,10 +276,11 @@ def test_instantiate_maps_jax_targets_to_port():
 
 
 def test_port_imports_no_jax():
-    """The port (the serving path and the training slice), and
-    chip_smoke.py's own imports, leave JAX, flax and the JAX package out
-    of the process.  The port's name starts with the JAX
-    package's, so the check is on exact names and the ``pkg.`` prefix."""
+    """The port (the serving path with its packed-directory reader and
+    writer, and the training slice), chip_smoke.py's and both benches' own
+    imports leave JAX, flax, yaml, msgpack and the JAX package out of the
+    process.  The port's name starts with the JAX package's, so the check
+    is on exact names and the ``pkg.`` prefix."""
     code = (
         "import sys\n"
         "import ensemble_svs_with_interactions_tpu_torch.svs\n"
@@ -255,10 +288,17 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.train.multitrack\n"
         "import ensemble_svs_with_interactions_tpu_torch.train.loop\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.acoustic\n"
+        "import ensemble_svs_with_interactions_tpu_torch.utils.packing\n"
+        "import ensemble_svs_with_interactions_tpu_torch.utils.yaml_io\n"
+        "import ensemble_svs_with_interactions_tpu_torch.utils.flax_msgpack\n"
         "import chip_smoke\n"
+        "import bench_cuda\n"
+        "import bench_train_cuda\n"
         "jp = 'ensemble_svs_with_interactions_tpu'\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'flax', jp)\n"
-        "       or m.startswith(('jax.', 'flax.', jp + '.'))]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m in ('jax', 'flax', 'yaml', 'msgpack', jp)\n"
+        "       or m.startswith(('jax.', 'flax.', 'yaml.', 'msgpack.',\n"
+        "                        jp + '.'))]\n"
         "print(bad)\n"
         "assert not bad, bad\n"
         "assert 'ensemble_svs_with_interactions_tpu_torch' in sys.modules\n"
