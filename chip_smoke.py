@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the verbatim widths of the flagship
-(random weights from a seeded generator): serving, the 4-part pairwise
-ensemble through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and
-training, the multitrack acoustic train step as ``bench_train.py`` runs
-it.  It holds every hand-written kernel of those paths against its plain
+Drives the port's paths at the verbatim widths of the flagship (random
+weights from a seeded generator): serving, the 4-part pairwise ensemble
+through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and training, the
+multitrack acoustic train step as ``bench_train.py`` runs it, in float32
+and in the recipe's bf16 AMP arm, and the duration model's train step.
+It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
@@ -37,11 +38,21 @@ PyTorch version on the card.  Phases, each printing JSON lines:
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
-   forward, backward and optimizer;
+   forward, backward and optimizer and one under ``FlopCounterMode``
+   (``train_bench``, which ``bench_train_cuda.py`` runs too);
 8. ``train_reference``: one step at full width without dropout, B = 4,
    on the card against the same step on the CPU (loss, every gradient,
    the new batch statistics);
-9. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
+9. ``train_amp``: phase 7 in the bf16 AMP arm (``use_amp=True``; the LSTM
+   recurrences stay float32 on the same kernels, 46 launches per step
+   each), its MFU over the dense bf16 peak, and one step under
+   ``torch.profiler`` where no other recurrence kernel may appear;
+10. ``train_amp_reference``: phase 8's step in the AMP arm, card against
+    CPU, and the card's AMP loss against its float32 loss;
+11. ``timing_train``: the duration model at ``bench.py``'s widths in the
+    AMP arm on 64 note-merged pairs x 500 positions (2 warm-up and
+    TRAIN_STEPS timed steps), then one small step card against CPU;
+12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
 configs, weights and kernel operation counts.
@@ -72,6 +83,7 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_3XTF32_FLOP_PER_S = 495e12 / 3  # TF32 tensor cores, 3 products each
+PEAK_BF16_FLOP_PER_S = 989e12  # bf16 tensor cores
 
 KERNEL_ATOL = 1e-4   # float32 kernel vs plain loop, other summation order
 MODULE_ATOL = 1e-3   # full-width modules, card vs CPU, several layers deep
@@ -98,6 +110,39 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 GRAD_SCALE_FLOOR = 1e-4
 TRAIN_STATS_ATOL = 1e-4
+# the AMP arm (bf16 forward and backward over float32 masters, the LSTM
+# recurrences float32): one step at REF_B, card against CPU, dropout off.
+# The loss within AMP_LOSS_RTOL; each gradient by ``judge_amp``: within
+# AMP_GRAD_RTOL of its scale, max(its largest CPU entry,
+# AMP_GRAD_SCALE_FLOOR x the largest gradient entry), or, where two bf16
+# runs of the step differ by more, pointing where the CPU's points and as
+# long: cosine at least AMP_COS_MIN, L2 distance at most AMP_L2_MAX of the
+# CPU's norm, and no farther from the CPU's float32 step than AR_HEADROOM
+# times the CPU's AMP step (or times AMP_GRAD_RTOL of the scale); one
+# that vanishes in float32 (under AMP_VANISH of the largest entry) holds
+# rounding noise and passes within the floor.  Two bf16 runs differ most
+# where a training-mode batch norm takes E[x^2] - E[x]^2 in bf16, as the
+# JAX package computes it: the card and the CPU sum in other orders, and
+# their gradients reached cosine 0.846 and an L2 distance of 0.562 of the
+# norm at worst (PERF.md).
+# Code on the card is held tightly by the float32 step
+# (``phase_train_reference``); a zero or inverted gradient fails here.
+# The card's AMP loss sits within AMP_VS_F32_RTOL of its float32 loss.
+AMP_LOSS_RTOL = 1e-2
+AMP_GRAD_RTOL = 5e-2
+AMP_GRAD_SCALE_FLOOR = 1e-3
+AMP_VANISH = 1e-6
+AMP_COS_MIN = 0.8
+AMP_L2_MAX = 0.65
+AMP_VS_F32_RTOL = 2e-2
+# the duration model's step (bench.py's widths), card against CPU on a
+# small batch: float32 by the train step's rule above; AMP by
+# ``judge_amp`` at TIMING_RTOL, with cosine at least TIMING_COS_MIN and
+# an L2 distance at most TIMING_L2_MAX where it is farther (readings:
+# 0.9918 and 0.128 at worst)
+TIMING_RTOL = 2e-2
+TIMING_COS_MIN = 0.98
+TIMING_L2_MAX = 0.2
 N_TRACKS = 4
 N_CALLS = 3
 # single-direction LSTM recurrences per svs_ensemble call, by hidden width
@@ -111,6 +156,10 @@ T_FRAMES = 6656   # 6240 frames of the fixture, rounded up to FRAME_BUCKET
 TRAIN_B, TRAIN_T = 64, 256
 TRAIN_STEPS = 5
 REF_B = 4
+# the timing models' batches: 64 note-merged pairs x 500 positions, the
+# 32,000 positions MultiTrackBatchIterator packs by default
+TIMING_B, TIMING_T = 64, 500
+TIMING_REF_B, TIMING_REF_T = 4, 64
 # single-direction LSTM recurrences per train step, by (hidden width,
 # sequence length): each track pass runs the encoder (512 x 3 x 2), the
 # lf0 model's biLSTM (64 x 2 x 2) and AR decoder cell (256, at the
@@ -808,9 +857,11 @@ def train_batch(B: int, T: int, out_dim: int):
     }
 
 
-def build_trainer(cfg, ss, state_dict, device, dtype=torch.float32):
+def build_trainer(cfg, ss, state_dict, device, dtype=torch.float32,
+                  use_amp=False):
     """(module, train_step) of the flagship acoustic model: Adam at 1e-3,
-    pitch_reg_weight 1, sub_require_grad True, clip 1.0 (bench_train.py)."""
+    pitch_reg_weight 1, sub_require_grad True, clip 1.0 (bench_train.py),
+    float32 or the bf16 AMP arm."""
     from ensemble_svs_with_interactions_tpu_torch.train.loop import (
         build_optimizer,
     )
@@ -829,7 +880,7 @@ def build_trainer(cfg, ss, state_dict, device, dtype=torch.float32):
     step, _ = create_multitrack_acoustic_train_step(
         module, opt, {"stream_sizes": list(ss)}, scheduler=sched,
         clip_norm=1.0, pitch_reg_weight=1.0, sub_require_grad=True,
-        device=device)
+        use_amp=use_amp, device=device)
     return module, step
 
 
@@ -845,103 +896,266 @@ def seeded_state_dict(cfg, seed):
 
 TRAIN_WEIGHTS = {"logf0_diff": 1.0, "mgc_diff": 1.0}
 TRAIN_COUNTERS = ("lstm_recurrence", "lstm_bptt", "lstm_dwh")
+HAND_WRITTEN = ("lstm_recurrence_kernel", "lstm_recurrence_small_kernel",
+                "lstm_recurrence_group_kernel", "lstm_gates_kernel",
+                "lstm_bptt_small_kernel", "lstm_gates_mma_kernel",
+                "lstm_bptt_group_kernel", "lstm_dwh_kernel",
+                "lstm_dwh_reduce_kernel")
 
 
-def phase_train(lr):
-    """bench_train.py's flagship step: 2 warm-up steps, TRAIN_STEPS timed
-    ones (host clock around a step that ends in a host copy of its
-    metrics), with the kernel launch counts reset just before and read just
-    after, then one step synchronized after each phase."""
-    ac, ss = flagship_acoustic_config(4)
-    _, step = build_trainer(ac["netG"], ss, seeded_state_dict(ac["netG"], SEED),
-                            "cuda")
-    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
-             train_batch(TRAIN_B, TRAIN_T, sum(ss)).items()}
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+def train_lstm_shapes(netg, T: int) -> dict:
+    """{(H, sequence length): single-direction LSTM runs per train step} of
+    the multitrack acoustic model: each of the two track passes (main and
+    sub) runs the encoder's and the decoders' (bi)LSTM layers over T frames
+    and the AR lf0 decoder's cell over T / reduction_factor."""
+    enc, lf0 = netg["encoder"], netg["lf0_model"]
+    runs = {}
+
+    def add(H, t, n):
+        runs[(H, t)] = runs.get((H, t), 0) + 2 * n
+
+    add(enc["hidden_dim"], T,
+        enc["num_layers"] * (2 if enc["bidirectional"] else 1))
+    add(lf0["lstm_hidden_dim"], T, lf0["num_lstm_layers"] * 2)
+    add(lf0["decoder_hidden_dim"], T // lf0["reduction_factor"],
+        lf0["decoder_layers"])
+    for name in ("mgc_model", "vuv_model", "bap_model"):
+        dec = netg[name]
+        add(dec["lstm_hidden_dim"], T,
+            dec["num_lstm_layers"] * (2 if dec["bidirectional"] else 1))
+    return runs
+
+
+def lstm_kernel_flops(shapes: dict, B: int) -> int:
+    """Operations of the hand-written LSTM kernels in one train step: per
+    run the forward recurrence, the BPTT's gate pre-pass and reverse loop,
+    and dW_h."""
+    return sum(n * (recurrence_ops(B, T, H) + gates_ops(B, T, H)
+                    + bptt_loop_ops(B, T, H) + dwh_flops(B, T, H))
+               for (H, T), n in shapes.items())
+
+
+def device_us(evt) -> float:
+    """A profiler event's own device time in microseconds."""
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def profile_step(run_step) -> dict:
+    """One call of ``run_step`` under ``torch.profiler``: wall seconds, the
+    summed device kernel time and its share of the wall (one stream, so
+    kernels do not overlap), the hand-written kernels' device time, the
+    kernels with the most device time, and every other kernel whose name
+    says LSTM or RNN (a library recurrence on the path would show there).
+    The device ranges of user annotations (``Optimizer.step#...``) span
+    kernels already counted and are left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and device_us(e) > 0
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(device_us(e) for e in kernels)
+    top = sorted(kernels, key=device_us, reverse=True)[:12]
+    return {
+        "wall_s": wall_s, "device_kernel_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / 1e6 / wall_s,
+        "device_kernels_launched": sum(e.count for e in kernels),
+        "hand_written_ms": {
+            name: sum(device_us(e) for e in kernels if name in e.key) / 1e3
+            for name in HAND_WRITTEN},
+        "other_recurrence_kernels": sorted(
+            e.key[:90] for e in kernels
+            if any(w in e.key.lower() for w in ("lstm", "rnn"))
+            and not any(name in e.key for name in HAND_WRITTEN)),
+        "top_kernels": [{"name": e.key[:90], "count": e.count,
+                         "device_ms": device_us(e) / 1e3} for e in top],
+    }
+
+
+def train_bench(lr, device, B=TRAIN_B, T=TRAIN_T, tiny=False,
+                use_amp=False):
+    """bench_train.py's flagship step on ``device``: 2 warm-up steps,
+    TRAIN_STEPS timed ones (host clock around a step that ends in a host
+    copy of its metrics) with the kernel launch counts reset just before
+    and read just after, one step synchronized after each phase (the
+    split) and one under ``FlopCounterMode`` (the operation count).
+    Returns (the results, a function that runs one more step)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    ac, ss = flagship_acoustic_config(4, tiny=tiny)
+    _, step = build_trainer(ac["netG"], ss,
+                            seeded_state_dict(ac["netG"], SEED), device,
+                            use_amp=use_amp)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in
+             train_batch(B, T, sum(ss)).items()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
     losses = []
-    t0 = time.time()
+    t0 = time.perf_counter()
     for _ in range(2):
         losses.append(step(batch, TRAIN_WEIGHTS, gen)["Loss"])
-    warm_s = time.time() - t0
+    warm_s = time.perf_counter() - t0
 
     for name in TRAIN_COUNTERS:
         getattr(lr, name).launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     step_s = []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         losses.append(step(batch, TRAIN_WEIGHTS, gen)["Loss"])
         step_s.append(time.perf_counter() - t0)
-    launches = {name: getattr(lr, name).launches for name in TRAIN_COUNTERS}
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
+    launches = {n: getattr(lr, n).launches for n in TRAIN_COUNTERS}
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
     losses.append(step(batch, TRAIN_WEIGHTS, gen,
                        blocked_phase_times=True)["Loss"])
+    split = dict(step.last_phase_times)
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        losses.append(step(batch, TRAIN_WEIGHTS, gen)["Loss"])
+    torch_flops = counter.get_total_flops()
+    shapes = train_lstm_shapes(ac["netG"], T)
+    kernel_flops = lstm_kernel_flops(shapes, B)
+    flops = torch_flops + kernel_flops
     median = float(np.median(step_s))
-    emit({"phase": "train", "B": TRAIN_B, "T": TRAIN_T, "warmup_s": warm_s,
-          "steps_s": step_s, "median_step_s": median,
-          "frames_per_s": TRAIN_B * TRAIN_T / median,
-          "split_s": step.last_phase_times, "losses": losses,
-          "peak_mem_gib": peak, "steps": TRAIN_STEPS,
-          "launches": launches,
-          "launches_per_step": {k: v / TRAIN_STEPS
-                                for k, v in launches.items()},
+    on_card = device.type == "cuda"
+    peak_rate, peak_name = ((PEAK_BF16_FLOP_PER_S, "989e12: the H100 SXM "
+                             "dense bf16 tensor-core peak") if use_amp else
+                            (PEAK_FP32_FLOP_PER_S, "67e12: the H100 SXM "
+                             "dense float32 peak outside the tensor cores"))
+    out = {
+        "frames_per_sec": B * T / median, "median_step_sec": median,
+        "all_step_sec": step_s, "steps": TRAIN_STEPS, "warmup_steps": 2,
+        "warmup_sec": warm_s, "batch_pairs": B, "frames": T,
+        "frames_per_batch": B * T, "geometry": f"{B}x{T}",
+        "split_sec": split, "peak_mem_gib": peak,
+        "flops_per_step": flops, "flops_torch_ops": torch_flops,
+        "flops_lstm_kernels": kernel_flops,
+        "lstm_runs_per_step": {f"H={H} T={t}": n
+                               for (H, t), n in shapes.items()},
+        "flops_convention": (
+            "torch ops as torch.utils.flop_counter.FlopCounterMode counts "
+            "them (matmuls and convolutions, forward and backward) plus the "
+            "hand-written LSTM kernels it cannot see, per run the forward, "
+            "the BPTT pre-pass and loop and dW_h as chip_smoke.py's "
+            "recurrence_ops, gates_ops, bptt_loop_ops and dwh_flops count "
+            "them (multiply-adds as 2, plus their elementwise operations)"),
+        "tflops_per_sec": flops / median / 1e12 if on_card else None,
+        "mfu": flops / median / peak_rate if on_card else None,
+        "peak_flop_per_s": peak_rate,
+        "peak_convention": (
+            "dense bf16 tensor cores, 989 TFLOP/s (torch's GEMMs and "
+            "convolutions run bf16; the LSTM kernels float32)" if use_amp
+            else "dense float32, 67 TFLOP/s (the port computes in float32 "
+            "with TF32 off)"),
+        "mfu_convention": (
+            f"flops_per_step / median_step_sec / {peak_name} (NVIDIA data "
+            "sheet, 700 W)"),
+        "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS
+                              for k, v in launches.items()},
+        "losses": losses, "final_loss": losses[-1], "use_amp": use_amp,
+        "optimizer": "Adam 1e-3",
+    }
+    return out, lambda: step(batch, TRAIN_WEIGHTS, gen)
+
+
+def _assert_train_run(r):
+    assert all(np.isfinite(x) for x in r["losses"]), r["losses"]
+    for name, n in r["launches"].items():
+        assert n == TRAIN_LAUNCHES_PER_STEP * r["steps"], (name, n)
+
+
+def phase_train(lr):
+    """bench_train.py's flagship step in float32 (:func:`train_bench`),
+    with 46 launches per step of each kernel."""
+    r, _ = train_bench(lr, torch.device("cuda"))
+    emit({"phase": "train", **r,
           "expected_per_step": TRAIN_LAUNCHES_PER_STEP})
-    assert all(np.isfinite(x) for x in losses), losses
-    for name, n in launches.items():
-        assert n == TRAIN_LAUNCHES_PER_STEP * TRAIN_STEPS, (name, n)
-    return launches
+    _assert_train_run(r)
+    return r["launches"]
+
+
+def phase_train_amp(lr):
+    """The same step in the bf16 AMP arm: torch's GEMMs and convolutions in
+    bf16, every LSTM recurrence through the same hand-written kernels in
+    float32, 46 launches per step of each; one more step profiled, where
+    no other recurrence kernel may appear."""
+    r, run_step = train_bench(lr, torch.device("cuda"), use_amp=True)
+    r["profile"] = profile_step(run_step)
+    emit({"phase": "train_amp", **r,
+          "expected_per_step": TRAIN_LAUNCHES_PER_STEP})
+    _assert_train_run(r)
+    assert not r["profile"]["other_recurrence_kernels"], r["profile"]
+    assert all(r["profile"]["hand_written_ms"][k] > 0 for k in (
+        "lstm_recurrence_group_kernel", "lstm_recurrence_small_kernel",
+        "lstm_bptt_group_kernel", "lstm_bptt_small_kernel",
+        "lstm_dwh_kernel")), r["profile"]["hand_written_ms"]
+    return r["launches"]
+
+
+def reference_step(cfg, ss, state, batch, device, dtype=torch.float32,
+                   use_amp=False):
+    """One flagship step: (metrics, {name: gradient}, {name: buffer}), the
+    tensors copied to the CPU in float64."""
+    module, step = build_trainer(cfg, ss, state, device, dtype, use_amp)
+    metrics = step(batch, TRAIN_WEIGHTS,
+                   torch.Generator(device=device).manual_seed(SEED))
+    return (metrics,
+            {n: p.grad.detach().cpu().double()
+             for n, p in module.named_parameters()},
+            {n: b.detach().cpu().double() for n, b in module.named_buffers()})
+
+
+def reference_config():
+    """The flagship at full width without dropout, its seeded weights and
+    the REF_B x TRAIN_T batch."""
+    ac, ss = flagship_acoustic_config(4)
+    cfg = copy.deepcopy(ac["netG"])
+    cfg["mgc_model"]["dropout"] = cfg["vuv_model"]["dropout"] = 0.0
+    cfg["lf0_model"]["prenet_dropout"] = 0.0
+    return cfg, ss, seeded_state_dict(cfg, SEED), train_batch(
+        REF_B, TRAIN_T, sum(ss))
 
 
 def phase_train_reference():
     """One step at full width with dropout off, B = REF_B, on the card
     against the same step on the CPU (plain recurrence and BPTT loops) in
     float32 and in float64: the loss, each parameter's (clipped) gradient,
-    and the running statistics after the step (see TRAIN_GRAD_RTOL)."""
-    ac, ss = flagship_acoustic_config(4)
-    cfg = copy.deepcopy(ac["netG"])
-    cfg["mgc_model"]["dropout"] = cfg["vuv_model"]["dropout"] = 0.0
-    cfg["lf0_model"]["prenet_dropout"] = 0.0
-    state = seeded_state_dict(cfg, SEED)
-    batch = train_batch(REF_B, TRAIN_T, sum(ss))
+    and the running statistics after the step (see TRAIN_GRAD_RTOL).
+    Returns the runs, keyed by (device, dtype)."""
+    cfg, ss, state, batch = reference_config()
     t0 = time.time()
-    runs = {}
-    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32),
-                       ("cpu", torch.float64)):
-        module, step = build_trainer(cfg, ss, state, dev, dtype)
-        metrics = step(batch, TRAIN_WEIGHTS,
-                       torch.Generator(device=dev).manual_seed(SEED))
-        runs[dev, dtype] = (metrics,
-                            {n: p.grad.detach().cpu().double()
-                             for n, p in module.named_parameters()},
-                            {n: b.detach().cpu().double()
-                             for n, b in module.named_buffers()})
+    runs = {(dev, dtype): reference_step(cfg, ss, state, batch, dev, dtype)
+            for dev, dtype in (("cuda", torch.float32),
+                               ("cpu", torch.float32),
+                               ("cpu", torch.float64))}
     m_gpu, g_gpu, s_gpu = runs["cuda", torch.float32]
     m_cpu, g_cpu, s_cpu = runs["cpu", torch.float32]
     _, g_64, _ = runs["cpu", torch.float64]
     loss_rel = abs(m_gpu["Loss"] - m_cpu["Loss"]) / abs(m_cpu["Loss"])
+    grads = judge_f32(g_gpu, g_cpu, g_64)
     floor = GRAD_SCALE_FLOOR * max(g.abs().max().item() for g in g_64.values())
-    grads = {}
-    for n, g in g_64.items():
-        scale = max(g.abs().max().item(), floor)
-        card = (g_gpu[n] - g_cpu[n]).abs().max().item()
-        card_64 = (g_gpu[n] - g).abs().max().item()
-        cpu_64 = (g_cpu[n] - g).abs().max().item()
-        grads[n] = {"rel_of_max": card / scale,
-                    "card_vs_f64": card_64, "cpu_f32_vs_f64": cpu_64,
-                    "ok": card / scale < TRAIN_GRAD_RTOL
-                    or card_64 <= AR_HEADROOM * cpu_64}
     stats_err = max((s_gpu[n] - v).abs().max().item()
                     for n, v in s_cpu.items())
-    worst = max(grads, key=lambda n: grads[n]["rel_of_max"])
+    worst = max(grads, key=lambda n: grads[n]["rel_of_scale"])
     by_oracle = {n: v for n, v in grads.items()
-                 if v["rel_of_max"] >= TRAIN_GRAD_RTOL}
+                 if v["rel_of_scale"] >= TRAIN_GRAD_RTOL}
     emit({"phase": "train_reference", "B": REF_B, "T": TRAIN_T,
           "loss": [m_gpu["Loss"], m_cpu["Loss"]], "loss_rel_err": loss_rel,
           "grad_norm": [m_gpu["GradNorm"], m_cpu["GradNorm"]],
           "params": len(grads),
-          "max_grad_rel_err": grads[worst]["rel_of_max"], "worst_grad": worst,
-          "judged_by_f64_oracle": by_oracle,
+          "max_grad_rel_err": grads[worst]["rel_of_scale"],
+          "worst_grad": worst, "judged_by_f64_oracle": by_oracle,
           "grads_at_scale_floor": sum(
               g.abs().max().item() < floor for g in g_64.values()),
           "stats_max_abs_err": stats_err,
@@ -954,6 +1168,288 @@ def phase_train_reference():
     bad = [n for n, v in grads.items() if not v["ok"]]
     assert not bad, {n: grads[n] for n in bad}
     assert stats_err < TRAIN_STATS_ATOL, stats_err
+    return runs
+
+
+def judge_f32(got, ref, oracle, rtol=TRAIN_GRAD_RTOL):
+    """{name: {...}} of float32 tensors ``got`` against ``ref``, with the
+    same step in float64 as the ``oracle``: each passes within ``rtol`` of
+    its scale, max(its largest oracle entry, GRAD_SCALE_FLOOR x the
+    largest of any), or where ``got`` is no farther from the oracle than
+    AR_HEADROOM times ``ref`` (the train step's rule above)."""
+    floor = GRAD_SCALE_FLOOR * max(v.abs().max().item()
+                                   for v in oracle.values())
+    out = {}
+    for n, o in oracle.items():
+        err = (got[n] - ref[n]).abs().max().item()
+        to_oracle = (got[n] - o).abs().max().item()
+        ref_to_oracle = (ref[n] - o).abs().max().item()
+        rel = err / max(o.abs().max().item(), floor)
+        out[n] = {"rel_of_scale": rel, "to_oracle": to_oracle,
+                  "ref_to_oracle": ref_to_oracle,
+                  "ok": rel < rtol or to_oracle <= AR_HEADROOM * ref_to_oracle}
+    return out
+
+
+def judge_amp(got, ref, oracle, rtol, cos_min, l2_max):
+    """{name: {...}} of tensors ``got`` against ``ref``, two AMP runs of
+    one step, with the same step in float32 as the ``oracle``.  Each
+    passes by the first of these that holds, named under ``clause``:
+
+    * ``rtol``: within ``rtol`` of its scale, max(its largest ``ref``
+      entry, AMP_GRAD_SCALE_FLOOR x the largest entry of any);
+    * ``vanishes``: the oracle is under AMP_VANISH of that largest entry
+      (zero in exact arithmetic), and ``got`` is within the floor of
+      ``ref`` or no farther from the oracle than the next clause allows;
+    * ``unresolved`` (two bf16 runs differ by more than ``rtol`` there):
+      ``got`` points where ``ref`` points and is as long, cosine at least
+      ``cos_min`` and L2 distance at most ``l2_max`` of ``ref``'s norm,
+      and is no farther from the oracle than AR_HEADROOM times ``ref``
+      (or than AR_HEADROOM x ``rtol`` of the scale, where ``ref`` happens
+      to lie closer to the oracle than that).
+
+    A zero or inverted tensor passes none of them for ``cos_min`` > 0;
+    a halved one none for ``l2_max`` < 0.5."""
+    largest = max(v.abs().max().item() for v in ref.values())
+    floor = AMP_GRAD_SCALE_FLOOR * largest
+    out = {}
+    for n, r in ref.items():
+        g, r, o = got[n].double(), r.double(), oracle[n].double()
+        scale = max(r.abs().max().item(), floor)
+        err = (g - r).abs().max().item()
+        ref_to_oracle = (r - o).abs().max().item()
+        followed = (g - o).abs().max().item() <= AR_HEADROOM * max(
+            ref_to_oracle, rtol * scale)
+        norms = g.norm().item() * r.norm().item()
+        cos = (g.flatten() @ r.flatten()).item() / norms if norms else 0.0
+        l2 = (g - r).norm().item() / max(r.norm().item(), 1e-300)
+        if err <= rtol * scale:
+            clause = "rtol"
+        elif o.abs().max().item() < AMP_VANISH * largest:
+            clause = "vanishes" if err <= floor or followed else None
+        elif cos >= cos_min and l2 <= l2_max and followed:
+            clause = "unresolved"
+        else:
+            clause = None
+        out[n] = {"rel_of_scale": err / scale,
+                  "ref_vs_oracle_of_scale": ref_to_oracle / scale,
+                  "cos": cos, "l2_rel": l2, "clause": clause,
+                  "ok": clause is not None}
+    return out
+
+
+def amp_summary(judged):
+    """What ``judge_amp`` saw: tensors by clause, the worst error, how far
+    bf16 moved ``ref`` from the oracle at most, and the worst cosine and
+    L2 distance among the ``unresolved`` tensors."""
+    by = {c: sorted(n for n, v in judged.items() if v["clause"] == c)
+          for c in ("rtol", "vanishes", "unresolved", None)}
+    worst = max(judged, key=lambda n: judged[n]["rel_of_scale"])
+    loose = [judged[n] for n in by["unresolved"]]
+    return {"tensors": len(judged),
+            "by_clause": {str(c): len(v) for c, v in by.items()},
+            "failed": {n: judged[n] for n in by[None]},
+            "max_rel_of_scale": judged[worst]["rel_of_scale"],
+            "worst": worst,
+            "max_ref_vs_oracle_of_scale": max(
+                v["ref_vs_oracle_of_scale"] for v in judged.values()),
+            "unresolved_min_cos": min((v["cos"] for v in loose),
+                                      default=None),
+            "unresolved_max_l2_rel": max((v["l2_rel"] for v in loose),
+                                         default=None),
+            "unresolved": {n: judged[n] for n in by["unresolved"]},
+            "vanishes": {n: judged[n] for n in by["vanishes"]}}
+
+
+def phase_train_amp_reference(f32_runs):
+    """One AMP step at full width with dropout off, B = REF_B, on the card
+    against the same step on the CPU (``judge_amp`` at AMP_GRAD_RTOL, with
+    the CPU float32 step of ``phase_train_reference`` as the oracle), and
+    the card's AMP loss against its float32 loss."""
+    cfg, ss, state, batch = reference_config()
+    t0 = time.time()
+    m_gpu, g_gpu, s_gpu = reference_step(cfg, ss, state, batch, "cuda",
+                                         use_amp=True)
+    m_cpu, g_cpu, s_cpu = reference_step(cfg, ss, state, batch, "cpu",
+                                         use_amp=True)
+    m_f32, g_f32, _ = f32_runs["cpu", torch.float32]
+    m_gpu_f32 = f32_runs["cuda", torch.float32][0]
+    loss_rel = abs(m_gpu["Loss"] - m_cpu["Loss"]) / abs(m_cpu["Loss"])
+    vs_f32 = abs(m_gpu["Loss"] - m_gpu_f32["Loss"]) / abs(m_gpu_f32["Loss"])
+    grads = judge_amp(g_gpu, g_cpu, g_f32, AMP_GRAD_RTOL, AMP_COS_MIN,
+                      AMP_L2_MAX)
+    stats_rel = {n: (s_gpu[n] - v).abs().max().item()
+                 / max(v.abs().max().item(), 1e-30) for n, v in s_cpu.items()}
+    worst_stat = max(stats_rel, key=stats_rel.get)
+    emit({"phase": "train_amp_reference", "B": REF_B, "T": TRAIN_T,
+          "loss": [m_gpu["Loss"], m_cpu["Loss"]], "loss_rel_err": loss_rel,
+          "loss_f32": [m_gpu_f32["Loss"], m_f32["Loss"]],
+          "amp_vs_f32_loss_rel": vs_f32,
+          "grad_norm": [m_gpu["GradNorm"], m_cpu["GradNorm"]],
+          "grads": amp_summary(grads),
+          "stats_max_err_of_scale": stats_rel[worst_stat],
+          "worst_stat": worst_stat,
+          "limits": {"loss_rtol": AMP_LOSS_RTOL,
+                     "grad_rtol_of_scale": AMP_GRAD_RTOL,
+                     "grad_scale_floor": AMP_GRAD_SCALE_FLOOR,
+                     "unresolved_cos_min": AMP_COS_MIN,
+                     "unresolved_l2_max": AMP_L2_MAX,
+                     "grad_f32_headroom": AR_HEADROOM,
+                     "amp_vs_f32_loss_rtol": AMP_VS_F32_RTOL},
+          "seconds": time.time() - t0})
+    assert np.isfinite(m_gpu["Loss"]) and loss_rel < AMP_LOSS_RTOL, loss_rel
+    assert vs_f32 < AMP_VS_F32_RTOL, vs_f32
+    bad = {n: v for n, v in grads.items() if not v["ok"]}
+    assert not bad, bad
+
+
+def timing_batch(B: int, out_dim: int, notes, seed: int = 0, T=None):
+    """B note-merged track pairs as ``MultiTrackBatchIterator`` packs them
+    for the timing models: each track a random note sequence of
+    ``notes[0]`` to ``notes[1] - 1`` notes (end times cumulative sums of
+    1-3 frames), merged by ``data/multitrack.merge_tracks_by_notes``
+    (``mask0`` False where only the sub track has a note), padded to T
+    positions, or without T to the next multiple of 8 past the longest."""
+    from ensemble_svs_with_interactions_tpu_torch.data.multitrack import (
+        merge_tracks_by_notes,
+    )
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(B):
+        tracks = []
+        for _ in range(2):
+            n = int(rng.integers(*notes))
+            tracks += [rng.uniform(0, 1, (n, 82)).astype(np.float32),
+                       rng.normal(size=(n, out_dim)).astype(np.float32),
+                       np.cumsum(rng.integers(1, 4, n))]
+        rows.append(merge_tracks_by_notes(*tracks))
+    lengths = np.array([len(r[0]) for r in rows], np.int32)
+    if T is None:
+        T = -(-int(lengths.max()) // 8) * 8
+    batch = {"in_feats0": np.zeros((B, T, 82), np.float32),
+             "in_feats1": np.zeros((B, T, 82), np.float32),
+             "out_feats0": np.zeros((B, T, out_dim), np.float32),
+             "mask0": np.zeros((B, T), bool),
+             "spks0": rng.integers(0, 4, B).astype(np.int32),
+             "spks1": rng.integers(0, 4, B).astype(np.int32),
+             "lengths": lengths}
+    for i, (mx0, my0, m0, mx1, _, _) in enumerate(rows):
+        n = lengths[i]
+        batch["in_feats0"][i, :n], batch["in_feats1"][i, :n] = mx0, mx1
+        batch["out_feats0"][i, :n], batch["mask0"][i, :n] = my0, m0
+    return batch
+
+
+def build_timing_trainer(cfg, state_dict, device, dtype=torch.float32,
+                         use_amp=True):
+    """(module, train_step) of a timing model with the recipe's optimizer
+    (Adam at 1e-4, clip 1.0)."""
+    from ensemble_svs_with_interactions_tpu_torch.train.loop import (
+        build_optimizer,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.train.multitrack import (
+        create_multitrack_timing_train_step,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+
+    module = instantiate(cfg)
+    module.load_state_dict(state_dict)
+    module.to(dtype)
+    opt, sched = build_optimizer(module.parameters(),
+                                 {"name": "Adam", "params": {"lr": 1e-4}})
+    step, _ = create_multitrack_timing_train_step(
+        module, opt, scheduler=sched, clip_norm=1.0, use_amp=use_amp,
+        device=device)
+    return module, step
+
+
+def phase_timing_train():
+    """The duration model at bench.py's widths (hidden 256, 5 layers,
+    kernel 5, MDN of 4) in the AMP arm at TIMING_B x TIMING_T note
+    positions: 2 warm-up and TRAIN_STEPS timed steps.  Then one step on a
+    TIMING_REF_B x TIMING_REF_T batch without dropout, card against CPU:
+    in float32 (the loss at TRAIN_LOSS_RTOL, each gradient by
+    ``judge_f32`` with the CPU's float64 step as the oracle), and in the
+    AMP arm (the loss at TIMING_RTOL, each gradient by ``judge_amp`` at
+    TIMING_RTOL with the CPU's float32 step as the oracle)."""
+    du = flagship_phases()[1]["duration"][0]["netG"]
+    state = seeded_state_dict(du, SEED + 1)
+    _, step = build_timing_trainer(du, state, "cuda")
+    notes = (TIMING_T // 2 - TIMING_T // 8, TIMING_T // 2 + 1)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+             timing_batch(TIMING_B, du["out_dim"], notes,
+                          T=TIMING_T).items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    losses = [step(batch, gen)["Loss"] for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(batch, gen)["Loss"])
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    median = float(np.median(step_s))
+
+    t0 = time.time()
+    cfg = {**du, "dropout": 0.0}
+    notes = (TIMING_REF_T // 2 - TIMING_REF_T // 8, TIMING_REF_T // 2 + 1)
+    small = timing_batch(TIMING_REF_B, du["out_dim"], notes, seed=1,
+                         T=TIMING_REF_T)
+    runs = {}
+    for name, dev, dtype, use_amp in (
+            ("card_amp", "cuda", torch.float32, True),
+            ("cpu_amp", "cpu", torch.float32, True),
+            ("card_f32", "cuda", torch.float32, False),
+            ("cpu_f32", "cpu", torch.float32, False),
+            ("cpu_f64", "cpu", torch.float64, False)):
+        module, ref_step = build_timing_trainer(cfg, state, dev, dtype,
+                                                use_amp=use_amp)
+        metrics = ref_step(small, torch.Generator(device=dev).manual_seed(0))
+        runs[name] = (metrics, {n: p.grad.detach().cpu().double()
+                                for n, p in module.named_parameters()})
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = runs["card_amp"], runs["cpu_amp"]
+    (mf_gpu, gf_gpu), (mf_cpu, gf_cpu) = runs["card_f32"], runs["cpu_f32"]
+    loss_rel = abs(m_gpu["Loss"] - m_cpu["Loss"]) / abs(m_cpu["Loss"])
+    f32_loss_rel = abs(mf_gpu["Loss"] - mf_cpu["Loss"]) / abs(mf_cpu["Loss"])
+    grads = judge_amp(g_gpu, g_cpu, gf_cpu, TIMING_RTOL, TIMING_COS_MIN,
+                      TIMING_L2_MAX)
+    f32_grads = judge_f32(gf_gpu, gf_cpu, runs["cpu_f64"][1])
+    emit({"phase": "timing_train", "model": "duration", "use_amp": True,
+          "B": TIMING_B, "T": TIMING_T,
+          "positions": int(batch["lengths"].sum()),
+          "main_track_positions": int(batch["mask0"].sum()),
+          "steps_s": step_s, "median_step_s": median,
+          "positions_per_s": TIMING_B * TIMING_T / median,
+          "losses": losses, "peak_mem_gib": peak, "steps": TRAIN_STEPS,
+          "reference": {
+              "B": TIMING_REF_B, "T": TIMING_REF_T,
+              "f32": {"loss": [mf_gpu["Loss"], mf_cpu["Loss"]],
+                      "loss_rel_err": f32_loss_rel,
+                      "max_grad_rel_err": max(
+                          v["rel_of_scale"] for v in f32_grads.values()),
+                      "judged_by_f64_oracle": {
+                          n: v for n, v in f32_grads.items()
+                          if v["rel_of_scale"] >= TRAIN_GRAD_RTOL},
+                      "loss_rtol": TRAIN_LOSS_RTOL,
+                      "grad_rtol": TRAIN_GRAD_RTOL},
+              "amp": {"loss": [m_gpu["Loss"], m_cpu["Loss"]],
+                      "loss_rel_err": loss_rel,
+                      "grads": amp_summary(grads),
+                      "limits": {"rtol": TIMING_RTOL,
+                                 "unresolved_cos_min": TIMING_COS_MIN,
+                                 "unresolved_l2_max": TIMING_L2_MAX}},
+              "seconds": time.time() - t0}})
+    assert all(np.isfinite(x) for x in losses), losses
+    assert np.isfinite(mf_gpu["Loss"]) and f32_loss_rel < TRAIN_LOSS_RTOL, \
+        f32_loss_rel
+    bad = {n: v for n, v in f32_grads.items() if not v["ok"]}
+    assert not bad, bad
+    assert np.isfinite(m_gpu["Loss"]) and loss_rel < TIMING_RTOL, loss_rel
+    bad = {n: v for n, v in grads.items() if not v["ok"]}
+    assert not bad, bad
 
 
 def _sum_rows(rows, counts, keys):
@@ -974,9 +1470,11 @@ def _entry(name, source, sums, **extra):
             "library_ms": sums["library_ms"]}
 
 
-def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
+def kernels_line(kernel_rows, train_rows, slice_launches, train_launches,
+                 amp_launches):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
-    the paths' runs (N_CALLS svs_ensemble calls, TRAIN_STEPS train steps).
+    the paths' runs (N_CALLS svs_ensemble calls, TRAIN_STEPS train steps of
+    each train arm, float32 and AMP), by path under ``launches_by_path``.
     The recurrence's times, bound and yardstick are summed over one
     svs_ensemble call's launches (LAUNCHES_BY_HIDDEN), with the same sums
     over one train step (TRAIN_LAUNCHES_BY_SHAPE, the want_c mode) under
@@ -1004,12 +1502,15 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
                   + [r for k, r in train_rows.items()
                      if k[0] == "lstm_recurrence"])
     per_step = TRAIN_LAUNCHES_PER_STEP
+    paths = {name: {"train": train_launches[name],
+                    "train_amp": amp_launches[name]}
+             for name in TRAIN_COUNTERS}
+    paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     return {"kernels": [
         _entry("lstm_recurrence", "lstm_recurrence.cu", serve,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:30",
-               launches=slice_launches + train_launches["lstm_recurrence"],
-               launches_by_path={"svs_ensemble": slice_launches,
-                                 "train": train_launches["lstm_recurrence"]},
+               launches=sum(paths["lstm_recurrence"].values()),
+               launches_by_path=paths["lstm_recurrence"],
                calls=N_CALLS, launches_per_call=slice_launches // N_CALLS,
                train_steps=TRAIN_STEPS, launches_per_step=per_step,
                max_abs_err=rec_err,
@@ -1025,7 +1526,9 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
                            "library_ms": fwd["library_ms"]}),
         _entry("lstm_bptt", "lstm_bptt.cu", bptt,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
-               launches=train_launches["lstm_bptt"], calls=TRAIN_STEPS,
+               launches=sum(paths["lstm_bptt"].values()),
+               launches_by_path=paths["lstm_bptt"],
+               calls=2 * TRAIN_STEPS,
                launches_per_step=per_step,
                max_abs_err=max(r["max_abs_err"] for r in bptt_rows.values()),
                library_input_gemm_ms=bptt["library_input_gemm_ms"],
@@ -1033,7 +1536,9 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches):
                **{k: bptt[k] for k in PREPASS}),
         _entry("lstm_dwh", "lstm_bptt.cu", dwh,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
-               launches=train_launches["lstm_dwh"], calls=TRAIN_STEPS,
+               launches=sum(paths["lstm_dwh"].values()),
+               launches_by_path=paths["lstm_dwh"],
+               calls=2 * TRAIN_STEPS,
                launches_per_step=per_step,
                max_abs_err=max(r["max_abs_err"] for r in dwh_rows.values()),
                max_rel_err=max(r["max_rel_err"] for r in dwh_rows.values())),
@@ -1065,8 +1570,12 @@ def main() -> int:
     phase_reference(engine, weights, labels)
     del engine
     train_launches = phase_train(lr)
-    phase_train_reference()
-    emit(kernels_line(kernel_rows, train_rows, launches, train_launches))
+    f32_runs = phase_train_reference()
+    amp_launches = phase_train_amp(lr)
+    phase_train_amp_reference(f32_runs)
+    phase_timing_train()
+    emit(kernels_line(kernel_rows, train_rows, launches, train_launches,
+                      amp_launches))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

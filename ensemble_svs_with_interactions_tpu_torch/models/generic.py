@@ -5,10 +5,9 @@ classes of the same names in
 ``ensemble_svs_with_interactions_tpu/models/generic.py``.
 
 Constructor arguments are the JAX configs' fields; the input widths that
-flax infers lazily are derived from them here.  The FFConvLSTM decoders and
-the multitrack encoder also train (``train=True`` with a dropout
-``generator``); the variance predictors serve inference only, so their
-``dropout`` fields are accepted and unused.
+flax infers lazily are derived from them here.  Every model here also
+trains: ``train=True`` applies dropout with masks from a
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
     MaskedBatchNorm,
     PhonemeContextEmbedding,
     ReflectConv1d,
+    dropout,
     time_mask,
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.mdn import (
@@ -149,12 +149,14 @@ class FFConvLSTM(BaseModel):
 
 
 def _add_conv_ln_stack(model, in_dim, out_dim, num_layers, hidden_dim,
-                       kernel_size, use_mdn, num_gaussians, dim_wise):
+                       kernel_size, use_mdn, num_gaussians, dim_wise,
+                       dropout_p):
     """Register the variance predictors' body on ``model`` under the flax
     names: ``num_layers`` x (Conv_i (SAME), ReLU, LayerNorm_i with eps
-    1e-12 as the reference's custom LayerNorm), then a linear (Dense_0) or
-    MDN (MDNLayer_0) head."""
+    1e-12 as the reference's custom LayerNorm, dropout ``dropout_p`` in
+    training), then a linear (Dense_0) or MDN (MDNLayer_0) head."""
     model.num_layers = num_layers
+    model.dropout = dropout_p
     for i in range(num_layers):
         setattr(model, f"Conv_{i}",
                 nn.Conv1d(in_dim if i == 0 else hidden_dim, hidden_dim,
@@ -167,11 +169,13 @@ def _add_conv_ln_stack(model, in_dim, out_dim, num_layers, hidden_dim,
         model.Dense_0 = nn.Linear(hidden_dim, out_dim)
 
 
-def _conv_ln_stack(model, h):
+def _conv_ln_stack(model, h, train: bool, generator):
     for i in range(model.num_layers):
         conv = getattr(model, f"Conv_{i}")
         h = torch.relu(conv(h.transpose(1, 2)).transpose(1, 2))
         h = getattr(model, f"LayerNorm_{i}")(h)
+        if train:
+            h = dropout(h, model.dropout, generator)
     if model.use_mdn:
         return model.MDNLayer_0(h)
     return model.Dense_0(h)
@@ -206,17 +210,18 @@ class VariancePredictor(BaseModel):
         else:
             self.PhonemeContextEmbedding_0 = None
         _add_conv_ln_stack(self, width, out_dim, num_layers, hidden_dim,
-                           kernel_size, use_mdn, num_gaussians, dim_wise)
+                           kernel_size, use_mdn, num_gaussians, dim_wise,
+                           dropout)
 
     def prediction_type(self):
         return (PredictionType.PROBABILISTIC if self.use_mdn
                 else PredictionType.DETERMINISTIC)
 
-    def forward(self, x, lengths=None):
+    def forward(self, x, lengths=None, train: bool = False, generator=None):
         x = _mask_features(x, self.mask_indices)
         if self.PhonemeContextEmbedding_0 is not None:
             x = self.PhonemeContextEmbedding_0(x)
-        return _conv_ln_stack(self, x)
+        return _conv_ln_stack(self, x, train, generator)
 
     def inference(self, x, lengths=None):
         return _mdn_or_point(self, self(x, lengths))
@@ -249,13 +254,14 @@ class MultiTrackVariancePredictor(BaseModel):
         self.Embed_0 = nn.Embedding(num_speaker, spk_embed_dim)
         _add_conv_ln_stack(self, width + 2 * spk_embed_dim, out_dim,
                            num_layers, hidden_dim, kernel_size, use_mdn,
-                           num_gaussians, dim_wise)
+                           num_gaussians, dim_wise, dropout)
 
     def prediction_type(self):
         return (PredictionType.PROBABILISTIC if self.use_mdn
                 else PredictionType.DETERMINISTIC)
 
-    def forward(self, x, spks, lengths=None):
+    def forward(self, x, spks, lengths=None, train: bool = False,
+                generator=None):
         x = _mask_features(x, self.mask_indices)
         if self.PhonemeContextEmbedding_0 is not None:
             x = self.PhonemeContextEmbedding_0(x)
@@ -265,7 +271,8 @@ class MultiTrackVariancePredictor(BaseModel):
         B, T = x.shape[0], x.shape[1]
         e0 = e0.expand(B, T, e0.shape[-1])
         e1 = e1.expand(B, T, e1.shape[-1])
-        return _conv_ln_stack(self, torch.cat([x, e0, e1], dim=-1))
+        return _conv_ln_stack(self, torch.cat([x, e0, e1], dim=-1), train,
+                              generator)
 
     def inference(self, x, spks, lengths=None):
         return _mdn_or_point(self, self(x, spks, lengths))

@@ -34,6 +34,19 @@ def recurrence(xw, w_h):
     return lstm_recurrence(xw, w_h)
 
 
+def lstm_sequence(x, w_x, b, w_h):
+    """Hidden states (B, T, H) of an LSTM run over x (B, T, C) from a zero
+    state.  The input projection ``x @ w_x + b`` runs in x's dtype.  Under
+    bf16 mixed precision the recurrence still runs in float32 (xw and W_h
+    cast up, the hidden states cast back), as the JAX package keeps its
+    LSTM carry (``ops/pallas_lstm.py`` ``lstm_layer_pallas_trainable``): a
+    bf16 carry loses accuracy over long sequences."""
+    xw = torch.matmul(x, w_x) + b
+    if x.dtype == torch.bfloat16:
+        return recurrence(xw.float(), w_h.float()).to(x.dtype)
+    return recurrence(xw, w_h)
+
+
 def dropout(x, p: float, generator):
     """flax ``nn.Dropout`` in training: keep each unit with probability
     1 - p and scale it by 1 / (1 - p).  The mask is drawn on the
@@ -79,7 +92,8 @@ class _MaskedLSTMLayer(nn.Module):
 
     The input projection ``x @ w_x + b`` for all steps is one matmul; the
     recurrence runs in :func:`ops.lstm_recurrence.lstm_recurrence` (the
-    Hopper kernel on the card).  The recurrence runs through the padded
+    Hopper kernel on the card), in float32 under bf16
+    (:func:`lstm_sequence`).  The recurrence runs through the padded
     suffix unmasked: padding is a suffix for both directions (the backward
     direction is reversed within each length first), so valid steps are
     exactly those of the JAX package's masked scan, and the rest is
@@ -91,8 +105,8 @@ class _MaskedLSTMLayer(nn.Module):
         self.w_x, self.w_h, self.b = lstm_weights_init(in_dim, hidden_dim)
 
     def forward(self, x, mask):
-        xw = torch.matmul(x, self.w_x) + self.b
-        return recurrence(xw, self.w_h) * mask[:, :, None].to(x.dtype)
+        return (lstm_sequence(x, self.w_x, self.b, self.w_h)
+                * mask[:, :, None].to(x.dtype))
 
 
 class LSTM(nn.Module):

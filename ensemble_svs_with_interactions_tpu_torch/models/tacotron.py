@@ -31,8 +31,8 @@ from torch import nn
 
 from ensemble_svs_with_interactions_tpu_torch.models.layers import (
     dropout,
+    lstm_sequence,
     lstm_weights_init,
-    recurrence,
 )
 
 _MAX_LF0_RATIO = 600.0 * np.log(2) / 1200.0
@@ -48,8 +48,8 @@ class LSTMCell(nn.Module):
 
     def sequence(self, x):
         """Hidden states (B, T, H) of the cell run over x (B, T, C) from a
-        zero state."""
-        return recurrence(torch.matmul(x, self.w_x) + self.b, self.w_h)
+        zero state (the recurrence in float32 under bf16)."""
+        return lstm_sequence(x, self.w_x, self.b, self.w_h)
 
     @staticmethod
     def update(z, c):
@@ -59,13 +59,15 @@ class LSTMCell(nn.Module):
         return c, torch.sigmoid(o) * torch.tanh(c)
 
 
-def prenet_dropout_scales(shape, p: float, generator, device):
+def prenet_dropout_scales(shape, p: float, generator, device,
+                          dtype=torch.float32):
     """Multipliers for the fed-back frames of a prenet-less decoder:
-    1 / (1 - p) where a unit is kept (probability 1 - p), 0 where dropped.
-    Drawn from a CPU ``generator`` and moved to ``device``, so one seed
-    gives the same masks on every device."""
+    1 / (1 - p) where a unit is kept (probability 1 - p), 0 where dropped,
+    in the ``dtype`` of the frames they scale.  Drawn from a CPU
+    ``generator`` and moved to ``device``, so one seed gives the same masks
+    on every device."""
     keep = torch.rand(shape, generator=generator) < (1.0 - p)
-    return (keep.to(torch.float32) / (1.0 - p)).to(device)
+    return (keep.to(dtype) / (1.0 - p)).to(device)
 
 
 class _ARDecoderCore(nn.Module):
@@ -105,7 +107,7 @@ class _ARDecoderCore(nn.Module):
                 raise ValueError("prenet dropout at inference needs a "
                                  "torch.Generator")
             scales = prenet_dropout_scales((T, B, D), self.prenet_dropout,
-                                           generator, enc.device)
+                                           generator, enc.device, enc.dtype)
         else:
             scales = None
         cs = [enc.new_zeros(B, Hd) for _ in range(self.layers)]

@@ -32,6 +32,12 @@ def feats_criterion(pred, target, mask, kind: str = "mse"):
     return masked_mean(_error(pred, target, kind), mask)
 
 
+def mdn_stream_loss(pred, target, mask):
+    """Masked MDN negative log-likelihood; pred = (log_pi, log_sigma, mu)."""
+    nll = mdn_loss(*pred, target, reduce=False)
+    return masked_mean(nll, mask if nll.ndim == 3 else mask[..., 0])
+
+
 def get_stream_weight(stream_weights: Optional[Sequence[float]],
                       stream_sizes: Sequence[int]):
     if stream_weights is not None:

@@ -1,13 +1,18 @@
-"""Multitrack acoustic training: the interaction losses and the train step,
-as ``ensemble_svs_with_interactions_tpu/train/multitrack.py`` defines them.
+"""Multitrack training: the interaction losses, the acoustic train step
+and the timelag/duration train step, as
+``ensemble_svs_with_interactions_tpu/train/multitrack.py`` defines them.
 
-The step updates a module, its optimizer and its scheduler in place, on
+A step updates a module, its optimizer and its scheduler in place, on
 ``device="cuda"`` unless the caller passes ``"cpu"``.  It runs the
 forward, the losses, the backward (every LSTM through the hand-written
 BPTT kernels on the card), the JAX package's clipping
 ``min(1, clip / max(|g|, 1e-12))``, the NaN-skip and the optimizer update.
-Not ported: bf16 AMP (``use_amp`` raises) and the timing-model step.
-Donation has no counterpart: the update is in place.
+``use_amp=True`` runs the forward and backward in bfloat16 over float32
+master parameters (``train.loop.amp_cast``); the LSTM recurrences stay
+float32 (``models.layers.lstm_sequence``), and the losses, clipping and
+optimizer are float32.  Donation has no counterpart: the update is in
+place.  The NaN-skip leaves the parameters and the optimizer state as
+they were in both steps; the JAX timing step guards only its parameters.
 """
 
 from __future__ import annotations
@@ -25,9 +30,16 @@ from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
     split_streams,
 )
 from ensemble_svs_with_interactions_tpu_torch.train import losses as L
+from ensemble_svs_with_interactions_tpu_torch.train.loop import (
+    amp_cast,
+    amp_uncast,
+)
 
 BATCH_KEYS = ("in_feats0", "in_feats1", "out_feats0", "out_feats1", "spks0",
               "spks1", "lengths")
+TIMING_BATCH_KEYS = ("in_feats0", "in_feats1", "out_feats0", "spks0",
+                     "spks1", "lengths", "mask0")
+FEATURE_KEYS = ("in_feats0", "in_feats1", "out_feats0", "out_feats1")
 
 
 def interaction_weight(spec, epoch: int, nepochs: int) -> float:
@@ -116,6 +128,69 @@ def multitrack_acoustic_loss(pred_main, pred_sub, out_main, out_sub, mask,
     return loss_feats, loss_lf0_inter, loss_mgc0_inter
 
 
+def _batch_to_device(batch, keys, device, dtype):
+    """The batch's tensors on ``device``: features in ``dtype`` (the
+    module's: float64 oracles), ids and lengths as int64."""
+    out = {k: torch.as_tensor(batch[k], device=device) for k in keys}
+    for k in keys:
+        if k in FEATURE_KEYS:
+            out[k] = out[k].to(dtype)
+        elif k in ("spks0", "spks1", "lengths"):
+            out[k] = out[k].long()
+    return out
+
+
+def _forward(module, args, kwargs, use_amp: bool, train: bool):
+    """``module(*args, **kwargs)``; under AMP through
+    ``torch.func.functional_call`` with bf16 copies of the float32
+    parameters and buffers (the casts are differentiable, so the float32
+    masters get float32 gradients) and the outputs cast back to float32.
+    After a training forward the bf16 running statistics are copied back
+    into the float32 buffers, as the JAX step's ``amp_uncast`` of its
+    ``batch_stats`` update."""
+    if not use_amp:
+        return module(*args, **kwargs)
+    buffers = amp_cast(dict(module.named_buffers()))
+    outs = torch.func.functional_call(
+        module, {**amp_cast(dict(module.named_parameters())), **buffers},
+        amp_cast(args), kwargs)
+    if train:
+        with torch.no_grad():
+            for name, buf in module.named_buffers():
+                buf.copy_(buffers[name])
+    return amp_uncast(outs)
+
+
+def _clip_grads(params, loss, clip_norm: float):
+    """Scale the gradients in place by ``min(1, clip / max(|g|, 1e-12))``;
+    returns (global norm, whether the loss and the norm are finite)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+    finite = torch.isfinite(gnorm) & torch.isfinite(loss.detach())
+    clip = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    for p, g in zip(params, grads):
+        p.grad = g.mul_(clip)
+    return gnorm, finite
+
+
+def _apply_update(finite, optimizer, scheduler):
+    """The NaN-skip: step the optimizer and the schedule only when the step
+    was finite, so a non-finite one leaves the parameters, the optimizer
+    state (and an accumulator's mean and count) and the schedule as they
+    were."""
+    if bool(finite):
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+
+
+def _floats(metrics, device):
+    values = torch.stack([torch.as_tensor(v, device=device).double()
+                          for v in metrics.values()]).tolist()
+    return dict(zip(metrics, values))
+
+
 def create_multitrack_acoustic_train_step(
     module,
     optimizer,
@@ -139,15 +214,16 @@ def create_multitrack_acoustic_train_step(
     module, optimizer and scheduler in place, and returns the metrics as
     floats.  A non-finite loss or gradient norm leaves the parameters, the
     optimizer state and the schedule untouched (the batch-norm statistics
-    are updated all the same, as in the JAX step).
+    are updated all the same, as in the JAX step).  ``use_amp=True`` casts
+    the parameters, buffers, input features and teacher-forcing targets to
+    bfloat16 for the forward and the outputs back to float32 for the
+    losses, which take the float32 targets.
     ``train_step(..., blocked_phase_times=True)`` synchronizes the device
     after the forward, the backward and the optimizer and records their
     seconds in ``train_step.last_phase_times``.
     ``eval_step(batch, weights)`` returns (metrics, main-track prediction)
     without touching anything (prenet dropout from a generator seeded 0).
     """
-    if use_amp:
-        raise NotImplementedError("use_amp (bf16) is not ported")
     device = torch.device(device)
     module.to(device)
     stream_sizes = list(model_config.get("stream_sizes", [60, 1, 1, 5]))
@@ -156,11 +232,7 @@ def create_multitrack_acoustic_train_step(
     dtype = params[0].dtype  # features follow the module (float64 oracles)
 
     def to_device(batch):
-        out = {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}
-        for k in ("in_feats0", "in_feats1", "out_feats0", "out_feats1"):
-            out[k] = out[k].to(dtype)
-        for k in ("spks0", "spks1", "lengths"):
-            out[k] = out[k].long()
+        out = _batch_to_device(batch, BATCH_KEYS, device, dtype)
         out["pitch_reg_dyn_ws"] = (
             torch.as_tensor(batch["pitch_reg_dyn_ws"], device=device).to(dtype)
             if "pitch_reg_dyn_ws" in batch else 1.0)
@@ -170,10 +242,10 @@ def create_multitrack_acoustic_train_step(
         T = b["in_feats0"].shape[1]
         mask = (torch.arange(T, device=device)[None, :]
                 < b["lengths"][:, None]).to(dtype)[:, :, None]
-        (pred_main, lf0_res_main), (pred_sub, _) = module(
-            b["in_feats0"], b["in_feats1"], (b["spks0"], b["spks1"]),
-            b["lengths"], (b["out_feats0"], b["out_feats1"]), train=train,
-            generator=generator)
+        (pred_main, lf0_res_main), (pred_sub, _) = _forward(
+            module, (b["in_feats0"], b["in_feats1"], (b["spks0"], b["spks1"]),
+                     b["lengths"], (b["out_feats0"], b["out_feats1"])),
+            {"train": train, "generator": generator}, use_amp, train)
         loss_feats, loss_lf0_inter, loss_mgc0_inter = multitrack_acoustic_loss(
             pred_main, pred_sub, b["out_feats0"], b["out_feats1"], mask,
             stream_sizes, criterion=feats_criterion,
@@ -191,11 +263,6 @@ def create_multitrack_acoustic_train_step(
                    "Loss_MGC-0th_Interaction": loss_mgc0_inter}
         return loss, metrics, pred_main
 
-    def floats(metrics):
-        values = torch.stack([torch.as_tensor(v, device=device).double()
-                              for v in metrics.values()]).tolist()
-        return dict(zip(metrics, values))
-
     def lap(times, name, t0):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -212,22 +279,12 @@ def create_multitrack_acoustic_train_step(
         if blocked_phase_times:
             t0 = lap(times, "forward", t0)
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
-        finite = torch.isfinite(gnorm) & torch.isfinite(loss.detach())
-        clip = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12),
-                           max=1.0)
-        for p, g in zip(params, grads):
-            p.grad = g.mul_(clip)
+        gnorm, finite = _clip_grads(params, loss, clip_norm)
         if blocked_phase_times:
             t0 = lap(times, "backward", t0)
         metrics["GradNorm"] = gnorm
-        out = floats(metrics)
-        if bool(finite):
-            optimizer.step()
-            if scheduler is not None:
-                scheduler.step()
+        out = _floats(metrics, device)
+        _apply_update(finite, optimizer, scheduler)
         if blocked_phase_times:
             lap(times, "optimizer", t0)
         train_step.last_phase_times = times
@@ -240,6 +297,60 @@ def create_multitrack_acoustic_train_step(
         generator = torch.Generator(device=device).manual_seed(0)
         _, metrics, pred_main = loss_fn(to_device(batch), weights, generator,
                                         False)
-        return floats(metrics), pred_main
+        return _floats(metrics, device), pred_main
+
+    return train_step, eval_step
+
+
+def create_multitrack_timing_train_step(module, optimizer, scheduler=None,
+                                        clip_norm: float = 1.0,
+                                        use_amp: bool = False,
+                                        device="cuda"):
+    """(train_step, eval_step) for a multitrack timelag or duration model
+    (``MultiTrackVariancePredictor``) over note-merged tracks.
+
+    The input is ``concat(in_feats0, in_feats1)``; the target is the main
+    track's ``out_feats0`` where the main track is present, so the mask
+    is ``valid x mask0``.  The loss is the masked MDN negative
+    log-likelihood for a probabilistic model, else the masked MSE.
+    ``train_step(batch, generator)`` takes a batch dict
+    (``TIMING_BATCH_KEYS``) and the ``torch.Generator`` of the dropout
+    masks, updates the module, optimizer and scheduler in place and
+    returns ``{"Loss", "GradNorm"}`` as floats; ``eval_step(batch)``
+    returns ``{"Loss"}``.  Clipping, the NaN-skip and ``use_amp`` as in
+    :func:`create_multitrack_acoustic_train_step`."""
+    device = torch.device(device)
+    module.to(device)
+    probabilistic = module.prediction_type() == PredictionType.PROBABILISTIC
+    params = [p for p in module.parameters() if p.requires_grad]
+    dtype = params[0].dtype
+
+    def loss_fn(b, generator, train: bool):
+        x = torch.cat([b["in_feats0"], b["in_feats1"]], dim=-1)
+        T = x.shape[1]
+        valid = (torch.arange(T, device=device)[None, :]
+                 < b["lengths"][:, None]).to(dtype)
+        mask = (valid * b["mask0"].to(dtype))[:, :, None]
+        pred = _forward(module, (x, (b["spks0"], b["spks1"]), b["lengths"]),
+                        {"train": train, "generator": generator}, use_amp,
+                        train)
+        if probabilistic:
+            return L.mdn_stream_loss(pred, b["out_feats0"], mask)
+        return L.feats_criterion(pred, b["out_feats0"], mask, "mse")
+
+    def train_step(batch, generator):
+        b = _batch_to_device(batch, TIMING_BATCH_KEYS, device, dtype)
+        optimizer.zero_grad(set_to_none=False)
+        loss = loss_fn(b, generator, True)
+        loss.backward()
+        gnorm, finite = _clip_grads(params, loss, clip_norm)
+        out = _floats({"Loss": loss, "GradNorm": gnorm}, device)
+        _apply_update(finite, optimizer, scheduler)
+        return out
+
+    @torch.no_grad()
+    def eval_step(batch):
+        b = _batch_to_device(batch, TIMING_BATCH_KEYS, device, dtype)
+        return _floats({"Loss": loss_fn(b, None, False)}, device)
 
     return train_step, eval_step

@@ -4,6 +4,7 @@ line with its keys.  Their numbers mean something only on the card
 line says the device was the CPU and carries no device metric."""
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -21,11 +22,12 @@ import bench_train_cuda  # noqa: E402
 import chip_smoke  # noqa: E402
 
 
-def _one_json_line(script):
+def _one_json_line(script, *args):
     # two threads: tiny widths gain nothing from more, and the suite's
     # other workers keep the cores
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
-    r = subprocess.run([sys.executable, script, "--device", "cpu", "--tiny"],
+    r = subprocess.run([sys.executable, script, "--device", "cpu", "--tiny",
+                        *args],
                        cwd=REPO, capture_output=True, text=True, timeout=600,
                        env=env)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
@@ -71,6 +73,8 @@ def test_bench_train_cuda_tiny_prints_one_json_line():
     assert out["flops_torch_ops"] > 0 and out["flops_lstm_kernels"] > 0
     assert "FlopCounterMode" in out["flops_convention"]
     assert "67e12" in out["mfu_convention"]
+    assert out["peak_flop_per_s"] == 67e12
+    assert "float32" in out["peak_convention"]
     assert all(isinstance(x, float) for x in out["losses"])
     assert out["use_amp"] is False
     assert out["device"] == "cpu" and out["card"] is None
@@ -79,8 +83,22 @@ def test_bench_train_cuda_tiny_prints_one_json_line():
 
 
 def test_bench_train_cuda_amp_raises():
-    with pytest.raises(NotImplementedError, match="amp"):
-        bench_train_cuda.main(["--amp"])
+    """``--tiny --amp --device cpu``: the bf16 AMP arm prints one JSON line
+    with ``use_amp`` true, its MFU over the named bf16 peak (None on the
+    CPU) and finite losses."""
+    out = _one_json_line("bench_train_cuda.py", "--amp")
+    assert out["metric"] == "train_frames_per_sec_flagship_multitrack"
+    assert out["use_amp"] is True
+    assert len(out["all_step_sec"]) == out["steps"] == 5
+    assert out["frames_per_sec"] == out["value"] > 0
+    assert out["flops_per_step"] == (out["flops_torch_ops"]
+                                     + out["flops_lstm_kernels"])
+    assert out["peak_flop_per_s"] == 989e12
+    assert "bf16" in out["peak_convention"]
+    assert "989e12" in out["mfu_convention"]
+    assert all(isinstance(x, float) and math.isfinite(x)
+               for x in out["losses"])
+    assert out["device"] == "cpu" and out["mfu"] is None
 
 
 def test_benches_need_a_card_unless_the_cpu_is_asked_for():
@@ -115,7 +133,7 @@ def test_train_lstm_shapes_give_the_launch_table():
     ``chip_smoke.py`` checks the card's launch counts against, and the
     kernels' operation count follows from it."""
     ac, _ = chip_smoke.flagship_acoustic_config(4)
-    shapes = bench_train_cuda.train_lstm_shapes(ac["netG"], chip_smoke.TRAIN_T)
+    shapes = chip_smoke.train_lstm_shapes(ac["netG"], chip_smoke.TRAIN_T)
     assert shapes == chip_smoke.TRAIN_LAUNCHES_BY_SHAPE
     B = chip_smoke.TRAIN_B
     H, T = 512, 256
@@ -123,4 +141,4 @@ def test_train_lstm_shapes_give_the_launch_table():
            + 2 * B * T * H * 4 * H + B * T * 4 * H         # pre-pass
            + 2 * B * T * 4 * H * H + 30 * B * T * H        # loop
            + 2 * B * (T - 1) * H * 4 * H)                  # dW_h
-    assert bench_train_cuda.lstm_kernel_flops({(H, T): 1}, B) == one
+    assert chip_smoke.lstm_kernel_flops({(H, T): 1}, B) == one

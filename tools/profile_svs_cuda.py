@@ -28,11 +28,6 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 
 
-def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0)))
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_svs_cuda: no CUDA device", file=sys.stderr)
@@ -52,9 +47,9 @@ def main() -> int:
         wall_s = time.time() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and _device_us(e) > 0]
-    busy_us = sum(_device_us(e) for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+               and cs.device_us(e) > 0]
+    busy_us = sum(cs.device_us(e) for e in kernels)
+    top = sorted(kernels, key=cs.device_us, reverse=True)[:15]
     print(json.dumps({
         "card": cs.card_line(), "wall_s": wall_s,
         "device_kernel_ms": busy_us / 1e3,
@@ -62,7 +57,7 @@ def main() -> int:
         "device_kernels_launched": sum(e.count for e in kernels),
         "stages": engine.last_stage_times,
         "top_kernels": [{"name": e.key[:90], "count": e.count,
-                         "device_ms": _device_us(e) / 1e3} for e in top],
+                         "device_ms": cs.device_us(e) / 1e3} for e in top],
     }), flush=True)
     return 0
 
