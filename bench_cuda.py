@@ -20,6 +20,15 @@ the LSTM kernel launches per call and the kernel each width ran, the peak
 device memory, the pack and load seconds, and the card's name and power
 limit as ``nvidia-smi`` gives them.  No TPU number is a target here.
 
+``--single-track`` measures single-singer serving instead: the stock
+single-track voice (``chip_smoke.single_phases``: the JAX package's
+``configs/acoustic/acoustic_multistream_ar_f0.yaml`` and
+``{timelag,duration}_vp_mdn.yaml`` at their widths, random weights from
+seed 0) packed and opened the same way renders one copy of the fixture
+through ``SPSVS.svs``: one warm-up call, then 7 timed calls.  Its line
+carries the median RTF under ``metric: "rtf_single_track_48k"``, the
+median run's ``last_stage_times``, ``load_sec`` and the same device keys.
+
 ``--device cpu --tiny`` (narrow widths, the first seconds of the fixture,
 two timed calls) exists for the CPU test only: it reports no device
 metric.  Without a card, the default device fails.
@@ -40,6 +49,7 @@ import chip_smoke
 from chip_smoke import FIXTURE, N_TRACKS, SEED
 
 METRIC = "rtf_4part_flagship_multitrack_48k"
+SINGLE_METRIC = "rtf_single_track_48k"
 WARMUP_CALLS = 1
 TIMED_CALLS = 7
 TINY_CALLS = 2
@@ -115,7 +125,7 @@ def run(device: torch.device, tiny: bool) -> dict:
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    lr.lstm_recurrence.launches = 0
+    chip_smoke.reset_launches(lr)
     times, stages = [], []
     calls = TINY_CALLS if tiny else TIMED_CALLS
     for _ in range(calls):
@@ -151,13 +161,73 @@ def run(device: torch.device, tiny: bool) -> dict:
     }
 
 
+def run_single(device: torch.device, tiny: bool) -> dict:
+    """``--single-track``: the stock single-track voice through
+    ``SPSVS.svs``."""
+    from ensemble_svs_with_interactions_tpu_torch.ops import (
+        lstm_recurrence as lr,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    glob, phases = chip_smoke.single_phases(tiny=tiny)
+    weights = chip_smoke.random_state_dicts(phases, SEED)
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.perf_counter()
+        chip_smoke.pack_phases(model_dir, glob, phases, weights)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        engine = SPSVS(model_dir, device=device)
+        sync(device)
+        load_s = time.perf_counter() - t0
+    labels = load_labels(tiny)
+    t0 = time.perf_counter()
+    for _ in range(WARMUP_CALLS):
+        engine.svs(labels.copy())
+    warmup_s = time.perf_counter() - t0
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    chip_smoke.reset_launches(lr)
+    times, stages = [], []
+    calls = TINY_CALLS if tiny else TIMED_CALLS
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        wav, sr = engine.svs(labels.copy())
+        times.append(time.perf_counter() - t0)
+        stages.append(dict(engine.last_stage_times))
+    by_width = dict(lr.lstm_recurrence.launches_by_width)
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
+    order = int(np.argsort(times)[len(times) // 2])
+    audio_s = len(wav) / sr
+    return {
+        "metric": SINGLE_METRIC, "value": times[order] / audio_s,
+        "unit": "ratio", "all_runs_sec": times, "audio_seconds": audio_s,
+        "rtf_all": [t / audio_s for t in times], "calls": calls,
+        "warmup_calls": WARMUP_CALLS, "warmup_sec": warmup_s,
+        "stages_sec": stages[order],
+        "lstm_launches_per_call": lr.lstm_recurrence.launches / calls,
+        "lstm_launches_by_hidden": {str(H): n / calls
+                                    for H, n in sorted(by_width.items())},
+        "lstm_kernel_by_hidden": (
+            {str(H): lr.lstm_recurrence_kernel_name(1, H) for H in by_width}
+            if device.type == "cuda" else None),
+        "peak_mem_gib": peak, "pack_sec": pack_s, "load_sec": load_s,
+        "dtype": str(wav.dtype), "fixture": FIXTURE.name, "tiny": tiny,
+        **card_info(device),
+    }
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="narrow widths and a short input (CPU test only)")
+    p.add_argument("--single-track", action="store_true",
+                   help="single-singer serving through SPSVS.svs")
     args = p.parse_args(argv)
-    print(json.dumps(run(bench_device(args.device), args.tiny)), flush=True)
+    bench = run_single if args.single_track else run
+    print(json.dumps(bench(bench_device(args.device), args.tiny)), flush=True)
     return 0
 
 

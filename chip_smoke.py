@@ -4,9 +4,11 @@
 
 Drives the port's paths at the verbatim widths of the flagship (random
 weights from a seeded generator): serving, the 4-part pairwise ensemble
-through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and training, the
-multitrack acoustic train step as ``bench_train.py`` runs it, in float32
-and in the recipe's bf16 AMP arm, and the duration model's train step.
+through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it; single-singer
+serving through ``SPSVS.svs`` on the stock single-track voice; and
+training, the multitrack acoustic train step as ``bench_train.py`` runs
+it, in float32 and in the recipe's bf16 AMP arm, and the duration model's
+train step.
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
@@ -35,6 +37,19 @@ PyTorch version on the card.  Phases, each printing JSON lines:
 6. ``reference``: the same modules on the CPU (plain recurrence) against
    the card on a shortened input, and the AR lf0 decoder against a
    float64 oracle;
+6a. ``kernel_b1`` (run with phase 2): the recurrence at B = 1, T = 6656,
+   the shapes single-singer serving gives it;
+6b. ``single``: the stock single-track voice (the JAX package's
+   ``configs/acoustic/acoustic_multistream_ar_f0.yaml`` and
+   ``{timelag,duration}_vp_mdn.yaml`` at their widths, seeded random
+   weights) packed and opened by ``SPSVS(model_dir)``, three timed
+   ``svs()`` calls on the fixture with the launch counts by width reset
+   just before and read just after, one float32 call, one with segmented
+   synthesis and one ``svs_ensemble`` of 4 copies (the single-track
+   branch);
+6c. ``single_reference``: the same pack opened on the CPU against the
+   card on the first 60 labels: durations, modules, the AR lf0 decoder
+   against a float64 oracle and the postprocessed streams;
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -145,9 +160,18 @@ TIMING_COS_MIN = 0.98
 TIMING_L2_MAX = 0.2
 N_TRACKS = 4
 N_CALLS = 3
-# single-direction LSTM recurrences per svs_ensemble call, by hidden width
-# (encoder 512 x 3 layers x 2 directions; mgc 256, lf0 64, vuv 64, bap 62
-# at 2 layers x 2 directions each)
+# the single-track voice's streams after postprocess, card against CPU on
+# valid frames (each stream a host postprocess of the acoustic features)
+POST_ATOL = 1e-3
+# single-track configurations shipped in the JAX package, read as files
+CONFIGS = REPO / PKG / "configs"
+# the recipes fill the lf0 fields from the data's statistics; the flagship's
+SINGLE_LF0 = {"in_lf0_min": 4.72, "in_lf0_max": 6.84,
+              "out_lf0_mean": float(np.log(260.0)), "out_lf0_scale": 0.24}
+# single-direction LSTM recurrences per svs_ensemble call (B = 4) and per
+# single-track svs call (B = 1), by hidden width (encoder 512 x 3 layers x
+# 2 directions; mgc 256, lf0 64, vuv 64, bap 62 at 2 layers x 2 directions
+# each)
 LAUNCHES_BY_HIDDEN = {512: 6, 256: 4, 64: 8, 62: 4}
 LAUNCHES_PER_CALL = sum(LAUNCHES_BY_HIDDEN.values())
 RECURRENCE_SHAPES = [62, 64, 256, 512]
@@ -334,15 +358,16 @@ def random_state_dicts(phases, seed: int):
     return out
 
 
-def build_engine(device, weights):
-    """The flagship engine built in memory (``SPSVS.from_parts``) from
-    state dicts."""
+def build_engine(device, weights, voice=None):
+    """The engine built in memory (``SPSVS.from_parts``) from state dicts:
+    the flagship's, or ``voice``, a (global config, phases) pair such as
+    ``single_phases()``."""
     from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
     from ensemble_svs_with_interactions_tpu_torch.utils import (
         packaged_question_path,
     )
 
-    glob, phases = flagship_phases()
+    glob, phases = voice or flagship_phases()
     return SPSVS.from_parts(glob, packaged_question_path(), {
         name: {"model_config": cfg, "state_dict": weights[name],
                "in_scaler": sc_in, "out_scaler": sc_out}
@@ -352,6 +377,12 @@ def build_engine(device, weights):
 
 def pack_flagship(model_dir, weights, tiny: bool = False):
     """Write the flagship with the given state dicts as a packed model
+    directory."""
+    return pack_phases(model_dir, *flagship_phases(tiny=tiny), weights)
+
+
+def pack_phases(model_dir, glob, phases, weights):
+    """Write ``phases`` with the given state dicts as a packed model
     directory (``utils/packing.pack_model``, through ``torch_to_flax``)."""
     from ensemble_svs_with_interactions_tpu_torch.utils import (
         packaged_question_path,
@@ -363,7 +394,6 @@ def pack_flagship(model_dir, weights, tiny: bool = False):
         pack_model,
     )
 
-    glob, phases = flagship_phases(tiny=tiny)
     parts = {}
     for name, (cfg, sc_in, sc_out) in phases.items():
         module = instantiate(cfg["netG"])
@@ -371,6 +401,65 @@ def pack_flagship(model_dir, weights, tiny: bool = False):
         parts[name] = {"model_config": cfg, "module": module,
                        "in_scaler": sc_in, "out_scaler": sc_out}
     return pack_model(model_dir, glob, packaged_question_path(), parts)
+
+
+def shipped_config(rel: str) -> dict:
+    """A config file of the JAX package's ``configs/`` as plain dicts, read
+    by the port's own YAML subset (a file, not an import)."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import yaml_io
+
+    return json.loads(json.dumps(yaml_io.load((CONFIGS / rel).read_text())))
+
+
+def single_phases(tiny: bool = False):
+    """The stock single-track voice, (global config, {phase: (model_config,
+    in_scaler, out_scaler)}): ``acoustic/acoustic_multistream_ar_f0.yaml``
+    and ``{timelag,duration}/*_vp_mdn.yaml`` verbatim, the lf0 fields the
+    recipe fills from data set to SINGLE_LF0, and the flagship's scalers.
+    ``tiny=True`` narrows every width (TINY) for the CPU tests; the stream
+    layout and the model classes stay."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
+        MinMaxScaler,
+        StandardScaler,
+    )
+
+    ac = shipped_config("acoustic/acoustic_multistream_ar_f0.yaml")
+    tl = shipped_config("timelag/timelag_vp_mdn.yaml")
+    du = shipped_config("duration/duration_vp_mdn.yaml")
+    net = ac["netG"]
+    for node in (net, net["lf0_model"]):
+        node.update({k: v for k, v in SINGLE_LF0.items() if node[k] is None})
+    if tiny:
+        w = TINY
+        net["encoder"].update(embed_dim=w["embed"], hidden_dim=w["enc_hidden"],
+                              out_dim=w["enc_out"], num_layers=w["enc_layers"])
+        net["lf0_model"].update(
+            embed_dim=w["embed"], ff_hidden_dim=w["ff"],
+            conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"],
+            decoder_hidden_dim=w["dec"])
+        for k in ("mgc_model", "vuv_model", "bap_model"):
+            net[k].update(in_dim=w["enc_out"] + 2, ff_hidden_dim=w["ff"],
+                          conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"])
+        for cfg in (tl, du):
+            cfg["netG"].update(hidden_dim=w["tl"], num_layers=w["layers"])
+    out = sum(ac["stream_sizes"])
+    mgc = ac["stream_sizes"][0]
+    mean = np.zeros(out)
+    scale = np.ones(out) * 0.1
+    mean[mgc] = np.log(260.0)
+    scale[mgc] = 0.24
+    glob = {"sample_rate": 48000, "frame_period": 5, "feature_type": "world",
+            "use_world_codec": True, "relative_f0": False}
+    return glob, {
+        "timelag": (tl, MinMaxScaler(np.zeros(82), np.ones(82)),
+                    StandardScaler(np.zeros(1), np.ones(1) * 4,
+                                   np.ones(1) * 2)),
+        "duration": (du, MinMaxScaler(np.zeros(82), np.ones(82)),
+                     StandardScaler(np.ones(1) * 10, np.ones(1) * 4,
+                                    np.ones(1) * 2)),
+        "acoustic": (ac, MinMaxScaler(np.zeros(86), np.ones(86)),
+                     StandardScaler(mean, scale ** 2, scale)),
+    }
 
 
 # ------------------------------------------------------------------ timing
@@ -544,14 +633,17 @@ def phase_build(lr):
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
-def phase_kernels(lr):
+def phase_kernels(lr, B=N_TRACKS, modes=(False, True), phase="kernel"):
+    """The recurrence at the serving shapes: B rows (N_TRACKS for
+    ``svs_ensemble``, 1 for ``svs``) of T_FRAMES steps, each width of
+    RECURRENCE_SHAPES, in each of ``modes`` (want_c)."""
     results = {}
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    B, T = N_TRACKS, T_FRAMES
+    g = torch.Generator(device="cuda").manual_seed(SEED + B - N_TRACKS)
+    T = T_FRAMES
     for H in RECURRENCE_SHAPES:
         xw = torch.randn(B, T, 4 * H, device="cuda", generator=g)
         w_h = torch.randn(H, 4 * H, device="cuda", generator=g) / H ** 0.5
-        for want_c in (False, True):
+        for want_c in modes:
             got = lr.lstm_recurrence(xw, w_h, want_c)
             ref = lr.lstm_recurrence_reference(xw, w_h, want_c)
             pairs = zip(got, ref) if want_c else [(got, ref)]
@@ -563,7 +655,7 @@ def phase_kernels(lr):
             bound_ms, bound_by = bound(t_bytes, t_ops)
             library_ms, gemm_ms = ((None, None) if want_c
                                    else cudnn_lstm_ms(xw, w_h, 5))
-            row = {"phase": "kernel", "name": "lstm_recurrence",
+            row = {"phase": phase, "name": "lstm_recurrence",
                    "kernel": lr.lstm_recurrence_kernel_name(B, H), "B": B,
                    "T": T, "H": H, "want_c": want_c, "max_abs_err": err,
                    "atol": KERNEL_ATOL, "ms": ms, "us_per_step": 1e3 * ms / T,
@@ -686,6 +778,12 @@ def prepass_row(lr, xw, w_h, h):
             "prepass_library_ms": library_ms}
 
 
+def reset_launches(lr):
+    """Zero the forward's launch counts (total and by width)."""
+    lr.lstm_recurrence.launches = 0
+    lr.lstm_recurrence.launches_by_width.clear()
+
+
 def phase_slice(lr, weights, labels):
     """The engine through the normal entry point: the weights packed into a
     temporary directory, then ``SPSVS(model_dir)``."""
@@ -704,7 +802,7 @@ def phase_slice(lr, weights, labels):
                         spk_ids=list(range(N_TRACKS)))
     warm_s = time.time() - t0
 
-    lr.lstm_recurrence.launches = 0
+    reset_launches(lr)
     runs = []
     for _ in range(N_CALLS):
         t0 = time.time()
@@ -841,6 +939,168 @@ def phase_reference(engine, weights, labels):
     assert np.isfinite(ar["card_vs_f64"]) and ar["card_vs_f64"] <= ar_limit, ar
     for k in ref:
         assert torch.isfinite(got[k]).all(), k
+
+
+def phase_single(lr, model_dir, label):
+    """Single-singer serving through the normal entry point: the stock
+    single-track voice opened by ``SPSVS(model_dir)`` renders the fixture
+    with ``svs()`` (a warm-up, then N_CALLS timed calls with the launch
+    counts reset just before and read just after, by width
+    LAUNCHES_BY_HIDDEN per call), then as float32, with segmented
+    synthesis, and as 4 copies through ``svs_ensemble``'s single-track
+    branch (its own launch count, LAUNCHES_PER_CALL at B = 4)."""
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    t0 = time.time()
+    engine = SPSVS(model_dir, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    t0 = time.time()
+    engine.svs(label.copy())
+    warm_s = time.time() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(lr)
+    runs = []
+    for _ in range(N_CALLS):
+        t0 = time.time()
+        wav, sr = engine.svs(label.copy())
+        runs.append({"seconds": time.time() - t0, "rtf": engine.last_rtf,
+                     "stages": dict(engine.last_stage_times)})
+    launches = lr.lstm_recurrence.launches
+    by_width = dict(lr.lstm_recurrence.launches_by_width)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_kernel = {}
+    for H, n in sorted(by_width.items()):
+        name = lr.lstm_recurrence_kernel_name(1, H)
+        by_kernel[name] = by_kernel.get(name, 0) + n
+
+    t0 = time.time()
+    f32, _ = engine.svs(label.copy(), dtype=np.float32)
+    f32_s = time.time() - t0
+    t0 = time.time()
+    seg, _ = engine.svs(label.copy(), segmented_synthesis=True)
+    seg_s, seg_stages = time.time() - t0, dict(engine.last_stage_times)
+    n_segments = len(hts.segment_labels(engine.predict_timing(label.copy())))
+    reset_launches(lr)
+    t0 = time.time()
+    ens, _ = engine.svs_ensemble([label.copy() for _ in range(N_TRACKS)])
+    ens_s = time.time() - t0
+    ens_launches = lr.lstm_recurrence.launches
+    audio_s = len(wav) / sr
+    emit({"phase": "single", "load_s": load_s, "warmup_s": warm_s,
+          "runs_s": [r["seconds"] for r in runs],
+          "rtf": [r["rtf"] for r in runs],
+          "stages": runs[len(runs) // 2]["stages"], "audio_seconds": audio_s,
+          "calls": N_CALLS, "launches": launches,
+          "launches_by_width": {str(H): n
+                                for H, n in sorted(by_width.items())},
+          "launches_by_kernel": by_kernel, "peak_mem_gib": peak,
+          "float32": {"seconds": f32_s, "dtype": str(f32.dtype),
+                      "length": len(f32),
+                      "max_abs": float(np.abs(f32).max())},
+          "segmented": {"seconds": seg_s, "segments": n_segments,
+                        "length": len(seg), "stages": seg_stages},
+          "svs_ensemble": {"tracks": N_TRACKS, "seconds": ens_s,
+                           "rtf": engine.last_rtf, "launches": ens_launches,
+                           "stages": engine.last_stage_times,
+                           "wav_lengths": [len(w) for w in ens]}})
+    assert by_width == {H: n * N_CALLS for H, n in
+                        LAUNCHES_BY_HIDDEN.items()}, by_width
+    assert launches == LAUNCHES_PER_CALL * N_CALLS, launches
+    assert wav.dtype == np.int16 and len(wav) > 30 * sr, (wav.dtype, len(wav))
+    assert np.abs(wav.astype(np.int64)).max() > 0
+    assert f32.dtype == np.float32 and f32.shape == wav.shape
+    assert np.isfinite(f32).all() and 0 < np.abs(f32).max() <= 1.0
+    assert seg.dtype == np.int16 and len(seg) > 30 * sr and n_segments > 1
+    assert np.abs(seg.astype(np.int64)).max() > 0
+    assert ens_launches == LAUNCHES_PER_CALL, ens_launches
+    for w in ens:
+        assert w.dtype == np.int16 and len(w) > 30 * sr
+        assert np.abs(w.astype(np.int64)).max() > 0
+    return engine, {"svs": launches, "svs_ensemble_single": ens_launches}
+
+
+def phase_single_reference(engine, model_dir, label):
+    """The single-track voice on the card against the same pack opened on
+    the CPU (plain recurrence), over the first 60 labels of the fixture:
+    durations exactly; the encoder (H = 512), the lf0 encoder (64) and the
+    mgc/vuv/bap decoders (256/64/62) at MODULE_ATOL on the same inputs;
+    the free-running AR lf0 decoder (same dropout masks, a CPU generator
+    seeded with ``AR_SEED``) against the float64 oracle under AR_HEADROOM,
+    as phase ``reference``; and the postprocessed (mgc, lf0, vuv, bap) of
+    ``predict_acoustic`` + ``postprocess_acoustic`` within POST_ATOL on
+    valid frames."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import (
+        AR_SEED,
+        FRAME_BUCKET,
+        _round_up,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
+        point_estimate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    t0 = time.time()
+    cpu = SPSVS(model_dir, device="cpu")
+    short = label[:60]
+    dm, dm_cpu = engine.predict_timing(short), cpu.predict_timing(short)
+    assert list(dm.start_times) == list(dm_cpu.start_times)
+    assert list(dm.end_times) == list(dm_cpu.end_times)
+    feats, _ = engine._frame_features([dm.copy()])
+    n = len(feats[0])
+    T = _round_up(n, FRAME_BUCKET)
+    x = np.zeros((1, T, feats[0].shape[1]), np.float32)
+    x[0, :n] = feats[0]
+    rest = engine.acoustic_model.module.in_rest_idx
+
+    @torch.no_grad()
+    def modules(m, dev, dec_in=None, ar_only=False):
+        dtype = next(m.parameters()).dtype
+        xm = torch.from_numpy(x).to(dev, dtype)
+        ln = torch.as_tensor([n], device=dev)
+        out = {"ar_lf0": point_estimate(m.lf0_model(
+            xm, ln, generator=torch.Generator().manual_seed(AR_SEED))[0])}
+        if not ar_only:
+            out["encoder"] = m.encoder(xm, ln)
+            out["lf0_encoder"] = m.lf0_model.encode(xm, ln)
+            if dec_in is None:
+                dec_in = torch.cat([out["encoder"], xm[..., rest: rest + 1],
+                                    out["ar_lf0"]], dim=-1).cpu()
+            d = dec_in.to(dev)
+            for k in ("mgc_model", "vuv_model", "bap_model"):
+                out[k] = getattr(m, k)(d, ln)
+        return {k: v.cpu().double() for k, v in out.items()}, dec_in
+
+    ref, dec_in = modules(cpu.acoustic_model.module, cpu.device)
+    got, _ = modules(engine.acoustic_model.module, engine.device, dec_in)
+    oracle, _ = modules(copy.deepcopy(cpu.acoustic_model.module).double(),
+                        cpu.device, ar_only=True)
+
+    def dist(a, b):
+        return (a - b)[:, :n].abs().max().item()
+
+    errs = {k: dist(got[k], ref[k]) for k in ref}
+    ar = {"card_vs_f64": dist(got["ar_lf0"], oracle["ar_lf0"]),
+          "cpu_f32_vs_f64": dist(ref["ar_lf0"], oracle["ar_lf0"])}
+    ar_limit = max(AR_ABS_ATOL, AR_HEADROOM * ar["cpu_f32_vs_f64"])
+    streams = [e.postprocess_acoustic(e.predict_acoustic(d.copy()), d.copy())
+               for e, d in ((engine, dm), (cpu, dm_cpu))]
+    post = {k: float(np.abs(a - b).max()) for k, a, b in
+            zip(("mgc", "lf0", "vuv", "bap"), *streams)}
+    emit({"phase": "single_reference", "labels": len(short), "frames": n,
+          "T": T, "max_abs_err": errs, "atol": MODULE_ATOL, "ar_lf0": ar,
+          "ar_lf0_limit": ar_limit, "post_max_abs_err": post,
+          "post_atol": POST_ATOL, "seconds": time.time() - t0})
+    for k, e in errs.items():
+        if k != "ar_lf0":
+            assert np.isfinite(e) and e < MODULE_ATOL, (k, e)
+    assert np.isfinite(ar["card_vs_f64"]) and ar["card_vs_f64"] <= ar_limit, ar
+    for k in ref:
+        assert torch.isfinite(got[k]).all(), k
+    for k, e in post.items():
+        assert np.isfinite(e) and e < POST_ATOL, (k, e)
 
 
 def train_batch(B: int, T: int, out_dim: int):
@@ -1470,15 +1730,18 @@ def _entry(name, source, sums, **extra):
             "library_ms": sums["library_ms"]}
 
 
-def kernels_line(kernel_rows, train_rows, slice_launches, train_launches,
-                 amp_launches):
+def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
+                 single_launches, train_launches, amp_launches):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
-    the paths' runs (N_CALLS svs_ensemble calls, TRAIN_STEPS train steps of
-    each train arm, float32 and AMP), by path under ``launches_by_path``.
-    The recurrence's times, bound and yardstick are summed over one
-    svs_ensemble call's launches (LAUNCHES_BY_HIDDEN), with the same sums
-    over one train step (TRAIN_LAUNCHES_BY_SHAPE, the want_c mode) under
-    ``train_step``; the BPTT and dW_h kernels' are summed over one train
+    the paths' runs (N_CALLS svs_ensemble calls, N_CALLS single-track svs
+    calls and one single-track svs_ensemble call, TRAIN_STEPS train steps
+    of each train arm, float32 and AMP), by path under
+    ``launches_by_path``.  The recurrence's times, bound and yardstick are
+    summed over one svs_ensemble call's launches (LAUNCHES_BY_HIDDEN at
+    B = 4), with the same sums over one single-track svs call (the same
+    widths at B = 1) under ``svs_call`` and over one train step
+    (TRAIN_LAUNCHES_BY_SHAPE, the want_c mode) under ``train_step``; the
+    BPTT and dW_h kernels' are summed over one train
     step, the BPTT's with the part its gate pre-pass takes (``prepass_ms``,
     with its bound and its ``torch.addmm`` yardstick) and the bound of its
     reverse loop alone (``loop_bound_ms``).  All come from the kernel
@@ -1487,6 +1750,10 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches,
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
+    single = {H: single_rows[(H, False)] for H in RECURRENCE_SHAPES}
+    one = _sum_rows(single, LAUNCHES_BY_HIDDEN,
+                    TIMES + ("library_input_gemm_ms",))
+    one_bound = bound(one["bytes_ms"], one["operations_ms"])
 
     def train_sums(name, want_c=None, keys=TIMES):
         rows = {s: train_rows[name, *s, want_c]
@@ -1499,6 +1766,7 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches,
         "library_input_gemm_ms", "loop_bound_ms") + PREPASS)
     dwh, dwh_rows = train_sums("lstm_dwh")
     rec_err = max(r["max_abs_err"] for r in list(kernel_rows.values())
+                  + list(single_rows.values())
                   + [r for k, r in train_rows.items()
                      if k[0] == "lstm_recurrence"])
     per_step = TRAIN_LAUNCHES_PER_STEP
@@ -1506,6 +1774,7 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches,
                     "train_amp": amp_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
+    paths["lstm_recurrence"].update(single_launches)
     return {"kernels": [
         _entry("lstm_recurrence", "lstm_recurrence.cu", serve,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:30",
@@ -1515,12 +1784,20 @@ def kernels_line(kernel_rows, train_rows, slice_launches, train_launches,
                train_steps=TRAIN_STEPS, launches_per_step=per_step,
                max_abs_err=rec_err,
                kernel_by_shape={
-                   **{f"svs H={H}": serving[H]["kernel"]
+                   **{f"svs_ensemble H={H}": serving[H]["kernel"]
+                      for H in RECURRENCE_SHAPES},
+                   **{f"svs B=1 H={H}": single[H]["kernel"]
                       for H in RECURRENCE_SHAPES},
                    **{f"train H={H} T={T}":
                       train_rows["lstm_recurrence", H, T, True]["kernel"]
                       for H, T in TRAIN_LAUNCHES_BY_SHAPE}},
                library_input_gemm_ms=serve["library_input_gemm_ms"],
+               svs_call={"B": 1, "ms": one["ms"], "plain_ms": one["plain_ms"],
+                         "bound_ms": one_bound[0], "bound_by": one_bound[1],
+                         "library_ms": one["library_ms"],
+                         "library_input_gemm_ms":
+                             one["library_input_gemm_ms"],
+                         "launches_per_call": LAUNCHES_PER_CALL},
                train_step={"ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
                            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
                            "library_ms": fwd["library_ms"]}),
@@ -1563,19 +1840,30 @@ def main() -> int:
     kernel_rows = phase_kernels(lr)
     train_rows = phase_train_kernels(lr)
 
+    single_rows = phase_kernels(lr, B=1, modes=(False,), phase="kernel_b1")
+
     weights = random_state_dicts(flagship_phases()[1], SEED)
     labels = [hts.load(FIXTURE) for _ in range(N_TRACKS)]
     engine, launches = phase_slice(lr, weights, labels)
     phase_packed(engine, weights, labels)
     phase_reference(engine, weights, labels)
     del engine
+    glob, phases = single_phases()
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.time()
+        pack_phases(model_dir, glob, phases,
+                    random_state_dicts(phases, SEED))
+        emit({"phase": "single_pack", "pack_s": time.time() - t0})
+        engine, single_launches = phase_single(lr, model_dir, labels[0])
+        phase_single_reference(engine, model_dir, labels[0])
+    del engine
     train_launches = phase_train(lr)
     f32_runs = phase_train_reference()
     amp_launches = phase_train_amp(lr)
     phase_train_amp_reference(f32_runs)
     phase_timing_train()
-    emit(kernels_line(kernel_rows, train_rows, launches, train_launches,
-                      amp_launches))
+    emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
+                      single_launches, train_launches, amp_launches))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,19 @@
-"""Generation pipeline pieces on the flagship path: the device-resident
-model pack and the host-side timing helpers (counterparts in
-``ensemble_svs_with_interactions_tpu/gen.py``).
+"""Generation pipeline pieces (counterparts in
+``ensemble_svs_with_interactions_tpu/gen.py``): the device-resident model
+pack, timing, acoustic prediction, the host postprocess of the acoustic
+streams and the waveform stages.
 
-Host (NumPy): linguistic featurization, note bookkeeping, duration
-normalization.  Device (torch): model inference, with frame counts padded
-to buckets as in the JAX package so both see the same padded inputs.
+Host (NumPy/SciPy): linguistic featurization, note bookkeeping, duration
+normalization, the GV postfilter, stream reconstruction, trajectory
+smoothing and the waveform's band-pass and normalization.  Device (torch):
+model inference and the WORLD vocoder, with frame counts padded to buckets
+as in the JAX package so both see the same padded inputs.
+
+Not ported, and named by the ``NotImplementedError`` that refuses them:
+the merlin postfilter and the non-codec WORLD path (``ops/sptk.mc2sp``,
+``ops/world`` ``synthesize``), a packed ``nnsvs`` postfilter
+(``models/postfilters.py``), the neural vocoders (``models/vocoders/``),
+vibrato streams (``ops/pitch.gen_sine_vibrato``) and mel features.
 """
 
 from __future__ import annotations
@@ -19,11 +28,23 @@ import torch
 from ensemble_svs_with_interactions_tpu_torch.base import PredictionType
 from ensemble_svs_with_interactions_tpu_torch.frontend import merlin as fe
 from ensemble_svs_with_interactions_tpu_torch.io import hts
+from ensemble_svs_with_interactions_tpu_torch.models.postfilters import (
+    variance_scaling,
+)
 from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
+    get_static_stream_sizes,
     get_windows,
     multi_stream_mlpg,
+    split_streams,
 )
-from ensemble_svs_with_interactions_tpu_torch.ops.pitch import interp1d
+from ensemble_svs_with_interactions_tpu_torch.ops.pitch import (
+    bandpass_filter,
+    interp1d,
+    lowpass_filter,
+)
+from ensemble_svs_with_interactions_tpu_torch.ops.world.synthesis import (
+    synthesize_from_streams,
+)
 from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
     MinMaxScaler,
 )
@@ -35,6 +56,22 @@ PHONE_BUCKET = 64
 # seed of the AR decoder's inference-time dropout (the JAX package's
 # PRNGKey(1234))
 AR_SEED = 1234
+# the JAX package's modules that unported options need
+_JAX = "ensemble_svs_with_interactions_tpu"
+UNPORTED = {
+    "merlin": f"{_JAX}/ops/sptk.py (mc2sp)",
+    "nnsvs": f"{_JAX}/models/postfilters.py (a packed postfilter)",
+    "world_params": f"{_JAX}/ops/sptk.py (mc2sp) and {_JAX}/ops/world "
+                    "(synthesize)",
+    "vocoder": f"{_JAX}/models/vocoders/",
+    "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
+    "melf0": f"{_JAX}/models/vocoders/ (mel features)",
+}
+
+
+def unported(option: str, what: str):
+    return NotImplementedError(f"{what} needs {UNPORTED[option]}, which the "
+                               "port has not ported")
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -124,12 +161,26 @@ class ModelPack:
 
         return _finalize() if block else _finalize
 
+    def inference(self, x: np.ndarray, spks=None, method: str = "inference"):
+        """Inference on one (T, D) sequence, padded to the bucket with
+        ``lengths = [T]``; host arrays trimmed to T (a tuple of them for
+        MDN heads)."""
+        return self.inference_batch([x], spks=spks, method=method)[0]
+
+
+def vocoder_noise(N: int, samples: int, device) -> torch.Tensor:
+    """The WORLD vocoder's excitation noise, (N, samples) standard normal
+    from a generator seeded 0 on ``device``, afresh on each call."""
+    g = torch.Generator(device).manual_seed(0)
+    return torch.randn((N, samples), generator=g, device=device)
+
 
 def _prepare_linguistic_features(labels, binary_dict, numeric_dict, in_scaler,
                                  pitch_indices, add_frame_features: bool,
                                  subphone_features, log_f0_conditioning: bool,
                                  force_clip_input_features: bool,
                                  frame_shift: int,
+                                 f0_shift_in_cent: float = 0.0,
                                  return_raw: bool = False):
     raw = fe.linguistic_features(
         labels, binary_dict, numeric_dict,
@@ -140,6 +191,8 @@ def _prepare_linguistic_features(labels, binary_dict, numeric_dict, in_scaler,
     if log_f0_conditioning:
         for idx in pitch_indices:
             feats[:, idx] = interp1d(midi_to_hz(feats, idx, True))
+            if f0_shift_in_cent != 0:
+                feats[:, idx] += f0_shift_in_cent * np.log(2) / 1200
     feats = np.asarray(in_scaler.transform(feats), dtype=np.float32)
     if force_clip_input_features and isinstance(in_scaler, MinMaxScaler):
         # clip everything except the pitch columns
@@ -270,3 +323,423 @@ def postprocess_duration(labels, pred_durations, lag,
         for entry in p:
             output.append(entry, strict=False)
     return output, np.asarray(d_norms)
+
+
+# ------------------------------------------------------------------ timing
+def _timing_inputs(labels, binary_dict, numeric_dict, in_scaler,
+                   pitch_indices, log_f0_conditioning, force_clip,
+                   frame_shift):
+    return _prepare_linguistic_features(
+        labels, binary_dict, numeric_dict, in_scaler, pitch_indices, False,
+        None, log_f0_conditioning, force_clip, frame_shift)
+
+
+def _note_labels(labels, hts_frame_shift: int):
+    """Round the labels to the frame grid in place (as the JAX package's
+    timing steps do to the caller's labels) and return their notes."""
+    labels.frame_shift = hts_frame_shift
+    labels.round_()
+    return labels[hts.get_note_indices(labels)]
+
+
+def _lag_from_pred(pred, timelag_model: ModelPack, timelag_out_scaler,
+                   note_labels, allowed_range, allowed_range_rest):
+    is_prob = timelag_model.prediction_type() == PredictionType.PROBABILISTIC
+    lag = _denorm_and_mlpg(pred, timelag_out_scaler, timelag_model.config,
+                           is_prob)
+    return _clip_timelag(lag, note_labels, allowed_range, allowed_range_rest)
+
+
+def predict_timelag(labels, timelag_model: ModelPack, timelag_in_scaler,
+                    timelag_out_scaler, binary_dict, numeric_dict, spk=None,
+                    pitch_indices=None, log_f0_conditioning: bool = True,
+                    allowed_range=(-20, 20), allowed_range_rest=(-40, 40),
+                    force_clip_input_features: bool = False,
+                    frame_period: float = 5):
+    """Note-level time-lags: (lag in 100 ns units, lag in frames)."""
+    hts_frame_shift = int(frame_period * 1e4)
+    if pitch_indices is None:
+        pitch_indices = hts.get_pitch_indices(binary_dict, numeric_dict)
+    note_labels = _note_labels(labels, hts_frame_shift)
+    feats = _timing_inputs(note_labels, binary_dict, numeric_dict,
+                           timelag_in_scaler, pitch_indices,
+                           log_f0_conditioning, force_clip_input_features,
+                           hts_frame_shift)
+    lag = _lag_from_pred(timelag_model.inference(feats, spks=spk),
+                         timelag_model, timelag_out_scaler, note_labels,
+                         allowed_range, allowed_range_rest)
+    return lag * hts_frame_shift, lag
+
+
+def predict_duration(labels, duration_model: ModelPack, duration_in_scaler,
+                     duration_out_scaler, binary_dict, numeric_dict, spk=None,
+                     pitch_indices=None, log_f0_conditioning: bool = True,
+                     force_clip_input_features: bool = False,
+                     frame_period: float = 5):
+    """Phone durations; MDN models give ``(mu, sigma_sq)``."""
+    hts_frame_shift = int(frame_period * 1e4)
+    if pitch_indices is None:
+        pitch_indices = hts.get_pitch_indices(binary_dict, numeric_dict)
+    feats = _timing_inputs(labels, binary_dict, numeric_dict,
+                           duration_in_scaler, pitch_indices,
+                           log_f0_conditioning, force_clip_input_features,
+                           hts_frame_shift)
+    return _denorm_duration_pred(duration_model.inference(feats, spks=spk),
+                                 duration_model, duration_out_scaler)
+
+
+def predict_timing(labels, binary_dict, numeric_dict,
+                   timelag_model: ModelPack, timelag_in_scaler,
+                   timelag_out_scaler, duration_model: ModelPack,
+                   duration_in_scaler, duration_out_scaler, spk=None,
+                   log_f0_conditioning: bool = True, allowed_range=(-20, 20),
+                   allowed_range_rest=(-40, 40),
+                   force_clip_input_features: bool = True,
+                   force_clip_input_features_duration: bool = None,
+                   frame_period: float = 5):
+    """predict_timelag + predict_duration + postprocess_duration: (duration-
+    modified labels, lag in frames, cumulative normalized durations).
+    ``force_clip_input_features_duration`` defaults to the timelag flag."""
+    hts_frame_shift = int(frame_period * 1e4)
+    labels.frame_shift = hts_frame_shift
+    pitch_indices = hts.get_pitch_indices(binary_dict, numeric_dict)
+    lag, lag_frames = predict_timelag(
+        labels, timelag_model, timelag_in_scaler, timelag_out_scaler,
+        binary_dict, numeric_dict, spk=spk, pitch_indices=pitch_indices,
+        log_f0_conditioning=log_f0_conditioning, allowed_range=allowed_range,
+        allowed_range_rest=allowed_range_rest,
+        force_clip_input_features=force_clip_input_features,
+        frame_period=frame_period)
+    durations = predict_duration(
+        labels, duration_model, duration_in_scaler, duration_out_scaler,
+        binary_dict, numeric_dict, spk=spk, pitch_indices=pitch_indices,
+        log_f0_conditioning=log_f0_conditioning,
+        force_clip_input_features=(
+            force_clip_input_features
+            if force_clip_input_features_duration is None
+            else force_clip_input_features_duration),
+        frame_period=frame_period)
+    labels_out, d_norms = postprocess_duration(labels, durations, lag,
+                                               frame_period)
+    return labels_out, lag_frames, d_norms
+
+
+def predict_timing_batch(labels_list, binary_dict, numeric_dict,
+                         timelag_model: ModelPack, timelag_in_scaler,
+                         timelag_out_scaler, duration_model: ModelPack,
+                         duration_in_scaler, duration_out_scaler,
+                         log_f0_conditioning: bool = True,
+                         allowed_range=(-20, 20),
+                         allowed_range_rest=(-40, 40),
+                         force_clip_input_features: bool = True,
+                         force_clip_input_features_duration: bool = None,
+                         frame_period: float = 5):
+    """Timing of N independent tracks: each timing model runs once over an
+    (N, T, D) batch.  Returns the duration-modified labels of each."""
+    hts_frame_shift = int(frame_period * 1e4)
+    pitch_indices = hts.get_pitch_indices(binary_dict, numeric_dict)
+    if force_clip_input_features_duration is None:
+        force_clip_input_features_duration = force_clip_input_features
+    note_labels_list, note_feats, phone_feats = [], [], []
+    for labels in labels_list:
+        note_labels = _note_labels(labels, hts_frame_shift)
+        note_labels_list.append(note_labels)
+        note_feats.append(_timing_inputs(
+            note_labels, binary_dict, numeric_dict, timelag_in_scaler,
+            pitch_indices, log_f0_conditioning, force_clip_input_features,
+            hts_frame_shift))
+        phone_feats.append(_timing_inputs(
+            labels, binary_dict, numeric_dict, duration_in_scaler,
+            pitch_indices, log_f0_conditioning,
+            force_clip_input_features_duration, hts_frame_shift))
+    lag_future = timelag_model.inference_batch(note_feats, block=False)
+    dur_future = duration_model.inference_batch(phone_feats, block=False)
+    lag_preds, dur_preds = lag_future(), dur_future()
+    outs = []
+    for labels, note_labels, lag_pred, dur_pred in zip(
+            labels_list, note_labels_list, lag_preds, dur_preds):
+        lag = _lag_from_pred(lag_pred, timelag_model, timelag_out_scaler,
+                             note_labels, allowed_range, allowed_range_rest)
+        durations = _denorm_duration_pred(dur_pred, duration_model,
+                                          duration_out_scaler)
+        outs.append(postprocess_duration(labels, durations,
+                                         lag * hts_frame_shift,
+                                         frame_period)[0])
+    return outs
+
+
+# ---------------------------------------------------------------- acoustic
+def _is_probabilistic(model: ModelPack) -> bool:
+    return model.prediction_type() in (PredictionType.PROBABILISTIC,
+                                       PredictionType.MULTISTREAM_HYBRID)
+
+
+def predict_acoustic(labels, acoustic_model: ModelPack, acoustic_in_scaler,
+                     acoustic_out_scaler, binary_dict, numeric_dict,
+                     subphone_features: str = "coarse_coding",
+                     pitch_indices=None, log_f0_conditioning: bool = True,
+                     force_clip_input_features: bool = False,
+                     frame_period: float = 5, f0_shift_in_cent: float = 0,
+                     spk=None):
+    """Denormalized acoustic features (T, D) on the host, with MLPG where
+    delta features are modeled; the model runs on its pack's device."""
+    hts_frame_shift = int(frame_period * 1e4)
+    if pitch_indices is None:
+        pitch_indices = hts.get_pitch_indices(binary_dict, numeric_dict)
+    feats = _prepare_linguistic_features(
+        labels, binary_dict, numeric_dict, acoustic_in_scaler, pitch_indices,
+        True, subphone_features, log_f0_conditioning,
+        force_clip_input_features, hts_frame_shift, f0_shift_in_cent)
+    pred = acoustic_model.inference(feats, spks=spk)
+    return _denorm_and_mlpg(pred, acoustic_out_scaler, acoustic_model.config,
+                            _is_probabilistic(acoustic_model))
+
+
+def correct_vuv_by_phone(vuv, binary_dict, linguistic_features):
+    """Force V/UV from the question set's C-VUV_Voiced / C-VUV_Unvoiced
+    and silence (sil, pau, br) flags."""
+    vuv = vuv.copy()
+    voiced_idx = -1
+    unvoiced_indices, sil_indices = [], []
+    for k, (name, _) in binary_dict.items():
+        if "C-VUV_Voiced" in name and voiced_idx < 0:
+            voiced_idx = k
+        if "C-VUV_Unvoiced" in name:
+            unvoiced_indices.append(k)
+        if ("C-Phone_sil" in name or "C-Phone_pau" in name
+                or "C-Phone_br" in name):
+            sil_indices.append(k)
+    if voiced_idx > 0:
+        vuv[linguistic_features[:, voiced_idx: voiced_idx + 1] > 0] = 1.0
+    for idx in unvoiced_indices + sil_indices:
+        vuv[linguistic_features[:, idx: idx + 1] > 0] = 0.0
+    return vuv
+
+
+def _nonrest_frame_soft_mask(binary_dict, numeric_dict, linguistic_features,
+                             win_length: int = 200,
+                             duration_threshold: float = 1.0):
+    """(T, 1) soft mask: about 1 on non-rest frames, about 0 on sil/pau
+    segments longer than ``duration_threshold`` seconds, smoothed by a
+    ``win_length``-frame moving average; frames with a note stay 1."""
+    from scipy.signal import convolve
+
+    mask = np.ones(len(linguistic_features))
+    sil_indices = [k for k, (name, _) in binary_dict.items()
+                   if "C-Phone_sil" in name or "C-Phone_pau" in name]
+    if not sil_indices:
+        return mask.reshape(-1, 1)
+    note_dur_idx = next((k for k, (name, _) in numeric_dict.items()
+                         if "e7" in name), None)
+    if note_dur_idx is None:
+        return mask.reshape(-1, 1)
+    dur_in_sec = linguistic_features[:, len(binary_dict) + note_dur_idx] * 0.01
+    for idx in sil_indices:
+        mask[(linguistic_features[:, idx] > 0)
+             & (dur_in_sec > duration_threshold)] = 0
+    mask = convolve(mask, np.ones(win_length) / win_length, mode="same")
+    pitch_idx = hts.get_pitch_index(binary_dict, numeric_dict)
+    mask[linguistic_features[:, pitch_idx] > 0] = 1.0
+    return mask.reshape(-1, 1)
+
+
+def gen_spsvs_static_features(labels, acoustic_features: np.ndarray,
+                              binary_dict, numeric_dict, stream_sizes,
+                              has_dynamic_features, pitch_idx=None,
+                              num_windows: int = 3, frame_period: float = 5,
+                              relative_f0: bool = True,
+                              vibrato_scale: float = 1.0,
+                              vuv_threshold: float = 0.3,
+                              force_fix_vuv: bool = True,
+                              linguistic_features=None):
+    """Static streams -> (mgc, lf0, vuv, bap): V/UV fixes by phone, the
+    score lf0 added back under relative F0, unvoiced frames' lf0 filled by
+    interpolation.  ``linguistic_features`` (raw frame features) may be
+    passed to skip recomputing them.  Vibrato streams raise."""
+    hts_frame_shift = int(frame_period * 1e4)
+    if pitch_idx is None:
+        pitch_idx = hts.get_pitch_index(binary_dict, numeric_dict)
+    static_sizes = (get_static_stream_sizes(stream_sizes,
+                                            has_dynamic_features, num_windows)
+                    if np.any(has_dynamic_features) else stream_sizes)
+    streams = split_streams(acoustic_features.copy(), list(static_sizes))
+    if len(streams) in (5, 6):
+        raise unported("vibrato", "a vibrato stream")
+    if len(streams) != 4:
+        raise RuntimeError(f"unsupported number of streams: {len(streams)}")
+    mgc, target_f0, vuv, bap = streams
+    if linguistic_features is None:
+        linguistic_features = fe.linguistic_features(
+            labels, binary_dict, numeric_dict, add_frame_features=True,
+            frame_shift=hts_frame_shift)
+    n = min(len(linguistic_features), len(mgc))
+    linguistic_features = linguistic_features[:n]
+    mgc, target_f0, vuv, bap = mgc[:n], target_f0[:n], vuv[:n], bap[:n]
+    if force_fix_vuv:
+        vuv = correct_vuv_by_phone(vuv, binary_dict, linguistic_features)
+    if relative_f0:
+        f0_score = midi_to_hz(linguistic_features, pitch_idx, False)[:, None]
+        lf0_score = f0_score.copy()
+        nz = np.nonzero(lf0_score)
+        lf0_score[nz] = np.log(f0_score[nz])
+        f0 = target_f0 + interp1d(lf0_score)
+    else:
+        f0 = target_f0.copy()
+    f0[vuv < vuv_threshold] = 0
+    f0[np.nonzero(f0)] = np.exp(f0[np.nonzero(f0)])
+    lf0 = f0.copy()
+    lf0[np.nonzero(lf0)] = np.log(f0[np.nonzero(lf0)])
+    lf0 = interp1d(lf0)
+    lf0 = lf0[:, None] if lf0.ndim == 1 else lf0
+    vuv = vuv[:, None] if vuv.ndim == 1 else vuv
+    return mgc, lf0, vuv, bap
+
+
+def postprocess_acoustic(acoustic_features: np.ndarray,
+                         duration_modified_labels, binary_dict, numeric_dict,
+                         acoustic_config, acoustic_out_static_scaler,
+                         postfilter_model=None, postfilter_out_scaler=None,
+                         sample_rate: int = 48000, frame_period: float = 5,
+                         relative_f0: bool = False,
+                         feature_type: str = "world",
+                         post_filter_type: str = "gv",
+                         trajectory_smoothing: bool = True,
+                         trajectory_smoothing_cutoff: float = 50,
+                         trajectory_smoothing_cutoff_f0: float = 20,
+                         vuv_threshold: float = 0.5,
+                         f0_shift_in_cent: float = 0,
+                         fill_silence_to_rest: bool = False,
+                         vibrato_scale: float = 1.0,
+                         force_fix_vuv: bool = False,
+                         linguistic_features=None):
+    """Denormalized acoustic features -> WORLD streams (mgc, lf0, vuv, bap)
+    on the host: the GV postfilter over note frames (``post_filter_type``
+    ``"gv"``; ``"none"``, ``"off"`` and None skip it), stream
+    reconstruction, the long-rest crossfade, the F0 shift and zero-phase
+    trajectory smoothing.  ``linguistic_features`` (raw frame features of
+    the labels) may be passed to skip recomputing them.  ``postfilter_model``
+    and ``postfilter_out_scaler`` are the JAX signature's and must be None:
+    the port packs no postfilter."""
+    if post_filter_type == "merlin":
+        raise unported("merlin", "post_filter_type='merlin'")
+    if post_filter_type == "nnsvs" or postfilter_model is not None:
+        raise unported("nnsvs", "post_filter_type='nnsvs'")
+    if feature_type != "world":
+        raise unported("melf0", f"feature_type={feature_type!r}")
+    hts_frame_shift = int(frame_period * 1e4)
+    static_sizes = get_static_stream_sizes(
+        acoustic_config.stream_sizes, acoustic_config.has_dynamic_features,
+        acoustic_config.num_windows)
+    if linguistic_features is None:
+        linguistic_features = fe.linguistic_features(
+            duration_modified_labels, binary_dict, numeric_dict,
+            add_frame_features=True, frame_shift=hts_frame_shift)
+    acoustic_features = np.asarray(acoustic_features).copy()
+    if post_filter_type == "gv":
+        idx = hts.get_note_frame_indices(binary_dict, numeric_dict,
+                                         linguistic_features)
+        idx = idx[idx < len(acoustic_features)]
+        mgc_end = int(static_sizes[0])
+        acoustic_features[:, :mgc_end] = variance_scaling(
+            np.asarray(acoustic_out_static_scaler.var_).reshape(-1)[:mgc_end],
+            acoustic_features[:, :mgc_end], offset=2, note_frame_indices=idx)
+    mgc, lf0, vuv, bap = gen_spsvs_static_features(
+        duration_modified_labels, acoustic_features, binary_dict,
+        numeric_dict, acoustic_config.stream_sizes,
+        acoustic_config.has_dynamic_features,
+        pitch_idx=hts.get_pitch_index(binary_dict, numeric_dict),
+        num_windows=acoustic_config.num_windows, frame_period=frame_period,
+        relative_f0=relative_f0, vibrato_scale=vibrato_scale,
+        vuv_threshold=vuv_threshold, force_fix_vuv=force_fix_vuv,
+        linguistic_features=linguistic_features)
+    if fill_silence_to_rest:
+        mask = _nonrest_frame_soft_mask(binary_dict, numeric_dict,
+                                        linguistic_features)
+        mgc_sil = np.zeros((1, mgc.shape[1]))
+        mgc_sil[0, :3] = (-23.3, 0.0679, 0.00640)
+        mgc_sil[0, 3:] = 1e-3
+        mgc = mgc * mask + (1 - mask) * mgc_sil
+        bap = bap * mask + (1 - mask) * 1e-11
+    if f0_shift_in_cent != 0:
+        lf0 = lf0 + f0_shift_in_cent * np.log(2) / 1200
+    if trajectory_smoothing:
+        modfs = int(1 / (frame_period * 0.001))
+        lf0[:, 0] = lowpass_filter(lf0[:, 0], modfs,
+                                   cutoff=trajectory_smoothing_cutoff_f0)
+        mgc = np.ascontiguousarray(lowpass_filter(
+            mgc, modfs, cutoff=trajectory_smoothing_cutoff, axis=0))
+        bap = np.ascontiguousarray(lowpass_filter(
+            bap, modfs, cutoff=trajectory_smoothing_cutoff, axis=0))
+    if bap.shape[-1] <= 5:
+        bap = np.clip(bap, -60, 0)
+    return mgc, lf0, vuv, bap
+
+
+# ---------------------------------------------------------------- waveform
+def pad_streams(streams, T_pad: int):
+    """(mgc, lf0, vuv, bap) of T frames -> float32 arrays of T_pad frames:
+    vuv padded with zeros (unvoiced), the others with their last frame."""
+    mgc, lf0, vuv, bap = streams
+    pad = T_pad - len(lf0)
+    return [np.pad(np.asarray(a, np.float32), ((0, pad), (0, 0)),
+                   **({} if k == 2 else {"mode": "edge"}))
+            for k, a in enumerate((mgc, lf0, vuv, bap))]
+
+
+def predict_waveform(multistream_features, vocoder=None,
+                     vocoder_in_scaler=None, sample_rate: int = 48000,
+                     frame_period: float = 5, use_world_codec: bool = True,
+                     feature_type: str = "world", vocoder_type: str = "world",
+                     vuv_threshold: float = 0.5, device="cuda"):
+    """WORLD streams (mgc, lf0, vuv, bap) -> float waveform on the host,
+    synthesized on ``device`` from the coded streams, padded to the frame
+    bucket as in the JAX package (noise: :func:`vocoder_noise` over the
+    padded length).  No high-pass here: ``postprocess_waveform`` applies
+    the band-pass.  Other vocoders and the non-codec path raise."""
+    if vocoder_type != "world" or vocoder is not None:
+        raise unported("vocoder", f"vocoder_type={vocoder_type!r}")
+    if feature_type != "world":
+        raise unported("melf0", f"feature_type={feature_type!r}")
+    mgc, lf0, vuv, bap = multistream_features
+    if not use_world_codec or bap.shape[-1] > 5:
+        raise unported("world_params",
+                       "WORLD synthesis from uncoded (mcep) features")
+    T = len(lf0)
+    T_pad = _round_up(max(T, 1), FRAME_BUCKET)
+    hop = int(sample_rate * frame_period / 1000)
+    device = torch.device(device)
+    streams = [torch.from_numpy(a)[None].to(device)
+               for a in pad_streams((mgc, lf0, vuv, bap), T_pad)]
+    wav = synthesize_from_streams(
+        *streams, vocoder_noise(1, T_pad * hop, device), sample_rate,
+        frame_period, vuv_threshold=vuv_threshold)
+    return wav[0, : T * hop].cpu().numpy()
+
+
+def postprocess_waveform(wav: np.ndarray, sample_rate: int, dtype=np.int16,
+                         peak_norm: bool = False, loudness_norm: bool = False,
+                         target_loudness: float = -20.0,
+                         skip_bandpass: bool = False):
+    """Band-pass (skipped where the vocoder applied its high-pass), peak or
+    RMS loudness normalization, a final peak normalization, then ``dtype``
+    (int16 scaled by 32767)."""
+    if not skip_bandpass:
+        wav = np.asarray(bandpass_filter(wav, sample_rate))
+    else:
+        wav = np.asarray(wav, dtype=np.float64)
+    if peak_norm:
+        peak = np.max(np.abs(wav))
+        if peak > 0:
+            wav = wav / peak
+    if loudness_norm:
+        rms = np.sqrt(np.mean(wav ** 2))
+        if rms > 0:
+            wav = wav * 10 ** ((target_loudness - 20 * np.log10(rms)) / 20)
+    peak = np.max(np.abs(wav))
+    if peak > 0:
+        wav = wav / peak
+    if dtype in (np.int16, "int16"):
+        return (wav * 32767.0).astype(np.int16)
+    if dtype is not None:
+        wav = wav.astype(dtype)
+    return wav

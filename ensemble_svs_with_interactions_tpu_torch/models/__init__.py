@@ -2,6 +2,7 @@
 
 from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F401
     FFConvLSTM,
+    LSTMEncoder,
     MultiTrackLSTMEncoder,
     MultiTrackVariancePredictor,
     SpeakerEmbedding,

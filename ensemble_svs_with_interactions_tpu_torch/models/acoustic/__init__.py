@@ -1,8 +1,10 @@
-"""Acoustic models of the flagship path."""
+"""Acoustic models of the flagship and single-track paths."""
 
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.multistream import (  # noqa: F401,E501
+    MultistreamSeparateF0ParametricModel,
     MultiTrackMultistreamSeparateF0ParametricModel,
 )
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.tacotron_f0 import (  # noqa: F401,E501
+    BiLSTMResF0NonAttentiveDecoder,
     MultiTrackBiLSTMResF0NonAttentiveDecoder,
 )

@@ -1,11 +1,13 @@
-"""The interaction F0 model: ``MultiTrackBiLSTMResF0NonAttentiveDecoder``
-and its ``_SinsyEncoder`` (counterparts in
+"""The residual-F0 models: the single-track
+``BiLSTMResF0NonAttentiveDecoder``, the interaction F0 model
+``MultiTrackBiLSTMResF0NonAttentiveDecoder`` and their ``_SinsyEncoder``
+(counterparts in
 ``ensemble_svs_with_interactions_tpu/models/acoustic/tacotron_f0.py``).
 
-Both tracks go through a shared phoneme embedding, get their speaker
-embeddings added and are summed; an FF -> Conv(+BN) -> biLSTM encoder sees
-both score-lf0 tracks, and the AR residual-F0 decoder predicts the main
-track's lf0 around its score.
+An FF -> Conv(+BN) -> biLSTM encoder sees the score-lf0 track(s), and the
+AR residual-F0 decoder predicts lf0 around the (main track's) score.  In
+the multitrack model both tracks go through a shared phoneme embedding,
+get their speaker embeddings added and are summed first.
 """
 
 from __future__ import annotations
@@ -67,14 +69,20 @@ class _SinsyEncoder(nn.Module):
         return self.LSTM_0(h, lengths, train, generator)
 
 
-class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
-    """The interaction F0 model (decoder ``in_lf0_idx = -2``: the main
-    track's score lf0).  Ported: the flagship's decoder (no prenet, no
-    zoneout, no MDN head, conv downsampling by r > 1); other settings
-    raise (zoneout's training masks would put the cell state back in a
-    per-step loop).  Without targets ``y`` it decodes free-running; with
-    them it is teacher-forced.  The prenet dropout on the fed-back frame
-    applies in both, the encoder's dropout only with ``train=True``."""
+class _ResF0NonAttentiveDecoder(BaseModel):
+    """The body both residual-F0 decoders share: an optional phoneme
+    embedding (flax scope ``EMBED``), the Sinsy encoder over
+    ``NUM_LF0_SCORES`` score-lf0 tracks, the depthwise stride-r
+    ``conv_downsample`` and the AR decoder core.  Ported: the recipes'
+    decoder (no prenet, no zoneout, no MDN head, conv downsampling by
+    r > 1); other settings raise (zoneout's training masks would put the
+    cell state back in a per-step loop).  Without targets ``y`` it decodes
+    free-running; with them it is teacher-forced.  The prenet dropout on
+    the fed-back frame applies in both, the encoder's dropout only with
+    ``train=True``."""
+
+    EMBED = "PhonemeContextEmbedding_0"
+    NUM_LF0_SCORES = 1
 
     def __init__(self, in_dim: int = 512, ff_hidden_dim: int = 2048,
                  conv_hidden_dim: int = 1024, lstm_hidden_dim: int = 256,
@@ -91,14 +99,13 @@ class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
                  use_mdn: bool = False, num_gaussians: int = 4,
                  sampling_mode: str = "mean", in_ph_start_idx: int = 1,
                  in_ph_end_idx: int = 50, embed_dim: Optional[int] = None,
-                 init_type: str = "none", eval_dropout: bool = True,
-                 num_speaker: Optional[int] = None):
+                 init_type: str = "none", eval_dropout: bool = True):
         super().__init__()
         if (prenet_layers > 0 or zoneout > 0 or use_mdn or not scaled_tanh
                 or not eval_dropout or reduction_factor < 2
                 or not downsample_by_conv):
             raise NotImplementedError(
-                "the port's AR F0 decoder covers the flagship configuration "
+                "the port's AR F0 decoder covers the recipes' configuration "
                 "(prenet_layers=0, zoneout=0, use_mdn=False, "
                 "scaled_tanh=True, eval_dropout=True, reduction_factor > 1 "
                 "with downsample_by_conv)")
@@ -107,15 +114,15 @@ class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
         self.reduction_factor = reduction_factor
         width = in_dim
         if embed_dim is not None:
-            self.shared_ph_embed = PhonemeContextEmbedding(
-                in_dim, embed_dim, in_ph_start_idx, in_ph_end_idx)
+            setattr(self, self.EMBED, PhonemeContextEmbedding(
+                in_dim, embed_dim, in_ph_start_idx, in_ph_end_idx))
             width = embed_dim
         else:
-            self.shared_ph_embed = None
+            setattr(self, self.EMBED, None)
         self._SinsyEncoder_0 = _SinsyEncoder(
             width, ff_hidden_dim, conv_hidden_dim, lstm_hidden_dim,
-            num_lstm_layers, dropout, num_lf0_scores=2)
-        C = self._SinsyEncoder_0.LSTM_0.out_dim + 2
+            num_lstm_layers, dropout, num_lf0_scores=self.NUM_LF0_SCORES)
+        C = self._SinsyEncoder_0.LSTM_0.out_dim + self.NUM_LF0_SCORES
         self.conv_downsample = nn.Conv1d(C, C, reduction_factor,
                                          stride=reduction_factor, groups=C)
         self.ar_core = _ARDecoderCore(
@@ -126,15 +133,64 @@ class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
     def prediction_type(self):
         return PredictionType.DETERMINISTIC
 
+    def _embed(self, x):
+        embed = getattr(self, self.EMBED)
+        return x if embed is None else embed(x)
+
+    def _decode(self, h, y, generator):
+        return ar_decode(self, h, -self.NUM_LF0_SCORES,
+                         (self.in_lf0_min, self.in_lf0_max), generator,
+                         targets=y)
+
+
+class BiLSTMResF0NonAttentiveDecoder(_ResF0NonAttentiveDecoder):
+    """The single-track F0 model: the Sinsy encoder over the score lf0,
+    then the AR residual-F0 decoder (decoder ``in_lf0_idx = -1``: the
+    score lf0)."""
+
+    def __init__(self, in_dim: int = 512, out_dim: int = 80,
+                 out_lf0_idx: int = 180, **kwargs):
+        super().__init__(in_dim=in_dim, out_dim=out_dim,
+                         out_lf0_idx=out_lf0_idx, **kwargs)
+
+    def encode(self, x, lengths=None, spk_embs=None, train: bool = False,
+               generator=None):
+        """The non-autoregressive front: (B, T, 2 * lstm_hidden + 1)
+        encoder features ending in the score lf0."""
+        lf0 = x[:, :, self.in_lf0_idx][..., None]
+        x = self._embed(x)
+        if spk_embs is not None:
+            x = x + spk_embs
+        h = self._SinsyEncoder_0(x, [lf0], lengths, train, generator)
+        return torch.cat([h, lf0], dim=-1)
+
+    def forward(self, x, lengths=None, y=None, spk_embs=None,
+                train: bool = False, generator=None):
+        return self._decode(
+            self.encode(x, lengths, spk_embs, train, generator), y, generator)
+
+    def inference(self, x, lengths=None, spk_embs=None, generator=None):
+        return self(x, lengths, spk_embs=spk_embs, generator=generator)[0]
+
+
+class MultiTrackBiLSTMResF0NonAttentiveDecoder(_ResF0NonAttentiveDecoder):
+    """The interaction F0 model (decoder ``in_lf0_idx = -2``: the main
+    track's score lf0).  ``num_speaker`` is accepted and unused, as in the
+    JAX package."""
+
+    EMBED = "shared_ph_embed"
+    NUM_LF0_SCORES = 2
+
+    def __init__(self, num_speaker: Optional[int] = None, **kwargs):
+        super().__init__(**kwargs)
+
     def encode(self, x_main, x_sub, spk_emb_main=None, spk_emb_sub=None,
                lengths=None, train: bool = False, generator=None):
         """The non-autoregressive front: (B, T, 2 * lstm_hidden + 2)
         encoder features ending in the main and sub score lf0."""
         lf0_main = x_main[:, :, self.in_lf0_idx][..., None]
         lf0_sub = x_sub[:, :, self.in_lf0_idx][..., None]
-        if self.shared_ph_embed is not None:
-            x_main = self.shared_ph_embed(x_main)
-            x_sub = self.shared_ph_embed(x_sub)
+        x_main, x_sub = self._embed(x_main), self._embed(x_sub)
         if spk_emb_main is not None:
             x_main = x_main + spk_emb_main
         if spk_emb_sub is not None:
@@ -145,10 +201,9 @@ class MultiTrackBiLSTMResF0NonAttentiveDecoder(BaseModel):
 
     def forward(self, x_main, x_sub, spk_emb_main=None, spk_emb_sub=None,
                 lengths=None, y=None, train: bool = False, generator=None):
-        h = self.encode(x_main, x_sub, spk_emb_main, spk_emb_sub, lengths,
-                        train, generator)
-        return ar_decode(self, h, -2, (self.in_lf0_min, self.in_lf0_max),
-                         generator, targets=y)
+        return self._decode(
+            self.encode(x_main, x_sub, spk_emb_main, spk_emb_sub, lengths,
+                        train, generator), y, generator)
 
     def inference(self, x_main, x_sub, spk_emb_main=None, spk_emb_sub=None,
                   lengths=None, generator=None):

@@ -1,6 +1,6 @@
 """Generic models on the flagship path: speaker embedding, the Sinsy-style
 FFConvLSTM decoder, the (multitrack) variance predictors that serve as
-timing models, and the multitrack biLSTM encoder.  Counterparts of the
+timing models, and the (multitrack) biLSTM encoders.  Counterparts of the
 classes of the same names in
 ``ensemble_svs_with_interactions_tpu/models/generic.py``.
 
@@ -39,6 +39,7 @@ __all__ = [
     "FFConvLSTM",
     "VariancePredictor",
     "MultiTrackVariancePredictor",
+    "LSTMEncoder",
     "MultiTrackLSTMEncoder",
 ]
 
@@ -276,6 +277,36 @@ class MultiTrackVariancePredictor(BaseModel):
 
     def inference(self, x, spks, lengths=None):
         return _mdn_or_point(self, self(x, spks, lengths))
+
+
+class LSTMEncoder(BaseModel):
+    """biLSTM encoder with an optional phoneme embedding and speaker
+    embeddings added, then a linear out."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 1, bidirectional: bool = True,
+                 dropout: float = 0.0, init_type: str = "none",
+                 in_ph_start_idx: int = 1, in_ph_end_idx: int = 50,
+                 embed_dim: Optional[int] = None):
+        super().__init__()
+        width = in_dim
+        if embed_dim is not None:
+            self.PhonemeContextEmbedding_0 = PhonemeContextEmbedding(
+                in_dim, embed_dim, in_ph_start_idx, in_ph_end_idx)
+            width = embed_dim
+        else:
+            self.PhonemeContextEmbedding_0 = None
+        self.LSTM_0 = LSTM(width, hidden_dim, num_layers=num_layers,
+                           bidirectional=bidirectional, dropout=dropout)
+        self.Dense_0 = nn.Linear(self.LSTM_0.out_dim, out_dim)
+
+    def forward(self, x, lengths=None, y=None, spk_embs=None,
+                train: bool = False, generator=None):
+        if self.PhonemeContextEmbedding_0 is not None:
+            x = self.PhonemeContextEmbedding_0(x)
+        if spk_embs is not None:
+            x = x + spk_embs
+        return self.Dense_0(self.LSTM_0(x, lengths, train, generator))
 
 
 class MultiTrackLSTMEncoder(BaseModel):

@@ -54,6 +54,7 @@ Gate math is flax ``OptimizedLSTMCell``'s (order i, f, g, o, all f32):
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -325,6 +326,7 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
         _raise_launch("lstm_recurrence", lib.lstm_recurrence_error_string,
                       err, B=B, T=T, H=H)
     lstm_recurrence.launches += 1
+    lstm_recurrence.launches_by_width[H] += 1
     return (y, c) if want_c else y
 
 
@@ -431,8 +433,9 @@ def lstm_recurrence_bwd(xw, w_h, h, c, dy):
 
 
 # kernel launches since the count was last reset (the plain versions and
-# failed launches are not counted)
+# failed launches are not counted); the forward's also by hidden width
 lstm_recurrence.launches = 0
+lstm_recurrence.launches_by_width = collections.Counter()
 lstm_bptt.launches = 0
 lstm_gates.launches = 0
 lstm_dwh.launches = 0

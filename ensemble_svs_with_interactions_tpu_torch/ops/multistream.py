@@ -30,6 +30,16 @@ def split_streams(inputs, stream_sizes: Sequence[int]):
             for start, size in zip(_start_indices(stream_sizes), stream_sizes)]
 
 
+def get_static_stream_sizes(stream_sizes: Sequence[int],
+                            has_dynamic_features: Sequence[bool],
+                            num_windows: int) -> np.ndarray:
+    """Static-only sizes of streams that carry delta features."""
+    sizes = np.asarray(stream_sizes, dtype=np.int64).copy()
+    mask = np.asarray(has_dynamic_features, dtype=bool)
+    sizes[mask] = sizes[mask] // num_windows
+    return sizes
+
+
 def get_static_features(inputs, num_windows: int,
                         stream_sizes: Sequence[int],
                         has_dynamic_features: Sequence[bool]):

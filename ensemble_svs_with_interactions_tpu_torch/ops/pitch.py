@@ -1,9 +1,35 @@
-"""F0 helpers used by the featurizer (``interp1d`` of
-``ensemble_svs_with_interactions_tpu/ops/pitch.py``)."""
+"""F0 helpers (counterparts in
+``ensemble_svs_with_interactions_tpu/ops/pitch.py``): ``interp1d`` for the
+featurizer, and the zero-phase Butterworth filters of the host
+postprocess, ``lowpass_filter`` (trajectory smoothing) and
+``bandpass_filter`` (the waveform's 70 Hz high-pass).  Host NumPy/SciPy."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def lowpass_filter(x: np.ndarray, fs: int, cutoff: float = 5, N: int = 5,
+                   axis: int = -1):
+    """Zero-phase Butterworth lowpass of order ``N`` along ``axis``;
+    signals no longer than ``max(len(a), len(b)) * (N // 2 + 1)`` samples
+    are returned as they are."""
+    from scipy.signal import butter, filtfilt
+
+    b, a = butter(N, float(cutoff / (fs // 2)), "lowpass")
+    if x.shape[axis if axis >= 0 else x.ndim + axis] <= max(len(a), len(b)) * (
+            N // 2 + 1):
+        return x
+    return filtfilt(b, a, x, axis=axis)
+
+
+def bandpass_filter(x: np.ndarray, sr: int, cutoff: float = 70, N: int = 5):
+    """Zero-phase Butterworth bandpass from ``cutoff`` Hz to 0.999 of the
+    Nyquist rate."""
+    from scipy.signal import butter, filtfilt
+
+    b, a = butter(N, [cutoff / (sr // 2), 0.999], "bandpass")
+    return filtfilt(b, a, x)
 
 
 def interp1d(f0: np.ndarray, kind: str = "slinear") -> np.ndarray:

@@ -1,7 +1,12 @@
-"""The ensemble SVS engine: the counterpart of ``SPSVS`` in
-``ensemble_svs_with_interactions_tpu/svs.py`` for the paper's flagship
-path, ``svs_ensemble`` over a multitrack (cross-conditioned) model with the
-device-resident postprocess and WORLD vocoder.
+"""The SVS engine: the counterpart of ``SPSVS`` in
+``ensemble_svs_with_interactions_tpu/svs.py``.  ``svs`` renders one singer
+with a single-track model: timing and acoustic models on the device, the
+host postprocess (GV, stream reconstruction, trajectory smoothing), the
+WORLD vocoder on the device and the host's band-pass and normalization.
+``svs_ensemble`` renders an N-part ensemble, over a multitrack
+(cross-conditioned) model, the paper's flagship, or over a single-track
+one, with the device-resident postprocess and WORLD vocoder where the
+configuration allows, else the host postprocess.
 
 ``SPSVS(model_dir)`` opens a packed model directory, as written by the
 JAX package's ``utils/packing.pack_model`` or the port's own
@@ -53,10 +58,11 @@ from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
 # (phase, bucket) of the three models every engine holds
 _PHASES = (("timelag", gen.PHONE_BUCKET), ("duration", gen.PHONE_BUCKET),
            ("acoustic", gen.FRAME_BUCKET))
-# packed parts the JAX package loads and the port does not have yet
-_UNPORTED = {"postfilter": "ensemble_svs_with_interactions_tpu/models/"
-                           "postfilters.py",
-             "vocoder": "ensemble_svs_with_interactions_tpu/models/vocoders/"}
+# packed parts the JAX package loads and the port does not have yet, by
+# their key in gen.UNPORTED
+_UNPORTED_PARTS = {"postfilter": "nnsvs", "vocoder": "vocoder"}
+_STAGES = ("timing", "acoustic", "postprocess_acoustic", "vocoder",
+           "postprocess_waveform")
 _VOCODER_TYPES = ("world", "pwg", "usfgan", "auto")
 _POST_FILTER_TYPES = ("merlin", "nnsvs", "gv", "none", "off", None)
 
@@ -78,8 +84,7 @@ def _torch_device(device) -> torch.device:
 
 
 class SPSVS:
-    """Statistical-parametric SVS engine (multitrack ensemble path) over a
-    packed model directory.
+    """Statistical-parametric SVS engine over a packed model directory.
 
     Args:
         model_dir: the packed directory (see the module docstring).  A
@@ -92,11 +97,10 @@ class SPSVS:
     def __init__(self, model_dir, verbose: int = 0, device="cuda"):
         device = _torch_device(device)
         self.model_dir = Path(model_dir)
-        for part, module in _UNPORTED.items():
+        for part, key in _UNPORTED_PARTS.items():
             if (self.model_dir / f"{part}_model.yaml").exists():
-                raise NotImplementedError(
-                    f"{self.model_dir}: a packed {part} model needs "
-                    f"{module}, which the port has not ported")
+                raise gen.unported(key, f"{self.model_dir}: a packed {part} "
+                                        "model")
         self._setup(load_config(self.model_dir / "config.yaml"),
                     self.model_dir / "qst.hed", device, verbose)
         for phase, bucket in _PHASES:
@@ -135,6 +139,8 @@ class SPSVS:
         self.frame_period = float(self.config.get("frame_period", 5))
         self.spk_list = list(self.config.get("spk_list", []) or [])
         self.binary_dict, self.numeric_dict = hts.load_question_set(qst_path)
+        self.pitch_idx = hts.get_pitch_index(self.binary_dict,
+                                             self.numeric_dict)
         self.pitch_indices = hts.get_pitch_indices(self.binary_dict,
                                                    self.numeric_dict)
 
@@ -149,6 +155,7 @@ class SPSVS:
             self.acoustic_model.module.forward).parameters
         self._fused_cache = None
         self.last_stage_times = {}
+        self.last_rtf = None
 
     # ------------------------------------------------------------- loading
     def _load_model(self, phase: str,
@@ -192,22 +199,190 @@ class SPSVS:
         return (tuple(section.get("allowed_range", (-20, 20))),
                 tuple(section.get("allowed_range_rest", (-40, 40))))
 
+    def _validate_synthesis_args(self, vocoder_type, post_filter_type) -> str:
+        """The lower-cased vocoder type ("auto" is WORLD: the port packs no
+        neural vocoder); unknown names raise ValueError, unported ones
+        NotImplementedError."""
+        vocoder_type = str(vocoder_type).lower()
+        if vocoder_type not in _VOCODER_TYPES:
+            raise ValueError(f"Unknown vocoder type: {vocoder_type}")
+        if post_filter_type not in _POST_FILTER_TYPES:
+            raise ValueError(f"Unknown post-filter type: {post_filter_type}")
+        if vocoder_type not in ("world", "auto"):
+            raise gen.unported("vocoder", f"vocoder_type={vocoder_type!r}")
+        if post_filter_type in ("merlin", "nnsvs"):
+            raise gen.unported(post_filter_type,
+                               f"post_filter_type={post_filter_type!r}")
+        return "world"
+
     # ------------------------------------------------------------- stages
-    def predict_timing_multitrack_batch(self, labels_list, spk_ids, pairs):
-        """Duration-modified labels of every track (pairwise timing)."""
-        return gen_multitrack.predict_timing_multitrack_batch(
-            [lab.copy() for lab in labels_list], spk_ids, pairs,
-            self.binary_dict, self.numeric_dict,
-            self.timelag_model, self.in_timelag_scaler,
-            self.out_timelag_scaler, self.duration_model,
-            self.in_duration_scaler, self.out_duration_scaler,
+    def predict_timelag(self, labels):
+        """Note-onset time-lags: (in 100 ns units, in frames)."""
+        return gen.predict_timelag(
+            labels.copy(), self.timelag_model, self.in_timelag_scaler,
+            self.out_timelag_scaler, self.binary_dict, self.numeric_dict,
+            pitch_indices=self.pitch_indices,
+            log_f0_conditioning=self._log_f0_conditioning(),
+            allowed_range=self._timelag_ranges()[0],
+            allowed_range_rest=self._timelag_ranges()[1],
+            force_clip_input_features=self._force_clip("timelag"),
+            frame_period=self.frame_period)
+
+    def predict_duration(self, labels):
+        """Per-phone durations in frames (``(mu, sigma_sq)`` for MDN)."""
+        return gen.predict_duration(
+            labels.copy(), self.duration_model, self.in_duration_scaler,
+            self.out_duration_scaler, self.binary_dict, self.numeric_dict,
+            pitch_indices=self.pitch_indices,
+            log_f0_conditioning=self._log_f0_conditioning(),
+            force_clip_input_features=self._force_clip("duration"))
+
+    def postprocess_duration(self, labels, pred_durations, lag):
+        """The duration-modified labels (note-level normalization)."""
+        return gen.postprocess_duration(labels, pred_durations, lag,
+                                        frame_period=self.frame_period)[0]
+
+    def _timing_kw(self):
+        return dict(
             log_f0_conditioning=self._log_f0_conditioning(),
             allowed_range=self._timelag_ranges()[0],
             allowed_range_rest=self._timelag_ranges()[1],
             force_clip_input_features=self._force_clip("timelag"),
             force_clip_input_features_duration=self._force_clip("duration"),
+            frame_period=self.frame_period)
+
+    def _timing_models(self):
+        return (self.binary_dict, self.numeric_dict, self.timelag_model,
+                self.in_timelag_scaler, self.out_timelag_scaler,
+                self.duration_model, self.in_duration_scaler,
+                self.out_duration_scaler)
+
+    def predict_timing(self, labels):
+        """The duration-modified labels of one track."""
+        return gen.predict_timing(labels.copy(), *self._timing_models(),
+                                  **self._timing_kw())[0]
+
+    def predict_timing_batch(self, labels_list):
+        """Duration-modified labels of N independent tracks (each timing
+        model runs once over the batch)."""
+        return gen.predict_timing_batch([lab.copy() for lab in labels_list],
+                                        *self._timing_models(),
+                                        **self._timing_kw())
+
+    def predict_timing_multitrack_batch(self, labels_list, spk_ids, pairs):
+        """Duration-modified labels of every track (pairwise timing)."""
+        return gen_multitrack.predict_timing_multitrack_batch(
+            [lab.copy() for lab in labels_list], spk_ids, pairs,
+            *self._timing_models(), **self._timing_kw())
+
+    def predict_acoustic(self, duration_modified_labels,
+                         f0_shift_in_cent: float = 0):
+        """Denormalized acoustic features (T, D) on the host."""
+        return gen.predict_acoustic(
+            duration_modified_labels, self.acoustic_model,
+            self.in_acoustic_scaler, self.out_acoustic_scaler,
+            self.binary_dict, self.numeric_dict,
+            subphone_features=self._subphone_features(),
+            log_f0_conditioning=self._log_f0_conditioning(),
+            force_clip_input_features=self._force_clip("acoustic"),
+            frame_period=self.frame_period, f0_shift_in_cent=f0_shift_in_cent)
+
+    def postprocess_acoustic(self, acoustic_features,
+                             duration_modified_labels, **kw):
+        """Host (mgc, lf0, vuv, bap); ``kw`` as
+        ``gen.postprocess_acoustic``'s."""
+        return gen.postprocess_acoustic(
+            acoustic_features, duration_modified_labels, self.binary_dict,
+            self.numeric_dict, self.acoustic_model.config,
+            self.acoustic_out_static_scaler, sample_rate=self.sample_rate,
             frame_period=self.frame_period,
-        )
+            relative_f0=self.config.get("relative_f0", False),
+            feature_type=self.feature_type, **kw)
+
+    def predict_waveform(self, multistream_features, vocoder_type="world",
+                         **kw):
+        """A float waveform from host streams, synthesized on the engine's
+        device."""
+        if vocoder_type == "auto":
+            vocoder_type = "world"
+        return gen.predict_waveform(
+            multistream_features, sample_rate=self.sample_rate,
+            frame_period=self.frame_period,
+            use_world_codec=self.config.get("use_world_codec", True),
+            feature_type=self.feature_type, vocoder_type=vocoder_type,
+            device=self.device, **kw)
+
+    def postprocess_waveform(self, wav, **kw):
+        return gen.postprocess_waveform(wav, self.sample_rate, **kw)
+
+    @torch.no_grad()
+    def svs(self, labels, vocoder_type: str = "world",
+            post_filter_type: str = "gv", trajectory_smoothing: bool = True,
+            trajectory_smoothing_cutoff: float = 50,
+            trajectory_smoothing_cutoff_f0: float = 20,
+            vuv_threshold: float = 0.5, style_shift: float = 0,
+            force_fix_vuv: bool = False, fill_silence_to_rest: bool = False,
+            dtype=np.int16, peak_norm: bool = False,
+            loudness_norm: bool = False, target_loudness: float = -20,
+            segmented_synthesis: bool = False):
+        """Score labels to waveform with a single-track model: (wav,
+        sample_rate).  The signature and defaults are the JAX package's.
+        ``segmented_synthesis`` renders each segment of the timed labels
+        (split at rests, ``io/hts.segment_labels``) on its own and joins
+        them.  ``last_rtf`` gets the call's real-time factor and
+        ``last_stage_times`` its seconds by stage (summed over segments;
+        each stage ends on a host copy, so each is a blocked time).  A
+        multitrack pack raises ValueError: it renders through
+        :meth:`svs_ensemble`."""
+        vocoder_type = self._validate_synthesis_args(vocoder_type,
+                                                     post_filter_type)
+        if self.is_multitrack:
+            raise ValueError(
+                "this pack holds a multitrack (cross-conditioned) model; "
+                "use svs_ensemble(labels_list, spk_ids=...) instead")
+        times = dict.fromkeys(_STAGES, 0.0)
+        start = time.time()
+        duration_modified_labels = self.predict_timing(labels)
+        times["timing"] = time.time() - start
+        segments = (hts.segment_labels(duration_modified_labels)
+                    if segmented_synthesis else [duration_modified_labels])
+        hts_frame_shift = int(self.frame_period * 1e4)
+        wavs = []
+        for seg in segments:
+            seg.frame_shift = hts_frame_shift
+            t0 = time.time()
+            acoustic = self.predict_acoustic(
+                seg, f0_shift_in_cent=style_shift * 100)
+            t1 = time.time()
+            streams = self.postprocess_acoustic(
+                acoustic, seg, post_filter_type=post_filter_type,
+                trajectory_smoothing=trajectory_smoothing,
+                trajectory_smoothing_cutoff=trajectory_smoothing_cutoff,
+                trajectory_smoothing_cutoff_f0=trajectory_smoothing_cutoff_f0,
+                force_fix_vuv=force_fix_vuv,
+                fill_silence_to_rest=fill_silence_to_rest,
+                f0_shift_in_cent=-style_shift * 100)
+            t2 = time.time()
+            wavs.append(self.predict_waveform(
+                streams, vocoder_type=vocoder_type,
+                vuv_threshold=vuv_threshold))
+            t3 = time.time()
+            times["acoustic"] += t1 - t0
+            times["postprocess_acoustic"] += t2 - t1
+            times["vocoder"] += t3 - t2
+        t0 = time.time()
+        wav = self.postprocess_waveform(
+            np.concatenate(wavs).reshape(-1), dtype=dtype,
+            peak_norm=peak_norm, loudness_norm=loudness_norm,
+            target_loudness=target_loudness)
+        end = time.time()
+        times["postprocess_waveform"] = end - t0
+        self.last_stage_times = times
+        self.last_rtf = (end - start) / (len(wav) / self.sample_rate)
+        self.logger.info("svs: %d segment(s), total %.3f s, RTF %.4f (%s)",
+                         len(segments), end - start, self.last_rtf,
+                         ", ".join(f"{k} {v:.3f}s" for k, v in times.items()))
+        return wav, self.sample_rate
 
     def _frame_features(self, duration_modified):
         """Per-track frame-level features (threaded host work): (normalized
@@ -230,9 +405,10 @@ class SPSVS:
         return [p[0] for p in pairs], [p[1] for p in pairs]
 
     def _fused_post_ok(self, post_filter_type, lengths) -> bool:
-        """The ported postprocess covers the flagship configuration: static
-        WORLD streams with coded band aperiodicity, GV or no postfilter,
-        absolute F0, and tracks longer than the filtfilt padding."""
+        """The device postprocess covers static WORLD streams with coded
+        band aperiodicity, GV or no postfilter, absolute F0, and tracks
+        longer than the filtfilt padding; other configurations take the
+        host postprocess."""
         cfg = self.acoustic_model.config
         ss = list(cfg.stream_sizes)
         return (
@@ -281,28 +457,60 @@ class SPSVS:
                                self.acoustic_model.config.stream_sizes),
             apply_gv=post_filter_type == "gv")
 
-    def _vocoder(self, streams_dev, lengths, vuv_threshold):
-        """Coded streams -> per-track int16 waveforms on the host.  The
-        noise is drawn from a generator seeded afresh on each call."""
+    def _postprocess_batch(self, duration_modified, acoustics,
+                           post_filter_type, raw_feats):
+        """The host postprocess of each track (threaded)."""
+        def _post(item):
+            lab, acoustic, raw = item
+            return self.postprocess_acoustic(
+                acoustic, lab, post_filter_type=post_filter_type,
+                linguistic_features=raw)
+
+        with ThreadPoolExecutor(max_workers=len(duration_modified)) as ex:
+            return list(ex.map(_post, zip(duration_modified, acoustics,
+                                          raw_feats)))
+
+    def _stream_batch(self, streams_list):
+        """Host (mgc, lf0, vuv, bap) per track -> device (N, T_pad, D)
+        stream batch, each padded as ``gen.predict_waveform`` pads, and the
+        lengths.  Uncoded (mcep) aperiodicity and the non-codec path
+        raise."""
+        if (not self.config.get("use_world_codec", True)
+                or streams_list[0][3].shape[-1] > 5):
+            raise gen.unported("world_params",
+                               "WORLD synthesis from uncoded (mcep) features")
+        lengths = [len(s[1]) for s in streams_list]
+        T_pad = gen._round_up(max(lengths), gen.FRAME_BUCKET)
+        padded = [gen.pad_streams(s, T_pad) for s in streams_list]
+        return [torch.from_numpy(np.stack([p[k] for p in padded])).to(
+            self.device) for k in range(4)], lengths
+
+    def _vocoder(self, streams_dev, lengths, vuv_threshold, dtype):
+        """Coded streams -> per-track waveforms on the host, with the 70 Hz
+        high-pass in the synthesis: int16 peak-normalized and quantized on
+        the device, other dtypes through ``postprocess_waveform`` with the
+        band-pass skipped.  The noise is :func:`gen.vocoder_noise`."""
         hop = int(self.sample_rate * self.frame_period / 1000)
         mgc, lf0, vuv, bap = streams_dev
         N, T_pad = lf0.shape[0], lf0.shape[1]
         sample_lengths = np.asarray(lengths, np.int64) * hop
-        g = torch.Generator(self.device).manual_seed(0)
-        noise = torch.randn((N, T_pad * hop), generator=g,
-                            device=self.device)
         wav = synthesize_from_streams(
-            mgc, lf0, vuv, bap, noise, self.sample_rate, self.frame_period,
+            mgc, lf0, vuv, bap, gen.vocoder_noise(N, T_pad * hop, self.device),
+            self.sample_rate, self.frame_period,
             vuv_threshold=vuv_threshold, highpass_cutoff=70.0)
-        keep = int(sample_lengths.max())
-        q = quantize_peak_norm_int16(
-            wav[:, :keep], torch.as_tensor(sample_lengths,
-                                           device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        wav = wav[:, : int(sample_lengths.max())]
+        want_int16 = dtype in (np.int16, "int16")
+        if want_int16:
+            wav = quantize_peak_norm_int16(
+                wav, torch.as_tensor(sample_lengths, device=self.device))
+        self._sync()
         self._t_vocoder_device_done = time.time()
-        host = q.cpu().numpy()
-        return [host[i, : sample_lengths[i]] for i in range(N)]
+        host = wav.cpu().numpy()
+        if want_int16:
+            return [host[i, : sample_lengths[i]] for i in range(N)]
+        return [self.postprocess_waveform(host[i, : sample_lengths[i]],
+                                          dtype=dtype, skip_bandpass=True)
+                for i in range(N)]
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -314,94 +522,92 @@ class SPSVS:
                      vuv_threshold: float = 0.5, dtype=np.int16,
                      spk_ids=None, pairs=None,
                      blocked_stage_times: bool = False):
-        """Synthesize an N-part ensemble: every track is the MAIN track of
-        one pair, conditioned on a sub track (``pairs[i]``, default the next
-        track in a ring), and all N pairs run through the joint timing and
-        acoustic models as single (N, T, D) batches.
+        """Synthesize an N-part ensemble.  Over a multitrack pack every
+        track is the MAIN track of one pair, conditioned on a sub track
+        (``pairs[i]``, default the next track in a ring), and all N pairs
+        run through the joint timing and acoustic models as single
+        (N, T, D) batches.  Over a single-track pack the N independent
+        tracks run as such batches (``spk_ids`` and ``pairs`` unused).
 
-        The signature is the JAX package's.  ``last_stage_times`` gets its
-        keys; ``*_dispatch`` stages are enqueue times (the device wait
-        lands in the vocoder), and ``blocked_stage_times=True``
-        synchronizes after the acoustic and postprocess stages to add
-        ``*_blocked`` attributions.
-
-        The port renders through the WORLD vocoder to int16: another
-        ``vocoder_type`` (``"auto"`` is WORLD, the port packs no neural
-        vocoder) or ``dtype`` raises ``NotImplementedError``.  Returns
-        (list of int16 wavs, sample_rate).
+        The signature is the JAX package's.  The postprocess runs on the
+        device where ``_fused_post_ok`` allows, else on the host.
+        ``last_stage_times`` gets its keys; ``*_dispatch`` stages are
+        enqueue times on the device path (the device wait lands in the
+        vocoder), and ``blocked_stage_times=True`` synchronizes after its
+        acoustic and postprocess stages to add ``*_blocked`` attributions.
+        int16 is peak-normalized and quantized on the device; other dtypes
+        go through ``postprocess_waveform`` with the band-pass skipped (the
+        vocoder applied its high-pass).  Returns (list of wavs,
+        sample_rate).
         """
-        vocoder_type = str(vocoder_type).lower()
-        if vocoder_type not in _VOCODER_TYPES:
-            raise ValueError(f"Unknown vocoder type: {vocoder_type}")
-        if post_filter_type not in _POST_FILTER_TYPES:
-            raise ValueError(f"Unknown post-filter type: {post_filter_type}")
-        if vocoder_type not in ("world", "auto"):
-            raise NotImplementedError(
-                f"vocoder_type={vocoder_type!r} needs the neural vocoders of "
-                f"{_UNPORTED['vocoder']}, which the port has not ported")
-        if np.dtype(dtype) != np.int16:
-            raise NotImplementedError(
-                f"dtype={np.dtype(dtype)}: the port renders int16 only; other "
-                "output types need the JAX package's "
-                "SPSVS.postprocess_waveform, which the port has not ported")
-        if not self.is_multitrack:
-            raise NotImplementedError("the port's svs_ensemble covers "
-                                      "multitrack (cross-conditioned) models")
+        self._validate_synthesis_args(vocoder_type, post_filter_type)
         start = time.time()
         N = len(labels_list)
-        if spk_ids is None:
-            spk_ids = list(range(N))
-        if pairs is None:
-            pairs = [(i + 1) % N for i in range(N)]
-        duration_modified = self.predict_timing_multitrack_batch(
-            labels_list, spk_ids, pairs)
+        if self.is_multitrack:
+            if spk_ids is None:
+                spk_ids = list(range(N))
+            if pairs is None:
+                pairs = [(i + 1) % N for i in range(N)]
+            duration_modified = self.predict_timing_multitrack_batch(
+                labels_list, spk_ids, pairs)
+            infer = {"spks": ([spk_ids[i] for i in range(N)],
+                              [spk_ids[pairs[i]] for i in range(N)]),
+                     "sub_index": pairs, "method": "inference_main"}
+        else:
+            duration_modified = self.predict_timing_batch(labels_list)
+            infer = {}
         t_timing_device = time.time()
         feats, raw_feats = self._frame_features(duration_modified)
         t_timing = time.time()
         lengths = [len(f) for f in feats]
-        if not self._fused_post_ok(post_filter_type, lengths):
-            raise NotImplementedError(
-                "only the device postprocess path (static WORLD streams, "
-                "gv/off postfilter) is ported")
-        spks = ([spk_ids[i] for i in range(N)],
-                [spk_ids[pairs[i]] for i in range(N)])
-        out_dev, lengths = self.acoustic_model.inference_batch(
-            feats, spks=spks, sub_index=pairs, method="inference_main",
-            device_out=True)
-        t_acoustic = time.time()
-        if blocked_stage_times:
-            self._sync()
-            t_acoustic_blocked = time.time()
-        streams_dev = self._fused_postprocess(out_dev, lengths, raw_feats,
-                                              post_filter_type)
-        t_post = time.time()
-        if blocked_stage_times:
-            self._sync()
-            t_post_blocked = time.time()
-        outs = self._vocoder(streams_dev, lengths, vuv_threshold)
+        blocked = {}
+        if self._fused_post_ok(post_filter_type, lengths):
+            out_dev, lengths = self.acoustic_model.inference_batch(
+                feats, device_out=True, **infer)
+            t_acoustic = time.time()
+            if blocked_stage_times:
+                self._sync()
+                t_acoustic_blocked = time.time()
+            streams_dev = self._fused_postprocess(out_dev, lengths, raw_feats,
+                                                  post_filter_type)
+            t_post = time.time()
+            if blocked_stage_times:
+                self._sync()
+                t_post_blocked = time.time()
+                blocked = {
+                    "acoustic_blocked": t_acoustic_blocked - t_timing,
+                    "postproc_dispatch": t_post - t_acoustic_blocked,
+                    "postproc_blocked": t_post_blocked - t_acoustic_blocked,
+                }
+        else:
+            preds = self.acoustic_model.inference_batch(feats, **infer)
+            t_acoustic = time.time()
+            acoustics = [gen._denorm_and_mlpg(
+                p, self.out_acoustic_scaler, self.acoustic_model.config,
+                gen._is_probabilistic(self.acoustic_model)) for p in preds]
+            streams_dev, lengths = self._stream_batch(self._postprocess_batch(
+                duration_modified, acoustics, post_filter_type, raw_feats))
+            t_post = time.time()
+        t_voc = t_post_blocked if blocked else t_post
+        outs = self._vocoder(streams_dev, lengths, vuv_threshold, dtype)
         t_end = time.time()
 
         self.last_stage_times = {
             "timing_feats": t_timing - start,
             "acoustic_dispatch": t_acoustic - t_timing,
             "postproc_dispatch": t_post - t_acoustic,
-            "vocoder": t_end - t_post,
+            "vocoder": t_end - t_voc,
             "timing_models": t_timing_device - start,
             "frame_feats": t_timing - t_timing_device,
-            "vocoder_device": self._t_vocoder_device_done - t_post,
+            "vocoder_device": self._t_vocoder_device_done - t_voc,
             "vocoder_d2h": t_end - self._t_vocoder_device_done,
+            **blocked,
         }
-        if blocked_stage_times:
-            self.last_stage_times.update({
-                "acoustic_blocked": t_acoustic_blocked - t_timing,
-                "postproc_dispatch": t_post - t_acoustic_blocked,
-                "postproc_blocked": t_post_blocked - t_acoustic_blocked,
-                "vocoder": t_end - t_post_blocked,
-            })
         audio_s = max(len(w) for w in outs) / self.sample_rate
+        self.last_rtf = (t_end - start) / audio_s
         self.logger.info(
             "ensemble: %d parts, %.2f s audio, total %.3f s, RTF %.4f (%s)",
-            N, audio_s, t_end - start, (t_end - start) / audio_s,
+            N, audio_s, t_end - start, self.last_rtf,
             ", ".join(f"{k} {v:.3f}s" for k, v in
                       self.last_stage_times.items()))
         return outs, self.sample_rate

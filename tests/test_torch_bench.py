@@ -59,6 +59,59 @@ def test_bench_cuda_tiny_prints_one_json_line():
     assert out["peak_mem_gib"] is None
 
 
+def test_bench_cuda_single_track_tiny_prints_one_json_line():
+    """``--single-track``: the stock single-track voice through
+    ``SPSVS.svs``, its median RTF and stage times."""
+    out = _one_json_line("bench_cuda.py", "--single-track")
+    assert out["metric"] == "rtf_single_track_48k"
+    assert out["unit"] == "ratio" and out["value"] > 0
+    assert len(out["all_runs_sec"]) == out["calls"] == bench_cuda.TINY_CALLS
+    assert out["audio_seconds"] > 3
+    assert out["value"] == sorted(out["all_runs_sec"])[
+        len(out["all_runs_sec"]) // 2] / out["audio_seconds"]
+    assert set(out["stages_sec"]) == {
+        "timing", "acoustic", "postprocess_acoustic", "vocoder",
+        "postprocess_waveform"}
+    assert out["pack_sec"] > 0 and out["load_sec"] > 0
+    assert out["dtype"] == "int16"
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["lstm_launches_per_call"] == 0
+    assert out["lstm_launches_by_hidden"] == {}
+    assert out["lstm_kernel_by_hidden"] is None
+    assert out["peak_mem_gib"] is None
+
+
+def test_single_track_voice_is_the_shipped_config():
+    """``chip_smoke.single_phases`` is the JAX package's shipped
+    single-track configs with only the lf0 fields the recipe fills from
+    data set, and ``tiny=True`` keeps their classes and stream layout."""
+    import yaml
+
+    cfg_dir = REPO / "ensemble_svs_with_interactions_tpu" / "configs"
+    _, phases = chip_smoke.single_phases()
+    _, tiny = chip_smoke.single_phases(tiny=True)
+    for phase, rel in (("acoustic", "acoustic/acoustic_multistream_ar_f0"),
+                       ("timelag", "timelag/timelag_vp_mdn"),
+                       ("duration", "duration/duration_vp_mdn")):
+        shipped = yaml.safe_load((cfg_dir / f"{rel}.yaml").read_text())
+        got = phases[phase][0]
+        if phase == "acoustic":
+            for node in (shipped["netG"], shipped["netG"]["lf0_model"]):
+                for k, v in chip_smoke.SINGLE_LF0.items():
+                    assert node[k] is None
+                    node[k] = v
+        assert got == shipped
+
+        def targets(node):
+            if isinstance(node, dict):
+                return [node.get("_target_")] + [
+                    t for v in node.values() for t in targets(v)]
+            return []
+
+        assert targets(tiny[phase][0]) == targets(got)
+        assert tiny[phase][0]["stream_sizes"] == got["stream_sizes"]
+
+
 def test_bench_train_cuda_tiny_prints_one_json_line():
     out = _one_json_line("bench_train_cuda.py")
     assert out["metric"] == "train_frames_per_sec_flagship_multitrack"

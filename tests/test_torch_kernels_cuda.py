@@ -38,6 +38,8 @@ SMALL_H = [1, 8, 32, 62, 64]  # every padded width of the H <= 64 kernels
 # (NC = 2, 4, 8), rows of h, c and dy that are not 16-byte multiples (98),
 # unit blocks that are ragged (98, 100)
 GROUP_H = [98, 100, 128, 256, 512]
+# shapes whose xw the test hands over 4 bytes past a 16-byte boundary
+MISALIGNED = {(1, 6653, 62), (1, 6653, 512)}
 
 
 @pytest.fixture
@@ -71,9 +73,17 @@ def _inputs(cuda, B, T, H, seed):
     *[(B, T, H) for H in GROUP_H for B in (1, 3, 4, 5, 16, 17, 64, 67)
       for T in (1, 2, 37)],
     (128, 37, 512), (300, 9, 512), (4, 6656, 512), (32, 9, 1024),
+    # single-singer serving (SPSVS.svs): one row over the fixture's padded
+    # length at every serving width, and an odd length whose xw starts
+    # off a 16-byte boundary (MISALIGNED)
+    *[(1, 6656, H) for H in (62, 64, 256, 512)], *sorted(MISALIGNED),
 ])
 def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
     xw, w_h, _ = _inputs(cuda, B, T, H, B * 1000 + H)
+    if (B, T, H) in MISALIGNED:
+        buf = torch.empty(xw.numel() + 1, device=cuda)
+        xw = buf[1:].view_as(xw).copy_(xw)
+        assert xw.data_ptr() % 16
     before = lstm_recurrence.launches
     y, c = lstm_recurrence(xw, w_h, want_c=True)
     y_only = lstm_recurrence(xw, w_h)
@@ -97,6 +107,14 @@ def test_lstm_recurrence_dispatch(cuda):
     for H in (256, 512):
         assert lstm_recurrence_kernel_name(64, H) == (
             "lstm_recurrence_group_kernel")
+    # one row, as SPSVS.svs runs every recurrence
+    for H in (62, 64):
+        assert lstm_recurrence_kernel_name(1, H) == (
+            "lstm_recurrence_small_kernel")
+    for H in (256, 512):
+        assert lstm_recurrence_kernel_name(1, H) == (
+            "lstm_recurrence_group_kernel")
+    assert lstm_recurrence_kernel_name(1, 1024) == "lstm_recurrence_kernel"
 
 
 @pytest.mark.cuda

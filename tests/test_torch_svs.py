@@ -238,9 +238,11 @@ def test_svs_ensemble_slice_matches_jax(engines):
 def test_svs_ensemble_takes_the_jax_signature(engines):
     """``svs_ensemble(labels, vocoder_type, post_filter_type, vuv_threshold,
     dtype, spk_ids, pairs, blocked_stage_times)``: the positional
-    ``"world"`` renders what the keyword call renders; an unported vocoder
-    or output dtype raises, an unknown name raises ValueError."""
-    _, engine = engines
+    ``"world"`` renders what the keyword call renders; other output dtypes
+    render as the JAX engine's do (float32 of its lengths and dtype, int32
+    through ``postprocess_waveform``); an unported vocoder raises, an
+    unknown name raises ValueError."""
+    jax_engine, engine = engines
     labels = [_short_labels(hts) for _ in range(4)]
     wavs, sr = engine.svs_ensemble(labels, "world")
     ref, sr_ref = engine.svs_ensemble(labels, vocoder_type="world",
@@ -253,8 +255,20 @@ def test_svs_ensemble_takes_the_jax_signature(engines):
                                   list(range(4)), [1, 2, 3, 0])
     for a, b in zip(auto, ref):
         np.testing.assert_array_equal(a, b)
-    for kw in ({"vocoder_type": "pwg"}, {"vocoder_type": "usfgan"},
-               {"dtype": np.float32}, {"dtype": np.int32}):
+    floats, _ = engine.svs_ensemble(labels, dtype=np.float32)
+    ref_floats, _ = jax_engine.svs_ensemble(
+        [_short_labels(jax_hts) for _ in range(4)], dtype=np.float32)
+    for a, b, c in zip(floats, ref_floats, ref):
+        assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+        assert len(a) == len(c) and 0 < np.abs(a).max() <= 1.0
+    ints, _ = engine.svs_ensemble(labels, dtype=np.int32)
+    for a, b in zip(ints, floats):
+        assert a.dtype == np.int32 and a.shape == b.shape
+        # a peak-normalized float cast as numpy casts it: truncated to
+        # -1, 0 or 1, with the peak at +-1
+        assert set(np.unique(a).tolist()) <= {-1, 0, 1}
+        assert np.abs(a).max() == 1
+    for kw in ({"vocoder_type": "pwg"}, {"vocoder_type": "usfgan"}):
         with pytest.raises(NotImplementedError):
             engine.svs_ensemble(labels, **kw)
     with pytest.raises(ValueError, match="vocoder type"):

@@ -1,11 +1,13 @@
 """Where the time of one flagship ``svs_ensemble`` call of the PyTorch
-port goes on the card.
+port goes on the card, or of one single-track ``svs`` call.
 
-    python3 tools/profile_svs_cuda.py
+    python3 tools/profile_svs_cuda.py [--single-track]
 
 Builds the flagship engine exactly as ``chip_smoke.py`` does (bench.py's
 widths, random weights from the same seed, 4 copies of the 31.2 s
-fixture), warms it up, then runs one call under ``torch.profiler`` and
+fixture) or, with ``--single-track``, the stock single-track voice of
+``chip_smoke.single_phases`` (one copy through ``svs``), warms it up,
+then runs one call under ``torch.profiler`` and
 prints one JSON line: wall time, summed device kernel time and its share
 of the wall (the device's busy share; one stream, so kernels do not
 overlap), the number of device kernels launched, and the kernels with the
@@ -34,16 +36,24 @@ def main() -> int:
         return 2
     from ensemble_svs_with_interactions_tpu_torch.io import hts
 
+    single = "--single-track" in sys.argv[1:]
+    voice = cs.single_phases() if single else cs.flagship_phases()
     engine = cs.build_engine(
-        "cuda", cs.random_state_dicts(cs.flagship_phases()[1], cs.SEED))
+        "cuda", cs.random_state_dicts(voice[1], cs.SEED), voice)
     labels = [hts.load(cs.FIXTURE) for _ in range(cs.N_TRACKS)]
-    spk_ids = list(range(cs.N_TRACKS))
-    engine.svs_ensemble([lab.copy() for lab in labels], spk_ids=spk_ids)
+
+    def call():
+        if single:
+            return engine.svs(labels[0].copy())
+        return engine.svs_ensemble([lab.copy() for lab in labels],
+                                   spk_ids=list(range(cs.N_TRACKS)))
+
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        engine.svs_ensemble([lab.copy() for lab in labels], spk_ids=spk_ids)
+        call()
         wall_s = time.time() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -51,7 +61,8 @@ def main() -> int:
     busy_us = sum(cs.device_us(e) for e in kernels)
     top = sorted(kernels, key=cs.device_us, reverse=True)[:15]
     print(json.dumps({
-        "card": cs.card_line(), "wall_s": wall_s,
+        "card": cs.card_line(),
+        "call": "svs" if single else "svs_ensemble", "wall_s": wall_s,
         "device_kernel_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall_s,
         "device_kernels_launched": sum(e.count for e in kernels),
