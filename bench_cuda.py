@@ -28,6 +28,11 @@ seed 0) packed and opened the same way renders one copy of the fixture
 through ``SPSVS.svs``: one warm-up call, then 7 timed calls.  Its line
 carries the median RTF under ``metric: "rtf_single_track_48k"``, the
 median run's ``last_stage_times``, ``load_sec`` and the same device keys.
+``--post-filter nnsvs`` packs the voice with the merged learned
+postfilter (``chip_smoke.postfilter_config``: the JAX package's
+``configs/postfilter/postfilter_{mgc,bap}.yaml`` stream filters, random
+weights from seed 3) and renders with ``post_filter_type="nnsvs"``; the
+metric is then ``rtf_single_track_nnsvs_48k``.
 
 ``--device cpu --tiny`` (narrow widths, the first seconds of the fixture,
 two timed calls) exists for the CPU test only: it reports no device
@@ -50,6 +55,7 @@ from chip_smoke import FIXTURE, N_TRACKS, SEED
 
 METRIC = "rtf_4part_flagship_multitrack_48k"
 SINGLE_METRIC = "rtf_single_track_48k"
+POSTFILTER_METRIC = "rtf_single_track_nnsvs_48k"
 WARMUP_CALLS = 1
 TIMED_CALLS = 7
 TINY_CALLS = 2
@@ -161,15 +167,18 @@ def run(device: torch.device, tiny: bool) -> dict:
     }
 
 
-def run_single(device: torch.device, tiny: bool) -> dict:
+def run_single(device: torch.device, tiny: bool,
+               post_filter: str = "gv") -> dict:
     """``--single-track``: the stock single-track voice through
-    ``SPSVS.svs``."""
+    ``SPSVS.svs(post_filter_type=post_filter)``, packed with the learned
+    postfilter for ``nnsvs``."""
     from ensemble_svs_with_interactions_tpu_torch.ops import (
         lstm_recurrence as lr,
     )
     from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
 
-    glob, phases = chip_smoke.single_phases(tiny=tiny)
+    glob, phases = chip_smoke.single_phases(
+        tiny=tiny, postfilter=post_filter == "nnsvs")
     weights = chip_smoke.random_state_dicts(phases, SEED)
     with tempfile.TemporaryDirectory() as model_dir:
         t0 = time.perf_counter()
@@ -182,7 +191,7 @@ def run_single(device: torch.device, tiny: bool) -> dict:
     labels = load_labels(tiny)
     t0 = time.perf_counter()
     for _ in range(WARMUP_CALLS):
-        engine.svs(labels.copy())
+        engine.svs(labels.copy(), post_filter_type=post_filter)
     warmup_s = time.perf_counter() - t0
 
     if device.type == "cuda":
@@ -192,7 +201,7 @@ def run_single(device: torch.device, tiny: bool) -> dict:
     calls = TINY_CALLS if tiny else TIMED_CALLS
     for _ in range(calls):
         t0 = time.perf_counter()
-        wav, sr = engine.svs(labels.copy())
+        wav, sr = engine.svs(labels.copy(), post_filter_type=post_filter)
         times.append(time.perf_counter() - t0)
         stages.append(dict(engine.last_stage_times))
     by_width = dict(lr.lstm_recurrence.launches_by_width)
@@ -201,7 +210,10 @@ def run_single(device: torch.device, tiny: bool) -> dict:
     order = int(np.argsort(times)[len(times) // 2])
     audio_s = len(wav) / sr
     return {
-        "metric": SINGLE_METRIC, "value": times[order] / audio_s,
+        "metric": (POSTFILTER_METRIC if post_filter == "nnsvs"
+                   else SINGLE_METRIC),
+        "value": times[order] / audio_s, "post_filter_type": post_filter,
+        "postfilter_packed": engine.postfilter_model is not None,
         "unit": "ratio", "all_runs_sec": times, "audio_seconds": audio_s,
         "rtf_all": [t / audio_s for t in times], "calls": calls,
         "warmup_calls": WARMUP_CALLS, "warmup_sec": warmup_s,
@@ -225,9 +237,18 @@ def main(argv=None) -> int:
                    help="narrow widths and a short input (CPU test only)")
     p.add_argument("--single-track", action="store_true",
                    help="single-singer serving through SPSVS.svs")
+    p.add_argument("--post-filter", choices=("gv", "nnsvs"),
+                   help="with --single-track: svs()'s post_filter_type "
+                        "(default gv); nnsvs packs the learned postfilter")
     args = p.parse_args(argv)
-    bench = run_single if args.single_track else run
-    print(json.dumps(bench(bench_device(args.device), args.tiny)), flush=True)
+    device = bench_device(args.device)
+    if args.single_track:
+        out = run_single(device, args.tiny, args.post_filter or "gv")
+    elif args.post_filter:
+        p.error("--post-filter needs --single-track")
+    else:
+        out = run(device, args.tiny)
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -4,9 +4,11 @@
 
 Drives the port's paths at the verbatim widths of the flagship (random
 weights from a seeded generator): serving, the 4-part pairwise ensemble
-through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it; single-singer
-serving through ``SPSVS.svs`` on the stock single-track voice; and
-training, the multitrack acoustic train step as ``bench_train.py`` runs
+through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and one pair
+through the per-pair API the recipe's synthesis stage calls;
+single-singer serving through ``SPSVS.svs`` on the stock single-track
+voice, with GV, the learned postfilter, the merlin postfilter and uncoded
+WORLD features; and training, the multitrack acoustic train step as ``bench_train.py`` runs
 it, in float32 and in the recipe's bf16 AMP arm, and the duration model's
 train step.
 It holds every hand-written kernel of those paths against its plain
@@ -39,17 +41,36 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    float64 oracle;
 6a. ``kernel_b1`` (run with phase 2): the recurrence at B = 1, T = 6656,
    the shapes single-singer serving gives it;
-6b. ``single``: the stock single-track voice (the JAX package's
+6b. ``pairwise``: the flagship's per-pair path (``svs_pair``, as
+   ``bin/synthesis_multitrack.py``'s ``svs_multitrack``: timing each way,
+   the main track's acoustic features at B = 1, the host postprocess,
+   WORLD, the waveform's postprocess) on the fixture paired with itself
+   sung 15.25 ms late, three timed pairs with the launch counts reset
+   just before and read just after; then the card against the CPU over
+   the first 60 labels: timing each way exactly, the modules on the
+   pair's input as phase ``reference`` holds them;
+6c. ``single``: the stock single-track voice (the JAX package's
    ``configs/acoustic/acoustic_multistream_ar_f0.yaml`` and
    ``{timelag,duration}_vp_mdn.yaml`` at their widths, seeded random
-   weights) packed and opened by ``SPSVS(model_dir)``, three timed
+   weights), packed with the merged learned postfilter
+   (``postfilter_config``) and opened by ``SPSVS(model_dir)``, three timed
    ``svs()`` calls on the fixture with the launch counts by width reset
    just before and read just after, one float32 call, one with segmented
    synthesis and one ``svs_ensemble`` of 4 copies (the single-track
    branch);
-6c. ``single_reference``: the same pack opened on the CPU against the
+6d. ``single_reference``: the same pack opened on the CPU against the
    card on the first 60 labels: durations, modules, the AR lf0 decoder
    against a float64 oracle and the postprocessed streams;
+6e. ``postfilter``: three timed ``svs(post_filter_type="nnsvs")`` calls
+   (launch counts as phase ``single``), the postfilter's device time alone
+   beside its bound, the module on the card against the CPU on the same
+   input and noise, and the postprocessed streams against the CPU engine
+   over the first 60 labels;
+6f. ``world_params``: ``svs()`` with the merlin postfilter, with
+   ``use_world_codec: false`` and on a voice predicting 25-dim
+   mel-cepstral aperiodicity, each call's streams through
+   ``predict_waveform`` on the card and on the CPU with the same noise,
+   held at 40 dB SNR;
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -163,6 +184,23 @@ N_CALLS = 3
 # the single-track voice's streams after postprocess, card against CPU on
 # valid frames (each stream a host postprocess of the acoustic features)
 POST_ATOL = 1e-3
+# the learned postfilter, card against CPU on the same input and noise:
+# the largest difference over the output's largest entry.  Its
+# convolutions run in float32 (TF32 off); in TF32 a 5 x 5 convolution over
+# 129 channels sits about 5e-4 of its scale off
+POSTFILTER_RTOL = 1e-4
+# ...on the first frames of the fixture's input: the CPU's convolutions
+# over all 6656 frames (325 GFLOP) would take seconds
+POSTFILTER_REF_FRAMES = 2048
+# WORLD waveforms, card against CPU from the same streams and noise: the
+# vocoder's bound (tests/test_torch_world.py)
+SNR_DB = 40.0
+# the per-pair phase's sub track: the fixture sung 3.05 frames (15.25 ms)
+# late, off the frame grid, in 100 ns units
+SUB_LAG = 152500
+# the mel-cepstral aperiodicity dims of the world_params phase's second
+# voice (the recipe's mcep-aperiodicity packs)
+MCEP_AP_DIM = 25
 # single-track configurations shipped in the JAX package, read as files
 CONFIGS = REPO / PKG / "configs"
 # the recipes fill the lf0 fields from the data's statistics; the flagship's
@@ -195,7 +233,14 @@ TRAIN_LAUNCHES_BY_SHAPE = {(512, 256): 12, (256, 256): 8, (256, 64): 2,
 TRAIN_LAUNCHES_PER_STEP = sum(TRAIN_LAUNCHES_BY_SHAPE.values())
 
 
+_STARTED = time.time()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets ``script_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.time() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -343,17 +388,22 @@ def flagship_phases(n_spk: int = 4, tiny: bool = False):
     return glob, phases
 
 
+# each phase's offset from the weights' seed
+PHASE_SEEDS = {"acoustic": 0, "duration": 1, "timelag": 2, "postfilter": 3}
+
+
 def random_state_dicts(phases, seed: int):
     """Random weights: each phase's module built under a seeded generator
-    (torch's own initializers), as a state dict."""
+    (torch's own initializers, seed + PHASE_SEEDS[phase]), as a state
+    dict."""
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
         instantiate,
     )
 
     out = {}
-    for k, (name, (cfg, _, _)) in enumerate(sorted(phases.items())):
+    for name, (cfg, _, _) in phases.items():
         with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed + k)
+            torch.manual_seed(seed + PHASE_SEEDS[name])
             out[name] = instantiate(cfg["netG"]).state_dict()
     return out
 
@@ -411,13 +461,40 @@ def shipped_config(rel: str) -> dict:
     return json.loads(json.dumps(yaml_io.load((CONFIGS / rel).read_text())))
 
 
-def single_phases(tiny: bool = False):
+def postfilter_config(tiny: bool = False) -> dict:
+    """The merged learned postfilter, as ``bin/merge_postfilters.py`` writes
+    one: a ``MultistreamPostFilter`` over the streams (60, 1, 1, 5) whose
+    ``mgc_postfilter`` is ``postfilter/postfilter_mgc.yaml``'s (a
+    ``Conv2dPostFilter``: 64 channels, 5 x 5, frame-wise noise smoothed
+    over 100 frames, on mgc dims 2-59) and whose ``bap_postfilter`` is
+    ``postfilter/postfilter_bap.yaml``'s (32 channels, 5 x 1, bin-wise
+    noise smoothed over 5).  ``tiny=True``: 4 channels each."""
+    ss = [60, 1, 1, 5]
+    mgc = shipped_config("postfilter/postfilter_mgc.yaml")["netG"]
+    bap = shipped_config("postfilter/postfilter_bap.yaml")["netG"]
+    mgc, bap = mgc["mgc_postfilter"], bap["bap_postfilter"]
+    if tiny:
+        mgc["channels"] = bap["channels"] = 4
+    target = f"{PKG}.models.postfilters.MultistreamPostFilter"
+    return {"netG": {"_target_": target, "mgc_postfilter": mgc,
+                     "bap_postfilter": bap, "lf0_postfilter": None,
+                     "stream_sizes": ss},
+            "stream_sizes": ss, "has_dynamic_features": [False] * 4,
+            "num_windows": 1}
+
+
+def single_phases(tiny: bool = False, postfilter: bool = False,
+                  bap_dim: int = None):
     """The stock single-track voice, (global config, {phase: (model_config,
     in_scaler, out_scaler)}): ``acoustic/acoustic_multistream_ar_f0.yaml``
     and ``{timelag,duration}/*_vp_mdn.yaml`` verbatim, the lf0 fields the
     recipe fills from data set to SINGLE_LF0, and the flagship's scalers.
-    ``tiny=True`` narrows every width (TINY) for the CPU tests; the stream
-    layout and the model classes stay."""
+    ``postfilter=True`` adds the merged learned postfilter
+    (``postfilter_config``, its scaler the acoustic one's); ``bap_dim``
+    makes the acoustic model predict that many aperiodicity dims (more
+    than 5: mel-cepstral aperiodicity).  ``tiny=True`` narrows every width
+    (TINY) for the CPU tests; the stream layout and the model classes
+    stay."""
     from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
         MinMaxScaler,
         StandardScaler,
@@ -427,6 +504,10 @@ def single_phases(tiny: bool = False):
     tl = shipped_config("timelag/timelag_vp_mdn.yaml")
     du = shipped_config("duration/duration_vp_mdn.yaml")
     net = ac["netG"]
+    if bap_dim is not None:
+        ac["stream_sizes"][3] = net["stream_sizes"][3] = bap_dim
+        net["out_dim"] = sum(net["stream_sizes"])
+        net["bap_model"]["out_dim"] = bap_dim
     for node in (net, net["lf0_model"]):
         node.update({k: v for k, v in SINGLE_LF0.items() if node[k] is None})
     if tiny:
@@ -450,7 +531,7 @@ def single_phases(tiny: bool = False):
     scale[mgc] = 0.24
     glob = {"sample_rate": 48000, "frame_period": 5, "feature_type": "world",
             "use_world_codec": True, "relative_f0": False}
-    return glob, {
+    phases = {
         "timelag": (tl, MinMaxScaler(np.zeros(82), np.ones(82)),
                     StandardScaler(np.zeros(1), np.ones(1) * 4,
                                    np.ones(1) * 2)),
@@ -460,6 +541,10 @@ def single_phases(tiny: bool = False):
         "acoustic": (ac, MinMaxScaler(np.zeros(86), np.ones(86)),
                      StandardScaler(mean, scale ** 2, scale)),
     }
+    if postfilter:
+        phases["postfilter"] = (postfilter_config(tiny), None,
+                                StandardScaler(mean, scale ** 2, scale))
+    return glob, phases
 
 
 # ------------------------------------------------------------------ timing
@@ -858,22 +943,89 @@ def phase_packed(engine, weights, labels):
     assert all(same_audio), same_audio
 
 
+@torch.no_grad()
+def multitrack_modules(m, dev, xm, xs, spk_ids, sub_ids, lengths,
+                       dec_in=None, ar_only=False):
+    """The multitrack acoustic model's modules on host (B, T, 86) main and
+    sub features: the AR lf0 decoder (dropout masks from a CPU generator
+    seeded with ``AR_SEED``, as the engine draws them), the encoder, the
+    lf0 encoder and the mgc/vuv/bap decoders on ``dec_in`` (by default
+    built from this run's encoder and AR lf0), as float64 CPU tensors."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import AR_SEED
+    from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
+        point_estimate,
+    )
+
+    dtype = next(m.parameters()).dtype
+    xm = torch.from_numpy(xm).to(dev, dtype)
+    xs = torch.from_numpy(xs).to(dev, dtype)
+    T = xm.shape[1]
+    ln = torch.as_tensor(np.asarray(lengths), device=dev)
+    spk_m = m._expand_spk(torch.as_tensor(spk_ids, device=dev), T)
+    spk_s = m._expand_spk(torch.as_tensor(sub_ids, device=dev), T)
+    out = {"ar_lf0": point_estimate(m.lf0_model(
+        xm, xs, spk_m, spk_s, ln,
+        generator=torch.Generator().manual_seed(AR_SEED))[0])}
+    if not ar_only:
+        out["encoder"] = m.encoder(xm, xs, spk_embs=(spk_m, spk_s),
+                                   lengths=ln)
+        out["lf0_encoder"] = m.lf0_model.encode(xm, xs, spk_m, spk_s, ln)
+        if dec_in is None:
+            dec_in = torch.cat([out["encoder"], xm[..., :1],
+                                out["ar_lf0"]], dim=-1).cpu()
+        d = dec_in.to(dev)
+        for k in ("mgc_model", "vuv_model", "bap_model"):
+            out[k] = getattr(m, k)(d, ln)
+    return {k: v.cpu().double() for k, v in out.items()}, dec_in
+
+
+def hold_modules(card, cpu, valid, *args) -> dict:
+    """``multitrack_modules`` on the card against the CPU (plain
+    recurrence) on the same inputs, and the AR lf0 against a float64
+    oracle (the CPU model in float64), over the ``valid`` frames: the
+    errors by module, the AR lf0's distances and its limit, and whether
+    every output is finite (``assert_held`` judges them)."""
+    ref, dec_in = multitrack_modules(cpu, torch.device("cpu"), *args)
+    got, _ = multitrack_modules(card, next(card.parameters()).device, *args,
+                                dec_in=dec_in)
+    oracle, _ = multitrack_modules(copy.deepcopy(cpu).double(),
+                                   torch.device("cpu"), *args, ar_only=True)
+
+    def dist(a, b):
+        return (a - b)[valid].abs().max().item()
+
+    errs = {k: dist(got[k], ref[k]) for k in ref}
+    ar = {"card_vs_f64": dist(got["ar_lf0"], oracle["ar_lf0"]),
+          "cpu_f32_vs_f64": dist(ref["ar_lf0"], oracle["ar_lf0"])}
+    return {"max_abs_err": errs, "atol": MODULE_ATOL, "ar_lf0": ar,
+            "ar_lf0_limit": max(AR_ABS_ATOL,
+                                AR_HEADROOM * ar["cpu_f32_vs_f64"]),
+            "finite": all(bool(torch.isfinite(v).all())
+                          for v in got.values())}
+
+
+def assert_held(held: dict):
+    """Modules within MODULE_ATOL; the AR lf0 no farther from the float64
+    oracle than AR_HEADROOM times the CPU's own float32 run, or
+    AR_ABS_ATOL; every output finite."""
+    for k, e in held["max_abs_err"].items():
+        if k != "ar_lf0":
+            assert np.isfinite(e) and e < MODULE_ATOL, (k, e)
+    ar = held["ar_lf0"]["card_vs_f64"]
+    assert np.isfinite(ar) and ar <= held["ar_lf0_limit"], held["ar_lf0"]
+    assert held["finite"], held
+
+
 def phase_reference(engine, weights, labels):
     """The card against the CPU (plain recurrence) on the first seconds of
     the fixture: durations exactly; the multitrack encoder (H = 512), the
     lf0 encoder (64) and the mgc/vuv/bap decoders (256/64/62) at
-    MODULE_ATOL on the same inputs.  The free-running AR lf0 decoder gets
-    the same dropout masks on both sides (a CPU generator seeded with
-    ``AR_SEED``, as the engine draws them) and is held against a float64
-    oracle, the CPU model run in float64: the card may sit no farther from
-    it than AR_HEADROOM times the CPU's own float32 run, or AR_ABS_ATOL."""
+    MODULE_ATOL on the same inputs, and the free-running AR lf0 decoder
+    against a float64 oracle (``hold_modules``).  Returns the CPU
+    engine."""
     from ensemble_svs_with_interactions_tpu_torch.gen import (
-        AR_SEED,
         FRAME_BUCKET,
         _round_up,
-    )
-    from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
-        point_estimate,
     )
 
     t0 = time.time()
@@ -893,52 +1045,14 @@ def phase_reference(engine, weights, labels):
     for i, f in enumerate(feats):
         x[i, : len(f)] = f
     lengths = np.asarray([len(f) for f in feats])
-
-    @torch.no_grad()
-    def modules(m, dev, dec_in=None, ar_only=False):
-        dtype = next(m.parameters()).dtype
-        xm = torch.from_numpy(x).to(dev, dtype)
-        xs = xm[torch.as_tensor(pairs, device=dev)]
-        ln = torch.as_tensor(lengths, device=dev)
-        spk_m = m._expand_spk(torch.as_tensor(spk_ids, device=dev), T)
-        spk_s = m._expand_spk(torch.as_tensor(pairs, device=dev), T)
-        out = {"ar_lf0": point_estimate(m.lf0_model(
-            xm, xs, spk_m, spk_s, ln,
-            generator=torch.Generator().manual_seed(AR_SEED))[0])}
-        if not ar_only:
-            out["encoder"] = m.encoder(xm, xs, spk_embs=(spk_m, spk_s),
-                                       lengths=ln)
-            out["lf0_encoder"] = m.lf0_model.encode(xm, xs, spk_m, spk_s, ln)
-            if dec_in is None:
-                dec_in = torch.cat([out["encoder"], xm[..., :1],
-                                    out["ar_lf0"]], dim=-1).cpu()
-            d = dec_in.to(dev)
-            for k in ("mgc_model", "vuv_model", "bap_model"):
-                out[k] = getattr(m, k)(d, ln)
-        return {k: v.cpu().double() for k, v in out.items()}, dec_in
-
-    ref, dec_in = modules(cpu.acoustic_model.module, cpu.device)
-    got, _ = modules(engine.acoustic_model.module, engine.device, dec_in)
-    oracle, _ = modules(copy.deepcopy(cpu.acoustic_model.module).double(),
-                        cpu.device, ar_only=True)
     valid = torch.from_numpy(np.arange(T)[None, :] < lengths[:, None])
-
-    def dist(a, b):
-        return (a - b)[valid].abs().max().item()
-
-    errs = {k: dist(got[k], ref[k]) for k in ref}
-    ar = {"card_vs_f64": dist(got["ar_lf0"], oracle["ar_lf0"]),
-          "cpu_f32_vs_f64": dist(ref["ar_lf0"], oracle["ar_lf0"])}
-    ar_limit = max(AR_ABS_ATOL, AR_HEADROOM * ar["cpu_f32_vs_f64"])
-    emit({"phase": "reference", "frames": lengths.tolist(), "T": T,
-          "max_abs_err": errs, "atol": MODULE_ATOL, "ar_lf0": ar,
-          "ar_lf0_limit": ar_limit, "seconds": time.time() - t0})
-    for k, e in errs.items():
-        if k != "ar_lf0":
-            assert np.isfinite(e) and e < MODULE_ATOL, (k, e)
-    assert np.isfinite(ar["card_vs_f64"]) and ar["card_vs_f64"] <= ar_limit, ar
-    for k in ref:
-        assert torch.isfinite(got[k]).all(), k
+    held = hold_modules(engine.acoustic_model.module,
+                        cpu.acoustic_model.module, valid, x, x[pairs],
+                        spk_ids, pairs, lengths)
+    emit({"phase": "reference", "frames": lengths.tolist(), "T": T, **held,
+          "seconds": time.time() - t0})
+    assert_held(held)
+    return cpu
 
 
 def phase_single(lr, model_dir, label):
@@ -1031,7 +1145,9 @@ def phase_single_reference(engine, model_dir, label):
     seeded with ``AR_SEED``) against the float64 oracle under AR_HEADROOM,
     as phase ``reference``; and the postprocessed (mgc, lf0, vuv, bap) of
     ``predict_acoustic`` + ``postprocess_acoustic`` within POST_ATOL on
-    valid frames."""
+    valid frames.  Returns the CPU engine and, for phase ``postfilter``,
+    each engine's (duration-modified labels, acoustic features) of those
+    labels."""
     from ensemble_svs_with_interactions_tpu_torch.gen import (
         AR_SEED,
         FRAME_BUCKET,
@@ -1085,10 +1201,9 @@ def phase_single_reference(engine, model_dir, label):
     ar = {"card_vs_f64": dist(got["ar_lf0"], oracle["ar_lf0"]),
           "cpu_f32_vs_f64": dist(ref["ar_lf0"], oracle["ar_lf0"])}
     ar_limit = max(AR_ABS_ATOL, AR_HEADROOM * ar["cpu_f32_vs_f64"])
-    streams = [e.postprocess_acoustic(e.predict_acoustic(d.copy()), d.copy())
-               for e, d in ((engine, dm), (cpu, dm_cpu))]
-    post = {k: float(np.abs(a - b).max()) for k, a, b in
-            zip(("mgc", "lf0", "vuv", "bap"), *streams)}
+    short_run = [(d, e.predict_acoustic(d.copy()))
+                 for e, d in ((engine, dm), (cpu, dm_cpu))]
+    post = stream_errors((engine, cpu), short_run)
     emit({"phase": "single_reference", "labels": len(short), "frames": n,
           "T": T, "max_abs_err": errs, "atol": MODULE_ATOL, "ar_lf0": ar,
           "ar_lf0_limit": ar_limit, "post_max_abs_err": post,
@@ -1101,6 +1216,305 @@ def phase_single_reference(engine, model_dir, label):
         assert torch.isfinite(got[k]).all(), k
     for k, e in post.items():
         assert np.isfinite(e) and e < POST_ATOL, (k, e)
+    return cpu, short_run
+
+
+def postfilter_flops(module, T: int) -> int:
+    """Operations of a ``MultistreamPostFilter`` on T frames: each
+    sub-filter's convolutions (2 x Cout x Cin x kh x kw a pixel over T x
+    its width) and frame-wise noise projection."""
+    from torch import nn
+
+    total = 0
+    for pf in (module.mgc_postfilter, module.bap_postfilter,
+               module.lf0_postfilter):
+        if pf is None:
+            continue
+        for m in pf.modules():
+            if isinstance(m, nn.Conv2d):
+                total += 2 * m.weight.numel() * T * pf.in_dim
+            elif isinstance(m, nn.Linear):
+                total += 2 * m.weight.numel() * T
+    return total
+
+
+def stream_errors(engines, runs, **kw) -> dict:
+    """The largest difference of each stream that ``postprocess_acoustic(
+    **kw)`` gives ``(card, cpu)`` engines from their ``runs``, (duration-
+    modified labels, acoustic features) each."""
+    streams = [e.postprocess_acoustic(acoustic, d.copy(), **kw)
+               for e, (d, acoustic) in zip(engines, runs)]
+    return {k: float(np.abs(a - b).max()) for k, a, b in
+            zip(("mgc", "lf0", "vuv", "bap"), *streams)}
+
+
+def phase_postfilter(lr, engine, cpu, label, short_run):
+    """Single-singer serving with the learned postfilter
+    (``post_filter_type="nnsvs"``, the pack's merged postfilter): a
+    warm-up, then N_CALLS timed ``svs()`` calls with the launch counts
+    reset just before and read just after (LAUNCHES_BY_HIDDEN a call);
+    the postfilter's device time alone (CUDA events, 5 calls on the input
+    the engine gave it, padded as it pads it) beside its bound; the
+    module on the card against the CPU on the first POSTFILTER_REF_FRAMES
+    frames of that input with the same noise (POSTFILTER_RTOL of the
+    output's largest entry); and the postprocessed streams against the CPU
+    engine over the first 60 labels (``short_run``, phase
+    ``single_reference``'s acoustic features) within POST_ATOL.  Returns
+    the launches."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import (
+        AR_SEED,
+        FRAME_BUCKET,
+        _round_up,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.models.postfilters import (
+        draw_noise,
+    )
+
+    pack = engine.postfilter_model
+    inputs = []
+    infer = pack.inference
+    pack.inference = lambda x, **kw: inputs.append(x) or infer(x, **kw)
+    t0 = time.time()
+    engine.svs(label.copy(), post_filter_type="nnsvs")
+    warm_s = time.time() - t0
+    del pack.inference
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(lr)
+    runs = []
+    for _ in range(N_CALLS):
+        t0 = time.time()
+        wav, sr = engine.svs(label.copy(), post_filter_type="nnsvs")
+        runs.append({"seconds": time.time() - t0, "rtf": engine.last_rtf,
+                     "stages": dict(engine.last_stage_times)})
+    launches = lr.lstm_recurrence.launches
+    by_width = dict(lr.lstm_recurrence.launches_by_width)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n = len(inputs[0])
+    T = _round_up(n, FRAME_BUCKET)
+    x = np.zeros((1, T, inputs[0].shape[1]), np.float32)
+    x[0, :n] = inputs[0]
+    x_dev = torch.from_numpy(x).to(engine.device)
+    module = pack.module
+    with torch.no_grad():
+        def call():
+            return module.inference(
+                x_dev, generator=torch.Generator().manual_seed(AR_SEED))
+
+        call()
+        pf_ms = cuda_ms(call, 5)
+        g = torch.Generator().manual_seed(AR_SEED)
+        m = POSTFILTER_REF_FRAMES
+        noise = {"mgc": draw_noise((1, m, 1), g),
+                 "bap": draw_noise((1, m, module.stream_sizes[3]), g)}
+        got = module.inference(x_dev[:, :m], noise=noise).cpu().double()
+        ref = cpu.postfilter_model.module.inference(
+            torch.from_numpy(x[:, :m]), noise=noise).double()
+    pf_err = ((got - ref).abs().max() / ref.abs().max()).item()
+    flops = postfilter_flops(module, T)
+    pf_bound = bound(1e3 * 2 * x.nbytes / PEAK_BYTES_PER_S,
+                     1e3 * flops / PEAK_FP32_FLOP_PER_S)
+    post = stream_errors((engine, cpu), short_run, post_filter_type="nnsvs")
+    audio_s = len(wav) / sr
+    emit({"phase": "postfilter", "warmup_s": warm_s,
+          "runs_s": [r["seconds"] for r in runs],
+          "rtf": [r["rtf"] for r in runs],
+          "postprocess_acoustic_s": [r["stages"]["postprocess_acoustic"]
+                                     for r in runs],
+          "stages": runs[len(runs) // 2]["stages"], "audio_seconds": audio_s,
+          "calls": N_CALLS, "launches": launches,
+          "launches_by_width": {str(H): c
+                                for H, c in sorted(by_width.items())},
+          "peak_mem_gib": peak,
+          "postfilter": {"frames": n, "T": T, "ms": pf_ms,
+                         "bound_ms": pf_bound[0], "bound_by": pf_bound[1],
+                         "gflop": flops / 1e9,
+                         "tflops": flops / pf_ms / 1e9,
+                         "card_vs_cpu_rel_err": pf_err,
+                         "card_vs_cpu_frames": POSTFILTER_REF_FRAMES,
+                         "rtol": POSTFILTER_RTOL},
+          "post_max_abs_err": post, "post_atol": POST_ATOL})
+    assert by_width == {H: c * N_CALLS for H, c in
+                        LAUNCHES_BY_HIDDEN.items()}, by_width
+    assert wav.dtype == np.int16 and len(wav) > 30 * sr, (wav.dtype, len(wav))
+    assert np.abs(wav.astype(np.int64)).max() > 0
+    assert np.isfinite(pf_err) and pf_err < POSTFILTER_RTOL, pf_err
+    for k, e in post.items():
+        assert np.isfinite(e) and e < POST_ATOL, (k, e)
+    return launches
+
+
+def snr_db(ref, got) -> float:
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return float(10 * np.log10(np.sum(ref ** 2)
+                               / max(np.sum((got - ref) ** 2), 1e-30)))
+
+
+def held_waveform(engine, streams) -> dict:
+    """``predict_waveform`` of host streams on the card against the CPU
+    port with the same noise, by SNR."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import (
+        FRAME_BUCKET,
+        _round_up,
+        predict_waveform,
+        vocoder_noise,
+    )
+
+    hop = int(engine.sample_rate * engine.frame_period / 1000)
+    noise = vocoder_noise(1, _round_up(len(streams[1]), FRAME_BUCKET) * hop,
+                          "cpu")
+    kw = {"sample_rate": engine.sample_rate,
+          "frame_period": engine.frame_period,
+          "use_world_codec": engine.config.get("use_world_codec", True)}
+    t0 = time.time()
+    card = predict_waveform(streams, device=engine.device,
+                            noise=noise.to(engine.device), **kw)
+    card_s = time.time() - t0
+    cpu = predict_waveform(streams, device="cpu", noise=noise, **kw)
+    return {"vocoder_s": card_s, "samples": len(card),
+            "finite": bool(np.isfinite(card).all()),
+            "snr_db": snr_db(cpu, card)}
+
+
+def phase_world_params(engine, mcep_dir, label):
+    """The merlin postfilter and uncoded WORLD synthesis: one ``svs()`` call
+    with ``post_filter_type="merlin"``, one on the same pack with
+    ``use_world_codec: false`` (``gen_world_params``' ``mc2sp`` envelope),
+    and one on a pack of the voice predicting MCEP_AP_DIM-dim mel-cepstral
+    aperiodicity (``mc2sp`` aperiodicity); each call's streams go through
+    ``predict_waveform`` on the card and on the CPU with the same noise,
+    held at SNR_DB."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    out, streams = {}, {}
+
+    def render(name, e, **kw):
+        post = e.postprocess_acoustic
+
+        def capture(*a, **k):
+            streams[name] = post(*a, **k)
+            return streams[name]
+
+        e.postprocess_acoustic = capture
+        t0 = time.time()
+        wav, sr = e.svs(label.copy(), **kw)
+        del e.postprocess_acoustic
+        out[name] = {"seconds": time.time() - t0, "rtf": e.last_rtf,
+                     "stages": dict(e.last_stage_times),
+                     "length": len(wav),
+                     "audible": bool(np.abs(wav.astype(np.int64)).max() > 0),
+                     **held_waveform(e, streams[name])}
+
+    render("merlin", engine, post_filter_type="merlin")
+    engine.config["use_world_codec"] = False
+    try:
+        render("uncoded", engine)
+    finally:
+        engine.config["use_world_codec"] = True
+    t0 = time.time()
+    mcep = SPSVS(mcep_dir, device=engine.device)
+    load_s = time.time() - t0
+    render("mcep_aperiodicity", mcep)
+    out["mcep_aperiodicity"]["load_s"] = load_s
+    emit({"phase": "world_params", **out, "snr_min_db": SNR_DB})
+    for name, r in out.items():
+        assert r["finite"] and r["audible"], (name, r)
+        assert r["length"] > 30 * engine.sample_rate, (name, r)
+        assert r["snr_db"] > SNR_DB, (name, r["snr_db"])
+    assert streams["mcep_aperiodicity"][3].shape[1] == MCEP_AP_DIM
+
+
+def late_copy(labels, lag: int = SUB_LAG):
+    """The labels sung ``lag`` (100 ns units) late: every time but the
+    first start."""
+    sub = labels.copy()
+    sub.start_times = [sub.start_times[0]] + [t + lag for t in
+                                              sub.start_times[1:]]
+    sub.end_times = [t + lag for t in sub.end_times]
+    return sub
+
+
+def svs_pair(engine, main, sub, spks):
+    """One pair as ``bin/synthesis_multitrack.py``'s ``svs_multitrack``
+    renders it: timing each way, the main track's acoustic features, the
+    host postprocess, WORLD and the waveform's postprocess (int16)."""
+    dm = engine.predict_timing_multitrack([main, sub], spks)[0]
+    dm_sub = engine.predict_timing_multitrack([sub, main], spks[::-1])[0]
+    acoustic = engine.predict_acoustic_multitrack([dm, dm_sub], spks)
+    streams = engine.postprocess_acoustic(acoustic, dm)
+    return engine.postprocess_waveform(engine.predict_waveform(streams))
+
+
+def phase_pairwise(lr, engine, cpu, label):
+    """The flagship's per-pair path, the recipe's synthesis stage: the
+    fixture as the main track of a pair whose sub track is the fixture
+    sung SUB_LAG late (``svs_pair``: a warm-up, then N_CALLS timed pairs
+    with the launch counts reset just before and read just after,
+    LAUNCHES_BY_HIDDEN a pair at B = 1); then, over the first 60 labels,
+    the card against the CPU engine: the pair's timing each way exactly,
+    and the modules on the pair's acoustic input (both tracks padded to the
+    longer, as ``predict_acoustic_multitrack`` gives them) by
+    ``hold_modules``.  Returns the launches."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import (
+        FRAME_BUCKET,
+        _round_up,
+    )
+
+    spks = [0, 1]
+    main, sub = label, late_copy(label)
+    t0 = time.time()
+    svs_pair(engine, main, sub, spks)
+    warm_s = time.time() - t0
+    reset_launches(lr)
+    runs = []
+    for _ in range(N_CALLS):
+        t0 = time.time()
+        wav = svs_pair(engine, main, sub, spks)
+        runs.append(time.time() - t0)
+    launches = lr.lstm_recurrence.launches
+    by_width = dict(lr.lstm_recurrence.launches_by_width)
+    audio_s = len(wav) / engine.sample_rate
+
+    t0 = time.time()
+    short = (main[:60], sub[:60])
+    timing = {}
+    for name, pair, ids in (("main", short, spks),
+                            ("sub", short[::-1], spks[::-1])):
+        got, ref = (e.predict_timing_multitrack(list(pair), ids)
+                    for e in (engine, cpu))
+        timing[name] = (list(got[0].start_times) == list(ref[0].start_times)
+                        and list(got[0].end_times) == list(ref[0].end_times)
+                        and bool(np.array_equal(got[1], ref[1])))
+        if name == "main":
+            dm = got[0]
+        else:
+            dm_sub = got[0]
+    feats, _ = engine._frame_features([dm.copy(), dm_sub.copy()])
+    n = max(len(f) for f in feats)
+    T = _round_up(n, FRAME_BUCKET)
+    xm, xs = (np.zeros((1, T, f.shape[1]), np.float32) for f in feats)
+    xm[0, : len(feats[0])] = feats[0]
+    xs[0, : len(feats[1])] = feats[1]
+    valid = torch.from_numpy(np.arange(T)[None, :] < len(feats[0]))
+    held = hold_modules(engine.acoustic_model.module,
+                        cpu.acoustic_model.module, valid, xm, xs, [spks[0]],
+                        [spks[1]], [n])
+    emit({"phase": "pairwise", "warmup_s": warm_s, "runs_s": runs,
+          "rtf": [r / audio_s for r in runs], "audio_seconds": audio_s,
+          "calls": N_CALLS, "launches": launches,
+          "launches_by_width": {str(H): c
+                                for H, c in sorted(by_width.items())},
+          "reference": {"labels": 60, "frames": n, "T": T,
+                        "timing_equal": timing, **held,
+                        "seconds": time.time() - t0}})
+    assert by_width == {H: c * N_CALLS for H, c in
+                        LAUNCHES_BY_HIDDEN.items()}, by_width
+    assert wav.dtype == np.int16 and len(wav) > 30 * engine.sample_rate
+    assert np.abs(wav.astype(np.int64)).max() > 0
+    assert all(timing.values()), timing
+    assert_held(held)
+    return launches
 
 
 def train_batch(B: int, T: int, out_dim: int):
@@ -1731,12 +2145,13 @@ def _entry(name, source, sums, **extra):
 
 
 def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
-                 single_launches, train_launches, amp_launches):
+                 path_launches, train_launches, amp_launches):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
-    the paths' runs (N_CALLS svs_ensemble calls, N_CALLS single-track svs
-    calls and one single-track svs_ensemble call, TRAIN_STEPS train steps
-    of each train arm, float32 and AMP), by path under
-    ``launches_by_path``.  The recurrence's times, bound and yardstick are
+    the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
+    N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
+    learned postfilter; N_CALLS flagship pairs; TRAIN_STEPS train steps of
+    each train arm, float32 and AMP), by path under ``launches_by_path``
+    (``path_launches`` gives the serving paths' besides svs_ensemble).  The recurrence's times, bound and yardstick are
     summed over one svs_ensemble call's launches (LAUNCHES_BY_HIDDEN at
     B = 4), with the same sums over one single-track svs call (the same
     widths at B = 1) under ``svs_call`` and over one train step
@@ -1774,7 +2189,7 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                     "train_amp": amp_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
-    paths["lstm_recurrence"].update(single_launches)
+    paths["lstm_recurrence"].update(path_launches)
     return {"kernels": [
         _entry("lstm_recurrence", "lstm_recurrence.cu", serve,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:30",
@@ -1846,24 +2261,33 @@ def main() -> int:
     labels = [hts.load(FIXTURE) for _ in range(N_TRACKS)]
     engine, launches = phase_slice(lr, weights, labels)
     phase_packed(engine, weights, labels)
-    phase_reference(engine, weights, labels)
-    del engine
-    glob, phases = single_phases()
-    with tempfile.TemporaryDirectory() as model_dir:
+    cpu = phase_reference(engine, weights, labels)
+    pair_launches = phase_pairwise(lr, engine, cpu, labels[0])
+    del engine, cpu
+    glob, phases = single_phases(postfilter=True)
+    glob_mcep, phases_mcep = single_phases(bap_dim=MCEP_AP_DIM)
+    with tempfile.TemporaryDirectory() as model_dir, \
+            tempfile.TemporaryDirectory() as mcep_dir:
         t0 = time.time()
         pack_phases(model_dir, glob, phases,
                     random_state_dicts(phases, SEED))
         emit({"phase": "single_pack", "pack_s": time.time() - t0})
-        engine, single_launches = phase_single(lr, model_dir, labels[0])
-        phase_single_reference(engine, model_dir, labels[0])
-    del engine
+        engine, path_launches = phase_single(lr, model_dir, labels[0])
+        cpu, short_run = phase_single_reference(engine, model_dir, labels[0])
+        path_launches["svs_postfilter"] = phase_postfilter(
+            lr, engine, cpu, labels[0], short_run)
+        pack_phases(mcep_dir, glob_mcep, phases_mcep,
+                    random_state_dicts(phases_mcep, SEED))
+        phase_world_params(engine, mcep_dir, labels[0])
+    del engine, cpu
+    path_launches["pairwise"] = pair_launches
     train_launches = phase_train(lr)
     f32_runs = phase_train_reference()
     amp_launches = phase_train_amp(lr)
     phase_train_amp_reference(f32_runs)
     phase_timing_train()
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
-                      single_launches, train_launches, amp_launches))
+                      path_launches, train_launches, amp_launches))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,16 +4,17 @@ pack, timing, acoustic prediction, the host postprocess of the acoustic
 streams and the waveform stages.
 
 Host (NumPy/SciPy): linguistic featurization, note bookkeeping, duration
-normalization, the GV postfilter, stream reconstruction, trajectory
-smoothing and the waveform's band-pass and normalization.  Device (torch):
-model inference and the WORLD vocoder, with frame counts padded to buckets
-as in the JAX package so both see the same padded inputs.
+normalization, the GV and merlin postfilters, stream reconstruction,
+trajectory smoothing, the decoding of uncoded WORLD features
+(``gen_world_params``) and the waveform's band-pass and normalization.
+Device (torch): model inference (the learned postfilter too) and the WORLD
+vocoder, with frame counts padded to buckets as in the JAX package so both
+see the same padded inputs.
 
 Not ported, and named by the ``NotImplementedError`` that refuses them:
-the merlin postfilter and the non-codec WORLD path (``ops/sptk.mc2sp``,
-``ops/world`` ``synthesize``), a packed ``nnsvs`` postfilter
-(``models/postfilters.py``), the neural vocoders (``models/vocoders/``),
-vibrato streams (``ops/pitch.gen_sine_vibrato``) and mel features.
+the neural vocoders (``models/vocoders/``), vibrato streams
+(``ops/pitch.gen_sine_vibrato``), mel features and the mel and band-split
+learned postfilters.
 """
 
 from __future__ import annotations
@@ -42,7 +43,14 @@ from ensemble_svs_with_interactions_tpu_torch.ops.pitch import (
     interp1d,
     lowpass_filter,
 )
+from ensemble_svs_with_interactions_tpu_torch.ops.sptk import mc2sp, mcepalpha
+from ensemble_svs_with_interactions_tpu_torch.ops.world.codec import (
+    decode_aperiodicity,
+    decode_spectral_envelope_np,
+    get_cheaptrick_fft_size,
+)
 from ensemble_svs_with_interactions_tpu_torch.ops.world.synthesis import (
+    synthesize,
     synthesize_from_streams,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
@@ -59,10 +67,10 @@ AR_SEED = 1234
 # the JAX package's modules that unported options need
 _JAX = "ensemble_svs_with_interactions_tpu"
 UNPORTED = {
-    "merlin": f"{_JAX}/ops/sptk.py (mc2sp)",
-    "nnsvs": f"{_JAX}/models/postfilters.py (a packed postfilter)",
-    "world_params": f"{_JAX}/ops/sptk.py (mc2sp) and {_JAX}/ops/world "
-                    "(synthesize)",
+    "MelF0MultistreamPostFilter":
+        f"{_JAX}/models/postfilters.py (MelF0MultistreamPostFilter)",
+    "MultistreamConv2dPostFilter":
+        f"{_JAX}/models/postfilters.py (MultistreamConv2dPostFilter)",
     "vocoder": f"{_JAX}/models/vocoders/",
     "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
     "melf0": f"{_JAX}/models/vocoders/ (mel features)",
@@ -100,10 +108,16 @@ class ModelPack:
 
     def __init__(self, module, config: Any, bucket: int = FRAME_BUCKET,
                  device="cuda"):
-        self.device = torch.device(device)
-        self.module = module.to(self.device).eval()
+        self.module = module.eval()
         self.config = config
         self.bucket = bucket
+        self.to(device)
+
+    def to(self, device) -> "ModelPack":
+        """Move the weights to ``device``; later calls run there."""
+        self.device = torch.device(device)
+        self.module.to(self.device)
+        return self
 
     def prediction_type(self):
         return self.module.prediction_type()
@@ -120,19 +134,23 @@ class ModelPack:
 
     @torch.no_grad()
     def inference_batch(self, xs, spks=None, sub_index=None,
-                        method="inference", block=True, device_out=False):
+                        method="inference", block=True, device_out=False,
+                        xs_sub=None):
         """Batched inference over a list of (T_i, D) sequences, padded to a
         common bucketed length and run as one (B, T, D) batch.
 
-        ``sub_index`` (per-item index into ``xs``) gathers the sub-track
-        features of multitrack models on the device.  ``spks`` is a tuple
-        of per-item speaker-id sequences.
+        Multitrack models take the sub-track features as ``xs_sub`` (per
+        item, padded with ``xs``) or, when they are a permutation of
+        ``xs``, as ``sub_index`` (per-item index into ``xs``, gathered on
+        the device).  ``spks`` is a tuple of per-item speaker-id
+        sequences.
         ``device_out=True`` returns ``(device output, lengths)`` with no
         host copy; otherwise per-item host arrays trimmed to their lengths
         (a zero-argument callable producing them when ``block=False``).
         """
         B = len(xs)
-        T_pad = _round_up(max(len(x) for x in xs), self.bucket)
+        T_pad = _round_up(max(len(x) for x in list(xs) + list(xs_sub or [])),
+                          self.bucket)
         lengths = np.asarray([len(x) for x in xs], np.int64)
         x = self._pack(xs, B, T_pad)
         args = [x]
@@ -140,6 +158,8 @@ class ModelPack:
             idx = torch.as_tensor(np.asarray(sub_index, np.int64),
                                   device=self.device)
             args.append(x.index_select(0, idx))
+        elif xs_sub is not None:
+            args.append(self._pack(xs_sub, B, T_pad))
         if spks is not None:
             args.append(tuple(
                 torch.as_tensor(np.asarray(s, np.int64), device=self.device)
@@ -161,11 +181,14 @@ class ModelPack:
 
         return _finalize() if block else _finalize
 
-    def inference(self, x: np.ndarray, spks=None, method: str = "inference"):
-        """Inference on one (T, D) sequence, padded to the bucket with
-        ``lengths = [T]``; host arrays trimmed to T (a tuple of them for
-        MDN heads)."""
-        return self.inference_batch([x], spks=spks, method=method)[0]
+    def inference(self, x: np.ndarray, spks=None, method: str = "inference",
+                  x_sub=None):
+        """Inference on one (T, D) sequence (with the sub track ``x_sub``
+        for multitrack models), padded to the bucket with ``lengths =
+        [T]``; host arrays trimmed to T (a tuple of them for MDN heads)."""
+        return self.inference_batch(
+            [x], spks=spks, method=method,
+            xs_sub=None if x_sub is None else [x_sub])[0]
 
 
 def vocoder_noise(N: int, samples: int, device) -> torch.Tensor:
@@ -613,36 +636,52 @@ def postprocess_acoustic(acoustic_features: np.ndarray,
                          force_fix_vuv: bool = False,
                          linguistic_features=None):
     """Denormalized acoustic features -> WORLD streams (mgc, lf0, vuv, bap)
-    on the host: the GV postfilter over note frames (``post_filter_type``
-    ``"gv"``; ``"none"``, ``"off"`` and None skip it), stream
+    on the host, in the JAX package's order: the GV postfilter over note
+    frames (``post_filter_type`` ``"gv"``, and ``"nnsvs"`` before the
+    learned postfilter; ``"none"``, ``"off"`` and None skip it); the merlin
+    postfilter (``"merlin"``: mel-cepstrum dims from 2 on sharpened by 1.4,
+    the spectral energy restored through c0); the learned postfilter
+    (``"nnsvs"`` with a ``postfilter_model``, a ``ModelPack``, on the
+    features normalized by ``postfilter_out_scaler``); then stream
     reconstruction, the long-rest crossfade, the F0 shift and zero-phase
     trajectory smoothing.  ``linguistic_features`` (raw frame features of
-    the labels) may be passed to skip recomputing them.  ``postfilter_model``
-    and ``postfilter_out_scaler`` are the JAX signature's and must be None:
-    the port packs no postfilter."""
-    if post_filter_type == "merlin":
-        raise unported("merlin", "post_filter_type='merlin'")
-    if post_filter_type == "nnsvs" or postfilter_model is not None:
-        raise unported("nnsvs", "post_filter_type='nnsvs'")
+    the labels) may be passed to skip recomputing them."""
     if feature_type != "world":
         raise unported("melf0", f"feature_type={feature_type!r}")
     hts_frame_shift = int(frame_period * 1e4)
     static_sizes = get_static_stream_sizes(
         acoustic_config.stream_sizes, acoustic_config.has_dynamic_features,
         acoustic_config.num_windows)
+    mgc_end = int(static_sizes[0])
     if linguistic_features is None:
         linguistic_features = fe.linguistic_features(
             duration_modified_labels, binary_dict, numeric_dict,
             add_frame_features=True, frame_shift=hts_frame_shift)
     acoustic_features = np.asarray(acoustic_features).copy()
-    if post_filter_type == "gv":
+    if post_filter_type in ("gv", "nnsvs"):
         idx = hts.get_note_frame_indices(binary_dict, numeric_dict,
                                          linguistic_features)
         idx = idx[idx < len(acoustic_features)]
-        mgc_end = int(static_sizes[0])
         acoustic_features[:, :mgc_end] = variance_scaling(
             np.asarray(acoustic_out_static_scaler.var_).reshape(-1)[:mgc_end],
             acoustic_features[:, :mgc_end], offset=2, note_frame_indices=idx)
+    if post_filter_type == "merlin":
+        mgc = acoustic_features[:, :mgc_end]
+        weights = np.ones(mgc_end)
+        weights[2:] = 1.4
+        mgc_w = mgc * weights
+        alpha = mcepalpha(sample_rate)
+        fftlen = get_cheaptrick_fft_size(sample_rate)
+        e1 = np.sum(mc2sp(mgc, alpha, fftlen), axis=-1)
+        e2 = np.sum(mc2sp(mgc_w, alpha, fftlen), axis=-1)
+        mgc_w[:, 0] += 0.5 * np.log(np.maximum(e1, 1e-16)
+                                    / np.maximum(e2, 1e-16))
+        acoustic_features[:, :mgc_end] = mgc_w
+    if post_filter_type == "nnsvs" and postfilter_model is not None:
+        normed = np.asarray(postfilter_out_scaler.transform(acoustic_features))
+        out = postfilter_model.inference(normed.astype(np.float32))
+        acoustic_features = np.asarray(
+            postfilter_out_scaler.inverse_transform(out))
     mgc, lf0, vuv, bap = gen_spsvs_static_features(
         duration_modified_labels, acoustic_features, binary_dict,
         numeric_dict, acoustic_config.stream_sizes,
@@ -686,33 +725,80 @@ def pad_streams(streams, T_pad: int):
             for k, a in enumerate((mgc, lf0, vuv, bap))]
 
 
+def gen_world_params(mgc, lf0, vuv, bap, sample_rate: int,
+                     vuv_threshold: float = 0.3,
+                     use_world_codec: bool = False):
+    """(mgc, lf0, vuv, bap) -> WORLD parameters on the host: f0 (T,) Hz,
+    float64; the power envelope (T, fft//2+1), decoded from coded mgc
+    (``use_world_codec``) or by ``mc2sp`` from mel-cepstrum; and the
+    aperiodicity (T, fft//2+1), decoded from band codes or by ``mc2sp``
+    from mel-cepstral aperiodicity (bap dim > 5), 1 on unvoiced frames and
+    clipped to [0, 1]."""
+    fftlen = get_cheaptrick_fft_size(sample_rate)
+    if use_world_codec:
+        spectrogram = decode_spectral_envelope_np(
+            np.ascontiguousarray(mgc).astype(np.float64), sample_rate, fftlen)
+    else:
+        spectrogram = mc2sp(np.ascontiguousarray(mgc),
+                            mcepalpha(sample_rate), fftlen)
+    if bap.shape[-1] > 5:
+        aperiodicity = mc2sp(np.ascontiguousarray(bap),
+                             mcepalpha(sample_rate), fftlen)
+    else:
+        aperiodicity = decode_aperiodicity(
+            torch.from_numpy(np.ascontiguousarray(bap).astype(np.float64)),
+            sample_rate, fftlen).numpy()
+    aperiodicity[vuv.reshape(-1) < vuv_threshold, 0] = 1.0
+    aperiodicity = np.clip(aperiodicity, 0.0, 1.0)
+    f0 = lf0.copy()
+    f0[np.nonzero(f0)] = np.exp(f0[np.nonzero(f0)])
+    f0[vuv < vuv_threshold] = 0
+    return f0.flatten().astype(np.float64), spectrogram, aperiodicity
+
+
 def predict_waveform(multistream_features, vocoder=None,
                      vocoder_in_scaler=None, sample_rate: int = 48000,
                      frame_period: float = 5, use_world_codec: bool = True,
                      feature_type: str = "world", vocoder_type: str = "world",
-                     vuv_threshold: float = 0.5, device="cuda"):
+                     vuv_threshold: float = 0.5, device="cuda", noise=None):
     """WORLD streams (mgc, lf0, vuv, bap) -> float waveform on the host,
-    synthesized on ``device`` from the coded streams, padded to the frame
-    bucket as in the JAX package (noise: :func:`vocoder_noise` over the
-    padded length).  No high-pass here: ``postprocess_waveform`` applies
-    the band-pass.  Other vocoders and the non-codec path raise."""
+    synthesized on ``device`` and padded to the frame bucket as in the JAX
+    package (``noise``: (1, T_pad * hop) on ``device``, by default
+    :func:`vocoder_noise` over the padded length).  Coded
+    streams go through the coded-stream vocoder; uncoded features
+    (``use_world_codec=False``) and mel-cepstral aperiodicity (bap dim > 5)
+    through :func:`gen_world_params` and ``synthesize``, padded as the JAX
+    package pads them (f0 with 0, the envelope at its edge, the
+    aperiodicity with 1).  No high-pass here: ``postprocess_waveform``
+    applies the band-pass.  Other vocoders raise."""
     if vocoder_type != "world" or vocoder is not None:
         raise unported("vocoder", f"vocoder_type={vocoder_type!r}")
     if feature_type != "world":
         raise unported("melf0", f"feature_type={feature_type!r}")
     mgc, lf0, vuv, bap = multistream_features
-    if not use_world_codec or bap.shape[-1] > 5:
-        raise unported("world_params",
-                       "WORLD synthesis from uncoded (mcep) features")
     T = len(lf0)
     T_pad = _round_up(max(T, 1), FRAME_BUCKET)
     hop = int(sample_rate * frame_period / 1000)
     device = torch.device(device)
-    streams = [torch.from_numpy(a)[None].to(device)
-               for a in pad_streams((mgc, lf0, vuv, bap), T_pad)]
-    wav = synthesize_from_streams(
-        *streams, vocoder_noise(1, T_pad * hop, device), sample_rate,
-        frame_period, vuv_threshold=vuv_threshold)
+    if noise is None:
+        noise = vocoder_noise(1, T_pad * hop, device)
+    if use_world_codec and bap.shape[-1] <= 5:
+        streams = [torch.from_numpy(a)[None].to(device)
+                   for a in pad_streams((mgc, lf0, vuv, bap), T_pad)]
+        wav = synthesize_from_streams(*streams, noise, sample_rate,
+                                      frame_period,
+                                      vuv_threshold=vuv_threshold)
+    else:
+        f0, sp, ap = gen_world_params(mgc, lf0, vuv, bap, sample_rate,
+                                      vuv_threshold=vuv_threshold,
+                                      use_world_codec=use_world_codec)
+        pad = T_pad - T
+        f0, sp, ap = (
+            torch.from_numpy(a.astype(np.float32))[None].to(device)
+            for a in (np.pad(f0, (0, pad)),
+                      np.pad(sp, ((0, pad), (0, 0)), mode="edge"),
+                      np.pad(ap, ((0, pad), (0, 0)), constant_values=1.0)))
+        wav = synthesize(f0, sp, ap, noise, sample_rate, frame_period)
     return wav[0, : T * hop].cpu().numpy()
 
 

@@ -1,10 +1,37 @@
 """Postfilters (counterparts in
 ``ensemble_svs_with_interactions_tpu/models/postfilters.py``): the host
-GV postfilter.  The learned conv postfilters are not ported."""
+GV postfilter and the learned conv postfilters that a recipe packs as
+``postfilter_model`` (``Conv2dPostFilter`` and the ``MultistreamPostFilter``
+that ``bin/merge_postfilters.py`` writes).
+
+The conv postfilter takes (B, T, D) features and runs its convolutions on
+NCHW images (B, C, T, D); its submodules carry the flax scope names
+(``conv1``-``conv4``, ``fc``), so ``utils/flax_port`` carries the weights
+both ways.  Its noise is drawn at the input's (padded) shape from a CPU
+``torch.Generator`` and moved to the input's device, so the card and the
+CPU see the same noise; tests pass it in as ``noise``.
+
+The convolutions run in float32 with TF32 off, as every convolution of the
+port and as the JAX package computes them: a 5 x 5 convolution over 129
+channels in TF32 sits about 1e-3 from float32.  ``_float32_convs`` says so
+to cuDNN around each CUDA call.
+
+``MelF0MultistreamPostFilter`` and ``MultistreamConv2dPostFilter`` are not
+ported: building either raises ``NotImplementedError`` naming its module.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from typing import Optional, Sequence
+
 import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ensemble_svs_with_interactions_tpu_torch.base import BaseModel
 
 
 def variance_scaling(gv, feats, offset: int = 2, note_frame_indices=None):
@@ -32,3 +59,185 @@ def variance_scaling(gv, feats, offset: int = 2, note_frame_indices=None):
         out[:, offset:] = (scale * (feats[:, offset:] - utt_mu[offset:])
                            + utt_mu[offset:])
     return out
+
+
+# cuDNN's TF32 switch is process-wide: hold it off around a CUDA call, one
+# thread at a time (the host postprocess runs tracks on threads)
+_CUDNN_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _float32_convs(device: torch.device):
+    if device.type != "cuda":
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    with _CUDNN_LOCK, cudnn.flags(enabled=cudnn.enabled,
+                                  benchmark=cudnn.benchmark,
+                                  deterministic=cudnn.deterministic,
+                                  allow_tf32=False):
+        yield
+
+
+def moving_average(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Moving average of (B, T, C) over time, reflection-padded by
+    (width - 1) // 2 before and width // 2 after (``MovingAverage1d``);
+    needs T > width // 2."""
+    pad = (width - 1) // 2
+    xp = F.pad(x.transpose(1, 2), (pad, width - 1 - pad), mode="reflect")
+    return F.avg_pool1d(xp, width, stride=1).transpose(1, 2)
+
+
+def draw_noise(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Standard normal noise on the CPU from ``generator`` (a generator
+    seeded 0 when None)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return torch.randn(shape, generator=generator)
+
+
+class Conv2dPostFilter(BaseModel):
+    """Kaneko-style GAN postfilter on (B, T, D) features treated as
+    images: noise as a second image channel (``bin_wise``, one value per
+    bin, or ``frame_wise``, one per frame spread over the bins by ``fc``),
+    four conv blocks each re-concatenating the input, residual output.
+    The moving-average smoother applies to the noise, at inference only.
+
+    ``in_dim`` (D) is needed for ``frame_wise`` noise; a
+    ``MultistreamPostFilter`` sets it from its stream sizes.  ``init_type``
+    is the config's and unused: a pack's weights replace torch's
+    initial ones."""
+
+    def __init__(self, channels: int = 128,
+                 kernel_size: Sequence[int] = (5, 5),
+                 init_type: str = "kaiming_normal", noise_scale: float = 1.0,
+                 noise_type: str = "bin_wise", smoothing_width: int = -1,
+                 in_dim: Optional[int] = None):
+        super().__init__()
+        if noise_type not in ("bin_wise", "frame_wise"):
+            raise ValueError(f"unknown noise type: {noise_type}")
+        self.noise_scale = noise_scale
+        self.noise_type = noise_type
+        self.smoothing_width = smoothing_width
+        kh, kw = kernel_size
+        c = channels
+        conv = dict(kernel_size=(kh, kw), padding=(kh // 2, kw // 2))
+        self.conv1 = nn.Conv2d(2, c, **conv)
+        self.conv2 = nn.Conv2d(c + 1, c * 2, **conv)
+        self.conv3 = nn.Conv2d(c * 2 + 1, c, **conv)
+        self.conv4 = nn.Conv2d(c + 1, 1, **conv)
+        self.in_dim = None
+        if in_dim is not None:
+            self.set_in_dim(in_dim)
+
+    def set_in_dim(self, in_dim: int):
+        """Fix the feature width D (builds ``fc`` for frame-wise noise)."""
+        self.in_dim = int(in_dim)
+        if self.noise_type == "frame_wise":
+            self.fc = nn.Linear(1, self.in_dim)
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                is_inference: bool = False, noise=None, generator=None):
+        """(B, T, D) -> (B, T, D).  ``noise``: the standard normal draw,
+        (B, T, D) for bin-wise noise, (B, T, 1) for frame-wise; else drawn
+        from ``generator``."""
+        B, T, D = x.shape
+        if noise is None:
+            noise = draw_noise(
+                (B, T, D if self.noise_type == "bin_wise" else 1), generator)
+        z = noise.to(x.device, x.dtype) * self.noise_scale
+        if is_inference and self.smoothing_width > 0:
+            z = moving_average(z, self.smoothing_width)
+        with _float32_convs(x.device):
+            if self.noise_type == "frame_wise":
+                if self.in_dim != D:
+                    raise ValueError(f"frame-wise noise built for in_dim "
+                                     f"{self.in_dim}, input has {D} dims")
+                z = self.fc(z)
+            x_img = x.unsqueeze(1)
+            h = torch.relu(self.conv1(torch.cat([x_img, z.unsqueeze(1)], 1)))
+            h = torch.relu(self.conv2(torch.cat([x_img, h], 1)))
+            h = torch.relu(self.conv3(torch.cat([x_img, h], 1)))
+            residual = self.conv4(torch.cat([x_img, h], 1))[:, 0]
+        return x + residual
+
+    def inference(self, x, lengths=None, noise=None, generator=None):
+        return self(x, lengths, is_inference=True, noise=noise,
+                    generator=generator)
+
+
+class MultistreamPostFilter(BaseModel):
+    """Each stream (mgc, lf0, vuv, bap) through its own postfilter; the
+    first ``mgc_offset`` mgc dims (and ``bap_offset`` bap dims) pass
+    through, V/UV is untouched.  Noise is drawn in the order mgc, bap,
+    lf0, from one generator; ``noise`` may give it per stream as
+    ``{"mgc": ..., "bap": ..., "lf0": ...}``."""
+
+    def __init__(self, mgc_postfilter: Optional[nn.Module] = None,
+                 bap_postfilter: Optional[nn.Module] = None,
+                 lf0_postfilter: Optional[nn.Module] = None,
+                 stream_sizes: Sequence[int] = (60, 1, 1, 5),
+                 mgc_offset: int = 2, bap_offset: int = 0):
+        super().__init__()
+        if len(stream_sizes) != 4:
+            raise ValueError(f"unsupported streams: {len(stream_sizes)}")
+        self.stream_sizes = [int(s) for s in stream_sizes]
+        self.mgc_offset = mgc_offset
+        self.bap_offset = bap_offset
+        self.mgc_postfilter = mgc_postfilter
+        self.bap_postfilter = bap_postfilter
+        self.lf0_postfilter = lf0_postfilter
+        dims = {"mgc": self.stream_sizes[0] - mgc_offset,
+                "bap": self.stream_sizes[3] - bap_offset,
+                "lf0": self.stream_sizes[1]}
+        for name, dim in dims.items():
+            pf = getattr(self, f"{name}_postfilter")
+            if pf is not None and hasattr(pf, "set_in_dim"):
+                pf.set_in_dim(dim)
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                is_inference: bool = False, noise=None, generator=None):
+        noise = noise or {}
+
+        def run(name, s):
+            pf = getattr(self, f"{name}_postfilter")
+            if pf is None:
+                return s
+            return pf(s, lengths, train=train, is_inference=is_inference,
+                      noise=noise.get(name), generator=generator)
+
+        def run_after(name, s, offset):
+            return torch.cat([s[..., :offset], run(name, s[..., offset:])],
+                             dim=-1)
+
+        mgc, lf0, vuv, bap = torch.split(x, self.stream_sizes, dim=-1)
+        mgc = run_after("mgc", mgc, self.mgc_offset)
+        bap = run_after("bap", bap, self.bap_offset)
+        lf0 = run("lf0", lf0)
+        return torch.cat([mgc, lf0, vuv, bap], dim=-1)
+
+    def inference(self, x, lengths=None, noise=None, generator=None):
+        return self(x, lengths, is_inference=True, noise=noise,
+                    generator=generator)
+
+
+def _refuse(name: str):
+    from ensemble_svs_with_interactions_tpu_torch import gen
+
+    raise gen.unported(name, f"a packed {name}")
+
+
+class MelF0MultistreamPostFilter(nn.Module):
+    """Not ported: building it raises ``NotImplementedError``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        _refuse("MelF0MultistreamPostFilter")
+
+
+class MultistreamConv2dPostFilter(nn.Module):
+    """Not ported: building it raises ``NotImplementedError``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+        _refuse("MultistreamConv2dPostFilter")

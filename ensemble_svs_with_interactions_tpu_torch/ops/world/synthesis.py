@@ -1,6 +1,8 @@
-"""Coded-stream WORLD synthesis, batched over tracks: the counterpart of
+"""WORLD synthesis, batched over tracks: the counterpart of
 ``_synthesize_from_streams_impl`` / ``_from_streams_single_body`` /
-``_synthesize_from_transfer`` in
+``_synthesize_from_transfer`` (coded streams) and
+``minimum_phase_spectrum`` / ``synthesize`` (WORLD parameters: f0, power
+envelope, aperiodicity) in
 ``ensemble_svs_with_interactions_tpu/ops/world/synthesis.py``.
 
 mgc goes to the folded min-phase cepstrum through one precomputed matmul
@@ -29,6 +31,20 @@ from ensemble_svs_with_interactions_tpu_torch.ops.world.codec import (
 
 # pulse amplitude factor sqrt(1.06 / 1.73), as in the JAX package
 PULSE_CALIBRATION = 0.783
+_EPS = 1e-12
+
+
+def minimum_phase_spectrum(power_spec, fft_size: int):
+    """(..., half+1) power spectrum -> (..., half+1) complex min-phase
+    transfer function (the rfft of the causal min-phase impulse response),
+    by the folded real cepstrum."""
+    half = fft_size // 2
+    c = torch.fft.irfft(0.5 * torch.log(power_spec.clamp_min(_EPS)),
+                        n=fft_size, dim=-1)
+    fold = torch.cat([c[..., :1], 2.0 * c[..., 1:half],
+                      c[..., half: half + 1],
+                      torch.zeros_like(c[..., half + 1:])], dim=-1)
+    return torch.exp(torch.fft.rfft(fold, n=fft_size, dim=-1))
 
 
 def _overlap_add(chunks, hop: int, out_len: int):
@@ -151,6 +167,19 @@ def synthesize_from_streams(mgc, lf0, vuv, bap, noise, fs: int,
     f0 = torch.where(voiced, torch.exp(lf0[..., 0]),
                      torch.zeros_like(lf0[..., 0]))
     return _synthesize_from_transfer(f0, H, ap, noise, fs, hop, fft_size)
+
+
+def synthesize(f0, sp, ap, noise, fs: int, frame_period: float = 5.0):
+    """WORLD parameters -> waveforms, float32 on the inputs' device: f0
+    (B, T) Hz (0 = unvoiced), sp (B, T, fft//2+1) power envelope, ap
+    (B, T, fft//2+1) linear aperiodicity, noise (B, T * hop) ->
+    (B, T * hop).  The FFT size is the envelope's."""
+    hop = int(fs * frame_period / 1000.0)
+    fft_size = (sp.shape[-1] - 1) * 2
+    H = minimum_phase_spectrum(sp.to(torch.float32), fft_size)
+    return _synthesize_from_transfer(f0.to(torch.float32), H,
+                                     ap.to(torch.float32), noise, fs, hop,
+                                     fft_size)
 
 
 def quantize_peak_norm_int16(wav, lengths):

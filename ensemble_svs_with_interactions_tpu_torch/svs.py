@@ -1,19 +1,23 @@
 """The SVS engine: the counterpart of ``SPSVS`` in
 ``ensemble_svs_with_interactions_tpu/svs.py``.  ``svs`` renders one singer
 with a single-track model: timing and acoustic models on the device, the
-host postprocess (GV, stream reconstruction, trajectory smoothing), the
-WORLD vocoder on the device and the host's band-pass and normalization.
-``svs_ensemble`` renders an N-part ensemble, over a multitrack
-(cross-conditioned) model, the paper's flagship, or over a single-track
-one, with the device-resident postprocess and WORLD vocoder where the
-configuration allows, else the host postprocess.
+host postprocess (GV, merlin or the packed learned postfilter, stream
+reconstruction, trajectory smoothing), the WORLD vocoder on the device and
+the host's band-pass and normalization.  ``svs_ensemble`` renders an
+N-part ensemble, over a multitrack (cross-conditioned) model, the paper's
+flagship, or over a single-track one, with the device-resident postprocess
+and WORLD vocoder where the configuration allows, else the host
+postprocess.  ``predict_timing_multitrack`` and
+``predict_acoustic_multitrack`` run one pair of a multitrack model, as the
+recipe's synthesis stage (``bin/synthesis_multitrack.py``) calls them.
 
 ``SPSVS(model_dir)`` opens a packed model directory, as written by the
 JAX package's ``utils/packing.pack_model`` or the port's own
 (``utils/packing.py``): ``config.yaml``, ``qst.hed``, per phase
 ``{phase}_model.yaml`` and flax-msgpack ``{phase}_model.params``, and the
-scalers' ``.npy`` files.  It reads them with the port's own YAML and
-msgpack subsets (``utils/yaml_io.py``, ``utils/flax_msgpack.py``), so it
+scalers' ``.npy`` files; a learned postfilter as ``postfilter_model.*``
+with ``out_postfilter_scaler_*``.  It reads them with the port's own YAML
+and msgpack subsets (``utils/yaml_io.py``, ``utils/flax_msgpack.py``), so it
 needs neither ``yaml`` nor ``msgpack``, and carries the flax variables
 into the port's modules with ``utils/flax_port.flax_to_torch``.
 
@@ -60,7 +64,7 @@ _PHASES = (("timelag", gen.PHONE_BUCKET), ("duration", gen.PHONE_BUCKET),
            ("acoustic", gen.FRAME_BUCKET))
 # packed parts the JAX package loads and the port does not have yet, by
 # their key in gen.UNPORTED
-_UNPORTED_PARTS = {"postfilter": "nnsvs", "vocoder": "vocoder"}
+_UNPORTED_PARTS = {"vocoder": "vocoder"}
 _STAGES = ("timing", "acoustic", "postprocess_acoustic", "vocoder",
            "postprocess_waveform")
 _VOCODER_TYPES = ("world", "pwg", "usfgan", "auto")
@@ -88,8 +92,8 @@ class SPSVS:
 
     Args:
         model_dir: the packed directory (see the module docstring).  A
-            ``postfilter_model.yaml`` or ``vocoder_model.yaml`` in it raises
-            ``NotImplementedError``: those models are not ported.
+            ``vocoder_model.yaml`` in it raises ``NotImplementedError``:
+            neural vocoders are not ported.
         verbose: logging level, as the JAX package's (``utils/logger``).
         device: where the models run; ``"cuda"`` unless asked otherwise.
     """
@@ -109,6 +113,10 @@ class SPSVS:
                     self._load_minmax(f"in_{phase}"))
             setattr(self, f"out_{phase}_scaler",
                     self._load_standard(f"out_{phase}"))
+        self.postfilter_model = self.postfilter_out_scaler = None
+        if (self.model_dir / "postfilter_model.yaml").exists():
+            self.postfilter_model = self._load_model("postfilter")
+            self.postfilter_out_scaler = self._load_standard("out_postfilter")
         self._finish()
 
     @classmethod
@@ -117,7 +125,9 @@ class SPSVS:
         """The engine from in-memory parts: the global config (as
         ``pack_model``'s ``global_config``), the question set, and
         ``phases``: ``{"timelag" | "duration" | "acoustic":
-        {"model_config", "state_dict", "in_scaler", "out_scaler"}}``."""
+        {"model_config", "state_dict", "in_scaler", "out_scaler"}}``, and
+        optionally ``"postfilter"``: ``{"model_config", "state_dict",
+        "out_scaler"}``."""
         self = cls.__new__(cls)
         self.model_dir = None
         self._setup(Config(config), qst_path, _torch_device(device), 0)
@@ -126,6 +136,11 @@ class SPSVS:
                     build_model(phases[phase], self.device, bucket))
             setattr(self, f"in_{phase}_scaler", phases[phase]["in_scaler"])
             setattr(self, f"out_{phase}_scaler", phases[phase]["out_scaler"])
+        self.postfilter_model = self.postfilter_out_scaler = None
+        if "postfilter" in phases:
+            self.postfilter_model = build_model(
+                phases["postfilter"], self.device, gen.FRAME_BUCKET)
+            self.postfilter_out_scaler = phases["postfilter"]["out_scaler"]
         self._finish()
         return self
 
@@ -175,6 +190,18 @@ class SPSVS:
     def _load_standard(self, prefix: str):
         return load_standard_scaler(self.model_dir / f"{prefix}_scaler")
 
+    def set_device(self, device):
+        """Move every model to ``device``; later calls run there.  (The
+        JAX engine's ``set_device`` is a no-op: XLA places its arrays.)"""
+        self.device = _torch_device(device)
+        for pack in (self.timelag_model, self.duration_model,
+                     self.acoustic_model, self.postfilter_model):
+            if pack is not None:
+                pack.to(self.device)
+        self._fused_cache = None
+        self.logger.info("set_device(%s)", self.device)
+        return self
+
     def __repr__(self):
         return (f"{type(self).__name__}(model_dir="
                 f"{str(self.model_dir) if self.model_dir else None!r}, "
@@ -210,9 +237,6 @@ class SPSVS:
             raise ValueError(f"Unknown post-filter type: {post_filter_type}")
         if vocoder_type not in ("world", "auto"):
             raise gen.unported("vocoder", f"vocoder_type={vocoder_type!r}")
-        if post_filter_type in ("merlin", "nnsvs"):
-            raise gen.unported(post_filter_type,
-                               f"post_filter_type={post_filter_type!r}")
         return "world"
 
     # ------------------------------------------------------------- stages
@@ -275,6 +299,29 @@ class SPSVS:
             [lab.copy() for lab in labels_list], spk_ids, pairs,
             *self._timing_models(), **self._timing_kw())
 
+    def predict_timing_multitrack(self, labels_list, spks_list, **kw):
+        """One pair's timing, the main track (``labels_list[0]``)
+        conditioned on the sub track: (duration-modified labels, lag in
+        frames, cumulative normalized durations, the main track's note
+        mask).  The caller's labels are left as they are."""
+        return gen_multitrack.predict_timing_multitrack(
+            [lab.copy() for lab in labels_list], spks_list,
+            *self._timing_models(), **{**self._timing_kw(), **kw})
+
+    def predict_acoustic_multitrack(self, labels_list, spks_list,
+                                    f0_shift_in_cent: float = 0):
+        """Denormalized acoustic features (T, D) of one pair's main track
+        (``labels_list[0]``, duration-modified), conditioned on the sub
+        track."""
+        return gen_multitrack.predict_acoustic_multitrack(
+            labels_list, spks_list, self.acoustic_model,
+            self.in_acoustic_scaler, self.out_acoustic_scaler,
+            self.binary_dict, self.numeric_dict,
+            subphone_features=self._subphone_features(),
+            log_f0_conditioning=self._log_f0_conditioning(),
+            force_clip_input_features=self._force_clip("acoustic"),
+            frame_period=self.frame_period, f0_shift_in_cent=f0_shift_in_cent)
+
     def predict_acoustic(self, duration_modified_labels,
                          f0_shift_in_cent: float = 0):
         """Denormalized acoustic features (T, D) on the host."""
@@ -294,7 +341,10 @@ class SPSVS:
         return gen.postprocess_acoustic(
             acoustic_features, duration_modified_labels, self.binary_dict,
             self.numeric_dict, self.acoustic_model.config,
-            self.acoustic_out_static_scaler, sample_rate=self.sample_rate,
+            self.acoustic_out_static_scaler,
+            postfilter_model=self.postfilter_model,
+            postfilter_out_scaler=self.postfilter_out_scaler,
+            sample_rate=self.sample_rate,
             frame_period=self.frame_period,
             relative_f0=self.config.get("relative_f0", False),
             feature_type=self.feature_type, **kw)
@@ -459,7 +509,9 @@ class SPSVS:
 
     def _postprocess_batch(self, duration_modified, acoustics,
                            post_filter_type, raw_feats):
-        """The host postprocess of each track (threaded)."""
+        """The host postprocess of each track (threaded; a learned
+        postfilter draws each call's noise from a generator of its own, so
+        the result does not depend on the threads' order)."""
         def _post(item):
             lab, acoustic, raw = item
             return self.postprocess_acoustic(
@@ -470,15 +522,16 @@ class SPSVS:
             return list(ex.map(_post, zip(duration_modified, acoustics,
                                           raw_feats)))
 
+    def _coded(self, streams_list) -> bool:
+        """Coded WORLD streams (the codec on, band aperiodicity), which the
+        batched coded-stream vocoder takes."""
+        return (self.config.get("use_world_codec", True)
+                and streams_list[0][3].shape[-1] <= 5)
+
     def _stream_batch(self, streams_list):
-        """Host (mgc, lf0, vuv, bap) per track -> device (N, T_pad, D)
+        """Host coded (mgc, lf0, vuv, bap) per track -> device (N, T_pad, D)
         stream batch, each padded as ``gen.predict_waveform`` pads, and the
-        lengths.  Uncoded (mcep) aperiodicity and the non-codec path
-        raise."""
-        if (not self.config.get("use_world_codec", True)
-                or streams_list[0][3].shape[-1] > 5):
-            raise gen.unported("world_params",
-                               "WORLD synthesis from uncoded (mcep) features")
+        lengths."""
         lengths = [len(s[1]) for s in streams_list]
         T_pad = gen._round_up(max(lengths), gen.FRAME_BUCKET)
         padded = [gen.pad_streams(s, T_pad) for s in streams_list]
@@ -585,11 +638,22 @@ class SPSVS:
             acoustics = [gen._denorm_and_mlpg(
                 p, self.out_acoustic_scaler, self.acoustic_model.config,
                 gen._is_probabilistic(self.acoustic_model)) for p in preds]
-            streams_dev, lengths = self._stream_batch(self._postprocess_batch(
-                duration_modified, acoustics, post_filter_type, raw_feats))
+            streams_list = self._postprocess_batch(
+                duration_modified, acoustics, post_filter_type, raw_feats)
             t_post = time.time()
+            streams_dev = None
+            if self._coded(streams_list):
+                streams_dev, lengths = self._stream_batch(streams_list)
         t_voc = t_post_blocked if blocked else t_post
-        outs = self._vocoder(streams_dev, lengths, vuv_threshold, dtype)
+        if streams_dev is not None:
+            outs = self._vocoder(streams_dev, lengths, vuv_threshold, dtype)
+        else:
+            # uncoded features: each track through gen_world_params and
+            # synthesize, then the band-pass, as the JAX engine renders them
+            outs = [self.postprocess_waveform(
+                self.predict_waveform(s, vuv_threshold=vuv_threshold),
+                dtype=dtype) for s in streams_list]
+            self._t_vocoder_device_done = time.time()
         t_end = time.time()
 
         self.last_stage_times = {

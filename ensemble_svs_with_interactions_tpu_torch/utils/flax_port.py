@@ -9,6 +9,8 @@ module converts its flax subtree to torch layouts:
 * ``nn.Conv1d``    <- Conv ``kernel (K, Cin/groups, Cout)`` as
   (Cout, Cin/groups, K), which covers the depthwise ``conv_downsample``
   (``feature_group_count = C``);
+* ``nn.Conv2d``    <- Conv ``kernel (kh, kw, Cin, Cout)`` as
+  (Cout, Cin, kh, kw) (the postfilters' NHWC images, NCHW here);
 * ``nn.Embedding`` <- Embed ``embedding``;
 * ``nn.LayerNorm`` <- ``scale``, ``bias``;
 * ``MaskedBatchNorm`` <- ``scale``, ``bias`` and the ``batch_stats``
@@ -72,6 +74,9 @@ def _convert(module, p, s):
     if isinstance(module, nn.Conv1d):
         return ({"weight": _t(p["kernel"]).permute(2, 1, 0),
                  "bias": _t(p["bias"])}, ["kernel", "bias"], [])
+    if isinstance(module, nn.Conv2d):
+        return ({"weight": _t(p["kernel"]).permute(3, 2, 0, 1),
+                 "bias": _t(p["bias"])}, ["kernel", "bias"], [])
     if isinstance(module, nn.Embedding):
         return {"weight": _t(p["embedding"])}, ["embedding"], []
     if isinstance(module, nn.LayerNorm):
@@ -121,7 +126,7 @@ def _plain(tree):
 def flax_to_torch(module: nn.Module, variables) -> nn.Module:
     """Copy flax ``variables`` (``{"params": ..., "batch_stats": ...}``,
     nested dicts of arrays) into ``module`` in place; returns it."""
-    params = _plain(variables["params"])
+    params = _plain(variables.get("params", {}))
     stats = _plain(variables.get("batch_stats", {}))
     used_p, used_s, assigned = set(), set(), set()
     for name, sub in module.named_modules():
@@ -173,6 +178,9 @@ def _to_flax(module):
         return p, {}, used
     if isinstance(module, nn.Conv1d):
         return ({"kernel": _n(module.weight.permute(2, 1, 0)),
+                 "bias": _n(module.bias)}, {}, ["weight", "bias"])
+    if isinstance(module, nn.Conv2d):
+        return ({"kernel": _n(module.weight.permute(2, 3, 1, 0)),
                  "bias": _n(module.bias)}, {}, ["weight", "bias"])
     if isinstance(module, nn.Embedding):
         return {"embedding": _n(module.weight)}, {}, ["weight"]

@@ -81,6 +81,46 @@ def test_bench_cuda_single_track_tiny_prints_one_json_line():
     assert out["peak_mem_gib"] is None
 
 
+def test_bench_cuda_single_track_postfilter_tiny_prints_one_json_line():
+    """``--single-track --post-filter nnsvs``: the voice packed with the
+    merged learned postfilter renders through ``svs(post_filter_type=
+    "nnsvs")``; the same 7-call median RTF under its own metric."""
+    out = _one_json_line("bench_cuda.py", "--single-track", "--post-filter",
+                         "nnsvs")
+    assert out["metric"] == "rtf_single_track_nnsvs_48k"
+    assert out["post_filter_type"] == "nnsvs" and out["postfilter_packed"]
+    assert out["unit"] == "ratio" and out["value"] > 0
+    assert len(out["all_runs_sec"]) == out["calls"] == bench_cuda.TINY_CALLS
+    assert out["stages_sec"]["postprocess_acoustic"] > 0
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["peak_mem_gib"] is None
+    r = subprocess.run([sys.executable, "bench_cuda.py", "--device", "cpu",
+                        "--post-filter", "nnsvs"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 2 and "--single-track" in r.stderr
+
+
+def test_postfilter_is_the_shipped_stream_filters():
+    """``chip_smoke.postfilter_config`` merges the JAX package's shipped
+    mgc and bap postfilters as ``bin/merge_postfilters.py`` does; ``tiny``
+    narrows the channels only."""
+    import yaml
+
+    cfg = chip_smoke.postfilter_config()
+    net = cfg["netG"]
+    root = chip_smoke.CONFIGS / "postfilter"
+    mgc = yaml.safe_load((root / "postfilter_mgc.yaml").read_text())
+    bap = yaml.safe_load((root / "postfilter_bap.yaml").read_text())
+    assert net["mgc_postfilter"] == mgc["netG"]["mgc_postfilter"]
+    assert net["bap_postfilter"] == bap["netG"]["bap_postfilter"]
+    assert net["lf0_postfilter"] is None
+    assert net["stream_sizes"] == cfg["stream_sizes"] == [60, 1, 1, 5]
+    assert net["_target_"].endswith("postfilters.MultistreamPostFilter")
+    tiny = chip_smoke.postfilter_config(tiny=True)["netG"]
+    assert tiny["mgc_postfilter"] == {**net["mgc_postfilter"], "channels": 4}
+    assert tiny["bap_postfilter"] == {**net["bap_postfilter"], "channels": 4}
+
+
 def test_single_track_voice_is_the_shipped_config():
     """``chip_smoke.single_phases`` is the JAX package's shipped
     single-track configs with only the lf0 fields the recipe fills from

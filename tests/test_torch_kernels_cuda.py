@@ -11,6 +11,13 @@ Tolerances: 1e-4 absolute for h, c and the gate gradient dxw (float32
 against float32 with another summation order); dW_h sums B(T-1) 3xTF32
 products (float32-accurate, csrc/lstm_bptt.cu), so it is held to 1e-4 of
 its largest entry.
+
+Two serving modules run on the card against the CPU at their shipped
+widths (``chip_smoke``'s configs): the merged learned postfilter, float32
+convolutions within 1e-4 of its output's largest entry, and the
+multitrack acoustic model's ``inference_main`` at B = 1 (the per-pair
+path), its output within 1e-3 and its modules held as ``chip_smoke``'s
+``hold_modules`` holds them.
 """
 
 import pytest
@@ -566,3 +573,74 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
     got = lstm_gates(wide, w_wide, h_wide)
     want = lstm_gates_reference(wide, w_wide, h_wide)
     assert (got - want).abs().max().item() < ATOL
+
+
+POSTFILTER_RTOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_tf32", [False, True])
+def test_postfilter_on_the_card_matches_the_cpu(cuda, allow_tf32):
+    """The merged postfilter (``chip_smoke.postfilter_config``: 64-channel
+    5 x 5 mgc, 32-channel 5 x 1 bap) on a 512-frame slice with the same
+    input and noise.  Its convolutions stay float32 when the caller turns
+    cuDNN's TF32 on, and the caller's setting is left as it was."""
+    import chip_smoke
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+
+    torch.manual_seed(0)
+    module = instantiate(chip_smoke.postfilter_config()["netG"]).eval()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 512, 67, generator=g)
+    noise = {"mgc": torch.randn(1, 512, 1, generator=g),
+             "bap": torch.randn(1, 512, 5, generator=g)}
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    try:
+        with torch.no_grad():
+            ref = module.inference(x, noise=noise)
+            got = module.to(cuda).inference(x.to(cuda), noise=noise).cpu()
+        assert torch.backends.cudnn.allow_tf32 is allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    assert err < POSTFILTER_RTOL, err
+    assert not torch.allclose(ref, x)
+
+
+@pytest.mark.cuda
+def test_multitrack_inference_main_at_b1_matches_the_cpu(cuda):
+    """The flagship's acoustic model (``chip_smoke.flagship_acoustic_config``)
+    on one pair, main and sub track of 500 frames padded to 512, with the
+    same dropout masks: ``inference_main`` within 1e-3, and its modules
+    (the AR lf0 decoder against a float64 oracle) by ``hold_modules``."""
+    import chip_smoke
+    from ensemble_svs_with_interactions_tpu_torch.gen import AR_SEED
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+
+    torch.manual_seed(0)
+    cpu = instantiate(chip_smoke.flagship_acoustic_config()[0]["netG"]).eval()
+    card = instantiate(chip_smoke.flagship_acoustic_config()[0]["netG"])
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda).eval()
+    g = torch.Generator().manual_seed(1)
+    n, T = 500, 512
+    xm, xs = torch.zeros(2, 1, T, 86)
+    xm[:, :n], xs[:, :n] = torch.rand(2, 1, n, 86, generator=g)
+    with torch.no_grad():
+        outs = [m.inference_main(
+            xm.to(dev), xs.to(dev),
+            (torch.tensor([0], device=dev), torch.tensor([1], device=dev)),
+            torch.tensor([n], device=dev),
+            generator=torch.Generator().manual_seed(AR_SEED)).cpu()
+            for m, dev in ((cpu, torch.device("cpu")), (card, cuda))]
+    assert torch.isfinite(outs[1]).all()
+    assert (outs[1] - outs[0])[:, :n].abs().max().item() < 1e-3
+    valid = torch.arange(T)[None, :] < n
+    held = chip_smoke.hold_modules(card, cpu, valid, xm.numpy(), xs.numpy(),
+                                   [0], [1], [n])
+    chip_smoke.assert_held(held)

@@ -437,15 +437,32 @@ def test_port_opens_a_packed_directory_without_yaml_msgpack_flax_jax(
         np.testing.assert_array_equal(got[f"arr_{k}"], wav)
 
 
-@pytest.mark.parametrize("part", ["postfilter", "vocoder"])
+_PF = "ensemble_svs_with_interactions_tpu.models.postfilters"
+UNPORTED_PARTS = {
+    "vocoder": ("vocoder", "netG: {}\n", "vocoder"),
+    "MelF0MultistreamPostFilter": (
+        "postfilter", f"netG:\n  _target_: {_PF}.MelF0MultistreamPostFilter\n"
+        "  mel_postfilter: null\n  lf0_postfilter: null\n",
+        r"models/postfilters\.py \(MelF0MultistreamPostFilter\)"),
+    "MultistreamConv2dPostFilter": (
+        "postfilter",
+        f"netG:\n  _target_: {_PF}.MultistreamConv2dPostFilter\n"
+        "  channels: 8\n",
+        r"models/postfilters\.py \(MultistreamConv2dPostFilter\)"),
+}
+
+
+@pytest.mark.parametrize("part", sorted(UNPORTED_PARTS))
 def test_unported_packed_models_raise(dirs, tmp_path, part):
-    """The JAX package loads a packed postfilter or neural vocoder; the
-    port refuses the directory rather than ignore them."""
+    """The JAX package loads a packed neural vocoder, and a mel or
+    band-split learned postfilter; the port refuses the directory, naming
+    the JAX module, rather than ignore them."""
     d, _ = dirs
     model_dir = tmp_path / "packed"
     shutil.copytree(d["jax"], model_dir)
-    (model_dir / f"{part}_model.yaml").write_text("netG: {}\n")
-    with pytest.raises(NotImplementedError, match=part):
+    name, text, match = UNPORTED_PARTS[part]
+    (model_dir / f"{name}_model.yaml").write_text(text)
+    with pytest.raises(NotImplementedError, match=match):
         SPSVS(model_dir, device="cpu")
 
 

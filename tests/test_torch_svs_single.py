@@ -413,21 +413,10 @@ def _streams(n_streams):
 
 
 REFUSED = {
-    "merlin": (lambda e: e.svs(_short_labels(hts), post_filter_type="merlin"),
-               "ops/sptk.py"),
-    "nnsvs": (lambda e: e.svs(_short_labels(hts), post_filter_type="nnsvs"),
-              "models/postfilters.py"),
     "pwg": (lambda e: e.svs(_short_labels(hts), vocoder_type="pwg"),
             "models/vocoders/"),
     "usfgan": (lambda e: e.svs_ensemble([_short_labels(hts)], "usfgan"),
                "models/vocoders/"),
-    "uncoded_world": (lambda e: gen.predict_waveform(
-        (np.zeros((40, 8)), np.zeros((40, 1)), np.ones((40, 1)),
-         np.zeros((40, 3))), use_world_codec=False, device="cpu"),
-        "ops/sptk.py"),
-    "mcep_aperiodicity": (lambda e: gen.predict_waveform(
-        (np.zeros((40, 8)), np.zeros((40, 1)), np.ones((40, 1)),
-         np.zeros((40, 24))), device="cpu"), "ops/world"),
     "melf0": (lambda e: gen.predict_waveform(
         (np.zeros((40, 80)), np.zeros((40, 1)), np.ones((40, 1))),
         feature_type="melf0", device="cpu"), "models/vocoders/"),
