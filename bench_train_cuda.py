@@ -1,8 +1,9 @@
 """Training benchmark of the PyTorch/CUDA port: ``bench_train.py``'s
 float32 and bf16 AMP arms on one NVIDIA GPU.
 
-    python3 bench_train_cuda.py          # float32
-    python3 bench_train_cuda.py --amp    # bf16 AMP, as the recipe trains
+    python3 bench_train_cuda.py            # float32
+    python3 bench_train_cuda.py --amp      # bf16 AMP, as the recipe trains
+    python3 bench_train_cuda.py --trainer  # the whole trainer, as above
 
 The flagship multitrack acoustic model (``chip_smoke.
 flagship_acoustic_config``, ``bench.py``'s widths) with random torch
@@ -33,9 +34,21 @@ per second over the peak that ``peak_convention`` names: the card's dense
 float32 peak of 67 TFLOP/s for the float32 arm (TF32 off), its dense bf16
 tensor-core peak of 989 TFLOP/s for the AMP arm.
 
-``--device cpu --tiny`` (narrow widths, B = 2, T = 64) exists for the CPU
-test only: it reports no device metric.  Without a card, the default
-device fails.
+``--trainer`` runs the recipe's acoustic phase through the port's
+``train/multitrack_trainer.train_multitrack_model`` instead (``chip_smoke.
+run_trainer``: the shipped config and train settings, AMP, TRAINER_EPOCHS
+epochs on ``chip_smoke.write_corpus``'s synthetic 3-singer corpus,
+TRAINER_CORPUS) and prints ``metric: "trainer_frames_per_sec_flagship_
+multitrack"``: the frames trained over the trainer's wall seconds (corpus
+writing excluded; initialisation, batch building, dev passes and
+checkpoints included), with the seconds in train and dev steps, and,
+from the same call, the bare AMP step's frames/s (``train_bench``) under
+``bare_step``.  A one-epoch run first warms the process (under
+``warmup_run``: what a fresh process pays); the second run is measured.
+
+``--device cpu --tiny`` (narrow widths, B = 2, T = 64; with ``--trainer``
+a tiny model on a small corpus) exists for the CPU test only: it reports
+no device metric.  Without a card, the default device fails.
 """
 
 from __future__ import annotations
@@ -43,14 +56,21 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
+from pathlib import Path
 
 import torch
 
+import chip_smoke
 from bench_cuda import bench_device, card_info
 from chip_smoke import TRAIN_B, TRAIN_T, train_bench
 
 METRIC = "train_frames_per_sec_flagship_multitrack"
+TRAINER_METRIC = "trainer_frames_per_sec_flagship_multitrack"
 TINY_B, TINY_T = 2, 64
+# --trainer --tiny: 2 segments x 3 singers, crops of 32 frames, 4 a batch
+TINY_CORPUS = dict(n_train=2, n_dev=1, frames=(40, 64))
+TINY_DATA = {"data.segment_length": 32, "data.batch_max_frames": 128}
 
 
 def run(device: torch.device, tiny: bool, use_amp: bool = False) -> dict:
@@ -64,6 +84,45 @@ def run(device: torch.device, tiny: bool, use_amp: bool = False) -> dict:
             "unit": "frames/s", **r, "tiny": tiny, **card_info(device)}
 
 
+def run_trainer(device: torch.device, tiny: bool) -> dict:
+    """The recipe's acoustic phase through the trainer, then the bare AMP
+    step beside it."""
+    from ensemble_svs_with_interactions_tpu_torch.ops import (
+        lstm_recurrence as lr,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import merge
+
+    with tempfile.TemporaryDirectory() as root:
+        corpus = chip_smoke.write_corpus(
+            Path(root) / "dump",
+            **(TINY_CORPUS if tiny else chip_smoke.TRAINER_CORPUS),
+            seed=chip_smoke.SEED)
+        cfg = chip_smoke.recipe_phase_config(
+            "acoustic", corpus, Path(root) / "exp",
+            **{"train.nepochs": chip_smoke.TRAINER_EPOCHS,
+               **(TINY_DATA if tiny else {})})
+        if tiny:
+            ac, _ = chip_smoke.flagship_acoustic_config(3, tiny=True)
+            cfg = merge(cfg, {"model": ac})
+        # a first run warms the process (CUDA context, kernel loads,
+        # allocator); the second is measured
+        cold = chip_smoke.run_trainer(lr, merge(cfg, {"train": {
+            "nepochs": 1, "out_dir": str(Path(root) / "warmup")}}), True,
+            device=device)
+        r = chip_smoke.run_trainer(lr, cfg, True, device=device)
+    B, T = (TINY_B, TINY_T) if tiny else (TRAIN_B, TRAIN_T)
+    bare, _ = train_bench(lr, device, B, T, tiny=tiny, use_amp=True)
+    return {"metric": TRAINER_METRIC, "value": r["frames_per_s"],
+            "unit": "frames/s", **r, "epochs": chip_smoke.TRAINER_EPOCHS,
+            "use_amp": bool(cfg["train"]["use_amp"]),
+            "warmup_run": {"epochs": 1, "wall_s": cold["wall_s"],
+                           "frames_per_s": cold["frames_per_s"]},
+            "bare_step": {"frames_per_s": bare["frames_per_sec"],
+                          "median_step_sec": bare["median_step_sec"],
+                          "geometry": bare["geometry"]},
+            "tiny": tiny, **card_info(device)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
@@ -71,9 +130,13 @@ def main(argv=None) -> int:
                    help="narrow widths, B = 2, T = 64 (CPU test only)")
     p.add_argument("--amp", action="store_true",
                    help="the bf16 AMP arm (use_amp=True)")
+    p.add_argument("--trainer", action="store_true",
+                   help="the whole trainer (the recipe's acoustic phase)")
     args = p.parse_args(argv)
-    print(json.dumps(run(bench_device(args.device), args.tiny, args.amp)),
-          flush=True)
+    device = bench_device(args.device)
+    out = (run_trainer(device, args.tiny) if args.trainer
+           else run(device, args.tiny, args.amp))
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -9,8 +9,9 @@ through the per-pair API the recipe's synthesis stage calls;
 single-singer serving through ``SPSVS.svs`` on the stock single-track
 voice, with GV, the learned postfilter, the merlin postfilter and uncoded
 WORLD features; and training, the multitrack acoustic train step as ``bench_train.py`` runs
-it, in float32 and in the recipe's bf16 AMP arm, and the duration model's
-train step.
+it, in float32 and in the recipe's bf16 AMP arm, the duration model's
+train step, and the recipe's three training phases through the trainers,
+from feature dumps to a packed voice.
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
@@ -88,6 +89,18 @@ PyTorch version on the card.  Phases, each printing JSON lines:
 11. ``timing_train``: the duration model at ``bench.py``'s widths in the
     AMP arm on 64 note-merged pairs x 500 positions (2 warm-up and
     TRAIN_STEPS timed steps), then one small step card against CPU;
+11a. ``trainer``: the recipe's timelag, duration and acoustic phases
+    (the acoustic one as shipped and with the interaction weights at 1)
+    through ``train_multitrack_model``, and the single-track voice's
+    acoustic model through ``train_model``, at full width on a synthetic
+    3-singer corpus (TRAINER_CORPUS, TRAINER_EPOCHS epochs), one line per
+    run with the launch counts reset just before and read just after, and
+    for the acoustic runs each kernel held against its plain version at
+    the run's own batch shapes (``hold_trainer_kernels``);
+    then ``trainer_render``: the trained acoustic and timing checkpoints
+    packed by ``pack_model``, one pair rendered through
+    ``SPSVS(model_dir)``, and the first dev loss from one start
+    checkpoint, card against CPU;
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
@@ -1589,14 +1602,15 @@ def train_lstm_shapes(netg, T: int) -> dict:
         runs[(H, t)] = runs.get((H, t), 0) + 2 * n
 
     add(enc["hidden_dim"], T,
-        enc["num_layers"] * (2 if enc["bidirectional"] else 1))
+        enc["num_layers"] * (2 if enc.get("bidirectional", True) else 1))
     add(lf0["lstm_hidden_dim"], T, lf0["num_lstm_layers"] * 2)
     add(lf0["decoder_hidden_dim"], T // lf0["reduction_factor"],
         lf0["decoder_layers"])
     for name in ("mgc_model", "vuv_model", "bap_model"):
         dec = netg[name]
         add(dec["lstm_hidden_dim"], T,
-            dec["num_lstm_layers"] * (2 if dec["bidirectional"] else 1))
+            dec["num_lstm_layers"]
+            * (2 if dec.get("bidirectional", True) else 1))
     return runs
 
 
@@ -2126,6 +2140,473 @@ def phase_timing_train():
     assert not bad, bad
 
 
+# ------------------------------------------------------------------ trainer
+RECIPE = REPO / PKG / "recipes" / "jaCappella_dev_48k_world_multitrack" / \
+    "config.yaml"
+CORPUS_SPKS = ("Vo1", "S1", "ritsu")  # the recipe's spk_names
+# the recipe's note-level features a track (jp_dev_latest.hed); the shipped
+# multitrack timing configs say in_dim 164, both tracks' width in the
+# reference, which the JAX model doubles again (recipe_phase_config)
+TIMING_DIM = 82
+FRAME_PERIOD_100NS = 50000
+TRAINER_EPOCHS = 2       # the recipe's nepochs (100), cut
+TRAINER_CORPUS = dict(n_train=48, n_dev=4, frames=(1000, 3001))
+SHORT_DEV_FRAMES = (200, 257)
+
+
+def _segment_notes(T: int, rng):
+    """Note start frames of one segment's score: notes of 8-60 frames."""
+    starts = [0]
+    while starts[-1] < T:
+        starts.append(starts[-1] + int(rng.integers(8, 61)))
+    return np.asarray(starts[:-1])
+
+
+def _track_frames(T, onsets, rng):
+    """(in (T, 86), out (T, 67)) normalized frame features of one singer
+    from its note onsets: a rest flag (dim 0), a phoneme one-hot (dims
+    3-49), the score lf0 scaled to [0, 1] (dim 51, held through rests),
+    uniform context elsewhere; out: mgc, lf0 near the score, vuv off in
+    rests, bap."""
+    x = rng.uniform(0, 0.5, (T, 86)).astype(np.float32)
+    y = rng.normal(0, 1, (T, 67)).astype(np.float32)
+    x[:, 3:50] = 0.0
+    bounds = list(onsets) + [T]
+    pitch = 0.5
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        rest = rng.uniform() < 0.15
+        pitch = pitch if rest else float(rng.uniform(0.2, 0.8))
+        x[s:e, 0] = float(rest)
+        x[s:e, 51] = pitch
+        x[s:e, 3 + int(rng.integers(47))] = 1.0
+        y[s:e, 60] = (pitch - 0.5) * 2 + 0.05 * y[s:e, 60]
+        y[s:e, 61] = 0.0 if rest else 1.0
+    return x, y
+
+
+def write_corpus(root, n_train: int, n_dev: int, frames, seed: int = 0,
+                 timing_dim: int = TIMING_DIM):
+    """Synthetic normalized feature dumps of a 3-singer multitrack corpus
+    as the recipe's stage 2 leaves them, under ``root``:
+    ``{split}/{in,out}_{acoustic,timelag,duration}/{spk}_seg{k}-feats.npy``
+    for ``train_no_dev`` (``n_train`` segments) and ``dev`` (``n_dev``),
+    every singer of a segment ``frames[0]`` to ``frames[1] - 1`` frames
+    long; each singer sings its own subset (70%) of the segment's note
+    starts, so tracks share some onsets and differ at others.  Timing
+    dumps are note level (``timing_dim`` features in, one target out)
+    with ``-times.npy`` note end times in 100 ns units (what
+    ``merge_tracks_by_notes`` merges by).  Also the out scalers
+    ``scalers/out_{phase}_scaler_{mean,var,scale}.npy`` (the acoustic one
+    the flagship's, whose lf0 mean and scale ``SINGLE_LF0`` names).
+    Returns ``root``."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    for split, n in (("train_no_dev", n_train), ("dev", n_dev)):
+        for d in ("in_acoustic", "out_acoustic", "in_timelag", "out_timelag",
+                  "in_duration", "out_duration"):
+            (root / split / d).mkdir(parents=True, exist_ok=True)
+        for k in range(n):
+            T = int(rng.integers(*frames))
+            grid = _segment_notes(T, rng)
+            for spk in CORPUS_SPKS:
+                keep = rng.uniform(size=len(grid)) < 0.7
+                keep[0] = True
+                onsets = grid[keep]
+                name = f"{spk}_seg{k:03d}-feats.npy"
+                x, y = _track_frames(T, onsets, rng)
+                np.save(root / split / "in_acoustic" / name, x)
+                np.save(root / split / "out_acoustic" / name, y)
+                ends = np.append(onsets[1:], T)
+                times = (ends * FRAME_PERIOD_100NS).astype(np.int64)
+                for phase in ("timelag", "duration"):
+                    np.save(root / split / f"in_{phase}" / name,
+                            rng.uniform(0, 1, (len(onsets), timing_dim))
+                            .astype(np.float32))
+                    np.save(root / split / f"out_{phase}" / name,
+                            rng.normal(0, 1, (len(onsets), 1))
+                            .astype(np.float32))
+                    np.save(root / split / f"in_{phase}" /
+                            name.replace("-feats", "-times"), times)
+    (root / "scalers").mkdir(exist_ok=True)
+    _, phases = flagship_phases()
+    for phase, (_, _, sc_out) in phases.items():
+        dims = 67 if phase == "acoustic" else 1
+        for attr in ("mean", "var", "scale"):
+            np.save(root / "scalers" / f"out_{phase}_scaler_{attr}.npy",
+                    np.asarray(getattr(sc_out, attr + "_"),
+                               np.float64)[:dims])
+    return root
+
+
+def recipe_phase_config(phase: str, corpus, out_dir, multitrack=True,
+                        **overrides):
+    """The config ``bin/run_recipe.py``'s ``_train_cfg`` hands the trainer
+    for ``phase`` of the shipped multitrack recipe (``RECIPE``, read as a
+    file): the phase's model config verbatim (the lf0 fields the recipe
+    fills from the scalers set to SINGLE_LF0; ``multitrack=False`` takes
+    the single-track voice's ``acoustic_multistream_ar_f0.yaml``, the
+    timing phases' ``*_vp_mdn.yaml``; the multitrack timing models'
+    ``in_dim`` set to TIMING_DIM), the corpus's dump directories and
+    out scaler, the recipe's data and train sections, ``train.out_dir``,
+    and ``overrides`` (dotted keys, as the CLIs take them) over it all."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import yaml_io
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        merge,
+        parse_overrides,
+    )
+
+    recipe = yaml_io.load(RECIPE.read_text())[phase]
+    rel = Path(recipe["model_config"]).relative_to("../../configs")
+    if not multitrack:
+        rel = {"acoustic": "acoustic/acoustic_multistream_ar_f0.yaml",
+               "timelag": "timelag/timelag_vp_mdn.yaml",
+               "duration": "duration/duration_vp_mdn.yaml"}[phase]
+    model = shipped_config(str(rel))
+    if multitrack and phase != "acoustic":
+        # in_dim is a track's width in the JAX model (it takes both tracks,
+        # 2 * in_dim): the recipe's 82 note features, not the config's 164
+        model["netG"]["in_dim"] = TIMING_DIM
+
+    def fill(node):
+        for k, v in node.items():
+            if k in SINGLE_LF0 and v is None:
+                node[k] = SINGLE_LF0[k]
+            elif isinstance(v, dict):
+                fill(v)
+
+    fill(model["netG"])
+    corpus = Path(corpus)
+    data = {split: {"in_dir": str(corpus / split / f"in_{phase}"),
+                    "out_dir": str(corpus / split / f"out_{phase}")}
+            for split in ("train_no_dev", "dev")}
+    data["out_scaler_prefix"] = str(corpus / "scalers" /
+                                    f"out_{phase}_scaler")
+    data.update(recipe.get("data", {}))
+    if not multitrack:
+        data.pop("spk_names")
+    cfg = merge({"seed": 1234, "verbose": 0},
+                {"model": model, "data": data,
+                 "train": {**recipe["train"], "out_dir": str(out_dir)}})
+    args = [f"{k}={v}" for k, v in overrides.items()]
+    return merge(cfg, parse_overrides(args)) if args else cfg
+
+
+class TrainerClock:
+    """The ``observe`` hook of the port's trainers (``trainer.run_epochs``):
+    the host seconds and batches of the train and dev splits, the frames
+    trained (valid main-track frames, from the host arrays), each split's
+    batch shapes (B, T), and the first dev batch's lengths and
+    prediction."""
+
+    def __init__(self):
+        self.seconds = {"train": 0.0, "dev": 0.0}
+        self.calls = {"train": 0, "dev": 0}
+        self.frames = 0
+        self.shapes = {"train": set(), "dev": set()}
+        self.first_dev = None
+
+    def __call__(self, split, seconds, batch, pred):
+        key = "train" if split == "train_no_dev" else "dev"
+        self.seconds[key] += seconds
+        self.calls[key] += 1
+        x = batch.get("in_feats0", batch.get("in_feats"))
+        self.shapes[key].add(tuple(x.shape[:2]))
+        if key == "train":
+            self.frames += int(batch["lengths"].sum())
+        elif self.first_dev is None:
+            self.first_dev = (batch["lengths"], pred)
+
+
+def hold_trainer_kernels(lr, netg, train_shapes, dev_shapes) -> dict:
+    """Each LSTM kernel at the shapes a trainer run gave it, against its
+    plain version on seeded random inputs: the forward without c at each
+    dev batch's (B, T) and at B = 3 for the longest T (the group kernel's
+    R choice at an odd B); the forward with c, the BPTT and dW_h at each
+    train batch's; each at every (H, T') the model runs over T frames
+    (``train_lstm_shapes``).  Returns the worst errors (dW_h relative to
+    its largest entry) and the kernel chosen at each dev (B, H)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    err = {"lstm_recurrence": 0.0, "lstm_recurrence_c": 0.0,
+           "lstm_bptt": 0.0, "lstm_dwh_rel": 0.0}
+    longest = max(T for _, T in dev_shapes)
+    dev = sorted(set(dev_shapes) | {(3, longest)})
+    cases = [(B, T, False) for B, T in dev] + [
+        (B, T, True) for B, T in sorted(train_shapes)]
+    kernels = {}
+    for B, T, train in cases:
+        for H, t in sorted(train_lstm_shapes(netg, T)):
+            xw = torch.randn(B, t, 4 * H, device="cuda", generator=g)
+            w_h = torch.randn(H, 4 * H, device="cuda", generator=g) / H ** 0.5
+            if not train:
+                kernels[f"B={B} H={H}"] = lr.lstm_recurrence_kernel_name(B, H)
+                e = (lr.lstm_recurrence(xw, w_h) - lr.lstm_recurrence_reference(
+                    xw, w_h)).abs().max().item()
+                err["lstm_recurrence"] = max(err["lstm_recurrence"], e)
+                continue
+            dy = torch.randn(B, t, H, device="cuda", generator=g)
+            h, c = lr.lstm_recurrence(xw, w_h, want_c=True)
+            h_ref, c_ref = lr.lstm_recurrence_reference(xw, w_h, want_c=True)
+            e = max((h - h_ref).abs().max().item(),
+                    (c - c_ref).abs().max().item())
+            err["lstm_recurrence_c"] = max(err["lstm_recurrence_c"], e)
+            dxw = lr.lstm_bptt(xw, w_h, h, c, dy)
+            dxw_ref, dwh_ref = lr.lstm_recurrence_bwd_reference(xw, w_h, h, c,
+                                                                dy)
+            err["lstm_bptt"] = max(err["lstm_bptt"],
+                                   (dxw - dxw_ref).abs().max().item())
+            e = ((lr.lstm_dwh(h, dxw) - dwh_ref).abs().max().item()
+                 / dwh_ref.abs().max().item())
+            err["lstm_dwh_rel"] = max(err["lstm_dwh_rel"], e)
+    return {"shapes_held": [list(c) for c in cases], "max_err": err,
+            "atol": KERNEL_ATOL, "dwh_rtol_of_max": DWH_RTOL,
+            "kernel_by_dev_shape": kernels}
+
+
+def assert_trainer_kernels(held):
+    e = held["max_err"]
+    assert all(np.isfinite(v) for v in e.values()), held
+    assert max(e["lstm_recurrence"], e["lstm_recurrence_c"],
+               e["lstm_bptt"]) < KERNEL_ATOL, held
+    assert e["lstm_dwh_rel"] <= DWH_RTOL, held
+
+
+def run_trainer(lr, cfg, acoustic: bool, multitrack: bool = True,
+                device="cuda") -> dict:
+    """One trainer run on ``device`` (``train_multitrack_model`` or the
+    single-track ``train_model``) with the kernel launch counts reset just
+    before and read just after; its wall seconds, the seconds in train
+    and dev batches (``TrainerClock``), the frames trained (valid
+    main-track frames), the trainer's frames/s (over its wall time) and
+    the train batches' alone, peak memory, each epoch's dev ``Loss``,
+    each split's batch shapes (B, T), the files it wrote."""
+    from ensemble_svs_with_interactions_tpu_torch.train import (
+        multitrack_trainer,
+        trainer,
+    )
+
+    device = torch.device(device)
+    fn = (multitrack_trainer.train_multitrack_model if multitrack
+          else trainer.train_model)
+    for name in TRAIN_COUNTERS:
+        getattr(lr, name).launches = 0
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    clock = TrainerClock()
+    t0 = time.perf_counter()
+    fn(cfg, acoustic, device=device, observe=clock)
+    wall = time.perf_counter() - t0
+    launches = {n: getattr(lr, n).launches for n in TRAIN_COUNTERS}
+    out_dir = Path(cfg["train"]["out_dir"])
+    records = [json.loads(line) for line in
+               (out_dir / "metrics.jsonl").read_text().splitlines()]
+    dev = [r["dev/Loss"] for r in records if "dev/Loss" in r]
+    train = [r["train_no_dev/Loss"] for r in records
+             if "train_no_dev/Loss" in r]
+    return {
+        "wall_s": wall, "train_steps_s": clock.seconds["train"],
+        "dev_steps_s": clock.seconds["dev"],
+        "other_s": wall - sum(clock.seconds.values()),
+        "steps": clock.calls["train"], "dev_batches": clock.calls["dev"],
+        "train_frames": clock.frames,
+        "frames_per_s": clock.frames / wall,
+        "steps_frames_per_s": (clock.frames / clock.seconds["train"]
+                               if clock.seconds["train"] else None),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(device) / 2 ** 30
+                         if on_card else None),
+        "train_loss": train, "dev_loss": dev,
+        "train_shapes": sorted(clock.shapes["train"]),
+        "dev_shapes": sorted(clock.shapes["dev"]),
+        "launches": launches,
+        "files": sorted(p.name for p in out_dir.iterdir()),
+    }
+
+
+def assert_trainer_run(r, nepochs, acoustic):
+    """Every file the JAX trainer writes, finite losses, and (acoustic
+    models) every LSTM kernel launched and held at the run's shapes."""
+    for f in ("latest.ckpt", "best_loss.ckpt", "metrics.jsonl",
+              "dev_metrics.json"):
+        assert f in r["files"], (f, r["files"])
+    assert len(r["dev_loss"]) == nepochs == len(r["train_loss"]), r
+    assert all(np.isfinite(x) for x in r["dev_loss"] + r["train_loss"]), r
+    if acoustic:
+        assert all(n > 0 for n in r["launches"].values()), r["launches"]
+        assert_trainer_kernels(r["kernels_held"])
+
+
+TRAINER_RUNS = (
+    # name, recipe phase, acoustic, multitrack, overrides
+    ("timelag", "timelag", False, True, {}),
+    ("duration", "duration", False, True, {}),
+    ("acoustic", "acoustic", True, True, {}),
+    ("acoustic_interaction", "acoustic", True, True, {
+        "train.pitch_reg_weight": 1.0, "train.logf0_diff_weight": 1.0,
+        "train.mgc_diff_weight": 1.0}),
+    ("single_acoustic", "acoustic", True, False, {}),
+)
+
+
+def pack_trained(model_dir, corpus, configs):
+    """The trained phases' ``best_loss.ckpt`` packed with the port's
+    ``pack_model`` as the recipe's stage 6 packs them (identity input
+    scalers; the corpus's out scalers)."""
+    from ensemble_svs_with_interactions_tpu_torch.train.loop import (
+        load_checkpoint,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.train.trainer import (
+        load_out_scaler,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.packing import (
+        pack_model,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
+        MinMaxScaler,
+    )
+
+    glob, _ = flagship_phases()
+    glob = {**glob, "spk_list": list(CORPUS_SPKS)}
+    parts = {}
+    for phase, cfg in configs.items():
+        module = instantiate(cfg["model"]["netG"])
+        load_checkpoint(Path(cfg["train"]["out_dir"]) /
+                        "best_loss.ckpt").restore(module)
+        dim = 86 if phase == "acoustic" else TIMING_DIM
+        parts[phase] = {
+            "model_config": json.loads(json.dumps(cfg["model"])),
+            "module": module,
+            "in_scaler": MinMaxScaler(np.zeros(dim), np.ones(dim)),
+            "out_scaler": load_out_scaler(
+                Path(corpus) / "scalers" / f"out_{phase}_scaler")}
+    return pack_model(model_dir, glob, packaged_question_path(), parts)
+
+
+def first_dev_pass(root, corpus, start, device):
+    """The acoustic trainer's dev ``Loss`` at the weights of ``start`` on
+    ``corpus``, whose training split is empty (one epoch, float32, dropout
+    and prenet dropout 0), and its first dev batch's main-track prediction
+    on the valid frames (host float64)."""
+    from ensemble_svs_with_interactions_tpu_torch.train import (
+        multitrack_trainer,
+    )
+
+    out = Path(root) / f"first_dev_{device}"
+    cfg = recipe_phase_config("acoustic", corpus, out, **{
+        "train.nepochs": 1, "train.use_amp": False,
+        "train.resume.checkpoint": str(start)})
+    net = cfg["model"]["netG"]
+    net["lf0_model"]["prenet_dropout"] = 0.0
+    for k in ("mgc_model", "vuv_model", "bap_model"):
+        net[k]["dropout"] = 0.0
+    clock = TrainerClock()
+    multitrack_trainer.train_multitrack_model(cfg, True, device=device,
+                                              observe=clock)
+    line = (out / "metrics.jsonl").read_text().splitlines()[-1]
+    lengths, pred = clock.first_dev
+    valid = (torch.arange(pred.shape[1])[None, :]
+             < torch.from_numpy(lengths)[:, None])
+    return json.loads(line)["dev/Loss"], pred.cpu().double()[valid]
+
+
+def phase_trainer(lr, label):
+    """The recipe's three phases through the port's trainers at full width
+    on a synthetic corpus (TRAINER_CORPUS, ``write_corpus``), TRAINER_EPOCHS
+    epochs each (TRAINER_RUNS: timelag, duration, acoustic as shipped and
+    with the interaction weights at 1, and the single-track voice's
+    acoustic model through ``train_model`` on the same dumps), one line
+    each (``run_trainer``, with ``hold_trainer_kernels`` at the acoustic
+    runs' shapes); then the acoustic and timing checkpoints
+    packed (``pack_trained``) and one pair rendered through
+    ``SPSVS(model_dir)`` (``svs_pair``); then the first dev ``Loss`` from a
+    shared start checkpoint, card against CPU on one short dev segment,
+    with the dev pass's prediction (``first_dev_pass``: 3 singers x
+    SHORT_DEV_FRAMES, 6 pairs).  Returns the launches summed over the
+    runs and the worst kernel errors of the holds."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+    from ensemble_svs_with_interactions_tpu_torch.train.loop import (
+        TrainState,
+        save_checkpoint,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_module,
+    )
+
+    launches = {n: 0 for n in TRAIN_COUNTERS}
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        t0 = time.time()
+        corpus = write_corpus(root / "dump", **TRAINER_CORPUS, seed=SEED)
+        corpus_s = time.time() - t0
+        configs, holds = {}, {}
+        for name, phase, acoustic, multitrack, over in TRAINER_RUNS:
+            cfg = recipe_phase_config(
+                phase, corpus, root / "exp" / name, multitrack=multitrack,
+                **{"train.nepochs": TRAINER_EPOCHS, **over})
+            r = run_trainer(lr, cfg, acoustic, multitrack)
+            if acoustic:  # the kernels at this run's shapes
+                netg = cfg["model"]["netG"]
+                key = (json.dumps(netg, sort_keys=True),
+                       tuple(r["train_shapes"]), tuple(r["dev_shapes"]))
+                if key not in holds:
+                    t0 = time.time()
+                    holds[key] = hold_trainer_kernels(
+                        lr, netg, r["train_shapes"], r["dev_shapes"])
+                    holds[key]["hold_s"] = time.time() - t0
+                r["kernels_held"] = holds[key]
+            emit({"phase": "trainer", "run": name, "device": "cuda",
+                  "corpus_s": corpus_s, "epochs": TRAINER_EPOCHS,
+                  "use_amp": bool(cfg["train"]["use_amp"]), **r})
+            assert_trainer_run(r, TRAINER_EPOCHS, acoustic)
+            for n, c in r["launches"].items():
+                launches[n] += c
+            if multitrack and name in ("timelag", "duration", "acoustic"):
+                configs[name] = cfg
+
+        t0 = time.time()
+        model_dir = pack_trained(root / "packed", corpus, configs)
+        pack_s = time.time() - t0
+        engine = SPSVS(model_dir, verbose=0, device="cuda")
+        t0 = time.time()
+        wav = svs_pair(engine, label, late_copy(label), [0, 1])
+        pair_s = time.time() - t0
+        del engine
+
+        t0 = time.time()
+        short = write_corpus(root / "short", n_train=0, n_dev=1,
+                             frames=SHORT_DEV_FRAMES, seed=SEED + 1)
+        module = init_module(instantiate(configs["acoustic"]["model"][
+            "netG"]), SEED)
+        save_checkpoint(root / "start", TrainState.capture(module), 0)
+        held = {dev: first_dev_pass(root, short,
+                                    root / "start" / "latest.ckpt", dev)
+                for dev in ("cuda", "cpu")}
+        loss = {dev: v[0] for dev, v in held.items()}
+        rel = abs(loss["cuda"] - loss["cpu"]) / abs(loss["cpu"])
+        pred_err = (held["cuda"][1] - held["cpu"][1]).abs().max().item()
+        emit({"phase": "trainer_render", "pack_s": pack_s, "pair_s": pair_s,
+              "audio_s": len(wav) / 48000,
+              "first_dev_loss": loss, "first_dev_loss_rel_err": rel,
+              "rtol": TRAIN_LOSS_RTOL,
+              "first_dev_pred_max_abs_err": pred_err,
+              "first_dev_pred_scale": held["cpu"][1].abs().max().item(),
+              "pred_atol": MODULE_ATOL, "reference_s": time.time() - t0})
+        assert wav.dtype == np.int16 and np.abs(wav.astype(np.int64)).max() > 0
+        assert np.isfinite(loss["cuda"]) and rel < TRAIN_LOSS_RTOL, loss
+        assert pred_err < MODULE_ATOL, pred_err
+    worst = {k: max(h["max_err"][k] for h in holds.values())
+             for k in next(iter(holds.values()))["max_err"]}
+    return launches, worst
+
+
 def _sum_rows(rows, counts, keys):
     """{key: sum of count * row[key]} over rows weighted by counts."""
     return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
@@ -2145,7 +2626,8 @@ def _entry(name, source, sums, **extra):
 
 
 def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
-                 path_launches, train_launches, amp_launches):
+                 path_launches, train_launches, amp_launches,
+                 trainer_launches, trainer_errs):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -2161,7 +2643,9 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     with its bound and its ``torch.addmm`` yardstick) and the bound of its
     reverse loop alone (``loop_bound_ms``).  All come from the kernel
     phases' rows; the recurrence's training-shape yardstick is cuDNN's
-    forward, which gives no cell sequence."""
+    forward, which gives no cell sequence.  The errors are the worst of
+    the kernel phases' and of the trainer phase's holds at the trainers'
+    shapes (``trainer_errs``, ``hold_trainer_kernels``)."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -2183,10 +2667,13 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     rec_err = max(r["max_abs_err"] for r in list(kernel_rows.values())
                   + list(single_rows.values())
                   + [r for k, r in train_rows.items()
-                     if k[0] == "lstm_recurrence"])
+                     if k[0] == "lstm_recurrence"]
+                  + [{"max_abs_err": trainer_errs[k]} for k in (
+                      "lstm_recurrence", "lstm_recurrence_c")])
     per_step = TRAIN_LAUNCHES_PER_STEP
     paths = {name: {"train": train_launches[name],
-                    "train_amp": amp_launches[name]}
+                    "train_amp": amp_launches[name],
+                    "trainer": trainer_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -2222,7 +2709,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                launches_by_path=paths["lstm_bptt"],
                calls=2 * TRAIN_STEPS,
                launches_per_step=per_step,
-               max_abs_err=max(r["max_abs_err"] for r in bptt_rows.values()),
+               max_abs_err=max([r["max_abs_err"] for r in bptt_rows.values()]
+                               + [trainer_errs["lstm_bptt"]]),
                library_input_gemm_ms=bptt["library_input_gemm_ms"],
                loop_bound_ms=bptt["loop_bound_ms"],
                **{k: bptt[k] for k in PREPASS}),
@@ -2233,7 +2721,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                calls=2 * TRAIN_STEPS,
                launches_per_step=per_step,
                max_abs_err=max(r["max_abs_err"] for r in dwh_rows.values()),
-               max_rel_err=max(r["max_rel_err"] for r in dwh_rows.values())),
+               max_rel_err=max([r["max_rel_err"] for r in dwh_rows.values()]
+                               + [trainer_errs["lstm_dwh_rel"]])),
     ]}
 
 
@@ -2286,8 +2775,10 @@ def main() -> int:
     amp_launches = phase_train_amp(lr)
     phase_train_amp_reference(f32_runs)
     phase_timing_train()
+    trainer_launches, trainer_errs = phase_trainer(lr, labels[0])
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
-                      path_launches, train_launches, amp_launches))
+                      path_launches, train_launches, amp_launches,
+                      trainer_launches, trainer_errs))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Base model contract, as in ``ensemble_svs_with_interactions_tpu/base.py``.
 
 Inference entry points are ``inference(...)`` (MDN models return
-``(mu, sigma)``); ``prediction_type()`` is the metadata the generation
-pipeline reads.
+``(mu, sigma)``); ``prediction_type()`` and
+``has_residual_lf0_prediction()`` are the metadata the generation pipeline
+and the train steps read.
 """
 
 from __future__ import annotations
@@ -27,3 +28,7 @@ class BaseModel(nn.Module):
 
     def prediction_type(self) -> PredictionType:
         return PredictionType.DETERMINISTIC
+
+    def has_residual_lf0_prediction(self) -> bool:
+        """Whether ``forward`` returns ``(prediction, lf0 residual)``."""
+        return False

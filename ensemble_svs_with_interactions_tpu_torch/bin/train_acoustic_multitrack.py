@@ -1,0 +1,20 @@
+"""Multitrack acoustic trainer with the inter-singer interaction losses.
+
+``python -m ensemble_svs_with_interactions_tpu_torch.bin.train_acoustic_multitrack
+config.yaml [key=value ...]``: the config has the JAX trainer's keys
+(``model``, ``data``, ``train``, ...); ``device=cpu`` trains on the CPU,
+otherwise on the card.
+"""
+
+from ensemble_svs_with_interactions_tpu_torch.bin import run_trainer
+from ensemble_svs_with_interactions_tpu_torch.train.multitrack_trainer import (
+    train_multitrack_model,
+)
+
+
+def main(argv=None) -> int:
+    return run_trainer(train_multitrack_model, True, __doc__, argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

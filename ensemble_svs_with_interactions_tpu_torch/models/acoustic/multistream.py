@@ -70,6 +70,9 @@ class MultistreamSeparateF0ParametricModel(BaseModel):
     def prediction_type(self):
         return PredictionType.MULTISTREAM_HYBRID
 
+    def has_residual_lf0_prediction(self):
+        return True
+
     def forward(self, x, lengths=None, y=None, train: bool = False,
                 generator=None):
         """(out (B, T, D) = [mgc | lf0 | vuv | bap], lf0 residual).  With
@@ -135,6 +138,9 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
 
     def prediction_type(self):
         return PredictionType.MULTISTREAM_HYBRID
+
+    def has_residual_lf0_prediction(self):
+        return True
 
     def _expand_spk(self, spk, T):
         e = self.speaker_embedding(spk)

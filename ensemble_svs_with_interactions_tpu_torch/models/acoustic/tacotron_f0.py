@@ -39,8 +39,9 @@ class _SinsyEncoder(nn.Module):
 
     def __init__(self, in_dim: int, ff_hidden_dim: int, conv_hidden_dim: int,
                  lstm_hidden_dim: int, num_lstm_layers: int, dropout: float,
-                 num_lf0_scores: int):
+                 num_lf0_scores: int, init_type: str = "none"):
         super().__init__()
+        self.init_type = init_type
         for i in range(3):
             setattr(self, f"Dense_{i}",
                     nn.Linear(in_dim if i == 0 else ff_hidden_dim,
@@ -121,7 +122,8 @@ class _ResF0NonAttentiveDecoder(BaseModel):
             setattr(self, self.EMBED, None)
         self._SinsyEncoder_0 = _SinsyEncoder(
             width, ff_hidden_dim, conv_hidden_dim, lstm_hidden_dim,
-            num_lstm_layers, dropout, num_lf0_scores=self.NUM_LF0_SCORES)
+            num_lstm_layers, dropout, num_lf0_scores=self.NUM_LF0_SCORES,
+            init_type=init_type)
         C = self._SinsyEncoder_0.LSTM_0.out_dim + self.NUM_LF0_SCORES
         self.conv_downsample = nn.Conv1d(C, C, reduction_factor,
                                          stride=reduction_factor, groups=C)

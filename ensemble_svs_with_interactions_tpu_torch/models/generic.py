@@ -5,7 +5,8 @@ classes of the same names in
 ``ensemble_svs_with_interactions_tpu/models/generic.py``.
 
 Constructor arguments are the JAX configs' fields; the input widths that
-flax infers lazily are derived from them here.  Every model here also
+flax infers lazily are derived from them here, and ``init_type`` (and a
+speaker table's ``std``) is kept for ``utils/flax_init``.  Every model here also
 trains: ``train=True`` applies dropout with masks from a
 ``torch.Generator``.
 """
@@ -58,7 +59,7 @@ class SpeakerEmbedding(BaseModel):
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  padding_idx: Optional[int] = None, std: float = 0.01):
         super().__init__()
-        self.padding_idx = padding_idx
+        self.padding_idx, self.std = padding_idx, std
         self.Embed_0 = nn.Embedding(num_embeddings, embedding_dim)
         nn.init.normal_(self.Embed_0.weight, std=std)
 
@@ -102,7 +103,7 @@ class FFConvLSTM(BaseModel):
                  in_ph_start_idx: int = 1, in_ph_end_idx: int = 50,
                  embed_dim: Optional[int] = None):
         super().__init__()
-        self.use_mdn = use_mdn
+        self.use_mdn, self.init_type = use_mdn, init_type
         width = in_dim
         if embed_dim is not None:
             self.PhonemeContextEmbedding_0 = PhonemeContextEmbedding(
@@ -201,7 +202,7 @@ class VariancePredictor(BaseModel):
                  in_ph_end_idx: int = 50, embed_dim: Optional[int] = None,
                  mask_indices: Optional[Sequence[int]] = None):
         super().__init__()
-        self.use_mdn = use_mdn
+        self.use_mdn, self.init_type = use_mdn, init_type
         self.mask_indices = mask_indices
         width = in_dim
         if embed_dim is not None:
@@ -243,7 +244,7 @@ class MultiTrackVariancePredictor(BaseModel):
                  in_ph_end_idx: int = 50, embed_dim: Optional[int] = None,
                  mask_indices: Optional[Sequence[int]] = None):
         super().__init__()
-        self.use_mdn = use_mdn
+        self.use_mdn, self.init_type = use_mdn, init_type
         self.mask_indices = mask_indices
         width = 2 * in_dim
         if embed_dim is not None:
@@ -289,6 +290,7 @@ class LSTMEncoder(BaseModel):
                  in_ph_start_idx: int = 1, in_ph_end_idx: int = 50,
                  embed_dim: Optional[int] = None):
         super().__init__()
+        self.init_type = init_type
         width = in_dim
         if embed_dim is not None:
             self.PhonemeContextEmbedding_0 = PhonemeContextEmbedding(
@@ -319,6 +321,7 @@ class MultiTrackLSTMEncoder(BaseModel):
                  in_ph_start_idx: int = 1, in_ph_end_idx: int = 50,
                  embed_dim: Optional[int] = None):
         super().__init__()
+        self.init_type = init_type
         width = in_dim
         if embed_dim is not None:
             self.PhonemeContextEmbedding_0 = PhonemeContextEmbedding(

@@ -1,10 +1,14 @@
 """F0 helpers (counterparts in
 ``ensemble_svs_with_interactions_tpu/ops/pitch.py``): ``interp1d`` for the
-featurizer, and the zero-phase Butterworth filters of the host
+featurizer, the zero-phase Butterworth filters of the host
 postprocess, ``lowpass_filter`` (trajectory smoothing) and
-``bandpass_filter`` (the waveform's 70 Hz high-pass).  Host NumPy/SciPy."""
+``bandpass_filter`` (the waveform's 70 Hz high-pass), and the note
+segmentation of the trainers' pitch regularization, ``note_segments``.
+Host NumPy/SciPy."""
 
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 
@@ -45,3 +49,36 @@ def interp1d(f0: np.ndarray, kind: str = "slinear") -> np.ndarray:
                                               flat[nz])
     out = out.astype(f0.dtype if f0.dtype.kind == "f" else np.float64)
     return out.reshape(f0.shape) if squeeze else out
+
+
+def nonzero_segments(f0: np.ndarray) -> List[Tuple[int, int]]:
+    """(start, end) index pairs of contiguous nonzero runs."""
+    v = np.asarray(f0) > 0
+    if not v.any():
+        return []
+    dv = np.diff(v.astype(np.int8))
+    starts = list(np.where(dv == 1)[0] + 1)
+    ends = list(np.where(dv == -1)[0] + 1)
+    if v[0]:
+        starts = [0] + starts
+    if v[-1]:
+        ends = ends + [len(v) - 1]
+    return list(zip(starts, ends))
+
+
+def note_segments(lf0_score_denorm: np.ndarray) -> List[Tuple[int, int]]:
+    """Note (start, end) indices from a denormalized score log-F0 track: a
+    new note starts wherever the (nonzero) score pitch changes value."""
+    x = np.asarray(lf0_score_denorm)
+    segments = []
+    for s, e in nonzero_segments(x):
+        seg = x[s: e + 1]
+        change = np.where(np.abs(np.diff(seg)) > 0)[0]
+        note_start = s
+        for pos in change:
+            note_end = s + int(pos)
+            segments.append((note_start, note_end))
+            note_start = note_end + 1
+        if note_start < e:
+            segments.append((note_start, e))
+    return segments

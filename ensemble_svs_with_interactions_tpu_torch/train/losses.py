@@ -1,17 +1,21 @@
 """Training losses: masked feature criteria, the multistream dispatch and
 the pitch regularization, as ``ensemble_svs_with_interactions_tpu/train/
-losses.py`` defines them.  Plain torch ops on the training device."""
+losses.py`` defines them.  Plain torch ops on the training device; the
+pitch regularization's per-frame weights are NumPy, built on the host with
+each batch."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ensemble_svs_with_interactions_tpu_torch.ops.mdn import mdn_loss
 from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
     split_streams,
 )
+from ensemble_svs_with_interactions_tpu_torch.ops.pitch import note_segments
 
 
 def masked_mean(x, mask):
@@ -109,3 +113,23 @@ def pitch_regularization_loss(lf0_residual, mask, pitch_reg_dyn_ws=1.0):
         return sum(masked_mean(pitch_reg_dyn_ws * torch.abs(r), mask)
                    for r in lf0_residual)
     return masked_mean(pitch_reg_dyn_ws * torch.abs(lf0_residual), mask)
+
+
+def compute_pitch_regularization_weight(lf0_score_denorm: np.ndarray,
+                                        decay_size: int = 25,
+                                        max_w: float = 0.5) -> np.ndarray:
+    """(B, T) denormalized score log-F0 -> (B, T, 1) float32 weights: full
+    weight inside notes, a linear decay over ``decay_size`` frames at note
+    edges, zero for notes of ``2 * decay_size`` frames or fewer."""
+    B, T = lf0_score_denorm.shape
+    w = np.zeros((B, T), dtype=np.float32)
+    for b in range(B):
+        for s, e in note_segments(lf0_score_denorm[b]):
+            if e - s > decay_size * 2:
+                w[b, s:e] = max_w
+                w[b, s: s + decay_size] *= np.arange(decay_size) / decay_size
+                w[b, e - decay_size: e] *= (
+                    np.arange(decay_size - 1, -1, -1) / decay_size)
+            else:
+                w[b, s:e] = 0.0
+    return w[:, :, None]

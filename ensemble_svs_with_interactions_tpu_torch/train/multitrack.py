@@ -31,8 +31,10 @@ from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
 )
 from ensemble_svs_with_interactions_tpu_torch.train import losses as L
 from ensemble_svs_with_interactions_tpu_torch.train.loop import (
-    amp_cast,
-    amp_uncast,
+    amp_forward,
+    apply_update,
+    clip_grads,
+    metrics_to_floats,
 )
 
 BATCH_KEYS = ("in_feats0", "in_feats1", "out_feats0", "out_feats1", "spks0",
@@ -140,57 +142,6 @@ def _batch_to_device(batch, keys, device, dtype):
     return out
 
 
-def _forward(module, args, kwargs, use_amp: bool, train: bool):
-    """``module(*args, **kwargs)``; under AMP through
-    ``torch.func.functional_call`` with bf16 copies of the float32
-    parameters and buffers (the casts are differentiable, so the float32
-    masters get float32 gradients) and the outputs cast back to float32.
-    After a training forward the bf16 running statistics are copied back
-    into the float32 buffers, as the JAX step's ``amp_uncast`` of its
-    ``batch_stats`` update."""
-    if not use_amp:
-        return module(*args, **kwargs)
-    buffers = amp_cast(dict(module.named_buffers()))
-    outs = torch.func.functional_call(
-        module, {**amp_cast(dict(module.named_parameters())), **buffers},
-        amp_cast(args), kwargs)
-    if train:
-        with torch.no_grad():
-            for name, buf in module.named_buffers():
-                buf.copy_(buffers[name])
-    return amp_uncast(outs)
-
-
-def _clip_grads(params, loss, clip_norm: float):
-    """Scale the gradients in place by ``min(1, clip / max(|g|, 1e-12))``;
-    returns (global norm, whether the loss and the norm are finite)."""
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params]
-    gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
-    finite = torch.isfinite(gnorm) & torch.isfinite(loss.detach())
-    clip = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    for p, g in zip(params, grads):
-        p.grad = g.mul_(clip)
-    return gnorm, finite
-
-
-def _apply_update(finite, optimizer, scheduler):
-    """The NaN-skip: step the optimizer and the schedule only when the step
-    was finite, so a non-finite one leaves the parameters, the optimizer
-    state (and an accumulator's mean and count) and the schedule as they
-    were."""
-    if bool(finite):
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-
-
-def _floats(metrics, device):
-    values = torch.stack([torch.as_tensor(v, device=device).double()
-                          for v in metrics.values()]).tolist()
-    return dict(zip(metrics, values))
-
-
 def create_multitrack_acoustic_train_step(
     module,
     optimizer,
@@ -242,7 +193,7 @@ def create_multitrack_acoustic_train_step(
         T = b["in_feats0"].shape[1]
         mask = (torch.arange(T, device=device)[None, :]
                 < b["lengths"][:, None]).to(dtype)[:, :, None]
-        (pred_main, lf0_res_main), (pred_sub, _) = _forward(
+        (pred_main, lf0_res_main), (pred_sub, _) = amp_forward(
             module, (b["in_feats0"], b["in_feats1"], (b["spks0"], b["spks1"]),
                      b["lengths"], (b["out_feats0"], b["out_feats1"])),
             {"train": train, "generator": generator}, use_amp, train)
@@ -279,12 +230,12 @@ def create_multitrack_acoustic_train_step(
         if blocked_phase_times:
             t0 = lap(times, "forward", t0)
         loss.backward()
-        gnorm, finite = _clip_grads(params, loss, clip_norm)
+        gnorm, finite = clip_grads(params, loss, clip_norm)
         if blocked_phase_times:
             t0 = lap(times, "backward", t0)
         metrics["GradNorm"] = gnorm
-        out = _floats(metrics, device)
-        _apply_update(finite, optimizer, scheduler)
+        out = metrics_to_floats(metrics, device)
+        apply_update(finite, optimizer, scheduler)
         if blocked_phase_times:
             lap(times, "optimizer", t0)
         train_step.last_phase_times = times
@@ -297,7 +248,7 @@ def create_multitrack_acoustic_train_step(
         generator = torch.Generator(device=device).manual_seed(0)
         _, metrics, pred_main = loss_fn(to_device(batch), weights, generator,
                                         False)
-        return _floats(metrics, device), pred_main
+        return metrics_to_floats(metrics, device), pred_main
 
     return train_step, eval_step
 
@@ -331,7 +282,7 @@ def create_multitrack_timing_train_step(module, optimizer, scheduler=None,
         valid = (torch.arange(T, device=device)[None, :]
                  < b["lengths"][:, None]).to(dtype)
         mask = (valid * b["mask0"].to(dtype))[:, :, None]
-        pred = _forward(module, (x, (b["spks0"], b["spks1"]), b["lengths"]),
+        pred = amp_forward(module, (x, (b["spks0"], b["spks1"]), b["lengths"]),
                         {"train": train, "generator": generator}, use_amp,
                         train)
         if probabilistic:
@@ -343,14 +294,14 @@ def create_multitrack_timing_train_step(module, optimizer, scheduler=None,
         optimizer.zero_grad(set_to_none=False)
         loss = loss_fn(b, generator, True)
         loss.backward()
-        gnorm, finite = _clip_grads(params, loss, clip_norm)
-        out = _floats({"Loss": loss, "GradNorm": gnorm}, device)
-        _apply_update(finite, optimizer, scheduler)
+        gnorm, finite = clip_grads(params, loss, clip_norm)
+        out = metrics_to_floats({"Loss": loss, "GradNorm": gnorm}, device)
+        apply_update(finite, optimizer, scheduler)
         return out
 
     @torch.no_grad()
     def eval_step(batch):
         b = _batch_to_device(batch, TIMING_BATCH_KEYS, device, dtype)
-        return _floats({"Loss": loss_fn(b, None, False)}, device)
+        return metrics_to_floats({"Loss": loss_fn(b, None, False)}, device)
 
     return train_step, eval_step

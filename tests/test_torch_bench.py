@@ -194,6 +194,28 @@ def test_bench_train_cuda_amp_raises():
     assert out["device"] == "cpu" and out["mfu"] is None
 
 
+def test_bench_train_cuda_trainer_tiny_prints_one_json_line():
+    """``--trainer --tiny --device cpu``: the recipe's acoustic phase
+    through the trainer on a small corpus prints one JSON line with the
+    trainer's frames/s over its wall time, the steps' share, each epoch's
+    dev loss, the files it wrote and the bare AMP step beside it."""
+    out = _one_json_line("bench_train_cuda.py", "--trainer")
+    assert out["metric"] == "trainer_frames_per_sec_flagship_multitrack"
+    assert out["value"] == out["frames_per_s"] == (out["train_frames"]
+                                                   / out["wall_s"])
+    # 2 segments x 6 pairs, crops of 32 frames, 4 a batch: 3 steps an epoch
+    assert out["steps"] == 3 * out["epochs"]
+    assert out["train_frames"] == 12 * 32 * out["epochs"]
+    assert 0 < out["train_steps_s"] + out["dev_steps_s"] < out["wall_s"]
+    assert len(out["dev_loss"]) == out["epochs"]
+    assert all(math.isfinite(x) for x in out["dev_loss"])
+    assert {"latest.ckpt", "best_loss.ckpt", "metrics.jsonl",
+            "dev_metrics.json"} <= set(out["files"])
+    assert out["use_amp"] is True
+    assert out["bare_step"]["frames_per_s"] > 0
+    assert out["device"] == "cpu" and out["peak_mem_gib"] is None
+
+
 def test_benches_need_a_card_unless_the_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
