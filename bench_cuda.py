@@ -34,9 +34,18 @@ postfilter (``chip_smoke.postfilter_config``: the JAX package's
 weights from seed 3) and renders with ``post_filter_type="nnsvs"``; the
 metric is then ``rtf_single_track_nnsvs_48k``.
 
+``--acoustic diffusion`` renders the same 4-part ring with the recipe's
+diffusion ensemble voice instead (``chip_smoke.diffusion_phases``: the JAX
+package's ``configs/acoustic/multitrack_acoustic_npss_diff_mgcbap.yaml``
+at its widths, two 100-step DDPM chains, with the flagship's timing
+models, random weights from seed 0, speakers 0, 1, 2, 0 of its 3): the
+same calls and keys, the median RTF under
+``metric: "rtf_4part_diffusion_multitrack_48k"``.
+
 ``--device cpu --tiny`` (narrow widths, the first seconds of the fixture,
-two timed calls) exists for the CPU test only: it reports no device
-metric.  Without a card, the default device fails.
+two timed calls; the diffusion chains TINY_CHAIN_STEPS long) exists for
+the CPU test only: it reports no device metric.  Without a card, the
+default device fails.
 """
 
 from __future__ import annotations
@@ -54,12 +63,14 @@ import chip_smoke
 from chip_smoke import FIXTURE, N_TRACKS, SEED
 
 METRIC = "rtf_4part_flagship_multitrack_48k"
+DIFFUSION_METRIC = "rtf_4part_diffusion_multitrack_48k"
 SINGLE_METRIC = "rtf_single_track_48k"
 POSTFILTER_METRIC = "rtf_single_track_nnsvs_48k"
 WARMUP_CALLS = 1
 TIMED_CALLS = 7
 TINY_CALLS = 2
 TINY_SECONDS = 4.0
+TINY_CHAIN_STEPS = 4
 
 
 def load_labels(tiny: bool):
@@ -98,17 +109,27 @@ def sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def run(device: torch.device, tiny: bool) -> dict:
+def run(device: torch.device, tiny: bool,
+        acoustic: str = "flagship") -> dict:
+    """The 4-part ring with the flagship's acoustic model or, for
+    ``acoustic="diffusion"``, the recipe's diffusion voice."""
     from ensemble_svs_with_interactions_tpu_torch.ops import (
         lstm_recurrence as lr,
     )
     from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
 
-    _, phases = chip_smoke.flagship_phases(tiny=tiny)
+    diffusion = acoustic == "diffusion"
+    if diffusion:
+        glob, phases = chip_smoke.diffusion_phases(
+            tiny=tiny, k_step=TINY_CHAIN_STEPS if tiny else None)
+        spk_ids = chip_smoke.DIFFUSION_SPK_IDS
+    else:
+        glob, phases = chip_smoke.flagship_phases(tiny=tiny)
+        spk_ids = list(range(N_TRACKS))
     weights = chip_smoke.random_state_dicts(phases, SEED)
     with tempfile.TemporaryDirectory() as model_dir:
         t0 = time.perf_counter()
-        chip_smoke.pack_flagship(model_dir, weights, tiny=tiny)
+        chip_smoke.pack_phases(model_dir, glob, phases, weights)
         pack_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         engine = SPSVS(model_dir, device=device)
@@ -118,7 +139,6 @@ def run(device: torch.device, tiny: bool) -> dict:
         engine.timelag_model, engine.duration_model, engine.acoustic_model)
         for p in m.module.parameters())
     labels = load_labels(tiny)
-    spk_ids = list(range(N_TRACKS))
 
     def call(**kw):
         return engine.svs_ensemble([labels.copy() for _ in range(N_TRACKS)],
@@ -150,7 +170,9 @@ def run(device: torch.device, tiny: bool) -> dict:
     widths = sorted({m.w_h.shape[0] for m in engine.acoustic_model.module
                      .modules() if hasattr(m, "w_h")})
     return {
-        "metric": METRIC, "value": times[order] / audio_s, "unit": "ratio",
+        "metric": DIFFUSION_METRIC if diffusion else METRIC,
+        "value": times[order] / audio_s, "unit": "ratio",
+        "acoustic": acoustic, "spk_ids": spk_ids,
         "all_runs_sec": times, "audio_seconds": audio_s,
         "rtf_all": [t / audio_s for t in times], "calls": calls,
         "warmup_calls": WARMUP_CALLS, "warmup_sec": warmup_s,
@@ -240,14 +262,20 @@ def main(argv=None) -> int:
     p.add_argument("--post-filter", choices=("gv", "nnsvs"),
                    help="with --single-track: svs()'s post_filter_type "
                         "(default gv); nnsvs packs the learned postfilter")
+    p.add_argument("--acoustic", choices=("flagship", "diffusion"),
+                   default="flagship",
+                   help="the 4-part ring's acoustic model: the flagship's "
+                        "or the recipe's diffusion voice")
     args = p.parse_args(argv)
     device = bench_device(args.device)
     if args.single_track:
+        if args.acoustic != "flagship":
+            p.error("--acoustic is for the 4-part ring")
         out = run_single(device, args.tiny, args.post_filter or "gv")
     elif args.post_filter:
         p.error("--post-filter needs --single-track")
     else:
-        out = run(device, args.tiny)
+        out = run(device, args.tiny, args.acoustic)
     print(json.dumps(out), flush=True)
     return 0
 

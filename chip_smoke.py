@@ -5,7 +5,8 @@
 Drives the port's paths at the verbatim widths of the flagship (random
 weights from a seeded generator): serving, the 4-part pairwise ensemble
 through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and one pair
-through the per-pair API the recipe's synthesis stage calls;
+through the per-pair API the recipe's synthesis stage calls; the same
+ensemble with the recipe's diffusion voice (two DDPM spectral chains);
 single-singer serving through ``SPSVS.svs`` on the stock single-track
 voice, with GV, the learned postfilter, the merlin postfilter and uncoded
 WORLD features; and training, the multitrack acoustic train step as ``bench_train.py`` runs
@@ -18,7 +19,8 @@ PyTorch version on the card.  Phases, each printing JSON lines:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    (one ``nvcc`` per source, run at once);
 2. ``kernel``: the LSTM recurrence kernel against its plain version at the
-   serving shapes (B = 4, T = 6656, H = 62, 64, 256, 512), with and without
+   serving shapes (B = 4, T = 6656, H = 62, 64, 256, 512, and the
+   diffusion voice's 128), with and without
    the cell-sequence output, with times (and microseconds per step), the
    bound and a library yardstick; each recurrence row names the kernel
    the launch's dispatch chose for its shape;
@@ -72,6 +74,22 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    mel-cepstral aperiodicity, each call's streams through
    ``predict_waveform`` on the card and on the CPU with the same noise,
    held at 40 dB SNR;
+6g. ``diffusion``: the recipe's diffusion ensemble voice
+   (``diffusion_phases``: the JAX package's
+   ``configs/acoustic/multitrack_acoustic_npss_diff_mgcbap.yaml`` at its
+   widths with the flagship's timing models, 3 singers) packed and opened
+   by ``SPSVS(model_dir)``, a warm-up, then three timed ``svs_ensemble``
+   calls on 4 copies of the fixture with the launch counts by width reset
+   just before and read just after (DIFFUSION_LAUNCHES_BY_HIDDEN a call),
+   each chain's device time (CUDA events) beside the chains' float32
+   bound (``chain_bound``), the peak memory, a call with blocked stage
+   times, and one call with TF32 allowed in the chains (its time and its
+   acoustic output's distance from float32);
+6h. ``diffusion_reference``: the same pack on the CPU against the card
+   on one track over one 512-frame bucket: timing each way exactly, the
+   AR lf0 decoder against a float64 oracle, the mgc and bap chains (the
+   card's noise replayed on the CPU) and the vuv model at MODULE_ATOL, and
+   the rendered pair at SNR_DB;
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -104,7 +122,7 @@ PyTorch version on the card.  Phases, each printing JSON lines:
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
-configs, weights and kernel operation counts.
+and diffusion configs, weights and kernel operation counts.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or the JAX package.
@@ -560,6 +578,59 @@ def single_phases(tiny: bool = False, postfilter: bool = False,
     return glob, phases
 
 
+DIFFUSION_CONFIG = "acoustic/multitrack_acoustic_npss_diff_mgcbap.yaml"
+# the recipe's three singers (the config's speaker_embedding.num_embeddings)
+DIFFUSION_SPKS = 3
+
+
+def diffusion_acoustic_config(tiny: bool = False, subtrack: bool = False,
+                              k_step: int = None) -> dict:
+    """The recipe's diffusion ensemble voice, ``DIFFUSION_CONFIG`` (or its
+    ``_subtrack`` twin) verbatim, the lf0 fields the recipe fills from
+    data set to SINGLE_LF0.  ``tiny=True`` narrows every width (TINY; the
+    denoisers to 8 channels over 3 and 2 layers) for the CPU tests, and
+    ``k_step`` sets both chains' length; the stream layout, the classes,
+    the samplers and the 3 speakers stay."""
+    rel = DIFFUSION_CONFIG.replace(".yaml", "_subtrack.yaml" if subtrack
+                                   else ".yaml")
+    ac = shipped_config(rel)
+    net = ac["netG"]
+    for node in (net, net["lf0_model"]):
+        node.update({k: v for k, v in SINGLE_LF0.items() if node[k] is None})
+    chains = (net["mgc_model"], net["bap_model"])
+    if k_step is not None:
+        for d in chains:
+            d["K_step"] = k_step
+    if tiny:
+        w = TINY
+        net["lf0_model"].update(
+            embed_dim=w["embed"], ff_hidden_dim=w["ff"],
+            conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"],
+            decoder_hidden_dim=w["dec"])
+        encoders = [d["encoder"] for d in chains] + [net["vuv_model"]]
+        for enc in encoders:
+            enc.update(embed_dim=w["embed"], ff_hidden_dim=w["ff"],
+                       conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"])
+        for d, layers in zip(chains, (3, 2)):
+            d["encoder"]["out_dim"] = 8
+            d["denoise_fn"].update(encoder_hidden_dim=8, residual_channels=8,
+                                   residual_layers=layers)
+        net["speaker_embedding"]["embedding_dim"] = w["embed"]
+    return ac
+
+
+def diffusion_phases(tiny: bool = False, subtrack: bool = False,
+                     k_step: int = None):
+    """(global config, {phase: (model_config, in_scaler, out_scaler)}) of
+    the diffusion voice: ``diffusion_acoustic_config`` with the flagship's
+    timing models and scalers for DIFFUSION_SPKS singers."""
+    glob, phases = flagship_phases(n_spk=DIFFUSION_SPKS, tiny=tiny)
+    _, sc_in, sc_out = phases["acoustic"]
+    phases["acoustic"] = (diffusion_acoustic_config(tiny, subtrack, k_step),
+                          sc_in, sc_out)
+    return glob, phases
+
+
 # ------------------------------------------------------------------ timing
 def cuda_ms(fn, reps: int) -> float:
     start = torch.cuda.Event(enable_timing=True)
@@ -731,14 +802,16 @@ def phase_build(lr):
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
-def phase_kernels(lr, B=N_TRACKS, modes=(False, True), phase="kernel"):
+def phase_kernels(lr, B=N_TRACKS, modes=(False, True), phase="kernel",
+                  shapes=RECURRENCE_SHAPES):
     """The recurrence at the serving shapes: B rows (N_TRACKS for
     ``svs_ensemble``, 1 for ``svs``) of T_FRAMES steps, each width of
-    RECURRENCE_SHAPES, in each of ``modes`` (want_c)."""
+    ``shapes`` (the flagship's RECURRENCE_SHAPES, and for ``svs_ensemble``
+    the diffusion voice's too), in each of ``modes`` (want_c)."""
     results = {}
     g = torch.Generator(device="cuda").manual_seed(SEED + B - N_TRACKS)
     T = T_FRAMES
-    for H in RECURRENCE_SHAPES:
+    for H in shapes:
         xw = torch.randn(B, T, 4 * H, device="cuda", generator=g)
         w_h = torch.randn(H, 4 * H, device="cuda", generator=g) / H ** 0.5
         for want_c in modes:
@@ -1528,6 +1601,337 @@ def phase_pairwise(lr, engine, cpu, label):
     assert all(timing.values()), timing
     assert_held(held)
     return launches
+
+
+# ------------------------------------------------------- diffusion voice
+# the diffusion voice's single-direction recurrences per svs_ensemble call
+# (B = 4) or pair (B = 1), by width: the mgc chain's encoder at 128; the
+# bap chain's encoder, the vuv model and the lf0 model's encoder at 64
+# (each 2 layers x 2 directions)
+DIFFUSION_LAUNCHES_BY_HIDDEN = {128: 4, 64: 12}
+DIFFUSION_LAUNCHES_PER_CALL = sum(DIFFUSION_LAUNCHES_BY_HIDDEN.values())
+DIFFUSION_SPK_IDS = [0, 1, 2, 0]     # every id below the config's 3
+DIFFUSION_REF_SECONDS = 2.3          # one 512-frame bucket of the fixture
+CHAINS = ("mgc_model", "bap_model")
+
+
+def diffnet_work(net, B: int, T: int, K: int):
+    """(FLOPs, bytes) of one chain of K denoiser calls of a ``DiffNet`` on
+    B x T frames: the convolutions' and the step MLPs' multiply-adds (the
+    loop-invariant ``cond_proj`` included, as the chain computes it); the
+    weights, the condition, x_T and K step draws read once and the result
+    written once."""
+    res = net.res0
+    C = net.residual_channels
+    E, M = res.cond_proj.in_channels, net.input_proj.in_channels
+    per_frame = (M * C + net.residual_layers * (3 * C * 2 * C + E * 2 * C
+                                                 + C * 2 * C)
+                 + C * C + C * M)
+    per_item = C * 4 * C + 4 * C * C + net.residual_layers * C * C
+    flops = 2 * K * (B * T * per_frame + B * per_item)
+    params = sum(p.numel() for p in net.parameters())
+    nbytes = 4 * (params + B * T * E + (K + 2) * B * T * M)
+    return flops, nbytes
+
+
+def chain_bound(module, B: int, T: int) -> dict:
+    """The two chains' bound at B x T: {chain: (bytes ms, operations ms)}
+    and the sum's bound (float32 FMA rate, memory rate)."""
+    out = {}
+    for name in CHAINS:
+        d = getattr(module, name)
+        flops, nbytes = diffnet_work(d.denoise_fn, B, T, d.K_step)
+        out[name] = {"tflop": flops / 1e12,
+                     "bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+                     "operations_ms": 1e3 * flops / PEAK_FP32_FLOP_PER_S}
+    tb = sum(v["bytes_ms"] for v in out.values())
+    to = sum(v["operations_ms"] for v in out.values())
+    out["bound_ms"], out["bound_by"] = bound(tb, to)
+    return out
+
+
+def time_chains(module, log: list):
+    """Record CUDA events around each chain's ``inference`` (an instance
+    attribute over the method) into ``log`` as (chain, start, end)."""
+    for name in CHAINS:
+        sub = getattr(module, name)
+
+        def timed(*a, _orig=type(sub).inference.__get__(sub), _name=name,
+                  **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _orig(*a, **k)
+            end.record()
+            log.append((_name, start, end))
+            return out
+
+        sub.inference = timed
+
+
+def chain_ms(log: list) -> dict:
+    """{chain: device ms} summed over ``log``, which it empties."""
+    torch.cuda.synchronize()
+    out = {name: 0.0 for name in CHAINS}
+    for name, start, end in log:
+        out[name] += start.elapsed_time(end)
+    log.clear()
+    return out
+
+
+def set_tf32(module, on: bool):
+    for name in CHAINS:
+        getattr(module, name).allow_tf32 = on
+
+
+def diffusion_acoustic(engine, labels, spk_ids):
+    """The acoustic model's device output of one ``svs_ensemble``'s batch
+    (the pairs' ring) and the valid-frame mask."""
+    N = len(labels)
+    pairs = [(i + 1) % N for i in range(N)]
+    dm = engine.predict_timing_multitrack_batch(
+        [lab.copy() for lab in labels], spk_ids, pairs)
+    feats, _ = engine._frame_features(dm)
+    out, lengths = engine.acoustic_model.inference_batch(
+        feats, device_out=True, sub_index=pairs, method="inference_main",
+        spks=(spk_ids, [spk_ids[p] for p in pairs]))
+    valid = np.arange(out.shape[1])[None, :] < lengths[:, None]
+    return out, torch.from_numpy(valid).to(out.device)
+
+
+def phase_diffusion(lr, model_dir, labels):
+    """The recipe's diffusion ensemble voice through the normal entry
+    point: ``diffusion_phases()`` (the shipped config at full width, seeded
+    random weights) packed into ``model_dir`` and opened by
+    ``SPSVS(model_dir)``; a warm-up, then N_CALLS timed ``svs_ensemble``
+    calls on 4 copies of the fixture (speakers DIFFUSION_SPK_IDS) with the
+    launch counts by width reset just before and read just after, each
+    chain's device time (CUDA events) beside the chains' float32 bound,
+    and the peak memory; a call with blocked stage times; then one call
+    with TF32 allowed in the chains' convolutions, and the distance of
+    its acoustic output from the float32 one on the same noise.  Returns
+    the engine and the launches."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    glob, phases = diffusion_phases()
+    t0 = time.time()
+    pack_phases(model_dir, glob, phases, random_state_dicts(phases, SEED))
+    pack_s = time.time() - t0
+    t0 = time.time()
+    engine = SPSVS(model_dir)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    module = engine.acoustic_model.module
+    log = []
+    time_chains(module, log)
+
+    def call(**kw):
+        t0 = time.time()
+        wavs, sr = engine.svs_ensemble([lab.copy() for lab in labels],
+                                       spk_ids=DIFFUSION_SPK_IDS, **kw)
+        return wavs, sr, time.time() - t0
+
+    _, _, warm_s = call()
+    chain_ms(log)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(lr)
+    runs = []
+    for _ in range(N_CALLS):
+        wavs, sr, sec = call()
+        runs.append({"seconds": sec, "rtf": engine.last_rtf,
+                     "stages": dict(engine.last_stage_times),
+                     "chain_ms": chain_ms(log)})
+    launches = lr.lstm_recurrence.launches
+    by_width = dict(lr.lstm_recurrence.launches_by_width)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    call(blocked_stage_times=True)
+    blocked = dict(engine.last_stage_times)
+    blocked_chains = chain_ms(log)
+
+    f32_out, valid = diffusion_acoustic(engine, labels, DIFFUSION_SPK_IDS)
+    chain_ms(log)
+    set_tf32(module, True)
+    try:
+        _, _, tf32_s = call()
+        tf32 = {"seconds": tf32_s, "rtf": engine.last_rtf,
+                "chain_ms": chain_ms(log)}
+        tf32_out, _ = diffusion_acoustic(engine, labels, DIFFUSION_SPK_IDS)
+        chain_ms(log)
+    finally:
+        set_tf32(module, False)
+    diff = (tf32_out - f32_out).abs()[valid]
+    ss = np.cumsum([0] + list(engine.acoustic_model.config.stream_sizes))
+    tf32["max_abs_diff"] = diff.max().item()
+    tf32["max_abs_diff_by_stream"] = {
+        name: (tf32_out - f32_out)[..., ss[i]: ss[i + 1]].abs()[valid]
+        .max().item() for i, name in enumerate(("mgc", "lf0", "vuv", "bap"))}
+    tf32["f32_max_abs"] = f32_out.abs()[valid].max().item()
+
+    T = int(valid.shape[1])
+    cb = chain_bound(module, len(labels), T)
+    audio_s = max(len(w) for w in wavs) / sr
+    by_kernel = {}
+    for H, n in sorted(by_width.items()):
+        name = lr.lstm_recurrence_kernel_name(len(labels), H)
+        by_kernel[name] = by_kernel.get(name, 0) + n
+    chains = [sum(r["chain_ms"].values()) for r in runs]
+    emit({"phase": "diffusion", "config": DIFFUSION_CONFIG,
+          "pack_s": pack_s, "load_s": load_s, "warmup_s": warm_s,
+          "runs_s": [r["seconds"] for r in runs],
+          "rtf": [r["rtf"] for r in runs],
+          "stages": runs[len(runs) // 2]["stages"],
+          "blocked_stages": blocked, "blocked_chain_ms": blocked_chains,
+          "chain_ms": [r["chain_ms"] for r in runs],
+          "chains_ms": chains, "T_pad": T, "chain_bound": cb,
+          "chains_over_bound": [c / cb["bound_ms"] for c in chains],
+          "audio_seconds": audio_s, "wav_lengths": [len(w) for w in wavs],
+          "calls": N_CALLS, "launches": launches,
+          "launches_by_width": {str(H): n
+                                for H, n in sorted(by_width.items())},
+          "launches_by_kernel": by_kernel, "peak_mem_gib": peak,
+          "tf32": tf32})
+    assert by_width == {H: n * N_CALLS for H, n in
+                        DIFFUSION_LAUNCHES_BY_HIDDEN.items()}, by_width
+    assert torch.isfinite(f32_out).all() and torch.isfinite(tf32_out).all()
+    for w in wavs:
+        assert w.dtype == np.int16 and len(w) > 30 * sr, (w.dtype, len(w))
+        assert np.abs(w.astype(np.int64)).max() > 0
+    return engine, launches
+
+
+def diffusion_modules(m, dev, xm, xs, spk_ids, sub_ids, lengths, noise=None,
+                      dec_in=None, ar_only=False):
+    """The diffusion voice's modules on host (1, T, 86) main and sub
+    features: the AR lf0 decoder (its dropout masks from a CPU generator
+    seeded with ``AR_SEED``), then on ``dec_in`` = (x, lf0) (by default
+    this run's) the mgc and bap chains (their noise recorded, or replayed
+    from ``noise``) and the vuv model on (x, mgc, lf0) of the chains'
+    outputs; float64 CPU tensors, and the inputs and noise used."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import AR_SEED
+    from ensemble_svs_with_interactions_tpu_torch.models.diffsinger import (
+        chain_noise,
+    )
+
+    dtype = next(m.parameters()).dtype
+    xm = torch.from_numpy(xm).to(dev, dtype)
+    xs = torch.from_numpy(xs).to(dev, dtype)
+    T = xm.shape[1]
+    ln = torch.as_tensor(np.asarray(lengths), device=dev)
+    spk_m = m._expand(torch.as_tensor(spk_ids, device=dev), T)
+    spk_s = m._expand(torch.as_tensor(sub_ids, device=dev), T)
+    with torch.no_grad():
+        out = {"ar_lf0": m.lf0_model(
+            xm, xs, spk_m, spk_s, ln,
+            generator=torch.Generator().manual_seed(AR_SEED))[0]}
+        if not ar_only:
+            if dec_in is None:
+                dec_in = torch.cat([xm, out["ar_lf0"]], dim=-1).cpu()
+            d = dec_in.to(dev, dtype)
+            gen = torch.Generator(dev).manual_seed(SEED)
+            with chain_noise(noise) as drawn:
+                for k in CHAINS:
+                    out[k] = getattr(m, k).inference(
+                        d, ln, spk_embs=spk_m, chain_generator=gen)
+            vuv_in = torch.cat([xm, out["mgc_model"], d[..., -1:]], dim=-1)
+            out["vuv_model"] = m.vuv_model(vuv_in, ln, spk_embs=spk_m)
+            noise = drawn if noise is None else noise
+    return {k: v.cpu().double() for k, v in out.items()}, dec_in, noise
+
+
+def phase_diffusion_reference(engine, model_dir, label):
+    """The diffusion voice on the card against the same pack opened on the
+    CPU, one track over one 512-frame bucket (the fixture's first
+    DIFFUSION_REF_SECONDS, paired with itself sung SUB_LAG late): the
+    pair's timing each way exactly; on the pair's acoustic input the AR lf0
+    decoder against a float64 oracle under AR_HEADROOM and the mgc and bap
+    chains (the card's noise replayed on the CPU) and the vuv model at
+    MODULE_ATOL; and the rendered pair (timing, acoustic features, host
+    postprocess, WORLD with the same noise on both) at SNR_DB."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import (
+        FRAME_BUCKET,
+        _round_up,
+        vocoder_noise,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.models.diffsinger import (
+        chain_noise,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    t0 = time.time()
+    cpu = SPSVS(model_dir, device="cpu")
+    n_labels = next(i for i, e in enumerate(label.end_times)
+                    if e > DIFFUSION_REF_SECONDS * 1e7)
+    main = label[:n_labels]
+    sub = late_copy(main)
+    spks = [0, 1]
+    timing, dms = {}, {}
+    for name, pair, ids in (("main", (main, sub), spks),
+                            ("sub", (sub, main), spks[::-1])):
+        got, ref = (e.predict_timing_multitrack(list(pair), ids)
+                    for e in (engine, cpu))
+        timing[name] = (list(got[0].start_times) == list(ref[0].start_times)
+                        and list(got[0].end_times) == list(ref[0].end_times)
+                        and bool(np.array_equal(got[1], ref[1])))
+        dms[name] = got[0]
+    feats, _ = engine._frame_features([dms["main"].copy(),
+                                       dms["sub"].copy()])
+    n = max(len(f) for f in feats)
+    T = _round_up(n, FRAME_BUCKET)
+    xm, xs = (np.zeros((1, T, f.shape[1]), np.float32) for f in feats)
+    xm[0, : len(feats[0])] = feats[0]
+    xs[0, : len(feats[1])] = feats[1]
+    valid = torch.from_numpy(np.arange(T)[None, :] < len(feats[0]))
+    args = (xm, xs, [spks[0]], [spks[1]], [n])
+    card_m, cpu_m = engine.acoustic_model.module, cpu.acoustic_model.module
+    got, dec_in, noise = diffusion_modules(card_m, engine.device, *args)
+    ref, _, _ = diffusion_modules(cpu_m, torch.device("cpu"), *args,
+                                  noise=noise, dec_in=dec_in)
+    oracle, _, _ = diffusion_modules(copy.deepcopy(cpu_m).double(),
+                                     torch.device("cpu"), *args,
+                                     ar_only=True)
+
+    def dist(a, b):
+        return (a - b)[valid].abs().max().item()
+
+    errs = {k: dist(got[k], ref[k]) for k in ref}
+    ar = {"card_vs_f64": dist(got["ar_lf0"], oracle["ar_lf0"]),
+          "cpu_f32_vs_f64": dist(ref["ar_lf0"], oracle["ar_lf0"])}
+    held = {"max_abs_err": errs, "atol": MODULE_ATOL, "ar_lf0": ar,
+            "ar_lf0_limit": max(AR_ABS_ATOL,
+                                AR_HEADROOM * ar["cpu_f32_vs_f64"]),
+            "chain_max_abs": {k: got[k][valid].abs().max().item()
+                              for k in CHAINS},
+            "finite": all(bool(torch.isfinite(v).all())
+                          for v in got.values())}
+
+    # the whole pair on each side: the card's chain noise replayed on the
+    # CPU, one vocoder noise for both
+    spk_pair = [spks[0], spks[1]]
+    pair = [dms["main"].copy(), dms["sub"].copy()]
+    with chain_noise() as drawn:
+        ac_card = engine.predict_acoustic_multitrack(pair, spk_pair)
+    with chain_noise(drawn):
+        ac_cpu = cpu.predict_acoustic_multitrack(
+            [dms["main"].copy(), dms["sub"].copy()], spk_pair)
+    hop = int(engine.sample_rate * engine.frame_period / 1000)
+    vnoise = vocoder_noise(1, T * hop, "cpu")
+    wavs = []
+    for e, ac in ((engine, ac_card), (cpu, ac_cpu)):
+        streams = e.postprocess_acoustic(ac, dms["main"].copy())
+        wav = e.predict_waveform(streams, noise=vnoise.to(e.device))
+        wavs.append(e.postprocess_waveform(wav, dtype=np.float64))
+    snr = snr_db(wavs[1], wavs[0])
+    emit({"phase": "diffusion_reference", "labels": n_labels, "frames": n,
+          "T": T, "timing_equal": timing, **held,
+          "acoustic_max_abs_diff": float(np.abs(ac_card - ac_cpu).max()),
+          "waveform": {"samples": len(wavs[0]), "snr_db": snr,
+                       "snr_min_db": SNR_DB},
+          "seconds": time.time() - t0})
+    assert T == FRAME_BUCKET, T
+    assert all(timing.values()), timing
+    assert_held(held)
+    assert np.isfinite(wavs[0]).all() and np.abs(wavs[0]).max() > 0
+    assert snr > SNR_DB, snr
 
 
 def train_batch(B: int, T: int, out_dim: int):
@@ -2631,12 +3035,15 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
-    learned postfilter; N_CALLS flagship pairs; TRAIN_STEPS train steps of
-    each train arm, float32 and AMP), by path under ``launches_by_path``
-    (``path_launches`` gives the serving paths' besides svs_ensemble).  The recurrence's times, bound and yardstick are
-    summed over one svs_ensemble call's launches (LAUNCHES_BY_HIDDEN at
-    B = 4), with the same sums over one single-track svs call (the same
-    widths at B = 1) under ``svs_call`` and over one train step
+    learned postfilter; N_CALLS flagship pairs; N_CALLS svs_ensemble calls
+    of the diffusion voice; TRAIN_STEPS train steps of each train arm,
+    float32 and AMP), by path under ``launches_by_path`` (``path_launches``
+    gives the serving paths' besides svs_ensemble).  The recurrence's
+    times, bound and yardstick are summed over one svs_ensemble call's
+    launches (LAUNCHES_BY_HIDDEN at B = 4), with the same sums over one
+    diffusion-voice call (DIFFUSION_LAUNCHES_BY_HIDDEN at B = 4) under
+    ``diffusion_call``, over one single-track svs call (the same widths
+    at B = 1) under ``svs_call`` and over one train step
     (TRAIN_LAUNCHES_BY_SHAPE, the want_c mode) under ``train_step``; the
     BPTT and dW_h kernels' are summed over one train
     step, the BPTT's with the part its gate pre-pass takes (``prepass_ms``,
@@ -2653,6 +3060,11 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     one = _sum_rows(single, LAUNCHES_BY_HIDDEN,
                     TIMES + ("library_input_gemm_ms",))
     one_bound = bound(one["bytes_ms"], one["operations_ms"])
+    diff = _sum_rows({H: kernel_rows[(H, False)]
+                      for H in DIFFUSION_LAUNCHES_BY_HIDDEN},
+                     DIFFUSION_LAUNCHES_BY_HIDDEN,
+                     TIMES + ("library_input_gemm_ms",))
+    diff_bound = bound(diff["bytes_ms"], diff["operations_ms"])
 
     def train_sums(name, want_c=None, keys=TIMES):
         rows = {s: train_rows[name, *s, want_c]
@@ -2690,10 +3102,20 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                       for H in RECURRENCE_SHAPES},
                    **{f"svs B=1 H={H}": single[H]["kernel"]
                       for H in RECURRENCE_SHAPES},
+                   **{f"svs_ensemble diffusion H={H}":
+                      kernel_rows[(H, False)]["kernel"]
+                      for H in DIFFUSION_LAUNCHES_BY_HIDDEN},
                    **{f"train H={H} T={T}":
                       train_rows["lstm_recurrence", H, T, True]["kernel"]
                       for H, T in TRAIN_LAUNCHES_BY_SHAPE}},
                library_input_gemm_ms=serve["library_input_gemm_ms"],
+               diffusion_call={
+                   "B": N_TRACKS, "ms": diff["ms"],
+                   "plain_ms": diff["plain_ms"], "bound_ms": diff_bound[0],
+                   "bound_by": diff_bound[1],
+                   "library_ms": diff["library_ms"],
+                   "library_input_gemm_ms": diff["library_input_gemm_ms"],
+                   "launches_per_call": DIFFUSION_LAUNCHES_PER_CALL},
                svs_call={"B": 1, "ms": one["ms"], "plain_ms": one["plain_ms"],
                          "bound_ms": one_bound[0], "bound_by": one_bound[1],
                          "library_ms": one["library_ms"],
@@ -2741,7 +3163,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     phase_build(lr)
-    kernel_rows = phase_kernels(lr)
+    kernel_rows = phase_kernels(lr, shapes=sorted(
+        set(RECURRENCE_SHAPES) | set(DIFFUSION_LAUNCHES_BY_HIDDEN)))
     train_rows = phase_train_kernels(lr)
 
     single_rows = phase_kernels(lr, B=1, modes=(False,), phase="kernel_b1")
@@ -2770,6 +3193,11 @@ def main() -> int:
         phase_world_params(engine, mcep_dir, labels[0])
     del engine, cpu
     path_launches["pairwise"] = pair_launches
+    with tempfile.TemporaryDirectory() as model_dir:
+        engine, path_launches["svs_ensemble_diffusion"] = phase_diffusion(
+            lr, model_dir, labels)
+        phase_diffusion_reference(engine, model_dir, labels[0])
+    del engine
     train_launches = phase_train(lr)
     f32_runs = phase_train_reference()
     amp_launches = phase_train_amp(lr)

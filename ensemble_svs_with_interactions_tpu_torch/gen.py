@@ -13,8 +13,10 @@ see the same padded inputs.
 
 Not ported, and named by the ``NotImplementedError`` that refuses them:
 the neural vocoders (``models/vocoders/``), vibrato streams
-(``ops/pitch.gen_sine_vibrato``), mel features and the mel and band-split
-learned postfilters.
+(``ops/pitch.gen_sine_vibrato``), mel features, the mel and band-split
+learned postfilters, and of ``models/diffsinger.py``
+``MultiSpeakerGaussianDiffusion``, ``FFTBlocksEncoder``,
+``PitchPredictor`` and ``PitchExtractor``.
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ PHONE_BUCKET = 64
 # seed of the AR decoder's inference-time dropout (the JAX package's
 # PRNGKey(1234))
 AR_SEED = 1234
+# seed of the diffusion decoders' sampling chains (the JAX package feeds
+# them a split of the same key)
+CHAIN_SEED = 1234
 # the JAX package's modules that unported options need
 _JAX = "ensemble_svs_with_interactions_tpu"
 UNPORTED = {
@@ -74,6 +79,9 @@ UNPORTED = {
     "vocoder": f"{_JAX}/models/vocoders/",
     "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
     "melf0": f"{_JAX}/models/vocoders/ (mel features)",
+    **{name: f"{_JAX}/models/diffsinger.py ({name})"
+       for name in ("MultiSpeakerGaussianDiffusion", "FFTBlocksEncoder",
+                    "PitchPredictor", "PitchExtractor")},
 }
 
 
@@ -100,10 +108,13 @@ class ModelPack:
     """A model with its weights resident on the device once, its stream
     config, and bucketed batch inference.
 
-    Models that sample at inference (the AR F0 decoder's prenet dropout)
-    get a CPU ``torch.Generator`` seeded with ``AR_SEED`` afresh on every
-    call, so each call is reproducible, as the JAX package's fixed key
-    makes it, and draws the same masks on every device.
+    Models that sample at inference get generators seeded afresh on
+    every call, so each call is reproducible, as the JAX package's fixed
+    key makes it: the AR F0 decoder's prenet dropout a CPU
+    ``torch.Generator`` seeded with ``AR_SEED`` (the same masks on every
+    device), the diffusion decoders' chains (``chain_generator``) one on
+    the pack's device seeded with ``CHAIN_SEED``, so their noise is drawn
+    where the chain runs.
     """
 
     def __init__(self, module, config: Any, bucket: int = FRAME_BUCKET,
@@ -122,9 +133,9 @@ class ModelPack:
     def prediction_type(self):
         return self.module.prediction_type()
 
-    def _takes_generator(self, method: str) -> bool:
-        fn = getattr(self.module, method)
-        return "generator" in inspect.signature(fn).parameters
+    def _takes(self, method: str, arg: str) -> bool:
+        return arg in inspect.signature(
+            getattr(self.module, method)).parameters
 
     def _pack(self, seqs, B: int, T_pad: int):
         b = np.zeros((B, T_pad, seqs[0].shape[1]), np.float32)
@@ -165,8 +176,11 @@ class ModelPack:
                 torch.as_tensor(np.asarray(s, np.int64), device=self.device)
                 for s in spks))
         kw = {"lengths": torch.as_tensor(lengths, device=self.device)}
-        if self._takes_generator(method):
+        if self._takes(method, "generator"):
             kw["generator"] = torch.Generator().manual_seed(AR_SEED)
+        if self._takes(method, "chain_generator"):
+            kw["chain_generator"] = torch.Generator(
+                self.device).manual_seed(CHAIN_SEED)
         out = getattr(self.module, method)(*args, **kw)
         if device_out:
             return out, lengths

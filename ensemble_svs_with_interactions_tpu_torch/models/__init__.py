@@ -1,4 +1,5 @@
-"""The port's model zoo (the flagship path's models)."""
+"""The port's model zoo (the serving and training paths' models); the
+diffusion models are in ``models/diffsinger.py``."""
 
 from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F401
     FFConvLSTM,
@@ -7,4 +8,7 @@ from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F
     MultiTrackVariancePredictor,
     SpeakerEmbedding,
     VariancePredictor,
+)
+from ensemble_svs_with_interactions_tpu_torch.models import (  # noqa: F401,E402
+    diffsinger,
 )

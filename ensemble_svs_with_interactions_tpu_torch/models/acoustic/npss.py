@@ -1,0 +1,185 @@
+"""The multitrack NPSS cascade (counterparts in
+``ensemble_svs_with_interactions_tpu/models/acoustic/npss.py``).
+
+p(MGC, LF0, VUV, BAP | C) = p(LF0|C) p(MGC|LF0,C) p(BAP|LF0,C)
+p(VUV|LF0,MGC,BAP,C): the cross-track lf0 model runs first, the mgc and
+bap models take (x, lf0), and the vuv model takes x with the streams its
+``vuv_model_*_conditioning`` flags name, in the order (mgc, lf0, bap).
+With targets the downstream models are teacher-forced on them.  The
+recipe's configuration (``multitrack_acoustic_npss_diff_mgcbap.yaml``)
+makes mgc and bap ``GaussianDiffusion`` decoders, which sample at
+inference from the ``chain_generator`` they are given.
+
+The single-track NPSS models of the JAX module are not ported.
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Any, Sequence
+
+import torch
+
+from ensemble_svs_with_interactions_tpu_torch.base import (
+    BaseModel,
+    PredictionType,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
+    point_estimate,
+)
+from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
+    split_streams,
+)
+
+
+def _run_stream_decoder(mod, x, lengths, y, spk_embs, train, generator,
+                        chain_generator):
+    """A cascade stream decoder: free-running (``y`` None) diffusion
+    decoders sample through ``inference``; everything else runs its
+    forward (the output MDN heads keep their parameter tuples).
+    ``spk_embs`` goes only to decoders whose forward takes it."""
+    kw = {}
+    if "spk_embs" in inspect.signature(mod.forward).parameters:
+        kw["spk_embs"] = spk_embs
+    if mod.prediction_type() == PredictionType.DIFFUSION:
+        if y is None:
+            return mod.inference(x, lengths, chain_generator=chain_generator,
+                                 **kw)
+        return mod(x, lengths, y, train=train, generator=generator, **kw)
+    return mod(x, lengths, train=train, generator=generator, **kw)
+
+
+class MultiTrackNPSSMDNMultistreamParametricModel(BaseModel):
+    """Sub-models arrive built (``utils.config.instantiate`` builds nested
+    ``_target_`` nodes first).  The full cascade runs for the main track;
+    in training with ``output_subtrack`` the sub track gives its
+    cross-conditioned lf0 prediction, its other streams coming back as
+    the targets.  The lf0 fields (``in_lf0_*``, ``out_lf0_*``,
+    ``reduction_factor``) belong to the lf0 sub-model's own config, and
+    they and ``in_rest_idx`` are accepted and unused, as in the JAX
+    cascade."""
+
+    # the MDN cascades condition V/UV on (x, mgc, lf0, bap)
+    _VUV_COND_ORDER = ("mgc", "lf0", "bap")
+
+    def __init__(self, in_dim: int, out_dim: int,
+                 stream_sizes: Sequence[int] = (60, 1, 1, 5),
+                 reduction_factor: int = 1, lf0_model: Any = None,
+                 mgc_model: Any = None, bap_model: Any = None,
+                 vuv_model: Any = None, speaker_embedding: Any = None,
+                 in_rest_idx: int = 0, in_lf0_idx: int = 51,
+                 in_lf0_min: float = 5.3936276, in_lf0_max: float = 6.491111,
+                 out_lf0_idx: int = 60,
+                 out_lf0_mean: float = 5.953093881972361,
+                 out_lf0_scale: float = 0.23435173188961034,
+                 vuv_model_bap_conditioning: bool = True,
+                 vuv_model_bap0_conditioning: bool = False,
+                 vuv_model_lf0_conditioning: bool = True,
+                 vuv_model_mgc_conditioning: bool = False,
+                 output_subtrack: bool = True):
+        super().__init__()
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.stream_sizes = list(stream_sizes)
+        self.lf0_model = lf0_model
+        self.mgc_model = mgc_model
+        self.bap_model = bap_model
+        self.vuv_model = vuv_model
+        self.speaker_embedding = speaker_embedding
+        self.vuv_conditioning = {"mgc": vuv_model_mgc_conditioning,
+                                 "lf0": vuv_model_lf0_conditioning,
+                                 "bap": vuv_model_bap_conditioning}
+        self.vuv_model_bap0_conditioning = vuv_model_bap0_conditioning
+        self.output_subtrack = output_subtrack
+
+    def prediction_type(self):
+        return PredictionType.MULTISTREAM_HYBRID
+
+    def has_residual_lf0_prediction(self):
+        return True
+
+    def _expand(self, spk, T):
+        e = self.speaker_embedding(spk)
+        if e.ndim == 2:
+            e = e[:, None, :]
+        return e.expand(e.shape[0], T, e.shape[-1])
+
+    def _vuv_inputs(self, x, mgc, lf0, bap):
+        feats = {"mgc": mgc, "lf0": lf0,
+                 "bap": bap[..., 0:1] if self.vuv_model_bap0_conditioning
+                 else bap}
+        return torch.cat([x] + [feats[k] for k in self._VUV_COND_ORDER
+                                if self.vuv_conditioning[k]], dim=-1)
+
+    def _main_cascade(self, x, x_other, spk_e, spk_e_other, lengths, y,
+                      train, generator, chain_generator):
+        """(mgc, lf0, vuv, bap, lf0 residual) of the main track: the
+        stream decoders speaker-conditioned where they take it; mgc is
+        sampled before bap."""
+        is_inference = y is None
+        ys = ([None] * 4 if is_inference
+              else split_streams(y, self.stream_sizes))
+        lf0, lf0_residual = self.lf0_model(x, x_other, spk_e, spk_e_other,
+                                           lengths, ys[1], train, generator)
+        cond_lf0 = point_estimate(lf0) if is_inference else ys[1]
+        dec_in = torch.cat([x, cond_lf0], dim=-1)
+        run = (spk_e, train, generator, chain_generator)
+        mgc = _run_stream_decoder(self.mgc_model, dec_in, lengths, ys[0],
+                                  *run)
+        bap = _run_stream_decoder(self.bap_model, dec_in, lengths, ys[3],
+                                  *run)
+        if is_inference:
+            vuv_in = self._vuv_inputs(x, point_estimate(mgc), cond_lf0,
+                                      point_estimate(bap))
+        else:
+            vuv_in = self._vuv_inputs(x, ys[0], ys[1], ys[3])
+        vuv = _run_stream_decoder(self.vuv_model, vuv_in, lengths, ys[2],
+                                  *run)
+        return mgc, lf0, vuv, bap, lf0_residual
+
+    def forward(self, x_main, x_sub, spks, lengths=None, ys=None,
+                train: bool = False, generator=None, chain_generator=None):
+        """Without targets ``(out, out)``, (B, T, D) = [mgc | lf0 | vuv |
+        bap] of the main track (the sub slot is a copy, as the reference
+        returns it).  With ``ys = (y_main, y_sub)``: ``((mgc, lf0, vuv,
+        bap), lf0 residual)`` of the main track (diffusion streams as
+        ``(noise, x_recon)``) and, with ``output_subtrack``, the sub
+        track's ``((y_mgc, lf0, y_vuv, y_bap), lf0 residual)``, else
+        ``(None, None)``.  ``generator`` draws dropout masks and the
+        diffusion training draws; ``chain_generator`` the sampling
+        chains."""
+        T = x_main.shape[1]
+        e_m = self._expand(spks[0], T)
+        e_s = self._expand(spks[1], T)
+        mgc, lf0, vuv, bap, res_m = self._main_cascade(
+            x_main, x_sub, e_m, e_s, lengths, None if ys is None else ys[0],
+            train, generator, chain_generator)
+        if ys is None:
+            out = torch.cat([point_estimate(mgc), point_estimate(lf0), vuv,
+                             point_estimate(bap)], dim=-1)
+            return out, out
+        if not self.output_subtrack:
+            return ((mgc, lf0, vuv, bap), res_m), (None, None)
+        y_mgc_s, y_lf0_s, y_vuv_s, y_bap_s = split_streams(ys[1],
+                                                           self.stream_sizes)
+        lf0_s, res_s = self.lf0_model(x_sub, x_main, e_s, e_m, lengths,
+                                      y_lf0_s, train, generator)
+        return ((mgc, lf0, vuv, bap), res_m), (
+            (y_mgc_s, lf0_s, y_vuv_s, y_bap_s), res_s)
+
+    @torch.no_grad()
+    def inference(self, x_main, x_sub, spks=None, lengths=None,
+                  generator=None, chain_generator=None):
+        return self(x_main, x_sub, spks, lengths, generator=generator,
+                    chain_generator=chain_generator)
+
+    def inference_main(self, x_main, x_sub, spks=None, lengths=None,
+                       generator=None, chain_generator=None):
+        """The main track's output, ``inference(...)[0]``."""
+        return self.inference(x_main, x_sub, spks, lengths, generator,
+                              chain_generator)[0]
+
+
+class V2MultiTrackNPSSMDNMultistreamParametricModel(
+        MultiTrackNPSSMDNMultistreamParametricModel):
+    """The reference's experimental variant: the same cascade, kept for
+    config compatibility (``output_subtrack`` True by default)."""

@@ -13,8 +13,8 @@ CPU see the same noise; tests pass it in as ``noise``.
 
 The convolutions run in float32 with TF32 off, as every convolution of the
 port and as the JAX package computes them: a 5 x 5 convolution over 129
-channels in TF32 sits about 1e-3 from float32.  ``_float32_convs`` says so
-to cuDNN around each CUDA call.
+channels in TF32 sits about 1e-3 from float32.
+``utils/precision.conv_precision`` says so to cuDNN around each CUDA call.
 
 ``MelF0MultistreamPostFilter`` and ``MultistreamConv2dPostFilter`` are not
 ported: building either raises ``NotImplementedError`` naming its module.
@@ -22,8 +22,6 @@ ported: building either raises ``NotImplementedError`` naming its module.
 
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,6 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ensemble_svs_with_interactions_tpu_torch.base import BaseModel
+from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
+    conv_precision,
+)
 
 
 def variance_scaling(gv, feats, offset: int = 2, note_frame_indices=None):
@@ -59,24 +60,6 @@ def variance_scaling(gv, feats, offset: int = 2, note_frame_indices=None):
         out[:, offset:] = (scale * (feats[:, offset:] - utt_mu[offset:])
                            + utt_mu[offset:])
     return out
-
-
-# cuDNN's TF32 switch is process-wide: hold it off around a CUDA call, one
-# thread at a time (the host postprocess runs tracks on threads)
-_CUDNN_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _float32_convs(device: torch.device):
-    if device.type != "cuda":
-        yield
-        return
-    cudnn = torch.backends.cudnn
-    with _CUDNN_LOCK, cudnn.flags(enabled=cudnn.enabled,
-                                  benchmark=cudnn.benchmark,
-                                  deterministic=cudnn.deterministic,
-                                  allow_tf32=False):
-        yield
 
 
 def moving_average(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -148,7 +131,7 @@ class Conv2dPostFilter(BaseModel):
         z = noise.to(x.device, x.dtype) * self.noise_scale
         if is_inference and self.smoothing_width > 0:
             z = moving_average(z, self.smoothing_width)
-        with _float32_convs(x.device):
+        with conv_precision(x.device):
             if self.noise_type == "frame_wise":
                 if self.in_dim != D:
                     raise ValueError(f"frame-wise noise built for in_dim "

@@ -8,7 +8,8 @@ module converts its flax subtree to torch layouts:
 * ``nn.Linear``    <- Dense ``kernel (in, out)`` (transposed) and ``bias``;
 * ``nn.Conv1d``    <- Conv ``kernel (K, Cin/groups, Cout)`` as
   (Cout, Cin/groups, K), which covers the depthwise ``conv_downsample``
-  (``feature_group_count = C``);
+  (``feature_group_count = C``) and the diffusion denoiser's dilated
+  convolutions (the dilation is the module's, not the kernel's);
 * ``nn.Conv2d``    <- Conv ``kernel (kh, kw, Cin, Cout)`` as
   (Cout, Cin, kh, kw) (the postfilters' NHWC images, NCHW here);
 * ``nn.Embedding`` <- Embed ``embedding``;

@@ -59,6 +59,51 @@ def test_bench_cuda_tiny_prints_one_json_line():
     assert out["peak_mem_gib"] is None
 
 
+def test_bench_cuda_diffusion_tiny_prints_one_json_line():
+    """``--acoustic diffusion``: the recipe's diffusion voice renders the
+    same ring (speakers below its 3) under its own metric."""
+    out = _one_json_line("bench_cuda.py", "--acoustic", "diffusion")
+    assert out["metric"] == "rtf_4part_diffusion_multitrack_48k"
+    assert out["acoustic"] == "diffusion"
+    assert out["spk_ids"] == chip_smoke.DIFFUSION_SPK_IDS
+    assert max(out["spk_ids"]) < chip_smoke.DIFFUSION_SPKS
+    assert out["unit"] == "ratio" and out["value"] > 0
+    assert len(out["all_runs_sec"]) == out["calls"] == bench_cuda.TINY_CALLS
+    assert out["audio_seconds"] > 3 and len(out["wav_lengths"]) == 4
+    assert {"acoustic_blocked", "postproc_blocked"} <= set(
+        out["stages_blocked_sec"])
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["lstm_launches_per_call"] == 0 and out["peak_mem_gib"] is None
+
+
+def test_diffusion_voice_is_the_shipped_config():
+    """``chip_smoke.diffusion_acoustic_config`` is the shipped
+    ``multitrack_acoustic_npss_diff_mgcbap.yaml`` (and its ``_subtrack``
+    twin) with only the lf0 fields the recipe fills from data set;
+    ``tiny`` keeps the classes, the stream layout and the 3 speakers."""
+    import yaml
+
+    root = chip_smoke.CONFIGS
+    for subtrack in (False, True):
+        rel = chip_smoke.DIFFUSION_CONFIG
+        if subtrack:
+            rel = rel.replace(".yaml", "_subtrack.yaml")
+        shipped = yaml.safe_load((root / rel).read_text())
+        for node in (shipped["netG"], shipped["netG"]["lf0_model"]):
+            for k, v in chip_smoke.SINGLE_LF0.items():
+                assert node[k] is None
+                node[k] = v
+        got = chip_smoke.diffusion_acoustic_config(subtrack=subtrack)
+        assert got == shipped
+    tiny = chip_smoke.diffusion_acoustic_config(tiny=True, k_step=3)
+    net = tiny["netG"]
+    assert net["speaker_embedding"]["num_embeddings"] == 3
+    assert tiny["stream_sizes"] == got["stream_sizes"] == [60, 1, 1, 5]
+    assert net["mgc_model"]["K_step"] == net["bap_model"]["K_step"] == 3
+    for k in ("lf0_model", "mgc_model", "bap_model", "vuv_model"):
+        assert net[k]["_target_"] == got["netG"][k]["_target_"]
+
+
 def test_bench_cuda_single_track_tiny_prints_one_json_line():
     """``--single-track``: the stock single-track voice through
     ``SPSVS.svs``, its median RTF and stage times."""

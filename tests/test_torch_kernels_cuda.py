@@ -17,7 +17,9 @@ widths (``chip_smoke``'s configs): the merged learned postfilter, float32
 convolutions within 1e-4 of its output's largest entry, and the
 multitrack acoustic model's ``inference_main`` at B = 1 (the per-pair
 path), its output within 1e-3 and its modules held as ``chip_smoke``'s
-``hold_modules`` holds them.
+``hold_modules`` holds them; and the diffusion voice's bap chain, its
+noise drawn on the card and replayed on the CPU, within 1e-4 of its
+largest entry.
 """
 
 import pytest
@@ -644,3 +646,55 @@ def test_multitrack_inference_main_at_b1_matches_the_cpu(cuda):
     held = chip_smoke.hold_modules(card, cpu, valid, xm.numpy(), xs.numpy(),
                                    [0], [1], [n])
     chip_smoke.assert_held(held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("allow_tf32", [False, True])
+def test_diffusion_chain_on_the_card_matches_the_cpu(cuda, allow_tf32):
+    """The diffusion voice's bap chain at its shipped widths
+    (``chip_smoke.diffusion_acoustic_config``: FFConvLSTM encoder, a
+    10-layer 128-channel ``DiffNet``, 100 ancestral steps) on one 512-frame
+    track: it draws its noise on the card from the card's generator, and
+    the CPU, replaying that noise, gives the same samples within 1e-4 of
+    their largest entry.  The chain stays float32 when the caller turns
+    cuDNN's TF32 on, and the caller's setting is left as it was."""
+    import chip_smoke
+    from ensemble_svs_with_interactions_tpu_torch.models.diffsinger import (
+        chain_noise,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+
+    torch.manual_seed(0)
+    cfg = chip_smoke.diffusion_acoustic_config()["netG"]["bap_model"]
+    cpu = instantiate(cfg).eval()
+    card = instantiate(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda).eval()
+    g = torch.Generator().manual_seed(1)
+    n, T = 500, 512
+    x = torch.zeros(1, T, 87)
+    x[:, :n] = torch.rand(1, n, 87, generator=g)
+    spk = torch.randn(1, 1, 256, generator=g).expand(1, T, 256) * 0.01
+    lengths = torch.tensor([n])
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+    try:
+        with chain_noise() as drawn:
+            got = card.inference(
+                x.to(cuda), lengths.to(cuda), spk_embs=spk.to(cuda),
+                chain_generator=torch.Generator(cuda).manual_seed(2)).cpu()
+        assert torch.backends.cudnn.allow_tf32 is allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    with chain_noise(drawn):
+        ref = cpu.inference(x, lengths, spk_embs=spk)
+    (entry,) = drawn
+    g2 = torch.Generator(cuda).manual_seed(2)
+    x_T = torch.randn((1, T, 5), generator=g2, device=cuda).cpu()
+    assert torch.equal(entry["x_T"], x_T)
+    assert entry["steps"].shape == (100, 1, T, 5)
+    assert torch.isfinite(got).all()
+    err = ((got - ref)[:, :n].abs().max() / ref.abs().max()).item()
+    assert err < 1e-4, err

@@ -291,8 +291,9 @@ def test_instantiate_maps_jax_targets_to_port():
 
 def test_port_imports_no_jax():
     """The port (the serving path with its packed-directory reader and
-    writer, the train steps, the trainers with their datasets, metrics,
-    renders, initializers and CLIs), chip_smoke.py's and both benches' own
+    writer, the diffusion models and the NPSS cascade, the train steps,
+    the trainers with their datasets, metrics, renders, initializers and
+    CLIs), chip_smoke.py's and both benches' own
     imports leave JAX, flax, yaml, msgpack and the JAX package out of the
     process.  The port's name starts with the JAX package's, so the check
     is on exact names and the ``pkg.`` prefix."""
@@ -314,6 +315,10 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.bin"
         ".train_acoustic_multitrack\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.acoustic\n"
+        "import ensemble_svs_with_interactions_tpu_torch.models.acoustic"
+        ".npss\n"
+        "import ensemble_svs_with_interactions_tpu_torch.models.diffsinger\n"
+        "import ensemble_svs_with_interactions_tpu_torch.utils.precision\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.packing\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.yaml_io\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.flax_msgpack\n"

@@ -1,12 +1,15 @@
 """Where the time of one flagship ``svs_ensemble`` call of the PyTorch
 port goes on the card, or of one single-track ``svs`` call.
 
-    python3 tools/profile_svs_cuda.py [--single-track]
+    python3 tools/profile_svs_cuda.py [--single-track | --diffusion]
 
 Builds the flagship engine exactly as ``chip_smoke.py`` does (bench.py's
 widths, random weights from the same seed, 4 copies of the 31.2 s
 fixture) or, with ``--single-track``, the stock single-track voice of
-``chip_smoke.single_phases`` (one copy through ``svs``), warms it up,
+``chip_smoke.single_phases`` (one copy through ``svs``), or, with
+``--diffusion``, the recipe's diffusion voice of
+``chip_smoke.diffusion_phases`` (the same 4 copies, speakers
+``DIFFUSION_SPK_IDS``), warms it up,
 then runs one call under ``torch.profiler`` and
 prints one JSON line: wall time, summed device kernel time and its share
 of the wall (the device's busy share; one stream, so kernels do not
@@ -37,7 +40,11 @@ def main() -> int:
     from ensemble_svs_with_interactions_tpu_torch.io import hts
 
     single = "--single-track" in sys.argv[1:]
-    voice = cs.single_phases() if single else cs.flagship_phases()
+    diffusion = "--diffusion" in sys.argv[1:]
+    voice = (cs.single_phases() if single else cs.diffusion_phases()
+             if diffusion else cs.flagship_phases())
+    spk_ids = (cs.DIFFUSION_SPK_IDS if diffusion
+               else list(range(cs.N_TRACKS)))
     engine = cs.build_engine(
         "cuda", cs.random_state_dicts(voice[1], cs.SEED), voice)
     labels = [hts.load(cs.FIXTURE) for _ in range(cs.N_TRACKS)]
@@ -46,7 +53,7 @@ def main() -> int:
         if single:
             return engine.svs(labels[0].copy())
         return engine.svs_ensemble([lab.copy() for lab in labels],
-                                   spk_ids=list(range(cs.N_TRACKS)))
+                                   spk_ids=spk_ids)
 
     call()
     torch.cuda.synchronize()
@@ -62,7 +69,9 @@ def main() -> int:
     top = sorted(kernels, key=cs.device_us, reverse=True)[:15]
     print(json.dumps({
         "card": cs.card_line(),
-        "call": "svs" if single else "svs_ensemble", "wall_s": wall_s,
+        "call": "svs" if single else "svs_ensemble",
+        "voice": ("single" if single else "diffusion" if diffusion
+                  else "flagship"), "wall_s": wall_s,
         "device_kernel_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall_s,
         "device_kernels_launched": sum(e.count for e in kernels),
