@@ -42,6 +42,16 @@ models, random weights from seed 0, speakers 0, 1, 2, 0 of its 3): the
 same calls and keys, the median RTF under
 ``metric: "rtf_4part_diffusion_multitrack_48k"``.
 
+``--vocoder usfgan`` renders the flagship's ring with the recipe's neural
+vocoder instead of WORLD: the flagship packed with
+``chip_smoke.vocoder_phase`` (the JAX package's
+``configs/vocoder/vocoder_parallel_hn_usfgan.yaml`` generator at its
+widths, random weights from seed 4, a seeded in-scaler), the same calls
+and clock with ``vocoder_type="usfgan"``, the median RTF under
+``metric: "rtf_4part_flagship_usfgan_48k"``, and each timed call's
+generator device time (CUDA events, ``vocoder_ms_all``) beside its
+float32 bound (``vocoder_bound``, ``chip_smoke.vocoder_bound``).
+
 ``--device cpu --tiny`` (narrow widths, the first seconds of the fixture,
 two timed calls; the diffusion chains TINY_CHAIN_STEPS long) exists for
 the CPU test only: it reports no device metric.  Without a card, the
@@ -64,6 +74,7 @@ from chip_smoke import FIXTURE, N_TRACKS, SEED
 
 METRIC = "rtf_4part_flagship_multitrack_48k"
 DIFFUSION_METRIC = "rtf_4part_diffusion_multitrack_48k"
+USFGAN_METRIC = "rtf_4part_flagship_usfgan_48k"
 SINGLE_METRIC = "rtf_single_track_48k"
 POSTFILTER_METRIC = "rtf_single_track_nnsvs_48k"
 WARMUP_CALLS = 1
@@ -109,10 +120,12 @@ def sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def run(device: torch.device, tiny: bool,
-        acoustic: str = "flagship") -> dict:
+def run(device: torch.device, tiny: bool, acoustic: str = "flagship",
+        vocoder: str = "world") -> dict:
     """The 4-part ring with the flagship's acoustic model or, for
-    ``acoustic="diffusion"``, the recipe's diffusion voice."""
+    ``acoustic="diffusion"``, the recipe's diffusion voice; WORLD or, for
+    ``vocoder="usfgan"``, the recipe's neural vocoder packed beside the
+    flagship."""
     from ensemble_svs_with_interactions_tpu_torch.ops import (
         lstm_recurrence as lr,
     )
@@ -126,6 +139,9 @@ def run(device: torch.device, tiny: bool,
     else:
         glob, phases = chip_smoke.flagship_phases(tiny=tiny)
         spk_ids = list(range(N_TRACKS))
+    neural = vocoder != "world"
+    if neural:
+        glob, phases = chip_smoke.with_vocoder((glob, phases), tiny)
     weights = chip_smoke.random_state_dicts(phases, SEED)
     with tempfile.TemporaryDirectory() as model_dir:
         t0 = time.perf_counter()
@@ -139,40 +155,57 @@ def run(device: torch.device, tiny: bool,
         engine.timelag_model, engine.duration_model, engine.acoustic_model)
         for p in m.module.parameters())
     labels = load_labels(tiny)
+    log = []
+    timed = neural and device.type == "cuda"
+    if timed:
+        chip_smoke.time_vocoder(engine.vocoder.module, log)
 
     def call(**kw):
         return engine.svs_ensemble([labels.copy() for _ in range(N_TRACKS)],
-                                   spk_ids=spk_ids, **kw)
+                                   vocoder_type=vocoder, spk_ids=spk_ids,
+                                   **kw)
+
+    def vocoder_ms():
+        return chip_smoke.vocoder_ms(log) if timed else None
 
     t0 = time.perf_counter()
     for _ in range(WARMUP_CALLS):
         call()
     warmup_s = time.perf_counter() - t0
+    vocoder_ms()
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     chip_smoke.reset_launches(lr)
-    times, stages = [], []
+    times, stages, voc_ms = [], [], []
     calls = TINY_CALLS if tiny else TIMED_CALLS
     for _ in range(calls):
         t0 = time.perf_counter()
         wavs, sr = call()
         times.append(time.perf_counter() - t0)
         stages.append(dict(engine.last_stage_times))
+        voc_ms.append(vocoder_ms())
     launches = lr.lstm_recurrence.launches
     peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
             if device.type == "cuda" else None)
     call(blocked_stage_times=True)
     blocked = dict(engine.last_stage_times)
+    vocoder_ms()
 
     order = int(np.argsort(times)[len(times) // 2])
     audio_s = len(wavs[0]) / sr
     widths = sorted({m.w_h.shape[0] for m in engine.acoustic_model.module
                      .modules() if hasattr(m, "w_h")})
+    hop = int(engine.sample_rate * engine.frame_period / 1000)
     return {
-        "metric": DIFFUSION_METRIC if diffusion else METRIC,
+        "metric": (DIFFUSION_METRIC if diffusion else USFGAN_METRIC
+                   if neural else METRIC),
         "value": times[order] / audio_s, "unit": "ratio",
-        "acoustic": acoustic, "spk_ids": spk_ids,
+        "acoustic": acoustic, "spk_ids": spk_ids, "vocoder": vocoder,
+        "vocoder_ms_all": voc_ms if timed else None,
+        "vocoder_bound": (chip_smoke.vocoder_bound(
+            engine.vocoder.module, [len(w) // hop for w in wavs],
+            chip_smoke.VOCODER_SIGNALS, hop) if neural else None),
         "all_runs_sec": times, "audio_seconds": audio_s,
         "rtf_all": [t / audio_s for t in times], "calls": calls,
         "warmup_calls": WARMUP_CALLS, "warmup_sec": warmup_s,
@@ -266,8 +299,15 @@ def main(argv=None) -> int:
                    default="flagship",
                    help="the 4-part ring's acoustic model: the flagship's "
                         "or the recipe's diffusion voice")
+    p.add_argument("--vocoder", choices=("world", "usfgan"),
+                   default="world",
+                   help="the flagship ring's vocoder: WORLD or the "
+                        "recipe's packed hn-uSFGAN")
     args = p.parse_args(argv)
     device = bench_device(args.device)
+    if args.vocoder != "world" and (args.single_track
+                                    or args.acoustic != "flagship"):
+        p.error("--vocoder is for the flagship's 4-part ring")
     if args.single_track:
         if args.acoustic != "flagship":
             p.error("--acoustic is for the 4-part ring")
@@ -275,7 +315,7 @@ def main(argv=None) -> int:
     elif args.post_filter:
         p.error("--post-filter needs --single-track")
     else:
-        out = run(device, args.tiny, args.acoustic)
+        out = run(device, args.tiny, args.acoustic, args.vocoder)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -6,7 +6,8 @@ Drives the port's paths at the verbatim widths of the flagship (random
 weights from a seeded generator): serving, the 4-part pairwise ensemble
 through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and one pair
 through the per-pair API the recipe's synthesis stage calls; the same
-ensemble with the recipe's diffusion voice (two DDPM spectral chains);
+ensemble with the recipe's diffusion voice (two DDPM spectral chains) and
+with the recipe's neural vocoder (hn-uSFGAN);
 single-singer serving through ``SPSVS.svs`` on the stock single-track
 voice, with GV, the learned postfilter, the merlin postfilter and uncoded
 WORLD features; and training, the multitrack acoustic train step as ``bench_train.py`` runs
@@ -90,6 +91,22 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    AR lf0 decoder against a float64 oracle, the mgc and bap chains (the
    card's noise replayed on the CPU) and the vuv model at MODULE_ATOL, and
    the rendered pair at SNR_DB;
+6i. ``vocoder``: the flagship packed with the recipe's neural vocoder
+   (``vocoder_phase``: the JAX package's
+   ``configs/vocoder/vocoder_parallel_hn_usfgan.yaml`` generator at its
+   widths, seeded random weights and in-scaler) and opened by
+   ``SPSVS(model_dir)``, whose ``"auto"`` vocoder is ``usfgan``; a
+   warm-up, then three timed ``svs_ensemble(vocoder_type="auto")`` calls
+   on 4 copies of the fixture with the launch counts reset just before
+   each and read just after, the generator's device time (CUDA events)
+   beside its float32 bound (``vocoder_bound``), the stages and the peak
+   memory; one ``svs()`` of the single-track voice with the same vocoder
+   and one flagship pair, both with ``"auto"``;
+6j. ``vocoder_reference``: the same pack on the CPU against the card over
+   the first 60 labels as a pair's main track: identical streams into
+   both ``predict_waveform``s, the generator's output within
+   VOCODER_RTOL of its peak and the waveform at VOCODER_SNR_DB; the PWG,
+   SiFiGAN, HiFiGAN and a narrowed hn-uSFGAN generator card against CPU;
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -131,6 +148,7 @@ checkout of the repository.  Imports nothing of JAX or the JAX package.
 from __future__ import annotations
 
 import copy
+import inspect
 import json
 import subprocess
 import sys
@@ -420,7 +438,8 @@ def flagship_phases(n_spk: int = 4, tiny: bool = False):
 
 
 # each phase's offset from the weights' seed
-PHASE_SEEDS = {"acoustic": 0, "duration": 1, "timelag": 2, "postfilter": 3}
+PHASE_SEEDS = {"acoustic": 0, "duration": 1, "timelag": 2, "postfilter": 3,
+               "vocoder": 4}
 
 
 def random_state_dicts(phases, seed: int):
@@ -1521,15 +1540,22 @@ def late_copy(labels, lag: int = SUB_LAG):
     return sub
 
 
-def svs_pair(engine, main, sub, spks):
-    """One pair as ``bin/synthesis_multitrack.py``'s ``svs_multitrack``
-    renders it: timing each way, the main track's acoustic features, the
-    host postprocess, WORLD and the waveform's postprocess (int16)."""
+def pair_streams(engine, main, sub, spks):
+    """One pair's host streams as ``bin/synthesis_multitrack.py``'s
+    ``svs_multitrack`` makes them: timing each way, the main track's
+    acoustic features, the host postprocess."""
     dm = engine.predict_timing_multitrack([main, sub], spks)[0]
     dm_sub = engine.predict_timing_multitrack([sub, main], spks[::-1])[0]
     acoustic = engine.predict_acoustic_multitrack([dm, dm_sub], spks)
-    streams = engine.postprocess_acoustic(acoustic, dm)
-    return engine.postprocess_waveform(engine.predict_waveform(streams))
+    return engine.postprocess_acoustic(acoustic, dm)
+
+
+def svs_pair(engine, main, sub, spks, vocoder_type="world"):
+    """One pair as ``svs_multitrack`` renders it: ``pair_streams``, the
+    vocoder and the waveform's postprocess (int16)."""
+    streams = pair_streams(engine, main, sub, spks)
+    return engine.postprocess_waveform(
+        engine.predict_waveform(streams, vocoder_type=vocoder_type))
 
 
 def phase_pairwise(lr, engine, cpu, label):
@@ -1932,6 +1958,350 @@ def phase_diffusion_reference(engine, model_dir, label):
     assert_held(held)
     assert np.isfinite(wavs[0]).all() and np.abs(wavs[0]).max() > 0
     assert snr > SNR_DB, snr
+
+
+# --------------------------------------------------------- neural vocoder
+VOCODER_CONFIG = "vocoder/vocoder_parallel_hn_usfgan.yaml"
+# the generator's output, card against CPU on the same inputs: the largest
+# difference over the output's largest entry (float32 convolutions, TF32
+# off, in another summation order, 55 blocks deep)
+VOCODER_RTOL = 1e-4
+# the waveform through predict_waveform on identical streams, card against
+# CPU (the same host excitation on both)
+VOCODER_SNR_DB = 60.0
+VOCODER_REF_LABELS = 60
+# the excitation channels of the recipe's generator: [sine, noise]
+VOCODER_SIGNALS = 2
+VOC = f"{PKG}.models.vocoders"
+_TINY_NET = {"blockA": 0, "cycleA": 0, "blockF": 0, "cycleF": 0,
+             "cascade_mode": 0}
+
+
+def vocoder_phase(tiny: bool = False):
+    """The recipe's neural vocoder as a packed phase, (model_config,
+    in_scaler, None): VOCODER_CONFIG's ``model.generator`` verbatim (a
+    ``ParallelHnUSFGANGenerator``: aux 65 = mgc 60 + coded bap 5, 5 * 4 *
+    4 * 3 = 240 = the hop at 48 kHz and 5 ms) with the config's
+    ``signal_types``, ``dense_factor``, ``sine_amp`` and ``noise_amp``, and
+    an ``in_vocoder`` scaler from a seeded generator (the coded-bap dims
+    centred near -30 dB).  ``tiny=True`` narrows the widths and the block
+    counts for the CPU tests; the class, the aux layout and the upsampling
+    stay."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
+        StandardScaler,
+    )
+
+    model = shipped_config(VOCODER_CONFIG)["model"]
+    net = model["generator"]
+    if tiny:
+        net.update(
+            residual_channels=4, gate_channels=8, skip_channels=4,
+            harmonic_network_params={**_TINY_NET, "blockA": 4, "cycleA": 2},
+            noise_network_params={**_TINY_NET, "blockF": 2, "cycleF": 2},
+            filter_network_params={**_TINY_NET, "blockF": 4, "cycleF": 2},
+            periodicity_estimator_params={"conv_layers": 2,
+                                          "kernel_size": 3, "dilation": 1})
+    rng = np.random.default_rng(SEED + PHASE_SEEDS["vocoder"])
+    n = net["aux_channels"]
+    mean, scale = rng.normal(0.0, 0.1, n), rng.uniform(0.5, 2.0, n)
+    mean[-5:] -= 30.0
+    scale[-5:] *= 10.0
+    cfg = {"netG": net, **{k: model[k] for k in (
+        "signal_types", "dense_factor", "sine_amp", "noise_amp")}}
+    return cfg, StandardScaler(mean, scale ** 2, scale), None
+
+
+def with_vocoder(voice, tiny: bool = False):
+    """A (global config, phases) voice with ``vocoder_phase`` added."""
+    glob, phases = voice
+    return glob, {**phases, "vocoder": vocoder_phase(tiny)}
+
+
+def tiny_generators() -> dict:
+    """{name: (netG config, excitation channels, or None where the
+    excitation is noise or absent)}: the other generators
+    ``load_vocoder`` serves, at tiny widths with 240x upsampling: PWG (aux
+    67, what the ``pwg`` branch feeds it), SiFiGAN and HiFiGAN (aux 65,
+    their configs'); and the recipe's hn-uSFGAN narrowed
+    (``vocoder_phase(tiny=True)``)."""
+    ups = [5, 4, 4, 3]
+    return {
+        "pwg": ({"_target_": f"{VOC}.PWGGenerator", "layers": 6,
+                 "stacks": 2, "residual_channels": 8, "gate_channels": 16,
+                 "skip_channels": 8, "aux_channels": 67,
+                 "aux_context_window": 2, "upsample_scales": ups}, None),
+        "sifigan": ({"_target_": f"{VOC}.SiFiGANGenerator", "channels": 32,
+                     "aux_channels": 65, "upsample_scales": ups,
+                     "resblock_kernel_sizes": [3, 5],
+                     "resblock_dilations": [[1, 3], [1, 3]]}, 1),
+        "hifigan": ({"_target_": f"{VOC}.HiFiGANGenerator", "channels": 32,
+                     "aux_channels": 65, "upsample_scales": ups,
+                     "resblock_kernel_sizes": [3, 5],
+                     "resblock_dilations": [[1, 3], [1, 3]]}, None),
+        "parallel_hn_usfgan": (vocoder_phase(tiny=True)[0]["netG"],
+                               VOCODER_SIGNALS),
+    }
+
+
+def generator_inputs(net: dict, S, frames: int, seed: int = 0):
+    """Seeded host inputs of a generator, {"x", "c", "d"}: x (1, T, S)
+    from the excitation of a pitch contour with unvoiced frames (unit
+    noise, one channel, where S is None), c (1, frames, aux), d (1, T);
+    T = frames * its upsampling."""
+    from ensemble_svs_with_interactions_tpu_torch.models.vocoders import (
+        SignalGenerator,
+        dilated_factor,
+    )
+
+    scales = net.get("upsample_scales") or net["upsample_params"][
+        "upsample_scales"]
+    hop = int(np.prod(scales))
+    rng = np.random.default_rng(seed)
+    f0 = rng.uniform(80, 800, (frames, 1)) * (rng.uniform(size=(frames, 1))
+                                              > 0.2)
+    types = ["sine", "noise"][:S] if S else ["noise"]
+    x = SignalGenerator(48000, hop, 0.1, 0.003, types)(f0, seed=seed)
+    d = np.repeat(dilated_factor(f0, 48000, 4), hop).astype(np.float32)
+    c = rng.standard_normal((1, frames, net["aux_channels"])).astype(
+        np.float32)
+    return {"x": x[None], "c": c, "d": d[None]}
+
+
+def hold_generator(net: dict, S, device, frames: int = 40, seed: int = 0):
+    """One generator at ``net``'s widths with seeded weights on ``device``
+    and on the CPU, on the same ``generator_inputs``: {the largest
+    difference over the CPU output's largest entry, that largest entry}."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
+        conv_precision,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        cpu = instantiate(net).eval()
+    card = copy.deepcopy(cpu).to(device)
+    inputs = generator_inputs(net, S, frames, seed)
+    args = [torch.from_numpy(inputs[name])
+            for name in inspect.signature(cpu.forward).parameters]
+    outs = []
+    with torch.no_grad():
+        for m, dev in ((cpu, torch.device("cpu")), (card, device)):
+            with conv_precision(dev):
+                outs.append(m(*(a.to(dev) for a in args)).cpu())
+    ref, got = outs
+    peak = ref.abs().max().item()
+    return {"rel_err": (got - ref).abs().max().item() / peak,
+            "max_abs": peak, "finite": bool(torch.isfinite(got).all())}
+
+
+def vocoder_work(module, frames: int, S: int, hop: int):
+    """(FLOPs, bytes) of one generator call on ``frames`` frames: twice
+    the multiply-adds of every convolution the generator runs at this
+    call's shapes, counted on a copy on the meta device (the skip
+    convolutions it does not run are not counted); the weights, x, c and d
+    read once and the waveform written once."""
+    meta = copy.deepcopy(module).to("meta")
+    for m in meta.modules():  # hooks the copy took along (time_vocoder's)
+        m._forward_hooks.clear()
+        m._forward_pre_hooks.clear()
+    macs = [0]
+
+    def count(conv, _, out):
+        macs[0] += (out.numel() * conv.in_channels // conv.groups
+                    * conv.kernel_size[0])
+
+    for m in meta.modules():
+        if isinstance(m, torch.nn.Conv1d):
+            m.register_forward_hook(count)
+    T = frames * hop
+    aux = module.upsample.Conv_0.in_channels
+    with torch.no_grad():
+        meta(torch.empty(1, T, S, device="meta"),
+             torch.empty(1, frames, aux, device="meta"),
+             torch.empty(1, T, device="meta"))
+    params = sum(p.numel() for p in module.parameters())
+    return 2 * macs[0], 4 * (params + T * S + frames * aux + 2 * T)
+
+
+def vocoder_bound(module, frame_counts, S: int, hop: int) -> dict:
+    """The generator's bound over one call's tracks (``frame_counts``):
+    operations at the float32 FMA rate, bytes at the memory rate."""
+    work = [vocoder_work(module, n, S, hop) for n in frame_counts]
+    flops, nbytes = sum(w[0] for w in work), sum(w[1] for w in work)
+    bound_ms, bound_by = bound(1e3 * nbytes / PEAK_BYTES_PER_S,
+                               1e3 * flops / PEAK_FP32_FLOP_PER_S)
+    return {"tflop": flops / 1e12,
+            "mflop_per_sample": flops / (hop * sum(frame_counts)) / 1e6,
+            "bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "operations_ms": 1e3 * flops / PEAK_FP32_FLOP_PER_S,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_vocoder(module, log: list):
+    """Record CUDA events around each call of the generator ``module``
+    into ``log`` as [start, end]."""
+    def start(*_):
+        log.append([torch.cuda.Event(enable_timing=True), None])
+        log[-1][0].record()
+
+    def end(*_):
+        log[-1][1] = torch.cuda.Event(enable_timing=True)
+        log[-1][1].record()
+
+    module.register_forward_pre_hook(start)
+    module.register_forward_hook(end)
+
+
+def vocoder_ms(log: list) -> float:
+    """The generator's device ms summed over ``log``, which it empties."""
+    torch.cuda.synchronize()
+    out = sum(a.elapsed_time(b) for a, b in log)
+    log.clear()
+    return out
+
+
+def phase_vocoder(lr, model_dir, single_dir, labels):
+    """The recipe's neural vocoder through the normal entry point: the
+    flagship with ``vocoder_phase()`` (seeded random weights) packed into
+    ``model_dir`` by ``pack_model`` and opened by ``SPSVS(model_dir)``,
+    whose default vocoder type must be ``usfgan``; a warm-up, then N_CALLS
+    timed ``svs_ensemble(vocoder_type="auto")`` calls on 4 copies of the
+    fixture, the launch counts reset just before each and read just
+    after; the generator's device time a call (CUDA events) beside its
+    float32 bound (``vocoder_bound``), the stages and the peak memory; one
+    ``svs()`` of the single-track voice packed with the same vocoder into
+    ``single_dir``, and one flagship pair (``svs_pair``), both with
+    ``"auto"``.  Returns the engine and the launches by path."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    glob, phases = with_vocoder(flagship_phases())
+    t0 = time.time()
+    pack_phases(model_dir, glob, phases, random_state_dicts(phases, SEED))
+    pack_s = time.time() - t0
+    t0 = time.time()
+    engine = SPSVS(model_dir)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    assert engine.default_vocoder_type == "usfgan", engine
+    module = engine.vocoder.module
+    hop = engine.vocoder.hop_size
+    log = []
+    time_vocoder(module, log)
+
+    def call(**kw):
+        t0 = time.time()
+        wavs, sr = engine.svs_ensemble([lab.copy() for lab in labels],
+                                       vocoder_type="auto",
+                                       spk_ids=list(range(N_TRACKS)), **kw)
+        return wavs, sr, time.time() - t0
+
+    _, _, warm_s = call()
+    vocoder_ms(log)
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(N_CALLS):
+        reset_launches(lr)
+        wavs, sr, sec = call()
+        runs.append({"seconds": sec, "rtf": engine.last_rtf,
+                     "launches": lr.lstm_recurrence.launches,
+                     "stages": dict(engine.last_stage_times),
+                     "vocoder_ms": vocoder_ms(log)})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vb = vocoder_bound(module, [len(w) // hop for w in wavs],
+                       VOCODER_SIGNALS, hop)
+
+    sglob, sphases = with_vocoder(single_phases())
+    pack_phases(single_dir, sglob, sphases,
+                random_state_dicts(sphases, SEED))
+    single = SPSVS(single_dir)
+    time_vocoder(single.vocoder.module, log)
+    reset_launches(lr)
+    t0 = time.time()
+    wav, _ = single.svs(labels[0].copy(), vocoder_type="auto")
+    svs = {"seconds": time.time() - t0, "rtf": single.last_rtf,
+           "launches": lr.lstm_recurrence.launches,
+           "stages": dict(single.last_stage_times),
+           "vocoder_ms": vocoder_ms(log), "length": len(wav),
+           "audible": bool(np.abs(wav.astype(np.int64)).max() > 0)}
+    del single
+    reset_launches(lr)
+    t0 = time.time()
+    pwav = svs_pair(engine, labels[0].copy(), late_copy(labels[0]), [0, 1],
+                    vocoder_type="auto")
+    pair = {"seconds": time.time() - t0,
+            "launches": lr.lstm_recurrence.launches,
+            "vocoder_ms": vocoder_ms(log), "length": len(pwav),
+            "audible": bool(np.abs(pwav.astype(np.int64)).max() > 0)}
+    pair["rtf"] = pair["seconds"] / (len(pwav) / sr)
+    voc = [r["vocoder_ms"] for r in runs]
+    emit({"phase": "vocoder", "config": VOCODER_CONFIG,
+          "params": sum(p.numel() for p in module.parameters()),
+          "pack_s": pack_s, "load_s": load_s, "warmup_s": warm_s,
+          "runs_s": [r["seconds"] for r in runs],
+          "rtf": [r["rtf"] for r in runs],
+          "stages": runs[len(runs) // 2]["stages"],
+          "launches": [r["launches"] for r in runs],
+          "vocoder_ms": voc, "vocoder_bound": vb,
+          "vocoder_over_bound": [v / vb["bound_ms"] for v in voc],
+          "audio_seconds": max(len(w) for w in wavs) / sr,
+          "wav_lengths": [len(w) for w in wavs], "peak_mem_gib": peak,
+          "svs": svs, "pair": pair})
+    for r in runs:
+        assert r["launches"] == LAUNCHES_PER_CALL, r["launches"]
+        assert r["vocoder_ms"] > 0
+    assert svs["launches"] == LAUNCHES_PER_CALL, svs
+    assert pair["launches"] == LAUNCHES_PER_CALL, pair
+    for w in list(wavs) + [wav, pwav]:
+        assert w.dtype == np.int16 and len(w) > 30 * sr, (w.dtype, len(w))
+        assert np.abs(w.astype(np.int64)).max() > 0
+    return engine, {"svs_ensemble_usfgan": sum(r["launches"] for r in runs),
+                    "svs_usfgan": svs["launches"],
+                    "pairwise_usfgan": pair["launches"]}
+
+
+def phase_vocoder_reference(engine, model_dir, label):
+    """The same pack on the CPU against the card, over the first
+    VOCODER_REF_LABELS labels of the fixture as a pair's main track (its
+    sub track sung SUB_LAG late): the card's pair streams fed to both
+    engines' ``predict_waveform("auto")``, the generator's output within
+    VOCODER_RTOL of its largest entry and the waveform at
+    VOCODER_SNR_DB; then the PWG, SiFiGAN and HiFiGAN generators and the
+    narrowed hn-uSFGAN (``tiny_generators``), card against CPU on the same
+    inputs, within VOCODER_RTOL."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    t0 = time.time()
+    cpu = SPSVS(model_dir, device="cpu")
+    main = label[:VOCODER_REF_LABELS]
+    streams = pair_streams(engine, main, late_copy(main), [0, 1])
+    kept = [np.array(a, copy=True) for a in streams]
+    outs = []
+    for e in (engine, cpu):
+        hook = e.vocoder.module.register_forward_hook(
+            lambda _m, _a, out: outs.append(out.detach().cpu()))
+        outs.append(e.predict_waveform(streams, vocoder_type="auto"))
+        hook.remove()
+    card_g, card_w, cpu_g, cpu_w = outs
+    peak = cpu_g.abs().max().item()
+    gen_err = (card_g - cpu_g).abs().max().item() / peak
+    snr = snr_db(cpu_w, card_w)
+    tiny = {name: hold_generator(net, S, engine.device)
+            for name, (net, S) in tiny_generators().items()}
+    emit({"phase": "vocoder_reference", "labels": VOCODER_REF_LABELS,
+          "frames": len(streams[1]), "samples": len(card_w),
+          "streams_identical": all(np.array_equal(a, b)
+                                   for a, b in zip(kept, streams)),
+          "generator_rel_err": gen_err, "generator_max_abs": peak,
+          "rtol": VOCODER_RTOL, "snr_db": snr, "snr_min_db": VOCODER_SNR_DB,
+          "tiny_generators": tiny, "seconds": time.time() - t0})
+    assert all(np.array_equal(a, b) for a, b in zip(kept, streams))
+    assert np.isfinite(card_w).all() and np.abs(card_w).max() > 0
+    assert gen_err < VOCODER_RTOL, gen_err
+    assert snr > VOCODER_SNR_DB, snr
+    for name, r in tiny.items():
+        assert r["finite"] and r["rel_err"] < VOCODER_RTOL, (name, r)
 
 
 def train_batch(B: int, T: int, out_dim: int):
@@ -3036,9 +3406,10 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
     learned postfilter; N_CALLS flagship pairs; N_CALLS svs_ensemble calls
-    of the diffusion voice; TRAIN_STEPS train steps of each train arm,
-    float32 and AMP), by path under ``launches_by_path`` (``path_launches``
-    gives the serving paths' besides svs_ensemble).  The recurrence's
+    of the diffusion voice; N_CALLS svs_ensemble calls, one svs call and
+    one pair with the neural vocoder; TRAIN_STEPS train steps of each
+    train arm, float32 and AMP), by path under ``launches_by_path``
+    (``path_launches`` gives the serving paths' besides svs_ensemble).  The recurrence's
     times, bound and yardstick are summed over one svs_ensemble call's
     launches (LAUNCHES_BY_HIDDEN at B = 4), with the same sums over one
     diffusion-voice call (DIFFUSION_LAUNCHES_BY_HIDDEN at B = 4) under
@@ -3197,6 +3568,13 @@ def main() -> int:
         engine, path_launches["svs_ensemble_diffusion"] = phase_diffusion(
             lr, model_dir, labels)
         phase_diffusion_reference(engine, model_dir, labels[0])
+    del engine
+    with tempfile.TemporaryDirectory() as model_dir, \
+            tempfile.TemporaryDirectory() as single_dir:
+        engine, voc_launches = phase_vocoder(lr, model_dir, single_dir,
+                                             labels)
+        path_launches.update(voc_launches)
+        phase_vocoder_reference(engine, model_dir, labels[0])
     del engine
     train_launches = phase_train(lr)
     f32_runs = phase_train_reference()

@@ -7,14 +7,14 @@ Host (NumPy/SciPy): linguistic featurization, note bookkeeping, duration
 normalization, the GV and merlin postfilters, stream reconstruction,
 trajectory smoothing, the decoding of uncoded WORLD features
 (``gen_world_params``) and the waveform's band-pass and normalization.
-Device (torch): model inference (the learned postfilter too) and the WORLD
+Device (torch): model inference (the learned postfilter too), the WORLD
 vocoder, with frame counts padded to buckets as in the JAX package so both
-see the same padded inputs.
+see the same padded inputs, and the neural vocoders (``pwg``, ``usfgan``),
+unpadded as in the JAX package.
 
 Not ported, and named by the ``NotImplementedError`` that refuses them:
-the neural vocoders (``models/vocoders/``), vibrato streams
-(``ops/pitch.gen_sine_vibrato``), mel features, the mel and band-split
-learned postfilters, and of ``models/diffsinger.py``
+vibrato streams (``ops/pitch.gen_sine_vibrato``), mel features, the mel
+and band-split learned postfilters, and of ``models/diffsinger.py``
 ``MultiSpeakerGaussianDiffusion``, ``FFTBlocksEncoder``,
 ``PitchPredictor`` and ``PitchExtractor``.
 """
@@ -47,6 +47,7 @@ from ensemble_svs_with_interactions_tpu_torch.ops.pitch import (
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.sptk import mc2sp, mcepalpha
 from ensemble_svs_with_interactions_tpu_torch.ops.world.codec import (
+    code_aperiodicity,
     decode_aperiodicity,
     decode_spectral_envelope_np,
     get_cheaptrick_fft_size,
@@ -76,7 +77,6 @@ UNPORTED = {
         f"{_JAX}/models/postfilters.py (MelF0MultistreamPostFilter)",
     "MultistreamConv2dPostFilter":
         f"{_JAX}/models/postfilters.py (MultistreamConv2dPostFilter)",
-    "vocoder": f"{_JAX}/models/vocoders/",
     "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
     "melf0": f"{_JAX}/models/vocoders/ (mel features)",
     **{name: f"{_JAX}/models/diffsinger.py ({name})"
@@ -775,21 +775,34 @@ def predict_waveform(multistream_features, vocoder=None,
                      frame_period: float = 5, use_world_codec: bool = True,
                      feature_type: str = "world", vocoder_type: str = "world",
                      vuv_threshold: float = 0.5, device="cuda", noise=None):
-    """WORLD streams (mgc, lf0, vuv, bap) -> float waveform on the host,
-    synthesized on ``device`` and padded to the frame bucket as in the JAX
-    package (``noise``: (1, T_pad * hop) on ``device``, by default
-    :func:`vocoder_noise` over the padded length).  Coded
-    streams go through the coded-stream vocoder; uncoded features
-    (``use_world_codec=False``) and mel-cepstral aperiodicity (bap dim > 5)
-    through :func:`gen_world_params` and ``synthesize``, padded as the JAX
-    package pads them (f0 with 0, the envelope at its edge, the
+    """WORLD streams (mgc, lf0, vuv, bap) -> float waveform on the host.
+
+    ``"world"``: synthesized on ``device`` and padded to the frame bucket
+    as in the JAX package (``noise``: (1, T_pad * hop) on ``device``, by
+    default :func:`vocoder_noise` over the padded length).  Coded streams
+    go through the coded-stream vocoder; uncoded features
+    (``use_world_codec=False``) and mel-cepstral aperiodicity (bap dim >
+    5) through :func:`gen_world_params` and ``synthesize``, padded as the
+    JAX package pads them (f0 with 0, the envelope at its edge, the
     aperiodicity with 1).  No high-pass here: ``postprocess_waveform``
-    applies the band-pass.  Other vocoders raise."""
-    if vocoder_type != "world" or vocoder is not None:
-        raise unported("vocoder", f"vocoder_type={vocoder_type!r}")
+    applies the band-pass.
+
+    ``"pwg"``: ``vocoder.inference`` on [mgc, lf0, binarized vuv, bap];
+    ``"usfgan"``: ``vocoder.inference(f0, [mgc, bap])`` with F0 = exp(lf0)
+    (0 on unvoiced frames when the vocoder's ``sine_f0_type`` is ``"f0"``)
+    and bap round-tripped through the aperiodicity codec in float64 on the
+    host, 1 at the lowest bin of unvoiced frames; both through
+    ``vocoder_in_scaler`` when given, unpadded, on the vocoder's device.
+    Without a ``vocoder`` they raise ValueError."""
     if feature_type != "world":
         raise unported("melf0", f"feature_type={feature_type!r}")
     mgc, lf0, vuv, bap = multistream_features
+    if vocoder_type in ("pwg", "usfgan"):
+        return _neural_waveform(mgc, lf0, vuv, bap, vocoder,
+                                vocoder_in_scaler, sample_rate,
+                                vocoder_type, vuv_threshold)
+    if vocoder_type != "world":
+        raise ValueError(f"unknown vocoder type: {vocoder_type}")
     T = len(lf0)
     T_pad = _round_up(max(T, 1), FRAME_BUCKET)
     hop = int(sample_rate * frame_period / 1000)
@@ -814,6 +827,34 @@ def predict_waveform(multistream_features, vocoder=None,
                       np.pad(ap, ((0, pad), (0, 0)), constant_values=1.0)))
         wav = synthesize(f0, sp, ap, noise, sample_rate, frame_period)
     return wav[0, : T * hop].cpu().numpy()
+
+
+def _neural_waveform(mgc, lf0, vuv, bap, vocoder, vocoder_in_scaler,
+                     sample_rate, vocoder_type, vuv_threshold):
+    if vocoder is None:
+        raise ValueError(f"vocoder_type={vocoder_type!r} needs a packed "
+                         "neural vocoder (vocoder_model.yaml); this engine "
+                         "has none")
+    if vocoder_type == "pwg":
+        vuv_bin = (vuv > vuv_threshold).astype(np.float32)
+        feats = np.concatenate([mgc, lf0, vuv_bin, bap], axis=-1)
+    else:
+        fftlen = get_cheaptrick_fft_size(sample_rate)
+        ap = decode_aperiodicity(torch.from_numpy(
+            np.ascontiguousarray(bap).astype(np.float64)), sample_rate,
+            fftlen).numpy()
+        ap[vuv.reshape(-1) < vuv_threshold, 0] = 1.0
+        bap_fixed = code_aperiodicity(np.clip(ap, 0.0, 1.0),
+                                      sample_rate).astype(np.float32)
+        feats = np.concatenate([mgc, bap_fixed], axis=-1)
+    if vocoder_in_scaler is not None:
+        feats = np.asarray(vocoder_in_scaler.transform(feats), np.float32)
+    if vocoder_type == "pwg":
+        return np.asarray(vocoder.inference(feats)).reshape(-1)
+    f0 = np.exp(lf0)
+    if getattr(vocoder, "sine_f0_type", "contf0") == "f0":
+        f0[vuv < vuv_threshold] = 0
+    return np.asarray(vocoder.inference(f0, feats)).reshape(-1)
 
 
 def postprocess_waveform(wav: np.ndarray, sample_rate: int, dtype=np.int16,

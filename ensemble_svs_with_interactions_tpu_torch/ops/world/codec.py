@@ -2,7 +2,9 @@
 vocoder: the ``basis="world"`` tables of
 ``ensemble_svs_with_interactions_tpu/ops/world/codec.py`` (pyworld's
 CodeSpectralEnvelope / DecodeSpectralEnvelope, WORLD src/codec.cpp),
-built in NumPy float64, and the aperiodicity decode as a torch gather.
+built in NumPy float64, the aperiodicity decode as a torch gather, and
+its coder (``code_aperiodicity``, host NumPy) for the neural vocoders'
+aperiodicity round trip.
 """
 
 from __future__ import annotations
@@ -96,15 +98,17 @@ def _aperiodicity_interp_weights(fs: int, fft_size: int):
         [[0.0], FREQUENCY_INTERVAL * np.arange(1, n + 1), [fs / 2.0]])
     seg = np.clip(np.searchsorted(anchors, freqs, side="right") - 1, 0, n)
     w = (freqs - anchors[seg]) / (anchors[seg + 1] - anchors[seg])
-    return n, seg.astype(np.int64), w.astype(np.float32)
+    return n, seg.astype(np.int64), w
 
 
 def decode_aperiodicity(coded_aperiodicity, fs: int, fft_size: int):
-    """(..., n_bands) dB codes -> (..., fft//2+1) linear aperiodicity."""
+    """(..., n_bands) dB codes -> (..., fft//2+1) linear aperiodicity, in
+    the codes' dtype (the interpolation weights too: float64 codes decode
+    as the JAX package's host NumPy decodes them)."""
     _, seg, w = _aperiodicity_interp_weights(fs, fft_size)
     dev = coded_aperiodicity.device
     seg = torch.from_numpy(seg).to(dev)
-    w = torch.from_numpy(w).to(dev)
+    w = torch.from_numpy(w).to(dev, coded_aperiodicity.dtype)
     lead = coded_aperiodicity.shape[:-1]
     lo = coded_aperiodicity.new_full(lead + (1,), MIN_DB)
     # WORLD anchors the nyquist end at -kMySafeGuardMinimum dB (~0 dB)
@@ -112,3 +116,17 @@ def decode_aperiodicity(coded_aperiodicity, fs: int, fft_size: int):
     anchors_db = torch.cat([lo, coded_aperiodicity, hi], dim=-1)
     db = anchors_db[..., seg] * (1.0 - w) + anchors_db[..., seg + 1] * w
     return torch.pow(10.0, db / 20.0)
+
+
+def code_aperiodicity(aperiodicity: np.ndarray, fs: int) -> np.ndarray:
+    """(..., fft//2+1) linear aperiodicity -> (..., n_bands) dB band values
+    (host NumPy): the spectrum in dB, interpolated linearly at the band
+    centres k * 3 kHz, as WORLD's CodeAperiodicity does."""
+    fft_size = (aperiodicity.shape[-1] - 1) * 2
+    n = get_num_aperiodicities(fs)
+    pos = (FREQUENCY_INTERVAL * np.arange(1, n + 1)) * fft_size / fs
+    i0 = np.minimum(np.floor(pos).astype(np.int64), fft_size // 2)
+    i1 = np.minimum(i0 + 1, fft_size // 2)
+    w1 = pos - i0
+    db = 20.0 * np.log10(np.maximum(aperiodicity, SAFE_GUARD_MINIMUM))
+    return db[..., i0] * (1.0 - w1) + db[..., i1] * w1

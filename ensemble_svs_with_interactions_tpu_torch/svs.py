@@ -2,24 +2,27 @@
 ``ensemble_svs_with_interactions_tpu/svs.py``.  ``svs`` renders one singer
 with a single-track model: timing and acoustic models on the device, the
 host postprocess (GV, merlin or the packed learned postfilter, stream
-reconstruction, trajectory smoothing), the WORLD vocoder on the device and
-the host's band-pass and normalization.  ``svs_ensemble`` renders an
-N-part ensemble, over a multitrack (cross-conditioned) model, the paper's
-flagship, or over a single-track one, with the device-resident postprocess
-and WORLD vocoder where the configuration allows, else the host
-postprocess.  ``predict_timing_multitrack`` and
-``predict_acoustic_multitrack`` run one pair of a multitrack model, as the
-recipe's synthesis stage (``bin/synthesis_multitrack.py``) calls them.
+reconstruction, trajectory smoothing), the WORLD vocoder or the packed
+neural vocoder on the device and the host's band-pass and normalization.
+``svs_ensemble`` renders an N-part ensemble, over a multitrack
+(cross-conditioned) model, the paper's flagship, or over a single-track
+one, with the device-resident postprocess and WORLD vocoder where the
+configuration allows, else the host postprocess.
+``predict_timing_multitrack`` and ``predict_acoustic_multitrack`` run one
+pair of a multitrack model, as the recipe's synthesis stage
+(``bin/synthesis_multitrack.py``) calls them.
 
 ``SPSVS(model_dir)`` opens a packed model directory, as written by the
 JAX package's ``utils/packing.pack_model`` or the port's own
 (``utils/packing.py``): ``config.yaml``, ``qst.hed``, per phase
 ``{phase}_model.yaml`` and flax-msgpack ``{phase}_model.params``, and the
 scalers' ``.npy`` files; a learned postfilter as ``postfilter_model.*``
-with ``out_postfilter_scaler_*``.  It reads them with the port's own YAML
-and msgpack subsets (``utils/yaml_io.py``, ``utils/flax_msgpack.py``), so it
-needs neither ``yaml`` nor ``msgpack``, and carries the flax variables
-into the port's modules with ``utils/flax_port.flax_to_torch``.
+with ``out_postfilter_scaler_*``; a neural vocoder as ``vocoder_model.*``
+with ``in_vocoder_scaler_*`` (:func:`load_vocoder`).  It reads them with
+the port's own YAML and msgpack subsets (``utils/yaml_io.py``,
+``utils/flax_msgpack.py``), so it needs neither ``yaml`` nor ``msgpack``,
+and carries the flax variables into the port's modules with
+``utils/flax_port.flax_to_torch``.
 
 ``SPSVS.from_parts`` builds the same engine in memory from the things
 ``pack_model`` takes, with the weights as torch state dicts.
@@ -38,6 +41,10 @@ import torch
 
 from ensemble_svs_with_interactions_tpu_torch import gen, gen_multitrack
 from ensemble_svs_with_interactions_tpu_torch.io import hts
+from ensemble_svs_with_interactions_tpu_torch.models.vocoders.usfgan import (
+    USFGANWrapper,
+    VocoderPack,
+)
 from ensemble_svs_with_interactions_tpu_torch.ops import device_post
 from ensemble_svs_with_interactions_tpu_torch.ops.world.synthesis import (
     quantize_peak_norm_int16,
@@ -48,6 +55,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.config import (
     Config,
     instantiate,
     load_config,
+    resolve_target,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     flax_to_torch,
@@ -62,9 +70,6 @@ from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
 # (phase, bucket) of the three models every engine holds
 _PHASES = (("timelag", gen.PHONE_BUCKET), ("duration", gen.PHONE_BUCKET),
            ("acoustic", gen.FRAME_BUCKET))
-# packed parts the JAX package loads and the port does not have yet, by
-# their key in gen.UNPORTED
-_UNPORTED_PARTS = {"vocoder": "vocoder"}
 _STAGES = ("timing", "acoustic", "postprocess_acoustic", "vocoder",
            "postprocess_waveform")
 _VOCODER_TYPES = ("world", "pwg", "usfgan", "auto")
@@ -79,6 +84,61 @@ def build_model(phase: Dict, device, bucket: int) -> gen.ModelPack:
     return gen.ModelPack(module, cfg, bucket=bucket, device=device)
 
 
+def build_vocoder(model_config: Dict, weights, in_scaler, sample_rate: int,
+                  frame_period: float, device):
+    """A neural vocoder from its packed config (``netG`` and, for the
+    source-filter family, ``signal_types``, ``sine_amp``, ``noise_amp``,
+    ``dense_factor``, ``sine_f0_type``) and ``weights``, a state dict or
+    flax variables: (vocoder, in_scaler, vocoder type), as the JAX
+    package's ``svs.load_vocoder`` returns them.  uSFGAN and SiFiGAN
+    generators go into a :class:`USFGANWrapper` (type ``"usfgan"``), any
+    other generator, which takes frame features alone (PWG, HiFiGAN), into
+    a :class:`VocoderPack` (type ``"pwg"``)."""
+    cfg = Config(model_config)
+    net = dict(cfg["netG"])
+    name = resolve_target(net["_target_"]).__name__
+    hop = int(sample_rate * frame_period / 1000.0)
+    source_filter = "USFGAN" in name or "SiFiGAN" in name
+    if source_filter:
+        signal_types = tuple(cfg.get(
+            "signal_types", ["sine", "noise"] if "Hn" in name else ["sine"]))
+        # the JAX generators take their excitation width from x: the
+        # hn-uSFGAN pair splits it into [sine, noise]
+        net["in_channels"] = len(signal_types) // (2 if "Hn" in name else 1)
+    module = instantiate(net)
+    if isinstance(weights, dict) and "params" in weights:
+        flax_to_torch(module, weights)
+    else:
+        module.load_state_dict(weights)
+    if not source_filter:
+        return VocoderPack(module, device), in_scaler, "pwg"
+    return USFGANWrapper(
+        module, sample_rate=sample_rate, hop_size=hop,
+        sine_amp=float(cfg.get("sine_amp", 0.1)),
+        noise_amp=float(cfg.get("noise_amp", 0.003)),
+        signal_types=signal_types,
+        dense_factor=int(cfg.get("dense_factor", 4)),
+        sine_f0_type=str(cfg.get("sine_f0_type", "contf0")),
+        device=device), in_scaler, "usfgan"
+
+
+def load_vocoder(model_dir, sample_rate: int, frame_period: float = 5.0,
+                 device="cuda"):
+    """The packed neural vocoder of ``model_dir`` (``vocoder_model.yaml``,
+    ``vocoder_model.params`` and, where present,
+    ``in_vocoder_scaler_{mean,var,scale}.npy``): :func:`build_vocoder`'s
+    (vocoder, in_scaler, vocoder type)."""
+    model_dir = Path(model_dir)
+    in_scaler = None
+    if (model_dir / "in_vocoder_scaler_mean.npy").exists():
+        in_scaler = load_standard_scaler(model_dir / "in_vocoder_scaler")
+    variables = flax_msgpack.from_bytes(
+        (model_dir / "vocoder_model.params").read_bytes())
+    return build_vocoder(load_config(model_dir / "vocoder_model.yaml"),
+                         variables, in_scaler, sample_rate, frame_period,
+                         device)
+
+
 def _torch_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -91,9 +151,7 @@ class SPSVS:
     """Statistical-parametric SVS engine over a packed model directory.
 
     Args:
-        model_dir: the packed directory (see the module docstring).  A
-            ``vocoder_model.yaml`` in it raises ``NotImplementedError``:
-            neural vocoders are not ported.
+        model_dir: the packed directory (see the module docstring).
         verbose: logging level, as the JAX package's (``utils/logger``).
         device: where the models run; ``"cuda"`` unless asked otherwise.
     """
@@ -101,10 +159,6 @@ class SPSVS:
     def __init__(self, model_dir, verbose: int = 0, device="cuda"):
         device = _torch_device(device)
         self.model_dir = Path(model_dir)
-        for part, key in _UNPORTED_PARTS.items():
-            if (self.model_dir / f"{part}_model.yaml").exists():
-                raise gen.unported(key, f"{self.model_dir}: a packed {part} "
-                                        "model")
         self._setup(load_config(self.model_dir / "config.yaml"),
                     self.model_dir / "qst.hed", device, verbose)
         for phase, bucket in _PHASES:
@@ -117,6 +171,11 @@ class SPSVS:
         if (self.model_dir / "postfilter_model.yaml").exists():
             self.postfilter_model = self._load_model("postfilter")
             self.postfilter_out_scaler = self._load_standard("out_postfilter")
+        self._no_vocoder()
+        if (self.model_dir / "vocoder_model.yaml").exists():
+            (self.vocoder, self.vocoder_in_scaler,
+             self.default_vocoder_type) = load_vocoder(
+                self.model_dir, self.sample_rate, self.frame_period, device)
         self._finish()
 
     @classmethod
@@ -127,7 +186,8 @@ class SPSVS:
         ``phases``: ``{"timelag" | "duration" | "acoustic":
         {"model_config", "state_dict", "in_scaler", "out_scaler"}}``, and
         optionally ``"postfilter"``: ``{"model_config", "state_dict",
-        "out_scaler"}``."""
+        "out_scaler"}`` and ``"vocoder"``: ``{"model_config", "state_dict",
+        "in_scaler"}``."""
         self = cls.__new__(cls)
         self.model_dir = None
         self._setup(Config(config), qst_path, _torch_device(device), 0)
@@ -141,8 +201,19 @@ class SPSVS:
             self.postfilter_model = build_model(
                 phases["postfilter"], self.device, gen.FRAME_BUCKET)
             self.postfilter_out_scaler = phases["postfilter"]["out_scaler"]
+        self._no_vocoder()
+        if "vocoder" in phases:
+            voc = phases["vocoder"]
+            (self.vocoder, self.vocoder_in_scaler,
+             self.default_vocoder_type) = build_vocoder(
+                voc["model_config"], voc["state_dict"], voc.get("in_scaler"),
+                self.sample_rate, self.frame_period, self.device)
         self._finish()
         return self
+
+    def _no_vocoder(self):
+        self.vocoder = self.vocoder_in_scaler = None
+        self.default_vocoder_type = "world"
 
     def _setup(self, config: Config, qst_path, device: torch.device,
                verbose: int):
@@ -195,7 +266,8 @@ class SPSVS:
         JAX engine's ``set_device`` is a no-op: XLA places its arrays.)"""
         self.device = _torch_device(device)
         for pack in (self.timelag_model, self.duration_model,
-                     self.acoustic_model, self.postfilter_model):
+                     self.acoustic_model, self.postfilter_model,
+                     self.vocoder):
             if pack is not None:
                 pack.to(self.device)
         self._fused_cache = None
@@ -206,7 +278,8 @@ class SPSVS:
         return (f"{type(self).__name__}(model_dir="
                 f"{str(self.model_dir) if self.model_dir else None!r}, "
                 f"sample_rate={self.sample_rate}, "
-                f"feature_type={self.feature_type!r}, vocoder='world', "
+                f"feature_type={self.feature_type!r}, "
+                f"vocoder={self.default_vocoder_type!r}, "
                 f"device={str(self.device)!r})")
 
     # ------------------------------------------------------ config lookups
@@ -227,17 +300,16 @@ class SPSVS:
                 tuple(section.get("allowed_range_rest", (-40, 40))))
 
     def _validate_synthesis_args(self, vocoder_type, post_filter_type) -> str:
-        """The lower-cased vocoder type ("auto" is WORLD: the port packs no
-        neural vocoder); unknown names raise ValueError, unported ones
-        NotImplementedError."""
+        """The lower-cased vocoder type, "auto" resolved to the pack's
+        (``default_vocoder_type``); unknown names raise ValueError."""
         vocoder_type = str(vocoder_type).lower()
         if vocoder_type not in _VOCODER_TYPES:
             raise ValueError(f"Unknown vocoder type: {vocoder_type}")
         if post_filter_type not in _POST_FILTER_TYPES:
             raise ValueError(f"Unknown post-filter type: {post_filter_type}")
-        if vocoder_type not in ("world", "auto"):
-            raise gen.unported("vocoder", f"vocoder_type={vocoder_type!r}")
-        return "world"
+        if vocoder_type == "auto":
+            return self.default_vocoder_type
+        return vocoder_type
 
     # ------------------------------------------------------------- stages
     def predict_timelag(self, labels):
@@ -352,9 +424,13 @@ class SPSVS:
     def predict_waveform(self, multistream_features, vocoder_type="world",
                          **kw):
         """A float waveform from host streams, synthesized on the engine's
-        device."""
+        device: WORLD, or the packed neural vocoder (``"pwg"``,
+        ``"usfgan"``; ``"auto"`` is the pack's type)."""
         if vocoder_type == "auto":
-            vocoder_type = "world"
+            vocoder_type = self.default_vocoder_type
+        if vocoder_type in ("pwg", "usfgan"):
+            kw.setdefault("vocoder", self.vocoder)
+            kw.setdefault("vocoder_in_scaler", self.vocoder_in_scaler)
         return gen.predict_waveform(
             multistream_features, sample_rate=self.sample_rate,
             frame_period=self.frame_period,
@@ -583,7 +659,11 @@ class SPSVS:
         tracks run as such batches (``spk_ids`` and ``pairs`` unused).
 
         The signature is the JAX package's.  The postprocess runs on the
-        device where ``_fused_post_ok`` allows, else on the host.
+        device where ``_fused_post_ok`` allows, else on the host.  A neural
+        vocoder (``vocoder_type`` ``"pwg"`` or ``"usfgan"``, or ``"auto"``
+        over a pack with one) renders each track on its own after the host
+        postprocess, then ``postprocess_waveform``, as the JAX engine
+        does.
         ``last_stage_times`` gets its keys; ``*_dispatch`` stages are
         enqueue times on the device path (the device wait lands in the
         vocoder), and ``blocked_stage_times=True`` synchronizes after its
@@ -593,7 +673,8 @@ class SPSVS:
         vocoder applied its high-pass).  Returns (list of wavs,
         sample_rate).
         """
-        self._validate_synthesis_args(vocoder_type, post_filter_type)
+        vocoder_type = self._validate_synthesis_args(vocoder_type,
+                                                     post_filter_type)
         start = time.time()
         N = len(labels_list)
         if self.is_multitrack:
@@ -614,7 +695,9 @@ class SPSVS:
         t_timing = time.time()
         lengths = [len(f) for f in feats]
         blocked = {}
-        if self._fused_post_ok(post_filter_type, lengths):
+        # the device postprocess feeds WORLD only
+        if (vocoder_type == "world"
+                and self._fused_post_ok(post_filter_type, lengths)):
             out_dev, lengths = self.acoustic_model.inference_batch(
                 feats, device_out=True, **infer)
             t_acoustic = time.time()
@@ -642,16 +725,18 @@ class SPSVS:
                 duration_modified, acoustics, post_filter_type, raw_feats)
             t_post = time.time()
             streams_dev = None
-            if self._coded(streams_list):
+            if vocoder_type == "world" and self._coded(streams_list):
                 streams_dev, lengths = self._stream_batch(streams_list)
         t_voc = t_post_blocked if blocked else t_post
         if streams_dev is not None:
             outs = self._vocoder(streams_dev, lengths, vuv_threshold, dtype)
         else:
-            # uncoded features: each track through gen_world_params and
-            # synthesize, then the band-pass, as the JAX engine renders them
+            # a neural vocoder, or uncoded WORLD features (through
+            # gen_world_params and synthesize): each track on its own, then
+            # the band-pass, as the JAX engine renders them
             outs = [self.postprocess_waveform(
-                self.predict_waveform(s, vuv_threshold=vuv_threshold),
+                self.predict_waveform(s, vocoder_type=vocoder_type,
+                                      vuv_threshold=vuv_threshold),
                 dtype=dtype) for s in streams_list]
             self._t_vocoder_device_done = time.time()
         t_end = time.time()

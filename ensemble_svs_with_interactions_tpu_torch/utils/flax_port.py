@@ -7,9 +7,11 @@ module converts its flax subtree to torch layouts:
 
 * ``nn.Linear``    <- Dense ``kernel (in, out)`` (transposed) and ``bias``;
 * ``nn.Conv1d``    <- Conv ``kernel (K, Cin/groups, Cout)`` as
-  (Cout, Cin/groups, K), which covers the depthwise ``conv_downsample``
-  (``feature_group_count = C``) and the diffusion denoiser's dilated
-  convolutions (the dilation is the module's, not the kernel's);
+  (Cout, Cin/groups, K) and ``bias`` where the conv has one, which covers
+  the depthwise ``conv_downsample`` (``feature_group_count = C``), the
+  diffusion denoiser's and the vocoders' dilated convolutions (the
+  dilation is the module's, not the kernel's) and the vocoders'
+  bias-free aux and upsampling convolutions;
 * ``nn.Conv2d``    <- Conv ``kernel (kh, kw, Cin, Cout)`` as
   (Cout, Cin, kh, kw) (the postfilters' NHWC images, NCHW here);
 * ``nn.Embedding`` <- Embed ``embedding``;
@@ -73,8 +75,12 @@ def _convert(module, p, s):
             used.append("bias")
         return out, used, []
     if isinstance(module, nn.Conv1d):
-        return ({"weight": _t(p["kernel"]).permute(2, 1, 0),
-                 "bias": _t(p["bias"])}, ["kernel", "bias"], [])
+        out = {"weight": _t(p["kernel"]).permute(2, 1, 0)}
+        used = ["kernel"]
+        if module.bias is not None:
+            out["bias"] = _t(p["bias"])
+            used.append("bias")
+        return out, used, []
     if isinstance(module, nn.Conv2d):
         return ({"weight": _t(p["kernel"]).permute(3, 2, 0, 1),
                  "bias": _t(p["bias"])}, ["kernel", "bias"], [])
@@ -178,8 +184,11 @@ def _to_flax(module):
             used.append("bias")
         return p, {}, used
     if isinstance(module, nn.Conv1d):
-        return ({"kernel": _n(module.weight.permute(2, 1, 0)),
-                 "bias": _n(module.bias)}, {}, ["weight", "bias"])
+        p, used = {"kernel": _n(module.weight.permute(2, 1, 0))}, ["weight"]
+        if module.bias is not None:
+            p["bias"] = _n(module.bias)
+            used.append("bias")
+        return p, {}, used
     if isinstance(module, nn.Conv2d):
         return ({"kernel": _n(module.weight.permute(2, 3, 1, 0)),
                  "bias": _n(module.bias)}, {}, ["weight", "bias"])

@@ -9,13 +9,18 @@ package's ``SPSVS(model_dir)`` and the port's open what either wrote:
     {phase}_model.params                        # flax msgpack variables
     in_{phase}_scaler_{min,scale}.npy           # MinMax input scaler
     out_{phase}_scaler_{mean,var,scale}.npy     # Standard output scaler
+    in_vocoder_scaler_{mean,var,scale}.npy      # a vocoder's Standard one
+
+Each scaler is written by its type (``utils/scalers.save_scaler``), so a
+``vocoder`` phase with a ``StandardScaler`` in-scaler writes what
+``svs.load_vocoder`` reads back.
 """
 
 from __future__ import annotations
 
 import shutil
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 from ensemble_svs_with_interactions_tpu_torch.utils import flax_msgpack
 from ensemble_svs_with_interactions_tpu_torch.utils.config import save_config
@@ -34,7 +39,7 @@ def save_model_phase(
     phase: str,
     model_config: Dict,
     variables,
-    in_scaler: Optional[MinMaxScaler] = None,
+    in_scaler: Optional[Union[MinMaxScaler, StandardScaler]] = None,
     out_scaler: Optional[StandardScaler] = None,
 ) -> None:
     """Write one phase: its config, its flax-layout ``variables`` and its

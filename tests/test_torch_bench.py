@@ -76,6 +76,49 @@ def test_bench_cuda_diffusion_tiny_prints_one_json_line():
     assert out["lstm_launches_per_call"] == 0 and out["peak_mem_gib"] is None
 
 
+def test_bench_cuda_usfgan_tiny_prints_one_json_line():
+    """``--vocoder usfgan``: the flagship's ring with the recipe's neural
+    vocoder packed beside it, under its own metric, with the generator's
+    bound over the call's tracks (no device time on the CPU)."""
+    out = _one_json_line("bench_cuda.py", "--vocoder", "usfgan")
+    assert out["metric"] == "rtf_4part_flagship_usfgan_48k"
+    assert out["vocoder"] == "usfgan" and out["acoustic"] == "flagship"
+    assert out["unit"] == "ratio" and out["value"] > 0
+    assert len(out["all_runs_sec"]) == out["calls"] == bench_cuda.TINY_CALLS
+    assert out["audio_seconds"] > 3 and len(out["wav_lengths"]) == 4
+    assert out["stages_sec"]["vocoder"] > 0
+    vb = out["vocoder_bound"]
+    assert vb["bound_by"] == "operations" and vb["bound_ms"] > 0
+    assert math.isclose(vb["tflop"] * 1e12, vb["mflop_per_sample"] * 1e6
+                        * sum(out["wav_lengths"]), rel_tol=1e-9)
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["vocoder_ms_all"] is None and out["peak_mem_gib"] is None
+    r = subprocess.run([sys.executable, "bench_cuda.py", "--device", "cpu",
+                        "--vocoder", "usfgan", "--acoustic", "diffusion"],
+                       cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 2 and "--vocoder" in r.stderr
+
+
+def test_vocoder_is_the_shipped_generator():
+    """``chip_smoke.vocoder_phase`` packs the JAX package's shipped
+    hn-uSFGAN generator and its excitation settings verbatim, with a
+    StandardScaler in-scaler over the 65 aux dims; ``tiny`` keeps the
+    class, the aux layout and the 240x upsampling."""
+    import yaml
+
+    shipped = yaml.safe_load((chip_smoke.CONFIGS / chip_smoke.VOCODER_CONFIG)
+                             .read_text())["model"]
+    cfg, in_scaler, out_scaler = chip_smoke.vocoder_phase()
+    assert cfg["netG"] == shipped["generator"]
+    for k in ("signal_types", "dense_factor", "sine_amp", "noise_amp"):
+        assert cfg[k] == shipped[k]
+    assert out_scaler is None and in_scaler.mean_.shape == (65,)
+    assert (in_scaler.scale_ > 0).all()
+    tiny = chip_smoke.vocoder_phase(tiny=True)[0]["netG"]
+    for k in ("_target_", "aux_channels", "upsample_params"):
+        assert tiny[k] == shipped["generator"][k]
+
+
 def test_diffusion_voice_is_the_shipped_config():
     """``chip_smoke.diffusion_acoustic_config`` is the shipped
     ``multitrack_acoustic_npss_diff_mgcbap.yaml`` (and its ``_subtrack``

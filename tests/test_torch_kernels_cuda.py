@@ -19,7 +19,9 @@ multitrack acoustic model's ``inference_main`` at B = 1 (the per-pair
 path), its output within 1e-3 and its modules held as ``chip_smoke``'s
 ``hold_modules`` holds them; and the diffusion voice's bap chain, its
 noise drawn on the card and replayed on the CPU, within 1e-4 of its
-largest entry.
+largest entry.  The neural vocoders' generators (tiny widths, and the
+recipe's hn-uSFGAN at full width through ``USFGANWrapper``) run on the
+card against the CPU within 1e-4 of their output's largest entry.
 """
 
 import pytest
@@ -698,3 +700,51 @@ def test_diffusion_chain_on_the_card_matches_the_cpu(cuda, allow_tf32):
     assert torch.isfinite(got).all()
     err = ((got - ref)[:, :n].abs().max() / ref.abs().max()).item()
     assert err < 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pwg", "sifigan", "hifigan",
+                                  "parallel_hn_usfgan"])
+def test_vocoder_generator_on_the_card_matches_the_cpu(cuda, name):
+    """The generators ``load_vocoder`` serves, at tiny widths with 240x
+    upsampling (``chip_smoke.tiny_generators``), on the card against the
+    CPU on the same inputs: within 1e-4 of the output's largest entry."""
+    import chip_smoke
+
+    net, S = chip_smoke.tiny_generators()[name]
+    held = chip_smoke.hold_generator(net, S, cuda)
+    assert held["finite"] and held["max_abs"] > 0
+    assert held["rel_err"] < chip_smoke.VOCODER_RTOL, held
+
+
+@pytest.mark.cuda
+def test_recipe_vocoder_wrapper_on_the_card_matches_the_cpu(cuda):
+    """The recipe's hn-uSFGAN (``chip_smoke.vocoder_phase``, full width)
+    through ``USFGANWrapper`` on 40 frames: the card within 1e-4 of the
+    CPU's largest sample, in float32 even when the caller turned cuDNN's
+    TF32 on, and the caller's setting left as it was."""
+    import numpy as np
+
+    import chip_smoke
+    from ensemble_svs_with_interactions_tpu_torch.svs import build_vocoder
+
+    cfg, in_scaler, _ = chip_smoke.vocoder_phase()
+    state = chip_smoke.random_state_dicts({"vocoder": (cfg, None, None)},
+                                          0)["vocoder"]
+    cpu, card = (build_vocoder(cfg, state, in_scaler, 48000, 5, dev)[0]
+                 for dev in ("cpu", cuda))
+    rng = np.random.default_rng(0)
+    f0 = rng.uniform(100, 600, (40, 1)) * (rng.uniform(size=(40, 1)) > 0.2)
+    aux = rng.standard_normal((40, 65)).astype(np.float32)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = card.inference(f0, aux)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    ref = cpu.inference(f0, aux)
+    assert got.shape == ref.shape == (40 * 240,)
+    assert np.isfinite(got).all()
+    err = np.abs(got - ref).max() / np.abs(ref).max()
+    assert err < chip_smoke.VOCODER_RTOL, err

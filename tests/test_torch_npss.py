@@ -217,3 +217,72 @@ def test_weights_round_trip():
     assert [p for p, _ in flat(back)] == [p for p, _ in flat(v)]
     for (p, a), (_, b) in zip(flat(back), flat(v)):
         np.testing.assert_array_equal(a, b, str(p))
+
+
+def test_jax_multitrack_step_cannot_train_the_diffusion_voice():
+    """A finding the port does not copy: the JAX multitrack acoustic step
+    passes ``{"dropout", "prenet", "zoneout"}`` keys in training and
+    ``{"prenet"}`` in evaluation (``train/multitrack.py:198-202``), while
+    ``GaussianDiffusion`` draws t and its noise from ``"diffusion"``
+    (``models/diffsinger.py:195``), so its train and eval steps raise
+    ``InvalidRngError`` on the diffusion voice.  The port's step, whose
+    forward takes a generator, computes what the JAX pieces give: the
+    JAX forward with a ``"diffusion"`` key, its t and noise replayed, then
+    JAX's ``multitrack_acoustic_loss`` and pitch regularization, each
+    metric at ATOL; and it takes a finite training step."""
+    import flax.errors
+    import optax
+
+    from ensemble_svs_with_interactions_tpu.train import losses as jax_losses
+    from ensemble_svs_with_interactions_tpu.train import (
+        multitrack as jax_mt,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.train import (
+        multitrack as port_mt,
+    )
+
+    cfg = net_config()
+    module, jmod, v = twins(cfg, seed=1)
+    jax_args, _, lengths = inputs(seed=3)
+    ys = (randn(B, T, 67, seed=4), randn(B, T, 67, seed=5))
+    batch = {"in_feats0": np.array(jax_args[0]),
+             "in_feats1": np.array(jax_args[1]),
+             "out_feats0": ys[0], "out_feats1": ys[1],
+             "spks0": np.asarray(SPKS[0], np.int32),
+             "spks1": np.asarray(SPKS[1], np.int32), "lengths": lengths}
+    weights = {"logf0_diff": 0.5, "mgc_diff": 0.25}
+    model_config = {"stream_sizes": [60, 1, 1, 5]}
+
+    opt = optax.sgd(1e-3)
+    train_step, eval_step = jax_mt.create_multitrack_acoustic_train_step(
+        jmod, opt, model_config, donate=False)
+    state = {"params": v["params"], "batch_stats": v.get("batch_stats", {}),
+             "opt_state": opt.init(v["params"]), "step": 0}
+    jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+    jweights = {k: jnp.asarray(w) for k, w in weights.items()}
+    with pytest.raises(flax.errors.InvalidRngError, match="diffusion"):
+        train_step(state, jbatch, jweights, jax.random.PRNGKey(0))
+    with pytest.raises(flax.errors.InvalidRngError, match="diffusion"):
+        eval_step(state, jbatch, jweights)
+
+    (main, sub), entries = _jax_train(jmod, v, jax_args, ys, train=False)
+    mask = jnp.asarray(valid(lengths), jnp.float32)[:, :, None]
+    feats, lf0_inter, mgc0_inter = jax_mt.multitrack_acoustic_loss(
+        main[0], sub[0], jnp.asarray(ys[0]), jnp.asarray(ys[1]), mask,
+        model_config["stream_sizes"], prediction_type=jmod.prediction_type())
+    pitch = jax_losses.pitch_regularization_loss(main[1], mask, 1.0)
+    ref = {"Loss_Feats": feats, "Loss_Pitch": pitch,
+           "Loss_LogF0_Interaction": lf0_inter,
+           "Loss_MGC-0th_Interaction": mgc0_inter,
+           "Loss": feats + pitch + weights["logf0_diff"] * lf0_inter
+           + weights["mgc_diff"] * mgc0_inter}
+    port_train, port_eval = port_mt.create_multitrack_acoustic_train_step(
+        module, torch.optim.SGD(module.parameters(), lr=1e-3), model_config,
+        device="cpu")
+    with diffsinger.chain_noise(entries):
+        got, _ = port_eval(batch, weights)
+    assert ref["Loss"] > 1.0
+    for k, r in ref.items():
+        np.testing.assert_allclose(got[k], float(r), atol=ATOL, err_msg=k)
+    metrics = port_train(batch, weights, torch.Generator().manual_seed(0))
+    assert all(np.isfinite(m) for m in metrics.values()), metrics

@@ -437,9 +437,24 @@ def test_port_opens_a_packed_directory_without_yaml_msgpack_flax_jax(
         np.testing.assert_array_equal(got[f"arr_{k}"], wav)
 
 
+def _write_vocoder(model_dir):
+    """A tiny packed hn-uSFGAN vocoder, by the port's
+    ``save_model_phase`` with a StandardScaler in-scaler."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.packing import (
+        save_model_phase,
+    )
+    from tests.test_torch_svs_vocoder import USFGAN_CONFIG, _vocoder
+
+    module, sc = _vocoder(USFGAN_CONFIG, 0)
+    save_model_phase(model_dir, "vocoder", USFGAN_CONFIG,
+                     torch_to_flax(module), in_scaler=StandardScaler(*sc))
+
+
 _PF = "ensemble_svs_with_interactions_tpu.models.postfilters"
+# part -> (phase, its yaml text or a writer of the whole phase, what the
+# port raises; None: the port loads it, as the JAX package does)
 UNPORTED_PARTS = {
-    "vocoder": ("vocoder", "netG: {}\n", "vocoder"),
+    "vocoder": ("vocoder", _write_vocoder, None),
     "MelF0MultistreamPostFilter": (
         "postfilter", f"netG:\n  _target_: {_PF}.MelF0MultistreamPostFilter\n"
         "  mel_postfilter: null\n  lf0_postfilter: null\n",
@@ -455,13 +470,22 @@ UNPORTED_PARTS = {
 @pytest.mark.parametrize("part", sorted(UNPORTED_PARTS))
 def test_unported_packed_models_raise(dirs, tmp_path, part):
     """The JAX package loads a packed neural vocoder, and a mel or
-    band-split learned postfilter; the port refuses the directory, naming
-    the JAX module, rather than ignore them."""
+    band-split learned postfilter.  The port loads the vocoder too; it
+    refuses a directory with either postfilter, naming the JAX module,
+    rather than ignore it."""
     d, _ = dirs
     model_dir = tmp_path / "packed"
     shutil.copytree(d["jax"], model_dir)
     name, text, match = UNPORTED_PARTS[part]
-    (model_dir / f"{name}_model.yaml").write_text(text)
+    if callable(text):
+        text(model_dir)
+    else:
+        (model_dir / f"{name}_model.yaml").write_text(text)
+    if match is None:
+        engine = SPSVS(model_dir, device="cpu")
+        assert engine.default_vocoder_type == "usfgan"
+        assert engine.vocoder_in_scaler is not None
+        return
     with pytest.raises(NotImplementedError, match=match):
         SPSVS(model_dir, device="cpu")
 

@@ -240,8 +240,8 @@ def test_svs_ensemble_takes_the_jax_signature(engines):
     dtype, spk_ids, pairs, blocked_stage_times)``: the positional
     ``"world"`` renders what the keyword call renders; other output dtypes
     render as the JAX engine's do (float32 of its lengths and dtype, int32
-    through ``postprocess_waveform``); an unported vocoder raises, an
-    unknown name raises ValueError."""
+    through ``postprocess_waveform``); a neural vocoder type with none
+    packed raises ValueError, as an unknown name does."""
     jax_engine, engine = engines
     labels = [_short_labels(hts) for _ in range(4)]
     wavs, sr = engine.svs_ensemble(labels, "world")
@@ -268,8 +268,10 @@ def test_svs_ensemble_takes_the_jax_signature(engines):
         # -1, 0 or 1, with the peak at +-1
         assert set(np.unique(a).tolist()) <= {-1, 0, 1}
         assert np.abs(a).max() == 1
+    # no packed vocoder: a neural type raises ValueError, as in the JAX
+    # engine
     for kw in ({"vocoder_type": "pwg"}, {"vocoder_type": "usfgan"}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="packed neural vocoder"):
             engine.svs_ensemble(labels, **kw)
     with pytest.raises(ValueError, match="vocoder type"):
         engine.svs_ensemble(labels, "hifigan")
@@ -291,7 +293,8 @@ def test_instantiate_maps_jax_targets_to_port():
 
 def test_port_imports_no_jax():
     """The port (the serving path with its packed-directory reader and
-    writer, the diffusion models and the NPSS cascade, the train steps,
+    writer, the neural vocoders, the diffusion models and the NPSS
+    cascade, the train steps,
     the trainers with their datasets, metrics, renders, initializers and
     CLIs), chip_smoke.py's and both benches' own
     imports leave JAX, flax, yaml, msgpack and the JAX package out of the
@@ -318,6 +321,7 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.models.acoustic"
         ".npss\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.diffsinger\n"
+        "import ensemble_svs_with_interactions_tpu_torch.models.vocoders\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.precision\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.packing\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.yaml_io\n"

@@ -1,7 +1,8 @@
 """Where the time of one flagship ``svs_ensemble`` call of the PyTorch
 port goes on the card, or of one single-track ``svs`` call.
 
-    python3 tools/profile_svs_cuda.py [--single-track | --diffusion]
+    python3 tools/profile_svs_cuda.py [--single-track | --diffusion |
+                                       --vocoder usfgan]
 
 Builds the flagship engine exactly as ``chip_smoke.py`` does (bench.py's
 widths, random weights from the same seed, 4 copies of the 31.2 s
@@ -9,7 +10,9 @@ fixture) or, with ``--single-track``, the stock single-track voice of
 ``chip_smoke.single_phases`` (one copy through ``svs``), or, with
 ``--diffusion``, the recipe's diffusion voice of
 ``chip_smoke.diffusion_phases`` (the same 4 copies, speakers
-``DIFFUSION_SPK_IDS``), warms it up,
+``DIFFUSION_SPK_IDS``), or, with ``--vocoder usfgan``, the flagship with
+the recipe's neural vocoder (``chip_smoke.with_vocoder``, rendering with
+``vocoder_type="usfgan"``), warms it up,
 then runs one call under ``torch.profiler`` and
 prints one JSON line: wall time, summed device kernel time and its share
 of the wall (the device's busy share; one stream, so kernels do not
@@ -39,10 +42,19 @@ def main() -> int:
         return 2
     from ensemble_svs_with_interactions_tpu_torch.io import hts
 
-    single = "--single-track" in sys.argv[1:]
-    diffusion = "--diffusion" in sys.argv[1:]
+    argv = sys.argv[1:]
+    single = "--single-track" in argv
+    diffusion = "--diffusion" in argv
+    vocoder = (argv[argv.index("--vocoder") + 1] if "--vocoder" in argv
+               else "world")
+    if vocoder not in ("world", "usfgan"):
+        print(f"profile_svs_cuda: unknown vocoder {vocoder!r}",
+              file=sys.stderr)
+        return 2
     voice = (cs.single_phases() if single else cs.diffusion_phases()
              if diffusion else cs.flagship_phases())
+    if vocoder != "world":
+        voice = cs.with_vocoder(voice)
     spk_ids = (cs.DIFFUSION_SPK_IDS if diffusion
                else list(range(cs.N_TRACKS)))
     engine = cs.build_engine(
@@ -51,9 +63,9 @@ def main() -> int:
 
     def call():
         if single:
-            return engine.svs(labels[0].copy())
+            return engine.svs(labels[0].copy(), vocoder_type=vocoder)
         return engine.svs_ensemble([lab.copy() for lab in labels],
-                                   spk_ids=spk_ids)
+                                   vocoder_type=vocoder, spk_ids=spk_ids)
 
     call()
     torch.cuda.synchronize()
@@ -71,7 +83,7 @@ def main() -> int:
         "card": cs.card_line(),
         "call": "svs" if single else "svs_ensemble",
         "voice": ("single" if single else "diffusion" if diffusion
-                  else "flagship"), "wall_s": wall_s,
+                  else "flagship"), "vocoder": vocoder, "wall_s": wall_s,
         "device_kernel_ms": busy_us / 1e3,
         "device_busy_share": busy_us / 1e6 / wall_s,
         "device_kernels_launched": sum(e.count for e in kernels),
