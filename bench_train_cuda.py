@@ -4,6 +4,7 @@ float32 and bf16 AMP arms on one NVIDIA GPU.
     python3 bench_train_cuda.py            # float32
     python3 bench_train_cuda.py --amp      # bf16 AMP, as the recipe trains
     python3 bench_train_cuda.py --trainer  # the whole trainer, as above
+    python3 bench_train_cuda.py --vocoder  # the recipe's vocoder GAN step
 
 The flagship multitrack acoustic model (``chip_smoke.
 flagship_acoustic_config``, ``bench.py``'s widths) with random torch
@@ -46,9 +47,20 @@ from the same call, the bare AMP step's frames/s (``train_bench``) under
 ``bare_step``.  A one-epoch run first warms the process (under
 ``warmup_run``: what a fresh process pays); the second run is measured.
 
+``--vocoder`` times the recipe's vocoder GAN step instead (``chip_smoke.
+vocoder_train_bench``: the shipped ``configs/vocoder/
+vocoder_parallel_hn_usfgan.yaml`` verbatim, batch 8 of 64-frame crops at
+48 kHz from ``chip_smoke.write_vocoder_corpus``, 2 warm-up and 5 timed
+steps by CUDA events) and prints ``metric: "vocoder_train_samples_per_
+sec"``: audio samples a second over the median step, beside
+``vocoder_train_bound`` (the step's convolution and matmul operations,
+forward and backward, at the float32 FMA rate), the peak memory and the
+device's busy share in one profiled step.
+
 ``--device cpu --tiny`` (narrow widths, B = 2, T = 64; with ``--trainer``
-a tiny model on a small corpus) exists for the CPU test only: it reports
-no device metric.  Without a card, the default device fails.
+a tiny model on a small corpus; with ``--vocoder`` the tiny hn-uSFGAN of
+``chip_smoke.tiny_vocoder_trainings``) exists for the CPU test only: it
+reports no device metric.  Without a card, the default device fails.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from chip_smoke import TRAIN_B, TRAIN_T, train_bench
 
 METRIC = "train_frames_per_sec_flagship_multitrack"
 TRAINER_METRIC = "trainer_frames_per_sec_flagship_multitrack"
+VOCODER_METRIC = "vocoder_train_samples_per_sec"
 TINY_B, TINY_T = 2, 64
 # --trainer --tiny: 2 segments x 3 singers, crops of 32 frames, 4 a batch
 TINY_CORPUS = dict(n_train=2, n_dev=1, frames=(40, 64))
@@ -123,6 +136,28 @@ def run_trainer(device: torch.device, tiny: bool) -> dict:
             "tiny": tiny, **card_info(device)}
 
 
+def run_vocoder(device: torch.device, tiny: bool) -> dict:
+    """The recipe's vocoder GAN step (``chip_smoke.vocoder_train_bench``)
+    on a synthetic corpus."""
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        if tiny:
+            corpus = chip_smoke.write_vocoder_corpus(root / "in", n=2,
+                                                     frames=80)
+            cfg = chip_smoke.tiny_vocoder_trainings(
+                corpus, root / "exp")["hn_usfgan"]
+            r = chip_smoke.vocoder_train_bench(cfg, device, warmup=1,
+                                               steps=2)
+        else:
+            corpus = chip_smoke.write_vocoder_corpus(
+                root / "in", **chip_smoke.VOCODER_TRAIN_CORPUS)
+            cfg = chip_smoke.vocoder_train_config(corpus, root / "exp")
+            r = chip_smoke.vocoder_train_bench(cfg, device)
+    return {"metric": VOCODER_METRIC, "value": r["samples_per_sec"],
+            "unit": "samples/s", "config": chip_smoke.VOCODER_CONFIG, **r,
+            "tiny": tiny, **card_info(device)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
@@ -132,10 +167,16 @@ def main(argv=None) -> int:
                    help="the bf16 AMP arm (use_amp=True)")
     p.add_argument("--trainer", action="store_true",
                    help="the whole trainer (the recipe's acoustic phase)")
+    p.add_argument("--vocoder", action="store_true",
+                   help="the recipe's vocoder GAN step")
     args = p.parse_args(argv)
     device = bench_device(args.device)
-    out = (run_trainer(device, args.tiny) if args.trainer
-           else run(device, args.tiny, args.amp))
+    if args.vocoder:
+        out = run_vocoder(device, args.tiny)
+    elif args.trainer:
+        out = run_trainer(device, args.tiny)
+    else:
+        out = run(device, args.tiny, args.amp)
     print(json.dumps(out), flush=True)
     return 0
 

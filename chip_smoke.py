@@ -7,7 +7,8 @@ weights from a seeded generator): serving, the 4-part pairwise ensemble
 through ``SPSVS.svs_ensemble`` as ``bench.py`` runs it, and one pair
 through the per-pair API the recipe's synthesis stage calls; the same
 ensemble with the recipe's diffusion voice (two DDPM spectral chains) and
-with the recipe's neural vocoder (hn-uSFGAN);
+with the recipe's neural vocoder (hn-uSFGAN), and that vocoder's
+training (its GAN step, its CLI and the recipe's stage-10 pack);
 single-singer serving through ``SPSVS.svs`` on the stock single-track
 voice, with GV, the learned postfilter, the merlin postfilter and uncoded
 WORLD features; and training, the multitrack acoustic train step as ``bench_train.py`` runs
@@ -107,6 +108,24 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    both ``predict_waveform``s, the generator's output within
    VOCODER_RTOL of its peak and the waveform at VOCODER_SNR_DB; the PWG,
    SiFiGAN, HiFiGAN and a narrowed hn-uSFGAN generator card against CPU;
+6k. ``vocoder_train``: the recipe's vocoder training at full width, the
+   JAX package's ``configs/vocoder/vocoder_parallel_hn_usfgan.yaml``
+   verbatim (``vocoder_train_config``) on a synthetic corpus written on
+   the host (``write_vocoder_corpus``): VOCODER_TRAIN_WARMUP warm-up and
+   VOCODER_TRAIN_STEPS GAN steps of 8 x 15,360 samples timed by CUDA
+   events, the peak memory, one profiled step and the step's operation
+   bound (``vocoder_train_bench``, which ``bench_train_cuda.py
+   --vocoder`` runs); then ``bin/train_vocoder.py`` for 1 epoch of
+   VOCODER_CLI_STEPS steps, its ``best_loss.ckpt`` packed by the stage-10
+   step (``train/vocoder_trainer.pack_vocoder``) into the single-track
+   voice's pack, opened by ``SPSVS(model_dir)`` (``"auto"`` is
+   ``usfgan``) and one ``svs()`` of VOCODER_REF_LABELS labels, its launch
+   counts reset just before and read just after;
+6l. ``vocoder_train_reference``: one GAN step of hn-uSFGAN (UnivNet
+   discriminators, mel and source losses), SiFiGAN (HiFiGAN multi-scale
+   multi-period, feature matching) and PWG at tiny widths
+   (``tiny_vocoder_trainings``), card against CPU in float32 and float64
+   (``hold_gan_step``);
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -2304,6 +2323,369 @@ def phase_vocoder_reference(engine, model_dir, label):
         assert r["finite"] and r["rel_err"] < VOCODER_RTOL, (name, r)
 
 
+# ------------------------------------------------ neural vocoder training
+VOCODER_SIFIGAN_CONFIG = "vocoder/vocoder_sifigan.yaml"
+VOCODER_PWG_CONFIG = "vocoder/vocoder_pwg.yaml"
+# the full-width step's batch is the config's: 8 crops of 64 frames at 48
+# kHz, hop 240 (15,360 samples a crop)
+VOCODER_TRAIN_WARMUP = 2
+VOCODER_TRAIN_STEPS = 5
+# the synthetic corpus, written on the host: utterances x frames
+VOCODER_TRAIN_CORPUS = dict(n=4, frames=400)
+# the CLI's run: 1 epoch of 3 steps
+VOCODER_CLI_STEPS = 3
+# one GAN step card against CPU at tiny widths: the losses within 1e-5
+# relative, each network's gradient within 1e-4 of its L2 norm, or, where
+# the float32 runs differ by more, the card no farther from the float64
+# step than AR_HEADROOM times the CPU
+VOCODER_TRAIN_LOSS_RTOL = 1e-5
+VOCODER_TRAIN_GRAD_RTOL = 1e-4
+# the log-spectral losses are float32-conditioned at ~1e-5 (the mel L1:
+# the CPU's float32 step 9e-6 from its float64 one), and the residual
+# source loss of a pure-sine target worse (CheapTrick's log envelope of a
+# sine reads bins on the float32 FFT's noise floor: the CPU 4.4e-5 from
+# float64, the card 1.67e-4, 3.8x), so a float32 run is also held by its
+# distance from the float64 step, within VOCODER_HEADROOM times the
+# CPU's; the float64 runs, card and CPU, agree within VOCODER_F64_RTOL
+VOCODER_HEADROOM = 4.0
+VOCODER_F64_RTOL = 1e-9
+VOCODER_REF_B, VOCODER_REF_FRAMES = 2, 32
+
+
+def write_vocoder_corpus(root, n: int, frames: int, sr: int = 48000,
+                         hop: int = 240, stream_sizes=(60, 1, 1, 5),
+                         seed: int = SEED):
+    """``n`` utterances of ``frames`` frames as ``bin/prepare_voc_features``
+    writes them: ``{utt}-feats.npy`` (mgc, lf0, vuv, bap: small seeded
+    noise, a gliding lf0, voiced throughout) and ``{utt}-wave.npy`` (the
+    glide's sine at 0.3), as the JAX package's vocoder CLI test builds its
+    corpus (tests/test_vocoders.py:260-275), here at ``sr``."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    mgc = stream_sizes[0]
+    for i in range(n):
+        feats = (rng.normal(size=(frames, sum(stream_sizes))) * 0.1).astype(
+            np.float32)
+        lf0 = np.log(200 + 20 * np.sin(np.arange(frames) / 10 + i))
+        feats[:, mgc] = lf0
+        feats[:, mgc + 1] = 1.0
+        phase = 2 * np.pi * np.cumsum(np.repeat(np.exp(lf0), hop)) / sr
+        np.save(root / f"u{i}-feats.npy", feats)
+        np.save(root / f"u{i}-wave.npy",
+                (0.3 * np.sin(phase)).astype(np.float32))
+    return root
+
+
+def vocoder_train_config(in_dir, out_dir, rel: str = VOCODER_CONFIG,
+                         model=None, data=None, **train):
+    """A shipped vocoder config (``configs/vocoder/*.yaml``) verbatim with
+    its corpus and output directories set; ``model``, ``data`` and
+    ``train`` replace parts of their sections."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        _wrap,
+        merge,
+    )
+
+    cfg = shipped_config(rel)
+    cfg["data"]["train_no_dev"]["in_dir"] = str(in_dir)
+    cfg["train"]["out_dir"] = str(out_dir)
+    return merge(_wrap(cfg), {"model": model or {}, "data": data or {},
+                              "train": train})
+
+
+def tiny_vocoder_trainings(in_dir, out_dir) -> dict:
+    """{family: config} of one GAN step each, from the shipped configs'
+    data and train sections with tiny networks (48 kHz, 240x upsampling,
+    B = VOCODER_REF_B crops of VOCODER_REF_FRAMES frames): the recipe's
+    hn-uSFGAN (``vocoder_phase(tiny=True)``) with a UnivNet
+    multi-resolution multi-period discriminator and both of its losses;
+    SiFiGAN with a HiFiGAN multi-scale multi-period discriminator, the mel
+    loss and feature matching; PWG with its discriminator and the
+    multi-resolution STFT loss, its adversarial gate open."""
+    period = {"channels": 4, "max_downsample_channels": 16}
+    gens = tiny_generators()
+    families = {
+        "hn_usfgan": (VOCODER_CONFIG, gens["parallel_hn_usfgan"][0], {
+            "spectral_discriminator_params": {"channels": 4},
+            "period_discriminator_params": period}, {}),
+        "sifigan": (VOCODER_SIFIGAN_CONFIG, gens["sifigan"][0], {
+            "scales": 2, "scale_discriminator_params": {
+                "channels": 8, "max_downsample_channels": 32,
+                "max_groups": 4},
+            "period_discriminator_params": period}, {}),
+        "pwg": (VOCODER_PWG_CONFIG, {**gens["pwg"][0], "aux_channels": 65},
+                {"layers": 4, "conv_channels": 8},
+                {"discriminator_train_start_steps": 0}),
+    }
+    return {family: vocoder_train_config(
+        in_dir, out_dir, rel, {"generator": gen, "discriminator": dis},
+        {"crop_frames": VOCODER_REF_FRAMES}, batch_size=VOCODER_REF_B,
+        **extra) for family, (rel, gen, dis, extra) in families.items()}
+
+
+def build_gan(cfg, device, dtype=torch.float32, seed: int = 0):
+    """``train_vocoder``'s networks and step for ``cfg`` on ``device``:
+    the generator and discriminator with the flax schemes' weights (seeds
+    ``seed`` and ``seed + 1``), in ``dtype``; (step, G, D)."""
+    from ensemble_svs_with_interactions_tpu_torch.train.vocoder_trainer import (  # noqa: E501
+        build_generator,
+        gan_step,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_module,
+    )
+
+    gen = init_module(build_generator(cfg), seed=seed).to(dtype)
+    dis = init_module(instantiate(cfg.model.discriminator),
+                      seed=seed + 1).to(dtype)
+    return gan_step(cfg, gen, dis, device), gen, dis
+
+
+def vocoder_batches(cfg, n: int, device, dtype=torch.float32):
+    """``n`` batches of ``cfg``'s crops (``train_vocoder``'s, from numpy
+    seed SEED), on ``device``."""
+    from ensemble_svs_with_interactions_tpu_torch.train.vocoder_trainer import (  # noqa: E501
+        vocoder_crops,
+    )
+
+    crops, rng = vocoder_crops(cfg), np.random.default_rng(SEED)
+    B = int(cfg.train.batch_size)
+    return [{k: torch.from_numpy(v).to(device, dtype)
+             for k, v in crops.batch(rng, B).items()} for _ in range(n)]
+
+
+def vocoder_train_bound(cfg, step, batch) -> dict:
+    """The step's bound: the convolutions' and matmuls' operations of one
+    step, forward and backward (``FlopCounterMode``; the FFTs and the
+    elementwise work are left out), at the float32 FMA rate, against the
+    bytes it must move, each weight, gradient and Adam moment read and
+    written once and the batch read once, at the memory rate."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    n_params = sum(p.numel() for opt in step.optimizers
+                   for g in opt.param_groups for p in g["params"])
+    counter = FlopCounterMode(display=False)
+    with counter:
+        step(batch)
+    flops = counter.get_total_flops()
+    nbytes = 4 * (7 * n_params + sum(v.numel() for v in batch.values()))
+    bound_ms, bound_by = bound(1e3 * nbytes / PEAK_BYTES_PER_S,
+                               1e3 * flops / PEAK_FP32_FLOP_PER_S)
+    return {"tflop": flops / 1e12, "params": n_params,
+            "bytes_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+            "operations_ms": 1e3 * flops / PEAK_FP32_FLOP_PER_S,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def vocoder_train_bench(cfg, device, warmup: int = VOCODER_TRAIN_WARMUP,
+                        steps: int = VOCODER_TRAIN_STEPS) -> dict:
+    """``cfg``'s GAN step on ``device``: ``warmup`` steps, ``steps`` timed
+    ones (CUDA events around each; each step ends in the host read of its
+    two finite flags), the peak memory of the timed ones, one step under
+    ``torch.profiler`` (``profile_step``: the device's busy share of that
+    step's wall, which the profiler's own host work lengthens, and its
+    kernel time, also given over the median timed step) and one under
+    ``FlopCounterMode`` (``vocoder_train_bound``).  On the CPU
+    (the bench's test) the host clock times the steps and the device
+    numbers are None."""
+    card = device.type == "cuda"
+    step, gen, dis = build_gan(cfg, device)
+    batches = vocoder_batches(cfg, warmup + steps, device)
+    samples = batches[0]["y"].numel()
+    for b in batches[:warmup]:
+        step(b)
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for b in batches[warmup:]:
+        if card:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            metrics = step(b)
+            end.record()
+            ms.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            metrics = step(b)
+            ms.append(1e3 * (time.perf_counter() - t0))
+    if card:
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in ms]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if card else None
+    prof = profile_step(lambda: step(batches[-1])) if card else {}
+    vb = vocoder_train_bound(cfg, step, batches[-1])
+    median = float(np.median(ms))
+    values = {k: float(v) for k, v in metrics.items()}
+    return {"batch": int(cfg.train.batch_size),
+            "samples_per_step": samples, "step_ms": ms,
+            "median_step_ms": median,
+            "samples_per_sec": samples / (median / 1e3),
+            "peak_mem_gib": peak,
+            "params": {"G": sum(p.numel() for p in gen.parameters()),
+                       "D": sum(p.numel() for p in dis.parameters())},
+            "vocoder_train_bound": vb,
+            "over_bound": median / vb["bound_ms"],
+            "device_busy_share": prof.get("device_busy_share"),
+            "device_kernel_ms": prof.get("device_kernel_ms"),
+            "kernel_ms_over_median_step": (
+                prof["device_kernel_ms"] / median if card else None),
+            "top_kernels": prof.get("top_kernels", [])[:8],
+            "metrics": values,
+            "finite": all(np.isfinite(v) for v in values.values())}
+
+
+def phase_vocoder_train(lr, label):
+    """The recipe's vocoder training at full width: the shipped
+    ``vocoder_parallel_hn_usfgan.yaml`` (the 2,527,018-weight generator,
+    the UnivNet multi-resolution multi-period discriminator, the mel and
+    source losses, Adam) on a synthetic corpus (``write_vocoder_corpus``),
+    its step timed (``vocoder_train_bench``); then ``bin/train_vocoder.py``
+    for 1 epoch of VOCODER_CLI_STEPS steps, the stage-10 pack
+    (``train/vocoder_trainer.pack_vocoder``) into the single-track voice's
+    pack, ``SPSVS(model_dir)`` (its ``"auto"`` vocoder must be
+    ``usfgan``) and one ``svs()`` of the first VOCODER_REF_LABELS labels
+    with the launch counts reset just before and read just after.
+    Returns the render's launches by path."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import (
+        train_vocoder as cli,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+    from ensemble_svs_with_interactions_tpu_torch.train.vocoder_trainer import (  # noqa: E501
+        pack_vocoder,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        save_config,
+    )
+
+    device = torch.device("cuda")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        corpus = write_vocoder_corpus(root / "in", **VOCODER_TRAIN_CORPUS)
+        cfg = vocoder_train_config(corpus, root / "exp")
+        bench = vocoder_train_bench(cfg, device)
+        save_config(cfg, root / "config.yaml")
+        t1 = time.time()
+        rc = cli.main([str(root / "config.yaml"), "train.nepochs=1",
+                       f"train.steps_per_epoch={VOCODER_CLI_STEPS}"])
+        cli_s = time.time() - t1
+        logged = json.loads((root / "exp" / "metrics.jsonl").read_text()
+                            .splitlines()[-1])
+        glob, phases = single_phases()
+        pack_phases(root / "pack", glob, phases,
+                    random_state_dicts(phases, SEED))
+        pack_vocoder(cfg, root / "exp", root / "pack")
+        engine = SPSVS(root / "pack")
+        kind = engine.default_vocoder_type
+        reset_launches(lr)
+        wav, sr = engine.svs(label[:VOCODER_REF_LABELS].copy(),
+                             vocoder_type="auto", dtype=np.float32)
+        launches = lr.lstm_recurrence.launches
+        best = (root / "exp" / "best_loss.ckpt").exists()
+    emit({"phase": "vocoder_train", "config": VOCODER_CONFIG,
+          "corpus": VOCODER_TRAIN_CORPUS, **bench,
+          "cli": {"rc": rc, "seconds": cli_s, "steps": VOCODER_CLI_STEPS,
+                  "metrics": logged, "best_loss_ckpt": best},
+          "svs": {"vocoder_type": kind, "labels": VOCODER_REF_LABELS,
+                  "samples": len(wav), "sample_rate": sr,
+                  "finite": bool(np.isfinite(wav).all()),
+                  "max_abs": float(np.abs(wav).max()),
+                  "launches": launches},
+          "seconds": time.time() - t0})
+    assert bench["finite"], bench["metrics"]
+    assert bench["params"]["G"] == 2527018, bench["params"]
+    assert rc == 0 and best and logged["step"] == 1, logged
+    assert all(np.isfinite(v) for v in logged.values()), logged
+    assert kind == "usfgan", kind
+    assert np.isfinite(wav).all() and np.abs(wav).max() > 0
+    assert launches > 0, launches
+    return {"svs_trained_vocoder": launches}
+
+
+def reference_gan_step(cfg, device, dtype=torch.float32) -> tuple:
+    """One GAN step of ``cfg`` on ``device`` in ``dtype`` from the flax
+    schemes' weights and the first crop batch: (metrics, G's gradient, D's
+    gradient), the gradients flat, float64 on the host and unclipped
+    (each network's optimizer stepped on them scaled by min(1, clip /
+    norm))."""
+    step, gen, dis = build_gan(cfg, device, dtype)
+    metrics = {k: float(v) for k, v in step(
+        vocoder_batches(cfg, 1, device, dtype)[0]).items()}
+
+    def grad(module, norm):
+        flat = torch.cat([p.grad.reshape(-1) for p in module.parameters()])
+        clip = min(1.0, 10.0 / max(norm, 1e-12))
+        return flat.double().cpu() / clip
+
+    return (metrics, grad(gen, metrics["GradNorm_G"]),
+            grad(dis, metrics["GradNorm_D"]))
+
+
+def hold_gan_step(cfg, device) -> dict:
+    """``reference_gan_step`` of ``cfg`` on ``device`` against the CPU,
+    in float32 and in float64.  Each loss (relative to its value) and
+    each network's gradient (L2, relative to its norm) holds when the
+    float32 runs agree within VOCODER_TRAIN_LOSS_RTOL /
+    VOCODER_TRAIN_GRAD_RTOL, or when the card's float32 run is no farther
+    from the float64 step than VOCODER_HEADROOM times the CPU's; and, in
+    every case, when the float64 runs agree within VOCODER_F64_RTOL (the
+    card computes the CPU's function)."""
+    cpu = torch.device("cpu")
+    runs = {(side, dtype): reference_gan_step(cfg, dev, dtype)
+            for side, dev in (("card", device), ("cpu", cpu))
+            for dtype in (torch.float32, torch.float64)}
+    card, ref = runs[("card", torch.float32)], runs[("cpu", torch.float32)]
+    card64, f64 = (runs[("card", torch.float64)],
+                   runs[("cpu", torch.float64)])
+
+    def judge(got, want, got64, oracle, dist, tol):
+        rel, rel64 = dist(got, want), dist(got64, oracle)
+        to_oracle, ref_to_oracle = dist(got, oracle), dist(want, oracle)
+        return {"rel": rel, "card_to_f64": to_oracle,
+                "cpu_to_f64": ref_to_oracle, "f64_rel": rel64,
+                "ok": (rel < tol or to_oracle <= VOCODER_HEADROOM
+                       * ref_to_oracle) and rel64 < VOCODER_F64_RTOL}
+
+    def scalar(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    losses = {k: judge(card[0][k], ref[0][k], card64[0][k], f64[0][k],
+                       scalar, VOCODER_TRAIN_LOSS_RTOL)
+              for k in ref[0] if k.startswith("Loss") and f64[0][k] != 0}
+    grads = {net: judge(card[i], ref[i], card64[i], f64[i], l2,
+                        VOCODER_TRAIN_GRAD_RTOL)
+             for i, net in ((1, "G"), (2, "D"))}
+    return {"losses": losses, "grads": grads, "metrics_card": card[0],
+            "ok": all(r["ok"] for r in (*losses.values(),
+                                        *grads.values()))}
+
+
+def phase_vocoder_train_reference():
+    """One GAN step of each family (``tiny_vocoder_trainings``) on the card
+    against the same step on the CPU, in float32 and float64
+    (``hold_gan_step``)."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        corpus = write_vocoder_corpus(Path(root) / "in", n=2, frames=80)
+        out = {family: hold_gan_step(cfg, torch.device("cuda"))
+               for family, cfg in tiny_vocoder_trainings(
+                   corpus, Path(root) / "exp").items()}
+    emit({"phase": "vocoder_train_reference",
+          "loss_rtol": VOCODER_TRAIN_LOSS_RTOL,
+          "grad_rtol": VOCODER_TRAIN_GRAD_RTOL, "families": out,
+          "seconds": time.time() - t0})
+    for family, r in out.items():
+        assert r["ok"], (family, r)
+
 def train_batch(B: int, T: int, out_dim: int):
     """bench_train.py's batch (its lines 102-111): numpy seed 0."""
     rng = np.random.default_rng(0)
@@ -3407,7 +3789,9 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
     learned postfilter; N_CALLS flagship pairs; N_CALLS svs_ensemble calls
     of the diffusion voice; N_CALLS svs_ensemble calls, one svs call and
-    one pair with the neural vocoder; TRAIN_STEPS train steps of each
+    one pair with the neural vocoder; one svs call of VOCODER_REF_LABELS
+    labels with the vocoder ``vocoder_train`` trained; TRAIN_STEPS train
+    steps of each
     train arm, float32 and AMP), by path under ``launches_by_path``
     (``path_launches`` gives the serving paths' besides svs_ensemble).  The recurrence's
     times, bound and yardstick are summed over one svs_ensemble call's
@@ -3576,6 +3960,8 @@ def main() -> int:
         path_launches.update(voc_launches)
         phase_vocoder_reference(engine, model_dir, labels[0])
     del engine
+    path_launches.update(phase_vocoder_train(lr, labels[0]))
+    phase_vocoder_train_reference()
     train_launches = phase_train(lr)
     f32_runs = phase_train_reference()
     amp_launches = phase_train_amp(lr)

@@ -1,10 +1,26 @@
-"""Neural vocoders for serving (counterparts in
+"""Neural vocoders (counterparts in
 ``ensemble_svs_with_interactions_tpu/models/vocoders/``): the uSFGAN
 family, Parallel WaveGAN, SiFiGAN and HiFiGAN generators, the inference
-wrappers and the host excitation helpers.  The discriminators and
-``CheapTrickLayer`` belong to vocoder training, which the port has not
-ported."""
+wrappers and the host excitation helpers for serving; for training
+(``train/vocoder.py``), the generators' ``train_outputs``, the GAN
+discriminators (PWG, HiFiGAN multi-period / multi-scale, UnivNet
+multi-resolution spectral) and ``CheapTrickLayer``."""
 
+from ensemble_svs_with_interactions_tpu_torch.models.vocoders.cheaptrick import (  # noqa: F401
+    CheapTrickLayer,
+    source_regularization_loss,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.vocoders.discriminators import (  # noqa: F401
+    HiFiGANMultiPeriodDiscriminator,
+    HiFiGANMultiScaleDiscriminator,
+    HiFiGANMultiScaleMultiPeriodDiscriminator,
+    HiFiGANPeriodDiscriminator,
+    HiFiGANScaleDiscriminator,
+    PWGDiscriminator,
+    UnivNetMultiResolutionMultiPeriodDiscriminator,
+    UnivNetMultiResolutionSpectralDiscriminator,
+    UnivNetSpectralDiscriminator,
+)
 from ensemble_svs_with_interactions_tpu_torch.models.vocoders.sifigan import (  # noqa: F401
     HiFiGANGenerator,
     SiFiGANGenerator,

@@ -8,8 +8,9 @@ sine excitation down to each stage's rate and runs it through a
 quasi-periodic block (pitch-dependent taps, ``usfgan.pd_indexing``) before
 adding it in.  Layouts as in ``usfgan.py``: (B, T, C) at the boundary,
 (B, C, T) inside, flax scope names on the submodules.  ``forward`` returns
-the waveform; SiFiGAN's source head (``qp_out``, ``source_out``), which
-training reads, keeps its weights but is not computed.
+the waveform; SiFiGAN's ``train_outputs`` also runs the source head
+(``qp_out``, ``source_out``) and returns the JAX ``__call__``'s
+(waveform, source) pair.
 """
 
 from __future__ import annotations
@@ -122,9 +123,8 @@ class SiFiGANGenerator(_FilterStages, BaseModel):
         self.qp_out = _QPResBlock(src)
         self.source_out = nn.Conv1d(src, out_channels, 1)
 
-    def forward(self, x, c, d):
-        """x (B, T, S) excitation, c (B, T', aux), d (B, T) -> waveform
-        (B, T, out)."""
+    def _filter(self, x, c, d):
+        """(waveform (B, T, out), source embedding (B, C / 4, T), d)."""
         T = x.shape[1]
         assert T == c.shape[1] * int(np.prod(self.scales)), (x.shape,
                                                             c.shape)
@@ -142,7 +142,19 @@ class SiFiGANGenerator(_FilterStages, BaseModel):
                 getattr(self, f"source_proj{li}")(s_l), d_l)
             h = self.res(li, h + s_l)
         wav = torch.tanh(self.conv_post(_lrelu(h)))
-        return wav.transpose(1, 2)
+        return wav.transpose(1, 2), s, d
+
+    def train_outputs(self, x, c, d):
+        """(waveform, source signal), each (B, T, out): the JAX
+        ``__call__``'s pair."""
+        wav, s, d = self._filter(x, c, d)
+        src = self.source_out(_lrelu(self.qp_out(s, d)))
+        return wav, src.transpose(1, 2)
+
+    def forward(self, x, c, d):
+        """x (B, T, S) excitation, c (B, T', aux), d (B, T) -> waveform
+        (B, T, out)."""
+        return self._filter(x, c, d)[0]
 
     def inference(self, x, c, d):
         return self(x, c, d)

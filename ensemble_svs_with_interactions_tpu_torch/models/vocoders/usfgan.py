@@ -14,11 +14,14 @@ carries the weights both ways.  The pitch-dependent taps
 (:func:`pd_indexing`) are a gather along time with a (B, 1, T) index
 expanded over the channels, never materialized at (B, C, T).
 
-Only the serving half is here: ``forward`` returns the waveform alone.
-The source and debug heads that training reads (the uSFGAN source
-signal, the hn-uSFGAN ``src``, ``h_dbg`` and ``n_dbg``), and the residual
-blocks' skip convolutions, which the JAX package computes and discards,
-keep their weights so a pack loads whole, but are not computed.
+``forward`` returns the waveform alone; ``train_outputs`` returns the
+JAX ``__call__``'s tuple, which the vocoder losses read (the uSFGAN
+source signal; the hn-uSFGAN ``src``, ``h_dbg``, ``n_dbg`` and gates).
+The hn-uSFGAN's serving forward mixes its latents in place; its
+``train_outputs`` mixes them out of place, as autograd needs.  The
+residual blocks' skip convolutions, which the JAX package computes and
+discards, keep their weights so a pack loads whole, but are not computed:
+they get no gradient.
 
 The convolutions run in float32 with TF32 off, as the JAX package
 computes them; ``USFGANWrapper`` and ``VocoderPack`` hold cuDNN to that
@@ -276,8 +279,9 @@ class USFGANGenerator(BaseModel):
         self.filter_mid = nn.Conv1d(residual_channels, skip_channels, 1)
         self.filter_out = nn.Conv1d(skip_channels, out_channels, 1)
 
-    def forward(self, x, c, d):
-        """x (B, T, in), c (B, T', aux), d (B, T) -> waveform (B, T, out)."""
+    def train_outputs(self, x, c, d):
+        """(waveform, source signal), each (B, T, out): the JAX
+        ``__call__``'s tuple."""
         x, c, d = _to_bct(x, c, d)
         c_up = self.upsample(c)
         taps = {}
@@ -285,7 +289,11 @@ class USFGANGenerator(BaseModel):
         s = self.source_out(torch.relu(self.source_mid(torch.relu(h))))
         h = self.filter_network(self.conv_mid(s), c_up, d, taps)
         out = self.filter_out(torch.relu(self.filter_mid(torch.relu(h))))
-        return out.transpose(1, 2)
+        return out.transpose(1, 2), s.transpose(1, 2)
+
+    def forward(self, x, c, d):
+        """x (B, T, in), c (B, T', aux), d (B, T) -> waveform (B, T, out)."""
+        return self.train_outputs(x, c, d)[0]
 
     def inference(self, x, c, d):
         return self(x, c, d)
@@ -366,9 +374,10 @@ class _HnUSFGANBase(BaseModel):
         self.last_mid = nn.Conv1d(skip_channels, skip_channels, 1)
         self.last_out = nn.Conv1d(skip_channels, out_channels, 1)
 
-    def forward(self, x, c, d):
-        """x (B, T, 2 * in) [sine, noise], c (B, T', aux), d (B, T) ->
-        waveform (B, T, out)."""
+    def _latent(self, x, c, d, keep: bool):
+        """(upsampled c, d, taps, gates a, source latent s, gated h, gated
+        n), (B, C, T) inside.  ``keep`` mixes out of place and returns h
+        and n; otherwise in place, with h and n None."""
         x, c, d = _to_bct(x, c, d)
         c_up = self.upsample(c)
         a = self.periodicity_estimator(c_up)
@@ -376,17 +385,42 @@ class _HnUSFGANBase(BaseModel):
         taps = {}
         h = self.harmonic_network(self.conv_first_sine(sine), c_up, d, taps)
         n = self.conv_first_noise(noise_in)
-        h = h.mul_(a)
+        h = h * a if keep else h.mul_(a)
         if self._CASCADE:
             n = self.conv_merge(torch.cat([h, n], dim=1))
         else:
             n = self.conv_noise_proj(n)
         n = self.noise_network(n, c_up, d, taps)
+        if keep:
+            n = (1.0 - a) * n
+            return c_up, d, taps, a, h + n, h, n
         # s = a * h + (1 - a) * n
         s = torch.addcmul(h.add_(n), a, n, value=-1.0)
+        return c_up, d, taps, a, s, None, None
+
+    def _head(self, z):
+        """The output head shared by the waveform and the source."""
+        return self.last_out(torch.relu(self.last_mid(torch.relu(z))))
+
+    def train_outputs(self, x, c, d, debug: bool = False):
+        """The JAX ``__call__``'s tuple (waveform, source, harmonic debug,
+        noise debug, gates), (B, T, C) each: the debug heads run on
+        detached latents, and only with ``debug`` (else None)."""
+        c_up, d, taps, a, s, h, n = self._latent(x, c, d, keep=True)
+        wav = self._head(self.filter_network(self.conv_filter_in(s), c_up,
+                                             d, taps))
+        dbg = ((self._head(h.detach()).transpose(1, 2),
+                self._head(n.detach()).transpose(1, 2)) if debug
+               else (None, None))
+        return (wav.transpose(1, 2), self._head(s).transpose(1, 2), *dbg,
+                a.transpose(1, 2))
+
+    def forward(self, x, c, d):
+        """x (B, T, 2 * in) [sine, noise], c (B, T', aux), d (B, T) ->
+        waveform (B, T, out)."""
+        c_up, d, taps, _, s, _, _ = self._latent(x, c, d, keep=False)
         x = self.filter_network(self.conv_filter_in(s), c_up, d, taps)
-        out = self.last_out(torch.relu(self.last_mid(torch.relu(x))))
-        return out.transpose(1, 2)
+        return self._head(x).transpose(1, 2)
 
     def inference(self, x, c, d):
         return self(x, c, d)

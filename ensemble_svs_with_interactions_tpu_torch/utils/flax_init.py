@@ -8,8 +8,11 @@ variables (``flax_port.torch_to_flax``), draws each leaf by the scheme flax
 uses at the same scope path, from one ``torch.Generator``, and writes the
 draws back (``flax_port.flax_to_torch``).  The schemes:
 
-* ``bias`` zeros, ``scale`` ones, batch statistics ``mean`` zeros and
-  ``var`` ones;
+* ``bias`` zeros, ``scale`` ones (a LayerNorm's, and ``nn.WeightNorm``'s
+  ``Conv_{k}/kernel/scale``), batch statistics ``mean`` zeros and ``var``
+  ones;
+* the hn-uSFGAN ``PeriodicityEstimator``'s last conv kernel
+  ``normal(1e-4)``, so its gates start near one half;
 * LSTM cells (``OptimizedLSTMCell``): the input kernels ``i{i,f,g,o}``
   ``lecun_normal``, the recurrent kernels ``h{i,f,g,o}`` ``orthogonal``;
 * ``embedding``: ``normal(std)`` in a ``SpeakerEmbedding``, else flax's
@@ -55,6 +58,7 @@ INIT_TYPE_LAYERS = {
 # truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
 _GAIN = 0.02  # kernel_initializer's init_gain
+_GATE_STD = 1e-4  # PeriodicityEstimator's last kernel_init
 
 
 def _fans(shape) -> Tuple[float, float]:
@@ -123,7 +127,7 @@ def _draw(path, shape, modules: Dict[str, nn.Module], gen):
     leaf = path[-1]
     if leaf == "bias":
         return torch.zeros(shape)
-    if leaf == "scale":
+    if leaf == "scale" or leaf.endswith("/kernel/scale"):
         return torch.ones(shape)
     if len(path) >= 2 and re.fullmatch(r"[ih][ifgo]", path[-2]):
         if path[-2][0] == "h":
@@ -138,6 +142,9 @@ def _draw(path, shape, modules: Dict[str, nn.Module], gen):
         return _variance_scaling(shape, 1.0, "fan_in", gen, truncated=False,
                                  fans=(shape[-1], shape[0]))
     if leaf == "kernel":
+        if (type(parent).__name__ == "PeriodicityEstimator"
+                and owner[-1] == f"conv{parent.n - 1}"):
+            return _normal(shape, _GATE_STD, gen)
         pattern = INIT_TYPE_LAYERS.get(type(parent).__name__)
         if pattern and re.fullmatch(pattern, owner[-1]):
             return _kernel(getattr(parent, "init_type", "none"), shape, gen)

@@ -6,14 +6,16 @@ The port's submodules carry the flax scope names, so a torch module path
 module converts its flax subtree to torch layouts:
 
 * ``nn.Linear``    <- Dense ``kernel (in, out)`` (transposed) and ``bias``;
-* ``nn.Conv1d``    <- Conv ``kernel (K, Cin/groups, Cout)`` as
-  (Cout, Cin/groups, K) and ``bias`` where the conv has one, which covers
-  the depthwise ``conv_downsample`` (``feature_group_count = C``), the
-  diffusion denoiser's and the vocoders' dilated convolutions (the
-  dilation is the module's, not the kernel's) and the vocoders'
-  bias-free aux and upsampling convolutions;
-* ``nn.Conv2d``    <- Conv ``kernel (kh, kw, Cin, Cout)`` as
-  (Cout, Cin, kh, kw) (the postfilters' NHWC images, NCHW here);
+* ``nn.Conv1d``, ``nn.Conv2d`` and the vocoder discriminators'
+  ``SameConv`` <- Conv ``kernel (*k, Cin/groups, Cout)`` as (Cout,
+  Cin/groups, *k) and ``bias`` where the conv has one, which covers the
+  depthwise ``conv_downsample`` (``feature_group_count = C``), the
+  dilated convolutions (the dilation is the module's, not the kernel's),
+  the vocoders' bias-free aux and upsampling convolutions and the
+  postfilters' NHWC images (NCHW here); a weight-normed ``SameConv``'s
+  ``scale`` <- flax ``nn.WeightNorm``'s, which lives beside the conv at
+  ``WeightNorm_{k}`` under the key ``Conv_{k}/kernel/scale`` (one key
+  holding slashes) for the conv ``Conv_{k}``;
 * ``nn.Embedding`` <- Embed ``embedding``;
 * ``nn.LayerNorm`` <- ``scale``, ``bias``;
 * ``MaskedBatchNorm`` <- ``scale``, ``bias`` and the ``batch_stats``
@@ -47,8 +49,14 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
     _MaskedLSTMLayer,
 )
 from ensemble_svs_with_interactions_tpu_torch.models.tacotron import LSTMCell
+from ensemble_svs_with_interactions_tpu_torch.models.vocoders.discriminators import (  # noqa: E501
+    SameConv,
+)
 
 _GATES = ("i", "f", "g", "o")
+# convolutions: flax kernel (*k, Cin/groups, Cout), torch (Cout, Cin/groups,
+# *k)
+_CONVS = (nn.Conv1d, nn.Conv2d, SameConv)
 
 
 def _t(a) -> torch.Tensor:
@@ -64,26 +72,27 @@ def _lstm_arrays(cell: Dict):
     return w_x, w_h, b
 
 
+def _weight_norm_scope(name: str):
+    """(scope, key) of flax's ``nn.WeightNorm`` scale of the conv scope
+    ``name`` (``Conv_{k}``): the sibling ``WeightNorm_{k}``."""
+    return f"WeightNorm_{name.split('_')[-1]}", f"{name}/kernel/scale"
+
+
 def _convert(module, p, s):
     """(torch name -> tensor) for one leaf module from its flax params ``p``
     and batch stats ``s``, plus the flax leaves used (relative paths)."""
-    if isinstance(module, nn.Linear):
-        out = {"weight": _t(p["kernel"]).t()}
+    if isinstance(module, (nn.Linear, *_CONVS)):
+        kernel = _t(p["kernel"])
+        if isinstance(module, nn.Linear):
+            out = {"weight": kernel.t()}
+        else:
+            nd = len(module.kernel_size)
+            out = {"weight": kernel.permute(nd + 1, nd, *range(nd))}
         used = ["kernel"]
         if module.bias is not None:
             out["bias"] = _t(p["bias"])
             used.append("bias")
         return out, used, []
-    if isinstance(module, nn.Conv1d):
-        out = {"weight": _t(p["kernel"]).permute(2, 1, 0)}
-        used = ["kernel"]
-        if module.bias is not None:
-            out["bias"] = _t(p["bias"])
-            used.append("bias")
-        return out, used, []
-    if isinstance(module, nn.Conv2d):
-        return ({"weight": _t(p["kernel"]).permute(3, 2, 0, 1),
-                 "bias": _t(p["bias"])}, ["kernel", "bias"], [])
     if isinstance(module, nn.Embedding):
         return {"weight": _t(p["embedding"])}, ["embedding"], []
     if isinstance(module, nn.LayerNorm):
@@ -146,6 +155,10 @@ def flax_to_torch(module: nn.Module, variables) -> nn.Module:
             continue
         tensors, leaves_p, leaves_s = conv
         prefix = "/".join(path) + "/" if path else ""
+        if isinstance(sub, SameConv) and sub.scale is not None:
+            scope, key = _weight_norm_scope(path[-1])
+            tensors["scale"] = _t(_subtree(params, path[:-1] + [scope])[key])
+            used_p.add("/".join(path[:-1] + [scope, key]))
         used_p |= {prefix + leaf for leaf in leaves_p}
         used_s |= {prefix + leaf for leaf in leaves_s}
         own = dict(sub.named_parameters(recurse=False))
@@ -170,28 +183,25 @@ def flax_to_torch(module: nn.Module, variables) -> nn.Module:
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
-    return np.ascontiguousarray(t.detach().cpu().numpy())
+    """A contiguous copy, never a view of a live CPU parameter."""
+    return t.detach().cpu().numpy().copy()
 
 
 def _to_flax(module):
     """(flax params, flax batch stats, torch names used) of one leaf module,
     the flax trees keyed by paths relative to the module; None for a
     module that holds no weights of its own."""
-    if isinstance(module, nn.Linear):
-        p, used = {"kernel": _n(module.weight.t())}, ["weight"]
+    if isinstance(module, (nn.Linear, *_CONVS)):
+        w = module.weight
+        if isinstance(module, nn.Linear):
+            p = {"kernel": _n(w.t())}
+        else:
+            p = {"kernel": _n(w.permute(*range(2, w.dim()), 1, 0))}
+        used = ["weight"]
         if module.bias is not None:
             p["bias"] = _n(module.bias)
             used.append("bias")
         return p, {}, used
-    if isinstance(module, nn.Conv1d):
-        p, used = {"kernel": _n(module.weight.permute(2, 1, 0))}, ["weight"]
-        if module.bias is not None:
-            p["bias"] = _n(module.bias)
-            used.append("bias")
-        return p, {}, used
-    if isinstance(module, nn.Conv2d):
-        return ({"kernel": _n(module.weight.permute(2, 3, 1, 0)),
-                 "bias": _n(module.bias)}, {}, ["weight", "bias"])
     if isinstance(module, nn.Embedding):
         return {"embedding": _n(module.weight)}, {}, ["weight"]
     if isinstance(module, nn.LayerNorm):
@@ -242,6 +252,10 @@ def torch_to_flax(module: nn.Module) -> Dict:
         _put(params, path, p)
         _put(stats, path, s)
         placed |= {f"{name}.{k}" if name else k for k in used}
+        if isinstance(sub, SameConv) and sub.scale is not None:
+            scope, key = _weight_norm_scope(path[-1])
+            _put(params, path[:-1] + [scope], {key: _n(sub.scale)})
+            placed.add(f"{name}.scale")
     every = {n for n, _ in module.named_parameters()}
     every |= {n for n, _ in module.named_buffers()}
     if every - placed:

@@ -345,3 +345,54 @@ def test_train_lstm_shapes_give_the_launch_table():
            + 2 * B * T * 4 * H * H + 30 * B * T * H        # loop
            + 2 * B * (T - 1) * H * 4 * H)                  # dW_h
     assert chip_smoke.lstm_kernel_flops({(H, T): 1}, B) == one
+
+
+def test_bench_train_cuda_vocoder_tiny_prints_one_json_line():
+    """``--vocoder --tiny --device cpu``: the tiny hn-uSFGAN GAN step
+    prints one JSON line with its samples/s over the median step, the
+    step's operation bound and finite metrics; no device metric."""
+    out = _one_json_line("bench_train_cuda.py", "--vocoder")
+    assert out["metric"] == "vocoder_train_samples_per_sec"
+    assert out["unit"] == "samples/s"
+    assert len(out["step_ms"]) == 2
+    assert out["value"] == out["samples_per_sec"] == out[
+        "samples_per_step"] / (out["median_step_ms"] / 1e3)
+    assert out["samples_per_step"] == (chip_smoke.VOCODER_REF_B
+                                       * chip_smoke.VOCODER_REF_FRAMES * 240)
+    vb = out["vocoder_train_bound"]
+    assert vb["tflop"] > 0 and vb["bound_by"] == "operations"
+    assert out["finite"] and set(out["metrics"]) >= {
+        "Loss_G", "Loss_Source", "Loss_D", "GradNorm_G", "GradNorm_D"}
+    assert out["device"] == "cpu" and out["card"] is None
+    assert out["peak_mem_gib"] is None and out["device_busy_share"] is None
+
+
+def test_vocoder_training_is_the_shipped_config(tmp_path):
+    """The full-width vocoder training config is the JAX package's
+    ``configs/vocoder/vocoder_parallel_hn_usfgan.yaml`` with its corpus and
+    output set; the tiny families keep the shipped train sections."""
+    import yaml
+
+    shipped = yaml.safe_load(
+        (chip_smoke.CONFIGS / chip_smoke.VOCODER_CONFIG).read_text())
+    cfg = chip_smoke.vocoder_train_config(tmp_path / "in", tmp_path / "exp")
+    assert cfg["model"] == shipped["model"]
+    assert cfg["train"] == {**shipped["train"], "out_dir": str(
+        tmp_path / "exp")}
+    assert cfg["data"] == {**shipped["data"],
+                           "train_no_dev": {"in_dir": str(tmp_path / "in")}}
+    tiny = chip_smoke.tiny_vocoder_trainings(tmp_path / "in",
+                                             tmp_path / "exp")
+    for family, rel in (("hn_usfgan", chip_smoke.VOCODER_CONFIG),
+                        ("sifigan", chip_smoke.VOCODER_SIFIGAN_CONFIG),
+                        ("pwg", chip_smoke.VOCODER_PWG_CONFIG)):
+        train = yaml.safe_load((chip_smoke.CONFIGS / rel).read_text())[
+            "train"]
+        got = dict(tiny[family]["train"])
+        for k in ("out_dir", "batch_size", "discriminator_train_start_steps"):
+            got.pop(k, None)
+            train.pop(k, None)
+        assert got == train, family
+        assert (tiny[family]["model"]["discriminator"]["_target_"]
+                == yaml.safe_load((chip_smoke.CONFIGS / rel).read_text())[
+                    "model"]["discriminator"]["_target_"])

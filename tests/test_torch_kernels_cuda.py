@@ -21,7 +21,12 @@ path), its output within 1e-3 and its modules held as ``chip_smoke``'s
 noise drawn on the card and replayed on the CPU, within 1e-4 of its
 largest entry.  The neural vocoders' generators (tiny widths, and the
 recipe's hn-uSFGAN at full width through ``USFGANWrapper``) run on the
-card against the CPU within 1e-4 of their output's largest entry.
+card against the CPU within 1e-4 of their output's largest entry; so do
+the shipped vocoder configs' discriminators, feature map by feature map,
+and one tiny GAN step of each vocoder family holds its losses within 1e-5
+relative and its gradients within 1e-4 of their norm (or, where the
+float32 runs differ by more, against the float64 step; the float64 runs
+on the card and the CPU agree within 1e-9).
 """
 
 import pytest
@@ -748,3 +753,60 @@ def test_recipe_vocoder_wrapper_on_the_card_matches_the_cpu(cuda):
     assert np.isfinite(got).all()
     err = np.abs(got - ref).max() / np.abs(ref).max()
     assert err < chip_smoke.VOCODER_RTOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rel", ["vocoder/vocoder_parallel_hn_usfgan.yaml",
+                                 "vocoder/vocoder_sifigan.yaml",
+                                 "vocoder/vocoder_pwg.yaml"])
+def test_vocoder_discriminator_on_the_card_matches_the_cpu(cuda, rel):
+    """The shipped vocoder configs' discriminators at their widths, with
+    the flax schemes' weights, on one 64-frame crop at 48 kHz: every
+    feature map on the card within 1e-4 of the CPU's largest entry."""
+    import copy
+
+    import chip_smoke
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_module,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
+        conv_precision,
+    )
+
+    cfg = chip_smoke.shipped_config(rel)["model"]["discriminator"]
+    cpu = init_module(instantiate(cfg), seed=1)
+    card = copy.deepcopy(cpu).to(cuda)
+    gen = torch.Generator().manual_seed(0)
+    x = 0.3 * torch.randn(1, 64 * 240, 1, generator=gen)
+    with torch.no_grad(), conv_precision(cuda):
+        got = card(x.to(cuda))
+        ref = cpu(x)
+    flat = [(g, r) for gs, rs in zip(got, ref) for g, r in zip(gs, rs)]
+    assert len(flat) > 0
+    for g, r in flat:
+        assert g.shape == r.shape
+        err = ((g.cpu() - r).abs().max() / r.abs().max()).item()
+        assert err < 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["hn_usfgan", "sifigan", "pwg"])
+def test_vocoder_gan_step_on_the_card_matches_the_cpu(cuda, family,
+                                                      tmp_path):
+    """One GAN step of each tiny family (``chip_smoke.
+    tiny_vocoder_trainings``) on the card against the CPU from the same
+    weights and batch (``chip_smoke.hold_gan_step``): the losses within
+    1e-5 relative, each network's gradient within 1e-4 of its L2 norm,
+    or the card's float32 run no farther from the float64 step than 4x
+    the CPU's; the float64 runs within 1e-9."""
+    import chip_smoke
+
+    corpus = chip_smoke.write_vocoder_corpus(tmp_path / "in", n=2,
+                                             frames=80)
+    cfg = chip_smoke.tiny_vocoder_trainings(corpus,
+                                            tmp_path / "exp")[family]
+    held = chip_smoke.hold_gan_step(cfg, cuda)
+    assert held["ok"], held

@@ -293,8 +293,8 @@ def test_instantiate_maps_jax_targets_to_port():
 
 def test_port_imports_no_jax():
     """The port (the serving path with its packed-directory reader and
-    writer, the neural vocoders, the diffusion models and the NPSS
-    cascade, the train steps,
+    writer, the neural vocoders and their training, the diffusion models
+    and the NPSS cascade, the train steps,
     the trainers with their datasets, metrics, renders, initializers and
     CLIs), chip_smoke.py's and both benches' own
     imports leave JAX, flax, yaml, msgpack and the JAX package out of the
@@ -322,6 +322,12 @@ def test_port_imports_no_jax():
         ".npss\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.diffsinger\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.vocoders\n"
+        "import ensemble_svs_with_interactions_tpu_torch.train.vocoder\n"
+        "import ensemble_svs_with_interactions_tpu_torch.train"
+        ".vocoder_trainer\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.train_vocoder\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".prepare_voc_features\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.precision\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.packing\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.yaml_io\n"
