@@ -14,7 +14,9 @@ voice, with GV, the learned postfilter, the merlin postfilter and uncoded
 WORLD features; and training, the multitrack acoustic train step as ``bench_train.py`` runs
 it, in float32 and in the recipe's bf16 AMP arm, the duration model's
 train step, and the recipe's three training phases through the trainers,
-from feature dumps to a packed voice.
+from feature dumps to a packed voice; and the recipe's data stages (corpus
+preparation, features with the native WORLD analysis, scalers) on the
+host, with one epoch of the acoustic phase trained on their dumps.
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
@@ -155,6 +157,24 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     packed by ``pack_model``, one pair rendered through
     ``SPSVS(model_dir)``, and the first dev loss from one start
     checkpoint, card against CPU;
+11b. ``recipe_data``: the recipe's data stages on the port, on the host:
+    a 48 kHz jaCappella-layout corpus (``write_jacappella_corpus``: the
+    recipe's 3 singers x 3 songs of RECIPE_SONG_S s, one singer's wavs
+    24-bit) through ``bin/run_recipe.main`` on the shipped recipe with
+    ``--stage -1 --stop-stage 2``, only paths and song lists overridden
+    (``recipe_data_overrides``); each stage's wall seconds, stage 1's
+    seconds per second of audio with the native WORLD analysis and again
+    with NumPy (``ESVS_DISABLE_NATIVE=1``, the same lists), the largest
+    native-against-NumPy difference per dump kind within the analysis's
+    tolerances (``native_vs_numpy``), and the counts of segments, dumps
+    and scaler files; it fails if the native library did not build;
+11c. ``recipe_data_train``: one epoch of the recipe's multitrack acoustic
+    phase at full width on those normalized dumps and scalers
+    (``recipe_phase_config(work=...)``, the lf0 fields from the scalers as
+    the recipe's stage 5 fills them) through ``train_multitrack_model``,
+    the launch counts reset just before and read just after, each kernel
+    held against its plain version at the run's batch shapes, the first
+    and last step's train loss and the dev loss;
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
@@ -3394,8 +3414,26 @@ def write_corpus(root, n_train: int, n_dev: int, frames, seed: int = 0,
     return root
 
 
+def recipe_lf0_stats(work, netg: dict) -> dict:
+    """The lf0 fields the recipe's stage 5 fills from a work directory's
+    scalers (``_resolve_lf0_stats`` of the JAX runner): the input lf0
+    range from the MinMax scaler of ``in_acoustic`` at the model's
+    ``in_lf0_idx``, the output lf0 mean and scale from ``out_acoustic``'s
+    at its ``out_lf0_idx``."""
+    i, o = netg["in_lf0_idx"], netg["out_lf0_idx"]
+    sc = Path(work) / "scalers"
+    smin = np.load(sc / "in_acoustic_scaler_min.npy")
+    sscale = np.load(sc / "in_acoustic_scaler_scale.npy")
+    mean = np.load(sc / "out_acoustic_scaler_mean.npy")
+    scale = np.load(sc / "out_acoustic_scaler_scale.npy")
+    return {"in_lf0_min": float(-smin[i] / sscale[i]),
+            "in_lf0_max": float((1.0 - smin[i]) / sscale[i]),
+            "out_lf0_mean": float(mean[o]),
+            "out_lf0_scale": float(scale[o])}
+
+
 def recipe_phase_config(phase: str, corpus, out_dir, multitrack=True,
-                        **overrides):
+                        work=None, **overrides):
     """The config ``bin/run_recipe.py``'s ``_train_cfg`` hands the trainer
     for ``phase`` of the shipped multitrack recipe (``RECIPE``, read as a
     file): the phase's model config verbatim (the lf0 fields the recipe
@@ -3404,7 +3442,10 @@ def recipe_phase_config(phase: str, corpus, out_dir, multitrack=True,
     timing phases' ``*_vp_mdn.yaml``; the multitrack timing models'
     ``in_dim`` set to TIMING_DIM), the corpus's dump directories and
     out scaler, the recipe's data and train sections, ``train.out_dir``,
-    and ``overrides`` (dotted keys, as the CLIs take them) over it all."""
+    and ``overrides`` (dotted keys, as the CLIs take them) over it all.
+    With ``work``, a work directory of the recipe's stages -1 to 2, the
+    dumps are its ``dump/{split}/norm`` and its ``scalers/``, and the lf0
+    fields come from those scalers (``recipe_lf0_stats``)."""
     from ensemble_svs_with_interactions_tpu_torch.utils import yaml_io
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
         merge,
@@ -3423,19 +3464,25 @@ def recipe_phase_config(phase: str, corpus, out_dir, multitrack=True,
         # 2 * in_dim): the recipe's 82 note features, not the config's 164
         model["netG"]["in_dim"] = TIMING_DIM
 
+    lf0 = (SINGLE_LF0 if work is None
+           else recipe_lf0_stats(work, model["netG"]))
+
     def fill(node):
         for k, v in node.items():
-            if k in SINGLE_LF0 and v is None:
-                node[k] = SINGLE_LF0[k]
+            if k in lf0 and v is None:
+                node[k] = lf0[k]
             elif isinstance(v, dict):
                 fill(v)
 
     fill(model["netG"])
-    corpus = Path(corpus)
-    data = {split: {"in_dir": str(corpus / split / f"in_{phase}"),
-                    "out_dir": str(corpus / split / f"out_{phase}")}
-            for split in ("train_no_dev", "dev")}
-    data["out_scaler_prefix"] = str(corpus / "scalers" /
+    root = Path(corpus if work is None else work)
+    dumps = {split: root / split if work is None
+             else root / "dump" / split / "norm"
+             for split in ("train_no_dev", "dev")}
+    data = {split: {"in_dir": str(d / f"in_{phase}"),
+                    "out_dir": str(d / f"out_{phase}")}
+            for split, d in dumps.items()}
+    data["out_scaler_prefix"] = str(root / "scalers" /
                                     f"out_{phase}_scaler")
     data.update(recipe.get("data", {}))
     if not multitrack:
@@ -3763,6 +3810,365 @@ def phase_trainer(lr, label):
     return launches, worst
 
 
+# ------------------------------------------------------------ recipe data
+JACAPPELLA_LABS = (
+    FIXTURE,
+    REPO / "tests" / "data" / "nit_song070" / "label_phone_align" /
+    "nitech_jp_song070_f001_007.lab",
+    REPO / "tests" / "data" / "nit_song070" / "label_phone_align" /
+    "nitech_jp_song070_f001_010.lab",
+)
+RECIPE_SR = 48000        # the recipe's sample_rate
+RECIPE_SONG_S = 20.0     # each song's score, the fixtures trimmed
+RECIPE_DEV_SONG, RECIPE_EVAL_SONG = "song1", "song2"
+# tests/test_native.py's tolerances on the native WORLD analysis against
+# NumPy, carried into the dumps: CheapTrick's rtol 1e-6 is an absolute 1e-6
+# of the log envelope (the postfilter's target) and, through the codec's
+# linear map, of the coded mgc; F0's 1e-7 is below it for lf0; D4C's rtol
+# 1e-6 is 20 / ln 10 * 1e-6 dB of the coded aperiodicity; vuv is exact.
+# Between the pure harmonics of the synthetic corpus the envelope falls 9
+# to 12 decades under its frame's peak, and there the two float64 paths
+# part by their roundoff: CheapTrick's smoothing takes differences of a
+# cumulative sum over the fft_size / 2 + 1 bins, good to about that many
+# eps of the running total, which the peak dominates (on the CPU, 48 kHz:
+# up to 7.7e-5 relative at 2e-11, 1.1e-14 of the peak beyond rtol 1e-6).
+# So the envelope's bound is rtol 1e-6 plus (fft_size / 2 + 1) eps of the
+# frame's peak (2.3e-13 at 48 kHz).  Both
+# values are float32: two ulps of the larger come on top.  Dumps that no
+# analysis touches are bitwise.
+LOG_TOL = 1e-6
+BAP_TOL = 20.0 / np.log(10.0) * 1e-6
+
+
+def trim_labels(labels, seconds: float):
+    """The first ``seconds`` of an HTS label sequence (at least 10
+    entries), as ``tests/util.trim_labels``."""
+    n = len(labels)
+    for i, e in enumerate(labels.end_times):
+        if e > seconds * 1e7:
+            n = i
+            break
+    return labels[: max(n, 10)]
+
+
+def synth_wav(labels, binary_dict, numeric_dict, rng, sr: int,
+              tail_seconds: float = 0.0):
+    """A singing stand-in, as ``tests/util.synth_wav_from_labels``:
+    three harmonics following the score pitch on voiced phones, low noise
+    elsewhere, int16."""
+    from ensemble_svs_with_interactions_tpu_torch.frontend import merlin
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+
+    feats = merlin.linguistic_features(
+        labels, binary_dict, numeric_dict, add_frame_features=True,
+        subphone_features="coarse_coding")
+    midi = feats[:, hts.get_pitch_index(binary_dict, numeric_dict)]
+    f0 = np.where(midi > 0, 440.0 * 2 ** ((midi - 69) / 12), 0.0)
+    f0_samples = np.repeat(f0, sr * 5 // 1000)
+    phase = 2 * np.pi * np.cumsum(f0_samples) / sr
+    x = (0.25 * np.sin(phase) + 0.12 * np.sin(2 * phase)
+         + 0.05 * np.sin(3 * phase))
+    x = np.where(f0_samples > 0, x,
+                 0.003 * rng.standard_normal(len(x)))
+    if tail_seconds:
+        x = np.concatenate([x, np.zeros(int(tail_seconds * sr))])
+    return (x * 32767).astype(np.int16)
+
+
+def write_jacappella_corpus(root, spks=CORPUS_SPKS, sr: int = RECIPE_SR,
+                            seconds: float = RECIPE_SONG_S,
+                            seed: int = SEED):
+    """A jaCappella-layout corpus, ``<root>/<spk>/<song>_{aligned,score}.lab``
+    and ``<song>.wav``, as ``tests/util.build_synthetic_jacappella_corpus``
+    writes it without JAX: each singer sings 3 songs (the fixtures'
+    scores trimmed to ``seconds``), aligned one frame later per singer
+    index; the second singer's wavs are 24-bit PCM.  Returns (root, the
+    songs' audio seconds)."""
+    from scipy.io import wavfile
+
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+
+    root = Path(root)
+    binary_dict, numeric_dict = hts.load_question_set(
+        packaged_question_path())
+    rng = np.random.default_rng(seed)
+    audio_s = 0.0
+    for si, spk in enumerate(spks):
+        (root / spk).mkdir(parents=True, exist_ok=True)
+        for fi, path in enumerate(JACAPPELLA_LABS):
+            song = f"song{fi}"
+            score = trim_labels(hts.load(path), seconds)
+            aligned = hts.full_to_mono(score.copy())
+            shift = FRAME_PERIOD_100NS * (si + 1)
+            aligned.start_times = [t + shift for t in aligned.start_times]
+            aligned.end_times = [t + shift for t in aligned.end_times]
+            aligned.start_times[0] = score.start_times[0]
+            score.save(root / spk / f"{song}_score.lab")
+            aligned.save(root / spk / f"{song}_aligned.lab")
+            wav = synth_wav(score, binary_dict, numeric_dict, rng, sr,
+                            tail_seconds=0.3)
+            if si == 1:
+                wav = (wav.astype(np.int64) << 16).astype(np.int32)
+            wavfile.write(root / spk / f"{song}.wav", sr, wav)
+            audio_s += len(wav) / sr
+    return root, audio_s
+
+
+def recipe_data_overrides(corpus, work) -> list:
+    """``key=value`` overrides that point the shipped recipe at ``corpus``
+    and ``work``: the corpus root, the data, list and feature directories,
+    the port's question set, and the dev and eval songs; nothing else."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+
+    data = Path(work) / "data_multitrack"
+    return [
+        f"work_dir={work}", f"question_path={packaged_question_path()}",
+        f"data_prep.corpus_root={corpus}", f"data_prep.out_dir={data}",
+        f"data_prep.dev_songs=[{RECIPE_DEV_SONG}]",
+        f"data_prep.eval_songs=[{RECIPE_EVAL_SONG}]",
+        f"data.lists_dir={data / 'lists'}",
+        "features.timelag.label_phone_score_dir="
+        f"{data / 'timelag/label_phone_score'}",
+        "features.timelag.label_phone_align_dir="
+        f"{data / 'timelag/label_phone_align'}",
+        f"features.duration.label_dir={data / 'duration/label_phone_align'}",
+        f"features.acoustic.wav_dir={data / 'acoustic/wav'}",
+        f"features.acoustic.label_dir={data / 'acoustic/label_phone_align'}",
+    ]
+
+
+def run_recipe_stages(first: int, last: int, overrides, numpy: bool = False
+                      ) -> dict:
+    """``bin/run_recipe.main`` on the shipped recipe from stage ``first``
+    to ``last`` with ``overrides``; with ``numpy`` under
+    ``ESVS_DISABLE_NATIVE=1`` (the feature workers take the caller's
+    environment).  Returns each stage's wall seconds."""
+    import os
+
+    from ensemble_svs_with_interactions_tpu_torch.bin import run_recipe
+
+    seconds = {}
+    stages = dict(run_recipe.STAGES)
+
+    def timed(k, fn):
+        def run(cfg, work):
+            t0 = time.perf_counter()
+            fn(cfg, work)
+            seconds[k] = time.perf_counter() - t0
+        return run
+
+    old = os.environ.get("ESVS_DISABLE_NATIVE")
+    os.environ["ESVS_DISABLE_NATIVE"] = "1" if numpy else "0"
+    try:
+        run_recipe.STAGES.update({k: timed(k, fn) for k, fn in stages.items()})
+        assert run_recipe.main([str(RECIPE), "--stage", str(first),
+                                "--stop-stage", str(last), *overrides]) == 0
+    finally:
+        run_recipe.STAGES.update(stages)
+        if old is None:
+            del os.environ["ESVS_DISABLE_NATIVE"]
+        else:
+            os.environ["ESVS_DISABLE_NATIVE"] = old
+    return seconds
+
+
+def codec_matrix(fs: int, fft_size: int, dims: int) -> np.ndarray:
+    """(dims, fft_size // 2 + 1) matrix M of the WORLD spectral codec,
+    ``code_spectral_envelope(sp) == log(sp) @ M.T``: the mel-grid
+    interpolation then the scaled DCT."""
+    from ensemble_svs_with_interactions_tpu_torch.ops.world import codec
+
+    (i0, w1), _, code_dct, _ = codec._world_codec_tables(fs, fft_size)
+    interp = np.zeros((len(i0), fft_size // 2 + 1))
+    rows = np.arange(len(i0))
+    interp[rows, i0] = 1.0 - w1
+    interp[rows, i0 + 1] += w1
+    return code_dct[:dims] @ interp
+
+
+def dump_bounds(kind, want, log_sp, stream_sizes, code) -> np.ndarray:
+    """The bound on |native - NumPy| of each entry of an analysis dump
+    ``want`` (out_acoustic or out_postfilter features): the envelope's
+    ``LOG_TOL + floor * peak / sp`` per bin of its log envelope ``log_sp``
+    (from the postfilter dump; floor = (bins) eps), through ``code`` (the
+    codec's matrix, summed in absolute value) for mgc; LOG_TOL on lf0, 0
+    on vuv, BAP_TOL on bap; plus two float32 ulps of the entry."""
+    floor = log_sp.shape[1] * np.finfo(np.float64).eps
+    env = LOG_TOL + floor * np.exp(
+        log_sp.max(axis=1, keepdims=True) - log_sp)
+    first = env if kind == "out_postfilter-feats" else env @ np.abs(code).T
+    d = first.shape[1]
+    tol = np.zeros(want.shape)
+    tol[:, :d] = first
+    tol[:, d] = LOG_TOL                                   # lf0
+    tol[:, d + 2: d + 2 + stream_sizes[3]] = BAP_TOL      # bap
+    return tol + 2 * np.spacing(np.abs(want).astype(np.float32)) * (tol > 0)
+
+
+def native_vs_numpy(native_work, numpy_work, stream_sizes, fs: int) -> dict:
+    """Each ``dump/*/org`` kind (directory and suffix) of a native run
+    against a NumPy run of the same lists: the file count, the largest
+    difference, and its largest ratio to the bound (``dump_bounds`` on the
+    analysis's dumps; 0, bitwise, on those no analysis touches)."""
+    from ensemble_svs_with_interactions_tpu_torch.ops.world.codec import (
+        get_cheaptrick_fft_size,
+    )
+
+    code = codec_matrix(fs, get_cheaptrick_fft_size(fs), stream_sizes[0])
+    out = {}
+    native_work, numpy_work = Path(native_work), Path(numpy_work)
+    for f in sorted(native_work.glob("dump/*/org/*/*.npy")):
+        kind = f"{f.parent.name}{f.name[f.name.rindex('-'):-4]}"
+        rel = f.relative_to(native_work)
+        got = np.load(numpy_work / rel).astype(np.float64)
+        want = np.load(f)
+        assert got.shape == want.shape, f
+        diff = np.abs(got - want.astype(np.float64))
+        if kind in ("out_acoustic-feats", "out_postfilter-feats"):
+            pf = np.load(str(f).replace("out_acoustic", "out_postfilter"))
+            log_sp = pf[:, :pf.shape[1] - sum(stream_sizes[1:])].astype(
+                np.float64)
+            tol = dump_bounds(kind, want, log_sp, stream_sizes, code)
+        else:
+            tol = np.zeros(want.shape)
+        ratio = np.where(diff > 0, diff / np.maximum(tol, 1e-300), 0.0)
+        r = out.setdefault(kind, {"files": 0, "max_abs_diff": 0.0,
+                                  "max_ratio_to_bound": 0.0})
+        r["files"] += 1
+        r["max_abs_diff"] = max(r["max_abs_diff"], float(diff.max()))
+        r["max_ratio_to_bound"] = max(r["max_ratio_to_bound"],
+                                      float(ratio.max()))
+    return out
+
+
+def phase_recipe_data(root) -> Path:
+    """The recipe's data stages on the port, on the host (phase 11b):
+    ``write_jacappella_corpus`` at 48 kHz, ``bin/run_recipe.main
+    --stage -1 --stop-stage 2`` with the native WORLD analysis, then
+    stages 0 and 1 again under NumPy on the same lists into another work
+    directory, each dump kind held native against NumPy
+    (``native_vs_numpy``).  Returns the native work directory."""
+    from ensemble_svs_with_interactions_tpu_torch import native
+    from ensemble_svs_with_interactions_tpu_torch.ops.world.codec import (
+        get_num_aperiodicities,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils import yaml_io
+
+    features = yaml_io.load(RECIPE.read_text())["features"]
+    params = features["acoustic"]["params"]
+    fs = int(params["sample_rate"])
+    stream_sizes = [int(params["mgc_order"]) + 1, 1, 1,
+                    get_num_aperiodicities(fs)]
+    root = Path(root)
+    t0 = time.time()
+    corpus, song_s = write_jacappella_corpus(root / "corpus")
+    corpus_s = time.time() - t0
+    t0 = time.time()
+    built = native.available()
+    build_s = time.time() - t0
+    work = root / "work"
+    over = recipe_data_overrides(corpus, work)
+    stage_s = run_recipe_stages(-1, 2, over)
+    numpy_work = root / "work_numpy"
+    numpy_over = [o for o in over if not o.startswith("work_dir=")] + [
+        f"work_dir={numpy_work}"]
+    numpy_s = run_recipe_stages(0, 1, numpy_over, numpy=True)[1]
+    held = native_vs_numpy(work, numpy_work, stream_sizes, fs)
+    seg_s = sum(len(np.load(p)) for p in work.glob(
+        "dump/*/org/out_acoustic/*-wave.npy")) / fs
+    lists = work / "data_multitrack" / "lists"
+    segments = len((lists / "utt_list.txt").read_text().split())
+    split_counts = {s: len((lists / f"{s}.list").read_text().split())
+                    for s in ("train_no_dev", "dev", "eval")}
+    dumps = len(list(work.glob("dump/*/*/*/*.npy")))
+    scalers = len(list((work / "scalers").glob("*.npy")))
+    widths = {d.name: int(np.load(next(d.glob("*-feats.npy"))).shape[1])
+              for d in sorted((work / "dump" / "dev" / "org").iterdir())}
+    emit({"phase": "recipe_data", "native": built, "native_build_s": build_s,
+          "corpus_s": corpus_s, "songs_audio_s": song_s,
+          "segments_audio_s": seg_s, "sample_rate": fs,
+          "stage_s": {str(k): v for k, v in stage_s.items()},
+          "stage1_numpy_s": numpy_s,
+          "stage1_s_per_audio_s": {"native": stage_s[1] / seg_s,
+                                   "numpy": numpy_s / seg_s},
+          "n_jobs": int(features["n_jobs"]),
+          "segments": segments, "split_segments": split_counts,
+          "dumps": dumps, "scaler_files": scalers, "dump_widths": widths,
+          "native_vs_numpy": held, "log_tol": LOG_TOL, "bap_tol": BAP_TOL})
+    assert built, "the native WORLD library did not build"
+    assert all(r["max_ratio_to_bound"] <= 1.0 for r in held.values()), held
+    assert widths["out_acoustic"] == sum(stream_sizes) == 67, widths
+    assert scalers == 15 and all(n > 0 for n in split_counts.values())
+    return work
+
+
+class StepLosses:
+    """Records each train step's ``Loss`` of the multitrack acoustic phase:
+    while entered, ``train/multitrack_trainer`` builds its step through a
+    wrapper of ``create_multitrack_acoustic_train_step`` whose train step
+    appends its metrics' ``Loss`` to ``self.losses``."""
+
+    def __init__(self):
+        self.losses = []
+
+    def __enter__(self):
+        from ensemble_svs_with_interactions_tpu_torch.train import (
+            multitrack_trainer as mt,
+        )
+
+        self.create = create = mt.create_multitrack_acoustic_train_step
+
+        def wrapped(*args, **kwargs):
+            train_step, eval_step = create(*args, **kwargs)
+
+            def step(*a, **k):
+                metrics = train_step(*a, **k)
+                self.losses.append(float(metrics["Loss"]))
+                return metrics
+            return step, eval_step
+
+        mt.create_multitrack_acoustic_train_step = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from ensemble_svs_with_interactions_tpu_torch.train import (
+            multitrack_trainer as mt,
+        )
+
+        mt.create_multitrack_acoustic_train_step = self.create
+
+
+def phase_recipe_data_train(lr, work):
+    """One epoch of the recipe's multitrack acoustic phase at full width on
+    the port's own dumps and scalers (phase 11c): ``run_trainer`` (launch
+    counts reset just before, read just after), every kernel held at the
+    run's batch shapes.  Returns the launches and the holds' errors."""
+    cfg = recipe_phase_config("acoustic", None, Path(work) / "exp" /
+                              "acoustic", work=work, **{"train.nepochs": 1})
+    with StepLosses() as steps:
+        r = run_trainer(lr, cfg, acoustic=True)
+    netg = cfg["model"]["netG"]
+    t0 = time.time()
+    r["kernels_held"] = hold_trainer_kernels(lr, netg, r["train_shapes"],
+                                             r["dev_shapes"])
+    r["kernels_held"]["hold_s"] = time.time() - t0
+    emit({"phase": "recipe_data_train", "device": "cuda", "epochs": 1,
+          "use_amp": bool(cfg["train"]["use_amp"]),
+          "lf0_stats": recipe_lf0_stats(work, netg),
+          "first_train_loss": steps.losses[0] if steps.losses else None,
+          "last_train_loss": steps.losses[-1] if steps.losses else None,
+          "train_step_losses": steps.losses, **r})
+    assert steps.losses and all(np.isfinite(steps.losses)), steps.losses
+    assert_trainer_run(r, 1, acoustic=True)
+    return r["launches"], r["kernels_held"]["max_err"]
+
+
+
 def _sum_rows(rows, counts, keys):
     """{key: sum of count * row[key]} over rows weighted by counts."""
     return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
@@ -3783,7 +4189,7 @@ def _entry(name, source, sums, **extra):
 
 def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                  path_launches, train_launches, amp_launches,
-                 trainer_launches, trainer_errs):
+                 trainer_launches, trainer_errs, recipe_launches):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -3806,8 +4212,10 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     reverse loop alone (``loop_bound_ms``).  All come from the kernel
     phases' rows; the recurrence's training-shape yardstick is cuDNN's
     forward, which gives no cell sequence.  The errors are the worst of
-    the kernel phases' and of the trainer phase's holds at the trainers'
-    shapes (``trainer_errs``, ``hold_trainer_kernels``)."""
+    the kernel phases' and of the trainer phases' holds at the trainers'
+    shapes (``trainer_errs``, ``hold_trainer_kernels``).  The trainer
+    phase's launches are under ``trainer``, the epoch on the recipe's own
+    dumps under ``recipe_data_train`` (``recipe_launches``)."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -3840,7 +4248,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     per_step = TRAIN_LAUNCHES_PER_STEP
     paths = {name: {"train": train_launches[name],
                     "train_amp": amp_launches[name],
-                    "trainer": trainer_launches[name]}
+                    "trainer": trainer_launches[name],
+                    "recipe_data_train": recipe_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -3968,9 +4377,13 @@ def main() -> int:
     phase_train_amp_reference(f32_runs)
     phase_timing_train()
     trainer_launches, trainer_errs = phase_trainer(lr, labels[0])
+    with tempfile.TemporaryDirectory() as root:
+        work = phase_recipe_data(root)
+        recipe_launches, recipe_errs = phase_recipe_data_train(lr, work)
+    trainer_errs = {k: max(v, recipe_errs[k]) for k, v in trainer_errs.items()}
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
                       path_launches, train_launches, amp_launches,
-                      trainer_launches, trainer_errs))
+                      trainer_launches, trainer_errs, recipe_launches))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

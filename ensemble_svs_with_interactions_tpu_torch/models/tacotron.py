@@ -38,6 +38,19 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
 _MAX_LF0_RATIO = 600.0 * np.log(2) / 1200.0
 
 
+def lf0_residual(raw):
+    """The residual log-F0 ``_MAX_LF0_RATIO * tanh(raw)``, in float32 at
+    least.  The JAX package's ratio is a NumPy float64 scalar, which JAX
+    does not take as a weak type: it promotes a bf16 ``tanh`` to float32.
+    So under AMP the predicted log-F0, the score's denormalized log-F0
+    (about 6, where bf16 steps by 0.03) plus this residual (at most 0.35),
+    is summed in float32, and only its normalized value is rounded to the
+    output's dtype."""
+    t = torch.tanh(raw)
+    return _MAX_LF0_RATIO * t.to(torch.promote_types(t.dtype,
+                                                     torch.float32))
+
+
 class LSTMCell(nn.Module):
     """One LSTM cell with the recurrence kernel's weight layout: w_x (C, 4H),
     w_h (H, 4H), b (4H,), gate order i, f, g, o (flax OptimizedLSTMCell)."""
@@ -127,7 +140,7 @@ class _ARDecoderCore(nn.Module):
                 inp = hs[i]
             out = (inp @ w_fh + out_enc[:, t]).reshape(B, D, r).transpose(1, 2)
             raw = out[..., self.out_lf0_idx]
-            res = _MAX_LF0_RATIO * torch.tanh(raw)
+            res = lf0_residual(raw)
             lf0 = (lf0_den[:, t] + res - self.out_lf0_mean) / self.out_lf0_scale
             out = out.clone()
             out[..., self.out_lf0_idx] = lf0
@@ -154,10 +167,10 @@ class _ARDecoderCore(nn.Module):
         out = self.feat_out(torch.cat([h, enc], dim=-1)).reshape(
             B, T, D, r).transpose(2, 3)
         k = self.out_lf0_idx
-        res = _MAX_LF0_RATIO * torch.tanh(out[..., k])
+        res = lf0_residual(out[..., k])
         lf0 = (lf0_den + res - self.out_lf0_mean) / self.out_lf0_scale
-        out = torch.cat([out[..., :k], lf0[..., None], out[..., k + 1:]],
-                        dim=-1)
+        out = torch.cat([out[..., :k], lf0[..., None].to(out.dtype),
+                         out[..., k + 1:]], dim=-1)
         return out, res
 
 

@@ -327,8 +327,8 @@ def stft_mag(x: torch.Tensor, fft_size: int, hop: int, win_length: int,
     idx = (torch.arange(win_length, device=x.device)[None, :]
            + hop * torch.arange(n_frames, device=x.device)[:, None])
     frames = x[:, idx.clamp(max=T - 1)]
-    win = torch.from_numpy(_WINDOWS[window](win_length).astype(
-        np.float32)).to(x.device)
+    win = torch.from_numpy(_WINDOWS[window](win_length)).to(x.device,
+                                                            x.dtype)
     spec = torch.fft.rfft(frames * win, n=fft_size, dim=-1)
     return torch.sqrt(torch.clamp(spec.real ** 2 + spec.imag ** 2, min=1e-9))
 

@@ -1,6 +1,7 @@
 """Maximum-likelihood parameter generation on the host: the NumPy/SciPy
 path of ``ensemble_svs_with_interactions_tpu/ops/mlpg.py`` (banded normal
-equations solved with LAPACK's SPD banded solver).  The JAX package's
+equations solved with LAPACK's SPD banded solver), and
+``apply_delta_windows``, the dynamic features of feature extraction.  The JAX package's
 device banded-Cholesky kernel is not on the serving path and is not
 ported."""
 
@@ -121,3 +122,27 @@ def mlpg(means: np.ndarray, variances, windows=3) -> np.ndarray:
     if v.ndim == 1:
         v = np.broadcast_to(v[None, :], means.shape)
     return _mlpg_host(means, v, num_windows)
+
+
+def apply_delta_windows(x: np.ndarray, windows: Sequence[Window]) -> np.ndarray:
+    """Static and dynamic features: each window applied along time, edge
+    frames replicating the boundary value (nnmnkwii's convention)."""
+    x = np.asarray(x)
+    T, D = x.shape
+    outs = []
+    for left, right, coefs in windows:
+        coefs = np.asarray(coefs, dtype=x.dtype)
+        width = max(left, right)
+        if width == 0:
+            outs.append(x * float(coefs[0]))
+            continue
+        padded = np.pad(x, ((width, width), (0, 0)), mode="edge")
+        full = np.zeros(2 * width + 1, dtype=x.dtype)
+        full[width - left: width + right + 1] = coefs
+        acc = np.zeros_like(x)
+        for j, c in enumerate(full):
+            if c == 0.0:
+                continue
+            acc += c * padded[j: j + T]
+        outs.append(acc)
+    return np.concatenate(outs, axis=1)

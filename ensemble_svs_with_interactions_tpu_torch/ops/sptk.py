@@ -1,8 +1,9 @@
-"""Mel-cepstrum to spectrum (SPTK's ``mcepalpha`` / ``freqt`` /
-``mc2sp``): the host NumPy branch of
+"""Mel-cepstral analysis and its inverse (SPTK's ``mcepalpha`` /
+``freqt`` / ``sp2mc`` / ``mc2sp`` / ``mc2b``): the host NumPy branch of
 ``ensemble_svs_with_interactions_tpu/ops/sptk.py``, which the generation
 pipeline takes for its host arrays (the merlin postfilter and uncoded
-WORLD features).
+WORLD features) and feature extraction for uncoded mgc and mel-cepstral
+aperiodicity.
 
 ``freqt``'s frequency-warping recursion is linear in the cepstrum, so it
 is a cached (order + 1, in_len) matrix built once by running the
@@ -58,6 +59,15 @@ def freqt(c: np.ndarray, order: int, alpha: float) -> np.ndarray:
     return c @ freqt_matrix(c.shape[-1], order, float(alpha)).T
 
 
+def sp2mc(powerspec: np.ndarray, order: int, alpha: float) -> np.ndarray:
+    """Power spectrum (..., fftlen//2 + 1) -> mel-cepstrum (..., order + 1),
+    as pysptk's ``sp2mc``: log, real cepstrum, freqt."""
+    logsp = np.log(powerspec)
+    c = np.fft.irfft(logsp, axis=-1)[..., : powerspec.shape[-1]].copy()
+    c[..., 0] /= 2.0
+    return freqt(c, order, alpha)
+
+
 def mc2sp(mc: np.ndarray, alpha: float, fftlen: int) -> np.ndarray:
     """Mel-cepstrum (..., order + 1) -> power spectrum (..., fftlen//2 + 1),
     as pysptk's ``mc2sp``: inverse-warp, symmetrize, exp(2 Re(rfft))."""
@@ -66,3 +76,12 @@ def mc2sp(mc: np.ndarray, alpha: float, fftlen: int) -> np.ndarray:
     sym = np.concatenate([c, c[..., -2:0:-1]], axis=-1)
     logamp = np.real(np.fft.rfft(sym, axis=-1)) / 2.0
     return np.exp(2.0 * logamp)
+
+
+def mc2b(mc: np.ndarray, alpha: float) -> np.ndarray:
+    """Mel-cepstrum -> MLSA filter coefficients."""
+    order = mc.shape[-1] - 1
+    b = mc.copy()
+    for i in reversed(range(order)):
+        b[..., i] = mc[..., i] - alpha * b[..., i + 1]
+    return b

@@ -4,11 +4,16 @@ vocoder: the ``basis="world"`` tables of
 CodeSpectralEnvelope / DecodeSpectralEnvelope, WORLD src/codec.cpp),
 built in NumPy float64, the aperiodicity decode as a torch gather, and
 its coder (``code_aperiodicity``, host NumPy) for the neural vocoders'
-aperiodicity round trip.
+aperiodicity round trip; and the coders of feature extraction (host
+NumPy, the JAX module's NumPy branch): ``code_spectral_envelope`` under
+either basis (``"world"``, pyworld's CodeSpectralEnvelope, or the legacy
+``"orthonormal"``; ``ESVS_SPECTRAL_CODEC_BASIS`` sets the default) and
+``decode_aperiodicity_np``, the decode D4C's band values go through.
 """
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -45,6 +50,97 @@ def _ortho_dct_matrix(n: int) -> np.ndarray:
     dct *= np.sqrt(2.0 / n)
     dct[0] *= np.sqrt(0.5)
     return dct
+
+
+def _mel_to_freq(m):
+    return 700.0 * (np.exp(m / 1127.01048) - 1.0)
+
+
+@lru_cache(maxsize=8)
+def _world_codec_tables(fs: int, fft_size: int):
+    """Gathers and scaled DCT matrices of the ``basis="world"`` codec
+    (WORLD src/codec.cpp): ``code_gather = (i0, w1)`` resamples the log
+    envelope from FFT bins onto the mel grid (linear in mel),
+    ``decode_gather = (a0, a1, v1)`` resamples back through WORLD's
+    endpoint-extended anchor axis; the DCT matrices carry WORLD's
+    normalization (orthonormal / sqrt(N) forward, * sqrt(N) inverse)."""
+    half = fft_size // 2
+    n_bins = half + 1
+    bin_mels = _freq_to_mel(np.arange(n_bins) * fs / fft_size)
+    floor_mel = _freq_to_mel(FLOOR_FREQUENCY)
+    ceil_mel = _freq_to_mel(min(fs / 2.0, CEIL_FREQUENCY))
+    mel_axis = floor_mel + (ceil_mel - floor_mel) * np.arange(half) / half
+
+    pos = np.interp(mel_axis, bin_mels, np.arange(n_bins, dtype=np.float64))
+    i0 = np.clip(np.floor(pos).astype(np.int64), 0, n_bins - 2)
+    w1 = pos - i0
+
+    anchors = np.concatenate([[0.0], mel_axis, [_freq_to_mel(fs / 2.0)]])
+    pos_inv = np.interp(bin_mels, anchors,
+                        np.arange(half + 2, dtype=np.float64))
+    j0 = np.clip(np.floor(pos_inv).astype(np.int64), 0, half)
+    v1 = pos_inv - j0
+    a0 = np.clip(j0 - 1, 0, half - 1)
+    a1 = np.clip(j0, 0, half - 1)
+
+    dct = _ortho_dct_matrix(half)
+    code_dct = dct / np.sqrt(half)
+    decode_dct = dct * np.sqrt(half)
+    return ((i0, w1.astype(np.float64)), (a0, a1, v1.astype(np.float64)),
+            code_dct, decode_dct)
+
+
+def default_spectral_codec_basis() -> str:
+    """The spectral codec's basis: ``"world"`` unless
+    ``ESVS_SPECTRAL_CODEC_BASIS`` says otherwise."""
+    return os.environ.get("ESVS_SPECTRAL_CODEC_BASIS", "world")
+
+
+@lru_cache(maxsize=8)
+def _mel_axis_weights(fs: int, fft_size: int):
+    """Tables of the legacy ``basis="orthonormal"`` codec: gathers for
+    linear -> mel and mel -> linear resampling of the log envelope over
+    [one FFT bin, fs/2], and the orthonormal DCT."""
+    half = fft_size // 2
+    linear_freqs = np.arange(half + 1) * fs / fft_size
+    mel_lo = _freq_to_mel(float(fs) / fft_size)
+    mel_hi = _freq_to_mel(fs / 2.0)
+    mel_axis = np.linspace(mel_lo, mel_hi, half)
+    mel_freqs = _mel_to_freq(mel_axis)
+
+    pos = mel_freqs / (fs / fft_size)
+    i0 = np.clip(np.floor(pos).astype(np.int64), 0, half)
+    i1 = np.clip(i0 + 1, 0, half)
+    w1 = pos - i0
+    pos_inv = np.interp(linear_freqs, mel_freqs, np.arange(half))
+    j0 = np.clip(np.floor(pos_inv).astype(np.int64), 0, half - 1)
+    j1 = np.clip(j0 + 1, 0, half - 1)
+    v1 = pos_inv - j0
+
+    dct = _ortho_dct_matrix(half)
+    return ((i0, i1, w1.astype(np.float64)), (j0, j1, v1.astype(np.float64)),
+            dct)
+
+
+def code_spectral_envelope(spectrogram: np.ndarray, fs: int,
+                           number_of_dimensions: int,
+                           basis: str | None = None) -> np.ndarray:
+    """(T, fft//2+1) power envelope -> (T, D) code (host NumPy):
+    ``basis="world"`` is pyworld's CodeSpectralEnvelope, ``"orthonormal"``
+    the legacy self-consistent codec."""
+    basis = basis or default_spectral_codec_basis()
+    fft_size = (spectrogram.shape[-1] - 1) * 2
+    log_sp = np.log(spectrogram)
+    if basis == "world":
+        (i0, w1), _, code_dct, _ = _world_codec_tables(fs, fft_size)
+        mel_sp = log_sp[..., i0] * (1.0 - w1) + log_sp[..., i0 + 1] * w1
+        return mel_sp @ code_dct[:number_of_dimensions].T
+    if basis != "orthonormal":
+        raise ValueError(f"unknown spectral codec basis: {basis!r}")
+    (i0, i1, w1), _, dct = _mel_axis_weights(fs, fft_size)
+    mel_sp = log_sp[..., i0] * (1.0 - w1) + log_sp[..., i1] * w1
+    coded = mel_sp @ dct.T
+    return coded[..., :number_of_dimensions]
 
 
 @lru_cache(maxsize=8)
@@ -130,3 +226,17 @@ def code_aperiodicity(aperiodicity: np.ndarray, fs: int) -> np.ndarray:
     w1 = pos - i0
     db = 20.0 * np.log10(np.maximum(aperiodicity, SAFE_GUARD_MINIMUM))
     return db[..., i0] * (1.0 - w1) + db[..., i1] * w1
+
+
+def decode_aperiodicity_np(coded_aperiodicity: np.ndarray, fs: int,
+                           fft_size: int) -> np.ndarray:
+    """(T, n_bands) dB codes -> (T, fft//2+1) linear aperiodicity, host
+    NumPy (what ``decode_aperiodicity`` computes on a tensor)."""
+    _, seg, w = _aperiodicity_interp_weights(fs, fft_size)
+    T = coded_aperiodicity.shape[0]
+    lo_db = np.full((T, 1), MIN_DB, dtype=coded_aperiodicity.dtype)
+    hi_db = np.full((T, 1), -SAFE_GUARD_MINIMUM,
+                    dtype=coded_aperiodicity.dtype)
+    anchors_db = np.concatenate([lo_db, coded_aperiodicity, hi_db], axis=-1)
+    db = anchors_db[..., seg] * (1.0 - w) + anchors_db[..., seg + 1] * w
+    return np.power(10.0, db / 20.0)

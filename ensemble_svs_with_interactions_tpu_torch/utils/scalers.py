@@ -1,6 +1,8 @@
-"""Transform-only feature scalers (the inference half of
-``ensemble_svs_with_interactions_tpu/utils/scalers.py``): NumPy in, NumPy
-out, with the same float32 fast paths; and their ``.npy`` files in a
+"""Feature scalers (``ensemble_svs_with_interactions_tpu/utils/
+scalers.py``): the streaming fit of the recipe's stage 2
+(``partial_fit`` / ``fit``, float64 statistics), and transforms with
+NumPy in, NumPy out, with the same float32 fast paths; and their ``.npy``
+files in a
 packed model directory (``{prefix}_min.npy`` / ``_scale.npy`` for a
 ``MinMaxScaler``, ``{prefix}_mean.npy`` / ``_var.npy`` / ``_scale.npy`` for
 a ``StandardScaler``)."""
@@ -23,6 +25,33 @@ class StandardScaler:
         self.mean_ = mean
         self.var_ = var
         self.scale_ = scale
+        self._count = 0.0
+        self._m2 = None
+
+    def partial_fit(self, x: np.ndarray) -> "StandardScaler":
+        """Fold a (N, D) batch into the running statistics (Chan et al.'s
+        pairwise update); a scale under sqrt(1e-10) is floored to 1."""
+        x = np.asarray(x, dtype=np.float64)
+        if self.mean_ is None or self._count == 0:
+            self.mean_ = np.zeros(x.shape[-1])
+            self._m2 = np.zeros(x.shape[-1])
+            self._count = 0.0
+        n_b = x.shape[0]
+        mean_b = x.mean(axis=0)
+        m2_b = ((x - mean_b) ** 2).sum(axis=0)
+        n_a, mean_a, m2_a = self._count, self.mean_, self._m2
+        n = n_a + n_b
+        delta = mean_b - mean_a
+        self.mean_ = mean_a + delta * (n_b / n)
+        self._m2 = m2_a + m2_b + delta ** 2 * (n_a * n_b / n)
+        self._count = n
+        self.var_ = self._m2 / self._count
+        self.scale_ = np.sqrt(np.where(self.var_ < 1e-10, 1.0, self.var_))
+        return self
+
+    def fit(self, x: np.ndarray) -> "StandardScaler":
+        self._count = 0.0
+        return self.partial_fit(x)
 
     def transform(self, x):
         if isinstance(x, np.ndarray) and x.dtype == np.float32:
@@ -49,6 +78,28 @@ class MinMaxScaler:
         self.data_min_ = data_min
         self.data_max_ = data_max
         self.feature_range = feature_range
+
+    def partial_fit(self, x: np.ndarray) -> "MinMaxScaler":
+        """Widen the data range by a (N, D) batch; a zero range maps with
+        scale 1."""
+        x = np.asarray(x, dtype=np.float64)
+        dmin = x.min(axis=0)
+        dmax = x.max(axis=0)
+        if self.data_min_ is None:
+            self.data_min_, self.data_max_ = dmin, dmax
+        else:
+            self.data_min_ = np.minimum(self.data_min_, dmin)
+            self.data_max_ = np.maximum(self.data_max_, dmax)
+        fmin, fmax = self.feature_range
+        rng = self.data_max_ - self.data_min_
+        rng = np.where(rng == 0.0, 1.0, rng)
+        self.scale_ = (fmax - fmin) / rng
+        self.min_ = fmin - self.data_min_ * self.scale_
+        return self
+
+    def fit(self, x: np.ndarray) -> "MinMaxScaler":
+        self.data_min_ = None
+        return self.partial_fit(x)
 
     def transform(self, x):
         if isinstance(x, np.ndarray) and x.dtype == np.float32:

@@ -296,7 +296,8 @@ def test_port_imports_no_jax():
     writer, the neural vocoders and their training, the diffusion models
     and the NPSS cascade, the train steps,
     the trainers with their datasets, metrics, renders, initializers and
-    CLIs), chip_smoke.py's and both benches' own
+    CLIs, the recipe's data stages -1 to 2 with the native WORLD analysis,
+    their CLIs and the recipe runner), chip_smoke.py's and both benches' own
     imports leave JAX, flax, yaml, msgpack and the JAX package out of the
     process.  The port's name starts with the JAX package's, so the check
     is on exact names and the ``pkg.`` prefix."""
@@ -332,6 +333,26 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.utils.packing\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.yaml_io\n"
         "import ensemble_svs_with_interactions_tpu_torch.utils.flax_msgpack\n"
+        "import ensemble_svs_with_interactions_tpu_torch.native\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.world.analysis\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.world.codec\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.praat\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.pitch\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.sptk\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.mlpg\n"
+        "import ensemble_svs_with_interactions_tpu_torch.data.data_source\n"
+        "import ensemble_svs_with_interactions_tpu_torch.utils.scalers\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".data_prep_multitrack\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.prepare_features\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".prepare_features_multitrack\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".prepare_features_multitrack_sync\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.fit_scaler\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".preprocess_normalize\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.run_recipe\n"
         "import chip_smoke\n"
         "import bench_cuda\n"
         "import bench_train_cuda\n"

@@ -41,6 +41,9 @@ Accumulation (``build_optimizer(..., accum_steps=k)``) is held against
 acoustic step, against the JAX step at 1e-5.
 """
 
+import contextlib
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,6 +68,7 @@ from tests.test_torch_train import (  # noqa: F401  (flagship: a fixture)
     _batch,
     _jax_weights,
     _flagship,
+    _rngs,
     _t,
     flagship,
 )
@@ -83,6 +87,31 @@ def _sgd_keeping_grads(lr):
         lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
         lambda grads, state, params=None: (
             jax.tree_util.tree_map(lambda g: -lr * g, grads), grads))
+
+
+@contextlib.contextmanager
+def jax_device_lstm():
+    """The JAX package's LSTM layers on their device training path, here on
+    the CPU: ``_MaskedLSTMLayer`` takes the trainable Pallas recurrence
+    (``ops/pallas_lstm.py`` ``lstm_layer_pallas_trainable``, in interpret
+    mode) in a training forward of a one-device run at H <= 256, as on
+    the TPU (``models/layers.py:114-149``), and its masked scan otherwise.
+    That path returns each layer's output in its input's dtype (bf16
+    under AMP), where the scan, the CPU's path, returns its float32
+    carry."""
+    from ensemble_svs_with_interactions_tpu.ops import pallas_lstm
+
+    saved = (pallas_lstm.lstm_layer_pallas_trainable, jax.default_backend,
+             jax.device_count)
+    pallas_lstm.lstm_layer_pallas_trainable = functools.partial(
+        saved[0], interpret=True)
+    jax.default_backend = lambda: "tpu"
+    jax.device_count = lambda backend=None: 1
+    try:
+        yield
+    finally:
+        (pallas_lstm.lstm_layer_pallas_trainable, jax.default_backend,
+         jax.device_count) = saved
 
 
 def _as_port(cfg, variables):
@@ -271,8 +300,9 @@ def test_amp_loss_near_float32(amp_runs):
 
 def test_amp_dtypes(flagship, monkeypatch):
     """Under AMP every LSTM layer and decoder cell gets bf16 inputs, every
-    recurrence float32, the model returns bf16, and the master parameters,
-    their gradients and Adam's state stay float32."""
+    recurrence float32, the model returns bf16 but for the AR decoder's
+    float32 log-F0 residual (``tacotron.lf0_residual``), and the master
+    parameters, their gradients and Adam's state stay float32."""
     cfg, _, variables = flagship
     module, opt, step, eval_step = _port_amp_step(
         cfg, variables, {"name": "Adam", "params": {"lr": 1e-3}})
@@ -306,7 +336,7 @@ def test_amp_dtypes(flagship, monkeypatch):
     assert seen == {"layer_in": {torch.bfloat16},
                     "recurrence": {torch.float32},
                     "cell_in": {torch.bfloat16},
-                    "model_out": {torch.bfloat16}}, seen
+                    "model_out": {torch.bfloat16, torch.float32}}, seen
     for name, p in module.named_parameters():
         assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, \
             name
@@ -315,6 +345,154 @@ def test_amp_dtypes(flagship, monkeypatch):
     assert opt.state and all(t.dtype == torch.float32
                              for s in opt.state.values()
                              for t in s.values() if t.is_floating_point())
+
+
+def _dtypes(tree):
+    return tuple(sorted({str(t.dtype).replace("torch.", "") for t in
+                         jax.tree_util.tree_leaves(
+                             tree, is_leaf=lambda x: isinstance(
+                                 x, torch.Tensor))
+                         if hasattr(t, "dtype")}))
+
+
+def _module_dtypes_jax(jm, variables, batch):
+    """{module path: {output dtypes}} of every flax module in one AMP
+    training forward, traced (the JAX step's ``amp_cast`` of parameters,
+    statistics, inputs and targets), with each ``_MaskedLSTMLayer``'s
+    input dtype under ``path + "<in"``."""
+    import flax.linen as nn
+
+    seen = {}
+
+    def spy(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if context.method_name == "__call__":
+            path = "/".join(context.module.scope.path)
+            seen.setdefault(path, set()).add(_dtypes(out))
+            if type(context.module).__name__ == "_MaskedLSTMLayer":
+                seen.setdefault(path + "<in", set()).add(_dtypes(args[0]))
+        return out
+
+    def forward(variables, b):
+        c = jax_loop.amp_cast
+        return jm.apply(c(variables), c(b["in_feats0"]), c(b["in_feats1"]),
+                        (b["spks0"], b["spks1"]), b["lengths"],
+                        (c(b["out_feats0"]), c(b["out_feats1"])),
+                        train=True, rngs=_rngs(), mutable=["batch_stats"])
+
+    # traced only (dtypes need no arithmetic)
+    with nn.intercept_methods(spy):
+        jax.eval_shape(forward, {"params": variables["params"],
+                                 "batch_stats": variables["batch_stats"]},
+                       {k: jnp.asarray(v) for k, v in batch.items()})
+    return seen
+
+
+@pytest.fixture(scope="module")
+def dtype_flows(flagship):
+    """{module path: {output dtypes}} of one AMP training forward: the
+    port's, JAX's on its device training path (:func:`jax_device_lstm`)
+    and JAX's on the masked scan, each LSTM layer's input dtype under
+    ``path + "<in"``."""
+    cfg, jm, variables = flagship
+    batch = _batch(3)
+    with jax_device_lstm():
+        device = _module_dtypes_jax(jm, variables, batch)
+    scan = _module_dtypes_jax(jm, variables, batch)
+    module = flax_to_torch(instantiate(cfg), variables)
+    got = {}
+
+    def hook(name, lstm):
+        def record(m, args, out):
+            got.setdefault(name, set()).add(_dtypes(out))
+            if lstm:
+                got.setdefault(name + "<in", set()).add(_dtypes(args[0]))
+        return record
+
+    hooks = [m.register_forward_hook(hook(
+        name.replace(".", "/"), isinstance(m, layers._MaskedLSTMLayer)))
+        for name, m in module.named_modules() if name]
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loop.amp_forward(
+        module, (b["in_feats0"], b["in_feats1"], (b["spks0"], b["spks1"]),
+                 b["lengths"], (b["out_feats0"], b["out_feats1"])),
+        {"train": True, "generator": torch.Generator().manual_seed(0)},
+        True, True)
+    for h in hooks:
+        h.remove()
+    return {"port": got, "jax_device": device, "jax_scan": scan}
+
+
+def test_amp_dtype_flow_matches_jax(dtype_flows):
+    """The output dtype of every module, and each LSTM layer's input
+    dtype, in one AMP training forward: the port's against the JAX
+    package's on its device training path, where each LSTM layer at
+    H <= 256 returns its input's dtype (``ops/pallas_lstm.py:387``), on
+    every module path both have."""
+    got, want = dtype_flows["port"], dtype_flows["jax_device"]
+    shared = sorted(set(got) & set(want))
+    lstm_in = [k for k in shared if k.endswith("<in")]
+    assert len(shared) > 50 and len(lstm_in) >= 8, (len(shared), lstm_in)
+    diff = {k: (got[k], want[k]) for k in shared if got[k] != want[k]}
+    assert not diff, diff
+    assert set().union(*(want[k] for k in lstm_in)) == {("bfloat16",)}
+
+
+def test_amp_dtype_flow_differs_from_jax_scan(dtype_flows):
+    """A pinned difference: on the JAX package's masked scan (the path
+    the CPU, inference and H > 256 take) an LSTM layer returns its
+    float32 carry, and flax promotes what follows it to float32; the
+    port's layers return bf16 as JAX's device training path does.  So
+    against the scan, the port differs exactly where the scan has
+    float32 and it has bf16, and every LSTM layer's output is among
+    them."""
+    got, scan = dtype_flows["port"], dtype_flows["jax_scan"]
+    shared = sorted(set(got) & set(scan))
+    diff = {k: (got[k], scan[k]) for k in shared if got[k] != scan[k]}
+    flat = lambda dtypes: set().union(*map(set, dtypes))  # noqa: E731
+    assert all("bfloat16" in flat(g) and flat(w) == {"float32"}
+               for g, w in diff.values()), diff
+    lstm_out = [k[:-3] for k in shared if k.endswith("<in")]
+    assert lstm_out and set(lstm_out) <= set(diff), lstm_out
+
+
+@pytest.mark.parametrize("hidden", [64, 260])
+def test_lstm_layer_dtype_against_jax_device_path(hidden):
+    """An LSTM layer's output dtype for bf16 inputs in a training forward:
+    JAX's device path returns bf16 at H <= 256 (the trainable Pallas
+    recurrence) and float32 above (its masked scan), the port returns
+    bf16 at every width: a pinned difference above H = 256, where it keeps
+    the GEMMs after the layer in bf16."""
+    x = jnp.zeros((2, 8, 16), jnp.bfloat16)
+    mask = jnp.ones((2, 8), jnp.float32)
+    jm = jax_layers._MaskedLSTMLayer(hidden)
+    with jax_device_lstm():
+        want = jax.eval_shape(lambda x: jm.init_with_output(
+            jax.random.PRNGKey(0), x, mask, train=True)[0], x).dtype
+    assert str(want) == ("bfloat16" if hidden <= 256 else "float32")
+    port = layers._MaskedLSTMLayer(16, hidden)
+    params = {k: v.bfloat16() for k, v in port.named_parameters()}
+    got = torch.func.functional_call(port, params, (
+        torch.zeros(2, 8, 16, dtype=torch.bfloat16), torch.ones(2, 8)))
+    assert got.dtype == torch.bfloat16
+
+
+def test_lf0_residual_promotes_as_jax():
+    """The AR decoder's residual log-F0 of bf16 pre-activations is float32,
+    as JAX's NumPy float64 ratio makes it, and agrees with JAX's within
+    one bf16 ulp of the tanh; float32 and float64 keep their dtype."""
+    from ensemble_svs_with_interactions_tpu.models import tacotron as jtaco
+
+    raw = np.random.default_rng(0).normal(0.0, 2.0, (4, 33)).astype(
+        np.float32)
+    want = jtaco._MAX_LF0_RATIO * jnp.tanh(jnp.asarray(raw, jnp.bfloat16))
+    got = tacotron.lf0_residual(torch.from_numpy(raw).bfloat16())
+    assert got.dtype == torch.float32 and str(want.dtype) == "float32"
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2 ** -8, atol=0)
+    for dtype in (torch.float32, torch.float64):
+        assert tacotron.lf0_residual(torch.zeros(2, dtype=dtype)).dtype \
+            == dtype
 
 
 def _snapshot(module, opt):

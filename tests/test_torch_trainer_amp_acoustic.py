@@ -7,23 +7,29 @@ and the single-track voice's acoustic model through ``train_model`` (as
 in ``test_torch_trainer.py``), each with ``use_amp`` on both sides from
 one JAX start checkpoint, 3 epochs, held by ``metrics.jsonl``
 (``test_torch_trainer_amp.assert_metrics_follow``): each epoch's mean
-gradient norm within ACOUSTIC_GRADNORM_RTOL of JAX's, and each loss
-within 2e-2 of JAX's (the single-track voice, as the timing models) or
-within MULTITRACK_LOSS_RTOL (the multitrack phase).
+gradient norm and each loss against JAX's.
 
-The bounds are wider than the timing models' because in bf16 the
-gradients of the lf0 encoder's conv layers, in front of training-mode
-batch norms, are dominated by rounding, and the frameworks round
-differently: one AMP step of the multitrack run's first batch gives the
-first conv's weight a gradient norm of 0.1848 in the port, 0.2187 in JAX
-and 0.2310 in float32, and the whole gradient 0.4495 / 0.4971 / 0.4629.
-Over the run the port's training-split epoch means lie 13-17% below its
-float32 gradient norm where JAX's lie within 9%, so the two differ by up
-to 19.9%, and the port's training-split LogF0 interaction loss lies
-1.7-2.8% above float32 where JAX's lies 0.3-0.5% below (up to 3.3%
-apart); its total loss up to 1.6% from JAX's, the feature loss and every
-dev metric within 1.3%.  The single-track run differs by up to 5.7% in
-the gradient norm and 0.02% in the losses.  A zero or halved gradient
+The multitrack phase holds its gradient norm within
+MULTITRACK_GRADNORM_RTOL of JAX's and every loss within
+MULTITRACK_LOSS_RTOL: readings 3.3% and 2.6% (the training split's LogF0
+interaction loss; every other loss within 1.3%).  The port's epoch means
+lie within 7.3% of its float32 gradient norm, JAX's within 9.4%.  The
+AR decoder's residual log-F0 is summed with the denormalized score log-F0
+in float32 (``models/tacotron.lf0_residual``), as JAX's NumPy float64
+ratio makes it: summed in bf16, which steps by 0.03 at a log-F0 of 6, the
+gradient norm lies 13-17% under float32 and 19.9% from JAX's
+(``tools/amp_divergence.py`` holds the steps one by one from JAX's
+states).  The JAX side runs its
+LSTMs on the masked scan, the CPU's path, which returns float32 where the
+port returns bf16 as JAX's device training path does (``tests/
+test_torch_train_amp.py::test_amp_dtype_flow_differs_from_jax_scan``);
+against that path (``tests/test_torch_train_amp.jax_device_lstm``) the
+readings are 11.4% and 1.6%.  The single-track run's gradient-norm bound
+is ACOUSTIC_GRADNORM_RTOL (its losses within 2e-2, as the timing
+models'): in bf16 the gradients of the lf0 encoder's conv layers, in front
+of training-mode batch norms, are dominated by rounding, and the
+frameworks round differently (reading 5.6% in the gradient norm, 0.4% in
+the pitch loss, every other loss within 0.02%).  A zero or halved gradient
 still fails.
 """
 
@@ -46,6 +52,7 @@ from tests.test_torch_trainer_multitrack import (
 )
 
 ACOUSTIC_GRADNORM_RTOL = 0.25
+MULTITRACK_GRADNORM_RTOL = 0.1
 MULTITRACK_LOSS_RTOL = 5e-2
 
 
@@ -59,7 +66,7 @@ def test_multitrack_acoustic_trainer_amp_follows_jax(corpus, tmp_path):
     dirs = _runs(cfg, start, lambda side, c: (
         run_jax if side == "jax" else run_port)(c, True), f32=False)
     assert_metrics_follow(metrics(dirs["port_amp"]), metrics(dirs["jax_amp"]),
-                          MULTITRACK_LOSS_RTOL, ACOUSTIC_GRADNORM_RTOL)
+                          MULTITRACK_LOSS_RTOL, MULTITRACK_GRADNORM_RTOL)
 
 
 def test_single_track_acoustic_trainer_amp_follows_jax(corpus, tmp_path):
