@@ -14,9 +14,10 @@ voice, with GV, the learned postfilter, the merlin postfilter and uncoded
 WORLD features; and training, the multitrack acoustic train step as ``bench_train.py`` runs
 it, in float32 and in the recipe's bf16 AMP arm, the duration model's
 train step, and the recipe's three training phases through the trainers,
-from feature dumps to a packed voice; and the recipe's data stages (corpus
-preparation, features with the native WORLD analysis, scalers) on the
-host, with one epoch of the acoustic phase trained on their dumps.
+from feature dumps to a packed voice; and the recipe end to end: its data
+stages (corpus preparation, features with the native WORLD analysis,
+scalers) on the host, then its runner's training, packing, synthesis,
+vocoder and timing-evaluation stages on the card.
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
@@ -168,13 +169,17 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     native-against-NumPy difference per dump kind within the analysis's
     tolerances (``native_vs_numpy``), and the counts of segments, dumps
     and scaler files; it fails if the native library did not build;
-11c. ``recipe_data_train``: one epoch of the recipe's multitrack acoustic
-    phase at full width on those normalized dumps and scalers
-    (``recipe_phase_config(work=...)``, the lf0 fields from the scalers as
-    the recipe's stage 5 fills them) through ``train_multitrack_model``,
-    the launch counts reset just before and read just after, each kernel
-    held against its plain version at the run's batch shapes, the first
-    and last step's train loss and the dev loss;
+11c. ``recipe``: the recipe's stages 3-7, 10 and 11 through
+    ``bin/run_recipe.main`` on that work directory, on the card, at the
+    shipped models' full widths (``recipe_overrides``: RECIPE_EPOCHS epochs
+    a phase, the timing models' ``in_dim`` 82, stage 7 and 11 on the eval
+    song's first RECIPE_SEGMENTS segments, RECIPE_VOCODER_STEPS vocoder
+    steps): each stage's seconds, the phases' losses, the launches over
+    stages 3-5 and over 7 + 11, each kernel held at the acoustic phase's
+    batch shapes, the pairs rendered and their RTF, ``QUALITY.json``;
+    ``recipe_vocoder_pack``: the stage-10 pack resolves
+    ``vocoder_type="auto"`` to its vocoder; ``recipe_reference``: one
+    pair of stage 7 on the card against the CPU (durations, streams, SNR);
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
@@ -189,6 +194,7 @@ from __future__ import annotations
 import copy
 import inspect
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3414,26 +3420,8 @@ def write_corpus(root, n_train: int, n_dev: int, frames, seed: int = 0,
     return root
 
 
-def recipe_lf0_stats(work, netg: dict) -> dict:
-    """The lf0 fields the recipe's stage 5 fills from a work directory's
-    scalers (``_resolve_lf0_stats`` of the JAX runner): the input lf0
-    range from the MinMax scaler of ``in_acoustic`` at the model's
-    ``in_lf0_idx``, the output lf0 mean and scale from ``out_acoustic``'s
-    at its ``out_lf0_idx``."""
-    i, o = netg["in_lf0_idx"], netg["out_lf0_idx"]
-    sc = Path(work) / "scalers"
-    smin = np.load(sc / "in_acoustic_scaler_min.npy")
-    sscale = np.load(sc / "in_acoustic_scaler_scale.npy")
-    mean = np.load(sc / "out_acoustic_scaler_mean.npy")
-    scale = np.load(sc / "out_acoustic_scaler_scale.npy")
-    return {"in_lf0_min": float(-smin[i] / sscale[i]),
-            "in_lf0_max": float((1.0 - smin[i]) / sscale[i]),
-            "out_lf0_mean": float(mean[o]),
-            "out_lf0_scale": float(scale[o])}
-
-
 def recipe_phase_config(phase: str, corpus, out_dir, multitrack=True,
-                        work=None, **overrides):
+                        **overrides):
     """The config ``bin/run_recipe.py``'s ``_train_cfg`` hands the trainer
     for ``phase`` of the shipped multitrack recipe (``RECIPE``, read as a
     file): the phase's model config verbatim (the lf0 fields the recipe
@@ -3442,10 +3430,7 @@ def recipe_phase_config(phase: str, corpus, out_dir, multitrack=True,
     timing phases' ``*_vp_mdn.yaml``; the multitrack timing models'
     ``in_dim`` set to TIMING_DIM), the corpus's dump directories and
     out scaler, the recipe's data and train sections, ``train.out_dir``,
-    and ``overrides`` (dotted keys, as the CLIs take them) over it all.
-    With ``work``, a work directory of the recipe's stages -1 to 2, the
-    dumps are its ``dump/{split}/norm`` and its ``scalers/``, and the lf0
-    fields come from those scalers (``recipe_lf0_stats``)."""
+    and ``overrides`` (dotted keys, as the CLIs take them) over it all."""
     from ensemble_svs_with_interactions_tpu_torch.utils import yaml_io
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
         merge,
@@ -3464,25 +3449,19 @@ def recipe_phase_config(phase: str, corpus, out_dir, multitrack=True,
         # 2 * in_dim): the recipe's 82 note features, not the config's 164
         model["netG"]["in_dim"] = TIMING_DIM
 
-    lf0 = (SINGLE_LF0 if work is None
-           else recipe_lf0_stats(work, model["netG"]))
-
     def fill(node):
         for k, v in node.items():
-            if k in lf0 and v is None:
-                node[k] = lf0[k]
+            if k in SINGLE_LF0 and v is None:
+                node[k] = SINGLE_LF0[k]
             elif isinstance(v, dict):
                 fill(v)
 
     fill(model["netG"])
-    root = Path(corpus if work is None else work)
-    dumps = {split: root / split if work is None
-             else root / "dump" / split / "norm"
-             for split in ("train_no_dev", "dev")}
-    data = {split: {"in_dir": str(d / f"in_{phase}"),
-                    "out_dir": str(d / f"out_{phase}")}
-            for split, d in dumps.items()}
-    data["out_scaler_prefix"] = str(root / "scalers" /
+    corpus = Path(corpus)
+    data = {split: {"in_dir": str(corpus / split / f"in_{phase}"),
+                    "out_dir": str(corpus / split / f"out_{phase}")}
+            for split in ("train_no_dev", "dev")}
+    data["out_scaler_prefix"] = str(corpus / "scalers" /
                                     f"out_{phase}_scaler")
     data.update(recipe.get("data", {}))
     if not multitrack:
@@ -4143,30 +4122,285 @@ class StepLosses:
         mt.create_multitrack_acoustic_train_step = self.create
 
 
-def phase_recipe_data_train(lr, work):
-    """One epoch of the recipe's multitrack acoustic phase at full width on
-    the port's own dumps and scalers (phase 11c): ``run_trainer`` (launch
-    counts reset just before, read just after), every kernel held at the
-    run's batch shapes.  Returns the launches and the holds' errors."""
-    cfg = recipe_phase_config("acoustic", None, Path(work) / "exp" /
-                              "acoustic", work=work, **{"train.nepochs": 1})
-    with StepLosses() as steps:
-        r = run_trainer(lr, cfg, acoustic=True)
-    netg = cfg["model"]["netG"]
-    t0 = time.time()
-    r["kernels_held"] = hold_trainer_kernels(lr, netg, r["train_shapes"],
-                                             r["dev_shapes"])
-    r["kernels_held"]["hold_s"] = time.time() - t0
-    emit({"phase": "recipe_data_train", "device": "cuda", "epochs": 1,
-          "use_amp": bool(cfg["train"]["use_amp"]),
-          "lf0_stats": recipe_lf0_stats(work, netg),
-          "first_train_loss": steps.losses[0] if steps.losses else None,
-          "last_train_loss": steps.losses[-1] if steps.losses else None,
-          "train_step_losses": steps.losses, **r})
-    assert steps.losses and all(np.isfinite(steps.losses)), steps.losses
-    assert_trainer_run(r, 1, acoustic=True)
-    return r["launches"], r["kernels_held"]["max_err"]
+RECIPE_SEGMENTS = 2       # eval-song segments stage 7 and 11 read
+RECIPE_EPOCHS = 1         # stages 3-5, of the recipe's 100
+RECIPE_VOCODER_STEPS = 3  # stage 10: one epoch of 3 steps (600 x 1000)
 
+
+def recipe_overrides(corpus, work, conf, labels) -> list:
+    """``recipe_data_overrides`` and the cuts of stages 3-11: the timing
+    phases' model configs from ``conf`` (the shipped ones with ``in_dim``
+    TIMING_DIM), RECIPE_EPOCHS epochs a phase, stage 7's and 11's score
+    labels from ``labels``, stage 10's epoch of RECIPE_VOCODER_STEPS
+    steps; the device is the recipe's default, the card."""
+    data = Path(work) / "data_multitrack"
+    return recipe_data_overrides(corpus, work) + [
+        f"timelag.model_config={conf / 'timelag.yaml'}",
+        f"duration.model_config={conf / 'duration.yaml'}",
+        *(f"{phase}.train.nepochs={RECIPE_EPOCHS}"
+          for phase in ("timelag", "duration", "acoustic")),
+        f"synthesis.label_dir={labels}",
+        f"timing_eval.score_label_dir={labels}",
+        f"timing_eval.align_label_dir={data / 'acoustic/label_phone_align'}",
+        "vocoder.train.nepochs=1",
+        f"vocoder.train.steps_per_epoch={RECIPE_VOCODER_STEPS}",
+    ]
+
+
+def recipe_timing_configs(conf: Path) -> Path:
+    """The recipe's multitrack timing model configs with ``in_dim`` set to
+    TIMING_DIM (the shipped 164 cannot take the 82 note features a track:
+    ROADMAP Queue 3), written to ``conf``."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        save_config,
+    )
+
+    conf.mkdir(parents=True, exist_ok=True)
+    for phase in ("timelag", "duration"):
+        cfg = shipped_config(f"{phase}/multitrack_{phase}_vp_mdn.yaml")
+        cfg["netG"]["in_dim"] = TIMING_DIM
+        save_config(cfg, conf / f"{phase}.yaml")
+    return conf
+
+
+def eval_segments(work, out: Path, n: int = RECIPE_SEGMENTS) -> Path:
+    """The score labels of the eval song's first ``n`` segments, every
+    singer's, copied to ``out`` from stage -1's corpus."""
+    src = Path(work) / "data_multitrack" / "acoustic" / "label_phone_score"
+    out.mkdir(parents=True, exist_ok=True)
+    segs = sorted({p.stem.split("_", 1)[1] for p in
+                   src.glob(f"*_{RECIPE_EVAL_SONG}_seg*.lab")},
+                  key=lambda seg: int(seg.rsplit("seg", 1)[1]))[:n]
+    for seg in segs:
+        for f in src.glob(f"*_{seg}.lab"):
+            shutil.copyfile(f, out / f.name)
+    return out
+
+
+def count_launches(lr, run) -> dict:
+    """Run ``run()`` with every kernel's launch count set to 0 just before;
+    the counts just after."""
+    for name in TRAIN_COUNTERS:
+        getattr(lr, name).launches = 0
+    run()
+    return {name: getattr(lr, name).launches for name in TRAIN_COUNTERS}
+
+
+class RecipeObserver:
+    """While entered, the multitrack trainer the runner calls takes a
+    ``TrainerClock`` per phase (by its ``train.out_dir``) as its ``observe``
+    hook, ``bin/synthesis_multitrack``'s ``svs_multitrack`` is timed call
+    by call, and the acoustic phase's train steps' losses are kept
+    (``StepLosses``)."""
+
+    def __init__(self):
+        self.clocks = {}
+        self.pairs = []
+        self.steps = StepLosses()
+
+    def __enter__(self):
+        from ensemble_svs_with_interactions_tpu_torch.bin import (
+            synthesis_multitrack as sm,
+        )
+        from ensemble_svs_with_interactions_tpu_torch.train import (
+            multitrack_trainer as mt,
+        )
+
+        self.train, self.svs = mt.train_multitrack_model, \
+            sm.MultiTrackSPSVS.svs_multitrack
+        train, svs = self.train, self.svs
+
+        def observed(cfg, is_acoustic, device="cuda", observe=None):
+            clock = self.clocks.setdefault(Path(cfg.train.out_dir).name,
+                                           TrainerClock())
+            return train(cfg, is_acoustic, device=device, observe=clock)
+
+        def timed(engine, *args, **kw):
+            t0 = time.perf_counter()
+            out = svs(engine, *args, **kw)
+            self.pairs.append((time.perf_counter() - t0, len(out[0]) /
+                               out[1]))
+            return out
+
+        mt.train_multitrack_model = observed
+        sm.MultiTrackSPSVS.svs_multitrack = timed
+        self.steps.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from ensemble_svs_with_interactions_tpu_torch.bin import (
+            synthesis_multitrack as sm,
+        )
+        from ensemble_svs_with_interactions_tpu_torch.train import (
+            multitrack_trainer as mt,
+        )
+
+        self.steps.__exit__(*exc)
+        mt.train_multitrack_model = self.train
+        sm.MultiTrackSPSVS.svs_multitrack = self.svs
+
+
+def phase_losses(work) -> dict:
+    """Each trained phase's train and dev ``Loss`` by epoch
+    (``metrics.jsonl``)."""
+    out = {}
+    for phase in ("timelag", "duration", "acoustic"):
+        lines = [json.loads(line) for line in (
+            Path(work) / "exp" / phase / "metrics.jsonl").read_text(
+            ).splitlines()]
+        out[phase] = {k: [r[f"{k}/Loss"] for r in lines if f"{k}/Loss" in r]
+                      for k in ("train_no_dev", "dev")}
+    return out
+
+
+def recipe_pair_on_cpu(packed, labels) -> dict:
+    """The first pair of stage 7's labels rendered as
+    ``bin/synthesis_multitrack.py`` renders it, by an engine on the card
+    and one on the CPU over the same pack: the durations each way, the
+    streams' largest difference over each stream's scale, and the
+    waveforms from the same noise by SNR (``held_waveform``'s way)."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import (
+        synthesis_multitrack as sm,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.gen import (
+        FRAME_BUCKET,
+        _round_up,
+        predict_waveform,
+        vocoder_noise,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+
+    by_segment = sm.group_by_segment(sorted(Path(labels).glob("*.lab")),
+                                     list(CORPUS_SPKS))
+    seg, (spk_m, path_m), (spk_s, path_s) = next(sm.ordered_pairs(
+        by_segment))
+    spks = [CORPUS_SPKS.index(spk_m), CORPUS_SPKS.index(spk_s)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        engine = sm.MultiTrackSPSVS(packed, verbose=0, device=device)
+        main, sub = hts.load(path_m), hts.load(path_s)
+        with torch.no_grad():
+            dm = engine.predict_timing_multitrack([main, sub], spks)
+            dm_sub = engine.predict_timing_multitrack([sub, main],
+                                                      spks[::-1])
+            acoustic = engine.predict_acoustic_multitrack([dm, dm_sub], spks)
+        streams = engine.postprocess_acoustic(acoustic, dm)
+        out[device] = (engine, [dm, dm_sub], streams, time.time() - t0)
+    (engine, card_dm, card_streams, card_s), (_, cpu_dm, cpu_streams,
+                                              cpu_s) = out["cuda"], out["cpu"]
+    hop = int(engine.sample_rate * engine.frame_period / 1000)
+    noise = vocoder_noise(1, _round_up(len(card_streams[1]), FRAME_BUCKET)
+                          * hop, "cpu")
+    kw = {"sample_rate": engine.sample_rate,
+          "frame_period": engine.frame_period,
+          "use_world_codec": engine.config.get("use_world_codec", True)}
+    wav = [predict_waveform(streams, device=dev, noise=noise.to(dev), **kw)
+           for dev, streams in (("cuda", card_streams),
+                                ("cpu", cpu_streams))]
+    same = all(list(a.start_times) == list(b.start_times)
+               and list(a.end_times) == list(b.end_times)
+               for a, b in zip(card_dm, cpu_dm))
+    rel = {name: float(np.abs(np.asarray(a, np.float64) - b).max()
+                       / max(np.abs(b).max(), 1e-12))
+           for name, a, b in zip(("mgc", "lf0", "vuv", "bap"), card_streams,
+                                 cpu_streams)}
+    return {"pair": f"{spk_m}_{seg}_with_{spk_s}",
+            "frames": len(card_streams[1]), "durations_equal": same,
+            "stream_err_over_scale": rel, "snr_db": snr_db(wav[1], wav[0]),
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def phase_recipe(lr, work) -> tuple:
+    """The recipe end to end on the port (phase 11c), on the work directory
+    ``phase_recipe_data`` built (stages -1 to 2): ``bin/run_recipe.main``
+    on the shipped recipe with ``recipe_overrides`` for stages 3-6 (the
+    shipped models at full width: the multitrack VP-MDN timing models,
+    ``multitrack_acoustic_multistream_ar_f0.yaml``; RECIPE_EPOCHS epochs
+    each), then 7 (the eval song's first RECIPE_SEGMENTS segments, every
+    ordered pair), 10 (the shipped hn-uSFGAN, RECIPE_VOCODER_STEPS steps)
+    and 11, each stage timed; the kernels' launches counted over stages
+    3-5 and over stages 7 + 11, and held against their plain versions at
+    the acoustic phase's batch shapes (``hold_trainer_kernels``); one pair
+    of stage 7 rendered on the CPU too (``recipe_pair_on_cpu``); the
+    stage-10 pack opened with ``vocoder_type="auto"``.  Returns the
+    launches of both runs summed and the holds' worst errors."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        load_config,
+    )
+
+    work = Path(work)
+    conf = recipe_timing_configs(work / "conf")
+    labels = eval_segments(work, work / "eval_segments")
+    over = recipe_overrides(work.parent / "corpus", work, conf, labels)
+    seconds = {}
+    with RecipeObserver() as seen:
+        train = count_launches(
+            lr, lambda: seconds.update(run_recipe_stages(3, 6, over)))
+        synth = count_launches(
+            lr, lambda: seconds.update(run_recipe_stages(7, 7, over)))
+        seconds.update(run_recipe_stages(10, 10, over))
+        evals = count_launches(
+            lr, lambda: seconds.update(run_recipe_stages(11, 11, over)))
+    synth = {k: synth[k] + evals[k] for k in synth}
+    acoustic = seen.clocks["acoustic"]
+    netg = load_config(work / "packed_model" / "acoustic_model.yaml")[
+        "netG"]
+    t0 = time.time()
+    held = hold_trainer_kernels(lr, netg, sorted(acoustic.shapes["train"]),
+                                sorted(acoustic.shapes["dev"]))
+    held["hold_s"] = time.time() - t0
+    losses = phase_losses(work)
+    render_s = sum(t for t, _ in seen.pairs)
+    audio_s = sum(a for _, a in seen.pairs)
+    quality = json.loads((work / "QUALITY.json").read_text())
+    cuts = {"epochs": f"{RECIPE_EPOCHS} of 100 in stages 3-5",
+            "vocoder": f"{RECIPE_VOCODER_STEPS} steps of 600 x 1000",
+            "synthesis": f"the eval song's first {RECIPE_SEGMENTS} "
+                         "segments (stage 7 and 11)",
+            "timing in_dim": f"{TIMING_DIM}, not the shipped 164",
+            "corpus": "3 singers x 3 synthetic songs of "
+                      f"{RECIPE_SONG_S:g} s"}
+    emit({"phase": "recipe", "device": "cuda", "cuts": cuts,
+          "stage_s": {str(k): v for k, v in sorted(seconds.items())},
+          "losses": losses,
+          "acoustic_step_losses": seen.steps.losses,
+          "train_shapes": {k: sorted(c.shapes["train"])
+                           for k, c in seen.clocks.items()},
+          "dev_shapes": {k: sorted(c.shapes["dev"])
+                         for k, c in seen.clocks.items()},
+          "launches_stages_3_5": train, "launches_stages_7_11": synth,
+          "kernels_held": held, "pairs": len(seen.pairs),
+          "pairs_render_s": render_s, "pairs_audio_s": audio_s,
+          "pairs_rtf": render_s / audio_s if audio_s else None,
+          "stage7_rtf": seconds.get(7, 0.0) / audio_s if audio_s else None,
+          "quality": {phase: q["best"] for phase, q in quality.items()}})
+    t0 = time.time()
+    engine = SPSVS(work / "packed_model", verbose=0, device="cuda")
+    auto = engine._validate_synthesis_args("auto", "gv")
+    emit({"phase": "recipe_vocoder_pack", "load_s": time.time() - t0,
+          "default_vocoder_type": engine.default_vocoder_type,
+          "auto_resolves_to": auto})
+    del engine
+    ref = recipe_pair_on_cpu(work / "packed_model", labels)
+    emit({"phase": "recipe_reference", **ref, "snr_bound_db": SNR_DB})
+    for phase, r in losses.items():
+        values = r["train_no_dev"] + r["dev"]
+        assert len(r["dev"]) == RECIPE_EPOCHS and all(
+            np.isfinite(values)), (phase, r)
+    assert seen.steps.losses and all(np.isfinite(seen.steps.losses))
+    assert all(n > 0 for n in train.values()), train
+    assert synth["lstm_recurrence"] > 0, synth
+    assert_trainer_kernels(held)
+    n_wavs = len(list((work / "synthesis" / "wav").glob("*_with_*.wav")))
+    assert len(seen.pairs) == n_wavs >= 2, (len(seen.pairs), n_wavs)
+    assert all(np.isfinite(v) for q in quality.values()
+               for v in q["best"].values()), quality
+    assert auto == "usfgan", auto
+    assert ref["durations_equal"] and ref["snr_db"] >= SNR_DB, ref
+    launches = {k: train[k] + synth[k] for k in train}
+    return launches, held["max_err"]
 
 
 def _sum_rows(rows, counts, keys):
@@ -4214,8 +4448,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     forward, which gives no cell sequence.  The errors are the worst of
     the kernel phases' and of the trainer phases' holds at the trainers'
     shapes (``trainer_errs``, ``hold_trainer_kernels``).  The trainer
-    phase's launches are under ``trainer``, the epoch on the recipe's own
-    dumps under ``recipe_data_train`` (``recipe_launches``)."""
+    phase's launches are under ``trainer``, the recipe's stages 3-5 and 7 +
+    11 on its own corpus under ``recipe`` (``recipe_launches``)."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -4249,7 +4483,7 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     paths = {name: {"train": train_launches[name],
                     "train_amp": amp_launches[name],
                     "trainer": trainer_launches[name],
-                    "recipe_data_train": recipe_launches[name]}
+                    "recipe": recipe_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -4379,7 +4613,7 @@ def main() -> int:
     trainer_launches, trainer_errs = phase_trainer(lr, labels[0])
     with tempfile.TemporaryDirectory() as root:
         work = phase_recipe_data(root)
-        recipe_launches, recipe_errs = phase_recipe_data_train(lr, work)
+        recipe_launches, recipe_errs = phase_recipe(lr, work)
     trainer_errs = {k: max(v, recipe_errs[k]) for k, v in trainer_errs.items()}
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
                       path_launches, train_launches, amp_launches,

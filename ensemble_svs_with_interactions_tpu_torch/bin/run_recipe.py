@@ -1,5 +1,5 @@
-"""Staged recipe runner, the data stages: corpus -> lists -> features ->
-scalers, driven by one YAML config; the port's copy of stages -1 to 2 of
+"""Staged recipe runner: data prep -> features -> scalers -> training ->
+packing -> synthesis, driven by one YAML config; the port's copy of
 ``ensemble_svs_with_interactions_tpu/bin/run_recipe.py``.
 
   -1 corpus data preparation (jaCappella-style multitrack segmentation,
@@ -9,15 +9,24 @@ scalers, driven by one YAML config; the port's copy of stages -1 to 2 of
      lists are copied instead of re-split
   1  feature extraction (prepare_features; multitrack adds note times)
   2  fit scalers + normalize features
+  3  train time-lag model
+  4  train duration model
+  5  train acoustic model
+  6  pack models into an SPSVS directory
+  7  synthesis smoke run on eval utterances (pairwise multitrack synthesis
+     when cfg.multitrack)
+  8  prepare postfilter training pairs (refused: see below)
+  9  train + pack the learned postfilter (refused: see below)
+  10 prepare vocoder features + train a uSFGAN-family vocoder, packed
+     beside the SVS models
+  11 timing evaluation: dump predicted timelag/duration for objective
+     scoring, then ``QUALITY.json`` from the phases' dev metrics
 
-Stages 3 to 11 (training, packing, synthesis, the postfilter, the
-vocoder, timing evaluation) are not wired into this runner yet: a range
-that reaches one raises ``NotImplementedError`` before any stage runs,
-where the JAX runner would skip a stage it does not know.  So
-``--stop-stage`` defaults to 2, the last wired stage, where the JAX
-runner's defaults to 7.  The trainers
-(``bin/train_*.py``) and the vocoder's stage 10 (``bin/train_vocoder.py``,
-``train/vocoder_trainer.pack_vocoder``) run on their own.
+The training, synthesis, vocoder and timing stages run on the recipe's
+``device`` (``cuda`` unless the recipe or an override says ``cpu``).
+Stages 8 and 9 are not ported: a range that reaches one raises before any
+stage runs, a multitrack recipe's stage 8 with the JAX runner's
+``ValueError``, any other with ``NotImplementedError``.
 
 The recipe file is read with the port's YAML subset (``utils/yaml_io``).
 
@@ -28,6 +37,7 @@ Usage: python -m ensemble_svs_with_interactions_tpu_torch.bin.run_recipe
 from __future__ import annotations
 
 import argparse
+import json
 import shutil
 from pathlib import Path
 
@@ -35,18 +45,31 @@ import numpy as np
 
 from ensemble_svs_with_interactions_tpu_torch.utils.config import (
     Config,
+    _wrap,
     load_config,
     merge,
     parse_overrides,
+    save_config,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.logger import getLogger
 
 logger = getLogger(verbose=1, name="recipe")
 
-UNWIRED = ("stage {} is not wired into the port's recipe runner yet "
-           "(ROADMAP Queue 1, the recipe end to end: stages 3-7, 10 and "
-           "11); run stages -1 to 2 here and the trainers' CLIs on their "
-           "dumps")
+POSTFILTER_UNPORTED = (
+    "stage {} (the learned postfilter's training) is not ported yet "
+    "(ROADMAP Queue 1 item 2, postfilter training for stages 8-9)")
+# the JAX runner's refusal (bin/run_recipe.py stage8_postfilter_features)
+MULTITRACK_POSTFILTER = (
+    "stage 8 (postfilter features) does not support multitrack "
+    "recipes: the cross-conditioned acoustic model needs a sub "
+    "track per utterance. Train the postfilter on a single-track "
+    "recipe (reference parity: multitrack run.sh has no postfilter "
+    "stage).")
+
+
+def _device(cfg: Config) -> str:
+    """The recipe's ``device``: ``cuda`` unless it asks for another."""
+    return str(cfg.get("device", "cuda"))
 
 
 def stage_m1_data_prep(cfg: Config, work: Path):
@@ -172,12 +195,404 @@ def stage2_scalers(cfg: Config, work: Path):
     logger.info("stage 2: scalers fit + features normalized")
 
 
+def _train_cfg(cfg, work, phase: str) -> Config:
+    dump = work / "dump"
+    model_cfg = load_config(cfg[phase].model_config)
+    train_cfg = dict(cfg[phase].get("train", {}))
+    data_over = {
+        "train_no_dev": {
+            "in_dir": str(dump / "train_no_dev" / "norm" / f"in_{phase}"),
+            "out_dir": str(dump / "train_no_dev" / "norm" / f"out_{phase}"),
+        },
+        "dev": {
+            "in_dir": str(dump / "dev" / "norm" / f"in_{phase}"),
+            "out_dir": str(dump / "dev" / "norm" / f"out_{phase}"),
+        },
+        "out_scaler_prefix": str(work / "scalers" / f"out_{phase}_scaler"),
+    }
+    data_over.update(dict(cfg[phase].get("data", {})))
+    return merge(
+        {"seed": cfg.get("seed", 1234), "verbose": cfg.get("verbose", 1)},
+        {
+            "model": dict(model_cfg),
+            "data": data_over,
+            "train": {**train_cfg, "out_dir": str(work / "exp" / phase)},
+        },
+    )
+
+
+def _resolve_lf0_stats(cfg, work, model_cfg: Config):
+    """Fill in_lf0_min/max and out_lf0_mean/scale from the fitted scalers
+    where the model config leaves them ``None``."""
+    netG = model_cfg.model.netG
+    in_lf0_idx = netG.get("in_lf0_idx")
+    out_lf0_idx = netG.get("out_lf0_idx")
+    if in_lf0_idx is None or out_lf0_idx is None:
+        return model_cfg
+    smin = np.load(work / "scalers" / "in_acoustic_scaler_min.npy")
+    sscale = np.load(work / "scalers" / "in_acoustic_scaler_scale.npy")
+    # MinMax: min_, scale_ -> data range
+    data_min = -smin / sscale
+    data_max = (1.0 - smin) / sscale
+    mean = np.load(work / "scalers" / "out_acoustic_scaler_mean.npy")
+    scale = np.load(work / "scalers" / "out_acoustic_scaler_scale.npy")
+    stats = {
+        "in_lf0_min": float(data_min[in_lf0_idx]),
+        "in_lf0_max": float(data_max[in_lf0_idx]),
+        "out_lf0_mean": float(mean[out_lf0_idx]),
+        "out_lf0_scale": float(scale[out_lf0_idx]),
+    }
+
+    def fill(node):
+        if isinstance(node, dict):
+            for k, v in list(node.items()):
+                if k in stats and (v is None):
+                    node[k] = stats[k]
+                else:
+                    fill(v)
+
+    fill(netG)
+    return model_cfg
+
+
+def _phase_cfg(cfg, work, phase: str) -> Config:
+    phase_cfg = _train_cfg(cfg, work, phase)
+    if phase == "acoustic":
+        phase_cfg = _resolve_lf0_stats(cfg, work, phase_cfg)
+    return phase_cfg
+
+
+def _train_phase(cfg, work, phase: str):
+    """Train ``phase`` on the recipe's device: the multitrack trainer when
+    ``cfg.multitrack`` is set, else the single-track one."""
+    from ensemble_svs_with_interactions_tpu_torch.train import (
+        multitrack_trainer,
+        trainer,
+    )
+
+    train = (multitrack_trainer.train_multitrack_model
+             if cfg.get("multitrack", False) else trainer.train_model)
+    train(_phase_cfg(cfg, work, phase), is_acoustic=phase == "acoustic",
+          device=_device(cfg))
+
+
+def stage3_train_timelag(cfg, work):
+    _train_phase(cfg, work, "timelag")
+    logger.info("stage 3: timelag model trained")
+
+
+def stage4_train_duration(cfg, work):
+    _train_phase(cfg, work, "duration")
+    logger.info("stage 4: duration model trained")
+
+
+def stage5_train_acoustic(cfg, work):
+    _train_phase(cfg, work, "acoustic")
+    logger.info("stage 5: acoustic model trained")
+
+
+def _restore(template, state, path="/"):
+    """``state``'s leaves in the structure of ``template`` (flax's
+    ``from_state_dict``): the same keys at every level, or ValueError."""
+    if not isinstance(template, dict):
+        if np.shape(state) != np.shape(template):
+            raise ValueError(f"{path}: checkpoint shape {np.shape(state)}, "
+                             f"model {np.shape(template)}")
+        return state
+    if set(template) != set(state):
+        raise ValueError(f"{path}: checkpoint keys {sorted(state)} differ "
+                         f"from the model's {sorted(template)}")
+    return {k: _restore(v, state[k], f"{path}{k}/")
+            for k, v in template.items()}
+
+
+def stage6_pack(cfg, work):
+    """Collect trained checkpoints + scalers into a packed model dir."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import flax_msgpack
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_variables,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.packing import (
+        save_model_phase,
+    )
+
+    packed = work / "packed_model"
+    packed.mkdir(parents=True, exist_ok=True)
+    ac_params = cfg.features.acoustic.params
+    dp = cfg.get("data_prep", {}) or {}
+    save_config(
+        {
+            "sample_rate": int(ac_params.get("sample_rate", 48000)),
+            "frame_period": float(ac_params.get("frame_period", 5)),
+            "feature_type": "world",
+            "use_world_codec": bool(ac_params.get("use_world_codec", True)),
+            "relative_f0": bool(ac_params.get("relative_f0", False)),
+            # synthesis-time flags the engine reads back
+            "log_f0_conditioning": bool(
+                cfg.features.get("log_f0_conditioning", True)
+            ),
+            "timelag": {
+                # clip synthesis lags to the range the training targets
+                # were clipped to in data prep
+                "allowed_range": list(
+                    dp.get("timelag_allowed_range", (-20, 20))
+                ),
+                "allowed_range_rest": list(
+                    dp.get("timelag_allowed_range_rest", (-40, 40))
+                ),
+                "force_clip_input_features": True,
+            },
+            "duration": {"force_clip_input_features": True},
+            "acoustic": {
+                "subphone_features": str(
+                    ac_params.get("subphone_features", "coarse_coding")
+                    or "none"
+                ),
+                "relative_f0": bool(ac_params.get("relative_f0", False)),
+                "force_clip_input_features": True,
+            },
+        },
+        packed / "config.yaml",
+    )
+    shutil.copyfile(cfg.question_path, packed / "qst.hed")
+
+    for phase in ("timelag", "duration", "acoustic"):
+        phase_cfg = _phase_cfg(cfg, work, phase)
+        # the flax-layout variables of the model (the trainers' start),
+        # as the JAX runner's template from its module.init
+        template = init_variables(instantiate(phase_cfg.model.netG))
+        ckpt = work / "exp" / phase / "best_loss.ckpt"
+        tree = flax_msgpack.from_bytes(ckpt.read_bytes())
+        variables = dict(template)
+        variables["params"] = _restore(template["params"], tree["params"])
+        if "batch_stats" in template and tree.get("batch_stats"):
+            variables["batch_stats"] = _restore(template["batch_stats"],
+                                                tree["batch_stats"])
+        save_model_phase(packed, phase, dict(phase_cfg.model), variables)
+        # scalers
+        for prefix, names in (
+            (f"in_{phase}", ("min", "scale")),
+            (f"out_{phase}", ("mean", "var", "scale")),
+        ):
+            for n in names:
+                src = work / "scalers" / f"{prefix}_scaler_{n}.npy"
+                shutil.copyfile(src, packed / f"{prefix}_scaler_{n}.npy")
+    logger.info("stage 6: packed model at %s", packed)
+
+
+def stage7_synthesis(cfg, work):
+    label_dir = cfg.get_path("synthesis.label_dir") or cfg.timelag_label_dir
+    out_dir = work / "synthesis"
+    device = ["--device", _device(cfg)]
+    if cfg.get("multitrack", False):
+        # pairwise cross-conditioned synthesis over same-segment singer
+        # pairs
+        from ensemble_svs_with_interactions_tpu_torch.bin import (
+            synthesis_multitrack,
+        )
+
+        spk_names = cfg.get("spk_list", None) or cfg.get("synthesis", {}).get(
+            "spk_names", None
+        )
+        if not spk_names:
+            raise ValueError(
+                "multitrack stage 7 needs the singer names: set `spk_list:` "
+                "(or `synthesis.spk_names:`) in the recipe config"
+            )
+        synthesis_multitrack.main(
+            [
+                str(work / "packed_model"),
+                str(label_dir),
+                str(out_dir),
+                "--spk-names",
+                ",".join(spk_names),
+                "--verbose",
+                "1",
+                *device,
+            ]
+        )
+    else:
+        from ensemble_svs_with_interactions_tpu_torch.bin import synthesis
+
+        synthesis.main(
+            [str(work / "packed_model"), str(label_dir), str(out_dir),
+             "--verbose", "1", *device]
+        )
+    logger.info("stage 7: synthesis outputs at %s", out_dir)
+
+
+def _refuse(cfg, stage: int):
+    """Stages 8 and 9: a multitrack recipe's stage 8 raises the JAX
+    runner's ValueError, the rest NotImplementedError."""
+    if stage == 8 and cfg.get("multitrack", False):
+        raise ValueError(MULTITRACK_POSTFILTER)
+    raise NotImplementedError(POSTFILTER_UNPORTED.format(stage))
+
+
+def stage8_postfilter_features(cfg, work):
+    _refuse(cfg, 8)
+
+
+def stage9_train_postfilter(cfg, work):
+    _refuse(cfg, 9)
+
+
+def stage10_train_vocoder(cfg, work):
+    """Prepare vocoder features, train a uSFGAN-family vocoder on the
+    recipe's device and pack its generator beside the SVS models."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import (
+        prepare_voc_features,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.train import vocoder_trainer
+
+    voc = cfg.get("vocoder", None)
+    if not voc:
+        logger.info("stage 10: no cfg.vocoder section, skipping")
+        return
+    voc = dict(voc)
+    if voc.get("model_config") and not voc.get("model"):
+        raise FileNotFoundError(
+            f"vocoder.model_config not found: {voc['model_config']}"
+        )
+
+    ac_params = dict(cfg.features.acoustic.params)
+    acoustic_cfg = _train_cfg(cfg, work, "acoustic")
+    ss = list(acoustic_cfg.model.stream_sizes)
+    has_dyn = list(acoustic_cfg.model.has_dynamic_features)
+    nwin = int(acoustic_cfg.model.num_windows)
+    static_ss = []
+    for s, d in zip(ss, has_dyn):
+        static_ss.append(s // nwin if d else s)
+
+    for split in ("train_no_dev", "dev"):
+        prepare_voc_features.main(
+            [
+                str(work / "dump" / split / "org" / "out_acoustic"),
+                str(work / "vocoder" / split / "in_vocoder"),
+                "--stream-sizes",
+                ",".join(str(s) for s in ss),
+                "--num-windows",
+                str(nwin),
+                "--has-dynamic-features",
+                ",".join(str(int(d)) for d in has_dyn),
+            ]
+        )
+
+    train_cfg = _wrap(
+        {
+            "seed": int(cfg.get("seed", 1234)),
+            "verbose": int(cfg.get("verbose", 1)),
+            "data": {
+                "train_no_dev": {
+                    "in_dir": str(work / "vocoder/train_no_dev/in_vocoder")
+                },
+                "sample_rate": int(ac_params.get("sample_rate", 48000)),
+                "frame_period": float(ac_params.get("frame_period", 5)),
+                "stream_sizes": static_ss,
+                **dict(voc.get("data", {}) or {}),
+            },
+            "model": dict(voc["model"]),
+            "train": {
+                "out_dir": str(work / "exp" / "vocoder"),
+                **dict(voc.get("train", {}) or {}),
+            },
+        }
+    )
+    if train_cfg.train.out_dir is None:
+        # a packaged vocoder config's placeholder (``out_dir: null``,
+        # lifted by _materialize_packaged_configs) means the runner's
+        # directory; the JAX runner hands its trainer the null
+        train_cfg.train.out_dir = str(work / "exp" / "vocoder")
+    vocoder_trainer.train_vocoder(train_cfg, device=_device(cfg))
+    # the generator packed so that SPSVS loads it (svs.load_vocoder) and
+    # vocoder_type="auto" resolves to the neural vocoder
+    vocoder_trainer.pack_vocoder(train_cfg, work / "exp" / "vocoder",
+                                 work / "packed_model")
+    logger.info(
+        "stage 10: vocoder trained at %s and packed", work / "exp" / "vocoder"
+    )
+
+
+def stage11_evaluate_timing(cfg, work):
+    """Dump predicted timelag/duration arrays for objective timing eval,
+    then write ``QUALITY.json``."""
+    ev = cfg.get("timing_eval", None)
+    score_dir = (ev or {}).get("score_label_dir") or cfg.get_path(
+        "synthesis.label_dir"
+    )
+    if not score_dir:
+        raise ValueError(
+            "stage 11 needs timing_eval.score_label_dir (or "
+            "synthesis.label_dir) in the recipe config"
+        )
+    align_dir = (ev or {}).get("align_label_dir") or score_dir
+    out_dir = work / "timing_eval"
+    argv = [
+        str(work / "packed_model"), str(score_dir), str(align_dir),
+        str(out_dir), "--device", _device(cfg),
+    ]
+    if cfg.get("multitrack", False):
+        from ensemble_svs_with_interactions_tpu_torch.bin import (
+            evaluate_timing_multitrack,
+        )
+
+        spk_names = cfg.get("spk_list", None)
+        if spk_names:
+            argv += ["--spk-names", ",".join(spk_names)]
+        evaluate_timing_multitrack.main(argv)
+    else:
+        from ensemble_svs_with_interactions_tpu_torch.bin import (
+            evaluate_timing,
+        )
+
+        evaluate_timing.main(argv)
+    logger.info("stage 11: timing dumps at %s", out_dir)
+    _write_quality_json(cfg, work)
+
+
+def _write_quality_json(cfg, work):
+    """Aggregate each phase's end-of-training dev metrics into
+    ``<work>/QUALITY.json`` (MGC-MCD / BAP-MCD / VUV% / F0-RMSE of the
+    acoustic phase's dev pass, each phase's losses)."""
+    quality = {}
+    for phase in ("timelag", "duration", "acoustic"):
+        p = work / "exp" / phase / "dev_metrics.json"
+        if p.exists():
+            quality[phase] = json.loads(p.read_text())
+    if not quality:
+        logger.warning("stage 11: no dev_metrics.json found under %s",
+                       work / "exp")
+        return
+    out = work / "QUALITY.json"
+    out.write_text(json.dumps(quality, indent=1))
+    ac = quality.get("acoustic", {}).get("best", {})
+    logger.info(
+        "stage 11: QUALITY.json at %s (acoustic best: %s)",
+        out,
+        {k: round(v, 4) for k, v in ac.items() if k.startswith("ObjEval")},
+    )
+
+
 STAGES = {
     -1: stage_m1_data_prep,
     0: stage0_utt_lists,
     1: stage1_features,
     2: stage2_scalers,
+    3: stage3_train_timelag,
+    4: stage4_train_duration,
+    5: stage5_train_acoustic,
+    6: stage6_pack,
+    7: stage7_synthesis,
+    8: stage8_postfilter_features,
+    9: stage9_train_postfilter,
+    10: stage10_train_vocoder,
+    11: stage11_evaluate_timing,
 }
+# the stages that refuse (not ported); checked before any stage runs
+REFUSED = (8, 9)
 
 
 def _materialize_packaged_configs(cfg, recipe_dir: Path):
@@ -239,23 +654,22 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("config")
     ap.add_argument("--stage", type=int, default=0)
-    ap.add_argument("--stop-stage", type=int, default=2)
+    ap.add_argument("--stop-stage", type=int, default=7)  # 8-10 opt-in
     ap.add_argument("overrides", nargs="*")
     # intermixed: key=value overrides may follow the options (a plain
     # parse_args of Python before 3.12.7 takes the empty list at the
     # config and then refuses them)
     args = ap.parse_intermixed_args(argv)
 
-    unwired = [s for s in range(args.stage, args.stop_stage + 1)
-               if 3 <= s <= 11]
-    if unwired:
-        raise NotImplementedError(UNWIRED.format(unwired[0]))
     cfg = load_config(args.config)
     if args.overrides:
         cfg = merge(cfg, parse_overrides(args.overrides))
     cfg = _materialize_packaged_configs(
         cfg, Path(args.config).parent.resolve()
     )
+    for stage in REFUSED:
+        if args.stage <= stage <= args.stop_stage:
+            _refuse(cfg, stage)
     work = Path(cfg.work_dir)
     work.mkdir(parents=True, exist_ok=True)
 

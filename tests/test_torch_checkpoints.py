@@ -102,7 +102,9 @@ def test_port_checkpoint_is_read_by_the_jax_stage6_path(corpus, tmp_path):
     ckpt = tmp_path / "best_loss.ckpt"
 
     jm = jax_instantiate(cfg["model"]["netG"])
-    template = init_multitrack(jm, _wrap(dict(cfg)), True)
+    # the template's structure (its values are all replaced below)
+    template = jax.eval_shape(lambda: init_multitrack(jm, _wrap(dict(cfg)),
+                                                      True))
     tree = serialization.msgpack_restore(ckpt.read_bytes())
     variables = dict(template)
     variables["params"] = serialization.from_state_dict(template["params"],

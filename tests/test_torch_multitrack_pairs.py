@@ -38,7 +38,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     torch_to_flax,
 )
 from tests.test_torch_svs import N_SPK, SR, _configs, _short_labels
-from tests.test_torch_svs import tiny_phases
+from tests.test_torch_svs import tiny_phases, traced_flax_inits
 from tests.util import HED
 
 ATOL = 1e-4
@@ -94,7 +94,9 @@ def engines(tmp_path_factory):
     pack_model(model_dir, glob, HED, tiny_phases(
         cfgs, stats, JaxMinMax, JaxStandard,
         lambda ph: {"variables": variables[ph]}))
-    return JaxSPSVS(model_dir), SPSVS(model_dir, device="cpu")
+    with traced_flax_inits():
+        jax_engine = JaxSPSVS(model_dir)
+    return jax_engine, SPSVS(model_dir, device="cpu")
 
 
 def _models(engine, phase):

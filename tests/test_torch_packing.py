@@ -61,6 +61,7 @@ from tests.test_torch_svs import (
     assert_slice_matches,
     tiny_model,
     tiny_phases,
+    traced_flax_inits,
 )
 from tests.util import HED, NIT_LAB
 
@@ -370,7 +371,9 @@ def test_port_packed_directory_renders_in_the_jax_package(dirs):
     """The JAX package's ``SPSVS`` opens what the port wrote, and renders
     as the port does from the same directory."""
     d, _ = dirs
-    assert_slice_matches(JaxSPSVS(d["port"]), SPSVS(d["port"], device="cpu"))
+    with traced_flax_inits():
+        jax_engine = JaxSPSVS(d["port"])
+    assert_slice_matches(jax_engine, SPSVS(d["port"], device="cpu"))
 
 
 def test_from_parts_renders_as_the_loaded_engine(dirs):

@@ -58,6 +58,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     torch_to_flax,
 )
 from tests.test_torch_svs import _short_labels, tiny_phases
+from tests.test_torch_svs import traced_flax_inits
 from tests.test_torch_svs_single import single_track_configs
 from tests.util import HED
 
@@ -285,7 +286,9 @@ def packed(tmp_path_factory):
 @pytest.fixture(scope="module")
 def engines(packed):
     """(JAX engine, port engine) over one directory with a postfilter."""
-    return JaxSPSVS(packed), SPSVS(packed, device="cpu")
+    with traced_flax_inits():
+        jax_engine = JaxSPSVS(packed)
+    return jax_engine, SPSVS(packed, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -434,7 +437,9 @@ def mcep_engines(tmp_path_factory):
     """(JAX engine, port engine) over a pack whose acoustic model predicts
     25-dim mel-cepstral aperiodicity."""
     model_dir = _pack_single(tmp_path_factory.mktemp("mcep_ap"), bap_dim=25)
-    return JaxSPSVS(model_dir), SPSVS(model_dir, device="cpu")
+    with traced_flax_inits():
+        jax_engine = JaxSPSVS(model_dir)
+    return jax_engine, SPSVS(model_dir, device="cpu")
 
 
 @pytest.mark.parametrize("pack", ["uncoded", "mcep_aperiodicity"])

@@ -14,6 +14,7 @@ waveforms are checked for shape, type and content here and compared by
 SNR with shared noise in tests/test_torch_world.py.
 """
 
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -43,6 +44,22 @@ N_SPK = 4
 ATOL = 1e-4
 PKG = "ensemble_svs_with_interactions_tpu.models"
 REPO = Path(__file__).resolve().parent.parent
+
+
+@contextlib.contextmanager
+def traced_flax_inits():
+    """While entered, flax's ``Module.init`` traces its variables by
+    ``jax.eval_shape`` instead of computing them (no compile): for opening
+    a JAX engine, whose every ``init`` builds a template that
+    ``from_bytes`` fills from the packed files and that raises on a leaf
+    the files lack."""
+    import flax.linen as nn
+
+    init = nn.Module.init
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn.Module, "init", lambda self, *a, **k: jax.eval_shape(
+            lambda: init(self, *a, **k)))
+        yield
 
 
 def _configs(mgc_dim=8, bap_dim=3):
@@ -297,10 +314,12 @@ def test_port_imports_no_jax():
     and the NPSS cascade, the train steps,
     the trainers with their datasets, metrics, renders, initializers and
     CLIs, the recipe's data stages -1 to 2 with the native WORLD analysis,
-    their CLIs and the recipe runner), chip_smoke.py's and both benches' own
-    imports leave JAX, flax, yaml, msgpack and the JAX package out of the
-    process.  The port's name starts with the JAX package's, so the check
-    is on exact names and the ``pkg.`` prefix."""
+    their CLIs, the recipe runner with stages 3-7, 10 and 11, the
+    synthesis, timing-evaluation, multi-speaker training and sweep CLIs),
+    chip_smoke.py's and both benches' own imports leave JAX, flax, yaml,
+    msgpack and the JAX package out of the process.  The port's name
+    starts with the JAX package's, so the check is on exact names and the
+    ``pkg.`` prefix."""
     code = (
         "import sys\n"
         "import ensemble_svs_with_interactions_tpu_torch.svs\n"
@@ -353,6 +372,15 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.bin"
         ".preprocess_normalize\n"
         "import ensemble_svs_with_interactions_tpu_torch.bin.run_recipe\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".synthesis_multitrack\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.synthesis\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.evaluate_timing\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".evaluate_timing_multitrack\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".train_acoustic_multi\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.sweep\n"
         "import chip_smoke\n"
         "import bench_cuda\n"
         "import bench_train_cuda\n"

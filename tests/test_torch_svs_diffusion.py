@@ -37,7 +37,7 @@ from ensemble_svs_with_interactions_tpu_torch.io import hts
 from ensemble_svs_with_interactions_tpu_torch.models import diffsinger
 from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
 from tests.test_torch_diffusion import jax_chains
-from tests.test_torch_svs import _short_labels
+from tests.test_torch_svs import _short_labels, traced_flax_inits
 
 ATOL = 1e-4
 SNR_DB = 40.0
@@ -90,7 +90,9 @@ def packed(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def engines(packed):
-    return JaxSPSVS(packed[""]), SPSVS(packed[""], device="cpu")
+    with traced_flax_inits():
+        jax_engine = JaxSPSVS(packed[""])
+    return jax_engine, SPSVS(packed[""], device="cpu")
 
 
 def _labels(mod):

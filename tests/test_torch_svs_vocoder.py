@@ -146,7 +146,9 @@ def dirs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def engines(dirs):
-    return {k: (JaxSPSVS(d), SPSVS(d, device="cpu"))
+    with mt.traced_flax_inits():
+        jax_engines = {k: JaxSPSVS(d) for k, d in dirs.items()}
+    return {k: (jax_engines[k], SPSVS(d, device="cpu"))
             for k, d in dirs.items()}
 
 
