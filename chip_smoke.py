@@ -17,7 +17,8 @@ train step, and the recipe's three training phases through the trainers,
 from feature dumps to a packed voice; and the recipe end to end: its data
 stages (corpus preparation, features with the native WORLD analysis,
 scalers) on the host, then its runner's training, packing, synthesis,
-vocoder and timing-evaluation stages on the card.
+vocoder and timing-evaluation stages on the card; and the single-track
+recipe with its learned postfilter trained and merged (stages 0 to 9).
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
@@ -180,6 +181,26 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     ``recipe_vocoder_pack``: the stage-10 pack resolves
     ``vocoder_type="auto"`` to its vocoder; ``recipe_reference``: one
     pair of stage 7 on the card against the CPU (durations, streams, SNR);
+11d. ``recipe_single``: the single-track recipe with its learned
+    postfilter (``single_recipe``) through ``bin/run_recipe.main`` on a
+    48 kHz single-singer corpus (``write_single_corpus``: 6 utterances of
+    SINGLE_SONG_S s, one dev, one eval): stages 0-2 on the host, 3-9 on
+    the card with the shipped ``timelag_mdn.yaml``, ``duration_mdn.yaml``
+    (``MDNv2``) and ``acoustic_resf0convlstm.yaml``
+    (``ResSkipF0FFConvLSTM``, biLSTM 256 x 2) at full width, stage 9 once
+    with ``postfilter_mgc.yaml`` and once with ``postfilter_bap.yaml``,
+    each into its own ``train.out_dir``, then ``bin/merge_postfilters.py``
+    on the two checkpoints into the pack; each stage's seconds, the
+    launches by kernel over stages 3-5, 7, 8 and each stage 9, each
+    kernel timed and held against its plain version at the shapes those
+    stages gave it (the forward at B = 1 and the stage-8 T, the dev
+    pass's; the train step's forward, BPTT and dW_h), with its bound and
+    cuDNN's or ``torch.matmul``'s time; the mgc pair's GAN step at full
+    width (median of PF_GAN_STEPS warm steps beside the float32 bound of
+    its convolutions, peak memory) and held card against CPU on
+    PF_HOLD_FRAMES frames (``hold_pf_gan``); the merged pack's
+    ``svs(post_filter_type="nnsvs")`` on the eval utterance, card against
+    CPU (durations, streams, SNR) and timed;
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
@@ -867,14 +888,14 @@ def phase_build(lr):
 
 
 def phase_kernels(lr, B=N_TRACKS, modes=(False, True), phase="kernel",
-                  shapes=RECURRENCE_SHAPES):
+                  shapes=RECURRENCE_SHAPES, T=T_FRAMES):
     """The recurrence at the serving shapes: B rows (N_TRACKS for
-    ``svs_ensemble``, 1 for ``svs``) of T_FRAMES steps, each width of
-    ``shapes`` (the flagship's RECURRENCE_SHAPES, and for ``svs_ensemble``
-    the diffusion voice's too), in each of ``modes`` (want_c)."""
+    ``svs_ensemble``, 1 for ``svs``) of T steps (T_FRAMES, the fixture's),
+    each width of ``shapes`` (the flagship's RECURRENCE_SHAPES, and for
+    ``svs_ensemble`` the diffusion voice's too), in each of ``modes``
+    (want_c)."""
     results = {}
     g = torch.Generator(device="cuda").manual_seed(SEED + B - N_TRACKS)
-    T = T_FRAMES
     for H in shapes:
         xw = torch.randn(B, T, 4 * H, device="cuda", generator=g)
         w_h = torch.randn(H, 4 * H, device="cuda", generator=g) / H ** 0.5
@@ -905,18 +926,19 @@ def phase_kernels(lr, B=N_TRACKS, modes=(False, True), phase="kernel",
     return results
 
 
-def phase_train_kernels(lr):
+def phase_train_kernels(lr, B=TRAIN_B, shapes=TRAIN_LAUNCHES_BY_SHAPE,
+                        phase="train_kernel"):
     """The training path's kernels at its shapes (TRAIN_LAUNCHES_BY_SHAPE,
-    batch TRAIN_B): the recurrence in both modes, the BPTT kernel (dxw)
-    and the dW_h kernel, each against its plain version."""
+    batch TRAIN_B, as ``bench_train.py`` runs it, unless ``shapes`` and
+    ``B`` name others): the recurrence in both modes, the BPTT kernel
+    (dxw) and the dW_h kernel, each against its plain version."""
     rows = {}
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    B = TRAIN_B
-    for H, T in TRAIN_LAUNCHES_BY_SHAPE:
+    for H, T in shapes:
         xw = torch.randn(B, T, 4 * H, device="cuda", generator=g)
         w_h = torch.randn(H, 4 * H, device="cuda", generator=g) / H ** 0.5
         dy = torch.randn(B, T, H, device="cuda", generator=g)
-        base = {"phase": "train_kernel", "B": B, "T": T, "H": H}
+        base = {"phase": phase, "B": B, "T": T, "H": H}
         library_ms, gemm_ms = cudnn_lstm_ms(xw, w_h, 10)
         for want_c in (False, True):
             got = lr.lstm_recurrence(xw, w_h, want_c)
@@ -3921,11 +3943,11 @@ def recipe_data_overrides(corpus, work) -> list:
     ]
 
 
-def run_recipe_stages(first: int, last: int, overrides, numpy: bool = False
-                      ) -> dict:
-    """``bin/run_recipe.main`` on the shipped recipe from stage ``first``
-    to ``last`` with ``overrides``; with ``numpy`` under
-    ``ESVS_DISABLE_NATIVE=1`` (the feature workers take the caller's
+def run_recipe_stages(first: int, last: int, overrides, numpy: bool = False,
+                      recipe: Path = RECIPE) -> dict:
+    """``bin/run_recipe.main`` on ``recipe`` (the shipped one by default)
+    from stage ``first`` to ``last`` with ``overrides``; with ``numpy``
+    under ``ESVS_DISABLE_NATIVE=1`` (the feature workers take the caller's
     environment).  Returns each stage's wall seconds."""
     import os
 
@@ -3945,7 +3967,7 @@ def run_recipe_stages(first: int, last: int, overrides, numpy: bool = False
     os.environ["ESVS_DISABLE_NATIVE"] = "1" if numpy else "0"
     try:
         run_recipe.STAGES.update({k: timed(k, fn) for k, fn in stages.items()})
-        assert run_recipe.main([str(RECIPE), "--stage", str(first),
+        assert run_recipe.main([str(recipe), "--stage", str(first),
                                 "--stop-stage", str(last), *overrides]) == 0
     finally:
         run_recipe.STAGES.update(stages)
@@ -4403,6 +4425,522 @@ def phase_recipe(lr, work) -> tuple:
     return launches, held["max_err"]
 
 
+# ------------------------------------------------ the single-track recipe
+SINGLE_UTTS_PER_SONG = 2  # score windows of each fixture song: 6 in all
+SINGLE_SONG_S = 20.0      # each window's length
+SINGLE_EPOCHS = 1         # stages 3-5, of the recipe's 100
+PF_EPOCHS = 1             # each stage-9 run, of the recipe's 50
+PF_CONFIGS = ("postfilter_mgc", "postfilter_bap")
+PF_GAN_WARMUP, PF_GAN_STEPS = 2, 5
+# the GAN step, card against CPU, on this many frames of the first batch
+# (the CPU's float32 convolutions over a whole batch would take a minute)
+PF_HOLD_FRAMES = 512
+# ... in float32 with TF32 off, from the same weights, batch and noise:
+# each loss within PF_GAN_RTOL of its value, each network's gradient
+# within PF_GAN_RTOL of its norm (L2), before clipping; or, where the two
+# float32 runs part by more, the card no farther from the same step in
+# float64 on the CPU than PF_GAN_HEADROOM times the CPU's float32 run
+# (a conv stack's gradient sums thousands of products per weight: the
+# probe of this phase read 3.8e-5 and 6.9e-5 of the norms for G and D)
+PF_GAN_RTOL = 1e-4
+PF_GAN_HEADROOM = AR_HEADROOM
+
+
+def label_window(labels, start_s: float, seconds: float):
+    """The labels lying within [start_s, start_s + seconds), retimed to
+    start at 0."""
+    t0, t1 = start_s * 1e7, (start_s + seconds) * 1e7
+    idx = [i for i, (a, b) in enumerate(zip(labels.start_times,
+                                            labels.end_times))
+           if a >= t0 and b <= t1]
+    w = labels[idx[0]: idx[-1] + 1]
+    shift = w.start_times[0]
+    w.start_times = [t - shift for t in w.start_times]
+    w.end_times = [t - shift for t in w.end_times]
+    return w
+
+
+def write_single_corpus(root, sr: int = RECIPE_SR,
+                        seconds: float = SINGLE_SONG_S, seed: int = SEED):
+    """A single-singer corpus, ``<root>/lab/<utt>.lab``, ``<root>/wav/
+    <utt>.wav`` and ``<root>/utt_list.txt``: the first and the last
+    ``seconds`` of each fixture song's score (six utterances), sung by
+    ``synth_wav``, and the first (the recipe's eval utterance) in
+    ``<root>/eval_lab``.  Returns (the utterance ids, their audio
+    seconds)."""
+    from scipy.io import wavfile
+
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+
+    root = Path(root)
+    (root / "lab").mkdir(parents=True, exist_ok=True)
+    (root / "wav").mkdir(exist_ok=True)
+    binary_dict, numeric_dict = hts.load_question_set(
+        packaged_question_path())
+    rng = np.random.default_rng(seed)
+    utts, audio_s = [], 0.0
+    for fi, path in enumerate(JACAPPELLA_LABS):
+        labels = hts.load(path)
+        end_s = labels.end_times[-1] / 1e7
+        for k, start in enumerate((0.0, max(end_s - seconds, 0.0))):
+            utt = f"song{fi}_{k}"
+            w = label_window(labels, start, seconds)
+            w.save(root / "lab" / f"{utt}.lab")
+            wav = synth_wav(w, binary_dict, numeric_dict, rng, sr,
+                            tail_seconds=0.3)
+            wavfile.write(root / "wav" / f"{utt}.wav", sr, wav)
+            audio_s += len(wav) / sr
+            utts.append(utt)
+    (root / "utt_list.txt").write_text("\n".join(utts) + "\n")
+    (root / "eval_lab").mkdir(exist_ok=True)
+    shutil.copyfile(root / "lab" / f"{utts[0]}.lab",
+                    root / "eval_lab" / f"{utts[0]}.lab")
+    return utts, audio_s
+
+
+def single_recipe(corpus, work) -> dict:
+    """A single-track recipe over ``corpus``: the shipped models verbatim
+    (``timelag_mdn.yaml``, ``duration_mdn.yaml``,
+    ``acoustic_resf0convlstm.yaml`` with its lf0 statistics from the
+    scalers, ``postfilter_mgc.yaml``), the packaged recipe's acoustic
+    features and its phases' train and data sections (``spk_names``
+    dropped: one singer; the acoustic phase's ``pitch_reg_weight`` 1, as
+    the JAX package's single-track e2e recipe sets it), one dev and one
+    eval utterance (stage 7 renders the eval one, ``eval_lab``), on the
+    card; cut: SINGLE_EPOCHS epochs a phase and PF_EPOCHS a
+    postfilter."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+        yaml_io,
+    )
+
+    packaged = yaml_io.load(RECIPE.read_text())
+    corpus, work = Path(corpus), Path(work)
+    models = {"timelag": "timelag/timelag_mdn.yaml",
+              "duration": "duration/duration_mdn.yaml",
+              "acoustic": "acoustic/acoustic_resf0convlstm.yaml"}
+    recipe = {
+        "seed": 1234, "verbose": 1, "work_dir": str(work),
+        "question_path": str(packaged_question_path()),
+        "data": {"utt_list": str(corpus / "utt_list.txt"), "n_dev": 1,
+                 "n_eval": 1},
+        "features": {
+            "n_jobs": packaged["features"]["n_jobs"],
+            "timelag": {"label_phone_score_dir": str(corpus / "lab"),
+                        "label_phone_align_dir": str(corpus / "lab")},
+            "duration": {"label_dir": str(corpus / "lab")},
+            "acoustic": {"wav_dir": str(corpus / "wav"),
+                         "label_dir": str(corpus / "lab"),
+                         "params": packaged["features"]["acoustic"][
+                             "params"]}},
+        "synthesis": {"label_dir": str(corpus / "eval_lab")},
+        "postfilter": {
+            "model_config": str(CONFIGS / "postfilter/postfilter_mgc.yaml"),
+            "train": {**packaged["postfilter"]["train"],
+                      "nepochs": PF_EPOCHS}},
+    }
+    for phase, rel in models.items():
+        section = packaged[phase]
+        train = {**section["train"], "nepochs": SINGLE_EPOCHS}
+        if phase == "acoustic":
+            train["pitch_reg_weight"] = 1.0
+        data = {k: v for k, v in section["data"].items()
+                if k != "spk_names"}
+        recipe[phase] = {"model_config": str(CONFIGS / rel), "train": train,
+                         "data": data}
+    return recipe
+
+
+class SingleTrainerClocks:
+    """While entered, the single-track trainer the runner calls takes a
+    ``TrainerClock`` per phase (by its ``train.out_dir``)."""
+
+    def __init__(self):
+        self.clocks = {}
+
+    def __enter__(self):
+        from ensemble_svs_with_interactions_tpu_torch.train import trainer
+
+        self.train = train = trainer.train_model
+
+        def observed(cfg, is_acoustic=False, device="cuda", observe=None):
+            clock = self.clocks.setdefault(Path(cfg.train.out_dir).name,
+                                           TrainerClock())
+            return train(cfg, is_acoustic, device=device, observe=clock)
+
+        trainer.train_model = observed
+        return self
+
+    def __exit__(self, *exc):
+        from ensemble_svs_with_interactions_tpu_torch.train import trainer
+
+        trainer.train_model = self.train
+
+
+def gan_conv_flops(netG, netD, B: int, T: int, D: int, D_adv: int) -> int:
+    """Operations of one GAN step's convolutions (and G's frame-wise noise
+    projection): G's forward, its input and weight gradients (3 x its
+    forward); D's forward on the fake and the real input, the fake's input
+    gradient for G's loss and both weight gradients for D's (5 x one
+    forward); 2 x Cout x Cin x kh x kw an output pixel."""
+    from torch import nn
+
+    g = 0
+    for pf in (netG.mgc_postfilter, netG.bap_postfilter,
+               netG.lf0_postfilter):
+        if pf is None:
+            continue
+        for m in pf.modules():
+            if isinstance(m, nn.Conv2d):
+                g += 2 * m.weight.numel() * B * T * pf.in_dim
+            elif isinstance(m, nn.Linear):
+                g += 2 * m.weight.numel() * B * T
+    d = 0
+    with torch.no_grad():
+        maps = netD.to("meta")(torch.empty(B, T, D_adv, device="meta"))
+    convs = [netD.Conv_0, netD.Conv_1, netD.Conv_2, netD.Conv_3,
+             netD.Conv_4]
+    for conv, fmap in zip(convs, maps):
+        d += 2 * conv.weight.numel() * fmap.shape[1] * fmap.shape[2] * B
+    return 3 * g + 5 * d
+
+
+def pf_batch(work, device, frames=None, dtype=torch.float32) -> dict:
+    """The first batch of stage 8's training pairs as stage 9's trainer
+    builds it (``batch_max_frames`` 8000), optionally its first
+    ``frames`` frames, on ``device``, the features in ``dtype``."""
+    from ensemble_svs_with_interactions_tpu_torch.data.dataset import (
+        BucketedBatchIterator,
+        FeatsDataset,
+    )
+
+    d = Path(work) / "postfilter" / "train_no_dev"
+    batch = next(iter(BucketedBatchIterator(
+        FeatsDataset(d / "in_postfilter", d / "out_postfilter"),
+        max_tokens=8000, time_multiple=32, shuffle=False)))
+    if frames is not None:
+        batch = {"in_feats": batch["in_feats"][:, :frames],
+                 "out_feats": batch["out_feats"][:, :frames],
+                 "lengths": np.minimum(batch["lengths"], frames)}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in batch.items()}
+    for k in ("in_feats", "out_feats"):
+        out[k] = out[k].to(dtype)
+    return out
+
+
+def pf_gan_run(train_cfg, work, device, frames=None, steps=1,
+               dtype=torch.float32) -> tuple:
+    """Stage 9's GAN step (``train/postfilter_trainer.gan_step`` on the
+    flax schemes' weights, G at seed 0 and D at seed 2, as the trainer
+    draws them) over ``steps`` steps of one batch (``pf_batch``) on
+    ``device`` in ``dtype``, G's noise from a CPU generator seeded SEED:
+    (the last step's metrics, each step's (G, D) gradients before
+    clipping as flat float64 host vectors, the step function, G, D, the
+    batch)."""
+    from ensemble_svs_with_interactions_tpu_torch.train import (
+        gan,
+        postfilter_trainer as pt,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_module,
+    )
+
+    netG = init_module(pt.build_postfilter(train_cfg), seed=0).to(dtype)
+    netD = init_module(instantiate(train_cfg.model.netD), seed=2).to(dtype)
+    step = pt.gan_step(train_cfg, netG, netD, device)
+    batch = pf_batch(work, device, frames, dtype)
+    grads, clip = [], gan._clip
+
+    def kept(g, clip_norm):
+        grads.append(torch.cat([x.reshape(-1) for x in g]).double().cpu())
+        return clip(g, clip_norm)
+
+    gan._clip = kept
+    try:
+        for _ in range(steps):
+            metrics = step(batch, torch.Generator().manual_seed(SEED))
+    finally:
+        gan._clip = clip
+    return ({k: float(v) for k, v in metrics.items()},
+            list(zip(grads[::2], grads[1::2])), step, netG, netD, batch)
+
+
+def hold_pf_gan(train_cfg, work) -> dict:
+    """One full-width GAN step of ``train_cfg``'s pair on the card against
+    the same step on the CPU, on PF_HOLD_FRAMES frames of the first batch,
+    both float32, and the CPU's in float64 as the oracle: each loss
+    relative to its value, each network's gradient (L2) relative to its
+    norm; each holds within PF_GAN_RTOL, or where the card is no farther
+    from the oracle than PF_GAN_HEADROOM times the CPU's float32 run."""
+    runs = {(dev, dt): pf_gan_run(train_cfg, work, dev, PF_HOLD_FRAMES,
+                                  dtype=dt)[:2]
+            for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                            ("cpu", torch.float64))}
+    card, cpu, f64 = (runs[k] for k in (
+        ("cuda", torch.float32), ("cpu", torch.float32),
+        ("cpu", torch.float64)))
+
+    def judge(got, want, oracle, dist):
+        rel = dist(got, want)
+        to_oracle, ref_to_oracle = dist(got, oracle), dist(want, oracle)
+        return {"rel": rel, "card_to_f64": to_oracle,
+                "cpu_to_f64": ref_to_oracle,
+                "ok": bool(rel < PF_GAN_RTOL or to_oracle
+                           <= PF_GAN_HEADROOM * ref_to_oracle)}
+
+    def scalar(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    losses = {k: judge(card[0][k], cpu[0][k], f64[0][k], scalar)
+              for k in cpu[0] if k.startswith("Loss")}
+    grads = {net: judge(card[1][0][i], cpu[1][0][i], f64[1][0][i], l2)
+             for i, net in enumerate(("G", "D"))}
+    return {"frames": PF_HOLD_FRAMES, "losses": losses, "grads": grads,
+            "rtol": PF_GAN_RTOL, "headroom": PF_GAN_HEADROOM,
+            "ok": all(r["ok"] for r in (*losses.values(),
+                                        *grads.values()))}
+
+
+def time_pf_gan(train_cfg, work) -> dict:
+    """The GAN step on the card at the first real batch: PF_GAN_WARMUP
+    warm-up steps, then PF_GAN_STEPS steps each timed by CUDA events, the
+    median beside the float32 bound of its convolutions
+    (``gan_conv_flops`` over PEAK_FP32_FLOP_PER_S; the batch and the
+    weights, their gradients and Adam moments over the memory rate), and
+    the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    _, _, step, netG, netD, batch = pf_gan_run(train_cfg, work, "cuda",
+                                               steps=PF_GAN_WARMUP)
+    gen = torch.Generator().manual_seed(SEED)
+    times = []
+    for _ in range(PF_GAN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(batch, gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    B, T, D = batch["in_feats"].shape
+    flops = gan_conv_flops(copy.deepcopy(netG), copy.deepcopy(netD), B, T,
+                           D, D)
+    n_params = sum(p.numel() for m in (netG, netD) for p in m.parameters())
+    t_bytes = 1e3 * 4 * (2 * B * T * D + 6 * n_params) / PEAK_BYTES_PER_S
+    t_ops = 1e3 * flops / PEAK_FP32_FLOP_PER_S
+    bound_ms, bound_by = bound(t_bytes, t_ops)
+    return {"B": B, "T": T, "D": D, "steps_ms": times,
+            "median_ms": float(np.median(times)), "conv_gflop": flops / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def single_svs_on_cpu(packed, label_path) -> dict:
+    """``svs(post_filter_type="nnsvs")``'s stages on one utterance by an
+    engine on the card and one on the CPU over the same pack: the
+    durations, the postprocessed streams' largest difference over each
+    stream's scale, and the waveforms from the same noise by SNR; then one
+    whole ``svs()`` on the card, timed."""
+    from ensemble_svs_with_interactions_tpu_torch.gen import (
+        FRAME_BUCKET,
+        _round_up,
+        predict_waveform,
+        vocoder_noise,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        engine = SPSVS(packed, verbose=0, device=device)
+        with torch.no_grad():
+            dm = engine.predict_timing(hts.load(label_path))
+            acoustic = engine.predict_acoustic(dm)
+        streams = engine.postprocess_acoustic(acoustic, dm,
+                                              post_filter_type="nnsvs")
+        out[device] = (engine, dm, streams, time.time() - t0)
+    (engine, dm, streams, card_s), (_, cpu_dm, cpu_streams, cpu_s) = \
+        out["cuda"], out["cpu"]
+    hop = int(engine.sample_rate * engine.frame_period / 1000)
+    noise = vocoder_noise(1, _round_up(len(streams[1]), FRAME_BUCKET) * hop,
+                          "cpu")
+    kw = {"sample_rate": engine.sample_rate,
+          "frame_period": engine.frame_period,
+          "use_world_codec": engine.config.get("use_world_codec", True)}
+    wav = [predict_waveform(s, device=dev, noise=noise.to(dev), **kw)
+           for dev, s in (("cuda", streams), ("cpu", cpu_streams))]
+    rel = {name: float(np.abs(np.asarray(a, np.float64) - b).max()
+                       / max(np.abs(b).max(), 1e-12))
+           for name, a, b in zip(("mgc", "lf0", "vuv", "bap"), streams,
+                                 cpu_streams)}
+    t0 = time.time()
+    audio, sr = engine.svs(hts.load(label_path), post_filter_type="nnsvs")
+    svs_s = time.time() - t0
+    return {"utterance": Path(label_path).stem, "frames": len(streams[1]),
+            "durations_equal": list(dm.start_times) == list(
+                cpu_dm.start_times) and list(dm.end_times) == list(
+                cpu_dm.end_times),
+            "stream_err_over_scale": rel, "stream_rtol": POST_ATOL,
+            "snr_db": snr_db(wav[1], wav[0]), "card_s": card_s,
+            "cpu_s": cpu_s, "svs_s": svs_s,
+            "svs_rtf": svs_s / (len(audio) / sr),
+            "svs_finite_nonzero": bool(np.abs(audio).max() > 0)}
+
+
+def phase_recipe_single(lr, root) -> dict:
+    """The single-track recipe with its learned postfilter (phase 11d):
+    ``write_single_corpus`` at 48 kHz, ``single_recipe`` through
+    ``bin/run_recipe.main`` on the card: stages 0-2 on the host, 3-6
+    (``MDNv2`` timing, ``ResSkipF0FFConvLSTM`` acoustic, the pack), 7, 8
+    (the postfilter pairs), then stage 9 once with each of the shipped
+    ``postfilter_mgc.yaml`` and ``postfilter_bap.yaml`` into its own
+    ``train.out_dir``, and ``bin/merge_postfilters.py`` on the two
+    checkpoints into the pack; each stage timed; the kernels' launches
+    counted over stages 3-5, over 7, over 8 and over 9, and each kernel
+    timed and held against its plain version at the shapes the stages
+    gave it; the mgc pair's GAN step timed at full width and held card
+    against CPU; ``svs(post_filter_type="nnsvs")`` of the eval utterance
+    held card against CPU.  Returns the launches summed and the kernel
+    rows by shape."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import (
+        merge_postfilters,
+        run_recipe,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.gen import FRAME_BUCKET
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        load_config,
+        save_config,
+    )
+
+    root = Path(root)
+    t0 = time.time()
+    utts, audio_s = write_single_corpus(root / "corpus")
+    corpus_s = time.time() - t0
+    work = root / "work"
+    recipe = root / "recipe.yaml"
+    save_config(single_recipe(root / "corpus", work), recipe)
+    seconds = {}
+
+    def stages(first, last, overrides=(), key=None):
+        got = run_recipe_stages(first, last, list(overrides), recipe=recipe)
+        seconds.update({key or k: v for k, v in got.items()})
+
+    stages(0, 2)
+    launches = {}
+    with SingleTrainerClocks() as seen:
+        launches["stages_3_5"] = count_launches(lr, lambda: stages(3, 6))
+    launches["stage_7"] = count_launches(lr, lambda: stages(7, 7))
+    launches["stage_8"] = count_launches(lr, lambda: stages(8, 8))
+    ckpts = {}
+    for name in PF_CONFIGS:
+        out = work / "exp" / name
+        over = [f"postfilter.model_config={CONFIGS / 'postfilter' / name}"
+                ".yaml", f"postfilter.train.out_dir={out}"]
+        launches[f"stage_9 {name}"] = count_launches(
+            lr, lambda: stages(9, 9, over, key=f"9 {name}"))
+        ckpts[name] = out / "best_loss.ckpt"
+    t0 = time.time()
+    assert merge_postfilters.main([
+        str(work / "packed_model"),
+        "--mgc-config", str(CONFIGS / "postfilter/postfilter_mgc.yaml"),
+        "--mgc-ckpt", str(ckpts["postfilter_mgc"]),
+        "--bap-config", str(CONFIGS / "postfilter/postfilter_bap.yaml"),
+        "--bap-ckpt", str(ckpts["postfilter_bap"]),
+        "--stream-sizes", "60,1,1,5"]) == 0
+    seconds["merge"] = time.time() - t0
+
+    netg = load_config(work / "packed_model" / "acoustic_model.yaml")["netG"]
+    H = int(netg["lstm_hidden_dim"])
+    per_forward = int(netg["num_lstm_layers"]) * (
+        2 if netg.get("bidirectional", True) else 1)
+    frames = [len(np.load(f, mmap_mode="r")) for f in sorted(
+        (work / "dump").glob("*/norm/in_acoustic/*-feats.npy"))]
+    T_pad = -(-max(frames) // FRAME_BUCKET) * FRAME_BUCKET
+    clock = seen.clocks["acoustic"]
+    rows = {"svs B=1": phase_kernels(
+        lr, B=1, modes=(False,), phase="recipe_single_kernel", shapes=[H],
+        T=T_pad)[(H, False)]}
+    for B, T in sorted(clock.shapes["dev"]):
+        rows[f"dev B={B} T={T}"] = phase_kernels(
+            lr, B=B, modes=(False,), phase="recipe_single_kernel",
+            shapes=[H], T=T)[(H, False)]
+    for B, T in sorted(clock.shapes["train"]):
+        for k, row in phase_train_kernels(
+                lr, B=B, shapes={(H, T): per_forward},
+                phase="recipe_single_train_kernel").items():
+            rows[f"train {k[0]}{'_c' if k[3] else ''} B={B} T={T}"] = row
+
+    train_cfg = run_recipe.postfilter_train_config(
+        run_recipe._materialize_packaged_configs(load_config(recipe),
+                                                 root),
+        work)
+    t0 = time.time()
+    gan_held = hold_pf_gan(train_cfg, work)
+    gan_time = time_pf_gan(train_cfg, work)
+    gan_s = time.time() - t0
+    ref = single_svs_on_cpu(work / "packed_model",
+                            root / "corpus" / "lab" / f"{utts[0]}.lab")
+    losses = {}
+    for name in ("timelag", "duration", "acoustic", *PF_CONFIGS):
+        lines = [json.loads(ln) for ln in (work / "exp" / name /
+                 "metrics.jsonl").read_text().splitlines()]
+        losses[name] = lines
+    merged = load_config(work / "packed_model" / "postfilter_model.yaml")
+    cuts = {"epochs": f"{SINGLE_EPOCHS} of 100 in stages 3-5",
+            "postfilter": f"{PF_EPOCHS} of 50 epochs a stage-9 run",
+            "corpus": f"{len(utts)} synthetic utterances of "
+                      f"{SINGLE_SONG_S:g} s (1 dev, 1 eval), one singer",
+            "gan_hold": f"the card-vs-CPU GAN step on {PF_HOLD_FRAMES} "
+                        "frames of the first batch"}
+    emit({"phase": "recipe_single", "device": "cuda", "cuts": cuts,
+          "corpus_s": corpus_s, "audio_s": audio_s,
+          "stage_s": {str(k): v for k, v in seconds.items()},
+          "launches": launches, "lstm_hidden": H,
+          "launches_per_forward": per_forward,
+          "train_shapes": sorted(clock.shapes["train"]),
+          "dev_shapes": sorted(clock.shapes["dev"]),
+          "stage8_frames": frames, "stage8_T": T_pad,
+          "kernel_rows": {k: {f: r[f] for f in (
+              "kernel", "B", "T", "H", "max_abs_err", "ms", "plain_ms",
+              "bound_ms", "bound_by", "library_ms") if f in r}
+              for k, r in rows.items()},
+          "losses": losses,
+          "merged_postfilter": {
+              k: v.get("_target_") if isinstance(v, dict) else v
+              for k, v in merged["netG"].items()},
+          "gan_hold": gan_held, "gan_step": gan_time, "gan_s": gan_s,
+          "svs_reference": ref, "snr_bound_db": SNR_DB})
+    for name, lines in losses.items():
+        vals = [v for ln in lines for k, v in ln.items()
+                if k.endswith("Loss") or k.endswith("Loss_Recon")]
+        assert vals and all(np.isfinite(vals)), (name, lines)
+    assert all(n > 0 for n in launches["stages_3_5"].values()), launches
+    for k in ("stage_7", "stage_8"):
+        assert launches[k]["lstm_recurrence"] > 0, launches
+    assert all(r["max_abs_err"] < KERNEL_ATOL for k, r in rows.items()
+               if "dwh" not in k), rows
+    assert gan_held["ok"], gan_held
+    assert ref["durations_equal"] and ref["snr_db"] >= SNR_DB, ref
+    assert max(ref["stream_err_over_scale"].values()) <= POST_ATOL, ref
+    assert ref["svs_finite_nonzero"], ref
+    assert merged["netG"]["mgc_postfilter"] and \
+        merged["netG"]["bap_postfilter"], merged
+    total = {k: sum(v[k] for v in launches.values())
+             for k in TRAIN_COUNTERS}
+    return total, rows
+
+
 def _sum_rows(rows, counts, keys):
     """{key: sum of count * row[key]} over rows weighted by counts."""
     return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
@@ -4423,7 +4961,8 @@ def _entry(name, source, sums, **extra):
 
 def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                  path_launches, train_launches, amp_launches,
-                 trainer_launches, trainer_errs, recipe_launches):
+                 trainer_launches, trainer_errs, recipe_launches,
+                 single_recipe_launches, single_recipe_rows):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -4449,7 +4988,11 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     the kernel phases' and of the trainer phases' holds at the trainers'
     shapes (``trainer_errs``, ``hold_trainer_kernels``).  The trainer
     phase's launches are under ``trainer``, the recipe's stages 3-5 and 7 +
-    11 on its own corpus under ``recipe`` (``recipe_launches``)."""
+    11 on its own corpus under ``recipe`` (``recipe_launches``), the
+    single-track recipe's stages 3-9 under ``recipe_single``
+    (``single_recipe_launches``), with each kernel's rows at that
+    recipe's shapes under ``recipe_single_rows`` (``phase_recipe_single``;
+    the errors of those rows count in ``max_abs_err``)."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -4468,6 +5011,16 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                 for s in TRAIN_LAUNCHES_BY_SHAPE}
         return _sum_rows(rows, TRAIN_LAUNCHES_BY_SHAPE, keys), rows
 
+    def recipe_single(name):
+        keep = ("B", "T", "H", "kernel", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "max_abs_err", "max_rel_err")
+        return {k: {f: r[f] for f in keep if f in r}
+                for k, r in single_recipe_rows.items() if r["name"] == name}
+
+    def worst(name, key="max_abs_err"):
+        return max([0.0] + [r[key] for r in single_recipe_rows.values()
+                            if r["name"] == name])
+
     fwd, _ = train_sums("lstm_recurrence", True)
     fwd_bound = bound(fwd["bytes_ms"], fwd["operations_ms"])
     bptt, bptt_rows = train_sums("lstm_bptt", keys=TIMES + (
@@ -4478,12 +5031,14 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                   + [r for k, r in train_rows.items()
                      if k[0] == "lstm_recurrence"]
                   + [{"max_abs_err": trainer_errs[k]} for k in (
-                      "lstm_recurrence", "lstm_recurrence_c")])
+                      "lstm_recurrence", "lstm_recurrence_c")]
+                  + [{"max_abs_err": worst("lstm_recurrence")}])
     per_step = TRAIN_LAUNCHES_PER_STEP
     paths = {name: {"train": train_launches[name],
                     "train_amp": amp_launches[name],
                     "trainer": trainer_launches[name],
-                    "recipe": recipe_launches[name]}
+                    "recipe": recipe_launches[name],
+                    "recipe_single": single_recipe_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -4522,7 +5077,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                          "launches_per_call": LAUNCHES_PER_CALL},
                train_step={"ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
                            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-                           "library_ms": fwd["library_ms"]}),
+                           "library_ms": fwd["library_ms"]},
+               recipe_single_rows=recipe_single("lstm_recurrence")),
         _entry("lstm_bptt", "lstm_bptt.cu", bptt,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
                launches=sum(paths["lstm_bptt"].values()),
@@ -4530,9 +5086,11 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                calls=2 * TRAIN_STEPS,
                launches_per_step=per_step,
                max_abs_err=max([r["max_abs_err"] for r in bptt_rows.values()]
-                               + [trainer_errs["lstm_bptt"]]),
+                               + [trainer_errs["lstm_bptt"],
+                                  worst("lstm_bptt")]),
                library_input_gemm_ms=bptt["library_input_gemm_ms"],
                loop_bound_ms=bptt["loop_bound_ms"],
+               recipe_single_rows=recipe_single("lstm_bptt"),
                **{k: bptt[k] for k in PREPASS}),
         _entry("lstm_dwh", "lstm_bptt.cu", dwh,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
@@ -4542,7 +5100,9 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                launches_per_step=per_step,
                max_abs_err=max(r["max_abs_err"] for r in dwh_rows.values()),
                max_rel_err=max([r["max_rel_err"] for r in dwh_rows.values()]
-                               + [trainer_errs["lstm_dwh_rel"]])),
+                               + [trainer_errs["lstm_dwh_rel"],
+                                  worst("lstm_dwh", "max_rel_err")]),
+               recipe_single_rows=recipe_single("lstm_dwh")),
     ]}
 
 
@@ -4614,10 +5174,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         work = phase_recipe_data(root)
         recipe_launches, recipe_errs = phase_recipe(lr, work)
+    with tempfile.TemporaryDirectory() as root:
+        single_launches, single_recipe_rows = phase_recipe_single(lr, root)
     trainer_errs = {k: max(v, recipe_errs[k]) for k, v in trainer_errs.items()}
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
                       path_launches, train_launches, amp_launches,
-                      trainer_launches, trainer_errs, recipe_launches))
+                      trainer_launches, trainer_errs, recipe_launches,
+                      single_launches, single_recipe_rows))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

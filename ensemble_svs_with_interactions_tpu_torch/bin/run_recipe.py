@@ -15,18 +15,22 @@ packing -> synthesis, driven by one YAML config; the port's copy of
   6  pack models into an SPSVS directory
   7  synthesis smoke run on eval utterances (pairwise multitrack synthesis
      when cfg.multitrack)
-  8  prepare postfilter training pairs (refused: see below)
-  9  train + pack the learned postfilter (refused: see below)
+  8  prepare postfilter training pairs: the packed acoustic model's
+     predicted statics against the ground-truth statics, both normalized
+     by the static scaler (single-track recipes)
+  9  train the learned postfilter (cfg.postfilter, or a default
+     Conv2dPostFilter / Conv2dD pair) and pack it beside the SVS models
   10 prepare vocoder features + train a uSFGAN-family vocoder, packed
      beside the SVS models
   11 timing evaluation: dump predicted timelag/duration for objective
      scoring, then ``QUALITY.json`` from the phases' dev metrics
 
-The training, synthesis, vocoder and timing stages run on the recipe's
-``device`` (``cuda`` unless the recipe or an override says ``cpu``).
-Stages 8 and 9 are not ported: a range that reaches one raises before any
-stage runs, a multitrack recipe's stage 8 with the JAX runner's
-``ValueError``, any other with ``NotImplementedError``.
+The training, synthesis, postfilter, vocoder and timing stages run on the
+recipe's ``device`` (``cuda`` unless the recipe or an override says
+``cpu``).  A multitrack recipe has no postfilter stages: a range that
+reaches stage 8 raises the JAX runner's ``ValueError`` before any stage
+runs, and one that reaches stage 9 a ``ValueError`` too (JAX's stage 9
+fails later, for want of stage 8's pairs).
 
 The recipe file is read with the port's YAML subset (``utils/yaml_io``).
 
@@ -55,9 +59,6 @@ from ensemble_svs_with_interactions_tpu_torch.utils.logger import getLogger
 
 logger = getLogger(verbose=1, name="recipe")
 
-POSTFILTER_UNPORTED = (
-    "stage {} (the learned postfilter's training) is not ported yet "
-    "(ROADMAP Queue 1 item 2, postfilter training for stages 8-9)")
 # the JAX runner's refusal (bin/run_recipe.py stage8_postfilter_features)
 MULTITRACK_POSTFILTER = (
     "stage 8 (postfilter features) does not support multitrack "
@@ -65,6 +66,10 @@ MULTITRACK_POSTFILTER = (
     "track per utterance. Train the postfilter on a single-track "
     "recipe (reference parity: multitrack run.sh has no postfilter "
     "stage).")
+MULTITRACK_POSTFILTER_TRAIN = (
+    "stage 9 (postfilter training) trains on stage 8's postfilter pairs, "
+    "which a multitrack recipe does not make: train the postfilter on a "
+    "single-track recipe.")
 
 
 def _device(cfg: Config) -> str:
@@ -424,20 +429,175 @@ def stage7_synthesis(cfg, work):
     logger.info("stage 7: synthesis outputs at %s", out_dir)
 
 
-def _refuse(cfg, stage: int):
-    """Stages 8 and 9: a multitrack recipe's stage 8 raises the JAX
-    runner's ValueError, the rest NotImplementedError."""
-    if stage == 8 and cfg.get("multitrack", False):
+def _refuse_multitrack(cfg, first: int, last: int):
+    """A multitrack recipe's range that reaches stage 8 or 9 raises before
+    any stage runs."""
+    if not cfg.get("multitrack", False):
+        return
+    if first <= 8 <= last:
         raise ValueError(MULTITRACK_POSTFILTER)
-    raise NotImplementedError(POSTFILTER_UNPORTED.format(stage))
+    if first <= 9 <= last:
+        raise ValueError(MULTITRACK_POSTFILTER_TRAIN)
 
 
 def stage8_postfilter_features(cfg, work):
-    _refuse(cfg, 8)
+    """Paired postfilter training data in the normalized static domain
+    (where ``gen.postprocess_acoustic`` applies the learned postfilter):
+    the packed acoustic model's predicted statics (run on the recipe's
+    device, one utterance at a time, denormalized with MLPG where deltas
+    are modeled) as input, the ground-truth statics as target; and the
+    static scaler as ``scalers/out_postfilter_scaler_*``."""
+    from ensemble_svs_with_interactions_tpu_torch import gen
+    from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
+        get_static_features,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+    from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
+        extract_static_scaler,
+    )
+
+    _refuse_multitrack(cfg, 8, 8)
+    engine = SPSVS(work / "packed_model", device=_device(cfg))
+    model = engine.acoustic_model
+    mc = model.config
+    static_scaler = extract_static_scaler(
+        engine.out_acoustic_scaler, mc.stream_sizes, mc.has_dynamic_features,
+        mc.num_windows)
+    is_prob = gen._is_probabilistic(model)
+
+    def statics(feats):
+        if np.any(list(mc.has_dynamic_features)):
+            parts = get_static_features(
+                feats[None], int(mc.num_windows), list(mc.stream_sizes),
+                list(mc.has_dynamic_features))
+            return np.concatenate([np.asarray(p)[0] for p in parts], axis=-1)
+        return feats
+
+    dump = work / "dump"
+    for split in ("train_no_dev", "dev"):
+        in_dir = dump / split / "norm" / "in_acoustic"
+        gt_dir = dump / split / "org" / "out_acoustic"
+        pred_out = work / "postfilter" / split / "in_postfilter"
+        gt_out = work / "postfilter" / split / "out_postfilter"
+        pred_out.mkdir(parents=True, exist_ok=True)
+        gt_out.mkdir(parents=True, exist_ok=True)
+        n = 0
+        for path in sorted(in_dir.glob("*-feats.npy")):
+            gt_path = gt_dir / path.name
+            if not gt_path.exists():
+                continue
+            pred = model.inference(np.load(path).astype(np.float32))
+            pred = gen._denorm_and_mlpg(pred, engine.out_acoustic_scaler, mc,
+                                        is_prob)
+            np.save(pred_out / path.name, np.asarray(
+                static_scaler.transform(statics(pred)), np.float32))
+            gt = statics(np.load(gt_path).astype(np.float32))
+            np.save(gt_out / path.name,
+                    np.asarray(static_scaler.transform(gt), np.float32))
+            n += 1
+        logger.info("stage 8 [%s]: %d postfilter pairs", split, n)
+
+    scalers = work / "scalers"
+    scalers.mkdir(exist_ok=True)
+    for name in ("mean", "var", "scale"):
+        np.save(scalers / f"out_postfilter_scaler_{name}.npy",
+                np.asarray(getattr(static_scaler, f"{name}_")))
+
+
+# the JAX runner's stage-9 pair when the recipe names none
+DEFAULT_POSTFILTER = {
+    "netG": {"_target_": ("ensemble_svs_with_interactions_tpu.models."
+                          "postfilters.Conv2dPostFilter"),
+             "channels": 64},
+    "netD": {"_target_": ("ensemble_svs_with_interactions_tpu.models."
+                          "discriminators.Conv2dD"),
+             "channels": 32, "padding": None},
+}
+
+
+def postfilter_train_config(cfg, work) -> Config:
+    """Stage 9's trainer config: stage 8's pairs, the recipe's
+    ``postfilter.model`` (or ``DEFAULT_POSTFILTER``), ``exp/postfilter``
+    and Adam at 1e-4 for 10 epochs, under the recipe's ``postfilter.data``
+    and ``postfilter.train``."""
+    pf = cfg.get("postfilter", None)
+    pf = dict(pf) if pf else {}
+    if pf.get("model_config") and not pf.get("model"):
+        raise FileNotFoundError(
+            f"postfilter.model_config not found: {pf['model_config']}")
+    adam = {"optimizer": {"name": "Adam", "params": {"lr": 1e-4}}}
+    train_cfg = _wrap({
+        "seed": int(cfg.get("seed", 1234)),
+        "verbose": int(cfg.get("verbose", 1)),
+        "data": {
+            "train_no_dev": {
+                "in_dir": str(work / "postfilter/train_no_dev/in_postfilter"),
+                "out_dir": str(work /
+                               "postfilter/train_no_dev/out_postfilter"),
+            },
+            "dev": {
+                "in_dir": str(work / "postfilter/dev/in_postfilter"),
+                "out_dir": str(work / "postfilter/dev/out_postfilter"),
+            },
+            **dict(pf.get("data", {}) or {}),
+        },
+        "model": pf.get("model") or DEFAULT_POSTFILTER,
+        "train": {
+            "out_dir": str(work / "exp" / "postfilter"),
+            "nepochs": 10,
+            "optim": {"netG": adam, "netD": adam, "clip_norm": 1.0},
+            **dict(pf.get("train", {}) or {}),
+        },
+    })
+    if train_cfg.train.out_dir is None:
+        train_cfg.train.out_dir = str(work / "exp" / "postfilter")
+    return train_cfg
+
+
+def pack_postfilter(train_cfg, packed_dir):
+    """Stage 9's pack: G of ``train_cfg.train.out_dir/best_loss.ckpt`` as
+    the ``postfilter`` phase (``{"netG": ...}``) of ``packed_dir``."""
+    from ensemble_svs_with_interactions_tpu_torch.train.postfilter_trainer import (  # noqa: E501
+        build_postfilter,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils import flax_msgpack
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
+        flax_to_torch,
+        torch_to_flax,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.packing import (
+        save_model_phase,
+    )
+
+    netG = build_postfilter(train_cfg)
+    tree = flax_msgpack.from_bytes(
+        (Path(train_cfg.train.out_dir) / "best_loss.ckpt").read_bytes())
+    flax_to_torch(netG, {"params": tree["params"]})
+    save_model_phase(packed_dir, "postfilter",
+                     {"netG": dict(train_cfg.model.netG)},
+                     torch_to_flax(netG))
 
 
 def stage9_train_postfilter(cfg, work):
-    _refuse(cfg, 9)
+    """Train the learned postfilter on the recipe's device and pack it,
+    with the ``out_postfilter`` scalers, beside the SVS models.  The pack
+    reads the checkpoint where the trainer wrote it (``postfilter.train.
+    out_dir`` where the recipe sets one; the JAX runner reads
+    ``exp/postfilter`` whatever the trainer's directory)."""
+    from ensemble_svs_with_interactions_tpu_torch.train.postfilter_trainer import (  # noqa: E501
+        train_postfilter,
+    )
+
+    _refuse_multitrack(cfg, 9, 9)
+    train_cfg = postfilter_train_config(cfg, work)
+    train_postfilter(train_cfg, device=_device(cfg))
+    packed = work / "packed_model"
+    pack_postfilter(train_cfg, packed)
+    for name in ("mean", "var", "scale"):
+        shutil.copyfile(work / "scalers" / f"out_postfilter_scaler_{name}.npy",
+                        packed / f"out_postfilter_scaler_{name}.npy")
+    logger.info("stage 9: postfilter trained at %s and packed",
+                train_cfg.train.out_dir)
 
 
 def stage10_train_vocoder(cfg, work):
@@ -591,8 +751,6 @@ STAGES = {
     10: stage10_train_vocoder,
     11: stage11_evaluate_timing,
 }
-# the stages that refuse (not ported); checked before any stage runs
-REFUSED = (8, 9)
 
 
 def _materialize_packaged_configs(cfg, recipe_dir: Path):
@@ -667,9 +825,7 @@ def main(argv=None):
     cfg = _materialize_packaged_configs(
         cfg, Path(args.config).parent.resolve()
     )
-    for stage in REFUSED:
-        if args.stage <= stage <= args.stop_stage:
-            _refuse(cfg, stage)
+    _refuse_multitrack(cfg, args.stage, args.stop_stage)
     work = Path(cfg.work_dir)
     work.mkdir(parents=True, exist_ok=True)
 

@@ -14,7 +14,7 @@ unpadded as in the JAX package.
 
 Not ported, and named by the ``NotImplementedError`` that refuses them:
 vibrato streams (``ops/pitch.gen_sine_vibrato``), mel features, the mel
-and band-split learned postfilters, and of ``models/diffsinger.py``
+learned postfilter, and of ``models/diffsinger.py``
 ``MultiSpeakerGaussianDiffusion``, ``FFTBlocksEncoder``,
 ``PitchPredictor`` and ``PitchExtractor``.
 """
@@ -75,8 +75,6 @@ _JAX = "ensemble_svs_with_interactions_tpu"
 UNPORTED = {
     "MelF0MultistreamPostFilter":
         f"{_JAX}/models/postfilters.py (MelF0MultistreamPostFilter)",
-    "MultistreamConv2dPostFilter":
-        f"{_JAX}/models/postfilters.py (MultistreamConv2dPostFilter)",
     "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
     "melf0": f"{_JAX}/models/vocoders/ (mel features)",
     **{name: f"{_JAX}/models/diffsinger.py ({name})"

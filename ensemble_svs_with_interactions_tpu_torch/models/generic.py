@@ -36,6 +36,8 @@ from ensemble_svs_with_interactions_tpu_torch.ops.mdn import (
 )
 
 __all__ = [
+    "MDN",
+    "MDNv2",
     "SpeakerEmbedding",
     "FFConvLSTM",
     "VariancePredictor",
@@ -69,6 +71,58 @@ class SpeakerEmbedding(BaseModel):
             emb = torch.where((x == self.padding_idx)[..., None],
                               torch.zeros_like(emb), emb)
         return emb
+
+
+class MDN(BaseModel):
+    """FFN-MDN: ``num_layers`` x (Dense, ReLU), then an MDN head."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 1, num_gaussians: int = 8,
+                 dim_wise: bool = False, init_type: str = "none"):
+        super().__init__()
+        self.num_layers, self.init_type = num_layers, init_type
+        for i in range(num_layers):
+            setattr(self, f"Dense_{i}",
+                    nn.Linear(in_dim if i == 0 else hidden_dim, hidden_dim))
+        self.MDNLayer_0 = MDNLayer(hidden_dim, out_dim, num_gaussians,
+                                   dim_wise)
+
+    def prediction_type(self):
+        return PredictionType.PROBABILISTIC
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                generator=None):
+        h = x
+        for i in range(self.num_layers):
+            h = torch.relu(getattr(self, f"Dense_{i}")(h))
+        return self.MDNLayer_0(h)
+
+    def inference(self, x, lengths=None):
+        sigma, mu = mdn_get_most_probable_sigma_and_mu(*self(x, lengths))
+        return mu, sigma
+
+
+class MDNv2(MDN):
+    """FFN-MDN with dropout ``dropout`` after each (Dense, ReLU) in
+    training: the shipped ``timelag_mdn.yaml`` / ``duration_mdn.yaml``
+    timing model."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 1, dropout: float = 0.5,
+                 num_gaussians: int = 8, dim_wise: bool = False,
+                 init_type: str = "none"):
+        super().__init__(in_dim, hidden_dim, out_dim, num_layers,
+                         num_gaussians, dim_wise, init_type)
+        self.dropout = dropout
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                generator=None):
+        h = x
+        for i in range(self.num_layers):
+            h = torch.relu(getattr(self, f"Dense_{i}")(h))
+            if train:
+                h = dropout(h, self.dropout, generator)
+        return self.MDNLayer_0(h)
 
 
 class _ConvBNReLUStack(nn.Module):

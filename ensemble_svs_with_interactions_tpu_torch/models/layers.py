@@ -195,11 +195,16 @@ class MaskedBatchNorm(nn.Module):
 
 
 class ReflectConv1d(nn.Module):
-    """Conv1d with reflection padding over the time axis of (B, T, C)."""
+    """Conv1d with reflection padding over the time axis of (B, T, C).
+    ``init_type`` names the flax scheme of its kernel (``utils/
+    flax_init``): the model's where the JAX model passes it its
+    ``kernel_init``, else ``"none"`` (lecun_normal)."""
 
-    def __init__(self, in_dim: int, features: int, kernel_size: int):
+    def __init__(self, in_dim: int, features: int, kernel_size: int,
+                 init_type: str = "none"):
         super().__init__()
         self.pad = (kernel_size - 1) // 2
+        self.init_type = init_type
         self.Conv_0 = nn.Conv1d(in_dim, features, kernel_size)
 
     def forward(self, x):

@@ -16,8 +16,11 @@ port and as the JAX package computes them: a 5 x 5 convolution over 129
 channels in TF32 sits about 1e-3 from float32.
 ``utils/precision.conv_precision`` says so to cuDNN around each CUDA call.
 
-``MelF0MultistreamPostFilter`` and ``MultistreamConv2dPostFilter`` are not
-ported: building either raises ``NotImplementedError`` naming its module.
+``MultistreamConv2dPostFilter`` splits the mel-cepstrum into low, mid and
+high bands that overlap by the kernel's half width, each through its own
+reflection-padded conv stack (``_PadConv2dPostFilter``).
+``MelF0MultistreamPostFilter`` is not ported: building it raises
+``NotImplementedError`` naming its module.
 """
 
 from __future__ import annotations
@@ -88,8 +91,8 @@ class Conv2dPostFilter(BaseModel):
 
     ``in_dim`` (D) is needed for ``frame_wise`` noise; a
     ``MultistreamPostFilter`` sets it from its stream sizes.  ``init_type``
-    is the config's and unused: a pack's weights replace torch's
-    initial ones."""
+    names the flax scheme of the kernels that ``utils/flax_init`` draws
+    for training."""
 
     def __init__(self, channels: int = 128,
                  kernel_size: Sequence[int] = (5, 5),
@@ -101,6 +104,7 @@ class Conv2dPostFilter(BaseModel):
             raise ValueError(f"unknown noise type: {noise_type}")
         self.noise_scale = noise_scale
         self.noise_type = noise_type
+        self.init_type = init_type
         self.smoothing_width = smoothing_width
         kh, kw = kernel_size
         c = channels
@@ -218,9 +222,103 @@ class MelF0MultistreamPostFilter(nn.Module):
         _refuse("MelF0MultistreamPostFilter")
 
 
-class MultistreamConv2dPostFilter(nn.Module):
-    """Not ported: building it raises ``NotImplementedError``."""
+def _reflect_pad2d(x, top: int, bottom: int, left: int, right: int):
+    """Reflection-pad a (B, C, T, D) image on T (top / bottom) and D (left /
+    right)."""
+    return F.pad(x, (left, right, top, bottom), mode="reflect")
 
-    def __init__(self, *args, **kwargs):
+
+class _PadConv2dPostFilter(nn.Module):
+    """One band of ``MultistreamConv2dPostFilter``: the feature axis is
+    reflection-padded on one side only (``padding_side``), so adjacent
+    bands overlap by the convolution's half width; every convolution is
+    unpadded after the reflection.  ``forward(x (B, T, in_dim), z (B, T,
+    1))`` gives the band without its overlap columns."""
+
+    def __init__(self, in_dim: int, channels: int = 128,
+                 kernel_size: int = 5, init_type: str = "kaiming_normal",
+                 padding_side: str = "left"):
         super().__init__()
-        _refuse("MultistreamConv2dPostFilter")
+        if padding_side not in ("left", "none", "right"):
+            raise ValueError("Invalid padding side")
+        self.pad = (kernel_size - 1) // 2
+        self.padding_side, self.init_type = padding_side, init_type
+        ks, c = kernel_size, channels
+        self.fc = nn.Linear(1, in_dim)
+        self.conv1 = nn.Conv2d(2, c, (ks, ks))
+        self.conv2 = nn.Conv2d(c + 1, c * 2, (ks, 3))
+        self.conv3 = nn.Conv2d(c * 2 + 1, c, (ks, 3))
+        self.conv4 = nn.Conv2d(c + 1, 1, (ks, 1))
+
+    def forward(self, x, z):
+        pad = self.pad
+        lr = {"left": (pad, 0), "none": (0, 0),
+              "right": (0, pad)}[self.padding_side]
+        x_img, z_img = x.unsqueeze(1), self.fc(z).unsqueeze(1)
+        h = torch.cat([_reflect_pad2d(x_img, pad, pad, *lr),
+                       _reflect_pad2d(z_img, pad, pad, *lr)], 1)
+        h = torch.relu(self.conv1(h))
+        # the band's output drops the overlap columns conv1 ate
+        if self.padding_side == "left":
+            x_syn = x_img[..., :-pad]
+        elif self.padding_side == "none":
+            x_syn = x_img[..., pad:-pad]
+        else:
+            x_syn = x_img[..., pad:]
+
+        def conv(h, layer):
+            side = (layer.kernel_size[1] - 1) // 2
+            return layer(_reflect_pad2d(torch.cat([x_syn, h], 1), pad, pad,
+                                        side, side))
+
+        h = torch.relu(conv(h, self.conv2))
+        h = torch.relu(conv(h, self.conv3))
+        return (x_syn + conv(h, self.conv4))[:, 0]
+
+
+class MultistreamConv2dPostFilter(BaseModel):
+    """Conv2d mel-cepstrum postfilter split into low, mid and high bands
+    (``stream_sizes``) with kernel-width overlaps, all three driven by one
+    frame-wise noise draw (``noise`` (B, T, 1), else drawn from
+    ``generator``).  ``in_dim`` is the config's and unused."""
+
+    def __init__(self, in_dim: Optional[int] = None, channels: int = 128,
+                 kernel_size: int = 5, init_type: str = "kaiming_normal",
+                 noise_scale: float = 1.0,
+                 stream_sizes: Sequence[int] = (8, 20, 30)):
+        super().__init__()
+        if len(stream_sizes) != 3:
+            raise ValueError("MultistreamConv2dPostFilter takes 3 bands")
+        self.stream_sizes = [int(s) for s in stream_sizes]
+        self.noise_scale, self.init_type = noise_scale, init_type
+        pad = (kernel_size - 1) // 2
+        kw = dict(channels=channels, kernel_size=kernel_size,
+                  init_type=init_type)
+        s0, s1, s2 = self.stream_sizes
+        self.low_postfilter = _PadConv2dPostFilter(s0 + pad, **kw,
+                                                   padding_side="left")
+        self.mid_postfilter = _PadConv2dPostFilter(s1 + 2 * pad, **kw,
+                                                   padding_side="none")
+        self.high_postfilter = _PadConv2dPostFilter(s2 + pad, **kw,
+                                                    padding_side="right")
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                is_inference: bool = False, noise=None, generator=None):
+        """(B, T, D) -> (B, T, D), D the sum of ``stream_sizes``."""
+        B, T, D = x.shape
+        if D != sum(self.stream_sizes):
+            raise ValueError(f"input has {D} dims, the bands "
+                             f"{self.stream_sizes}")
+        if noise is None:
+            noise = draw_noise((B, T, 1), generator)
+        z = noise.to(x.device, x.dtype) * self.noise_scale
+        pad = self.low_postfilter.pad
+        s0, s1, _ = self.stream_sizes
+        with conv_precision(x.device):
+            return torch.cat([
+                self.low_postfilter(x[:, :, : s0 + pad], z),
+                self.mid_postfilter(x[:, :, s0 - pad: s0 + s1 + pad], z),
+                self.high_postfilter(x[:, :, s0 + s1 - pad:], z)], dim=-1)
+
+    def inference(self, x, lengths=None, noise=None, generator=None):
+        return self(x, lengths, noise=noise, generator=generator)

@@ -1,5 +1,5 @@
-"""Multi-stream feature utilities (stream split, static extraction,
-per-stream MLPG), as in ``ensemble_svs_with_interactions_tpu/ops/
+"""Multi-stream feature utilities (stream split and select, static
+extraction, per-stream MLPG), as in ``ensemble_svs_with_interactions_tpu/ops/
 multistream.py``.  Slicing works on NumPy arrays and torch tensors alike;
 MLPG runs on the host."""
 
@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from ensemble_svs_with_interactions_tpu_torch.ops.mlpg import (
     default_windows,
@@ -28,6 +29,19 @@ def split_streams(inputs, stream_sizes: Sequence[int]):
     """Split concatenated multi-stream features into a list of streams."""
     return [inputs[..., start: start + int(size)]
             for start, size in zip(_start_indices(stream_sizes), stream_sizes)]
+
+
+def select_streams(inputs, stream_sizes: Sequence[int],
+                   streams: Sequence[bool]):
+    """The streams flagged in ``streams``, concatenated (NumPy in, NumPy
+    out; torch in, torch out)."""
+    ret = [inputs[..., start: start + int(size)]
+           for start, size, enabled in zip(_start_indices(stream_sizes),
+                                           stream_sizes, streams)
+           if enabled]
+    if isinstance(inputs, np.ndarray):
+        return np.concatenate(ret, axis=-1)
+    return torch.cat(ret, dim=-1)
 
 
 def get_static_stream_sizes(stream_sizes: Sequence[int],

@@ -132,10 +132,14 @@ def mel_fb_tensor(sr: int, fft_size: int, n_mels: int, fmin=0, fmax=None,
     return torch.from_numpy(fb.astype(np.float32)).to(device)
 
 
-def _grads(loss, params):
+def _grads(loss, params, retain_graph: bool = False):
     """d loss / d params, zeros for the parameters it does not reach (the
-    skip convs), so Adam's moments for them stay zero as optax's do."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    skip convs, a discriminator whose maps are all empty), so Adam's
+    moments for them stay zero as optax's do."""
+    if not loss.requires_grad:
+        return [torch.zeros_like(p) for p in params]
+    grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                retain_graph=retain_graph)
     return [torch.zeros_like(p) if g is None else g
             for p, g in zip(params, grads)]
 

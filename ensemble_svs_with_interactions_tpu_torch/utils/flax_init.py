@@ -53,6 +53,14 @@ INIT_TYPE_LAYERS = {
     "MultiTrackVariancePredictor": r"(Conv|Dense)_\d+",
     "LSTMEncoder": r"Dense_0",
     "MultiTrackLSTMEncoder": r"Dense_0",
+    "MDN": r"Dense_\d+",
+    "MDNv2": r"Dense_\d+",
+    "ResSkipF0FFConvLSTM": r"Dense_\d+",
+    # a ReflectConv1d carries its owner's init_type ("none" by default)
+    "ReflectConv1d": r"Conv_0",
+    "Conv2dD": r"Conv_\d+",
+    "Conv2dPostFilter": r"conv\d|fc",
+    "_PadConv2dPostFilter": r"conv\d|fc",
 }
 # jax.nn.initializers' truncation constant: the std of a unit normal
 # truncated to [-2, 2]

@@ -454,6 +454,23 @@ def _write_vocoder(model_dir):
 
 
 _PF = "ensemble_svs_with_interactions_tpu.models.postfilters"
+
+
+def _write_band_split(model_dir):
+    """A tiny packed band-split postfilter and its out scaler, by the
+    port's ``save_model_phase``."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.packing import (
+        save_model_phase,
+    )
+
+    cfg = {"netG": {"_target_": f"{_PF}.MultistreamConv2dPostFilter",
+                    "channels": 8, "stream_sizes": [2, 2, 4]}}
+    save_model_phase(model_dir, "postfilter", cfg,
+                     torch_to_flax(instantiate(cfg["netG"])),
+                     out_scaler=StandardScaler(np.zeros(8), np.ones(8),
+                                               np.ones(8)))
+
+
 # part -> (phase, its yaml text or a writer of the whole phase, what the
 # port raises; None: the port loads it, as the JAX package does)
 UNPORTED_PARTS = {
@@ -462,20 +479,16 @@ UNPORTED_PARTS = {
         "postfilter", f"netG:\n  _target_: {_PF}.MelF0MultistreamPostFilter\n"
         "  mel_postfilter: null\n  lf0_postfilter: null\n",
         r"models/postfilters\.py \(MelF0MultistreamPostFilter\)"),
-    "MultistreamConv2dPostFilter": (
-        "postfilter",
-        f"netG:\n  _target_: {_PF}.MultistreamConv2dPostFilter\n"
-        "  channels: 8\n",
-        r"models/postfilters\.py \(MultistreamConv2dPostFilter\)"),
+    "MultistreamConv2dPostFilter": ("postfilter", _write_band_split, None),
 }
 
 
 @pytest.mark.parametrize("part", sorted(UNPORTED_PARTS))
 def test_unported_packed_models_raise(dirs, tmp_path, part):
     """The JAX package loads a packed neural vocoder, and a mel or
-    band-split learned postfilter.  The port loads the vocoder too; it
-    refuses a directory with either postfilter, naming the JAX module,
-    rather than ignore it."""
+    band-split learned postfilter.  The port loads the vocoder and the
+    band-split postfilter too; it refuses a directory with the mel
+    postfilter, naming the JAX module, rather than ignore it."""
     d, _ = dirs
     model_dir = tmp_path / "packed"
     shutil.copytree(d["jax"], model_dir)
@@ -486,8 +499,12 @@ def test_unported_packed_models_raise(dirs, tmp_path, part):
         (model_dir / f"{name}_model.yaml").write_text(text)
     if match is None:
         engine = SPSVS(model_dir, device="cpu")
-        assert engine.default_vocoder_type == "usfgan"
-        assert engine.vocoder_in_scaler is not None
+        if name == "vocoder":
+            assert engine.default_vocoder_type == "usfgan"
+            assert engine.vocoder_in_scaler is not None
+        else:
+            assert type(engine.postfilter_model.module).__name__ == part
+            assert engine.postfilter_out_scaler is not None
         return
     with pytest.raises(NotImplementedError, match=match):
         SPSVS(model_dir, device="cpu")

@@ -18,8 +18,9 @@ The JAX side keeps the e2e test's ``n_jobs: 1``; the port takes the
 recipe's ``n_jobs: 4`` (its process pool).  Every file either runner
 writes is compared: lists and labels by bytes, wavs by samples, every
 ``.npy`` (features, note times, waves, postfilter targets, scalers) by
-bytes.  Then the stage CLIs one by one, the runner's refusal of stages 8
-and 9, and the YAML subset on the recipe file.
+bytes.  Then the stage CLIs one by one, the runner's stage ranges (a
+multitrack recipe's refusal of stages 8 and 9), and the YAML subset on
+the recipe file.
 """
 
 import json
@@ -306,32 +307,39 @@ def test_scaler_fits_match_jax():
     (("9", "9"), True), (("0", "9"), False), (("2", "20"), False)])
 def test_runner_refuses_unwired_stages(tmp_path, monkeypatch, stages,
                                        multitrack):
-    """A range that reaches stage 8 or 9 (the learned postfilter's
-    training, not ported) raises before a stage runs: a multitrack
-    recipe's stage 8 with the JAX runner's ValueError, the rest with
-    NotImplementedError naming ROADMAP Queue 1 item 2; the default range,
-    0 to 7 as the JAX runner's, runs those stages."""
+    """A multitrack recipe's range that reaches stage 8 or 9 (the learned
+    postfilter's pairs and training, single-track only) raises before a
+    stage runs: stage 8 with the JAX runner's ValueError, stage 9 alone
+    with the port's; a single-track range runs its stages, 8 and 9
+    included, in order.  The default range, 0 to 7 as the JAX runner's,
+    runs those stages."""
     from ensemble_svs_with_interactions_tpu.bin import run_recipe as jax_rr
     from ensemble_svs_with_interactions_tpu_torch.bin import run_recipe
 
     work = tmp_path / "work"
     args = [str(RECIPE), "--stage", stages[0], "--stop-stage", stages[1],
             f"work_dir={work}", f"multitrack={str(multitrack).lower()}"]
-    if multitrack and int(stages[0]) <= 8:
-        with pytest.raises(ValueError) as err:
-            run_recipe.main(args)
-        with pytest.raises(ValueError) as want:
-            jax_rr.stage8_postfilter_features(jax_rr.Config(
-                {"multitrack": True}), work)
-        assert str(err.value) == str(want.value)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 2"):
-            run_recipe.main(args)
-    assert not work.exists()
     ran = []
     monkeypatch.setattr(run_recipe, "STAGES", {
         k: (lambda cfg, w, k=k: ran.append(k)) for k in run_recipe.STAGES})
+    first, last = int(stages[0]), int(stages[1])
+    if multitrack:
+        with pytest.raises(ValueError) as err:
+            run_recipe.main(args)
+        if first <= 8:
+            with pytest.raises(ValueError) as want:
+                jax_rr.stage8_postfilter_features(jax_rr.Config(
+                    {"multitrack": True}), work)
+            assert str(err.value) == str(want.value)
+        else:
+            assert "stage 9" in str(err.value)
+            assert "single-track" in str(err.value)
+        assert not work.exists() and ran == []
+    else:
+        assert run_recipe.main(args) == 0
+        assert ran == list(range(first, min(last, 11) + 1))
+        assert 8 in ran and 9 in ran
+    ran.clear()
     assert run_recipe.main([str(RECIPE), f"work_dir={work}"]) == 0
     assert ran == list(range(8))
     assert sorted(run_recipe.STAGES) == list(range(-1, 12))

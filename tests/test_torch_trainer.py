@@ -192,8 +192,15 @@ def test_create_train_step_matches_jax(case):
     gradient and the new running statistics; and the evaluation before
     it."""
     build, kw = STEP_CASES[case]
-    cfg = build()
-    batch = _step_batch(cfg)
+    assert_step_matches_jax(build(), kw)
+
+
+def assert_step_matches_jax(cfg, kw, batch=None):
+    """``create_train_step``'s evaluation and one step (clipping off) of
+    the model config ``cfg`` with the step options ``kw`` against JAX's on
+    ``batch`` (``_step_batch(cfg)`` by default), judged as the module's
+    docstring says."""
+    batch = _step_batch(cfg) if batch is None else batch
     jm = jax_instantiate(cfg["netG"])
     variables = init_single(jm, _wrap({"model": cfg}))
     variables = jax.tree_util.tree_map(np.asarray, dict(variables))
