@@ -53,7 +53,8 @@ generator device time (CUDA events, ``vocoder_ms_all``) beside its
 float32 bound (``vocoder_bound``, ``chip_smoke.vocoder_bound``).
 
 ``--device cpu --tiny`` (narrow widths, the first seconds of the fixture,
-two timed calls; the diffusion chains TINY_CHAIN_STEPS long) exists for
+one timed call and no warm-up; the diffusion chains TINY_CHAIN_STEPS
+long) exists for
 the CPU test only: it reports no device metric.  Without a card, the
 default device fails.
 """
@@ -79,7 +80,7 @@ SINGLE_METRIC = "rtf_single_track_48k"
 POSTFILTER_METRIC = "rtf_single_track_nnsvs_48k"
 WARMUP_CALLS = 1
 TIMED_CALLS = 7
-TINY_CALLS = 2
+TINY_CALLS = 1
 TINY_SECONDS = 4.0
 TINY_CHAIN_STEPS = 4
 
@@ -168,8 +169,9 @@ def run(device: torch.device, tiny: bool, acoustic: str = "flagship",
     def vocoder_ms():
         return chip_smoke.vocoder_ms(log) if timed else None
 
+    warmups = 0 if tiny else WARMUP_CALLS
     t0 = time.perf_counter()
-    for _ in range(WARMUP_CALLS):
+    for _ in range(warmups):
         call()
     warmup_s = time.perf_counter() - t0
     vocoder_ms()
@@ -208,7 +210,7 @@ def run(device: torch.device, tiny: bool, acoustic: str = "flagship",
             chip_smoke.VOCODER_SIGNALS, hop) if neural else None),
         "all_runs_sec": times, "audio_seconds": audio_s,
         "rtf_all": [t / audio_s for t in times], "calls": calls,
-        "warmup_calls": WARMUP_CALLS, "warmup_sec": warmup_s,
+        "warmup_calls": warmups, "warmup_sec": warmup_s,
         "stages_sec": stages[order], "stages_blocked_sec": blocked,
         "lstm_launches_per_call": launches / calls,
         "lstm_kernel_by_hidden": (
@@ -244,8 +246,9 @@ def run_single(device: torch.device, tiny: bool,
         sync(device)
         load_s = time.perf_counter() - t0
     labels = load_labels(tiny)
+    warmups = 0 if tiny else WARMUP_CALLS
     t0 = time.perf_counter()
-    for _ in range(WARMUP_CALLS):
+    for _ in range(warmups):
         engine.svs(labels.copy(), post_filter_type=post_filter)
     warmup_s = time.perf_counter() - t0
 
@@ -271,7 +274,7 @@ def run_single(device: torch.device, tiny: bool,
         "postfilter_packed": engine.postfilter_model is not None,
         "unit": "ratio", "all_runs_sec": times, "audio_seconds": audio_s,
         "rtf_all": [t / audio_s for t in times], "calls": calls,
-        "warmup_calls": WARMUP_CALLS, "warmup_sec": warmup_s,
+        "warmup_calls": warmups, "warmup_sec": warmup_s,
         "stages_sec": stages[order],
         "lstm_launches_per_call": lr.lstm_recurrence.launches / calls,
         "lstm_launches_by_hidden": {str(H): n / calls

@@ -57,10 +57,10 @@ sec"``: audio samples a second over the median step, beside
 forward and backward, at the float32 FMA rate), the peak memory and the
 device's busy share in one profiled step.
 
-``--device cpu --tiny`` (narrow widths, B = 2, T = 64; with ``--trainer``
-a tiny model on a small corpus; with ``--vocoder`` the tiny hn-uSFGAN of
-``chip_smoke.tiny_vocoder_trainings``) exists for the CPU test only: it
-reports no device metric.  Without a card, the default device fails.
+``--device cpu --tiny`` (narrow widths, B = 2, T = 32, no warm-up step;
+with ``--trainer`` a tiny model on a small corpus, no warm-up run; with
+``--vocoder`` the tiny hn-uSFGAN of ``chip_smoke.tiny_vocoder_trainings``)
+exists for the CPU test only: it reports no device metric.  Without a card, the default device fails.
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ from chip_smoke import TRAIN_B, TRAIN_T, train_bench
 METRIC = "train_frames_per_sec_flagship_multitrack"
 TRAINER_METRIC = "trainer_frames_per_sec_flagship_multitrack"
 VOCODER_METRIC = "vocoder_train_samples_per_sec"
-TINY_B, TINY_T = 2, 64
+TINY_B, TINY_T = 2, 32
 # --trainer --tiny: 2 segments x 3 singers, crops of 32 frames, 4 a batch
 TINY_CORPUS = dict(n_train=2, n_dev=1, frames=(40, 64))
 TINY_DATA = {"data.segment_length": 32, "data.batch_max_frames": 128}
@@ -119,17 +119,18 @@ def run_trainer(device: torch.device, tiny: bool) -> dict:
             cfg = merge(cfg, {"model": ac})
         # a first run warms the process (CUDA context, kernel loads,
         # allocator); the second is measured
-        cold = chip_smoke.run_trainer(lr, merge(cfg, {"train": {
-            "nepochs": 1, "out_dir": str(Path(root) / "warmup")}}), True,
-            device=device)
+        cold = None if tiny else chip_smoke.run_trainer(
+            lr, merge(cfg, {"train": {
+                "nepochs": 1, "out_dir": str(Path(root) / "warmup")}}),
+            True, device=device)
         r = chip_smoke.run_trainer(lr, cfg, True, device=device)
     B, T = (TINY_B, TINY_T) if tiny else (TRAIN_B, TRAIN_T)
     bare, _ = train_bench(lr, device, B, T, tiny=tiny, use_amp=True)
     return {"metric": TRAINER_METRIC, "value": r["frames_per_s"],
             "unit": "frames/s", **r, "epochs": chip_smoke.TRAINER_EPOCHS,
             "use_amp": bool(cfg["train"]["use_amp"]),
-            "warmup_run": {"epochs": 1, "wall_s": cold["wall_s"],
-                           "frames_per_s": cold["frames_per_s"]},
+            "warmup_run": cold and {"epochs": 1, "wall_s": cold["wall_s"],
+                                    "frames_per_s": cold["frames_per_s"]},
             "bare_step": {"frames_per_s": bare["frames_per_sec"],
                           "median_step_sec": bare["median_step_sec"],
                           "geometry": bare["geometry"]},
@@ -146,7 +147,7 @@ def run_vocoder(device: torch.device, tiny: bool) -> dict:
                                                      frames=80)
             cfg = chip_smoke.tiny_vocoder_trainings(
                 corpus, root / "exp")["hn_usfgan"]
-            r = chip_smoke.vocoder_train_bench(cfg, device, warmup=1,
+            r = chip_smoke.vocoder_train_bench(cfg, device, warmup=0,
                                                steps=2)
         else:
             corpus = chip_smoke.write_vocoder_corpus(

@@ -18,7 +18,8 @@ from feature dumps to a packed voice; and the recipe end to end: its data
 stages (corpus preparation, features with the native WORLD analysis,
 scalers) on the host, then its runner's training, packing, synthesis,
 vocoder and timing-evaluation stages on the card; and the single-track
-recipe with its learned postfilter trained and merged (stages 0 to 9).
+recipe with its learned postfilter trained and merged (stages 0 to 9),
+then its acoustic phase with the NPSS voices trained, packed and served.
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
@@ -201,6 +202,19 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     PF_HOLD_FRAMES frames (``hold_pf_gan``); the merged pack's
     ``svs(post_filter_type="nnsvs")`` on the eval utterance, card against
     CPU (durations, streams, SNR) and timed;
+11e. ``recipe_npss``: the NPSS voices on that recipe (``npss_recipe``:
+    its corpus, dump, scalers and timing models, each voice in its own
+    work directory): stages 5-7 with the shipped
+    ``acoustic_npss_ar_mgcf0bap.yaml`` (the deterministic AR cascade; its
+    mgc decoder's cells at H = 1024) and then ``acoustic_npss_mdn.yaml``
+    at their widths, each stage timed, the launches counted over 5
+    (NPSS_STEP_LAUNCHES a train step and dev batch) and over 7
+    (NPSS_SVS_LAUNCHES); one train step of each voice card against CPU in
+    float32 (also with cuDNN off) and in the AMP arm (``hold_npss_step``)
+    and its ``svs()`` of
+    the eval utterance card against CPU; the H = 1024 forward, BPTT and
+    dW_h timed and held against their plain versions at stage 5's shapes
+    and at the recipe's full batch, with bounds and cuDNN's times;
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
@@ -2874,8 +2888,8 @@ def profile_step(run_step) -> dict:
 
 def train_bench(lr, device, B=TRAIN_B, T=TRAIN_T, tiny=False,
                 use_amp=False):
-    """bench_train.py's flagship step on ``device``: 2 warm-up steps,
-    TRAIN_STEPS timed ones (host clock around a step that ends in a host
+    """bench_train.py's flagship step on ``device``: 2 warm-up steps (none
+    with ``tiny``, the CPU test's), TRAIN_STEPS timed ones (host clock around a step that ends in a host
     copy of its metrics) with the kernel launch counts reset just before
     and read just after, one step synchronized after each phase (the
     split) and one under ``FlopCounterMode`` (the operation count).
@@ -2890,8 +2904,9 @@ def train_bench(lr, device, B=TRAIN_B, T=TRAIN_T, tiny=False,
              train_batch(B, T, sum(ss)).items()}
     gen = torch.Generator(device=device).manual_seed(SEED)
     losses = []
+    warmup = 0 if tiny else 2
     t0 = time.perf_counter()
-    for _ in range(2):
+    for _ in range(warmup):
         losses.append(step(batch, TRAIN_WEIGHTS, gen)["Loss"])
     warm_s = time.perf_counter() - t0
 
@@ -2926,7 +2941,7 @@ def train_bench(lr, device, B=TRAIN_B, T=TRAIN_T, tiny=False,
                              "dense float32 peak outside the tensor cores"))
     out = {
         "frames_per_sec": B * T / median, "median_step_sec": median,
-        "all_step_sec": step_s, "steps": TRAIN_STEPS, "warmup_steps": 2,
+        "all_step_sec": step_s, "steps": TRAIN_STEPS, "warmup_steps": warmup,
         "warmup_sec": warm_s, "batch_pairs": B, "frames": T,
         "frames_per_batch": B * T, "geometry": f"{B}x{T}",
         "split_sec": split, "peak_mem_gib": peak,
@@ -4745,8 +4760,8 @@ def time_pf_gan(train_cfg, work) -> dict:
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def single_svs_on_cpu(packed, label_path) -> dict:
-    """``svs(post_filter_type="nnsvs")``'s stages on one utterance by an
+def single_svs_on_cpu(packed, label_path, post_filter_type="nnsvs") -> dict:
+    """``svs(post_filter_type=...)``'s stages on one utterance by an
     engine on the card and one on the CPU over the same pack: the
     durations, the postprocessed streams' largest difference over each
     stream's scale, and the waveforms from the same noise by SNR; then one
@@ -4767,8 +4782,8 @@ def single_svs_on_cpu(packed, label_path) -> dict:
         with torch.no_grad():
             dm = engine.predict_timing(hts.load(label_path))
             acoustic = engine.predict_acoustic(dm)
-        streams = engine.postprocess_acoustic(acoustic, dm,
-                                              post_filter_type="nnsvs")
+        streams = engine.postprocess_acoustic(
+            acoustic, dm, post_filter_type=post_filter_type)
         out[device] = (engine, dm, streams, time.time() - t0)
     (engine, dm, streams, card_s), (_, cpu_dm, cpu_streams, cpu_s) = \
         out["cuda"], out["cpu"]
@@ -4785,7 +4800,8 @@ def single_svs_on_cpu(packed, label_path) -> dict:
            for name, a, b in zip(("mgc", "lf0", "vuv", "bap"), streams,
                                  cpu_streams)}
     t0 = time.time()
-    audio, sr = engine.svs(hts.load(label_path), post_filter_type="nnsvs")
+    audio, sr = engine.svs(hts.load(label_path),
+                           post_filter_type=post_filter_type)
     svs_s = time.time() - t0
     return {"utterance": Path(label_path).stem, "frames": len(streams[1]),
             "durations_equal": list(dm.start_times) == list(
@@ -4941,6 +4957,281 @@ def phase_recipe_single(lr, root) -> dict:
     return total, rows
 
 
+# the NPSS voices (phase 11e): the shipped configs the recipe's acoustic
+# phase takes in their turn, on recipe_single's corpus, dump, scalers and
+# timing models
+NPSS_CONFIGS = {"npss_ar": "acoustic/acoustic_npss_ar_mgcf0bap.yaml",
+                "npss_mdn": "acoustic/acoustic_npss_mdn.yaml"}
+# the AR cascade's LSTM layers a train step (forward, BPTT and dW_h each)
+# or a teacher-forced dev batch runs (the forward), by (H, layers): the
+# 6 + 6 encoder directions of the mgc and bap decoders, the lf0 decoder's
+# one cell and the bap decoder's two at H = 256; the lf0 and vuv
+# encoders' 4 + 4 at H = 64; the mgc decoder's two cells at H = 1024
+NPSS_LAYERS = {256: 15, 64: 8, 1024: 2}
+NPSS_STEP_LAUNCHES = sum(NPSS_LAYERS.values())  # 25
+# a free-running svs() call: the encoders' 12 + 8 on the kernel; the three
+# AR decoders step by step in PyTorch
+NPSS_SVS_LAUNCHES = 20
+NPSS_H = 1024                       # the mgc decoder's cells
+NPSS_R = 2                          # its reduction factor
+NPSS_FULL_B, NPSS_FULL_FRAMES = 64, 256  # the recipe's batch: 64 crops
+# the card-vs-CPU train step: NPSS_REF_B utterances of NPSS_REF_T frames,
+# dropout off (card and CPU draw masks from other generators)
+NPSS_REF_B, NPSS_REF_T = 2, 64
+
+
+def npss_recipe(root, name):
+    """(work directory, recipe path) of ``single_recipe`` with the
+    acoustic phase's model the shipped ``NPSS_CONFIGS[name]``, its own
+    ``exp`` and ``packed_model`` under ``<root>/<name>``, and the dump,
+    the scalers (links) and the timing models' checkpoints (copies) of
+    phase ``recipe_single``'s ``<root>/work``, so stages 0-4 need not run
+    again and that phase's pack stays as it was."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        save_config,
+    )
+
+    root = Path(root)
+    single, work = root / "work", root / name
+    (work / "exp").mkdir(parents=True)
+    for d in ("dump", "scalers"):
+        (work / d).symlink_to(single / d, target_is_directory=True)
+    for phase in ("timelag", "duration"):
+        shutil.copytree(single / "exp" / phase, work / "exp" / phase)
+    recipe = single_recipe(root / "corpus", work)
+    recipe["acoustic"]["model_config"] = str(CONFIGS / NPSS_CONFIGS[name])
+    path = root / f"{name}.yaml"
+    save_config(recipe, path)
+    return work, path
+
+
+def npss_batch(B: int, T: int, seed: int = SEED) -> dict:
+    """A single-track acoustic batch (86 inputs, 67 outputs with a 0/1
+    vuv column at 61), B utterances of T frames, the last shorter; the
+    pitch regularization's weights."""
+    rng = np.random.default_rng(seed)
+    out = rng.normal(size=(B, T, 67)).astype(np.float32)
+    out[..., 61] = rng.uniform(size=(B, T)) > 0.3
+    return {"in_feats": rng.uniform(0, 1, (B, T, 86)).astype(np.float32),
+            "out_feats": out,
+            "lengths": np.array([T] * (B - 1) + [T - T // 4], np.int64),
+            "pitch_reg_dyn_ws": rng.uniform(0, 1, (B, T, 1)).astype(
+                np.float32)}
+
+
+def npss_step(net, ss, variables, batch, device, dtype=torch.float32,
+              use_amp=False):
+    """One ``train/loop.create_train_step`` step of the single-track
+    model ``net`` from flax ``variables`` (SGD at rate 0, clipping at 1 as
+    the recipe's, the pitch regularization at 1): (metrics, {name:
+    clipped gradient}, {name: buffer}), the tensors on the CPU in
+    float64."""
+    from ensemble_svs_with_interactions_tpu_torch.train import loop
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
+        flax_to_torch,
+    )
+
+    module = flax_to_torch(instantiate(net), variables).to(dtype)
+    opt, sched = loop.build_optimizer(module.parameters(),
+                                      {"name": "SGD", "params": {"lr": 0.0}})
+    step, _ = loop.create_train_step(module, opt, {"stream_sizes": ss},
+                                     scheduler=sched, pitch_reg_weight=1.0,
+                                     use_amp=use_amp, device=device)
+    metrics = step(batch, torch.Generator(device=device).manual_seed(SEED))
+    return (metrics,
+            {n: p.grad.detach().cpu().double()
+             for n, p in module.named_parameters()},
+            {n: b.detach().cpu().double() for n, b in module.named_buffers()})
+
+
+def npss_net(name, work) -> dict:
+    """The shipped ``NPSS_CONFIGS[name]`` netG as stage 6 packed it (its
+    lf0 statistics from the scalers), every dropout at 0."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        load_config,
+    )
+
+    net = json.loads(json.dumps(dict(load_config(
+        Path(work) / "packed_model" / "acoustic_model.yaml")["netG"])))
+    for k in ("lf0_model", "mgc_model", "bap_model", "vuv_model"):
+        for key in ("dropout", "prenet_dropout"):
+            if key in net[k]:
+                net[k][key] = 0.0
+    return net
+
+
+def hold_npss_step(name, work) -> dict:
+    """One full-width train step of the voice, NPSS_REF_B x NPSS_REF_T,
+    dropout off, on the card against the same step on the CPU, each
+    clipped gradient by ``judge_amp``: in float32 with the CPU's float64
+    step as the oracle, in the AMP arm with the CPU's float32 step; the
+    losses within TRAIN_LOSS_RTOL and AMP_LOSS_RTOL.  cuDNN's float32
+    convolutions round about 10x more than the CPU's (phase
+    ``recipe_single``'s GAN step), and the encoders' training-mode batch
+    norms cancel most of the gradient in front of them, so float32 card
+    and CPU part there by more than rounding elsewhere; the same float32
+    step with cuDNN off (the port's kernels, cuBLAS and PyTorch's own
+    convolutions) must pass the strict ``judge_f32``."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_variables,
+    )
+
+    t0 = time.time()
+    net = npss_net(name, work)
+    ss = [60, 1, 1, 5]
+    variables = init_variables(instantiate(net), seed=SEED)
+    batch = npss_batch(NPSS_REF_B, NPSS_REF_T)
+
+    def step(dev, dtype=torch.float32, amp=False):
+        return npss_step(net, ss, variables, batch, dev, dtype, amp)
+
+    m_gpu, g_gpu, _ = step("cuda")
+    with torch.backends.cudnn.flags(enabled=False):
+        m_raw, g_raw, _ = step("cuda")
+    m_cpu, g_cpu, _ = step("cpu")
+    g_64 = step("cpu", torch.float64)[1]
+    a_gpu, ga_gpu, _ = step("cuda", amp=True)
+    a_cpu, ga_cpu, _ = step("cpu", amp=True)
+    judged = {"f32": judge_amp(g_gpu, g_cpu, g_64, AMP_GRAD_RTOL,
+                               AMP_COS_MIN, AMP_L2_MAX),
+              "amp": judge_amp(ga_gpu, ga_cpu, g_cpu, AMP_GRAD_RTOL,
+                               AMP_COS_MIN, AMP_L2_MAX)}
+    strict = judge_f32(g_raw, g_cpu, g_64)
+    strict_cudnn = judge_f32(g_gpu, g_cpu, g_64)
+    rel = lambda a, b: abs(a["Loss"] - b["Loss"]) / abs(b["Loss"])  # noqa
+    worst = max(strict, key=lambda n: strict[n]["rel_of_scale"])
+    out = {"B": NPSS_REF_B, "T": NPSS_REF_T, "params": len(strict),
+           "loss": [m_gpu["Loss"], m_cpu["Loss"]],
+           "loss_rel_err": rel(m_gpu, m_cpu),
+           "f32": amp_summary(judged["f32"]),
+           "f32_cudnn_off": {
+               "loss_rel_err": rel(m_raw, m_cpu),
+               "max_grad_rel_err": strict[worst]["rel_of_scale"],
+               "worst_grad": worst,
+               "failed": {n: v for n, v in strict.items() if not v["ok"]}},
+           "f32_strict_with_cudnn_failed": sorted(
+               n for n, v in strict_cudnn.items() if not v["ok"]),
+           "amp_loss": [a_gpu["Loss"], a_cpu["Loss"]],
+           "amp_loss_rel_err": rel(a_gpu, a_cpu),
+           "amp": amp_summary(judged["amp"]),
+           "seconds": time.time() - t0}
+    out["ok"] = bool(
+        np.isfinite(m_gpu["Loss"]) and out["loss_rel_err"] < TRAIN_LOSS_RTOL
+        and out["f32_cudnn_off"]["loss_rel_err"] < TRAIN_LOSS_RTOL
+        and not out["f32_cudnn_off"]["failed"]
+        and np.isfinite(a_gpu["Loss"])
+        and out["amp_loss_rel_err"] < AMP_LOSS_RTOL
+        and all(v["ok"] for j in judged.values() for v in j.values()))
+    return out
+
+
+def npss_voice(lr, root, name) -> dict:
+    """Stages 5-7 of ``npss_recipe(root, name)`` through
+    ``bin/run_recipe.main`` on the card (each timed; the launches counted
+    over 5 and over 7), the train step held card against CPU
+    (``hold_npss_step``) and ``svs()`` of the eval utterance card against
+    CPU (``single_svs_on_cpu``).  Returns the stages' seconds, launches,
+    trainer clock, holds and work directory."""
+    work, recipe = npss_recipe(root, name)
+    seconds = {}
+
+    def stages(first, last):
+        seconds.update(run_recipe_stages(first, last, [], recipe=recipe))
+
+    with SingleTrainerClocks() as seen:
+        launches = {"stage_5": count_launches(lr, lambda: stages(5, 5))}
+    stages(6, 6)
+    launches["stage_7"] = count_launches(lr, lambda: stages(7, 7))
+    eval_lab = next((Path(root) / "corpus" / "eval_lab").glob("*.lab"))
+    return {"work": work, "seconds": seconds, "launches": launches,
+            "clock": seen.clocks["acoustic"],
+            "step_hold": hold_npss_step(name, work),
+            "svs_reference": single_svs_on_cpu(
+                work / "packed_model", eval_lab, post_filter_type="gv")}
+
+
+def phase_recipe_npss(lr, root) -> tuple:
+    """The NPSS voices on the single-track recipe (phase 11e), after phase
+    ``recipe_single`` in the same ``root``: stages 5-7 of the shipped
+    ``acoustic_npss_ar_mgcf0bap.yaml`` (the deterministic AR cascade: the
+    mgc decoder's cells at H = 1024 train on the 512 < H <= 1024 BPTT
+    kernel) and of ``acoustic_npss_mdn.yaml`` (no LSTM) at their widths,
+    each in its own work directory (``npss_voice``); the AR voice's
+    launches against NPSS_STEP_LAUNCHES a train step and dev batch and
+    NPSS_SVS_LAUNCHES an ``svs()`` call; the H = 1024 forward (both
+    modes), BPTT (pre-pass and loop) and dW_h timed and held against
+    their plain versions at the shapes stage 5 gave them and at the
+    recipe's full batch (NPSS_FULL_B crops of NPSS_FULL_FRAMES frames, T =
+    128 decoder steps), with their bounds and cuDNN's times.  Returns the
+    AR voice's launches summed and the kernel rows by shape."""
+    t0 = time.time()
+    voices = {name: npss_voice(lr, root, name) for name in NPSS_CONFIGS}
+    ar = voices["npss_ar"]
+    clock = ar["clock"]
+    rows = {}
+    for B, T in sorted(clock.shapes["dev"]):
+        rows[f"dev B={B} T={T // NPSS_R}"] = phase_kernels(
+            lr, B=B, modes=(False,), phase="recipe_npss_kernel",
+            shapes=[NPSS_H], T=-(-T // NPSS_R))[(NPSS_H, False)]
+    train = sorted(clock.shapes["train"]) + [(NPSS_FULL_B,
+                                              NPSS_FULL_FRAMES)]
+    for B, T in train:
+        Td = -(-T // NPSS_R)
+        for k, row in phase_train_kernels(
+                lr, B=B, shapes={(NPSS_H, Td): NPSS_LAYERS[NPSS_H]},
+                phase="recipe_npss_train_kernel").items():
+            rows[f"train {k[0]}{'_c' if k[3] else ''} B={B} T={Td}"] = row
+    steps, dev = clock.calls["train"], clock.calls["dev"]
+    want = {"stage_5": {
+        "lstm_recurrence": NPSS_STEP_LAUNCHES * (steps + dev),
+        "lstm_bptt": NPSS_STEP_LAUNCHES * steps,
+        "lstm_dwh": NPSS_STEP_LAUNCHES * steps},
+        "stage_7": {"lstm_recurrence": NPSS_SVS_LAUNCHES, "lstm_bptt": 0,
+                    "lstm_dwh": 0}}
+    emit({"phase": "recipe_npss", "device": "cuda",
+          "configs": NPSS_CONFIGS,
+          "cuts": {"epochs": f"{SINGLE_EPOCHS} of 100 in stage 5",
+                   "step_hold": f"{NPSS_REF_B} x {NPSS_REF_T} frames, "
+                                "dropout off"},
+          **{name: {"stage_s": {str(k): v for k, v in v["seconds"].items()},
+                    "launches": v["launches"],
+                    "train_steps": v["clock"].calls["train"],
+                    "dev_batches": v["clock"].calls["dev"],
+                    "train_shapes": sorted(v["clock"].shapes["train"]),
+                    "dev_shapes": sorted(v["clock"].shapes["dev"]),
+                    "step_hold": v["step_hold"],
+                    "svs_reference": v["svs_reference"]}
+             for name, v in voices.items()},
+          "want_launches": want, "snr_bound_db": SNR_DB,
+          "kernel_rows": {k: {f: r[f] for f in (
+              "kernel", "B", "T", "H", "max_abs_err", "ms", "us_per_step",
+              "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "loop_bound_ms", "prepass_ms", "prepass_bound_ms",
+              "prepass_library_ms") if f in r}
+              for k, r in rows.items()},
+          "seconds": time.time() - t0})
+    assert ar["launches"] == want, (ar["launches"], want)
+    mdn = voices["npss_mdn"]["launches"]
+    assert all(n == 0 for v in mdn.values() for n in v.values()), mdn
+    for name, v in voices.items():
+        ref = v["svs_reference"]
+        assert v["step_hold"]["ok"], (name, v["step_hold"])
+        assert ref["durations_equal"] and ref["snr_db"] >= SNR_DB, (name,
+                                                                    ref)
+        assert ref["svs_finite_nonzero"], (name, ref)
+    assert all(r["max_abs_err"] < KERNEL_ATOL for k, r in rows.items()
+               if "dwh" not in k), rows
+    total = {k: sum(v[k] for v in ar["launches"].values())
+             for k in TRAIN_COUNTERS}
+    return total, rows
+
+
 def _sum_rows(rows, counts, keys):
     """{key: sum of count * row[key]} over rows weighted by counts."""
     return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
@@ -4962,7 +5253,8 @@ def _entry(name, source, sums, **extra):
 def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                  path_launches, train_launches, amp_launches,
                  trainer_launches, trainer_errs, recipe_launches,
-                 single_recipe_launches, single_recipe_rows):
+                 single_recipe_launches, single_recipe_rows,
+                 npss_launches, npss_rows):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -4992,7 +5284,11 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     single-track recipe's stages 3-9 under ``recipe_single``
     (``single_recipe_launches``), with each kernel's rows at that
     recipe's shapes under ``recipe_single_rows`` (``phase_recipe_single``;
-    the errors of those rows count in ``max_abs_err``)."""
+    the errors of those rows count in ``max_abs_err``), and the NPSS AR
+    voice's stages 5 and 7 under ``recipe_npss`` (``npss_launches``), with
+    the H = 1024 rows at its shapes and the recipe's full batch under
+    ``recipe_npss_rows`` (``phase_recipe_npss``; their errors count
+    too)."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -5011,14 +5307,17 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                 for s in TRAIN_LAUNCHES_BY_SHAPE}
         return _sum_rows(rows, TRAIN_LAUNCHES_BY_SHAPE, keys), rows
 
-    def recipe_single(name):
+    def recipe_rows(name, rows=single_recipe_rows):
         keep = ("B", "T", "H", "kernel", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "max_abs_err", "max_rel_err")
+                "bound_by", "library_ms", "max_abs_err", "max_rel_err",
+                "loop_bound_ms", "prepass_ms", "prepass_bound_ms",
+                "prepass_library_ms")
         return {k: {f: r[f] for f in keep if f in r}
-                for k, r in single_recipe_rows.items() if r["name"] == name}
+                for k, r in rows.items() if r["name"] == name}
 
     def worst(name, key="max_abs_err"):
-        return max([0.0] + [r[key] for r in single_recipe_rows.values()
+        return max([0.0] + [r[key] for r in [*single_recipe_rows.values(),
+                                             *npss_rows.values()]
                             if r["name"] == name])
 
     fwd, _ = train_sums("lstm_recurrence", True)
@@ -5038,7 +5337,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                     "train_amp": amp_launches[name],
                     "trainer": trainer_launches[name],
                     "recipe": recipe_launches[name],
-                    "recipe_single": single_recipe_launches[name]}
+                    "recipe_single": single_recipe_launches[name],
+                    "recipe_npss": npss_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -5078,7 +5378,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                train_step={"ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
                            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
                            "library_ms": fwd["library_ms"]},
-               recipe_single_rows=recipe_single("lstm_recurrence")),
+               recipe_single_rows=recipe_rows("lstm_recurrence"),
+               recipe_npss_rows=recipe_rows("lstm_recurrence", npss_rows)),
         _entry("lstm_bptt", "lstm_bptt.cu", bptt,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
                launches=sum(paths["lstm_bptt"].values()),
@@ -5090,7 +5391,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                                   worst("lstm_bptt")]),
                library_input_gemm_ms=bptt["library_input_gemm_ms"],
                loop_bound_ms=bptt["loop_bound_ms"],
-               recipe_single_rows=recipe_single("lstm_bptt"),
+               recipe_single_rows=recipe_rows("lstm_bptt"),
+               recipe_npss_rows=recipe_rows("lstm_bptt", npss_rows),
                **{k: bptt[k] for k in PREPASS}),
         _entry("lstm_dwh", "lstm_bptt.cu", dwh,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
@@ -5102,7 +5404,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                max_rel_err=max([r["max_rel_err"] for r in dwh_rows.values()]
                                + [trainer_errs["lstm_dwh_rel"],
                                   worst("lstm_dwh", "max_rel_err")]),
-               recipe_single_rows=recipe_single("lstm_dwh")),
+               recipe_single_rows=recipe_rows("lstm_dwh"),
+               recipe_npss_rows=recipe_rows("lstm_dwh", npss_rows)),
     ]}
 
 
@@ -5176,11 +5479,13 @@ def main() -> int:
         recipe_launches, recipe_errs = phase_recipe(lr, work)
     with tempfile.TemporaryDirectory() as root:
         single_launches, single_recipe_rows = phase_recipe_single(lr, root)
+        npss_launches, npss_rows = phase_recipe_npss(lr, root)
     trainer_errs = {k: max(v, recipe_errs[k]) for k, v in trainer_errs.items()}
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
                       path_launches, train_launches, amp_launches,
                       trainer_launches, trainer_errs, recipe_launches,
-                      single_launches, single_recipe_rows))
+                      single_launches, single_recipe_rows, npss_launches,
+                      npss_rows))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@
 //     H <= 64 : lstm_gates_kernel, then lstm_bptt_small_kernel (below);
 //     64 < H <= kMaxGroupH (512): lstm_gates_mma_kernel, then
 //               lstm_bptt_group_kernel (the H > 64 section below);
-//     wider: refused (the group kernel's rows of W_h outgrow its registers)
+//     kMaxGroupH < H <= kMaxBpttH (1024): lstm_gates_mma_kernel, then
+//               lstm_bptt_split_kernel (the 512 < H <= 1024 section);
+//     wider: refused (its rows of W_h outgrow a block's shared memory)
 //   lstm_dwh_kernel (+ lstm_dwh_reduce_kernel): dW_h = sum over (b, t) of
 //     h_{t-1}^T dz_t, a tiled reduction over the B(T-1) steps with t >= 1
 //     (h_{-1} = 0), split over the reduction and summed in a fixed order.
@@ -973,11 +975,176 @@ cudaError_t launch_bptt_group(const float* wh, const float* c,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ 512 < H <= 1024
+// The gate pre-pass is lstm_gates_mma_kernel, as above.  The reverse loop,
+// lstm_bptt_split_kernel, is the forward's H > 512 layout (lstm_recurrence
+// .cu, lstm_recurrence_kernel) turned around.  W_h is 16 MiB at H = 1024,
+// and the group kernel's 16 rows of it outgrow the registers, so a
+// cooperative grid of ceil(H / kUnitsS) blocks (128 at H = 1024, one per
+// SM) splits the units: block x owns units j0 = kUnitsS x .. j0 + 7, keeps
+// their rows of W_h (8 x 4H floats, 128 KiB at H = 1024) in shared memory
+// for the whole loop and takes every batch row, kRowsS rows a pass.  Each
+// step, for each pass:
+//   - the cell threads (row r, unit u) = (tid / 8, tid % 8) load the
+//     operands of step t (the unit's 4 gates from dxw[b, t] through
+//     __ldcg, as this launch overwrites them with dz_t; c_t, c_{t-1},
+//     dy_t) before the product;
+//   - dh (8 rows x 8 units) = dz_{t+1} W_rows^T: thread tid takes the
+//     float4 columns q = tid + 256 k of dz_{t+1}, read from L2 with
+//     __ldcg (the other blocks wrote them before the barrier), against
+//     the 8 rows' float4 of W_h from shared memory, into 64 sums; a
+//     reduce-scatter over the warp (32 + 16 + 8 + 4 + 2 __shfl_xor) leaves
+//     lane l the sums of (row, unit) 2 l and 2 l + 1, and the 8 warps'
+//     partials meet in shared memory, summed in warp order by the cell
+//     thread, one __syncthreads a pass;
+//   - the cell thread does the cell arithmetic (dc_next of every row in
+//     shared memory) and writes its unit's dz_t into dxw.
+// Then one grid barrier a step.  Each block reads all of dz_{t+1}, B x 4H
+// floats, a step: the grid's L2 traffic is nblk x B x 16H bytes a step,
+// which bounds the loop.  Units past H have zero weights and are not
+// written; rows past B are not read.  c, dy and the gates are read as
+// floats at any alignment; dxw, read in 16-byte pieces, is the caller's
+// 16-byte aligned allocation, and its rows (4H floats) keep that.
+// Padding needs no mask, as above.
+constexpr int kMaxBpttH = 1024;  // widest H of lstm_bptt_launch
+constexpr int kUnitsS = 8;       // units a block
+constexpr int kRowsS = 8;        // batch rows a pass
+constexpr int kCellsS = kRowsS * kUnitsS;
+constexpr int kChunksS = kMaxBpttH / kThreads;  // float4 columns a thread
+
+size_t split_smem_bytes(int H, int B) {
+  return sizeof(float) * ((size_t)kUnitsS * 4 * H +
+                          2 * kWarpsG * kCellsS + (size_t)B * kUnitsS);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_bptt_split_kernel(const float* __restrict__ wh,
+                           const float* __restrict__ cseq,
+                           const float* __restrict__ dy, float* dxw,
+                           unsigned int* counter, int B, int T, int H) {
+  extern __shared__ __align__(16) float smem[];
+  const int H4 = 4 * H;
+  float* ws = smem;                        // [kUnitsS][4H]: W_h rows
+  float* red = ws + kUnitsS * H4;          // [2][kWarpsG][kCellsS]
+  float* dcs = red + 2 * kWarpsG * kCellsS;  // [B][kUnitsS]: dc_next
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j0 = blockIdx.x * kUnitsS;
+  const unsigned int nblk = gridDim.x;
+
+  for (int i = tid; i < kUnitsS * H4; i += kThreads) {
+    const int u = i / H4, n = i - u * H4;
+    ws[i] = j0 + u < H ? __ldg(wh + (size_t)(j0 + u) * H4 + n) : 0.0f;
+  }
+  for (int i = tid; i < B * kUnitsS; i += kThreads) dcs[i] = 0.0f;
+  // cell role: row r of the pass, unit j
+  const int r = tid / kUnitsS, u = tid % kUnitsS, j = j0 + u;
+  __syncthreads();
+  int buf = 0;
+
+  for (int t = T - 1; t >= 0; --t) {
+    const bool next = t + 1 < T;  // dz_T = 0
+    for (int b0 = 0; b0 < B; b0 += kRowsS) {
+      const int rows = min(kRowsS, B - b0);
+      const bool cell = tid < kCellsS && r < rows && j < H;
+      const size_t row = (size_t)(b0 + (cell ? r : 0)) * T + t;
+      float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f;
+      float c_t = 0.0f, c_p = 0.0f, dy_t = 0.0f;
+      if (cell) {
+        const float* gz = dxw + row * H4 + j;
+        gi = __ldcg(gz);
+        gf = __ldcg(gz + H);
+        gg = __ldcg(gz + 2 * H);
+        go = __ldcg(gz + 3 * H);
+        c_t = __ldg(cseq + row * H + j);
+        c_p = t > 0 ? __ldg(cseq + (row - 1) * H + j) : 0.0f;
+        dy_t = __ldg(dy + row * H + j);
+      }
+
+      float v[kCellsS];  // v[8 rr + uu]: row b0 + rr, unit j0 + uu
+#pragma unroll
+      for (int i = 0; i < kCellsS; ++i) v[i] = 0.0f;
+      if (next) {
+#pragma unroll
+        for (int k = 0; k < kChunksS; ++k) {
+          const int q = tid + kThreads * k;  // float4 column of dz
+          if (q < H) {
+            float4 w[kUnitsS];
+#pragma unroll
+            for (int uu = 0; uu < kUnitsS; ++uu)
+              w[uu] = *reinterpret_cast<const float4*>(ws + uu * H4 + 4 * q);
+#pragma unroll
+            for (int rr = 0; rr < kRowsS; ++rr) {
+              if (rr < rows) {
+                const float4 d = __ldcg(
+                    reinterpret_cast<const float4*>(
+                        dxw + ((size_t)(b0 + rr) * T + t + 1) * H4) +
+                    q);
+#pragma unroll
+                for (int uu = 0; uu < kUnitsS; ++uu) {
+                  float& a = v[kUnitsS * rr + uu];
+                  a = fmaf(d.x, w[uu].x, a);
+                  a = fmaf(d.y, w[uu].y, a);
+                  a = fmaf(d.z, w[uu].z, a);
+                  a = fmaf(d.w, w[uu].w, a);
+                }
+              }
+            }
+          }
+        }
+      }
+      reduce_half<32>(v, 16, lane & 16);
+      reduce_half<16>(v, 8, lane & 8);
+      reduce_half<8>(v, 4, lane & 4);
+      reduce_half<4>(v, 2, lane & 2);
+      reduce_half<2>(v, 1, lane & 1);
+      float* rb = red + buf * kWarpsG * kCellsS;
+      *reinterpret_cast<float2*>(rb + warp * kCellsS + 2 * lane) =
+          make_float2(v[0], v[1]);
+      __syncthreads();
+
+      if (cell) {
+        float dh = dy_t;
+#pragma unroll
+        for (int k = 0; k < kWarpsG; ++k) dh += rb[k * kCellsS + tid];
+        float& dc_next = dcs[(b0 + r) * kUnitsS + u];
+        const float tc = tanhf(c_t);
+        const float dc = dh * go * (1.0f - tc * tc) + dc_next;
+        float* dz = dxw + row * H4 + j;
+        dz[0] = dc * gg * gi * (1.0f - gi);
+        dz[H] = dc * c_p * gf * (1.0f - gf);
+        dz[2 * H] = dc * gi * (1.0f - gg * gg);
+        dz[3 * H] = dh * tc * go * (1.0f - go);
+        dc_next = dc * gf;
+      }
+      buf ^= 1;
+    }
+    if (t > 0) grid_barrier(counter, nblk * (unsigned)(T - t));
+  }
+}
+
+cudaError_t launch_bptt_split(const float* wh, const float* c,
+                              const float* dy, float* dxw,
+                              unsigned int* counter, int B, int T, int H,
+                              cudaStream_t st) {
+  const auto kernel = lstm_bptt_split_kernel;
+  const size_t smem = split_smem_bytes(H, B);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nblk = (H + kUnitsS - 1) / kUnitsS;
+  void* args[] = {(void*)&wh,      (void*)&c, (void*)&dy, (void*)&dxw,
+                  (void*)&counter, (void*)&B, (void*)&T,  (void*)&H};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblk),
+                                    dim3(kThreads), args, smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dz into dxw (B, T, 4H), H <= kMaxGroupH.  Returns a cudaError_t (0 on
+// dz into dxw (B, T, 4H), H <= kMaxBpttH.  Returns a cudaError_t (0 on
 // success).  `counters` must hold lstm_bptt_counters(B, H) zeroed uint32
 // values.  The gate pre-pass writes dxw first and the loop reads it back
 // in 16-byte copies, so dxw must be 16-byte aligned (any tensor that
@@ -986,12 +1153,14 @@ int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
                      const float* c, const float* dy, float* dxw,
                      unsigned int* counters, int B, int T, int H,
                      void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxGroupH)
+  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxBpttH)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(dxw)) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = launch_gates(xw, wh, h, dxw, B, T, H, st);
   if (err != cudaSuccess) return (int)err;
+  if (H > kMaxGroupH)
+    return (int)launch_bptt_split(wh, c, dy, dxw, counters, B, T, H, st);
   if (H > kSmallH) {
     const auto launch = H <= 128   ? launch_bptt_group<2>
                         : H <= 256 ? launch_bptt_group<4>
@@ -1006,7 +1175,8 @@ int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
 }
 
 // Barrier counters lstm_bptt_launch needs: none at H <= kSmallH, else one
-// per group of kRowsG rows.
+// per group of kRowsG rows (the split kernel above kMaxGroupH uses the
+// first).
 int lstm_bptt_counters(int B, int H) {
   return H <= kSmallH ? 0 : (B + kRowsG - 1) / kRowsG;
 }

@@ -173,8 +173,11 @@ inline Split make_split(int H) {
 // Batch rows go to grid rows (blockIdx.y) in groups of kMaxRows.  A
 // multi-block launch spins at a grid barrier, so every block must be
 // resident at once: when nblk * groups blocks do not fit, each grid row
-// takes `gpb` groups and loops over them inside every step.  A block runs
-// one cell thread per (row, unit), so gpb * kMaxRows * U <= kThreads.
+// takes `gpb` groups and loops over them inside every step.  A block's
+// threads take its (row, unit) cells, up to kCellPasses each, so
+// gpb * kMaxRows * U <= kCellPasses * kThreads (at H = 1024, U = 8: 128
+// rows in the one grid row the card holds).
+constexpr int kCellPasses = 4;
 struct Rows {
   int groups, gpb, grid_rows;
 };
@@ -188,7 +191,7 @@ cudaError_t plan_rows(Kernel kernel, int B, int U, int nblk, SmemFor smem_for,
   r.gpb = 1;
   r.grid_rows = r.groups;
   if (nblk > 1) {
-    const int max_gpb = kThreads / (kMaxRows * U);
+    const int max_gpb = kCellPasses * kThreads / (kMaxRows * U);
     int sms = 0, per_sm = 0;
     cudaError_t err;
     if ((err = sm_count(&sms)) != cudaSuccess) return err;

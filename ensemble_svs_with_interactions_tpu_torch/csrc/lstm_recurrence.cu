@@ -220,16 +220,27 @@ __global__ void __launch_bounds__(kThreads)
   const bool dot_active = k1 < K;
   const float* wk = ws + (dot_active ? k1 : 0) * pitch;
 
-  // cell role: batch row b2 of the grid row, unit j2
-  const int b2 = tid / U, j2 = j0 + tid % U;
-  const bool cell_active = tid < R * U && b2 < rows && j2 < H;
-  const float* xrow =
-      cell_active ? xw + (size_t)(b0 + b2) * T * H4 + j2 : xw;
-  float c = 0.0f;
-  float xg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (cell_active) {
+  // cell role: pass q takes cell tid + q kThreads, batch row b2[q] of the
+  // grid row and unit j2[q] (the grouped kernel's rows may outnumber the
+  // threads: R U <= kCellPasses kThreads)
+  constexpr int kPasses = kGrouped ? kCellPasses : 1;
+  int b2[kPasses], j2[kPasses];
+  bool cell_active[kPasses];
+  const float* xrow[kPasses];
+  float c[kPasses];
+  float xg[kPasses][4];
 #pragma unroll
-    for (int g = 0; g < 4; ++g) xg[g] = xrow[g * H];
+  for (int q = 0; q < kPasses; ++q) {
+    const int ci = tid + q * kThreads;
+    b2[q] = ci / U;
+    j2[q] = j0 + ci % U;
+    cell_active[q] = ci < R * U && b2[q] < rows && j2[q] < H;
+    xrow[q] = cell_active[q] ? xw + (size_t)(b0 + b2[q]) * T * H4 + j2[q]
+                             : xw;
+    c[q] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      xg[q][g] = cell_active[q] ? xrow[q][g * H] : 0.0f;
   }
   __syncthreads();
 
@@ -269,23 +280,25 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
     }
 
-    if (cell_active) {
-      const int u = tid % U;
-      const float* g_row = gs + b2 * K;
-      const float zi = xg[0] + g_row[u];
-      const float zf = xg[1] + g_row[U + u];
-      const float zg = xg[2] + g_row[2 * U + u];
-      const float zo = xg[3] + g_row[3 * U + u];
-      c = sigmoid_f32(zf) * c + sigmoid_f32(zi) * tanhf(zg);
-      const float h = sigmoid_f32(zo) * tanhf(c);
-      const size_t o = ((size_t)(b0 + b2) * T + t) * H + j2;
-      y[o] = h;
-      if (cseq != nullptr) cseq[o] = c;
-      if (nblk == 1) hs[b2 * H + j2] = h;
-      if (t + 1 < T) {
-        const float* nxt = xrow + (size_t)(t + 1) * H4;
 #pragma unroll
-        for (int g = 0; g < 4; ++g) xg[g] = nxt[g * H];
+    for (int q = 0; q < kPasses; ++q) {
+      if (!cell_active[q]) continue;
+      const int u = (tid + q * kThreads) % U;
+      const float* g_row = gs + b2[q] * K;
+      const float zi = xg[q][0] + g_row[u];
+      const float zf = xg[q][1] + g_row[U + u];
+      const float zg = xg[q][2] + g_row[2 * U + u];
+      const float zo = xg[q][3] + g_row[3 * U + u];
+      c[q] = sigmoid_f32(zf) * c[q] + sigmoid_f32(zi) * tanhf(zg);
+      const float h = sigmoid_f32(zo) * tanhf(c[q]);
+      const size_t o = ((size_t)(b0 + b2[q]) * T + t) * H + j2[q];
+      y[o] = h;
+      if (cseq != nullptr) cseq[o] = c[q];
+      if (nblk == 1) hs[b2[q] * H + j2[q]] = h;
+      if (t + 1 < T) {
+        const float* nxt = xrow[q] + (size_t)(t + 1) * H4;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xg[q][g] = nxt[g * H];
       }
     }
     if (nblk > 1) {

@@ -3,6 +3,8 @@ diffusion models are in ``models/diffsinger.py``, the postfilters' GAN
 discriminator in ``models/discriminators.py``."""
 
 from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F401
+    Conv1dResnet,
+    Conv1dResnetMDN,
     FFConvLSTM,
     LSTMEncoder,
     MDN,

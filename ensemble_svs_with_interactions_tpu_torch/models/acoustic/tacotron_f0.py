@@ -1,7 +1,8 @@
 """The residual-F0 models: the single-track
 ``BiLSTMResF0NonAttentiveDecoder``, the interaction F0 model
-``MultiTrackBiLSTMResF0NonAttentiveDecoder`` and their ``_SinsyEncoder``
-(counterparts in
+``MultiTrackBiLSTMResF0NonAttentiveDecoder``, their ``_SinsyEncoder``,
+and the plain AR stream decoder ``BiLSTMNonAttentiveDecoder`` with its
+Post-Net (counterparts in
 ``ensemble_svs_with_interactions_tpu/models/acoustic/tacotron_f0.py``).
 
 An FF -> Conv(+BN) -> biLSTM encoder sees the score-lf0 track(s), and the
@@ -30,7 +31,10 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
 )
 from ensemble_svs_with_interactions_tpu_torch.models.tacotron import (
     _ARDecoderCore,
+    add_ar_decoder,
     ar_decode,
+    decode_and_refine,
+    refuse_decoder_options,
 )
 
 
@@ -211,3 +215,68 @@ class MultiTrackBiLSTMResF0NonAttentiveDecoder(_ResF0NonAttentiveDecoder):
                   lengths=None, generator=None):
         return self(x_main, x_sub, spk_emb_main, spk_emb_sub, lengths,
                     generator=generator)[0]
+
+
+class BiLSTMNonAttentiveDecoder(BaseModel):
+    """Sinsy-like encoder and the plain (non-residual) AR decoder: an
+    optional phoneme embedding, the ``_SinsyEncoder`` with no score-lf0
+    input, the AR decode from the go frame ``initial_value`` and, with
+    ``postnet_layers > 0``, the residual Post-Net, whose ``[coarse,
+    fine]`` the forward returns and whose fine output ``inference``
+    returns.  Without targets ``y`` it decodes free-running; with them it
+    is teacher-forced.  The shipped ``acoustic_npss_ar_mgcf0bap.yaml``
+    stream decoders (r = 2, conv downsampling, no prenet, no zoneout) are
+    ported with the other reductions; the refused options raise
+    (``models/tacotron.refuse_decoder_options``)."""
+
+    def __init__(self, in_dim: int = 512, ff_hidden_dim: int = 2048,
+                 conv_hidden_dim: int = 1024, lstm_hidden_dim: int = 256,
+                 num_lstm_layers: int = 2, dropout: float = 0.0,
+                 out_dim: int = 80, decoder_layers: int = 2,
+                 decoder_hidden_dim: int = 1024, prenet_layers: int = 2,
+                 prenet_hidden_dim: int = 256, prenet_dropout: float = 0.5,
+                 zoneout: float = 0.1, reduction_factor: int = 1,
+                 downsample_by_conv: bool = False, use_mdn: bool = False,
+                 num_gaussians: int = 4, sampling_mode: str = "mean",
+                 in_ph_start_idx: int = 1, in_ph_end_idx: int = 50,
+                 embed_dim: Optional[int] = None, init_type: str = "none",
+                 initial_value: float = 0.0, prenet_noise_std: float = 0.0,
+                 eval_dropout: bool = True, postnet_layers: int = 0,
+                 postnet_channels: int = 512, postnet_kernel_size: int = 5,
+                 postnet_dropout: float = 0.0):
+        super().__init__()
+        refuse_decoder_options(type(self).__name__, prenet_layers, zoneout,
+                               use_mdn, prenet_noise_std)
+        width = in_dim
+        self.PhonemeContextEmbedding_0 = None
+        if embed_dim is not None:
+            self.PhonemeContextEmbedding_0 = PhonemeContextEmbedding(
+                in_dim, embed_dim, in_ph_start_idx, in_ph_end_idx)
+            width = embed_dim
+        self._SinsyEncoder_0 = _SinsyEncoder(
+            width, ff_hidden_dim, conv_hidden_dim, lstm_hidden_dim,
+            num_lstm_layers, dropout, num_lf0_scores=0, init_type=init_type)
+        add_ar_decoder(self, self._SinsyEncoder_0.LSTM_0.out_dim, out_dim,
+                       decoder_layers, decoder_hidden_dim, prenet_dropout,
+                       reduction_factor, downsample_by_conv, initial_value,
+                       postnet_layers, postnet_channels, postnet_kernel_size,
+                       postnet_dropout)
+
+    def is_autoregressive(self) -> bool:
+        return True
+
+    def prediction_type(self):
+        return PredictionType.DETERMINISTIC
+
+    def forward(self, x, lengths=None, y=None, spk_embs=None,
+                train: bool = False, generator=None):
+        if self.PhonemeContextEmbedding_0 is not None:
+            x = self.PhonemeContextEmbedding_0(x)
+        if spk_embs is not None:
+            x = x + spk_embs
+        h = self._SinsyEncoder_0(x, [], lengths, train, generator)
+        return decode_and_refine(self, h, lengths, y, train, generator)
+
+    def inference(self, x, lengths=None, spk_embs=None, generator=None):
+        outs = self(x, lengths, spk_embs=spk_embs, generator=generator)
+        return outs[-1] if isinstance(outs, list) else outs

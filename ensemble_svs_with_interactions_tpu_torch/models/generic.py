@@ -27,7 +27,9 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
     MaskedBatchNorm,
     PhonemeContextEmbedding,
     ReflectConv1d,
+    ResnetBlock,
     dropout,
+    leaky_relu,
     time_mask,
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.mdn import (
@@ -36,6 +38,8 @@ from ensemble_svs_with_interactions_tpu_torch.ops.mdn import (
 )
 
 __all__ = [
+    "Conv1dResnet",
+    "Conv1dResnetMDN",
     "MDN",
     "MDNv2",
     "SpeakerEmbedding",
@@ -123,6 +127,81 @@ class MDNv2(MDN):
             if train:
                 h = dropout(h, self.dropout, generator)
         return self.MDNLayer_0(h)
+
+
+class _Conv1dResnetBody(nn.Module):
+    """The MelGAN-style body of ``Conv1dResnet`` and ``ResF0Conv1dResnet``:
+    a weight-normed reflection-padded k7 conv (``ReflectConv1d_0``),
+    ``num_layers`` ``ResnetBlock``s at dilations 1, 2, 4, ..., a leaky
+    ReLU and a weight-normed k7 conv (``ReflectConv1d_1``) to
+    ``last_dim``.  The two k7 kernels take ``init_type`` (the residual-F0
+    model passes its own, ``Conv1dResnet`` none)."""
+
+    def _add_body(self, in_dim: int, hidden_dim: int, last_dim: int,
+                  num_layers: int, init_type: str = "none"):
+        self.num_layers = num_layers
+        self.ReflectConv1d_0 = ReflectConv1d(in_dim, hidden_dim, 7, init_type,
+                                             weight_norm=True)
+        for n in range(num_layers):
+            setattr(self, f"ResnetBlock_{n}",
+                    ResnetBlock(hidden_dim, dilation=2 ** n))
+        self.ReflectConv1d_1 = ReflectConv1d(hidden_dim, last_dim, 7,
+                                             init_type, weight_norm=True)
+
+    def _body(self, x):
+        h = self.ReflectConv1d_0(x)
+        for n in range(self.num_layers):
+            h = getattr(self, f"ResnetBlock_{n}")(h)
+        return self.ReflectConv1d_1(leaky_relu(h))
+
+
+class Conv1dResnet(BaseModel, _Conv1dResnetBody):
+    """MelGAN-inspired conv resnet with an optional MDN head
+    (``MDNLayer_0``) and phoneme embedding.  ``forward`` gives (B, T,
+    out_dim), or ``(log_pi, log_sigma, mu)`` with ``use_mdn``;
+    ``inference`` the output, or ``(mu, sigma)`` of the most probable
+    component.  No dropout, no batch norm: training changes nothing in its
+    forward.  ``init_type`` is accepted and unused, as in the JAX model."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int = 4, init_type: str = "none",
+                 use_mdn: bool = False, num_gaussians: int = 8,
+                 dim_wise: bool = False, in_ph_start_idx: int = 1,
+                 in_ph_end_idx: int = 50, embed_dim: Optional[int] = None):
+        super().__init__()
+        self.use_mdn = use_mdn
+        width = in_dim
+        self.PhonemeContextEmbedding_0 = None
+        if embed_dim is not None:
+            self.PhonemeContextEmbedding_0 = PhonemeContextEmbedding(
+                in_dim, embed_dim, in_ph_start_idx, in_ph_end_idx)
+            width = embed_dim
+        self._add_body(width, hidden_dim,
+                       hidden_dim if use_mdn else out_dim, num_layers)
+        self.MDNLayer_0 = (MDNLayer(hidden_dim, out_dim, num_gaussians,
+                                    dim_wise) if use_mdn else None)
+
+    def prediction_type(self):
+        return (PredictionType.PROBABILISTIC if self.use_mdn
+                else PredictionType.DETERMINISTIC)
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                generator=None):
+        if self.PhonemeContextEmbedding_0 is not None:
+            x = self.PhonemeContextEmbedding_0(x)
+        h = self._body(x)
+        return self.MDNLayer_0(h) if self.use_mdn else h
+
+    def inference(self, x, lengths=None):
+        return _mdn_or_point(self, self(x, lengths))
+
+
+class Conv1dResnetMDN(Conv1dResnet):
+    """``Conv1dResnet`` with its MDN head on (kept for config
+    compatibility, as in the JAX package)."""
+
+    def __init__(self, *args, use_mdn: bool = True, **kwargs):
+        super().__init__(*args, use_mdn=True, **kwargs)
 
 
 class _ConvBNReLUStack(nn.Module):

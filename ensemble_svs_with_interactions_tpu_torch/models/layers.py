@@ -194,24 +194,71 @@ class MaskedBatchNorm(nn.Module):
         return (x - mean) * inv * self.weight + self.bias
 
 
+def leaky_relu(x, slope: float = 0.2):
+    """flax's ``leaky_relu``, ``where(x >= 0, x, slope * x)``: its gradient
+    at 0 is 1, where torch's is ``slope``."""
+    return torch.where(x >= 0, x, slope * x)
+
+
 class ReflectConv1d(nn.Module):
-    """Conv1d with reflection padding over the time axis of (B, T, C).
-    ``init_type`` names the flax scheme of its kernel (``utils/
-    flax_init``): the model's where the JAX model passes it its
-    ``kernel_init``, else ``"none"`` (lecun_normal)."""
+    """Conv1d with reflection padding over the time axis of (B, T, C),
+    optionally dilated and weight-normed as flax's ``nn.WeightNorm``
+    (``Conv_0`` is then the vocoder discriminators' ``SameConv``, whose
+    ``scale`` flax keeps at ``WeightNorm_0``).  ``init_type`` names the
+    flax scheme of its kernel (``utils/flax_init``): the model's where the
+    JAX model passes it its ``kernel_init``, else ``"none"``
+    (lecun_normal)."""
 
     def __init__(self, in_dim: int, features: int, kernel_size: int,
-                 init_type: str = "none"):
+                 init_type: str = "none", dilation: int = 1,
+                 weight_norm: bool = False):
         super().__init__()
-        self.pad = (kernel_size - 1) // 2
+        self.pad = (kernel_size - 1) // 2 * dilation
+        self.dilation = dilation
         self.init_type = init_type
-        self.Conv_0 = nn.Conv1d(in_dim, features, kernel_size)
+        if weight_norm:
+            from ensemble_svs_with_interactions_tpu_torch.models.vocoders.discriminators import (  # noqa: E501
+                SameConv,
+            )
+
+            self.Conv_0 = SameConv(in_dim, features, (kernel_size,),
+                                   dilation=(dilation,), weight_norm=True)
+        else:
+            self.Conv_0 = nn.Conv1d(in_dim, features, kernel_size,
+                                    dilation=dilation)
 
     def forward(self, x):
         h = x.transpose(1, 2)
         if self.pad:
             h = F.pad(h, (self.pad, self.pad), mode="reflect")
-        return self.Conv_0(h).transpose(1, 2)
+        conv = self.Conv_0
+        if isinstance(conv, nn.Conv1d):
+            return conv(h).transpose(1, 2)
+        return F.conv1d(h, conv.effective_weight(), conv.bias,
+                        dilation=self.dilation).transpose(1, 2)
+
+
+class ResnetBlock(nn.Module):
+    """MelGAN-style dilated residual block: leaky ReLU, a weight-normed
+    reflection-padded k3 conv at ``dilation`` (``ReflectConv1d_0``), leaky
+    ReLU, a weight-normed 1x1 conv (``Conv_0``), plus a weight-normed 1x1
+    shortcut of the input (``Conv_1``)."""
+
+    def __init__(self, dim: int, dilation: int = 1):
+        super().__init__()
+        from ensemble_svs_with_interactions_tpu_torch.models.vocoders.discriminators import (  # noqa: E501
+            SameConv,
+        )
+
+        self.ReflectConv1d_0 = ReflectConv1d(dim, dim, 3, dilation=dilation,
+                                             weight_norm=True)
+        self.Conv_0 = SameConv(dim, dim, (1,), weight_norm=True)
+        self.Conv_1 = SameConv(dim, dim, (1,), weight_norm=True)
+
+    def forward(self, x):
+        h = leaky_relu(self.ReflectConv1d_0(leaky_relu(x)))
+        h = self.Conv_0(h.transpose(1, 2))
+        return (self.Conv_1(x.transpose(1, 2)) + h).transpose(1, 2)
 
 
 class PhonemeContextEmbedding(nn.Module):

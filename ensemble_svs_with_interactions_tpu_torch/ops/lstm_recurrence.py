@@ -9,7 +9,7 @@ Replaces ``ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py``:
   needs): :func:`lstm_recurrence`, kernel ``csrc/lstm_recurrence.cu``;
 * ``_lstm_bwd_kernel`` (reverse-time BPTT: the gate gradient dxw and dW_h):
   :func:`lstm_bptt` (a gate pre-pass, :func:`lstm_gates`, then the reverse
-  loop; H <= 512) and :func:`lstm_dwh`, kernels ``csrc/lstm_bptt.cu``;
+  loop; H <= 1024) and :func:`lstm_dwh`, kernels ``csrc/lstm_bptt.cu``;
 * the custom VJP ``lstm_recurrence_trainable``:
   :class:`LSTMRecurrence` / :func:`lstm_recurrence_trainable`.  The v5e
   block sizing ``trainable_auto_blocks`` has no counterpart: the kernels
@@ -36,11 +36,12 @@ across steps on chip (see the headers of the CUDA sources):
 * 64 < H <= 512, forward and BPTT loop: the grid splits the units and
   the batch, each block holds the rows of W_h of its 16 units in
   registers, and only the blocks that share a group of batch rows
-  exchange h (forward) or dz (BPTT) and meet at a barrier.  Wider BPTTs
-  raise: those rows outgrow the registers;
-* H > 512, forward: each block holds its slice of W_h in shared memory for
-  the whole sequence, the hidden units are split across blocks so the
-  per-step exchange and a grid barrier are the only cross-block traffic.
+  exchange h (forward) or dz (BPTT) and meet at a barrier;
+* H > 512, forward, and 512 < H <= 1024, BPTT loop: each block holds its
+  slice of W_h in shared memory for the whole sequence, the hidden units
+  are split across blocks so the per-step exchange (h, or every row's dz
+  read from L2) and a grid barrier are the only cross-block traffic.
+  Wider BPTTs raise: 8 rows of W_h outgrow a block's shared memory.
 
 dW_h is a tiled product over all steps, run after the loop, bound by the
 tensor cores' rate: 3xTF32 ``mma.sync`` (float32-accurate), fed by a
@@ -128,22 +129,28 @@ def lstm_bptt_loop_reference(gates, w_h, c, dy):
     arithmetic; any float dtype."""
     B, T, H4 = gates.shape
     H = H4 // 4
-    cprev = _shift(c)
+    i, f, g, o = gates.split(H, dim=2)
+    # dz = ((d u) v) w per gate, d = dc for i, f, g and dh tanh(c_t) for o,
+    # the step's factors u, v, w computed for every step at once (exact
+    # products and differences, and a factor 1 that multiplies exactly):
+    # the step-by-step formula's dc g i (1 - i), dc c_{t-1} f (1 - f),
+    # dc i (1 - g^2), dh tanh(c_t) o (1 - o), in its order and bits
+    one = torch.ones_like(g)
+    u = torch.cat([g, _shift(c), i, one], dim=2)
+    v = torch.cat([i, f, one, o], dim=2)
+    w = torch.cat([1.0 - i, 1.0 - f, 1.0 - g * g, 1.0 - o], dim=2)
     dxw = torch.empty_like(gates)
     dh_next = gates.new_zeros(B, H)
     dc_next = gates.new_zeros(B, H)
     for t in range(T - 1, -1, -1):
-        i, f, g, o = gates[:, t].split(H, dim=1)
         tc = torch.tanh(c[:, t])
         dh = dy[:, t] + dh_next
-        dc = dh * o * (1.0 - tc * tc) + dc_next
-        dz = torch.cat([dc * g * i * (1.0 - i),
-                        dc * cprev[:, t] * f * (1.0 - f),
-                        dc * i * (1.0 - g * g),
-                        dh * tc * o * (1.0 - o)], dim=1)
+        dc = dh * o[:, t] * (1.0 - tc * tc) + dc_next
+        dz = (torch.cat([dc, dc, dc, dh * tc], dim=1) * u[:, t] * v[:, t]
+              * w[:, t])
         dxw[:, t] = dz
         dh_next = dz @ w_h.t()
-        dc_next = dc * f
+        dc_next = dc * f[:, t]
     return dxw
 
 
@@ -296,7 +303,7 @@ def _stream(t):
 
 
 SMALL_H = 64  # kSmallH of csrc/lstm_common.cuh
-MAX_BPTT_H = 512  # kMaxGroupH of csrc/lstm_bptt.cu
+MAX_BPTT_H = 1024  # kMaxBpttH of csrc/lstm_bptt.cu
 
 
 def lstm_recurrence(xw, w_h, want_c: bool = False):
@@ -340,7 +347,7 @@ def lstm_recurrence_kernel_name(B: int, H: int) -> str:
 def lstm_bptt(xw, w_h, h, c, dy):
     """The gate gradient dxw (B, T, 4H) of the reverse-time BPTT: the
     hand-written kernels on a CUDA tensor (the gate pre-pass and the
-    reverse loop, both counted as one launch; H <= 512), the plain loop on
+    reverse loop, both counted as one launch; H <= 1024), the plain loop on
     a CPU tensor.  Inputs as :func:`lstm_recurrence_bwd_reference`."""
     if xw.device.type == "cpu":
         return lstm_bptt_loop_reference(lstm_gates_reference(xw, w_h, h), w_h,

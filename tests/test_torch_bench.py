@@ -23,6 +23,8 @@ import chip_smoke  # noqa: E402
 
 
 def _one_json_line(script, *args):
+    """The bench run as a command: ``python <script> --device cpu --tiny
+    ...`` prints one JSON line."""
     # two threads: tiny widths gain nothing from more, and the suite's
     # other workers keep the cores
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
@@ -34,6 +36,36 @@ def _one_json_line(script, *args):
     lines = r.stdout.strip().splitlines()
     assert len(lines) == 1, lines
     return json.loads(lines[0])
+
+
+@pytest.fixture
+def run_main(capsys):
+    """The bench's ``main(["--device", "cpu", "--tiny", ...])`` in this
+    process (two torch threads, as the command's): it returns 0 and
+    prints one JSON line, which this returns parsed.  The command's own
+    entry is held by ``test_bench_cuda_tiny_prints_one_json_line``."""
+    def run(module, *args):
+        n = torch.get_num_threads()
+        torch.set_num_threads(2)
+        try:
+            capsys.readouterr()
+            assert module.main(["--device", "cpu", "--tiny", *args]) == 0
+        finally:
+            torch.set_num_threads(n)
+        lines = capsys.readouterr().out.strip().splitlines()
+        assert len(lines) == 1, lines
+        return json.loads(lines[0])
+
+    return run
+
+
+def _refused(capsys, *args):
+    """``bench_cuda.main``'s exit code for arguments its parser refuses
+    (in this process: the parser stops before any model is built)."""
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as stop:
+        bench_cuda.main(["--device", "cpu", *args])
+    return stop.value.code
 
 
 def test_bench_cuda_tiny_prints_one_json_line():
@@ -59,10 +91,10 @@ def test_bench_cuda_tiny_prints_one_json_line():
     assert out["peak_mem_gib"] is None
 
 
-def test_bench_cuda_diffusion_tiny_prints_one_json_line():
+def test_bench_cuda_diffusion_tiny_prints_one_json_line(run_main):
     """``--acoustic diffusion``: the recipe's diffusion voice renders the
     same ring (speakers below its 3) under its own metric."""
-    out = _one_json_line("bench_cuda.py", "--acoustic", "diffusion")
+    out = run_main(bench_cuda, "--acoustic", "diffusion")
     assert out["metric"] == "rtf_4part_diffusion_multitrack_48k"
     assert out["acoustic"] == "diffusion"
     assert out["spk_ids"] == chip_smoke.DIFFUSION_SPK_IDS
@@ -76,11 +108,11 @@ def test_bench_cuda_diffusion_tiny_prints_one_json_line():
     assert out["lstm_launches_per_call"] == 0 and out["peak_mem_gib"] is None
 
 
-def test_bench_cuda_usfgan_tiny_prints_one_json_line():
+def test_bench_cuda_usfgan_tiny_prints_one_json_line(run_main, capsys):
     """``--vocoder usfgan``: the flagship's ring with the recipe's neural
     vocoder packed beside it, under its own metric, with the generator's
     bound over the call's tracks (no device time on the CPU)."""
-    out = _one_json_line("bench_cuda.py", "--vocoder", "usfgan")
+    out = run_main(bench_cuda, "--vocoder", "usfgan")
     assert out["metric"] == "rtf_4part_flagship_usfgan_48k"
     assert out["vocoder"] == "usfgan" and out["acoustic"] == "flagship"
     assert out["unit"] == "ratio" and out["value"] > 0
@@ -93,10 +125,9 @@ def test_bench_cuda_usfgan_tiny_prints_one_json_line():
                         * sum(out["wav_lengths"]), rel_tol=1e-9)
     assert out["device"] == "cpu" and out["card"] is None
     assert out["vocoder_ms_all"] is None and out["peak_mem_gib"] is None
-    r = subprocess.run([sys.executable, "bench_cuda.py", "--device", "cpu",
-                        "--vocoder", "usfgan", "--acoustic", "diffusion"],
-                       cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert r.returncode == 2 and "--vocoder" in r.stderr
+    assert _refused(capsys, "--vocoder", "usfgan", "--acoustic",
+                    "diffusion") == 2
+    assert "--vocoder" in capsys.readouterr().err
 
 
 def test_vocoder_is_the_shipped_generator():
@@ -147,10 +178,10 @@ def test_diffusion_voice_is_the_shipped_config():
         assert net[k]["_target_"] == got["netG"][k]["_target_"]
 
 
-def test_bench_cuda_single_track_tiny_prints_one_json_line():
+def test_bench_cuda_single_track_tiny_prints_one_json_line(run_main):
     """``--single-track``: the stock single-track voice through
     ``SPSVS.svs``, its median RTF and stage times."""
-    out = _one_json_line("bench_cuda.py", "--single-track")
+    out = run_main(bench_cuda, "--single-track")
     assert out["metric"] == "rtf_single_track_48k"
     assert out["unit"] == "ratio" and out["value"] > 0
     assert len(out["all_runs_sec"]) == out["calls"] == bench_cuda.TINY_CALLS
@@ -169,12 +200,12 @@ def test_bench_cuda_single_track_tiny_prints_one_json_line():
     assert out["peak_mem_gib"] is None
 
 
-def test_bench_cuda_single_track_postfilter_tiny_prints_one_json_line():
+def test_bench_cuda_single_track_postfilter_tiny_prints_one_json_line(
+        run_main, capsys):
     """``--single-track --post-filter nnsvs``: the voice packed with the
     merged learned postfilter renders through ``svs(post_filter_type=
     "nnsvs")``; the same 7-call median RTF under its own metric."""
-    out = _one_json_line("bench_cuda.py", "--single-track", "--post-filter",
-                         "nnsvs")
+    out = run_main(bench_cuda, "--single-track", "--post-filter", "nnsvs")
     assert out["metric"] == "rtf_single_track_nnsvs_48k"
     assert out["post_filter_type"] == "nnsvs" and out["postfilter_packed"]
     assert out["unit"] == "ratio" and out["value"] > 0
@@ -182,10 +213,8 @@ def test_bench_cuda_single_track_postfilter_tiny_prints_one_json_line():
     assert out["stages_sec"]["postprocess_acoustic"] > 0
     assert out["device"] == "cpu" and out["card"] is None
     assert out["peak_mem_gib"] is None
-    r = subprocess.run([sys.executable, "bench_cuda.py", "--device", "cpu",
-                        "--post-filter", "nnsvs"], cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
-    assert r.returncode == 2 and "--single-track" in r.stderr
+    assert _refused(capsys, "--post-filter", "nnsvs") == 2
+    assert "--single-track" in capsys.readouterr().err
 
 
 def test_postfilter_is_the_shipped_stream_filters():
@@ -240,8 +269,8 @@ def test_single_track_voice_is_the_shipped_config():
         assert tiny[phase][0]["stream_sizes"] == got["stream_sizes"]
 
 
-def test_bench_train_cuda_tiny_prints_one_json_line():
-    out = _one_json_line("bench_train_cuda.py")
+def test_bench_train_cuda_tiny_prints_one_json_line(run_main):
+    out = run_main(bench_train_cuda)
     assert out["metric"] == "train_frames_per_sec_flagship_multitrack"
     B, T = bench_train_cuda.TINY_B, bench_train_cuda.TINY_T
     assert out["geometry"] == f"{B}x{T}"
@@ -263,11 +292,11 @@ def test_bench_train_cuda_tiny_prints_one_json_line():
     assert out["peak_mem_gib"] is None
 
 
-def test_bench_train_cuda_amp_raises():
+def test_bench_train_cuda_amp_raises(run_main):
     """``--tiny --amp --device cpu``: the bf16 AMP arm prints one JSON line
     with ``use_amp`` true, its MFU over the named bf16 peak (None on the
     CPU) and finite losses."""
-    out = _one_json_line("bench_train_cuda.py", "--amp")
+    out = run_main(bench_train_cuda, "--amp")
     assert out["metric"] == "train_frames_per_sec_flagship_multitrack"
     assert out["use_amp"] is True
     assert len(out["all_step_sec"]) == out["steps"] == 5
@@ -282,12 +311,12 @@ def test_bench_train_cuda_amp_raises():
     assert out["device"] == "cpu" and out["mfu"] is None
 
 
-def test_bench_train_cuda_trainer_tiny_prints_one_json_line():
+def test_bench_train_cuda_trainer_tiny_prints_one_json_line(run_main):
     """``--trainer --tiny --device cpu``: the recipe's acoustic phase
     through the trainer on a small corpus prints one JSON line with the
     trainer's frames/s over its wall time, the steps' share, each epoch's
     dev loss, the files it wrote and the bare AMP step beside it."""
-    out = _one_json_line("bench_train_cuda.py", "--trainer")
+    out = run_main(bench_train_cuda, "--trainer")
     assert out["metric"] == "trainer_frames_per_sec_flagship_multitrack"
     assert out["value"] == out["frames_per_s"] == (out["train_frames"]
                                                    / out["wall_s"])
@@ -347,11 +376,11 @@ def test_train_lstm_shapes_give_the_launch_table():
     assert chip_smoke.lstm_kernel_flops({(H, T): 1}, B) == one
 
 
-def test_bench_train_cuda_vocoder_tiny_prints_one_json_line():
+def test_bench_train_cuda_vocoder_tiny_prints_one_json_line(run_main):
     """``--vocoder --tiny --device cpu``: the tiny hn-uSFGAN GAN step
     prints one JSON line with its samples/s over the median step, the
     step's operation bound and finite metrics; no device metric."""
-    out = _one_json_line("bench_train_cuda.py", "--vocoder")
+    out = run_main(bench_train_cuda, "--vocoder")
     assert out["metric"] == "vocoder_train_samples_per_sec"
     assert out["unit"] == "samples/s"
     assert len(out["step_ms"]) == 2

@@ -59,13 +59,16 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
 )
 from tests.test_torch_trainer import single_acoustic_model
 from tests.test_torch_trainer_multitrack import (
+    _EAGER_INITS,
     ACOUSTIC_DATA,
     TIMING_DATA,
     acoustic_model,
     init_multitrack,
     init_single,
     timing_model,
+    traced_init,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 TIMING_DIM = 12
 RTOL = 1e-5
@@ -92,14 +95,23 @@ def _flat(tree):
             for k, v in traverse_util.flatten_dict(tree).items()}
 
 
-def test_port_checkpoint_is_read_by_the_jax_stage6_path(corpus, tmp_path):
+@pytest.fixture(scope="module")
+def one_epoch(corpus, tmp_path_factory):
+    """(config, run directory) of one epoch of ``acoustic_config`` by the
+    port's trainer, which the checkpoint tests below read."""
+    out = tmp_path_factory.mktemp("one_epoch")
+    cfg = acoustic_config(corpus, out)
+    train_multitrack_model(cfg, True, device="cpu")
+    return cfg, out
+
+
+def test_port_checkpoint_is_read_by_the_jax_stage6_path(one_epoch):
     """The JAX recipe's stage 6 on a port checkpoint: the tiny flagship's
     teacher-forced evaluation forward (both tracks, running statistics)
     on the JAX side with the restored variables against the port's
     module as the checkpoint left it."""
-    cfg = acoustic_config(corpus, tmp_path)
-    train_multitrack_model(cfg, True, device="cpu")
-    ckpt = tmp_path / "best_loss.ckpt"
+    cfg, out = one_epoch
+    ckpt = out / "best_loss.ckpt"
 
     jm = jax_instantiate(cfg["model"]["netG"])
     # the template's structure (its values are all replaced below)
@@ -148,14 +160,21 @@ def test_jax_checkpoint_warm_starts_the_port(tmp_path, source):
                else single_acoustic_model())
     jm = jax_instantiate(src_cfg["netG"])
     cfg = _wrap({"model": src_cfg})
-    v = (init_multitrack(jm, cfg, True, seed=3) if source == "multitrack"
-         else init_single(jm, cfg, rng_seed=3))
+    # the JAX trainers' variable trees (traced, not compiled), the
+    # checkpoint's every leaf a seeded normal draw
+    shapes = (jax.eval_shape(lambda: init_multitrack(jm, cfg, True))
+              if source == "multitrack"
+              else jax.eval_shape(lambda: init_single(jm, cfg)))
+    rng = np.random.default_rng(3)
+    v = jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(a.shape).astype(a.dtype), shapes)
     jax_loop.save_checkpoint(tmp_path, jax_loop.TrainState(
         v["params"], v.get("batch_stats", {}), {}, 0), 0)
     ckpt = tmp_path / "latest.ckpt"
 
     jt = jax_instantiate(target)
-    template = init_multitrack(jt, _wrap({"model": {"netG": target}}), True)
+    template = traced_init(_EAGER_INITS[0])(
+        jt, _wrap({"model": {"netG": target}}), True)
     ref, ref_copied = jax_loop.load_params_shape_filtered(ckpt, template)
 
     module = instantiate(target)
@@ -177,13 +196,12 @@ def _capture(module, optimizer, scheduler, step):
                                          step).as_pytree())
 
 
-def test_load_checkpoint_round_trip_is_bitwise(corpus, tmp_path):
+def test_load_checkpoint_round_trip_is_bitwise(one_epoch):
     """After one epoch with the recipe's Adam and StepLR: the checkpoint
     restored into a fresh module, optimizer and schedule captures the same
     state bitwise, and one more Adam step from each agrees bitwise."""
-    cfg = acoustic_config(corpus, tmp_path)
-    train_multitrack_model(cfg, True, device="cpu")
-    state = loop.load_checkpoint(tmp_path / "latest.ckpt")
+    cfg, out = one_epoch
+    state = loop.load_checkpoint(out / "latest.ckpt")
     assert state.step == 3 and state.opt_state["moments"]
 
     def fresh():

@@ -36,6 +36,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     flax_to_torch,
     torch_to_flax,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 PKG = "ensemble_svs_with_interactions_tpu.models"
 ATOL_NET = 1e-5

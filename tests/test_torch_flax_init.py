@@ -22,6 +22,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.config import instantiate
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     torch_to_flax,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 SEEDS = 8
 

@@ -89,6 +89,9 @@ def _inputs(cuda, B, T, H, seed):
     *[(B, T, H) for H in GROUP_H for B in (1, 3, 4, 5, 16, 17, 64, 67)
       for T in (1, 2, 37)],
     (128, 37, 512), (300, 9, 512), (4, 6656, 512), (32, 9, 1024),
+    # the split kernel's batches past a thread a cell (U = 8 at H = 1024:
+    # 32 rows a pass): the recipe's 64 crops, 128 rows, a ragged 70 at 640
+    (64, 31, 1024), (128, 5, 1024), (70, 9, 640),
     # single-singer serving (SPSVS.svs): one row over the fixture's padded
     # length at every serving width, and an odd length whose xw starts
     # off a 16-byte boundary (MISALIGNED)
@@ -354,6 +357,60 @@ def test_group_bptt_matches_plain(cuda, B, T, H):
     assert (dxw - dxw_ref).abs().max().item() < ATOL
 
 
+# the 512 < H <= 1024 BPTT loop (lstm_bptt_split_kernel): a ragged unit
+# block (644), the widths between, the mgc decoder's 1024
+SPLIT_H = [644, 768, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [
+    *[(B, T, H) for H in SPLIT_H for B in (1, 3, 9) for T in (1, 2, 37)],
+    (64, 128, 1024), (36, 64, 1024), (4, 301, 640), (17, 33, 1000),
+])
+def test_split_bptt_matches_plain(cuda, B, T, H):
+    """The 512 < H <= 1024 BPTT (the 3xTF32 gate pre-pass, then the loop
+    whose blocks each hold 8 units' rows of W_h in shared memory) against
+    the plain loop, counted as one launch; an xw that starts 4 bytes past
+    a 16-byte boundary gives the same dxw."""
+    xw, w_h, dy = _inputs(cuda, B, T, H, B * 10 + T + H)
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    before = (lstm_bptt.launches, lstm_gates.launches)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    dxw_ref, _ = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    torch.cuda.synchronize()
+    assert (lstm_bptt.launches, lstm_gates.launches) == (before[0] + 1,
+                                                         before[1])
+    assert (dxw - dxw_ref).abs().max().item() < ATOL
+    if T == 37:
+        moved = lstm_bptt(_unaligned(xw), w_h, h, c, dy)
+        assert (moved - dxw_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+def test_split_bptt_saturates_and_trains(cuda):
+    """Gate pre-activations up to about +-200 at H = 1024 saturate as the
+    plain loop's do; the autograd Function's (dxw, dW_h) at H = 768 match
+    the plain backward."""
+    xw, w_h, dy = _inputs(cuda, 3, 21, 1024, 23)
+    xw *= 40.0
+    w_h *= 10.0
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    dxw = lstm_bptt(xw, w_h, h, c, dy)
+    dxw_ref, _ = lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    assert torch.isfinite(dxw).all()
+    assert (dxw - dxw_ref).abs().max().item() < ATOL
+    xw, w_h, dy = _inputs(cuda, 5, 19, 768, 29)
+    xw.requires_grad_(True)
+    w_h.requires_grad_(True)
+    (lstm_recurrence_trainable(xw, w_h) * dy).sum().backward()
+    h, c = lstm_recurrence_reference(xw.detach(), w_h.detach(), want_c=True)
+    dxw_ref, dwh_ref = lstm_recurrence_bwd_reference(xw.detach(),
+                                                     w_h.detach(), h, c, dy)
+    assert (xw.grad - dxw_ref).abs().max().item() < ATOL
+    scale = dwh_ref.abs().max().item()
+    assert (w_h.grad - dwh_ref).abs().max().item() < DWH_RTOL * scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H", [
     (1, 1, 1), (3, 37, 8), (5, 2, 32), (67, 37, 62), (64, 256, 64),
@@ -564,11 +621,12 @@ def test_backward_kernels_reject_what_they_do_not_take(cuda):
         lstm_bptt(xw, w_h, h, h, h[:, :4])
     with pytest.raises(ValueError, match="float32"):
         lstm_dwh(h.half(), xw.half())
-    # the BPTT's W_h rows sit in registers: H <= 512
-    h_big = torch.randn(1, 2, 520, device=cuda)
-    with pytest.raises(ValueError, match="H <= 512"):
-        lstm_bptt(torch.randn(1, 2, 4 * 520, device=cuda),
-                  torch.randn(520, 4 * 520, device=cuda), h_big, h_big, h_big)
+    # 8 rows of the BPTT's W_h sit in a block's shared memory: H <= 1024
+    h_big = torch.randn(1, 2, 1025, device=cuda)
+    with pytest.raises(ValueError, match="H = 1025.*H <= 1024"):
+        lstm_bptt(torch.randn(1, 2, 4 * 1025, device=cuda),
+                  torch.randn(1025, 4 * 1025, device=cuda), h_big, h_big,
+                  h_big)
     # non-contiguous inputs are copied first
     strided = h.transpose(0, 1).contiguous().transpose(0, 1)
     assert torch.equal(lstm_bptt(xw, w_h, h, strided, h),

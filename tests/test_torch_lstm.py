@@ -27,6 +27,7 @@ from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     flax_to_torch,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 

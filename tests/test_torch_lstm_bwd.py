@@ -38,6 +38,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     _lstm_arrays,
     flax_to_torch,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 ATOL = 2e-5
 

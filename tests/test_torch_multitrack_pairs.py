@@ -40,6 +40,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
 from tests.test_torch_svs import N_SPK, SR, _configs, _short_labels
 from tests.test_torch_svs import tiny_phases, traced_flax_inits
 from tests.util import HED
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 TIMING_RTOL = 1e-5

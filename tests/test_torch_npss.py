@@ -34,6 +34,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     torch_to_flax,
 )
 from tests.test_torch_diffusion import jax_chains, randn
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 B, T = 3, 40
@@ -197,19 +198,23 @@ def test_training_forward_matches_jax(subtrack, v2, train, output_subtrack):
 
 
 def test_weights_round_trip():
-    """The cascade initialised by flax (lf0_model, mgc_model and bap_model
+    """The cascade's flax variables (lf0_model, mgc_model and bap_model
     with their encoders and denoisers, vuv_model, speaker_embedding,
-    batch statistics) loads into the port and comes back bitwise."""
+    batch statistics: the tree of flax's ``init``, traced by
+    ``jax.eval_shape``, every leaf a seeded normal draw) load into the
+    port and come back bitwise."""
     cfg = net_config()
     jmod = jax_instantiate(cfg)
     z = jnp.zeros((1, 8, 86))
     spks = (jnp.zeros((1,), jnp.int32), jnp.ones((1,), jnp.int32))
-    v = jax.jit(lambda s: jmod.init(
-        {"params": jax.random.PRNGKey(s), "dropout": jax.random.PRNGKey(1),
+    shapes = jax.eval_shape(lambda: jmod.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
          "diffusion": jax.random.PRNGKey(2), "prenet": jax.random.PRNGKey(3)},
         z, z, spks, jnp.asarray([8]),
-        (jnp.zeros((1, 8, 67)), jnp.zeros((1, 8, 67)))))(0)
-    v = jax.tree_util.tree_map(np.asarray, v)
+        (jnp.zeros((1, 8, 67)), jnp.zeros((1, 8, 67)))))
+    rng = np.random.default_rng(0)
+    v = jax.tree_util.tree_map(
+        lambda s: rng.standard_normal(s.shape).astype(s.dtype), shapes)
     assert set(v["params"]) == {"lf0_model", "mgc_model", "bap_model",
                                 "vuv_model", "speaker_embedding"}
     back = torch_to_flax(flax_to_torch(instantiate(cfg), v))

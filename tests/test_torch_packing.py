@@ -64,6 +64,7 @@ from tests.test_torch_svs import (
     traced_flax_inits,
 )
 from tests.util import HED, NIT_LAB
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 JAX_YAMLS = sorted((REPO / "ensemble_svs_with_interactions_tpu").rglob(

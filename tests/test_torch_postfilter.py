@@ -61,6 +61,7 @@ from tests.test_torch_svs import _short_labels, tiny_phases
 from tests.test_torch_svs import traced_flax_inits
 from tests.test_torch_svs_single import single_track_configs
 from tests.util import HED
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 SR = 24000
 HOP = SR * 5 // 1000

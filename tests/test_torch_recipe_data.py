@@ -36,6 +36,7 @@ from tests.util import (
     build_synthetic_jacappella_corpus,
     multitrack_mini_recipe_overrides,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 SR = 24000
 SPKS = ["alto", "soprano"]

@@ -398,7 +398,9 @@ def _fake_row(name):
 def test_chip_kernels_line_has_every_key():
     """The ``kernels`` line from rows of every phase: each kernel with the
     contract's keys, the single-track recipe's launches under
-    ``launches_by_path`` and its rows under ``recipe_single_rows``."""
+    ``launches_by_path`` and its rows under ``recipe_single_rows``, the
+    NPSS voice's under ``recipe_npss`` and ``recipe_npss_rows`` (their
+    errors counted in ``max_abs_err``)."""
     import chip_smoke as cs
 
     shapes = sorted(set(cs.RECURRENCE_SHAPES)
@@ -420,9 +422,13 @@ def test_chip_kernels_line_has_every_key():
     single = {k: 7 for k in cs.TRAIN_COUNTERS}
     rows = {f"train {n} B=4 T=256": _fake_row(n)
             for n in ("lstm_recurrence", "lstm_bptt", "lstm_dwh")}
+    npss = {k: 25 for k in cs.TRAIN_COUNTERS}
+    npss_rows = {f"train {n} B=64 T=128": {**_fake_row(n), "H": 1024,
+                                           "max_abs_err": 3e-5}
+                 for n in ("lstm_recurrence", "lstm_bptt", "lstm_dwh")}
     line = cs.kernels_line(kernel_rows, single_rows, train_rows, 3,
                            {"pairwise": 2}, ones, ones, ones, errs, ones,
-                           single, rows)
+                           single, rows, npss, npss_rows)
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -432,3 +438,11 @@ def test_chip_kernels_line_has_every_key():
         assert k["launches_by_path"]["recipe_single"] == 7
         assert list(k["recipe_single_rows"]) == [
             f"train {k['name']} B=4 T=256"]
+        assert k["launches_by_path"]["recipe_npss"] == 25
+        assert list(k["recipe_npss_rows"]) == [
+            f"train {k['name']} B=64 T=128"]
+        assert k["recipe_npss_rows"][f"train {k['name']} B=64 T=128"][
+            "H"] == 1024
+    by = {k["name"]: k for k in line["kernels"]}
+    assert by["lstm_recurrence"]["max_abs_err"] == 3e-5
+    assert by["lstm_bptt"]["max_abs_err"] == 3e-5

@@ -15,6 +15,8 @@ SNR with shared noise in tests/test_torch_world.py.
 """
 
 import contextlib
+import copy
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ensemble_svs_with_interactions_tpu import gen_multitrack as jax_gmt
 from ensemble_svs_with_interactions_tpu.io import hts as jax_hts
@@ -60,6 +63,40 @@ def traced_flax_inits():
         mp.setattr(nn.Module, "init", lambda self, *a, **k: jax.eval_shape(
             lambda: init(self, *a, **k)))
         yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads while a module runs (the port's test modules
+    import this): the tiny widths gain nothing from more, and more
+    OpenMP threads wait busily against the suite's other workers for the
+    cores, which doubled a module's CPU time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def run_cached(name, fn):
+    """``fn()``, a deterministic tree of NumPy arrays, made once a test
+    run: the first process that needs it writes it beside the run's
+    compilation cache (``tests/conftest.py``'s ``ESVS_TEST_JAXCACHE``), the
+    others (the other workers, later modules) read it back.  For the flax
+    ``init`` of a fixture's model, which eagerly takes half a minute."""
+    import os
+    import pickle
+
+    root = os.environ.get("ESVS_TEST_JAXCACHE")
+    if not root:
+        return fn()
+    path = Path(root) / f"{name}.pkl"
+    if path.exists():
+        return pickle.loads(path.read_bytes())
+    value = fn()
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(pickle.dumps(value))
+    os.replace(tmp, path)
+    return value
 
 
 def _configs(mgc_dim=8, bap_dim=3):
@@ -123,10 +160,14 @@ def _configs(mgc_dim=8, bap_dim=3):
     return timelag, timing, acoustic, ss
 
 
-def tiny_model():
-    """(global config, {phase: model config}, {phase: flax variables as
-    numpy}, {phase: (in_dim, out mean, out scale)}) of the tiny multitrack
-    model."""
+@functools.lru_cache(maxsize=None)
+def _tiny_variables():
+    """The tiny multitrack model's flax ``init`` (eager, so slow: made
+    once a run, ``run_cached``; ``tiny_model`` hands out copies)."""
+    return run_cached("tiny_multitrack_variables", _init_tiny_variables)
+
+
+def _init_tiny_variables():
     timelag, duration, acoustic, ss = _configs()
     rngs = {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
             "prenet": jax.random.PRNGKey(2)}
@@ -145,7 +186,15 @@ def tiny_model():
             jnp.asarray([T]),
             (jnp.zeros((1, T, sum(ss))), jnp.zeros((1, T, sum(ss))))),
     }
-    variables = jax.tree_util.tree_map(np.asarray, variables)
+    return jax.tree_util.tree_map(np.asarray, variables)
+
+
+def tiny_model():
+    """(global config, {phase: model config}, {phase: flax variables as
+    numpy}, {phase: (in_dim, out mean, out scale)}) of the tiny multitrack
+    model."""
+    timelag, duration, acoustic, ss = _configs()
+    variables = copy.deepcopy(_tiny_variables())
     out_dim = sum(ss)
     mean = np.zeros(out_dim)
     scale = np.ones(out_dim) * 0.1
@@ -182,7 +231,9 @@ def engines(tmp_path_factory):
     pack_model(model_dir, glob, HED, tiny_phases(
         cfgs, stats, JaxMinMax, JaxStandard,
         lambda ph: {"variables": variables[ph]}))
-    return JaxSPSVS(model_dir), SPSVS(model_dir, device="cpu")
+    with traced_flax_inits():
+        jax_engine = JaxSPSVS(model_dir)
+    return jax_engine, SPSVS(model_dir, device="cpu")
 
 
 def _short_labels(mod, seconds=4.0):

@@ -38,6 +38,7 @@ from ensemble_svs_with_interactions_tpu_torch.models import diffsinger
 from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
 from tests.test_torch_diffusion import jax_chains
 from tests.test_torch_svs import _short_labels, traced_flax_inits
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 SNR_DB = 40.0

@@ -40,8 +40,11 @@ from ensemble_svs_with_interactions_tpu_torch.io import hts
 from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
 from ensemble_svs_with_interactions_tpu_torch.utils.config import instantiate
 from tests.test_torch_svs import _short_labels
+from tests.test_torch_svs import run_cached
 from tests.test_torch_svs import tiny_phases
+from tests.test_torch_svs import traced_flax_inits
 from tests.util import HED
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 SR = 24000
 ATOL = 1e-4
@@ -116,14 +119,15 @@ def tiny_single_model():
         return jax_instantiate(cfg["netG"]).init(
             rngs, jnp.zeros((1, T, 82)), jnp.asarray([T]))
 
-    variables = {
-        "timelag": init_timing(timelag),
-        "duration": init_timing(duration),
-        "acoustic": jax_instantiate(acoustic["netG"]).init(
-            rngs, jnp.zeros((1, T, 86)), jnp.asarray([T]),
-            jnp.zeros((1, T, sum(ss)))),
-    }
-    variables = jax.tree_util.tree_map(np.asarray, variables)
+    def init():
+        return jax.tree_util.tree_map(np.asarray, {
+            "timelag": init_timing(timelag),
+            "duration": init_timing(duration),
+            "acoustic": jax_instantiate(acoustic["netG"]).init(
+                rngs, jnp.zeros((1, T, 86)), jnp.asarray([T]),
+                jnp.zeros((1, T, sum(ss))))})
+
+    variables = run_cached("tiny_single_variables", init)
     mean = np.zeros(sum(ss))
     scale = np.ones(sum(ss)) * 0.1
     mean[ss[0]] = np.log(220.0)
@@ -149,7 +153,9 @@ def engines(tmp_path_factory):
     """(JAX engine, port engine) over one single-track directory."""
     model_dir = _pack(tmp_path_factory.mktemp("packed_single"),
                       tiny_single_model())
-    return JaxSPSVS(model_dir), SPSVS(model_dir, device="cpu")
+    with traced_flax_inits():
+        jax_engine = JaxSPSVS(model_dir)
+    return jax_engine, SPSVS(model_dir, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -57,6 +57,7 @@ from tests import test_torch_svs as mt
 from tests.test_torch_svs import _short_labels, tiny_phases
 from tests.test_torch_svs_single import tiny_single_model
 from tests.util import HED
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 VOC = "ensemble_svs_with_interactions_tpu.models.vocoders"
 SR = 24000

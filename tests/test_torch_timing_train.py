@@ -45,6 +45,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.config import instantiate
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     flax_to_torch,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 PKG = "ensemble_svs_with_interactions_tpu.models"
 IN_DIM = 82

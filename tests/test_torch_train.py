@@ -33,6 +33,8 @@ from ensemble_svs_with_interactions_tpu_torch.utils.config import instantiate
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     flax_to_torch,
 )
+from tests.test_torch_svs import run_cached
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5
 RTOL = 1e-5
@@ -77,11 +79,12 @@ def _flagship():
             (jnp.asarray(b["spks0"]), jnp.asarray(b["spks1"])),
             jnp.asarray(b["lengths"]),
             (jnp.asarray(b["out_feats0"]), jnp.asarray(b["out_feats1"])))
-    variables = jm.init(
-        {k: jax.random.PRNGKey(i) for i, k in
-         enumerate(("params", "dropout", "prenet", "zoneout"))},
-        *args, train=True)
-    return cfg, jm, jax.tree_util.tree_map(np.asarray, variables)
+    variables = run_cached("tiny_flagship_variables", lambda: (
+        jax.tree_util.tree_map(np.asarray, jm.init(
+            {k: jax.random.PRNGKey(i) for i, k in
+             enumerate(("params", "dropout", "prenet", "zoneout"))},
+            *args, train=True))))
+    return cfg, jm, variables
 
 
 @pytest.fixture(scope="module")

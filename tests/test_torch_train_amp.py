@@ -72,6 +72,7 @@ from tests.test_torch_train import (  # noqa: F401  (flagship: a fixture)
     _t,
     flagship,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 AMP_RTOL = 2e-2
 GRAD_RTOL = chip_smoke.AMP_GRAD_RTOL  # 5e-2

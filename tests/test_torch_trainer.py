@@ -61,7 +61,9 @@ from tests.test_torch_trainer_multitrack import (
     SGD,
     assert_trainers_agree,
     init_single,
+    traced_init,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 STEP_RTOL = 1e-5
 GRAD_FLOOR = 1e-4
@@ -195,14 +197,18 @@ def test_create_train_step_matches_jax(case):
     assert_step_matches_jax(build(), kw)
 
 
-def assert_step_matches_jax(cfg, kw, batch=None):
+def assert_step_matches_jax(cfg, kw, batch=None, variables=None):
     """``create_train_step``'s evaluation and one step (clipping off) of
     the model config ``cfg`` with the step options ``kw`` against JAX's on
     ``batch`` (``_step_batch(cfg)`` by default), judged as the module's
-    docstring says."""
+    docstring says.  Both start from flax ``variables``, by default the
+    JAX trainer's initial ones (a model whose JAX ``init`` takes long to
+    compile passes the port's, ``torch_to_flax`` of its flax-scheme
+    draw)."""
     batch = _step_batch(cfg) if batch is None else batch
     jm = jax_instantiate(cfg["netG"])
-    variables = init_single(jm, _wrap({"model": cfg}))
+    if variables is None:
+        variables = init_single(jm, _wrap({"model": cfg}))
     variables = jax.tree_util.tree_map(np.asarray, dict(variables))
     tx = _capture_grads()
     jstep, jeval = jax_loop.create_train_step(
@@ -268,10 +274,12 @@ def corpus(tmp_path_factory):
 
 
 def run_jax(cfg, acoustic=True):
-    """The JAX trainer on one CPU device, its initializer jitted."""
+    """The JAX trainer on one CPU device, its initializer traced
+    (``traced_init``: every run here resumes from a start checkpoint)."""
+    assert cfg["train"]["resume"]["checkpoint"]
     orig = jax_trainer.make_mesh, jax_trainer._init_variables
     jax_trainer.make_mesh = lambda: make_mesh(1)
-    jax_trainer._init_variables = init_single
+    jax_trainer._init_variables = traced_init(jax_trainer._init_variables)
     try:
         jax_trainer.train_model(_wrap(dict(cfg)), is_acoustic=acoustic)
     finally:

@@ -52,6 +52,7 @@ from tests.test_torch_trainer_multitrack import (
     timing_model,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.config import merge
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 LOSS_RTOL = 2e-2
 GRAD_RTOL = chip_smoke.AMP_GRAD_RTOL

@@ -5,7 +5,7 @@ The recipe's acoustic phase on the tiny flagship through
 ``train_multitrack_model`` (as in ``test_torch_trainer_multitrack.py``),
 and the single-track voice's acoustic model through ``train_model`` (as
 in ``test_torch_trainer.py``), each with ``use_amp`` on both sides from
-one JAX start checkpoint, 3 epochs, held by ``metrics.jsonl``
+one JAX start checkpoint, NEPOCHS epochs, held by ``metrics.jsonl``
 (``test_torch_trainer_amp.assert_metrics_follow``): each epoch's mean
 gradient norm and each loss against JAX's.
 
@@ -50,6 +50,7 @@ from tests.test_torch_trainer_multitrack import (
     run_jax,
     run_port,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 ACOUSTIC_GRADNORM_RTOL = 0.25
 MULTITRACK_GRADNORM_RTOL = 0.1

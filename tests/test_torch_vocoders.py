@@ -33,6 +33,7 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     flax_to_torch,
     torch_to_flax,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 VOC = "ensemble_svs_with_interactions_tpu.models.vocoders"
 ATOL = 1e-4

@@ -22,6 +22,7 @@ from ensemble_svs_with_interactions_tpu_torch.ops.world import synthesis
 from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
     StandardScaler,
 )
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 FS = 24000
 HOP = 120

@@ -31,6 +31,7 @@ from ensemble_svs_with_interactions_tpu_torch.ops import mlpg, pitch, praat
 from ensemble_svs_with_interactions_tpu_torch.ops import sptk
 from ensemble_svs_with_interactions_tpu_torch.ops.world import analysis as an
 from ensemble_svs_with_interactions_tpu_torch.ops.world import codec
+from tests.test_torch_svs import few_threads  # noqa: F401  (autouse)
 
 RATES = (24000, 48000)
 PATHS = ("native", "numpy")
