@@ -19,7 +19,9 @@ stages (corpus preparation, features with the native WORLD analysis,
 scalers) on the host, then its runner's training, packing, synthesis,
 vocoder and timing-evaluation stages on the card; and the single-track
 recipe with its learned postfilter trained and merged (stages 0 to 9),
-then its acoustic phase with the NPSS voices trained, packed and served.
+then its acoustic phase with the NPSS voices trained, packed and served;
+and the mel voice (log-mel features, a DDPM mel decoder, the mel
+postfilter and the hn-uSFGAN on the mel) served and trained.
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
 
@@ -152,7 +154,7 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     (the acoustic one as shipped and with the interaction weights at 1)
     through ``train_multitrack_model``, and the single-track voice's
     acoustic model through ``train_model``, at full width on a synthetic
-    3-singer corpus (TRAINER_CORPUS, TRAINER_EPOCHS epochs), one line per
+    3-singer corpus (TRAINER_CORPUS, SMOKE_TRAINER_EPOCHS epoch), one line per
     run with the launch counts reset just before and read just after, and
     for the acoustic runs each kernel held against its plain version at
     the run's own batch shapes (``hold_trainer_kernels``);
@@ -215,6 +217,22 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     the eval utterance card against CPU; the H = 1024 forward, BPTT and
     dW_h timed and held against their plain versions at stage 5's shapes
     and at the recipe's full batch, with bounds and cuDNN's times;
+11f. ``mel_voice``: the mel voice (``mel_phases``: the JAX package's
+    ``configs/acoustic/acoustic_melf0_ar_f0_diff_mel.yaml``,
+    ``configs/postfilter/postfilter_mel.yaml`` and the recipe's
+    hn-uSFGAN at ``aux_channels`` 80, with ``timelag_mdn.yaml`` and
+    ``duration_mdn.yaml``, at their widths, seeded random weights) packed
+    and opened by ``SPSVS(model_dir)``: ``svs()`` of the fixture under
+    ``gv`` and under ``nnsvs`` with the launch counts by width reset just
+    before and read just after each (MEL_LAUNCHES_BY_HIDDEN); the card
+    against the CPU on its first MEL_REF_SECONDS with the card's chain
+    noise replayed (durations, streams, SNR); the recurrence at B = 1 over
+    the fixture at H = 64 and 128 and the train step's kernels at its
+    shapes (MEL_TRAIN_LAYERS, B = 4) against their plain versions; the
+    voice through the single-track trainer on a synthetic corpus
+    (launches MEL_STEP_LAUNCHES a step and dev batch); one train step of
+    it and of ``acoustic_diffusion_melf0.yaml`` and
+    ``acoustic_flowmatching_melf0.yaml`` card against CPU;
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
@@ -727,6 +745,125 @@ def diffusion_phases(tiny: bool = False, subtrack: bool = False,
     _, sc_in, sc_out = phases["acoustic"]
     phases["acoustic"] = (diffusion_acoustic_config(tiny, subtrack, k_step),
                           sc_in, sc_out)
+    return glob, phases
+
+
+MEL_CONFIG = "acoustic/acoustic_melf0_ar_f0_diff_mel.yaml"
+MEL_POSTFILTER = "postfilter/postfilter_mel.yaml"
+MEL_ONLY_CONFIGS = {"diffusion_melf0": "acoustic/acoustic_diffusion_melf0.yaml",
+                    "flowmatching_melf0":
+                        "acoustic/acoustic_flowmatching_melf0.yaml"}
+MEL_DIMS = 80
+
+
+def mel_acoustic_config(tiny: bool = False, k_step: int = None) -> dict:
+    """The mel voice, ``MEL_CONFIG`` verbatim (the AR residual-F0 lf0
+    decoder, r = 4, over a Sinsy biLSTM 64 x 2; the DDPM mel decoder of
+    K_step 100 with an FFConvLSTM condition encoder, biLSTM 128 x 2, and a
+    20 x 256 ``DiffNet``; the FFConvLSTM vuv decoder, biLSTM 64 x 2), the
+    lf0 fields the recipe fills from data set to SINGLE_LF0 (the netG's
+    ``out_lf0_idx`` is the mel width, 80).  ``k_step`` sets the chain's
+    length; ``tiny=True`` narrows every width (TINY; the denoiser to 8
+    channels over 2 layers), the streams and classes stay."""
+    ac = shipped_config(MEL_CONFIG)
+    net = ac["netG"]
+    for node in (net, net["lf0_model"]):
+        node.update({k: v for k, v in SINGLE_LF0.items() if node[k] is None})
+    mel = net["mel_model"]
+    if k_step is not None:
+        mel["K_step"] = k_step
+    if tiny:
+        w = TINY
+        net["lf0_model"].update(
+            embed_dim=w["embed"], ff_hidden_dim=w["ff"],
+            conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"],
+            decoder_hidden_dim=w["dec"])
+        for enc in (mel["encoder"], net["vuv_model"]):
+            enc.update(embed_dim=w["embed"], ff_hidden_dim=w["ff"],
+                       conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"])
+        mel["encoder"]["out_dim"] = 8
+        mel["denoise_fn"].update(encoder_hidden_dim=8, residual_channels=8,
+                                 residual_layers=2)
+    return ac
+
+
+def mel_postfilter_config(tiny: bool = False) -> dict:
+    """``MEL_POSTFILTER`` verbatim (a ``MelF0MultistreamPostFilter``: the
+    mel stream through a ``Conv2dPostFilter`` of 64 channels, 5 x 5,
+    frame-wise noise smoothed over 100 frames; lf0 and vuv untouched);
+    ``tiny=True``: 4 channels."""
+    cfg = shipped_config(MEL_POSTFILTER)
+    cfg.pop("netD")
+    if tiny:
+        cfg["netG"]["mel_postfilter"]["channels"] = 4
+    return cfg
+
+
+def mel_only_config(name: str, tiny: bool = False) -> dict:
+    """``MEL_ONLY_CONFIGS[name]`` verbatim: a bare DDPM or flow-matching
+    decoder over the 80 mel bands with a 4-block FFT encoder (256 wide, 2
+    heads) and a 20 x 256 ``DiffNet``; ``tiny=True`` narrows it (FFT 8
+    wide over 2 blocks, ``DiffNet`` 8 x 2, K_step 4, 2 sampling steps)."""
+    cfg = shipped_config(MEL_ONLY_CONFIGS[name])
+    if tiny:
+        net = cfg["netG"]
+        net["encoder"].update(hidden_dim=8, num_layers=2, kernel_size=3)
+        net["denoise_fn"].update(encoder_hidden_dim=8, residual_channels=8,
+                                 residual_layers=2)
+        if "K_step" in net:
+            net["K_step"] = 4
+        else:
+            net["sampling_steps"] = 2
+    return cfg
+
+
+def mel_phases(tiny: bool = False, k_step: int = None):
+    """The mel voice, (global config, {phase: (model_config, in_scaler,
+    out_scaler)}): ``timelag/timelag_mdn.yaml`` and
+    ``duration/duration_mdn.yaml`` verbatim (``MDNv2``), the acoustic
+    model of ``mel_acoustic_config``, the mel postfilter
+    (``mel_postfilter_config``, its scaler the acoustic one's) and the
+    recipe's hn-uSFGAN with ``aux_channels`` 80 (``vocoder_phase``: the
+    mel its aux input, F0 from lf0).  ``feature_type`` is ``melf0``;
+    ``tiny=True`` narrows every width for the CPU tests."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
+        MinMaxScaler,
+        StandardScaler,
+    )
+
+    tl = shipped_config("timelag/timelag_mdn.yaml")
+    du = shipped_config("duration/duration_mdn.yaml")
+    if tiny:
+        for cfg in (tl, du):
+            cfg["netG"].update(hidden_dim=TINY["tl"],
+                               num_layers=TINY["layers"])
+    # a random DDPM chain ends near +-1 (its clip) times norm_scale, 10:
+    # a mel scale of 0.08 puts that at +-0.8 around -2.5 in log10 mel, the
+    # range of real features; the input's pitch column maps SINGLE_LF0's
+    # range onto [0, 1] as the recipe's min-max scaler does, so the
+    # residual lf0 lands near the score's
+    out = MEL_DIMS + 2
+    mean, scale = np.full(out, -2.5), np.full(out, 0.08)
+    mean[MEL_DIMS:], scale[MEL_DIMS:] = (np.log(260.0), 0.5), (0.24, 0.5)
+    sc_out = StandardScaler(mean, scale ** 2, scale)
+    lo, hi = SINGLE_LF0["in_lf0_min"], SINGLE_LF0["in_lf0_max"]
+    sc_min, sc_scale = np.zeros(86), np.ones(86)
+    lf0_idx = mel_acoustic_config()["netG"]["in_lf0_idx"]
+    sc_min[lf0_idx], sc_scale[lf0_idx] = -lo / (hi - lo), 1.0 / (hi - lo)
+    glob = {"sample_rate": 48000, "frame_period": 5, "feature_type": "melf0",
+            "use_world_codec": True, "relative_f0": False}
+    phases = {
+        "timelag": (tl, MinMaxScaler(np.zeros(82), np.ones(82)),
+                    StandardScaler(np.zeros(1), np.ones(1) * 4,
+                                   np.ones(1) * 2)),
+        "duration": (du, MinMaxScaler(np.zeros(82), np.ones(82)),
+                     StandardScaler(np.ones(1) * 10, np.ones(1) * 4,
+                                    np.ones(1) * 2)),
+        "acoustic": (mel_acoustic_config(tiny, k_step),
+                     MinMaxScaler(sc_min, sc_scale), sc_out),
+    }
+    phases["postfilter"] = (mel_postfilter_config(tiny), None, sc_out)
+    phases["vocoder"] = vocoder_phase(tiny, aux_channels=MEL_DIMS)
     return glob, phases
 
 
@@ -2058,7 +2195,7 @@ _TINY_NET = {"blockA": 0, "cycleA": 0, "blockF": 0, "cycleF": 0,
              "cascade_mode": 0}
 
 
-def vocoder_phase(tiny: bool = False):
+def vocoder_phase(tiny: bool = False, aux_channels: int = None):
     """The recipe's neural vocoder as a packed phase, (model_config,
     in_scaler, None): VOCODER_CONFIG's ``model.generator`` verbatim (a
     ``ParallelHnUSFGANGenerator``: aux 65 = mgc 60 + coded bap 5, 5 * 4 *
@@ -2067,13 +2204,18 @@ def vocoder_phase(tiny: bool = False):
     an ``in_vocoder`` scaler from a seeded generator (the coded-bap dims
     centred near -30 dB).  ``tiny=True`` narrows the widths and the block
     counts for the CPU tests; the class, the aux layout and the upsampling
-    stay."""
+    stay.  ``aux_channels`` other than the config's (80: the mel voices')
+    replaces its aux width, the in-scaler centred near -2.5 (log10
+    mel)."""
     from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
         StandardScaler,
     )
 
     model = shipped_config(VOCODER_CONFIG)["model"]
     net = model["generator"]
+    mel = aux_channels is not None
+    if mel:
+        net["aux_channels"] = aux_channels
     if tiny:
         net.update(
             residual_channels=4, gate_channels=8, skip_channels=4,
@@ -2085,8 +2227,11 @@ def vocoder_phase(tiny: bool = False):
     rng = np.random.default_rng(SEED + PHASE_SEEDS["vocoder"])
     n = net["aux_channels"]
     mean, scale = rng.normal(0.0, 0.1, n), rng.uniform(0.5, 2.0, n)
-    mean[-5:] -= 30.0
-    scale[-5:] *= 10.0
+    if mel:
+        mean -= 2.5
+    else:
+        mean[-5:] -= 30.0
+        scale[-5:] *= 10.0
     cfg = {"netG": net, **{k: model[k] for k in (
         "signal_types", "dense_factor", "sine_amp", "noise_amp")}}
     return cfg, StandardScaler(mean, scale ** 2, scale), None
@@ -3369,6 +3514,9 @@ CORPUS_SPKS = ("Vo1", "S1", "ritsu")  # the recipe's spk_names
 TIMING_DIM = 82
 FRAME_PERIOD_100NS = 50000
 TRAINER_EPOCHS = 2       # the recipe's nepochs (100), cut
+# phase trainer's own runs: 1 epoch, so the script stays near 12 minutes
+# with the mel voice (bench_train_cuda.py --trainer keeps TRAINER_EPOCHS)
+SMOKE_TRAINER_EPOCHS = 1
 TRAINER_CORPUS = dict(n_train=48, n_dev=4, frames=(1000, 3001))
 SHORT_DEV_FRAMES = (200, 257)
 
@@ -3735,8 +3883,8 @@ def first_dev_pass(root, corpus, start, device):
 
 def phase_trainer(lr, label):
     """The recipe's three phases through the port's trainers at full width
-    on a synthetic corpus (TRAINER_CORPUS, ``write_corpus``), TRAINER_EPOCHS
-    epochs each (TRAINER_RUNS: timelag, duration, acoustic as shipped and
+    on a synthetic corpus (TRAINER_CORPUS, ``write_corpus``),
+    SMOKE_TRAINER_EPOCHS epochs each (TRAINER_RUNS: timelag, duration, acoustic as shipped and
     with the interaction weights at 1, and the single-track voice's
     acoustic model through ``train_model`` on the same dumps), one line
     each (``run_trainer``, with ``hold_trainer_kernels`` at the acoustic
@@ -3769,7 +3917,7 @@ def phase_trainer(lr, label):
         for name, phase, acoustic, multitrack, over in TRAINER_RUNS:
             cfg = recipe_phase_config(
                 phase, corpus, root / "exp" / name, multitrack=multitrack,
-                **{"train.nepochs": TRAINER_EPOCHS, **over})
+                **{"train.nepochs": SMOKE_TRAINER_EPOCHS, **over})
             r = run_trainer(lr, cfg, acoustic, multitrack)
             if acoustic:  # the kernels at this run's shapes
                 netg = cfg["model"]["netG"]
@@ -3782,9 +3930,9 @@ def phase_trainer(lr, label):
                     holds[key]["hold_s"] = time.time() - t0
                 r["kernels_held"] = holds[key]
             emit({"phase": "trainer", "run": name, "device": "cuda",
-                  "corpus_s": corpus_s, "epochs": TRAINER_EPOCHS,
+                  "corpus_s": corpus_s, "epochs": SMOKE_TRAINER_EPOCHS,
                   "use_amp": bool(cfg["train"]["use_amp"]), **r})
-            assert_trainer_run(r, TRAINER_EPOCHS, acoustic)
+            assert_trainer_run(r, SMOKE_TRAINER_EPOCHS, acoustic)
             for n, c in r["launches"].items():
                 launches[n] += c
             if multitrack and name in ("timelag", "duration", "acoustic"):
@@ -5232,6 +5380,344 @@ def phase_recipe_npss(lr, root) -> tuple:
     return total, rows
 
 
+# the mel voice (phase 11f): single-direction LSTM recurrences a svs()
+# call runs at B = 1, by width: the lf0 decoder's Sinsy encoder and the
+# vuv decoder (biLSTM 64 x 2 each), the DDPM's condition encoder (biLSTM
+# 128 x 2); the AR lf0 cell steps in PyTorch
+MEL_LAUNCHES_BY_HIDDEN = {64: 8, 128: 4}
+MEL_R = 4                                # the lf0 decoder's reduction
+MEL_TRAIN_B, MEL_TRAIN_T = 4, 256        # the recipe's crops, 4 a batch
+# a train step's (or teacher-forced dev batch's) runs by (H, T): the same
+# encoders over T and the AR lf0 cell (256) over T / 4
+MEL_TRAIN_LAYERS = {(64, MEL_TRAIN_T): 8, (128, MEL_TRAIN_T): 4,
+                    (256, MEL_TRAIN_T // MEL_R): 1}
+MEL_STEP_LAUNCHES = sum(MEL_TRAIN_LAYERS.values())   # 13
+MEL_REF_SECONDS = DIFFUSION_REF_SECONDS  # one 512-frame bucket
+MEL_CORPUS = dict(n_train=8, n_dev=2, frames=(520, 900))
+MEL_TRAINER_EPOCHS = 1
+
+
+def write_mel_corpus(root, n_train: int, n_dev: int, frames,
+                     seed: int = SEED):
+    """Synthetic normalized dumps of a single-singer mel corpus as the
+    recipe's stage 2 would leave them, under ``root``:
+    ``{train_no_dev,dev}/{in,out}_acoustic/utt{k}-feats.npy``, 86 inputs
+    (the pitch column's score lf0 held per 40-frame note, rests between)
+    and 82 outputs (mel, lf0, a 0/1 vuv), ``frames[0]`` to ``frames[1] -
+    1`` frames each; and ``mel_phases``' acoustic out scaler under
+    ``scalers/``.  Returns ``root``."""
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    lf0_idx = mel_acoustic_config()["netG"]["in_lf0_idx"]
+    for split, n in (("train_no_dev", n_train), ("dev", n_dev)):
+        for d in ("in_acoustic", "out_acoustic"):
+            (root / split / d).mkdir(parents=True, exist_ok=True)
+        for k in range(n):
+            T = int(rng.integers(*frames))
+            x = rng.uniform(0, 1, (T, 86)).astype(np.float32)
+            notes = np.repeat(rng.uniform(0.3, 0.7, T // 40 + 1), 40)[:T]
+            rest = np.repeat(rng.uniform(size=T // 40 + 1) < 0.2, 40)[:T]
+            x[:, lf0_idx] = np.where(rest, 0.0, notes)
+            x[:, 0] = rest
+            y = rng.normal(size=(T, MEL_DIMS + 2)).astype(np.float32)
+            y[:, -1] = ~rest
+            np.save(root / split / "in_acoustic" / f"utt{k}-feats.npy", x)
+            np.save(root / split / "out_acoustic" / f"utt{k}-feats.npy", y)
+    (root / "scalers").mkdir(exist_ok=True)
+    sc = mel_phases()[1]["acoustic"][2]
+    for attr in ("mean", "var", "scale"):
+        np.save(root / "scalers" / f"out_acoustic_scaler_{attr}.npy",
+                np.asarray(getattr(sc, attr + "_"), np.float64))
+    return root
+
+
+def mel_trainer_config(corpus, out_dir):
+    """The single-track trainer's config for the mel voice: the model of
+    ``mel_acoustic_config`` at its widths, the packaged recipe's acoustic
+    data and train sections (random 256-frame crops, l1, Adam, the AMP
+    arm; ``spk_names`` dropped, the pitch regularization at 1 as the
+    single-track recipe sets it), MEL_TRAIN_B crops a batch and
+    MEL_TRAINER_EPOCHS epochs."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import yaml_io
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import merge
+
+    section = yaml_io.load(RECIPE.read_text())["acoustic"]
+    corpus = Path(corpus)
+    data = {k: v for k, v in section["data"].items() if k != "spk_names"}
+    data.update({split: {"in_dir": str(corpus / split / "in_acoustic"),
+                         "out_dir": str(corpus / split / "out_acoustic")}
+                 for split in ("train_no_dev", "dev")})
+    data.update(out_scaler_prefix=str(corpus / "scalers" /
+                                      "out_acoustic_scaler"),
+                batch_max_frames=MEL_TRAIN_B * MEL_TRAIN_T,
+                in_lf0_idx=mel_acoustic_config()["netG"]["in_lf0_idx"],
+                in_lf0_min=SINGLE_LF0["in_lf0_min"],
+                in_lf0_max=SINGLE_LF0["in_lf0_max"])
+    train = {**section["train"], "nepochs": MEL_TRAINER_EPOCHS,
+             "pitch_reg_weight": 1.0, "out_dir": str(out_dir)}
+    return merge({"seed": 1234, "verbose": 0},
+                 {"model": mel_acoustic_config(), "data": data,
+                  "train": train})
+
+
+def mel_batch(out_dim: int, seed: int = SEED) -> dict:
+    """A single-track acoustic batch of MEL_TRAIN_B crops of MEL_TRAIN_T
+    frames (86 inputs, ``out_dim`` outputs; with lf0 and vuv a 0/1 vuv),
+    the last shorter, and the pitch regularization's weights."""
+    rng = np.random.default_rng(seed)
+    B, T = MEL_TRAIN_B, MEL_TRAIN_T
+    out = rng.normal(size=(B, T, out_dim)).astype(np.float32)
+    if out_dim > MEL_DIMS:
+        out[..., -1] = rng.uniform(size=(B, T)) > 0.3
+    return {"in_feats": rng.uniform(0, 1, (B, T, 86)).astype(np.float32),
+            "out_feats": out,
+            "lengths": np.array([T] * (B - 1) + [T - T // 4], np.int64),
+            "pitch_reg_dyn_ws": rng.uniform(0, 1, (B, T, 1)).astype(
+                np.float32)}
+
+
+def mel_step(cfg, variables, batch, device, dtype=torch.float32,
+             use_amp=False):
+    """One ``train/loop.create_train_step`` step of ``cfg``'s netG from
+    flax ``variables`` (SGD at rate 0, clipping at 1, the pitch
+    regularization at 1), its dropout masks and diffusion draws from a
+    CPU generator seeded SEED, so the card and the CPU draw alike:
+    (metrics, {name: clipped gradient}) on the CPU in float64."""
+    from ensemble_svs_with_interactions_tpu_torch.train import loop
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
+        flax_to_torch,
+    )
+
+    module = flax_to_torch(instantiate(cfg["netG"]), variables).to(dtype)
+    opt, sched = loop.build_optimizer(module.parameters(),
+                                      {"name": "SGD", "params": {"lr": 0.0}})
+    step, _ = loop.create_train_step(
+        module, opt, {"stream_sizes": cfg["stream_sizes"]}, scheduler=sched,
+        pitch_reg_weight=1.0, use_amp=use_amp, device=device)
+    metrics = step(batch, torch.Generator().manual_seed(SEED))
+    return metrics, {n: p.grad.detach().cpu().double()
+                     for n, p in module.named_parameters()}
+
+
+def hold_mel_step(cfg, amp: bool = True) -> dict:
+    """One full-width train step of ``cfg`` at MEL_TRAIN_B x MEL_TRAIN_T
+    on the card against the same step on the CPU, as ``hold_npss_step``
+    judges its steps: the float32 gradients by ``judge_amp`` with the
+    CPU's float64 step as the oracle and, with cuDNN off, by the strict
+    ``judge_f32``; with ``amp`` the AMP arm by ``judge_amp`` against the
+    CPU's AMP step with its float32 step as the oracle; the losses within
+    TRAIN_LOSS_RTOL and AMP_LOSS_RTOL.  Dropout stays as configured: both
+    sides draw from one CPU generator."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_variables,
+    )
+
+    t0 = time.time()
+    variables = init_variables(instantiate(cfg["netG"]), seed=SEED)
+    batch = mel_batch(sum(cfg["stream_sizes"]))
+
+    def step(dev, dtype=torch.float32, use_amp=False):
+        return mel_step(cfg, variables, batch, dev, dtype, use_amp)
+
+    m_gpu, g_gpu = step("cuda")
+    with torch.backends.cudnn.flags(enabled=False):
+        m_raw, g_raw = step("cuda")
+    m_cpu, g_cpu = step("cpu")
+    g_64 = step("cpu", torch.float64)[1]
+    rel = lambda a, b: abs(a["Loss"] - b["Loss"]) / abs(b["Loss"])  # noqa
+    judged = {"f32": judge_amp(g_gpu, g_cpu, g_64, AMP_GRAD_RTOL,
+                               AMP_COS_MIN, AMP_L2_MAX)}
+    strict = judge_f32(g_raw, g_cpu, g_64)
+    worst = max(strict, key=lambda n: strict[n]["rel_of_scale"])
+    out = {"B": MEL_TRAIN_B, "T": MEL_TRAIN_T, "params": len(strict),
+           "loss": [m_gpu["Loss"], m_cpu["Loss"]],
+           "loss_rel_err": rel(m_gpu, m_cpu),
+           "f32": amp_summary(judged["f32"]),
+           "f32_cudnn_off": {
+               "loss_rel_err": rel(m_raw, m_cpu),
+               "max_grad_rel_err": strict[worst]["rel_of_scale"],
+               "worst_grad": worst,
+               "failed": {n: v for n, v in strict.items() if not v["ok"]}}}
+    ok = (np.isfinite(m_gpu["Loss"]) and out["loss_rel_err"] < TRAIN_LOSS_RTOL
+          and out["f32_cudnn_off"]["loss_rel_err"] < TRAIN_LOSS_RTOL
+          and not out["f32_cudnn_off"]["failed"])
+    if amp:
+        a_gpu, ga_gpu = step("cuda", use_amp=True)
+        a_cpu, ga_cpu = step("cpu", use_amp=True)
+        judged["amp"] = judge_amp(ga_gpu, ga_cpu, g_cpu, AMP_GRAD_RTOL,
+                                  AMP_COS_MIN, AMP_L2_MAX)
+        out.update(amp_loss=[a_gpu["Loss"], a_cpu["Loss"]],
+                   amp_loss_rel_err=rel(a_gpu, a_cpu),
+                   amp=amp_summary(judged["amp"]))
+        ok = (ok and np.isfinite(a_gpu["Loss"])
+              and out["amp_loss_rel_err"] < AMP_LOSS_RTOL)
+    out["ok"] = bool(ok and all(v["ok"] for j in judged.values()
+                                for v in j.values()))
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def mel_svs_reference(engine, cpu, labels) -> dict:
+    """``svs()`` of ``labels`` on the card under each postfilter type
+    against the CPU engine over the same pack: the card's chain noise
+    recorded and replayed into the CPU's (``diffsinger.chain_noise``; the
+    AR decoder's prenet masks, the postfilter's noise and the vocoder's
+    excitation are CPU draws on both), the CPU's stages as ``svs()`` runs
+    them with its acoustic features computed once; durations exactly, the
+    streams' largest difference over each stream's scale, the float32
+    waveforms by SNR, and the card's whole ``svs()`` (the same noise)
+    against its stages by SNR."""
+    from ensemble_svs_with_interactions_tpu_torch.models import diffsinger
+
+    t0 = time.time()
+    out = {}
+    dm = engine.predict_timing(labels.copy())
+    cpu_dm = cpu.predict_timing(labels.copy())
+    with diffsinger.chain_noise() as draws:
+        acoustic = engine.predict_acoustic(dm)
+    with diffsinger.chain_noise(draws):
+        cpu_acoustic = cpu.predict_acoustic(cpu_dm)
+    for pft in ("gv", "nnsvs"):
+        streams = engine.postprocess_acoustic(acoustic, dm,
+                                              post_filter_type=pft)
+        cpu_streams = cpu.postprocess_acoustic(cpu_acoustic, cpu_dm,
+                                               post_filter_type=pft)
+        wav = [e.postprocess_waveform(e.predict_waveform(
+            s, vocoder_type="usfgan"), dtype=np.float32)
+            for e, s in ((engine, streams), (cpu, cpu_streams))]
+        with diffsinger.chain_noise(draws):
+            whole, _ = engine.svs(labels.copy(), post_filter_type=pft,
+                                  vocoder_type="auto", dtype=np.float32)
+        # the whole svs() on the card against its stages above
+        out[pft] = {
+            "stream_err_over_scale": {
+                name: float(np.abs(np.asarray(a, np.float64) - b).max()
+                            / max(np.abs(b).max(), 1e-12))
+                for name, a, b in zip(("mel", "lf0", "vuv"), streams,
+                                      cpu_streams)},
+            "snr_db": snr_db(wav[1], wav[0]),
+            "svs_vs_stages_snr_db": snr_db(wav[0], whole),
+            "finite_nonzero": bool(np.isfinite(wav[0]).all()
+                                   and np.abs(wav[0]).max() > 0)}
+    return {"frames": len(acoustic),
+            "durations_equal": list(dm.end_times) == list(cpu_dm.end_times),
+            "acoustic_err": float(np.abs(acoustic - cpu_acoustic).max()),
+            **out, "seconds": time.time() - t0}
+
+
+def phase_mel_voice(lr, label) -> tuple:
+    """The mel voice (phase 11f): ``mel_phases()`` at full width packed
+    by ``pack_model`` and opened by ``SPSVS(model_dir)``; a warm-up, then
+    one ``svs()`` of the fixture under ``gv`` and one under ``nnsvs``
+    (the mel postfilter), both with ``vocoder_type="auto"`` (the
+    hn-uSFGAN on the mel), the launch counts by width reset just before
+    and read just after each (MEL_LAUNCHES_BY_HIDDEN); the card against
+    the CPU on the first MEL_REF_SECONDS (``mel_svs_reference``); the
+    recurrence held at B = 1 over the fixture's T_FRAMES at H = 64 and
+    128; the voice through ``train/trainer.train_model`` on a synthetic
+    corpus (``write_mel_corpus``, ``mel_trainer_config``) with the
+    launches counted (MEL_STEP_LAUNCHES a train step for each kernel and
+    a dev batch for the forward) and each kernel held at
+    MEL_TRAIN_LAYERS at B = MEL_TRAIN_B; one train step of the voice and
+    one of each mel-only config (``MEL_ONLY_CONFIGS``, no LSTM) card
+    against CPU (``hold_mel_step``).  Returns the launches summed over
+    the svs calls and the trainer run, and the kernel rows."""
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    t0 = time.time()
+    glob, phases = mel_phases()
+    launches = {n: 0 for n in TRAIN_COUNTERS}
+    calls = {}
+    with tempfile.TemporaryDirectory() as model_dir:
+        t1 = time.time()
+        pack_phases(model_dir, glob, phases,
+                    random_state_dicts(phases, SEED))
+        pack_s = time.time() - t1
+        engine = SPSVS(model_dir)
+        engine.svs(trim_labels(label, MEL_REF_SECONDS), vocoder_type="auto")
+        for pft in ("gv", "nnsvs"):
+            for name in TRAIN_COUNTERS:
+                getattr(lr, name).launches = 0
+            reset_launches(lr)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            wav, sr = engine.svs(label.copy(), vocoder_type="auto",
+                                 post_filter_type=pft)
+            seconds = time.perf_counter() - t1
+            calls[pft] = {
+                "seconds": seconds, "rtf": seconds / (len(wav) / sr),
+                "stage_s": dict(engine.last_stage_times),
+                "launches_by_width": dict(
+                    lr.lstm_recurrence.launches_by_width),
+                "launches": {n: getattr(lr, n).launches
+                             for n in TRAIN_COUNTERS},
+                "finite_nonzero": bool(np.abs(wav).max() > 0)}
+            for n in TRAIN_COUNTERS:
+                launches[n] += calls[pft]["launches"][n]
+        reference = mel_svs_reference(
+            engine, SPSVS(model_dir, device="cpu"),
+            trim_labels(label, MEL_REF_SECONDS))
+    del engine
+    rows = {f"svs B=1 H={H}": row for (H, _), row in phase_kernels(
+        lr, B=1, modes=(False,), phase="mel_voice_kernel",
+        shapes=sorted(MEL_LAUNCHES_BY_HIDDEN)).items()}
+    for (name, H, T, want_c), row in phase_train_kernels(
+            lr, B=MEL_TRAIN_B, shapes=MEL_TRAIN_LAYERS,
+            phase="mel_voice_train_kernel").items():
+        rows[f"train {name}{'_c' if want_c else ''} H={H} T={T}"] = row
+    with tempfile.TemporaryDirectory() as root:
+        corpus = write_mel_corpus(Path(root) / "corpus", **MEL_CORPUS)
+        run = run_trainer(lr, mel_trainer_config(corpus, Path(root) / "exp"),
+                          acoustic=True, multitrack=False)
+    for n in TRAIN_COUNTERS:
+        launches[n] += run["launches"][n]
+    steps, dev = run["steps"], run["dev_batches"]
+    want = {"lstm_recurrence": MEL_STEP_LAUNCHES * (steps + dev),
+            "lstm_bptt": MEL_STEP_LAUNCHES * steps,
+            "lstm_dwh": MEL_STEP_LAUNCHES * steps}
+    holds = {"mel_cascade": hold_mel_step(mel_acoustic_config()),
+             **{name: hold_mel_step(mel_only_config(name), amp=False)
+                for name in MEL_ONLY_CONFIGS}}
+    emit({"phase": "mel_voice", "device": "cuda", "config": MEL_CONFIG,
+          "postfilter": MEL_POSTFILTER, "mel_only": MEL_ONLY_CONFIGS,
+          "vocoder": f"{VOCODER_CONFIG} (aux_channels {MEL_DIMS})",
+          "pack_s": pack_s, "svs": calls,
+          "want_launches_by_width": MEL_LAUNCHES_BY_HIDDEN,
+          "reference": reference, "snr_bound_db": SNR_DB,
+          "trainer": {k: run[k] for k in (
+              "wall_s", "steps", "dev_batches", "train_loss", "dev_loss",
+              "train_shapes", "dev_shapes", "launches", "peak_mem_gib")},
+          "trainer_want_launches": want, "step_holds": holds,
+          "kernel_rows": {k: {f: r[f] for f in (
+              "kernel", "B", "T", "H", "max_abs_err", "ms", "us_per_step",
+              "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "loop_bound_ms", "prepass_ms", "prepass_bound_ms",
+              "prepass_library_ms") if f in r} for k, r in rows.items()},
+          "seconds": time.time() - t0})
+    for pft, c in calls.items():
+        assert c["launches_by_width"] == MEL_LAUNCHES_BY_HIDDEN, (pft, c)
+        assert c["launches"]["lstm_bptt"] == c["launches"]["lstm_dwh"] == 0
+        assert c["finite_nonzero"], (pft, c)
+    assert reference["durations_equal"], reference
+    for pft in ("gv", "nnsvs"):
+        r = reference[pft]
+        assert r["snr_db"] >= SNR_DB and r["finite_nonzero"], (pft, r)
+        assert r["svs_vs_stages_snr_db"] >= SNR_DB, (pft, r)
+    assert run["launches"] == want, (run["launches"], want)
+    assert all(np.isfinite(x) for x in run["train_loss"] + run["dev_loss"])
+    for name, h in holds.items():
+        assert h["ok"], (name, h)
+    assert all(r["max_abs_err"] < KERNEL_ATOL for k, r in rows.items()
+               if "dwh" not in k), rows
+    return launches, rows
+
+
 def _sum_rows(rows, counts, keys):
     """{key: sum of count * row[key]} over rows weighted by counts."""
     return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
@@ -5254,7 +5740,7 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                  path_launches, train_launches, amp_launches,
                  trainer_launches, trainer_errs, recipe_launches,
                  single_recipe_launches, single_recipe_rows,
-                 npss_launches, npss_rows):
+                 npss_launches, npss_rows, mel_launches, mel_rows):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -5288,6 +5774,10 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     voice's stages 5 and 7 under ``recipe_npss`` (``npss_launches``), with
     the H = 1024 rows at its shapes and the recipe's full batch under
     ``recipe_npss_rows`` (``phase_recipe_npss``; their errors count
+    too), and the mel voice's svs calls and trainer run under
+    ``mel_voice`` (``mel_launches``), with its rows (the forward at B = 1
+    over the fixture at H = 64 and 128, the train step's shapes at B =
+    4) under ``mel_voice_rows`` (``phase_mel_voice``; their errors count
     too)."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
@@ -5317,7 +5807,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
 
     def worst(name, key="max_abs_err"):
         return max([0.0] + [r[key] for r in [*single_recipe_rows.values(),
-                                             *npss_rows.values()]
+                                             *npss_rows.values(),
+                                             *mel_rows.values()]
                             if r["name"] == name])
 
     fwd, _ = train_sums("lstm_recurrence", True)
@@ -5338,7 +5829,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                     "trainer": trainer_launches[name],
                     "recipe": recipe_launches[name],
                     "recipe_single": single_recipe_launches[name],
-                    "recipe_npss": npss_launches[name]}
+                    "recipe_npss": npss_launches[name],
+                    "mel_voice": mel_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -5379,7 +5871,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
                            "library_ms": fwd["library_ms"]},
                recipe_single_rows=recipe_rows("lstm_recurrence"),
-               recipe_npss_rows=recipe_rows("lstm_recurrence", npss_rows)),
+               recipe_npss_rows=recipe_rows("lstm_recurrence", npss_rows),
+               mel_voice_rows=recipe_rows("lstm_recurrence", mel_rows)),
         _entry("lstm_bptt", "lstm_bptt.cu", bptt,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
                launches=sum(paths["lstm_bptt"].values()),
@@ -5393,6 +5886,7 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                loop_bound_ms=bptt["loop_bound_ms"],
                recipe_single_rows=recipe_rows("lstm_bptt"),
                recipe_npss_rows=recipe_rows("lstm_bptt", npss_rows),
+               mel_voice_rows=recipe_rows("lstm_bptt", mel_rows),
                **{k: bptt[k] for k in PREPASS}),
         _entry("lstm_dwh", "lstm_bptt.cu", dwh,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
@@ -5405,7 +5899,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                                + [trainer_errs["lstm_dwh_rel"],
                                   worst("lstm_dwh", "max_rel_err")]),
                recipe_single_rows=recipe_rows("lstm_dwh"),
-               recipe_npss_rows=recipe_rows("lstm_dwh", npss_rows)),
+               recipe_npss_rows=recipe_rows("lstm_dwh", npss_rows),
+               mel_voice_rows=recipe_rows("lstm_dwh", mel_rows)),
     ]}
 
 
@@ -5480,12 +5975,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         single_launches, single_recipe_rows = phase_recipe_single(lr, root)
         npss_launches, npss_rows = phase_recipe_npss(lr, root)
+    mel_launches, mel_rows = phase_mel_voice(lr, labels[0])
     trainer_errs = {k: max(v, recipe_errs[k]) for k, v in trainer_errs.items()}
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
                       path_launches, train_launches, amp_launches,
                       trainer_launches, trainer_errs, recipe_launches,
                       single_launches, single_recipe_rows, npss_launches,
-                      npss_rows))
+                      npss_rows, mel_launches, mel_rows))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

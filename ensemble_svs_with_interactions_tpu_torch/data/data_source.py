@@ -5,11 +5,11 @@ runs.  ``load_wav`` reads and resamples audio; the linguistic, time-lag
 and duration sources featurize HTS labels (``io/hts.py``,
 ``frontend/merlin.py``); ``WORLDAcousticSource`` runs the WORLD analysis
 of ``ops/world/analysis.py`` (native C++ where it builds) and codes its
-streams.  Also the mel filterbank, which the vocoder losses
-(``train/vocoder.py``) cast to float32 and keep on the device.
-
-The mel voices' ``MelF0AcousticSource`` and ``logmelfilterbank`` are not
-ported: ``feature_type: melf0`` raises ``NotImplementedError``.
+streams.  The mel voices' ``MelF0AcousticSource`` gives (log-mel, lf0,
+vuv) frames: ``logmelfilterbank`` (a SciPy STFT through the mel
+filterbank) and the F0 of the same analysis.  The mel filterbank is also
+what the vocoder losses (``train/vocoder.py``) cast to float32 and keep
+on the device.
 """
 
 from __future__ import annotations
@@ -41,12 +41,6 @@ from ensemble_svs_with_interactions_tpu_torch.ops.pitch import (
 from ensemble_svs_with_interactions_tpu_torch.ops.world import (
     analysis,
     codec,
-)
-
-UNPORTED_MELF0 = (
-    "feature_type: melf0 needs MelF0AcousticSource and logmelfilterbank "
-    "(ensemble_svs_with_interactions_tpu/data/data_source.py), which the "
-    "port does not have yet"
 )
 
 
@@ -231,8 +225,6 @@ class WORLDAcousticSource(FileDataSource):
         subphone_features: Optional[str] = "coarse_coding",
         mcep_aperiodicity_order: int = 24,
     ):
-        if feature_type == "melf0":
-            raise NotImplementedError(UNPORTED_MELF0)
         if feature_type != "world":
             raise ValueError(
                 f"WORLDAcousticSource extracts WORLD features; got "
@@ -528,3 +520,95 @@ def mel_filterbank(sr: int, fft_size: int, num_mels: int = 80,
         for k in range(c, hi):
             fb[m - 1, k] = (hi - k) / (hi - c)
     return fb
+
+
+def logmelfilterbank(x: np.ndarray, sr: int, fft_size: int = 512,
+                     hop_size: int = 120, win_length: Optional[int] = None,
+                     fmin: float = 30, fmax: Optional[float] = None,
+                     num_mels: int = 80, eps: float = 1e-10) -> np.ndarray:
+    """(frames, num_mels) float32 log10 mel spectrogram: a zero-padded
+    Hann STFT's magnitude (SciPy) through :func:`mel_filterbank`, floored
+    at ``eps``."""
+    from scipy.signal import stft
+
+    win_length = win_length or fft_size
+    fmax = fmax or sr / 2
+    _, _, Z = stft(x, nperseg=win_length, noverlap=win_length - hop_size,
+                   nfft=fft_size, window="hann", boundary="zeros",
+                   padded=True)
+    fb = mel_filterbank(sr, fft_size, num_mels, fmin, fmax)
+    mel = np.maximum(eps, np.abs(Z).T @ fb.T)
+    return np.log10(mel).astype(np.float32)
+
+
+class MelF0AcousticSource(FileDataSource):
+    """(log-mel, lf0, vuv) acoustic features, 82 columns at 80 mels: the
+    mel spectrogram of :func:`logmelfilterbank`; lf0 from harvest (or dio
+    and stonemask), interpolated through unvoiced frames and, with
+    ``trajectory_smoothing_f0``, low-passed; vuv where F0 is nonzero.
+    ``collect_features`` returns (features, the waveform cut to the
+    frames' samples, features)."""
+
+    def __init__(self, utt_list, wav_root, label_root, question_path,
+                 f0_extractor: str = "harvest", f0_floor: float = 150,
+                 f0_ceil: float = 700, frame_period: float = 5,
+                 sample_rate: int = 48000,
+                 trajectory_smoothing_f0: bool = True,
+                 trajectory_smoothing_cutoff_f0: float = 20,
+                 correct_vuv: bool = False, fft_size: int = 512,
+                 win_length: int = 480, hop_size: int = 120,
+                 fmin: float = 30, fmax: Optional[float] = None,
+                 num_mels: int = 80):
+        self.utt_list = utt_list
+        self.wav_root = wav_root
+        self.label_root = label_root
+        self.binary_dict, self.numeric_dict = hts.load_question_set(
+            question_path)
+        self.pitch_idx = hts.get_pitch_index(self.binary_dict,
+                                             self.numeric_dict)
+        self.f0_extractor = f0_extractor
+        self.f0_floor = f0_floor
+        self.f0_ceil = f0_ceil
+        self.frame_period = frame_period
+        self.sample_rate = sample_rate
+        self.trajectory_smoothing_f0 = trajectory_smoothing_f0
+        self.trajectory_smoothing_cutoff_f0 = trajectory_smoothing_cutoff_f0
+        self.fft_size = fft_size
+        self.win_length = win_length
+        self.hop_size = hop_size
+        self.fmin = fmin
+        self.fmax = fmax or sample_rate // 2
+        self.num_mels = num_mels
+
+    def collect_files(self):
+        return (_collect_files(self.wav_root, self.utt_list, ".wav"),
+                _collect_files(self.label_root, self.utt_list, ".lab"))
+
+    def collect_features(self, wav_path, label_path):
+        labels = hts.load(label_path)
+        labels.frame_shift = int(self.frame_period * 1e4)
+        num_frames = labels.num_frames()
+        x, fs = load_wav(wav_path, self.sample_rate)
+        if self.f0_extractor == "harvest":
+            f0, _ = analysis.harvest(x, fs, self.frame_period,
+                                     self.f0_floor, self.f0_ceil)
+        else:
+            f0, t = analysis.dio(x, fs, self.frame_period, self.f0_floor,
+                                 self.f0_ceil)
+            f0 = analysis.stonemask(x, f0, t, fs)
+        lf0 = f0[:, None].copy()
+        nz = np.nonzero(lf0)
+        lf0[nz] = np.log(lf0[nz])
+        vuv = (lf0 != 0).astype(np.float32)
+        lf0 = interp1d(lf0)
+        if self.trajectory_smoothing_f0:
+            lf0 = extract_smoothed_continuous_f0(
+                lf0, int(1 / (self.frame_period * 0.001)),
+                cutoff=self.trajectory_smoothing_cutoff_f0)
+        mel = logmelfilterbank(
+            x, fs, fft_size=self.fft_size, hop_size=self.hop_size,
+            win_length=self.win_length, fmin=self.fmin, fmax=self.fmax,
+            num_mels=self.num_mels)
+        n = min(num_frames, len(mel), len(lf0))
+        features = np.hstack([mel[:n], lf0[:n], vuv[:n]]).astype(np.float32)
+        return features, x.astype(np.float32)[: n * self.hop_size], features

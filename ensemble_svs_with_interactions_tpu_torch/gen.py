@@ -4,7 +4,8 @@ pack, timing, acoustic prediction, the host postprocess of the acoustic
 streams and the waveform stages.
 
 Host (NumPy/SciPy): linguistic featurization, note bookkeeping, duration
-normalization, the GV and merlin postfilters, stream reconstruction,
+normalization, the GV and merlin postfilters, stream reconstruction (WORLD
+streams, or the mel voices' (mel, lf0, vuv)),
 trajectory smoothing, the decoding of uncoded WORLD features
 (``gen_world_params``) and the waveform's band-pass and normalization.
 Device (torch): model inference (the learned postfilter too), the WORLD
@@ -12,11 +13,9 @@ vocoder, with frame counts padded to buckets as in the JAX package so both
 see the same padded inputs, and the neural vocoders (``pwg``, ``usfgan``),
 unpadded as in the JAX package.
 
-Not ported, and named by the ``NotImplementedError`` that refuses them:
-vibrato streams (``ops/pitch.gen_sine_vibrato``), mel features, the mel
-learned postfilter, and of ``models/diffsinger.py``
-``MultiSpeakerGaussianDiffusion``, ``FFTBlocksEncoder``,
-``PitchPredictor`` and ``PitchExtractor``.
+Not ported, and named by the ``NotImplementedError`` that refuses them
+(``UNPORTED``): vibrato streams (``ops/pitch.gen_sine_vibrato``),
+``MultiSpeakerGaussianDiffusion`` and ``MultiSpeakerFlowMatching``.
 """
 
 from __future__ import annotations
@@ -73,13 +72,11 @@ CHAIN_SEED = 1234
 # the JAX package's modules that unported options need
 _JAX = "ensemble_svs_with_interactions_tpu"
 UNPORTED = {
-    "MelF0MultistreamPostFilter":
-        f"{_JAX}/models/postfilters.py (MelF0MultistreamPostFilter)",
     "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
-    "melf0": f"{_JAX}/models/vocoders/ (mel features)",
-    **{name: f"{_JAX}/models/diffsinger.py ({name})"
-       for name in ("MultiSpeakerGaussianDiffusion", "FFTBlocksEncoder",
-                    "PitchPredictor", "PitchExtractor")},
+    "MultiSpeakerGaussianDiffusion":
+        f"{_JAX}/models/diffsinger.py (MultiSpeakerGaussianDiffusion)",
+    "MultiSpeakerFlowMatching":
+        f"{_JAX}/models/flow_matching.py (MultiSpeakerFlowMatching)",
 }
 
 
@@ -630,6 +627,40 @@ def gen_spsvs_static_features(labels, acoustic_features: np.ndarray,
     return mgc, lf0, vuv, bap
 
 
+def _slaney_mel_frequencies(n_mels: int, fmin: float,
+                            fmax: float) -> np.ndarray:
+    """``n_mels`` band centres from ``fmin`` to ``fmax`` on the Slaney mel
+    scale (linear below 1 kHz, logarithmic above), as
+    ``librosa.mel_frequencies`` gives them; the melf0 GV offset reads
+    them."""
+    f_sp = 200.0 / 3.0
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+
+    def hz_to_mel(f):
+        f = np.asarray(f, np.float64)
+        return np.where(
+            f >= min_log_hz,
+            min_log_mel + np.log(np.maximum(f, 1e-12) / min_log_hz) / logstep,
+            f / f_sp)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, np.float64)
+        return np.where(m >= min_log_mel,
+                        min_log_hz * np.exp(logstep * (m - min_log_mel)),
+                        f_sp * m)
+
+    return mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels))
+
+
+def melf0_gv_offset(sample_rate: int) -> int:
+    """The mel bands the GV postfilter leaves as they are: those up to
+    the first Slaney band above 1200 Hz, which carry F0."""
+    return int(np.argmax(
+        _slaney_mel_frequencies(80, 63.0, sample_rate / 2) > 1200.0))
+
+
 def postprocess_acoustic(acoustic_features: np.ndarray,
                          duration_modified_labels, binary_dict, numeric_dict,
                          acoustic_config, acoustic_out_static_scaler,
@@ -647,19 +678,24 @@ def postprocess_acoustic(acoustic_features: np.ndarray,
                          vibrato_scale: float = 1.0,
                          force_fix_vuv: bool = False,
                          linguistic_features=None):
-    """Denormalized acoustic features -> WORLD streams (mgc, lf0, vuv, bap)
-    on the host, in the JAX package's order: the GV postfilter over note
-    frames (``post_filter_type`` ``"gv"``, and ``"nnsvs"`` before the
-    learned postfilter; ``"none"``, ``"off"`` and None skip it); the merlin
-    postfilter (``"merlin"``: mel-cepstrum dims from 2 on sharpened by 1.4,
-    the spectral energy restored through c0); the learned postfilter
-    (``"nnsvs"`` with a ``postfilter_model``, a ``ModelPack``, on the
-    features normalized by ``postfilter_out_scaler``); then stream
-    reconstruction, the long-rest crossfade, the F0 shift and zero-phase
-    trajectory smoothing.  ``linguistic_features`` (raw frame features of
-    the labels) may be passed to skip recomputing them."""
-    if feature_type != "world":
-        raise unported("melf0", f"feature_type={feature_type!r}")
+    """Denormalized acoustic features -> WORLD streams (mgc, lf0, vuv, bap),
+    or with ``feature_type="melf0"`` (mel, lf0, vuv), on the host, in the
+    JAX package's order: the GV postfilter over note frames
+    (``post_filter_type`` ``"gv"``, and for WORLD features ``"nnsvs"``
+    before the learned postfilter; ``"none"``, ``"off"`` and None skip
+    it; mel bands below :func:`melf0_gv_offset` and mgc dims 0-1 are left
+    as they are); the merlin postfilter (``"merlin"``, WORLD only:
+    mel-cepstrum dims from 2 on sharpened by 1.4, the spectral energy
+    restored through c0); the learned postfilter (``"nnsvs"`` with a
+    ``postfilter_model``, a ``ModelPack``, on the features normalized by
+    ``postfilter_out_scaler``); then stream reconstruction (the mel
+    streams split [80, 1, 1]), the long-rest crossfade (mel toward -5.5),
+    the F0 shift and zero-phase trajectory smoothing.
+    ``linguistic_features`` (raw frame features of the labels) may be
+    passed to skip recomputing them."""
+    if feature_type not in ("world", "melf0"):
+        raise ValueError(f"unknown feature type: {feature_type}")
+    world = feature_type == "world"
     hts_frame_shift = int(frame_period * 1e4)
     static_sizes = get_static_stream_sizes(
         acoustic_config.stream_sizes, acoustic_config.has_dynamic_features,
@@ -670,14 +706,16 @@ def postprocess_acoustic(acoustic_features: np.ndarray,
             duration_modified_labels, binary_dict, numeric_dict,
             add_frame_features=True, frame_shift=hts_frame_shift)
     acoustic_features = np.asarray(acoustic_features).copy()
-    if post_filter_type in ("gv", "nnsvs"):
+    if post_filter_type == "gv" or (post_filter_type == "nnsvs" and world):
         idx = hts.get_note_frame_indices(binary_dict, numeric_dict,
                                          linguistic_features)
         idx = idx[idx < len(acoustic_features)]
         acoustic_features[:, :mgc_end] = variance_scaling(
             np.asarray(acoustic_out_static_scaler.var_).reshape(-1)[:mgc_end],
-            acoustic_features[:, :mgc_end], offset=2, note_frame_indices=idx)
-    if post_filter_type == "merlin":
+            acoustic_features[:, :mgc_end],
+            offset=2 if world else melf0_gv_offset(sample_rate),
+            note_frame_indices=idx)
+    if post_filter_type == "merlin" and world:
         mgc = acoustic_features[:, :mgc_end]
         weights = np.ones(mgc_end)
         weights[2:] = 1.4
@@ -694,6 +732,19 @@ def postprocess_acoustic(acoustic_features: np.ndarray,
         out = postfilter_model.inference(normed.astype(np.float32))
         acoustic_features = np.asarray(
             postfilter_out_scaler.inverse_transform(out))
+    if not world:
+        mel, lf0, vuv = split_streams(acoustic_features, [80, 1, 1])
+        if fill_silence_to_rest:
+            mask = _nonrest_frame_soft_mask(binary_dict, numeric_dict,
+                                            linguistic_features)
+            mel = mel * mask + (1 - mask) * (-5.5)
+        if f0_shift_in_cent != 0:
+            lf0 = lf0 + f0_shift_in_cent * np.log(2) / 1200
+        if trajectory_smoothing:
+            lf0, (mel,) = _smooth(lf0, [mel], frame_period,
+                                  trajectory_smoothing_cutoff,
+                                  trajectory_smoothing_cutoff_f0)
+        return mel, lf0, vuv
     mgc, lf0, vuv, bap = gen_spsvs_static_features(
         duration_modified_labels, acoustic_features, binary_dict,
         numeric_dict, acoustic_config.stream_sizes,
@@ -714,16 +765,21 @@ def postprocess_acoustic(acoustic_features: np.ndarray,
     if f0_shift_in_cent != 0:
         lf0 = lf0 + f0_shift_in_cent * np.log(2) / 1200
     if trajectory_smoothing:
-        modfs = int(1 / (frame_period * 0.001))
-        lf0[:, 0] = lowpass_filter(lf0[:, 0], modfs,
-                                   cutoff=trajectory_smoothing_cutoff_f0)
-        mgc = np.ascontiguousarray(lowpass_filter(
-            mgc, modfs, cutoff=trajectory_smoothing_cutoff, axis=0))
-        bap = np.ascontiguousarray(lowpass_filter(
-            bap, modfs, cutoff=trajectory_smoothing_cutoff, axis=0))
+        lf0, (mgc, bap) = _smooth(lf0, [mgc, bap], frame_period,
+                                  trajectory_smoothing_cutoff,
+                                  trajectory_smoothing_cutoff_f0)
     if bap.shape[-1] <= 5:
         bap = np.clip(bap, -60, 0)
     return mgc, lf0, vuv, bap
+
+
+def _smooth(lf0, streams, frame_period, cutoff, cutoff_f0):
+    """Zero-phase low-pass of lf0 (in place, at ``cutoff_f0``) and of each
+    spectral stream (at ``cutoff``) over time."""
+    modfs = int(1 / (frame_period * 0.001))
+    lf0[:, 0] = lowpass_filter(lf0[:, 0], modfs, cutoff=cutoff_f0)
+    return lf0, [np.ascontiguousarray(lowpass_filter(
+        a, modfs, cutoff=cutoff, axis=0)) for a in streams]
 
 
 # ---------------------------------------------------------------- waveform
@@ -773,7 +829,10 @@ def predict_waveform(multistream_features, vocoder=None,
                      frame_period: float = 5, use_world_codec: bool = True,
                      feature_type: str = "world", vocoder_type: str = "world",
                      vuv_threshold: float = 0.5, device="cuda", noise=None):
-    """WORLD streams (mgc, lf0, vuv, bap) -> float waveform on the host.
+    """Host streams -> float waveform on the host: WORLD streams (mgc,
+    lf0, vuv, bap), or with ``feature_type="melf0"`` (mel, lf0, vuv),
+    which only the neural vocoders take (WORLD raises ValueError, as the
+    JAX package does).
 
     ``"world"``: synthesized on ``device`` and padded to the frame bucket
     as in the JAX package (``noise``: (1, T_pad * hop) on ``device``, by
@@ -785,22 +844,26 @@ def predict_waveform(multistream_features, vocoder=None,
     aperiodicity with 1).  No high-pass here: ``postprocess_waveform``
     applies the band-pass.
 
-    ``"pwg"``: ``vocoder.inference`` on [mgc, lf0, binarized vuv, bap];
-    ``"usfgan"``: ``vocoder.inference(f0, [mgc, bap])`` with F0 = exp(lf0)
-    (0 on unvoiced frames when the vocoder's ``sine_f0_type`` is ``"f0"``)
-    and bap round-tripped through the aperiodicity codec in float64 on the
-    host, 1 at the lowest bin of unvoiced frames; both through
+    ``"pwg"``: ``vocoder.inference`` on [mgc, lf0, binarized vuv, bap] or
+    [mel, lf0, binarized vuv]; ``"usfgan"``: ``vocoder.inference(f0,
+    aux)`` with F0 = exp(lf0) (0 on unvoiced frames when the vocoder's
+    ``sine_f0_type`` is ``"f0"``) and aux the mel, or [mgc, bap] with bap
+    round-tripped through the aperiodicity codec in float64 on the host,
+    1 at the lowest bin of unvoiced frames; both through
     ``vocoder_in_scaler`` when given, unpadded, on the vocoder's device.
     Without a ``vocoder`` they raise ValueError."""
-    if feature_type != "world":
-        raise unported("melf0", f"feature_type={feature_type!r}")
-    mgc, lf0, vuv, bap = multistream_features
+    if feature_type not in ("world", "melf0"):
+        raise ValueError(f"unknown feature type: {feature_type}")
     if vocoder_type in ("pwg", "usfgan"):
-        return _neural_waveform(mgc, lf0, vuv, bap, vocoder,
+        return _neural_waveform(multistream_features, feature_type, vocoder,
                                 vocoder_in_scaler, sample_rate,
                                 vocoder_type, vuv_threshold)
     if vocoder_type != "world":
         raise ValueError(f"unknown vocoder type: {vocoder_type}")
+    if feature_type != "world":
+        raise ValueError(
+            f"invalid feature type for WORLD vocoder: {feature_type}")
+    mgc, lf0, vuv, bap = multistream_features
     T = len(lf0)
     T_pad = _round_up(max(T, 1), FRAME_BUCKET)
     hop = int(sample_rate * frame_period / 1000)
@@ -827,16 +890,22 @@ def predict_waveform(multistream_features, vocoder=None,
     return wav[0, : T * hop].cpu().numpy()
 
 
-def _neural_waveform(mgc, lf0, vuv, bap, vocoder, vocoder_in_scaler,
+def _neural_waveform(streams, feature_type, vocoder, vocoder_in_scaler,
                      sample_rate, vocoder_type, vuv_threshold):
     if vocoder is None:
         raise ValueError(f"vocoder_type={vocoder_type!r} needs a packed "
                          "neural vocoder (vocoder_model.yaml); this engine "
                          "has none")
+    world = feature_type == "world"
+    if world:
+        mgc, lf0, vuv, bap = streams
+    else:
+        mel, lf0, vuv = streams
     if vocoder_type == "pwg":
         vuv_bin = (vuv > vuv_threshold).astype(np.float32)
-        feats = np.concatenate([mgc, lf0, vuv_bin, bap], axis=-1)
-    else:
+        feats = np.concatenate([mgc, lf0, vuv_bin, bap] if world
+                               else [mel, lf0, vuv_bin], axis=-1)
+    elif world:
         fftlen = get_cheaptrick_fft_size(sample_rate)
         ap = decode_aperiodicity(torch.from_numpy(
             np.ascontiguousarray(bap).astype(np.float64)), sample_rate,
@@ -845,6 +914,8 @@ def _neural_waveform(mgc, lf0, vuv, bap, vocoder, vocoder_in_scaler,
         bap_fixed = code_aperiodicity(np.clip(ap, 0.0, 1.0),
                                       sample_rate).astype(np.float32)
         feats = np.concatenate([mgc, bap_fixed], axis=-1)
+    else:
+        feats = mel
     if vocoder_in_scaler is not None:
         feats = np.asarray(vocoder_in_scaler.transform(feats), np.float32)
     if vocoder_type == "pwg":

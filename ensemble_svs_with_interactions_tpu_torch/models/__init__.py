@@ -1,6 +1,7 @@
 """The port's model zoo (the serving and training paths' models); the
-diffusion models are in ``models/diffsinger.py``, the postfilters' GAN
-discriminator in ``models/discriminators.py``."""
+diffusion models and the FFT-block encoder are in ``models/diffsinger.py``,
+the flow-matching decoder in ``models/flow_matching.py``, the postfilters'
+GAN discriminator in ``models/discriminators.py``."""
 
 from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F401
     Conv1dResnet,
@@ -16,4 +17,9 @@ from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F
 )
 from ensemble_svs_with_interactions_tpu_torch.models import (  # noqa: F401,E402
     diffsinger,
+    flow_matching,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.flow_matching import (  # noqa: F401,E402,E501
+    FlowMatching,
+    MultiSpeakerFlowMatching,
 )

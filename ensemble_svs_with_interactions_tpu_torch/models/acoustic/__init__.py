@@ -1,7 +1,9 @@
-"""Acoustic models of the flagship, single-track, Sinsy residual-F0 and
-NPSS (single-track AR and MDN, multitrack diffusion) paths."""
+"""Acoustic models of the flagship, single-track, Sinsy residual-F0,
+NPSS (single-track AR and MDN, multitrack diffusion) and mel paths."""
 
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.multistream import (  # noqa: F401,E501
+    MDNMultistreamSeparateF0MelModel,
+    MultistreamSeparateF0MelModel,
     MultistreamSeparateF0ParametricModel,
     MultiTrackMultistreamSeparateF0ParametricModel,
 )

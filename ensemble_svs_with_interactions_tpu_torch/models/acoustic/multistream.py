@@ -1,12 +1,16 @@
 """The multistream acoustic models with a separate F0 model: the
-single-track ``MultistreamSeparateF0ParametricModel`` and the flagship
-multitrack ``MultiTrackMultistreamSeparateF0ParametricModel`` (counterparts
-in ``ensemble_svs_with_interactions_tpu/models/acoustic/multistream.py``).
+single-track ``MultistreamSeparateF0ParametricModel``, the flagship
+multitrack ``MultiTrackMultistreamSeparateF0ParametricModel`` and the mel
+voices' ``MultistreamSeparateF0MelModel`` and
+``MDNMultistreamSeparateF0MelModel`` (counterparts in
+``ensemble_svs_with_interactions_tpu/models/acoustic/multistream.py``).
 
 p(MGC, LF0, VUV, BAP | C) = p(LF0|C) p(MGC|LF0,C) p(VUV|LF0,C) p(BAP|LF0,C):
 the (cross-track) lf0 model runs first, the encoder output is concatenated
 with the rest flag and the predicted lf0, and the per-stream decoders run
-on that.
+on that.  The mel models predict (mel, lf0, vuv) the same way; the
+encoder-less one conditions the mel decoder on (x, lf0) and V/UV on (x,
+lf0, mel), as the NPSS cascades do.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ import torch
 from ensemble_svs_with_interactions_tpu_torch.base import (
     BaseModel,
     PredictionType,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.acoustic.npss import (
+    _run_stream_decoder,
 )
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
     point_estimate,
@@ -212,3 +219,137 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
             self.mgc_model(enc, lengths), lf0,
             self.vuv_model(enc, lengths), self.bap_model(enc, lengths),
         ], self.out_dim)
+
+
+class _MelF0Base(BaseModel):
+    """What the two mel models share: streams (mel, lf0, vuv), sub-models
+    built by ``utils.config.instantiate``, the lf0 fields of the lf0
+    sub-model's own config (``in_lf0_*``, ``out_lf0_*``) accepted and
+    unused.  ``forward`` with targets ``y`` gives ``((mel, lf0, vuv), lf0
+    residual)``, each stream as its decoder returns it (a diffusion
+    decoder's ``(noise, x_recon)``); without, ``(out, ...)`` with out (B,
+    T, 82) the point estimates [mel | lf0 | vuv], which ``inference``
+    returns.  ``generator`` draws dropout masks and the diffusion
+    training draws, ``chain_generator`` the sampling chains."""
+
+    def __init__(self, in_dim: int, out_dim: int, stream_sizes: Sequence[int],
+                 reduction_factor: int, lf0_model: Any, mel_model: Any,
+                 vuv_model: Any, in_rest_idx: int = 0, in_lf0_idx: int = 300,
+                 in_lf0_min: float = 5.3936276, in_lf0_max: float = 6.491111,
+                 out_lf0_idx: int = 180,
+                 out_lf0_mean: float = 5.953093881972361,
+                 out_lf0_scale: float = 0.23435173188961034):
+        super().__init__()
+        if len(stream_sizes) != 3:
+            raise ValueError(f"the mel models predict 3 streams (mel, lf0, "
+                             f"vuv); got {list(stream_sizes)}")
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.stream_sizes = list(stream_sizes)
+        self.in_rest_idx = in_rest_idx
+        self.lf0_model = lf0_model
+        self.mel_model = mel_model
+        self.vuv_model = vuv_model
+
+    def prediction_type(self):
+        return PredictionType.MULTISTREAM_HYBRID
+
+    def has_residual_lf0_prediction(self):
+        return True
+
+    def _lf0(self, x, lengths, y_lf0, train, generator, chain_generator):
+        out = _run_stream_decoder(self.lf0_model, x, lengths, y_lf0, None,
+                                  train, generator, chain_generator)
+        if isinstance(out, tuple) and len(out) == 2:
+            return out
+        return out, None
+
+    def _decode(self, name, x, lengths, y, train, generator,
+                chain_generator):
+        return _run_stream_decoder(getattr(self, f"{name}_model"), x,
+                                   lengths, y, None, train, generator,
+                                   chain_generator)
+
+    @torch.no_grad()
+    def inference(self, x, lengths=None, generator=None,
+                  chain_generator=None):
+        """The point estimate (B, T, D) = [mel | lf0 | vuv]."""
+        return self(x, lengths, generator=generator,
+                    chain_generator=chain_generator)[0]
+
+
+class MultistreamSeparateF0MelModel(_MelF0Base):
+    """The mel cascade with an encoder: the lf0 model on x, then the mel
+    and vuv decoders on [encoder(x) | rest flag | lf0], lf0 the target's
+    in training with ``lf0_teacher_forcing``."""
+
+    def __init__(self, in_dim: int, out_dim: int, stream_sizes: Sequence[int],
+                 reduction_factor: int, encoder: Any, mel_model: Any,
+                 lf0_model: Any, vuv_model: Any,
+                 lf0_teacher_forcing: bool = True, **kwargs):
+        super().__init__(in_dim, out_dim, stream_sizes, reduction_factor,
+                         lf0_model, mel_model, vuv_model, **kwargs)
+        self.encoder = encoder
+        self.lf0_teacher_forcing = lf0_teacher_forcing
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                generator=None, chain_generator=None):
+        ys = [None] * 3 if y is None else split_streams(y, self.stream_sizes)
+        run = (train, generator, chain_generator)
+        lf0, lf0_residual = self._lf0(x, lengths, ys[1], *run)
+        if y is None:
+            lf0 = point_estimate(lf0)
+        enc = x
+        if self.encoder is not None:
+            enc = self.encoder(x, lengths, train=train, generator=generator)
+            cond = ys[1] if self.lf0_teacher_forcing and y is not None \
+                else lf0
+            enc = torch.cat([enc, x[:, :, self.in_rest_idx][..., None],
+                             cond], dim=-1)
+        mel = self._decode("mel", enc, lengths, ys[0], *run)
+        vuv = self._decode("vuv", enc, lengths, ys[2], *run)
+        if y is None:
+            return _concat_streams([point_estimate(mel), lf0, vuv],
+                                   self.out_dim), lf0_residual
+        return (mel, lf0, vuv), lf0_residual
+
+
+class MDNMultistreamSeparateF0MelModel(_MelF0Base):
+    """The encoder-less mel cascade: the lf0 model on x, the mel decoder
+    on [x | lf0] and V/UV on x with lf0 and mel as
+    ``vuv_model_{lf0,mel}_conditioning`` say, in the order (x, lf0, mel);
+    in training lf0 and mel are the targets.  Without targets the
+    ``forward`` gives ``(out, out)``, as the JAX model."""
+
+    def __init__(self, in_dim: int, out_dim: int, stream_sizes: Sequence[int],
+                 reduction_factor: int, lf0_model: Any, mel_model: Any,
+                 vuv_model: Any, vuv_model_lf0_conditioning: bool = True,
+                 vuv_model_mel_conditioning: bool = True, **kwargs):
+        super().__init__(in_dim, out_dim, stream_sizes, reduction_factor,
+                         lf0_model, mel_model, vuv_model, **kwargs)
+        self.vuv_model_lf0_conditioning = vuv_model_lf0_conditioning
+        self.vuv_model_mel_conditioning = vuv_model_mel_conditioning
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                generator=None, chain_generator=None):
+        if x.shape[-1] != self.in_dim:
+            raise ValueError(f"input has {x.shape[-1]} dims, config says "
+                             f"{self.in_dim}")
+        is_inference = y is None
+        ys = [None] * 3 if y is None else split_streams(y, self.stream_sizes)
+        run = (train, generator, chain_generator)
+        lf0, lf0_residual = self._lf0(x, lengths, ys[1], *run)
+        cond_lf0 = point_estimate(lf0) if is_inference else ys[1]
+        mel = self._decode("mel", torch.cat([x, cond_lf0], dim=-1), lengths,
+                           ys[0], *run)
+        vuv_in = [x]
+        if self.vuv_model_lf0_conditioning:
+            vuv_in.append(cond_lf0)
+        if self.vuv_model_mel_conditioning:
+            vuv_in.append(point_estimate(mel) if is_inference else ys[0])
+        vuv = self._decode("vuv", torch.cat(vuv_in, dim=-1), lengths, ys[2],
+                           *run)
+        if is_inference:
+            out = _concat_streams([point_estimate(mel), point_estimate(lf0),
+                                   vuv], self.out_dim)
+            return out, out
+        return (mel, lf0, vuv), lf0_residual

@@ -1,7 +1,10 @@
 """DiffSinger-style diffusion acoustic models (counterparts in
 ``ensemble_svs_with_interactions_tpu/models/diffsinger.py``): the beta
 schedules, the WaveNet-like denoiser ``DiffNet`` and ``GaussianDiffusion``,
-a DDPM over acoustic features with a condition encoder.
+a DDPM over acoustic features with a condition encoder; the FastSpeech2
+``FFTBlocksEncoder`` (self-attention blocks over a reversed relative
+positional encoding) that the mel-only configs use as that encoder; and
+the mel-to-F0 ``PitchPredictor`` and ``PitchExtractor``.
 
 The denoiser's convolutions are ``nn.Conv1d`` on channel-first (B, C, T)
 tensors; its submodules carry the flax scope names (``input_proj``,
@@ -19,8 +22,17 @@ the ancestral sampler one draw per step) from the ``chain_generator``
 they are given, on that generator's device; tests replay another run's
 noise through :func:`chain_noise`.
 
-Not ported: ``MultiSpeakerGaussianDiffusion``, ``FFTBlocksEncoder``,
-``PitchPredictor`` and ``PitchExtractor``.  A config naming one raises
+The attention, its FFN and the pitch models' convolutions are plain
+torch ops, as the JAX package leaves them to XLA.  Their submodules carry
+the flax scope names (``_FFTBlock_{i}.{norm_1,in_proj,out_proj,norm_2,
+ffn_1,ffn_2}``, ``fc``, ``Conv_{i}``, ``LayerNorm_{i}``, ``Dense_{i}``)
+and ``FFTBlocksEncoder`` its ``pos_embed_alpha`` as a parameter of that
+name (``FLAX_LEAVES``), so ``utils/flax_port`` carries the weights both
+ways.  In training the FFT blocks drop attention weights and FFN
+activations at 0.1 whatever the config's ``dropout``, as the JAX blocks
+do.
+
+Not ported: ``MultiSpeakerGaussianDiffusion``.  A config naming it raises
 ``NotImplementedError`` naming its JAX module.
 """
 
@@ -40,6 +52,7 @@ from ensemble_svs_with_interactions_tpu_torch.base import (
     BaseModel,
     PredictionType,
 )
+from ensemble_svs_with_interactions_tpu_torch.models import layers
 from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
     conv_precision,
 )
@@ -68,6 +81,24 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
 
 
+def _promoted(layer, x):
+    """``layer(x)`` for a ``nn.Linear`` or ``nn.Conv1d``, with ``x`` and
+    the weights promoted to their common dtype where they differ, as
+    flax's Dense and Conv promote them: in the AMP arm the noise
+    schedule's float32 tables lift the noised features (and the step
+    embedding is float32) while the weights are bf16, so the denoiser
+    runs in float32 as the JAX step's does."""
+    w = layer.weight
+    if x.dtype == w.dtype:
+        return layer(x)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    b = None if layer.bias is None else layer.bias.to(dt)
+    if isinstance(layer, nn.Linear):
+        return F.linear(x.to(dt), w.to(dt), b)
+    return F.conv1d(x.to(dt), w.to(dt), b, layer.stride, layer.padding,
+                    layer.dilation, layer.groups)
+
+
 class _DiffResidualBlock(nn.Module):
     """Gated dilated-conv residual block on (B, C, T)."""
 
@@ -82,10 +113,10 @@ class _DiffResidualBlock(nn.Module):
         self.out_proj = nn.Conv1d(C, 2 * C, 1)
 
     def forward(self, x, cond, step_emb):
-        h = x + self.step_proj(step_emb)[:, :, None]
-        h = self.dilated_conv(h) + self.cond_proj(cond)
+        h = x + _promoted(self.step_proj, step_emb)[:, :, None]
+        h = _promoted(self.dilated_conv, h) + _promoted(self.cond_proj, cond)
         gate, filt = h.chunk(2, dim=1)
-        h = self.out_proj(torch.sigmoid(gate) * torch.tanh(filt))
+        h = _promoted(self.out_proj, torch.sigmoid(gate) * torch.tanh(filt))
         residual, skip = h.chunk(2, dim=1)
         return (x + residual) / math.sqrt(2.0), skip
 
@@ -114,16 +145,17 @@ class DiffNet(nn.Module):
 
     def denoise(self, x, diffusion_step, cond):
         """x (B, M, T), diffusion_step (B,), cond (B, E, T) -> (B, M, T)."""
-        x = F.relu(self.input_proj(x))
-        h = self.mlp_in(sinusoidal_pos_emb(diffusion_step,
-                                           self.residual_channels))
-        emb = self.mlp_out(h * torch.tanh(F.softplus(h)))  # Mish
+        x = F.relu(_promoted(self.input_proj, x))
+        h = _promoted(self.mlp_in, sinusoidal_pos_emb(
+            diffusion_step, self.residual_channels))
+        emb = _promoted(self.mlp_out, h * torch.tanh(F.softplus(h)))  # Mish
         skips = 0
         for i in range(self.residual_layers):
             x, skip = getattr(self, f"res{i}")(x, cond, emb)
             skips = skips + skip
-        x = F.relu(self.skip_proj(skips / math.sqrt(self.residual_layers)))
-        return self.output_proj(x)
+        x = F.relu(_promoted(self.skip_proj,
+                             skips / math.sqrt(self.residual_layers)))
+        return _promoted(self.output_proj, x)
 
     def forward(self, spec, diffusion_step, cond):
         """spec (B, T, M), diffusion_step (B,), cond (B, T, E) ->
@@ -140,12 +172,16 @@ _CHAIN: contextvars.ContextVar = contextvars.ContextVar("chain_noise",
 
 @contextlib.contextmanager
 def chain_noise(draws: Optional[List[Dict]] = None):
-    """Within the block every ``GaussianDiffusion`` call takes its noise
+    """Within the block every ``GaussianDiffusion`` and ``FlowMatching``
+    call takes its noise
     from ``draws``, one entry per call in call order, or, with ``draws``
     None, records the noise it draws into the list it yields.  Inference
     entries are ``{"x_T": (B, T, M), "steps": (K, B, T, M) or None}``
     (``steps``: the ancestral sampler's per-step draws, step i at t = K -
-    1 - i); training entries ``{"t": (B,), "noise": (B, T, M)}``.  Tests
+    1 - i; ``None`` for the other samplers and ``FlowMatching``);
+    training entries ``{"t": (B,), "noise": (B, T, M)}`` (``t`` integer
+    steps for ``GaussianDiffusion``, times in [0, 1) for
+    ``FlowMatching``, whose ``noise`` is its x0).  Tests
     replay the JAX package's chains, and the card's on the CPU, through
     it."""
     if _CHAIN.get() is not None:
@@ -188,8 +224,9 @@ def _tensor(a) -> torch.Tensor:
 
 def _normal(shape, generator, device):
     if generator is None:
-        raise ValueError("GaussianDiffusion draws its noise from a "
-                         "torch.Generator: pass chain_generator")
+        raise ValueError("the diffusion and flow-matching decoders draw "
+                         "their noise from a torch.Generator: pass "
+                         "chain_generator")
     return torch.randn(shape, generator=generator,
                        device=generator.device).to(device)
 
@@ -275,7 +312,8 @@ class GaussianDiffusion(BaseModel):
                                  "and its noise from a torch.Generator")
             t = torch.randint(0, self.K_step, (B,), generator=generator,
                               device=generator.device).to(x0.device)
-            noise = _normal(x0.shape, generator, x0.device)
+            # in x0's dtype, as JAX draws it (bf16 in the AMP arm)
+            noise = _normal(x0.shape, generator, x0.device).to(x0.dtype)
             _record({"t": t, "noise": noise})
         else:
             t = _tensor(entry["t"]).to(x0.device, torch.int64)
@@ -444,7 +482,263 @@ class GaussianDiffusion(BaseModel):
         return x
 
 
-def _unported(name: str):
+def rel_positional_encoding(T: int, d: int, max_len: int = 5000,
+                            device=None) -> torch.Tensor:
+    """(1, T, d) float32 [sin | cos] table over REVERSED positions, as
+    the JAX package builds it: the table spans ``max(max_len, T)``
+    positions and its first T rows are taken, so positions run
+    ``L - 1`` down to ``L - T``."""
+    L = max(max_len, T)
+    position = torch.arange(L - 1, L - 1 - T, -1, dtype=torch.float32,
+                            device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((T, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div)
+    return pe[None]
+
+
+def _drop(x, p, train: bool, generator):
+    return layers.dropout(x, p, generator) if train else x
+
+
+class _FFTBlock(nn.Module):
+    """Pre-norm self-attention (a combined bias-free qkv projection, keys
+    past each row's length masked) and a pre-norm conv FFN (conv, scaled
+    by ``kernel_size ** -0.5``, exact GELU, linear); the state is
+    re-masked after each residual."""
+
+    def __init__(self, hidden_dim: int, num_heads: int, kernel_size: int,
+                 dropout: float, attention_dropout: float = 0.1,
+                 relu_dropout: float = 0.1):
+        super().__init__()
+        E = hidden_dim
+        self.num_heads, self.kernel_size = num_heads, kernel_size
+        self.dropout = dropout
+        self.attention_dropout = attention_dropout
+        self.relu_dropout = relu_dropout
+        self.norm_1 = nn.LayerNorm(E, eps=1e-5)
+        self.in_proj = nn.Linear(E, 3 * E, bias=False)
+        self.out_proj = nn.Linear(E, E, bias=False)
+        self.norm_2 = nn.LayerNorm(E, eps=1e-5)
+        self.ffn_1 = nn.Conv1d(E, 4 * E, kernel_size,
+                               padding=kernel_size // 2)
+        self.ffn_2 = nn.Linear(4 * E, E)
+
+    def forward(self, x, mask, train: bool = False, generator=None):
+        """x (B, T, E), mask (B, T) bool -> (B, T, E)."""
+        B, T, E = x.shape
+        H = self.num_heads
+        dk = E // H
+        fmask = mask[:, :, None].to(x.dtype)
+        q, k, v = self.in_proj(self.norm_1(x)).chunk(3, dim=-1)
+        q = q.reshape(B, T, H, dk).transpose(1, 2) * (dk ** -0.5)
+        k = k.reshape(B, T, H, dk).transpose(1, 2)
+        v = v.reshape(B, T, H, dk).transpose(1, 2)
+        scores = torch.where(mask[:, None, None, :], q @ k.transpose(-1, -2),
+                             torch.full((), -1e9, dtype=x.dtype,
+                                        device=x.device))
+        p = _drop(torch.softmax(scores, dim=-1), self.attention_dropout,
+                  train, generator)
+        out = self.out_proj((p @ v).transpose(1, 2).reshape(B, T, E))
+        x = (x + _drop(out, self.dropout, train, generator)) * fmask
+        h = self.ffn_1(self.norm_2(x).transpose(1, 2)).transpose(1, 2)
+        h = F.gelu(h * (self.kernel_size ** -0.5))
+        h = self.ffn_2(_drop(h, self.relu_dropout, train, generator))
+        return (x + _drop(h, self.dropout, train, generator)) * fmask
+
+
+class FFTBlocksEncoder(BaseModel):
+    """FastSpeech2 FFT-block encoder: an optional phoneme-context
+    embedding, an optional reduction by ``reduction_factor`` (a depthwise
+    strided conv, or every r-th frame), ``fc``, the reversed positional
+    encoding scaled by a learnable ``pos_embed_alpha``, ``num_layers``
+    ``_FFTBlock``s, an optional last LayerNorm and, unless ``out_dim`` is
+    None (a condition encoder's hidden states), ``fc_out`` back to r
+    frames of ``out_dim``.  ``ffn_kernel_size`` overrides ``kernel_size``;
+    only LayerNorm blocks (``norm="ln"``) exist."""
+
+    FLAX_LEAVES = ("pos_embed_alpha",)
+
+    def __init__(self, in_dim: int, hidden_dim: int = 256,
+                 out_dim: Optional[int] = None, num_layers: int = 4,
+                 num_heads: int = 2, kernel_size: int = 9,
+                 ffn_kernel_size: Optional[int] = None, norm: str = "ln",
+                 dropout: float = 0.1, use_pos_embed: bool = True,
+                 use_last_norm: bool = True,
+                 use_pos_embed_alpha: bool = True,
+                 reduction_factor: int = 1, downsample_by_conv: bool = True,
+                 in_ph_start_idx: int = 1, in_ph_end_idx: int = 50,
+                 embed_dim: Optional[int] = None):
+        super().__init__()
+        if norm != "ln":
+            raise ValueError("only LayerNorm FFT blocks are supported")
+        self.hidden_dim, self.out_dim = hidden_dim, out_dim
+        self.dropout = dropout
+        self.use_pos_embed = use_pos_embed
+        self.use_last_norm = use_last_norm
+        self.reduction_factor = r = reduction_factor
+        self.downsample_by_conv = downsample_by_conv
+        width = in_dim
+        self.PhonemeContextEmbedding_0 = None
+        if embed_dim is not None:
+            self.PhonemeContextEmbedding_0 = layers.PhonemeContextEmbedding(
+                in_dim, embed_dim, in_ph_start_idx, in_ph_end_idx)
+            width = embed_dim
+        self.Conv_0 = (nn.Conv1d(width, width, r, stride=r, groups=width)
+                       if r > 1 and downsample_by_conv else None)
+        self.fc = nn.Linear(width, hidden_dim)
+        self.pos_embed_alpha = (nn.Parameter(torch.ones(1))
+                                if use_pos_embed and use_pos_embed_alpha
+                                else None)
+        self.num_layers = num_layers
+        k = ffn_kernel_size if ffn_kernel_size is not None else kernel_size
+        for i in range(num_layers):
+            setattr(self, f"_FFTBlock_{i}",
+                    _FFTBlock(hidden_dim, num_heads, k, dropout))
+        self.layer_norm = (nn.LayerNorm(hidden_dim, eps=1e-5)
+                           if use_last_norm else None)
+        self.fc_out = (nn.Linear(hidden_dim, out_dim * r)
+                       if out_dim is not None else None)
+
+    def forward(self, x, lengths=None, y=None, spk_embs=None,
+                train: bool = False, generator=None):
+        """x (B, T, in_dim) -> hidden states (B, T // r, hidden_dim), or
+        (B, T // r * r, out_dim) with ``out_dim``.  Dropout masks in
+        training come from ``generator``.  Speaker embeddings (the JAX
+        encoder's ``spk_fc``, which only the multi-speaker models use)
+        raise."""
+        if spk_embs is not None:
+            raise ValueError("FFTBlocksEncoder takes no speaker embeddings "
+                             "in the port (the multi-speaker models are "
+                             "not ported)")
+        B, T = x.shape[0], x.shape[1]
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int64, device=x.device)
+        lengths = torch.as_tensor(lengths, device=x.device)
+        if self.PhonemeContextEmbedding_0 is not None:
+            x = self.PhonemeContextEmbedding_0(x)
+        r = self.reduction_factor
+        if r > 1:
+            lengths = lengths // r
+            if self.Conv_0 is not None:
+                x = self.Conv_0(x.transpose(1, 2)).transpose(1, 2)
+            else:
+                x = x[:, r - 1:: r]
+        h = self.fc(x)
+        T2 = h.shape[1]
+        mask = (torch.arange(T2, device=x.device)[None, :]
+                < lengths[:, None])
+        fmask = mask[:, :, None].to(h.dtype)
+        if self.use_pos_embed:
+            pe = rel_positional_encoding(T2, self.hidden_dim,
+                                         device=x.device).to(h.dtype)
+            alpha = (self.pos_embed_alpha if self.pos_embed_alpha is not None
+                     else 1.0)
+            h = h + alpha * (h * math.sqrt(self.hidden_dim) + pe)
+            h = _drop(h, self.dropout, train, generator)
+        h = h * fmask
+        for i in range(self.num_layers):
+            h = getattr(self, f"_FFTBlock_{i}")(h, mask, train, generator)
+        if self.layer_norm is not None:
+            h = self.layer_norm(h) * fmask
+        if self.fc_out is None:
+            return h
+        return self.fc_out(h).reshape(B, -1, self.out_dim)
+
+    def inference(self, x, lengths=None):
+        return self(x, lengths)
+
+
+def _conv_ln_relu_stack(model, h, first: int, n: int, train: bool,
+                        generator, drop: bool = True):
+    """Layers ``first`` .. ``first + n - 1`` of ``Conv_i`` ("SAME") ->
+    ReLU -> ``LayerNorm_i`` (eps 1e-5), each followed by dropout in
+    training where ``drop``."""
+    for i in range(first, first + n):
+        conv = getattr(model, f"Conv_{i}")
+        h = torch.relu(conv(h.transpose(1, 2)).transpose(1, 2))
+        h = getattr(model, f"LayerNorm_{i}")(h)
+        if drop:
+            h = _drop(h, model.dropout, train, generator)
+    return h
+
+
+def _add_conv_ln(model, first: int, n: int, in_dim: int, hidden_dim: int,
+                 kernel_size: int):
+    for i in range(first, first + n):
+        setattr(model, f"Conv_{i}",
+                nn.Conv1d(in_dim if i == first else hidden_dim, hidden_dim,
+                          kernel_size, padding="same"))
+        setattr(model, f"LayerNorm_{i}", nn.LayerNorm(hidden_dim, eps=1e-5))
+
+
+class PitchPredictor(BaseModel):
+    """Conv stack over mel frames -> (lf0, V/UV logit): ``num_layers`` x
+    (conv, ReLU, LayerNorm, dropout), then ``Dense_0`` and ``Dense_1``.
+    ``inference`` gives [lf0 | sigmoid(V/UV)]."""
+
+    def __init__(self, in_dim: int = 80, hidden_dim: int = 256,
+                 num_layers: int = 5, kernel_size: int = 5,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.num_layers, self.dropout = num_layers, dropout
+        _add_conv_ln(self, 0, num_layers, in_dim, hidden_dim, kernel_size)
+        self.Dense_0 = nn.Linear(hidden_dim, 1)
+        self.Dense_1 = nn.Linear(hidden_dim, 1)
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                generator=None):
+        h = _conv_ln_relu_stack(self, x, 0, self.num_layers, train,
+                                generator)
+        return self.Dense_0(h), self.Dense_1(h)
+
+    def inference(self, x, lengths=None):
+        lf0, vuv = self(x, lengths)
+        return torch.cat([lf0, torch.sigmoid(vuv)], dim=-1)
+
+
+class PitchExtractor(BaseModel):
+    """Mel -> F0: a conv prenet (``prenet_layers`` x conv, ReLU,
+    LayerNorm) and ``Dense_0``, a residual conv encoder (``conv_layers``
+    x conv, ReLU, LayerNorm, dropout, + input), then a
+    ``PitchPredictor``.  The head predicts log2 F0; ``inference`` gives the
+    natural-log lf0, 0 where the V/UV logit is positive."""
+
+    def __init__(self, in_dim: int = 80, hidden_dim: int = 256,
+                 prenet_layers: int = 3, conv_layers: int = 2,
+                 predictor_layers: int = 5, kernel_size: int = 5,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.prenet_layers, self.conv_layers = prenet_layers, conv_layers
+        self.dropout = dropout
+        _add_conv_ln(self, 0, prenet_layers, in_dim, hidden_dim, kernel_size)
+        self.Dense_0 = nn.Linear(hidden_dim, hidden_dim)
+        for i in range(prenet_layers, prenet_layers + conv_layers):
+            _add_conv_ln(self, i, 1, hidden_dim, hidden_dim, kernel_size)
+        self.PitchPredictor_0 = PitchPredictor(
+            hidden_dim, hidden_dim, predictor_layers, kernel_size, dropout)
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                generator=None):
+        h = _conv_ln_relu_stack(self, x, 0, self.prenet_layers, train,
+                                generator, drop=False)
+        h = self.Dense_0(h)
+        for i in range(self.prenet_layers,
+                       self.prenet_layers + self.conv_layers):
+            h = _conv_ln_relu_stack(self, h, i, 1, train, generator) + h
+        return self.PitchPredictor_0(h, lengths, train=train,
+                                     generator=generator)
+
+    def inference(self, x, lengths=None):
+        lf0, vuv = self(x, lengths)
+        return torch.where(vuv <= 0, lf0 * math.log(2.0),
+                           torch.zeros((), dtype=lf0.dtype,
+                                       device=lf0.device))
+
+
+def unported_model(name: str):
     """A ``_target_`` the port does not have: building it raises
     ``NotImplementedError`` naming the JAX module."""
     def refuse(*args, **kwargs):
@@ -456,7 +750,5 @@ def _unported(name: str):
     return refuse
 
 
-MultiSpeakerGaussianDiffusion = _unported("MultiSpeakerGaussianDiffusion")
-FFTBlocksEncoder = _unported("FFTBlocksEncoder")
-PitchPredictor = _unported("PitchPredictor")
-PitchExtractor = _unported("PitchExtractor")
+MultiSpeakerGaussianDiffusion = unported_model(
+    "MultiSpeakerGaussianDiffusion")

@@ -1,8 +1,9 @@
 """Postfilters (counterparts in
 ``ensemble_svs_with_interactions_tpu/models/postfilters.py``): the host
 GV postfilter and the learned conv postfilters that a recipe packs as
-``postfilter_model`` (``Conv2dPostFilter`` and the ``MultistreamPostFilter``
-that ``bin/merge_postfilters.py`` writes).
+``postfilter_model`` (``Conv2dPostFilter``, the ``MultistreamPostFilter``
+that ``bin/merge_postfilters.py`` writes, and the mel voices'
+``MelF0MultistreamPostFilter``).
 
 The conv postfilter takes (B, T, D) features and runs its convolutions on
 NCHW images (B, C, T, D); its submodules carry the flax scope names
@@ -19,8 +20,6 @@ channels in TF32 sits about 1e-3 from float32.
 ``MultistreamConv2dPostFilter`` splits the mel-cepstrum into low, mid and
 high bands that overlap by the kernel's half width, each through its own
 reflection-padded conv stack (``_PadConv2dPostFilter``).
-``MelF0MultistreamPostFilter`` is not ported: building it raises
-``NotImplementedError`` naming its module.
 """
 
 from __future__ import annotations
@@ -208,18 +207,48 @@ class MultistreamPostFilter(BaseModel):
                     generator=generator)
 
 
-def _refuse(name: str):
-    from ensemble_svs_with_interactions_tpu_torch import gen
+class MelF0MultistreamPostFilter(BaseModel):
+    """The mel voices' postfilter: mel (past its first ``mel_offset``
+    dims) and lf0 each through their own postfilter where one is given,
+    V/UV untouched.  Noise is drawn in the order mel, lf0, from one
+    generator; ``noise`` may give it per stream as ``{"mel": ...,
+    "lf0": ...}``."""
 
-    raise gen.unported(name, f"a packed {name}")
-
-
-class MelF0MultistreamPostFilter(nn.Module):
-    """Not ported: building it raises ``NotImplementedError``."""
-
-    def __init__(self, *args, **kwargs):
+    def __init__(self, mel_postfilter: Optional[nn.Module] = None,
+                 lf0_postfilter: Optional[nn.Module] = None,
+                 stream_sizes: Sequence[int] = (80, 1, 1),
+                 mel_offset: int = 0):
         super().__init__()
-        _refuse("MelF0MultistreamPostFilter")
+        if len(stream_sizes) != 3:
+            raise ValueError(f"unsupported streams: {len(stream_sizes)}")
+        self.stream_sizes = [int(s) for s in stream_sizes]
+        self.mel_offset = mel_offset
+        self.mel_postfilter = mel_postfilter
+        self.lf0_postfilter = lf0_postfilter
+        for pf, dim in ((mel_postfilter, self.stream_sizes[0] - mel_offset),
+                        (lf0_postfilter, self.stream_sizes[1])):
+            if pf is not None and hasattr(pf, "set_in_dim"):
+                pf.set_in_dim(dim)
+
+    def forward(self, x, lengths=None, y=None, train: bool = False,
+                is_inference: bool = False, noise=None, generator=None):
+        noise = noise or {}
+
+        def run(name, s):
+            pf = getattr(self, f"{name}_postfilter")
+            if pf is None:
+                return s
+            return pf(s, lengths, train=train, is_inference=is_inference,
+                      noise=noise.get(name), generator=generator)
+
+        mel, lf0, vuv = torch.split(x, self.stream_sizes, dim=-1)
+        off = self.mel_offset
+        mel = torch.cat([mel[..., :off], run("mel", mel[..., off:])], dim=-1)
+        return torch.cat([mel, run("lf0", lf0), vuv], dim=-1)
+
+    def inference(self, x, lengths=None, noise=None, generator=None):
+        return self(x, lengths, is_inference=True, noise=noise,
+                    generator=generator)
 
 
 def _reflect_pad2d(x, top: int, bottom: int, left: int, right: int):

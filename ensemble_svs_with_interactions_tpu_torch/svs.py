@@ -601,7 +601,8 @@ class SPSVS:
     def _coded(self, streams_list) -> bool:
         """Coded WORLD streams (the codec on, band aperiodicity), which the
         batched coded-stream vocoder takes."""
-        return (self.config.get("use_world_codec", True)
+        return (self.feature_type == "world"
+                and self.config.get("use_world_codec", True)
                 and streams_list[0][3].shape[-1] <= 5)
 
     def _stream_batch(self, streams_list):

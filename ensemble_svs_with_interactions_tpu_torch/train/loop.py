@@ -279,8 +279,10 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
     optimizer and scheduler in place and returns ``{"Loss", "Loss_Feats",
     "Loss_Pitch", "GradNorm"}`` as floats.  The feature loss follows the
     prediction type: the multistream loss over streams (each stage of a
-    Post-Net refinement list summed), the masked MDN NLL, or the criterion
-    (each refinement stage summed); ``pitch_reg_weight`` weighs the L1 of
+    Post-Net refinement list summed), the masked MDN NLL, the criterion
+    between a diffusion or flow-matching decoder's drawn target and its
+    prediction (``(noise, x_recon)``), or the criterion (each refinement
+    stage summed); ``pitch_reg_weight`` weighs the L1 of
     the residual lf0 of a model that predicts one.  Clipping, the NaN-skip
     and ``use_amp`` as in ``train.multitrack``'s steps.
     ``eval_step(batch)`` returns (metrics without ``GradNorm``, the
@@ -319,6 +321,9 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
                                       stream_sizes, **kw)
         if prediction_type == PredictionType.PROBABILISTIC:
             return L.mdn_stream_loss(pred_out, out_feats, mask)
+        if prediction_type == PredictionType.DIFFUSION:
+            noise, x_recon = pred_out
+            return L.feats_criterion(x_recon, noise, mask, feats_criterion)
         preds = pred_out if isinstance(pred_out, list) else [pred_out]
         return sum(L.feats_criterion(p, out_feats, mask, feats_criterion)
                    for p in preds)

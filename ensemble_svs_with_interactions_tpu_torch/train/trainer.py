@@ -214,7 +214,11 @@ def run_epochs(config: Config, out_dir, logger, device, batches, pitch_reg,
 
 def _point(module, pred_out, stream_sizes):
     """The dev prediction reduced to a point estimate (MDN mu) for the
-    distortions; a refinement list scores its last stage."""
+    distortions; a refinement list scores its last stage.  A bare
+    diffusion or flow-matching decoder's (drawn target, prediction) pair
+    has none: None."""
+    if module.prediction_type() == PredictionType.DIFFUSION:
+        return None
     if L.is_refinement_list(pred_out, stream_sizes):
         pred_out = pred_out[-1]
     if not isinstance(pred_out, (tuple, list)):
@@ -312,7 +316,7 @@ def train_model(config: Config, is_acoustic: bool = False,
             return train_step(b, generator), None
         metrics, pred_out = eval_step(b)
         pred = _point(module, pred_out, stream_sizes)
-        if (is_acoustic and out_scaler is not None
+        if (is_acoustic and out_scaler is not None and pred is not None
                 and pred.shape[-1] == sum(stream_sizes)):
             metrics.update(dev_distortions(
                 config, out_dir, epoch, pred, batch["out_feats"],

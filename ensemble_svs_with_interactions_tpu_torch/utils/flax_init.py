@@ -9,8 +9,10 @@ uses at the same scope path, from one ``torch.Generator``, and writes the
 draws back (``flax_port.flax_to_torch``).  The schemes:
 
 * ``bias`` zeros, ``scale`` ones (a LayerNorm's, and ``nn.WeightNorm``'s
-  ``Conv_{k}/kernel/scale``), batch statistics ``mean`` zeros and ``var``
-  ones;
+  ``Conv_{k}/kernel/scale``), the FFT encoder's ``pos_embed_alpha``
+  ones, batch statistics ``mean`` zeros and ``var`` ones;
+* the FFT blocks' attention projections ``in_proj`` and ``out_proj``
+  ``glorot_uniform``;
 * the hn-uSFGAN ``PeriodicityEstimator``'s last conv kernel
   ``normal(1e-4)``, so its gates start near one half;
 * LSTM cells (``OptimizedLSTMCell``): the input kernels ``i{i,f,g,o}``
@@ -101,6 +103,13 @@ def _variance_scaling(shape, scale, mode, gen, truncated=True, fans=None):
     return _normal(shape, std, gen)
 
 
+def _glorot_uniform(shape, gen):
+    fan_in, fan_out = _fans(shape)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(shape, generator=gen, dtype=torch.float64)
+    return ((2.0 * u - 1.0) * limit).float()
+
+
 def _orthogonal(shape, scale, gen):
     """Orthogonal rows or columns over the last axis, as
     ``jax.nn.initializers.orthogonal``: the Q of a normal matrix's QR with
@@ -135,7 +144,8 @@ def _draw(path, shape, modules: Dict[str, nn.Module], gen):
     leaf = path[-1]
     if leaf == "bias":
         return torch.zeros(shape)
-    if leaf == "scale" or leaf.endswith("/kernel/scale"):
+    if (leaf in ("scale", "pos_embed_alpha")
+            or leaf.endswith("/kernel/scale")):
         return torch.ones(shape)
     if len(path) >= 2 and re.fullmatch(r"[ih][ifgo]", path[-2]):
         if path[-2][0] == "h":
@@ -153,6 +163,9 @@ def _draw(path, shape, modules: Dict[str, nn.Module], gen):
         if (type(parent).__name__ == "PeriodicityEstimator"
                 and owner[-1] == f"conv{parent.n - 1}"):
             return _normal(shape, _GATE_STD, gen)
+        if (type(parent).__name__ == "_FFTBlock"
+                and owner[-1] in ("in_proj", "out_proj")):
+            return _glorot_uniform(shape, gen)
         pattern = INIT_TYPE_LAYERS.get(type(parent).__name__)
         if pattern and re.fullmatch(pattern, owner[-1]):
             return _kernel(getattr(parent, "init_type", "none"), shape, gen)

@@ -25,7 +25,9 @@ module converts its flax subtree to torch layouts:
   flax ``OptimizedLSTMCell`` keeps per-gate Dense kernels, ``i{i,f,g,o}``
   on the input path and ``h{i,f,g,o}`` on the recurrent path, which also
   carries the bias; they concatenate, in gate order i, f, g, o, into
-  ``w_x (C, 4H)``, ``w_h (H, 4H)`` and ``b (4H,)``.
+  ``w_x (C, 4H)``, ``w_h (H, 4H)`` and ``b (4H,)``;
+* a module's own parameters named in its ``FLAX_LEAVES`` (the FFT
+  encoder's ``pos_embed_alpha``) <- the flax leaf of the same name.
 
 Every flax leaf must be consumed and every torch parameter and buffer set,
 or ``flax_to_torch`` raises.  ``torch_to_flax`` is its inverse: it splits
@@ -111,7 +113,17 @@ def _convert(module, p, s):
                 + [f"{prefix}h{g}/{k}" for g in _GATES
                    for k in ("kernel", "bias")])
         return {"w_x": _t(w_x), "w_h": _t(w_h), "b": _t(b)}, used, []
+    leaves = [k for k in _flax_leaves(module) if k in p]
+    if leaves:
+        return {k: _t(p[k]) for k in leaves}, leaves, []
     return None
+
+
+def _flax_leaves(module):
+    """The module's own parameters that flax keeps as leaves of the same
+    name (``FLAX_LEAVES``, those that exist)."""
+    return [k for k in getattr(module, "FLAX_LEAVES", ())
+            if getattr(module, k, None) is not None]
 
 
 def _subtree(tree: Dict, path):
@@ -224,6 +236,9 @@ def _to_flax(module):
         if isinstance(module, _MaskedLSTMLayer):
             cell = {"OptimizedLSTMCell_0": cell}
         return cell, {}, ["w_x", "w_h", "b"]
+    leaves = _flax_leaves(module)
+    if leaves:
+        return {k: _n(getattr(module, k)) for k in leaves}, {}, leaves
     return None
 
 

@@ -327,6 +327,15 @@ def test_weights_round_trip():
                                   "FFTBlocksEncoder", "PitchPredictor",
                                   "PitchExtractor"])
 def test_unported_diffsinger_modules_raise(name):
+    """A module of ``models/diffsinger.py`` that ``gen.UNPORTED`` names
+    raises, naming it; the others build (``tests/test_torch_mel_models.py``
+    holds them against JAX)."""
+    from ensemble_svs_with_interactions_tpu_torch import gen
+
+    node = {"_target_": f"{PKG}.diffsinger.{name}", "in_dim": 4}
+    if name not in gen.UNPORTED:
+        assert type(instantiate(node)).__name__ == name
+        return
     with pytest.raises(NotImplementedError,
                        match=f"models/diffsinger.py \\({name}\\)"):
-        instantiate({"_target_": f"{PKG}.diffsinger.{name}", "in_dim": 4})
+        instantiate(node)

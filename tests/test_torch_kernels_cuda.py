@@ -96,6 +96,9 @@ def _inputs(cuda, B, T, H, seed):
     # length at every serving width, and an odd length whose xw starts
     # off a 16-byte boundary (MISALIGNED)
     *[(1, 6656, H) for H in (62, 64, 256, 512)], *sorted(MISALIGNED),
+    # the mel voice's svs(): its DDPM's condition encoder at H = 128 over
+    # the fixture (the group kernel at one row), and an odd length
+    (1, 6656, 128), (1, 6653, 128),
 ])
 def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
     xw, w_h, _ = _inputs(cuda, B, T, H, B * 1000 + H)
@@ -289,6 +292,9 @@ def test_dwh_kernel_is_deterministic(cuda, B, T, H):
     (1, 1, 8), (5, 37, 8), (3, 20, 62), (9, 41, 100),
     *[(4, 200, H) for H in FLAGSHIP_H],
     *[(B, 256, H) for B in (64, 67) for H in FLAGSHIP_H],
+    # the mel voice's train step: 4 crops of 256 frames through the
+    # biLSTMs at H = 64 and 128, the AR lf0 cell (256) over 256 / 4 steps
+    (4, 256, 64), (4, 256, 128), (4, 64, 256),
 ])
 def test_lstm_bptt_and_dwh_kernels_match_plain(cuda, B, T, H):
     xw, w_h, dy = _inputs(cuda, B, T, H, B * 7 + H)

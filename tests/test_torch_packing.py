@@ -472,14 +472,32 @@ def _write_band_split(model_dir):
                                                np.ones(8)))
 
 
+def _write_mel_postfilter(model_dir):
+    """A tiny packed mel postfilter (its mel stream through a frame-wise
+    ``Conv2dPostFilter``) and its out scaler, by the port's
+    ``save_model_phase``."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.packing import (
+        save_model_phase,
+    )
+
+    cfg = {"netG": {"_target_": f"{_PF}.MelF0MultistreamPostFilter",
+                    "stream_sizes": [4, 1, 1], "lf0_postfilter": None,
+                    "mel_postfilter": {
+                        "_target_": f"{_PF}.Conv2dPostFilter",
+                        "channels": 2, "kernel_size": [3, 3],
+                        "noise_type": "frame_wise"}}}
+    save_model_phase(model_dir, "postfilter", cfg,
+                     torch_to_flax(instantiate(cfg["netG"])),
+                     out_scaler=StandardScaler(np.zeros(6), np.ones(6),
+                                               np.ones(6)))
+
+
 # part -> (phase, its yaml text or a writer of the whole phase, what the
 # port raises; None: the port loads it, as the JAX package does)
 UNPORTED_PARTS = {
     "vocoder": ("vocoder", _write_vocoder, None),
-    "MelF0MultistreamPostFilter": (
-        "postfilter", f"netG:\n  _target_: {_PF}.MelF0MultistreamPostFilter\n"
-        "  mel_postfilter: null\n  lf0_postfilter: null\n",
-        r"models/postfilters\.py \(MelF0MultistreamPostFilter\)"),
+    "MelF0MultistreamPostFilter": ("postfilter", _write_mel_postfilter,
+                                   None),
     "MultistreamConv2dPostFilter": ("postfilter", _write_band_split, None),
 }
 
@@ -487,9 +505,9 @@ UNPORTED_PARTS = {
 @pytest.mark.parametrize("part", sorted(UNPORTED_PARTS))
 def test_unported_packed_models_raise(dirs, tmp_path, part):
     """The JAX package loads a packed neural vocoder, and a mel or
-    band-split learned postfilter.  The port loads the vocoder and the
-    band-split postfilter too; it refuses a directory with the mel
-    postfilter, naming the JAX module, rather than ignore it."""
+    band-split learned postfilter; so does the port, each as its own
+    class.  (A part the port had not ported would raise, naming the JAX
+    module, rather than be ignored.)"""
     d, _ = dirs
     model_dir = tmp_path / "packed"
     shutil.copytree(d["jax"], model_dir)

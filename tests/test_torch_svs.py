@@ -361,8 +361,8 @@ def test_instantiate_maps_jax_targets_to_port():
 
 def test_port_imports_no_jax():
     """The port (the serving path with its packed-directory reader and
-    writer, the neural vocoders and their training, the diffusion models
-    and the NPSS cascade, the train steps,
+    writer, the neural vocoders and their training, the diffusion and
+    flow-matching models and the NPSS cascade, the train steps,
     the trainers with their datasets, metrics, renders, initializers and
     CLIs, the recipe's data stages -1 to 2 with the native WORLD analysis,
     their CLIs, the recipe runner with stages 3-7, 10 and 11, the
@@ -392,6 +392,8 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.models.acoustic"
         ".npss\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.diffsinger\n"
+        "import ensemble_svs_with_interactions_tpu_torch.models"
+        ".flow_matching\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.vocoders\n"
         "import ensemble_svs_with_interactions_tpu_torch.train.vocoder\n"
         "import ensemble_svs_with_interactions_tpu_torch.train"

@@ -229,8 +229,10 @@ def test_subtrack_config_serves_the_same_audio(engines, packed):
 def test_pack_naming_an_unported_diffsinger_module_raises(packed, tmp_path,
                                                           name, where):
     """``SPSVS(model_dir)`` refuses a pack whose acoustic model names a
-    module of ``models/diffsinger.py`` that the port has not ported,
-    naming it."""
+    module of ``models/diffsinger.py`` that the port has not ported
+    (``gen.UNPORTED``), naming it; one it has ported is built (from its
+    defaults), and the pack's weights, which are another module's, fail
+    the loader's check."""
     import shutil
 
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
@@ -246,7 +248,15 @@ def test_pack_naming_an_unported_diffsinger_module_raises(packed, tmp_path,
         node = node[key]
     node["_target_"] = (
         f"ensemble_svs_with_interactions_tpu.models.diffsinger.{name}")
+    if name not in gen.UNPORTED:
+        # the ported module from its own defaults
+        for key in set(node) - {"_target_", "in_dim"}:
+            del node[key]
     save_config(cfg, path)
+    if name not in gen.UNPORTED:
+        with pytest.raises(ValueError, match="unmatched|torch .* vs flax"):
+            SPSVS(tmp_path / "pack", device="cpu")
+        return
     with pytest.raises(NotImplementedError,
                        match=f"models/diffsinger.py \\({name}\\)"):
         SPSVS(tmp_path / "pack", device="cpu")

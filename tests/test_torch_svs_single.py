@@ -419,8 +419,9 @@ def _streams(n_streams):
 
 
 # case -> (call, what it raises): a neural vocoder type on a pack with no
-# packed vocoder raises ValueError, as the JAX engine does; unported
-# options raise NotImplementedError naming their JAX module
+# packed vocoder, and mel features on the WORLD vocoder, raise ValueError,
+# as the JAX engine does; unported options raise NotImplementedError
+# naming their JAX module
 REFUSED = {
     "pwg": (lambda e: e.svs(_short_labels(hts), vocoder_type="pwg"),
             (ValueError, "packed neural vocoder")),
@@ -428,7 +429,8 @@ REFUSED = {
                (ValueError, "packed neural vocoder")),
     "melf0": (lambda e: gen.predict_waveform(
         (np.zeros((40, 80)), np.zeros((40, 1)), np.ones((40, 1))),
-        feature_type="melf0", device="cpu"), "models/vocoders/"),
+        feature_type="melf0", device="cpu"),
+        (ValueError, "invalid feature type for WORLD vocoder")),
     "vibrato_stream": (lambda e: gen.gen_spsvs_static_features(
         None, _streams(5), e.binary_dict, e.numeric_dict, [8, 1, 1, 3, 2],
         [False] * 5, num_windows=1, linguistic_features=np.zeros((40, 86))),

@@ -364,11 +364,13 @@ def test_load_wav_matches_jax(tmp_path, kind, target):
 
 
 def test_melf0_features_are_refused():
+    """The WORLD source refuses mel features, pointing at the mel source,
+    as the JAX package's does."""
     from ensemble_svs_with_interactions_tpu_torch.utils import (
         packaged_question_path,
     )
 
-    with pytest.raises(NotImplementedError, match="MelF0AcousticSource"):
+    with pytest.raises(ValueError, match="MelF0 source"):
         ds.WORLDAcousticSource("u.list", "w", "l", packaged_question_path(),
                                feature_type="melf0")
     with pytest.raises(ValueError):
