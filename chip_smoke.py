@@ -111,7 +111,7 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    memory; one ``svs()`` of the single-track voice with the same vocoder
    and one flagship pair, both with ``"auto"``;
 6j. ``vocoder_reference``: the same pack on the CPU against the card over
-   the first 60 labels as a pair's main track: identical streams into
+   the first VOCODER_REF_LABELS labels as a pair's main track: identical streams into
    both ``predict_waveform``s, the generator's output within
    VOCODER_RTOL of its peak and the waveform at VOCODER_SNR_DB; the PWG,
    SiFiGAN, HiFiGAN and a narrowed hn-uSFGAN generator card against CPU;
@@ -233,6 +233,18 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     (launches MEL_STEP_LAUNCHES a step and dev batch); one train step of
     it and of ``acoustic_diffusion_melf0.yaml`` and
     ``acoustic_flowmatching_melf0.yaml`` card against CPU;
+11g. ``multi_speaker``: the multi-speaker voice (the JAX package's
+    ``configs/acoustic/multi_speaker_acoustic_multistream_ar_f0.yaml`` at
+    its widths): the train step's kernels at its new shapes
+    (MULTI_SPEAKER_NEW_SHAPES, B = 4) against their plain versions; one
+    train step of it (float32, AMP) and of each ZOO_STEP_CONFIGS model
+    card against CPU; ``bin/train_acoustic_multi.py`` on a synthetic
+    three-singer corpus from a fixed start (launches
+    MULTI_SPEAKER_STEP_LAUNCHES a step and dev batch); the checkpoint
+    packed and two speakers rendered over the fixture through
+    ``gen.predict_acoustic(spk=k)``, the host postprocess and WORLD, the
+    launch counts by width reset just before and read just after each
+    (MULTI_SPEAKER_LAUNCHES_BY_HIDDEN), each against the CPU (SNR);
 12. a ``kernels`` line, the card line, and last ``{"ok": true, ...}``.
 
 ``bench_cuda.py`` and ``bench_train_cuda.py`` share this file's flagship
@@ -292,6 +304,13 @@ AR_ABS_ATOL = 5e-4
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 GRAD_SCALE_FLOOR = 1e-4
+# the relative change of the weights (seeded, normal) by which a step's
+# kinks are measured where they answer rounding: the flax-scheme
+# multi-speaker voice's float32 step has ReLUs near zero whose flips move
+# its decoders' conv-stack gradients by up to 3.4% of their scale (the
+# card's cuDNN-off step parts from the CPU's by as much); at 1e-5 every
+# such gradient moves, the kink-free ones by under 2e-4 of their scale
+NUDGE_RTOL = 1e-5
 TRAIN_STATS_ATOL = 1e-4
 # the AMP arm (bf16 forward and backward over float32 masters, the LSTM
 # recurrences float32): one step at REF_B, card against CPU, dropout off.
@@ -746,6 +765,78 @@ def diffusion_phases(tiny: bool = False, subtrack: bool = False,
     phases["acoustic"] = (diffusion_acoustic_config(tiny, subtrack, k_step),
                           sc_in, sc_out)
     return glob, phases
+
+
+MULTI_SPEAKER_CONFIG = "acoustic/multi_speaker_acoustic_multistream_ar_f0.yaml"
+
+
+def multi_speaker_acoustic_config(tiny: bool = False) -> dict:
+    """The multi-speaker voice, ``MULTI_SPEAKER_CONFIG`` verbatim (a
+    ``MultiSpeakerMultistreamSeparateF0ParametricModel``: the 512 x 3
+    biLSTM encoder, the AR residual-F0 lf0 decoder, FFConvLSTM mgc / vuv /
+    bap decoders at H = 256 / 64 / 64, a 17 x 256 speaker table), the lf0
+    fields the recipe fills from data set to SINGLE_LF0.  ``tiny=True``
+    narrows every width (TINY; the speaker table to the embedding width)
+    for the CPU tests; the stream layout and the classes stay."""
+    ac = shipped_config(MULTI_SPEAKER_CONFIG)
+    net = ac["netG"]
+    for node in (net, net["lf0_model"]):
+        node.update({k: v for k, v in SINGLE_LF0.items() if node[k] is None})
+    if tiny:
+        w = TINY
+        net["encoder"].update(embed_dim=w["embed"], hidden_dim=w["enc_hidden"],
+                              out_dim=w["enc_out"], num_layers=w["enc_layers"])
+        net["lf0_model"].update(
+            embed_dim=w["embed"], ff_hidden_dim=w["ff"],
+            conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"],
+            decoder_hidden_dim=w["dec"])
+        for k in ("mgc_model", "vuv_model", "bap_model"):
+            net[k].update(in_dim=w["enc_out"] + 2, ff_hidden_dim=w["ff"],
+                          conv_hidden_dim=w["conv"], lstm_hidden_dim=w["lstm"])
+        net["speaker_embedding"]["embedding_dim"] = w["embed"]
+    return ac
+
+
+def multi_speaker_phases(tiny: bool = False):
+    """(global config, {phase: (model_config, in_scaler, out_scaler)}) of
+    the multi-speaker voice: ``multi_speaker_acoustic_config`` with the
+    stock single-track voice's timing models and scalers
+    (``single_phases``)."""
+    glob, phases = single_phases(tiny=tiny)
+    _, sc_in, sc_out = phases["acoustic"]
+    phases["acoustic"] = (multi_speaker_acoustic_config(tiny), sc_in, sc_out)
+    return glob, phases
+
+
+def speaker_acoustic(gen_module, engine, labels, spk):
+    """``gen_module.predict_acoustic`` (the port's ``gen``, or another
+    package's of the same signature) of ``engine``'s acoustic pack on the
+    timed ``labels`` for speaker ``spk``, with the options
+    ``SPSVS.predict_acoustic`` passes: denormalized features (T, D)."""
+    return gen_module.predict_acoustic(
+        labels, engine.acoustic_model, engine.in_acoustic_scaler,
+        engine.out_acoustic_scaler, engine.binary_dict, engine.numeric_dict,
+        subphone_features=engine._subphone_features(),
+        log_f0_conditioning=engine._log_f0_conditioning(),
+        force_clip_input_features=engine._force_clip("acoustic"),
+        frame_period=engine.frame_period, spk=spk)
+
+
+def multi_speaker_trainer_config(corpus, out_dir, model=None, **overrides):
+    """The single-track trainer's config for the multi-speaker voice, as
+    ``bin/train_acoustic_multi.py`` takes it: the recipe's acoustic data
+    and train sections with its ``spk_names`` (``CORPUS_SPKS``, the
+    prefixes ``write_corpus`` gives the files), the corpus's acoustic
+    dumps and out scaler, ``model`` (``multi_speaker_acoustic_config()``
+    by default) and ``overrides`` (dotted keys) over it all."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import merge
+
+    cfg = recipe_phase_config("acoustic", corpus, out_dir, multitrack=False,
+                              **overrides)
+    model = multi_speaker_acoustic_config() if model is None else model
+    return merge({k: v for k, v in cfg.items() if k != "model"},
+                 {"model": model,
+                  "data": {"spk_names": list(CORPUS_SPKS)}})
 
 
 MEL_CONFIG = "acoustic/acoustic_melf0_ar_f0_diff_mel.yaml"
@@ -1278,14 +1369,19 @@ def multitrack_modules(m, dev, xm, xs, spk_ids, sub_ids, lengths,
     from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
         point_estimate,
     )
+    from ensemble_svs_with_interactions_tpu_torch.models.generic import (
+        speaker_embeddings,
+    )
 
     dtype = next(m.parameters()).dtype
     xm = torch.from_numpy(xm).to(dev, dtype)
     xs = torch.from_numpy(xs).to(dev, dtype)
-    T = xm.shape[1]
+    B, T = xm.shape[0], xm.shape[1]
     ln = torch.as_tensor(np.asarray(lengths), device=dev)
-    spk_m = m._expand_spk(torch.as_tensor(spk_ids, device=dev), T)
-    spk_s = m._expand_spk(torch.as_tensor(sub_ids, device=dev), T)
+    spk_m = speaker_embeddings(m.speaker_embedding,
+                               torch.as_tensor(spk_ids, device=dev), B, T)
+    spk_s = speaker_embeddings(m.speaker_embedding,
+                               torch.as_tensor(sub_ids, device=dev), B, T)
     out = {"ar_lf0": point_estimate(m.lf0_model(
         xm, xs, spk_m, spk_s, ln,
         generator=torch.Generator().manual_seed(AR_SEED))[0])}
@@ -2055,14 +2151,19 @@ def diffusion_modules(m, dev, xm, xs, spk_ids, sub_ids, lengths, noise=None,
     from ensemble_svs_with_interactions_tpu_torch.models.diffsinger import (
         chain_noise,
     )
+    from ensemble_svs_with_interactions_tpu_torch.models.generic import (
+        speaker_embeddings,
+    )
 
     dtype = next(m.parameters()).dtype
     xm = torch.from_numpy(xm).to(dev, dtype)
     xs = torch.from_numpy(xs).to(dev, dtype)
-    T = xm.shape[1]
+    B, T = xm.shape[0], xm.shape[1]
     ln = torch.as_tensor(np.asarray(lengths), device=dev)
-    spk_m = m._expand(torch.as_tensor(spk_ids, device=dev), T)
-    spk_s = m._expand(torch.as_tensor(sub_ids, device=dev), T)
+    spk_m = speaker_embeddings(m.speaker_embedding,
+                               torch.as_tensor(spk_ids, device=dev), B, T)
+    spk_s = speaker_embeddings(m.speaker_embedding,
+                               torch.as_tensor(sub_ids, device=dev), B, T)
     with torch.no_grad():
         out = {"ar_lf0": m.lf0_model(
             xm, xs, spk_m, spk_s, ln,
@@ -2187,7 +2288,10 @@ VOCODER_RTOL = 1e-4
 # the waveform through predict_waveform on identical streams, card against
 # CPU (the same host excitation on both)
 VOCODER_SNR_DB = 60.0
-VOCODER_REF_LABELS = 60
+# labels of the fixture the CPU generator renders (about 6.6 s of audio;
+# 60 until the multi-speaker phase joined the script, cut to keep it
+# near 12 minutes)
+VOCODER_REF_LABELS = 30
 # the excitation channels of the recipe's generator: [sine, noise]
 VOCODER_SIGNALS = 2
 VOC = f"{PKG}.models.vocoders"
@@ -3223,12 +3327,17 @@ def phase_train_reference():
     return runs
 
 
-def judge_f32(got, ref, oracle, rtol=TRAIN_GRAD_RTOL):
+def judge_f32(got, ref, oracle, rtol=TRAIN_GRAD_RTOL, nudged=None):
     """{name: {...}} of float32 tensors ``got`` against ``ref``, with the
     same step in float64 as the ``oracle``: each passes within ``rtol`` of
     its scale, max(its largest oracle entry, GRAD_SCALE_FLOOR x the
     largest of any), or where ``got`` is no farther from the oracle than
-    AR_HEADROOM times ``ref`` (the train step's rule above)."""
+    AR_HEADROOM times ``ref`` (the train step's rule above).  With
+    ``nudged`` (``ref``'s step from weights moved by NUDGE_RTOL, a
+    measure of how the step's kinks, ReLUs near zero before training-mode
+    batch norms, answer a change far below the kernels' tolerance), the
+    last clause takes the larger of ``ref``'s distance from the oracle and
+    its distance from ``nudged``."""
     floor = GRAD_SCALE_FLOOR * max(v.abs().max().item()
                                    for v in oracle.values())
     out = {}
@@ -3236,10 +3345,14 @@ def judge_f32(got, ref, oracle, rtol=TRAIN_GRAD_RTOL):
         err = (got[n] - ref[n]).abs().max().item()
         to_oracle = (got[n] - o).abs().max().item()
         ref_to_oracle = (ref[n] - o).abs().max().item()
+        spread = (0.0 if nudged is None
+                  else (nudged[n] - ref[n]).abs().max().item())
         rel = err / max(o.abs().max().item(), floor)
         out[n] = {"rel_of_scale": rel, "to_oracle": to_oracle,
                   "ref_to_oracle": ref_to_oracle,
-                  "ok": rel < rtol or to_oracle <= AR_HEADROOM * ref_to_oracle}
+                  **({} if nudged is None else {"nudge_spread": spread}),
+                  "ok": rel < rtol or to_oracle <= AR_HEADROOM * max(
+                      ref_to_oracle, spread)}
     return out
 
 
@@ -5502,7 +5615,23 @@ def mel_step(cfg, variables, batch, device, dtype=torch.float32,
                      for n, p in module.named_parameters()}
 
 
-def hold_mel_step(cfg, amp: bool = True) -> dict:
+def nudged_variables(variables, seed: int = SEED):
+    """``variables`` with every parameter scaled by 1 + NUDGE_RTOL x a
+    seeded standard normal draw (batch statistics kept)."""
+    rng = np.random.default_rng(seed)
+
+    def nudge(tree):
+        if isinstance(tree, dict):
+            return {k: nudge(v) for k, v in sorted(tree.items())}
+        a = np.asarray(tree)
+        return (a * (1 + NUDGE_RTOL * rng.standard_normal(a.shape))).astype(
+            a.dtype)
+
+    return {**variables, "params": nudge(variables["params"])}
+
+
+def hold_mel_step(cfg, amp: bool = True, batch=None,
+                  nudge: bool = False) -> dict:
     """One full-width train step of ``cfg`` at MEL_TRAIN_B x MEL_TRAIN_T
     on the card against the same step on the CPU, as ``hold_npss_step``
     judges its steps: the float32 gradients by ``judge_amp`` with the
@@ -5510,7 +5639,11 @@ def hold_mel_step(cfg, amp: bool = True) -> dict:
     ``judge_f32``; with ``amp`` the AMP arm by ``judge_amp`` against the
     CPU's AMP step with its float32 step as the oracle; the losses within
     TRAIN_LOSS_RTOL and AMP_LOSS_RTOL.  Dropout stays as configured: both
-    sides draw from one CPU generator."""
+    sides draw from one CPU generator.  ``batch`` (``mel_batch`` of the
+    config's streams by default) may carry the speaker ids ``spks``.
+    ``nudge`` also runs the CPU's float32 step from ``nudged_variables``
+    and lets the strict judge measure the step's kinks by it
+    (``judge_f32``'s ``nudged``)."""
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
         instantiate,
     )
@@ -5520,20 +5653,23 @@ def hold_mel_step(cfg, amp: bool = True) -> dict:
 
     t0 = time.time()
     variables = init_variables(instantiate(cfg["netG"]), seed=SEED)
-    batch = mel_batch(sum(cfg["stream_sizes"]))
+    if batch is None:
+        batch = mel_batch(sum(cfg["stream_sizes"]))
 
-    def step(dev, dtype=torch.float32, use_amp=False):
-        return mel_step(cfg, variables, batch, dev, dtype, use_amp)
+    def step(dev, dtype=torch.float32, use_amp=False, v=variables):
+        return mel_step(cfg, v, batch, dev, dtype, use_amp)
 
     m_gpu, g_gpu = step("cuda")
     with torch.backends.cudnn.flags(enabled=False):
         m_raw, g_raw = step("cuda")
     m_cpu, g_cpu = step("cpu")
     g_64 = step("cpu", torch.float64)[1]
+    g_nudged = step("cpu", v=nudged_variables(variables))[1] if nudge \
+        else None
     rel = lambda a, b: abs(a["Loss"] - b["Loss"]) / abs(b["Loss"])  # noqa
     judged = {"f32": judge_amp(g_gpu, g_cpu, g_64, AMP_GRAD_RTOL,
                                AMP_COS_MIN, AMP_L2_MAX)}
-    strict = judge_f32(g_raw, g_cpu, g_64)
+    strict = judge_f32(g_raw, g_cpu, g_64, nudged=g_nudged)
     worst = max(strict, key=lambda n: strict[n]["rel_of_scale"])
     out = {"B": MEL_TRAIN_B, "T": MEL_TRAIN_T, "params": len(strict),
            "loss": [m_gpu["Loss"], m_cpu["Loss"]],
@@ -5543,6 +5679,10 @@ def hold_mel_step(cfg, amp: bool = True) -> dict:
                "loss_rel_err": rel(m_raw, m_cpu),
                "max_grad_rel_err": strict[worst]["rel_of_scale"],
                "worst_grad": worst,
+               "by_nudge": {n: v for n, v in strict.items() if v["ok"] and
+                            v["rel_of_scale"] >= TRAIN_GRAD_RTOL and
+                            v["to_oracle"] > AR_HEADROOM
+                            * v["ref_to_oracle"]},
                "failed": {n: v for n, v in strict.items() if not v["ok"]}}}
     ok = (np.isfinite(m_gpu["Loss"]) and out["loss_rel_err"] < TRAIN_LOSS_RTOL
           and out["f32_cudnn_off"]["loss_rel_err"] < TRAIN_LOSS_RTOL
@@ -5718,6 +5858,255 @@ def phase_mel_voice(lr, label) -> tuple:
     return launches, rows
 
 
+# the multi-speaker voice (phase 11g): single-direction LSTM recurrences
+# of a gen.predict_acoustic call at B = 1, by width: the encoder (biLSTM
+# 512 x 3), mgc (biLSTM 256 x 2), the lf0 decoder's Sinsy encoder, vuv and
+# bap (biLSTM 64 x 2 each); the AR lf0 cell steps in PyTorch
+MULTI_SPEAKER_LAUNCHES_BY_HIDDEN = {512: 6, 256: 4, 64: 12}
+# a train step's (or teacher-forced dev batch's) runs by (H, T): the same
+# layers over the recipe's 256-frame crops, the AR cell (256) over T / 4
+MULTI_SPEAKER_TRAIN_LAYERS = {(512, MEL_TRAIN_T): 6, (256, MEL_TRAIN_T): 4,
+                              (64, MEL_TRAIN_T): 12,
+                              (256, MEL_TRAIN_T // MEL_R): 1}
+MULTI_SPEAKER_STEP_LAUNCHES = sum(MULTI_SPEAKER_TRAIN_LAYERS.values())  # 23
+# the train shapes no earlier phase holds the kernels at (B = 4)
+MULTI_SPEAKER_NEW_SHAPES = {(512, MEL_TRAIN_T): 6, (64, MEL_TRAIN_T): 12}
+# 3 singers x 3 segments to train on (3 steps of 4 crops), 3 to evaluate
+MULTI_SPEAKER_CORPUS = dict(n_train=3, n_dev=1, frames=(520, 900))
+MULTI_SPEAKER_EPOCHS = 1
+MULTI_SPEAKER_SERVED = (0, 2)   # the speakers rendered (Vo1, ritsu)
+# the rest of the zoo, one train step each at H = 256 card against CPU
+ZOO_STEP_CONFIGS = {
+    "LSTMRNN": {"_target_": f"{PKG}.models.LSTMRNN", "in_dim": 86,
+                "hidden_dim": 256, "out_dim": 67, "num_layers": 2},
+    "RMDN": {"_target_": f"{PKG}.models.RMDN", "in_dim": 86,
+             "hidden_dim": 256, "out_dim": 67, "num_layers": 1,
+             "num_gaussians": 4, "dim_wise": True},
+    "LSTMRNNSAR": {"_target_": f"{PKG}.models.LSTMRNNSAR", "in_dim": 86,
+                   "hidden_dim": 256, "out_dim": 67, "num_layers": 2,
+                   "stream_sizes": [60, 1, 1, 5],
+                   "ar_orders": [20, 200, 20, 20]},
+    "MultiSpeakerFFConvLSTM": {
+        "_target_": f"{PKG}.models.MultiSpeakerFFConvLSTM", "in_dim": 86,
+        "embed_dim": 256, "in_ph_start_idx": 3, "in_ph_end_idx": 50,
+        "ff_hidden_dim": 1024, "conv_hidden_dim": 512,
+        "lstm_hidden_dim": 256, "out_dim": 67, "dropout": 0.1,
+        "speaker_embedding": {"_target_": f"{PKG}.models.SpeakerEmbedding",
+                              "num_embeddings": 17, "embedding_dim": 256}},
+}
+
+
+def speaker_batch(out_dim: int) -> dict:
+    """``mel_batch`` with a speaker id per crop (the trainer's ``spks``)."""
+    return {**mel_batch(out_dim),
+            "spks": np.arange(MEL_TRAIN_B, dtype=np.int64) % len(CORPUS_SPKS)}
+
+
+def write_start(path, cfg):
+    """The flax-scheme initial weights of ``cfg``'s netG (seed SEED) as a
+    trainer checkpoint, ``path / "latest.ckpt"``: a fixed start."""
+    from ensemble_svs_with_interactions_tpu_torch.train.loop import (
+        TrainState,
+        save_checkpoint,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_variables,
+    )
+
+    v = init_variables(instantiate(cfg["model"]["netG"]), seed=SEED)
+    save_checkpoint(path, TrainState(v["params"], v.get("batch_stats", {}),
+                                     {}, 0), 0)
+    return Path(path) / "latest.ckpt"
+
+
+def speaker_render(engine, labels, spk) -> tuple:
+    """One speaker of a single-track multi-speaker pack as ``svs()``'s
+    stages run: ``gen.predict_acoustic(spk=...)`` on the timed ``labels``,
+    the host postprocess and WORLD with the excitation of a CPU generator
+    seeded 0 (the same on every device): (features, streams, waveform,
+    seconds of the acoustic stage)."""
+    from ensemble_svs_with_interactions_tpu_torch import gen
+
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = speaker_acoustic(gen, engine, labels, spk)
+    acoustic_s = time.perf_counter() - t0
+    streams = engine.postprocess_acoustic(feats, labels)
+    hop = int(engine.sample_rate * engine.frame_period / 1000)
+    noise = gen.vocoder_noise(
+        1, gen._round_up(len(streams[1]), gen.FRAME_BUCKET) * hop, "cpu")
+    wav = gen.predict_waveform(
+        streams, sample_rate=engine.sample_rate,
+        frame_period=engine.frame_period, device=engine.device,
+        noise=noise.to(engine.device),
+        use_world_codec=engine.config.get("use_world_codec", True))
+    return feats, streams, wav, acoustic_s
+
+
+def phase_multi_speaker(lr, label) -> tuple:
+    """The multi-speaker voice (phase 11g): the shipped
+    ``MULTI_SPEAKER_CONFIG`` at full width trained by
+    ``bin/train_acoustic_multi.main`` on the card from a fixed start
+    (``write_start``) on a synthetic three-singer corpus (``write_corpus``,
+    ``multi_speaker_trainer_config``: the recipe's ``spk_names``, 4 crops
+    of 256 a batch, the AMP arm as the recipe sets it), the launches
+    counted (MULTI_SPEAKER_STEP_LAUNCHES a train step for each kernel and
+    a dev batch for the forward); one train step of the voice at that
+    batch card against CPU (``hold_mel_step``: float32 and AMP); the
+    kernels held at the new train shapes (MULTI_SPEAKER_NEW_SHAPES); the
+    trained checkpoint packed with the stock timing models and served for
+    MULTI_SPEAKER_SERVED through ``gen.predict_acoustic(spk=k)``, the host
+    postprocess and WORLD over the whole fixture (B = 1), the launches by
+    width counted around each call, each speaker's waveform against the
+    CPU engine's with the same excitation; one step of each of
+    ZOO_STEP_CONFIGS card against CPU (float32).  Returns the launches
+    summed over the trainer run and the calls, and the kernel rows."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import (
+        train_acoustic_multi,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+    from ensemble_svs_with_interactions_tpu_torch.train.loop import (
+        load_checkpoint,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.train.trainer import (
+        load_out_scaler,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+        save_config,
+    )
+
+    t0 = time.time()
+    launches = {n: 0 for n in TRAIN_COUNTERS}
+    rows = {}
+    for (name, H, T, want_c), row in phase_train_kernels(
+            lr, B=MEL_TRAIN_B, shapes=MULTI_SPEAKER_NEW_SHAPES,
+            phase="multi_speaker_train_kernel").items():
+        rows[f"train {name}{'_c' if want_c else ''} H={H} T={T}"] = row
+    voice = multi_speaker_acoustic_config()
+    hold = hold_mel_step(voice, batch=speaker_batch(
+        sum(voice["stream_sizes"])), nudge=True)
+    zoo = {name: hold_mel_step({"netG": net, "stream_sizes": [67]},
+                               amp=False, batch=speaker_batch(67))
+           for name, net in ZOO_STEP_CONFIGS.items()}
+    calls, served = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        corpus = write_corpus(root / "corpus", **MULTI_SPEAKER_CORPUS)
+        cfg = multi_speaker_trainer_config(corpus, root / "exp", **{
+            "train.nepochs": MULTI_SPEAKER_EPOCHS,
+            "data.batch_max_frames": MEL_TRAIN_B * MEL_TRAIN_T})
+        start = write_start(root / "start", cfg)
+        save_config(json.loads(json.dumps(cfg)), root / "train.yaml")
+        for n in TRAIN_COUNTERS:
+            getattr(lr, n).launches = 0
+        t1 = time.perf_counter()
+        rc = train_acoustic_multi.main([
+            str(root / "train.yaml"), f"train.resume.checkpoint={start}"])
+        train_s = time.perf_counter() - t1
+        trained = {n: getattr(lr, n).launches for n in TRAIN_COUNTERS}
+        records = [json.loads(line) for line in
+                   (root / "exp" / "metrics.jsonl").read_text().splitlines()]
+        glob, phases = multi_speaker_phases()
+        weights = random_state_dicts(phases, SEED)
+        module = instantiate(cfg["model"]["netG"])
+        load_checkpoint(root / "exp" / "best_loss.ckpt").restore(module)
+        weights["acoustic"] = module.state_dict()
+        _, sc_in, _ = phases["acoustic"]
+        phases["acoustic"] = (
+            json.loads(json.dumps(cfg["model"])), sc_in,
+            load_out_scaler(corpus / "scalers" / "out_acoustic_scaler"))
+        pack_phases(root / "pack", {**glob, "spk_list": list(CORPUS_SPKS)},
+                    phases, weights)
+        engine = SPSVS(root / "pack")
+        cpu = SPSVS(root / "pack", device="cpu")
+        dm = engine.predict_timing(label.copy())
+        cpu_dm = cpu.predict_timing(label.copy())
+        speaker_render(engine, trim_labels(dm, 2.0), 0)   # warm-up
+        for spk in MULTI_SPEAKER_SERVED:
+            reset_launches(lr)
+            for n in TRAIN_COUNTERS:
+                getattr(lr, n).launches = 0
+            feats, streams, wav, acoustic_s = speaker_render(engine, dm,
+                                                             spk)
+            calls[spk] = {
+                "acoustic_s": acoustic_s, "frames": len(feats),
+                "audio_s": len(wav) / engine.sample_rate,
+                "launches_by_width": dict(
+                    lr.lstm_recurrence.launches_by_width),
+                "launches": {n: getattr(lr, n).launches
+                             for n in TRAIN_COUNTERS}}
+            for n in TRAIN_COUNTERS:
+                launches[n] += calls[spk]["launches"][n]
+            t1 = time.time()
+            ref = speaker_render(cpu, cpu_dm, spk)
+            served[spk] = (feats, streams)
+            calls[spk].update(
+                cpu_s=time.time() - t1,
+                acoustic_err=float(np.abs(feats - ref[0]).max()),
+                stream_err_over_scale={
+                    name: float(np.abs(np.asarray(a, np.float64) - b).max()
+                                / max(np.abs(b).max(), 1e-12))
+                    for name, a, b in zip(("mgc", "lf0", "vuv", "bap"),
+                                          streams, ref[1])},
+                snr_db=snr_db(ref[2], wav),
+                finite_nonzero=bool(np.isfinite(wav).all()
+                                    and np.abs(wav).max() > 0))
+        durations_equal = list(dm.end_times) == list(cpu_dm.end_times)
+        a, b = (served[k][0] for k in MULTI_SPEAKER_SERVED)
+        speakers_differ = float(np.abs(a - b).max())
+        files = sorted(p.name for p in (root / "exp").iterdir())
+    del engine, cpu
+    for n in TRAIN_COUNTERS:
+        launches[n] += trained[n]
+    steps = trained["lstm_bptt"] // MULTI_SPEAKER_STEP_LAUNCHES
+    dev_batches = (trained["lstm_recurrence"] // MULTI_SPEAKER_STEP_LAUNCHES
+                   - steps)
+    emit({"phase": "multi_speaker", "device": "cuda",
+          "config": MULTI_SPEAKER_CONFIG, "spk_names": list(CORPUS_SPKS),
+          "trainer": {"rc": rc, "wall_s": train_s, "steps": steps,
+                      "dev_batches": dev_batches, "launches": trained,
+                      "files": files, "metrics": records},
+          "step_hold": hold, "zoo_step_holds": zoo,
+          "served": calls, "durations_equal": durations_equal,
+          "speakers_max_abs_diff": speakers_differ,
+          "want_launches_by_width": MULTI_SPEAKER_LAUNCHES_BY_HIDDEN,
+          "snr_bound_db": SNR_DB,
+          "kernel_rows": {k: {f: r[f] for f in (
+              "kernel", "B", "T", "H", "max_abs_err", "ms", "us_per_step",
+              "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "loop_bound_ms", "prepass_ms", "prepass_bound_ms",
+              "prepass_library_ms") if f in r} for k, r in rows.items()},
+          "seconds": time.time() - t0})
+    assert rc == 0 and "best_loss.ckpt" in files, (rc, files)
+    assert all(np.isfinite(r.get("train_no_dev/Loss", 0.0))
+               and np.isfinite(r.get("dev/Loss", 0.0)) for r in records)
+    assert trained == {
+        "lstm_recurrence": MULTI_SPEAKER_STEP_LAUNCHES * (steps + dev_batches),
+        "lstm_bptt": MULTI_SPEAKER_STEP_LAUNCHES * steps,
+        "lstm_dwh": MULTI_SPEAKER_STEP_LAUNCHES * steps}, trained
+    assert steps > 0 and dev_batches > 0, (steps, dev_batches)
+    assert hold["ok"], hold
+    for name, h in zoo.items():
+        assert h["ok"], (name, h)
+    assert durations_equal
+    for spk, c in calls.items():
+        assert c["launches_by_width"] == MULTI_SPEAKER_LAUNCHES_BY_HIDDEN, c
+        assert c["launches"]["lstm_bptt"] == c["launches"]["lstm_dwh"] == 0
+        assert c["snr_db"] >= SNR_DB and c["finite_nonzero"], (spk, c)
+    # the speakers part by far more than the card and the CPU do
+    assert speakers_differ > 10 * max(c["acoustic_err"]
+                                      for c in calls.values()), (
+        speakers_differ, calls)
+    assert all(r["max_abs_err"] < KERNEL_ATOL for k, r in rows.items()
+               if "dwh" not in k), rows
+    return launches, rows
+
+
 def _sum_rows(rows, counts, keys):
     """{key: sum of count * row[key]} over rows weighted by counts."""
     return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
@@ -5740,7 +6129,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                  path_launches, train_launches, amp_launches,
                  trainer_launches, trainer_errs, recipe_launches,
                  single_recipe_launches, single_recipe_rows,
-                 npss_launches, npss_rows, mel_launches, mel_rows):
+                 npss_launches, npss_rows, mel_launches, mel_rows,
+                 multi_speaker_launches, multi_speaker_rows):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -5778,6 +6168,10 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     ``mel_voice`` (``mel_launches``), with its rows (the forward at B = 1
     over the fixture at H = 64 and 128, the train step's shapes at B =
     4) under ``mel_voice_rows`` (``phase_mel_voice``; their errors count
+    too), and the multi-speaker voice's trainer run and calls under
+    ``multi_speaker`` (``multi_speaker_launches``), with its rows (the
+    train step's new shapes at B = 4: H = 512 and 64) under
+    ``multi_speaker_rows`` (``phase_multi_speaker``; their errors count
     too)."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
@@ -5808,7 +6202,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     def worst(name, key="max_abs_err"):
         return max([0.0] + [r[key] for r in [*single_recipe_rows.values(),
                                              *npss_rows.values(),
-                                             *mel_rows.values()]
+                                             *mel_rows.values(),
+                                             *multi_speaker_rows.values()]
                             if r["name"] == name])
 
     fwd, _ = train_sums("lstm_recurrence", True)
@@ -5830,7 +6225,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                     "recipe": recipe_launches[name],
                     "recipe_single": single_recipe_launches[name],
                     "recipe_npss": npss_launches[name],
-                    "mel_voice": mel_launches[name]}
+                    "mel_voice": mel_launches[name],
+                    "multi_speaker": multi_speaker_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -5872,7 +6268,9 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                            "library_ms": fwd["library_ms"]},
                recipe_single_rows=recipe_rows("lstm_recurrence"),
                recipe_npss_rows=recipe_rows("lstm_recurrence", npss_rows),
-               mel_voice_rows=recipe_rows("lstm_recurrence", mel_rows)),
+               mel_voice_rows=recipe_rows("lstm_recurrence", mel_rows),
+               multi_speaker_rows=recipe_rows("lstm_recurrence",
+                                              multi_speaker_rows)),
         _entry("lstm_bptt", "lstm_bptt.cu", bptt,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
                launches=sum(paths["lstm_bptt"].values()),
@@ -5887,6 +6285,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                recipe_single_rows=recipe_rows("lstm_bptt"),
                recipe_npss_rows=recipe_rows("lstm_bptt", npss_rows),
                mel_voice_rows=recipe_rows("lstm_bptt", mel_rows),
+               multi_speaker_rows=recipe_rows("lstm_bptt",
+                                              multi_speaker_rows),
                **{k: bptt[k] for k in PREPASS}),
         _entry("lstm_dwh", "lstm_bptt.cu", dwh,
                replaces="ensemble_svs_with_interactions_tpu/ops/pallas_lstm.py:139",
@@ -5900,7 +6300,9 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                                   worst("lstm_dwh", "max_rel_err")]),
                recipe_single_rows=recipe_rows("lstm_dwh"),
                recipe_npss_rows=recipe_rows("lstm_dwh", npss_rows),
-               mel_voice_rows=recipe_rows("lstm_dwh", mel_rows)),
+               mel_voice_rows=recipe_rows("lstm_dwh", mel_rows),
+               multi_speaker_rows=recipe_rows("lstm_dwh",
+                                              multi_speaker_rows)),
     ]}
 
 
@@ -5976,12 +6378,14 @@ def main() -> int:
         single_launches, single_recipe_rows = phase_recipe_single(lr, root)
         npss_launches, npss_rows = phase_recipe_npss(lr, root)
     mel_launches, mel_rows = phase_mel_voice(lr, labels[0])
+    ms_launches, ms_rows = phase_multi_speaker(lr, labels[0])
     trainer_errs = {k: max(v, recipe_errs[k]) for k, v in trainer_errs.items()}
     emit(kernels_line(kernel_rows, single_rows, train_rows, launches,
                       path_launches, train_launches, amp_launches,
                       trainer_launches, trainer_errs, recipe_launches,
                       single_launches, single_recipe_rows, npss_launches,
-                      npss_rows, mel_launches, mel_rows))
+                      npss_rows, mel_launches, mel_rows, ms_launches,
+                      ms_rows))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

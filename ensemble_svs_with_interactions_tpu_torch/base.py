@@ -29,6 +29,9 @@ class BaseModel(nn.Module):
     def prediction_type(self) -> PredictionType:
         return PredictionType.DETERMINISTIC
 
+    def is_autoregressive(self) -> bool:
+        return False
+
     def has_residual_lf0_prediction(self) -> bool:
         """Whether ``forward`` returns ``(prediction, lf0 residual)``."""
         return False

@@ -14,8 +14,7 @@ see the same padded inputs, and the neural vocoders (``pwg``, ``usfgan``),
 unpadded as in the JAX package.
 
 Not ported, and named by the ``NotImplementedError`` that refuses them
-(``UNPORTED``): vibrato streams (``ops/pitch.gen_sine_vibrato``),
-``MultiSpeakerGaussianDiffusion`` and ``MultiSpeakerFlowMatching``.
+(``UNPORTED``): vibrato streams (``ops/pitch.gen_sine_vibrato``).
 """
 
 from __future__ import annotations
@@ -73,10 +72,6 @@ CHAIN_SEED = 1234
 _JAX = "ensemble_svs_with_interactions_tpu"
 UNPORTED = {
     "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
-    "MultiSpeakerGaussianDiffusion":
-        f"{_JAX}/models/diffsinger.py (MultiSpeakerGaussianDiffusion)",
-    "MultiSpeakerFlowMatching":
-        f"{_JAX}/models/flow_matching.py (MultiSpeakerFlowMatching)",
 }
 
 
@@ -132,6 +127,20 @@ class ModelPack:
         return arg in inspect.signature(
             getattr(self.module, method)).parameters
 
+    def _speakers(self, spks):
+        """``spks`` on the device as the module takes them: a tuple is the
+        multitrack models' per-track form (one id sequence per track,
+        each a tensor); anything else (an int, or ids of shape (B,) or
+        (B, 1)) is one tensor, passed as given, as the JAX package passes
+        a single-track model's ``spks``."""
+        def ids(s):
+            return torch.as_tensor(np.asarray(s, np.int64),
+                                   device=self.device)
+
+        if isinstance(spks, tuple):
+            return tuple(ids(s) for s in spks)
+        return ids(spks)
+
     def _pack(self, seqs, B: int, T_pad: int):
         b = np.zeros((B, T_pad, seqs[0].shape[1]), np.float32)
         for i, s in enumerate(seqs):
@@ -149,7 +158,8 @@ class ModelPack:
         item, padded with ``xs``) or, when they are a permutation of
         ``xs``, as ``sub_index`` (per-item index into ``xs``, gathered on
         the device).  ``spks`` is a tuple of per-item speaker-id
-        sequences.
+        sequences, one a track, for multitrack models, or a single-track
+        model's ids (an int, or an array of shape (B,) or (B, 1)).
         ``device_out=True`` returns ``(device output, lengths)`` with no
         host copy; otherwise per-item host arrays trimmed to their lengths
         (a zero-argument callable producing them when ``block=False``).
@@ -167,9 +177,7 @@ class ModelPack:
         elif xs_sub is not None:
             args.append(self._pack(xs_sub, B, T_pad))
         if spks is not None:
-            args.append(tuple(
-                torch.as_tensor(np.asarray(s, np.int64), device=self.device)
-                for s in spks))
+            args.append(self._speakers(spks))
         kw = {"lengths": torch.as_tensor(lengths, device=self.device)}
         if self._takes(method, "generator"):
             kw["generator"] = torch.Generator().manual_seed(AR_SEED)

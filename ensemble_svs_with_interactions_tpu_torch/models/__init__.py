@@ -1,25 +1,38 @@
 """The port's model zoo (the serving and training paths' models); the
 diffusion models and the FFT-block encoder are in ``models/diffsinger.py``,
-the flow-matching decoder in ``models/flow_matching.py``, the postfilters'
-GAN discriminator in ``models/discriminators.py``."""
+the flow-matching decoder in ``models/flow_matching.py``, the conditional
+WaveNet in ``models/wavenet.py``, the postfilters' GAN discriminator in
+``models/discriminators.py``."""
 
 from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F401
+    FFN,
+    LSTMRNN,
+    LSTMRNNSAR,
+    MDN,
+    RMDN,
     Conv1dResnet,
     Conv1dResnetMDN,
+    Conv1dResnetSAR,
+    FeedForwardNet,
     FFConvLSTM,
     LSTMEncoder,
-    MDN,
     MDNv2,
+    MultiSpeakerFFConvLSTM,
     MultiTrackLSTMEncoder,
     MultiTrackVariancePredictor,
     SpeakerEmbedding,
+    TransformerEncoder,
     VariancePredictor,
 )
 from ensemble_svs_with_interactions_tpu_torch.models import (  # noqa: F401,E402
     diffsinger,
     flow_matching,
+    wavenet,
 )
 from ensemble_svs_with_interactions_tpu_torch.models.flow_matching import (  # noqa: F401,E402,E501
     FlowMatching,
     MultiSpeakerFlowMatching,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.wavenet import (  # noqa: F401,E402,E501
+    WaveNet,
 )

@@ -1,8 +1,10 @@
 """The multistream acoustic models with a separate F0 model: the
-single-track ``MultistreamSeparateF0ParametricModel``, the flagship
-multitrack ``MultiTrackMultistreamSeparateF0ParametricModel`` and the mel
-voices' ``MultistreamSeparateF0MelModel`` and
-``MDNMultistreamSeparateF0MelModel`` (counterparts in
+single-track ``MultistreamSeparateF0ParametricModel`` and its
+multi-speaker ``MultiSpeakerMultistreamSeparateF0ParametricModel``, the
+flagship multitrack ``MultiTrackMultistreamSeparateF0ParametricModel``
+(and its experimental ``...v3``, the same model) and the mel voices'
+``MultistreamSeparateF0MelModel`` and ``MDNMultistreamSeparateF0MelModel``
+(counterparts in
 ``ensemble_svs_with_interactions_tpu/models/acoustic/multistream.py``).
 
 p(MGC, LF0, VUV, BAP | C) = p(LF0|C) p(MGC|LF0,C) p(VUV|LF0,C) p(BAP|LF0,C):
@@ -28,6 +30,10 @@ from ensemble_svs_with_interactions_tpu_torch.models.acoustic.npss import (
 )
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
     point_estimate,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.generic import (
+    condition_on_speakers,
+    speaker_embeddings,
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
     split_streams,
@@ -85,27 +91,56 @@ class MultistreamSeparateF0ParametricModel(BaseModel):
         """(out (B, T, D) = [mgc | lf0 | vuv | bap], lf0 residual).  With
         targets ``y`` the lf0 model is teacher-forced (and, with
         ``lf0_teacher_forcing``, the decoders see the target lf0)."""
+        return self._forward(x, lengths, y, None, train, generator)
+
+    def _forward(self, x, lengths, y, spk_embs, train, generator):
+        """The cascade; speaker embeddings ``spk_embs`` (B, T, E), where
+        given, go to the lf0 model and the encoder."""
         if x.shape[-1] != self.in_dim:
             raise ValueError(f"input has {x.shape[-1]} dims, config says "
                              f"{self.in_dim}")
+        kw = {"train": train, "generator": generator}
+        spk = {} if spk_embs is None else {"spk_embs": spk_embs}
         y_s = [None] * 4 if y is None else split_streams(y, self.stream_sizes)
-        lf0, lf0_residual = self.lf0_model(x, lengths, y_s[1], train=train,
-                                           generator=generator)
+        lf0, lf0_residual = self.lf0_model(x, lengths, y_s[1], **spk, **kw)
         if y is None:
             lf0 = point_estimate(lf0)
-        enc = self.encoder(x, lengths, train=train, generator=generator)
-        forced = self.lf0_teacher_forcing and y is not None
-        enc = torch.cat([enc, x[:, :, self.in_rest_idx][..., None],
-                         y_s[1] if forced else lf0], dim=-1)
-        streams = [getattr(self, f"{name}_model")(
-            enc, lengths, train=train, generator=generator)
-            for name in ("mgc", "vuv", "bap")]
+        enc = x
+        if self.encoder is not None:
+            enc = self.encoder(x, lengths, **spk, **kw)
+            forced = self.lf0_teacher_forcing and y is not None
+            enc = torch.cat([enc, x[:, :, self.in_rest_idx][..., None],
+                             y_s[1] if forced else lf0], dim=-1)
+        streams = [getattr(self, f"{name}_model")(enc, lengths, **kw)
+                   for name in ("mgc", "vuv", "bap")]
         return _concat_streams([streams[0], lf0, *streams[1:]],
                                self.out_dim), lf0_residual
 
     def inference(self, x, lengths=None, generator=None):
         """The point estimate (B, T, D) = [mgc | lf0 | vuv | bap]."""
         return self(x, lengths, generator=generator)[0]
+
+
+class MultiSpeakerMultistreamSeparateF0ParametricModel(
+        MultistreamSeparateF0ParametricModel):
+    """The single-track model with a speaker table
+    (``speaker_embedding``): the embeddings of ``spks``, broadcast over
+    time, condition the lf0 model and the encoder, not the mgc, vuv or
+    bap decoders."""
+
+    def __init__(self, *args, speaker_embedding: Any, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.speaker_embedding = speaker_embedding
+        condition_on_speakers(speaker_embedding, self.lf0_model, self.encoder)
+
+    def forward(self, x, spks, lengths=None, y=None, train: bool = False,
+                generator=None):
+        e = speaker_embeddings(self.speaker_embedding, spks, x.shape[0],
+                               x.shape[1])
+        return self._forward(x, lengths, y, e, train, generator)
+
+    def inference(self, x, spks, lengths=None, generator=None):
+        return self(x, spks, lengths, generator=generator)[0]
 
 
 class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
@@ -149,12 +184,6 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
     def has_residual_lf0_prediction(self):
         return True
 
-    def _expand_spk(self, spk, T):
-        e = self.speaker_embedding(spk)
-        if e.ndim == 2:
-            e = e[:, None, :]
-        return e.expand(e.shape[0], T, e.shape[-1])
-
     def forward(self, x_main, x_sub, spks, lengths=None, ys=None,
                 train: bool = False, generator=None):
         """Both tracks.  With targets ``ys = (y_main, y_sub)`` the lf0
@@ -168,9 +197,9 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
         else:
             y_m = split_streams(ys[0], self.stream_sizes)
             y_s = split_streams(ys[1], self.stream_sizes)
-        T = x_main.shape[1]
-        spk_m = self._expand_spk(spks[0], T)
-        spk_s = self._expand_spk(spks[1], T)
+        B, T = x_main.shape[0], x_main.shape[1]
+        spk_m = speaker_embeddings(self.speaker_embedding, spks[0], B, T)
+        spk_s = speaker_embeddings(self.speaker_embedding, spks[1], B, T)
         lf0_m, res_m = self.lf0_model(x_main, x_sub, spk_m, spk_s, lengths,
                                       y_m[1], train, generator)
         lf0_s, res_s = self.lf0_model(x_sub, x_main, spk_s, spk_m, lengths,
@@ -206,9 +235,9 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
                        generator=None):
         """Main-track outputs (B, T, D) = [mgc | lf0 | vuv | bap], with the
         lf0 model and the encoder conditioned on the sub track."""
-        T = x_main.shape[1]
-        spk_m = self._expand_spk(spks[0], T)
-        spk_s = self._expand_spk(spks[1], T)
+        B, T = x_main.shape[0], x_main.shape[1]
+        spk_m = speaker_embeddings(self.speaker_embedding, spks[0], B, T)
+        spk_s = speaker_embeddings(self.speaker_embedding, spks[1], B, T)
         lf0 = point_estimate(self.lf0_model(x_main, x_sub, spk_m, spk_s,
                                             lengths, generator=generator)[0])
         enc = self.encoder(x_main, x_sub, spk_embs=(spk_m, spk_s),
@@ -219,6 +248,12 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
             self.mgc_model(enc, lengths), lf0,
             self.vuv_model(enc, lengths), self.bap_model(enc, lengths),
         ], self.out_dim)
+
+
+class MultiTrackMultistreamSeparateF0ParametricModelv3(
+        MultiTrackMultistreamSeparateF0ParametricModel):
+    """The reference's experimental variant, which behaves as the base
+    model: kept for config compatibility, as in the JAX package."""
 
 
 class _MelF0Base(BaseModel):

@@ -15,13 +15,14 @@ targets the downstream models are teacher-forced on them.
 * ``NPSSMDNMultistreamParametricModel``: the single-track cascade with
   MDN stream models (``acoustic_npss_mdn.yaml``: ``Conv1dResnet`` MDN
   heads, a ``ResF0Conv1dResnet`` lf0 model);
+* ``MultiSpeakerNPSSMDNMultistreamParametricModel``: that cascade with a
+  speaker table, whose embeddings go to every stream model that takes
+  them;
 * ``MultiTrackNPSSMDNMultistreamParametricModel``: the multitrack cascade
   with a cross-track lf0 model; the recipe's configuration
   (``multitrack_acoustic_npss_diff_mgcbap.yaml``) makes mgc and bap
   ``GaussianDiffusion`` decoders, which sample at inference from the
   ``chain_generator`` they are given.
-
-``MultiSpeakerNPSSMDNMultistreamParametricModel`` is not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ from ensemble_svs_with_interactions_tpu_torch.base import (
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.util import (
     concat_stream_outputs,
     point_estimate,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.generic import (
+    condition_on_speakers,
+    speaker_embeddings,
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
     split_streams,
@@ -145,12 +150,13 @@ class _NPSSBase(BaseModel):
         return mgc, lf0, vuv, bap, lf0_residual
 
     def _single_track(self, x, lengths, y, train, generator,
-                      chain_generator):
+                      chain_generator, spk_e=None):
         ys = self._targets(y)
         lf0_out = _run_stream_decoder(self.lf0_model, x, lengths, ys[1],
-                                      None, train, generator, chain_generator)
-        return self._cascade(x, lengths, ys, lf0_out, None, train, generator,
-                             chain_generator)
+                                      spk_e, train, generator,
+                                      chain_generator)
+        return self._cascade(x, lengths, ys, lf0_out, spk_e, train,
+                             generator, chain_generator)
 
 
 class NPSSMultistreamParametricModel(_NPSSBase):
@@ -200,8 +206,13 @@ class NPSSMDNMultistreamParametricModel(_NPSSBase):
 
     def forward(self, x, lengths=None, y=None, train: bool = False,
                 generator=None, chain_generator=None):
+        return self._mdn_forward(x, lengths, y, train, generator,
+                                 chain_generator)
+
+    def _mdn_forward(self, x, lengths, y, train, generator, chain_generator,
+                     spk_e=None):
         mgc, lf0, vuv, bap, lf0_residual = self._single_track(
-            x, lengths, y, train, generator, chain_generator)
+            x, lengths, y, train, generator, chain_generator, spk_e)
         if y is None:
             return torch.cat([point_estimate(mgc), point_estimate(lf0), vuv,
                               point_estimate(bap)], dim=-1), lf0_residual
@@ -211,6 +222,34 @@ class NPSSMDNMultistreamParametricModel(_NPSSBase):
     def inference(self, x, lengths=None, generator=None,
                   chain_generator=None):
         return self(x, lengths, generator=generator,
+                    chain_generator=chain_generator)[0]
+
+
+class MultiSpeakerNPSSMDNMultistreamParametricModel(
+        NPSSMDNMultistreamParametricModel):
+    """The MDN cascade with a speaker table (``speaker_embedding``): the
+    embeddings of ``spks``, broadcast over time, go to each of the lf0,
+    mgc, bap and vuv models whose forward takes ``spk_embs``.  Without
+    targets it gives the concatenated point estimates, with them the
+    stream tuple."""
+
+    def __init__(self, *args, speaker_embedding: Any = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.speaker_embedding = speaker_embedding
+        condition_on_speakers(speaker_embedding, self.lf0_model,
+                              self.mgc_model, self.bap_model, self.vuv_model)
+
+    def forward(self, x, spks, lengths=None, y=None, train: bool = False,
+                generator=None, chain_generator=None):
+        e = speaker_embeddings(self.speaker_embedding, spks, x.shape[0],
+                               x.shape[1])
+        return self._mdn_forward(x, lengths, y, train, generator,
+                                 chain_generator, e)
+
+    @torch.no_grad()
+    def inference(self, x, spks, lengths=None, generator=None,
+                  chain_generator=None):
+        return self(x, spks, lengths, generator=generator,
                     chain_generator=chain_generator)[0]
 
 
@@ -228,12 +267,6 @@ class MultiTrackNPSSMDNMultistreamParametricModel(_NPSSBase):
 
     def prediction_type(self):
         return PredictionType.MULTISTREAM_HYBRID
-
-    def _expand(self, spk, T):
-        e = self.speaker_embedding(spk)
-        if e.ndim == 2:
-            e = e[:, None, :]
-        return e.expand(e.shape[0], T, e.shape[-1])
 
     def _main_cascade(self, x, x_other, spk_e, spk_e_other, lengths, y,
                       train, generator, chain_generator):
@@ -256,9 +289,9 @@ class MultiTrackNPSSMDNMultistreamParametricModel(_NPSSBase):
         ``(None, None)``.  ``generator`` draws dropout masks and the
         diffusion training draws; ``chain_generator`` the sampling
         chains."""
-        T = x_main.shape[1]
-        e_m = self._expand(spks[0], T)
-        e_s = self._expand(spks[1], T)
+        B, T = x_main.shape[0], x_main.shape[1]
+        e_m = speaker_embeddings(self.speaker_embedding, spks[0], B, T)
+        e_s = speaker_embeddings(self.speaker_embedding, spks[1], B, T)
         mgc, lf0, vuv, bap, res_m = self._main_cascade(
             x_main, x_sub, e_m, e_s, lengths, None if ys is None else ys[0],
             train, generator, chain_generator)

@@ -32,8 +32,8 @@ ways.  In training the FFT blocks drop attention weights and FFN
 activations at 0.1 whatever the config's ``dropout``, as the JAX blocks
 do.
 
-Not ported: ``MultiSpeakerGaussianDiffusion``.  A config naming it raises
-``NotImplementedError`` naming its JAX module.
+``MultiSpeakerGaussianDiffusion`` conditions the encoder on a speaker
+table; an FFT encoder takes the embeddings through its ``spk_fc``.
 """
 
 from __future__ import annotations
@@ -53,6 +53,10 @@ from ensemble_svs_with_interactions_tpu_torch.base import (
     PredictionType,
 )
 from ensemble_svs_with_interactions_tpu_torch.models import layers
+from ensemble_svs_with_interactions_tpu_torch.models.generic import (
+    condition_on_speakers,
+    speaker_embeddings,
+)
 from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
     conv_precision,
 )
@@ -589,6 +593,7 @@ class FFTBlocksEncoder(BaseModel):
         self.Conv_0 = (nn.Conv1d(width, width, r, stride=r, groups=width)
                        if r > 1 and downsample_by_conv else None)
         self.fc = nn.Linear(width, hidden_dim)
+        self.spk_fc = None
         self.pos_embed_alpha = (nn.Parameter(torch.ones(1))
                                 if use_pos_embed and use_pos_embed_alpha
                                 else None)
@@ -602,17 +607,22 @@ class FFTBlocksEncoder(BaseModel):
         self.fc_out = (nn.Linear(hidden_dim, out_dim * r)
                        if out_dim is not None else None)
 
+    def add_speaker_input(self, dim: int):
+        """Take speaker embeddings of width ``dim`` through ``spk_fc``
+        (which the multi-speaker models that hold this encoder add)."""
+        self.spk_fc = nn.Linear(dim, self.hidden_dim)
+
     def forward(self, x, lengths=None, y=None, spk_embs=None,
                 train: bool = False, generator=None):
         """x (B, T, in_dim) -> hidden states (B, T // r, hidden_dim), or
-        (B, T // r * r, out_dim) with ``out_dim``.  Dropout masks in
-        training come from ``generator``.  Speaker embeddings (the JAX
-        encoder's ``spk_fc``, which only the multi-speaker models use)
-        raise."""
-        if spk_embs is not None:
-            raise ValueError("FFTBlocksEncoder takes no speaker embeddings "
-                             "in the port (the multi-speaker models are "
-                             "not ported)")
+        (B, T // r * r, out_dim) with ``out_dim``.  Speaker embeddings
+        ``spk_embs`` (B, T, E), every r-th frame of them, are added through
+        ``spk_fc`` after ``fc``.  Dropout masks in training come from
+        ``generator``."""
+        if spk_embs is not None and self.spk_fc is None:
+            raise ValueError("this FFTBlocksEncoder takes no speaker "
+                             "embeddings: add_speaker_input() gives it "
+                             "spk_fc")
         B, T = x.shape[0], x.shape[1]
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.int64, device=x.device)
@@ -626,7 +636,11 @@ class FFTBlocksEncoder(BaseModel):
                 x = self.Conv_0(x.transpose(1, 2)).transpose(1, 2)
             else:
                 x = x[:, r - 1:: r]
+            if spk_embs is not None:
+                spk_embs = spk_embs[:, r - 1:: r][:, :x.shape[1]]
         h = self.fc(x)
+        if spk_embs is not None:
+            h = h + self.spk_fc(spk_embs)
         T2 = h.shape[1]
         mask = (torch.arange(T2, device=x.device)[None, :]
                 < lengths[:, None])
@@ -738,17 +752,30 @@ class PitchExtractor(BaseModel):
                                        device=lf0.device))
 
 
-def unported_model(name: str):
-    """A ``_target_`` the port does not have: building it raises
-    ``NotImplementedError`` naming the JAX module."""
-    def refuse(*args, **kwargs):
-        from ensemble_svs_with_interactions_tpu_torch.gen import unported
+class MultiSpeakerGaussianDiffusion(GaussianDiffusion):
+    """``GaussianDiffusion`` with a speaker table
+    (``speaker_embedding``): the embeddings of ``spks``, broadcast over
+    time, go to the condition encoder (through its ``spk_fc`` where it is
+    an FFT encoder); without an encoder they reach nothing, as in the JAX
+    model."""
 
-        raise unported(name, name)
+    def __init__(self, *args, speaker_embedding: Any = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.speaker_embedding = speaker_embedding
+        condition_on_speakers(speaker_embedding, self.encoder)
 
-    refuse.__name__ = refuse.__qualname__ = name
-    return refuse
+    def _spk_embs(self, spks, cond):
+        return speaker_embeddings(self.speaker_embedding, spks,
+                                  cond.shape[0], cond.shape[1])
 
+    def forward(self, cond, spks, lengths=None, y=None, train: bool = False,
+                generator=None):
+        return super().forward(cond, lengths, y,
+                               spk_embs=self._spk_embs(spks, cond),
+                               train=train, generator=generator)
 
-MultiSpeakerGaussianDiffusion = unported_model(
-    "MultiSpeakerGaussianDiffusion")
+    @torch.no_grad()
+    def inference(self, cond, spks, lengths=None, chain_generator=None):
+        return super().inference(cond, lengths,
+                                 spk_embs=self._spk_embs(spks, cond),
+                                 chain_generator=chain_generator)

@@ -12,13 +12,13 @@ or from a ``models/diffsinger.chain_noise`` block, as the diffusion
 decoder's do.  The network is plain torch, as the JAX package leaves it
 to XLA.
 
-``MultiSpeakerFlowMatching`` is not ported: building it raises
-``NotImplementedError`` naming its JAX module.
+``MultiSpeakerFlowMatching`` conditions the encoder on a speaker table,
+as ``models/diffsinger.MultiSpeakerGaussianDiffusion`` does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -33,7 +33,10 @@ from ensemble_svs_with_interactions_tpu_torch.models.diffsinger import (
     _record,
     _replayed,
     _tensor,
-    unported_model,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.generic import (
+    condition_on_speakers,
+    speaker_embeddings,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
     conv_precision,
@@ -141,4 +144,30 @@ class FlowMatching(BaseModel):
         return x.transpose(1, 2) * self.norm_scale
 
 
-MultiSpeakerFlowMatching = unported_model("MultiSpeakerFlowMatching")
+
+class MultiSpeakerFlowMatching(FlowMatching):
+    """``FlowMatching`` with a speaker table (``speaker_embedding``): the
+    embeddings of ``spks``, broadcast over time, go to the condition
+    encoder; without an encoder they reach nothing, as in the JAX
+    model."""
+
+    def __init__(self, *args, speaker_embedding: Any = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.speaker_embedding = speaker_embedding
+        condition_on_speakers(speaker_embedding, self.encoder)
+
+    def _spk_embs(self, spks, cond):
+        return speaker_embeddings(self.speaker_embedding, spks,
+                                  cond.shape[0], cond.shape[1])
+
+    def forward(self, cond, spks, lengths=None, y=None, train: bool = False,
+                generator=None):
+        return super().forward(cond, lengths, y,
+                               spk_embs=self._spk_embs(spks, cond),
+                               train=train, generator=generator)
+
+    @torch.no_grad()
+    def inference(self, cond, spks, lengths=None, chain_generator=None):
+        return super().inference(cond, lengths,
+                                 spk_embs=self._spk_embs(spks, cond),
+                                 chain_generator=chain_generator)

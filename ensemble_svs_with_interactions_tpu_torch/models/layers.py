@@ -278,3 +278,62 @@ class PhonemeContextEmbedding(nn.Module):
         ph = torch.argmax(x[..., self.start: self.end], dim=-1)
         rest = torch.cat([x[..., : self.start], x[..., self.end:]], dim=-1)
         return self.Embed_0(ph) + self.Dense_0(rest)
+
+
+class TrTimeInvFIRFilter(nn.Module):
+    """Trainable per-channel FIR filter H(z) = sum_k b_k z^-k over (B, T,
+    C), the shallow-AR models' analysis filter.  ``taps`` (channels,
+    filt_dim), drawn normal / filt_dim; ``tanh`` bounds the coefficients
+    in (-1, 1) and ``fixed_0th`` fixes b_0 = 1.  Causal, y[t] = sum_k b_k
+    x[t - k], or, when not, shifted by (filt_dim - 1) // 2 frames.
+    :meth:`inverse` is the IIR synthesis 1 / H(z), step by step."""
+
+    FLAX_LEAVES = ("taps",)
+
+    def __init__(self, channels: int, filt_dim: int, causal: bool = True,
+                 tanh: bool = True, fixed_0th: bool = True):
+        super().__init__()
+        self.filt_dim, self.causal = filt_dim, causal
+        self.tanh, self.fixed_0th = tanh, fixed_0th
+        self.taps = nn.Parameter(torch.randn(channels, filt_dim) / filt_dim)
+
+    def coefs(self, dtype=None):
+        """(channels, filt_dim) coefficients, index 0 the current sample,
+        computed in ``dtype`` (the taps' own by default), as the JAX
+        filter computes them from parameters in the step's dtype."""
+        b = self.taps if dtype is None else self.taps.to(dtype)
+        if self.tanh:
+            b = torch.tanh(b)
+        if self.fixed_0th:
+            b = torch.cat([torch.ones_like(b[:, :1]), b[:, 1:]], dim=1)
+        return b
+
+    def forward(self, x):
+        b = self.coefs(x.dtype)
+        K, T = self.filt_dim, x.shape[1]
+        shift = 0 if self.causal else (K - 1) // 2
+        x_pad = F.pad(x, (0, 0, K - 1 - shift, shift))
+        out = torch.zeros_like(x)
+        for k in range(K):
+            lo = K - 1 - k
+            out = out + b[:, k] * x_pad[:, lo: lo + T]
+        return out
+
+    def inverse(self, x):
+        """y[t] = x[t] - sum_{k >= 1} b_k y[t - k] from a zero state, in
+        time order (causal filters only)."""
+        if not self.causal:
+            raise ValueError("inverse IIR filtering requires a causal filter")
+        b = self.coefs(x.dtype)
+        if self.filt_dim == 1:
+            return x / b[:, 0]
+        taps = b[:, 1:]
+        B, T, C = x.shape
+        past = torch.zeros((B, self.filt_dim - 1, C), dtype=x.dtype,
+                           device=x.device)
+        ys = []
+        for t in range(T):
+            y_t = x[:, t] - torch.einsum("bkc,ck->bc", past, taps)
+            past = torch.cat([y_t[:, None], past[:, :-1]], dim=1)
+            ys.append(y_t)
+        return torch.stack(ys, dim=1)

@@ -283,7 +283,9 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
     between a diffusion or flow-matching decoder's drawn target and its
     prediction (``(noise, x_recon)``), or the criterion (each refinement
     stage summed); ``pitch_reg_weight`` weighs the L1 of
-    the residual lf0 of a model that predicts one.  Clipping, the NaN-skip
+    the residual lf0 of a model that predicts one.  A model with a
+    ``preprocess_target`` (the shallow-AR models) is taught, and scored,
+    on its filtered target.  Clipping, the NaN-skip
     and ``use_amp`` as in ``train.multitrack``'s steps.
     ``eval_step(batch)`` returns (metrics without ``GradNorm``, the
     prediction) without touching anything (prenet dropout from a generator
@@ -296,6 +298,8 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
     params = [p for p in module.parameters() if p.requires_grad]
     dtype = params[0].dtype
     takes_y, takes_spks = _accepts(module, "y"), _accepts(module, "spks")
+    # shallow-AR models train against their analysis-filtered targets
+    target_filter = getattr(module, "preprocess_target", None)
 
     def to_device(batch):
         b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -332,16 +336,22 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
         T = b["in_feats"].shape[1]
         mask = (torch.arange(T, device=device)[None, :]
                 < b["lengths"][:, None]).to(dtype)[:, :, None]
+        out_feats = y = b["out_feats"]
+        if target_filter is not None:
+            # filtered before the forward pass, in the model's dtype, so
+            # teacher forcing and the loss both see the filtered target
+            y = target_filter(amp_cast(y) if use_amp else y)
+            out_feats = amp_uncast(y)
         args = [b["in_feats"]]
         if takes_spks and "spks" in b:
             args.append(b["spks"])
         kwargs = {"lengths": b["lengths"], "train": train,
                   "generator": generator}
         if takes_y:
-            kwargs["y"] = b["out_feats"]
+            kwargs["y"] = y
         outs = amp_forward(module, tuple(args), kwargs, use_amp, train)
         pred_out, lf0_residual = outs if has_res_lf0 else (outs, None)
-        loss_feats = feature_loss(pred_out, b["out_feats"], mask)
+        loss_feats = feature_loss(pred_out, out_feats, mask)
         if pitch_reg_weight > 0 and lf0_residual is not None:
             loss_pitch = L.pitch_regularization_loss(
                 lf0_residual, mask, b.get("pitch_reg_dyn_ws", 1.0))

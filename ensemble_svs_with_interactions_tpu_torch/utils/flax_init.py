@@ -11,8 +11,11 @@ draws back (``flax_port.flax_to_torch``).  The schemes:
 * ``bias`` zeros, ``scale`` ones (a LayerNorm's, and ``nn.WeightNorm``'s
   ``Conv_{k}/kernel/scale``), the FFT encoder's ``pos_embed_alpha``
   ones, batch statistics ``mean`` zeros and ``var`` ones;
-* the FFT blocks' attention projections ``in_proj`` and ``out_proj``
-  ``glorot_uniform``;
+* the FFT blocks' attention projections ``in_proj`` and ``out_proj``,
+  and the transformer's ``conv_q``, ``conv_k``, ``conv_v``,
+  ``glorot_uniform``; its relative embeddings ``emb_rel_k`` and
+  ``emb_rel_v`` ``normal(d_k ** -0.5)``;
+* the shallow-AR filters' ``taps`` ``normal(1 / filt_dim)``;
 * the hn-uSFGAN ``PeriodicityEstimator``'s last conv kernel
   ``normal(1e-4)``, so its gates start near one half;
 * LSTM cells (``OptimizedLSTMCell``): the input kernels ``i{i,f,g,o}``
@@ -58,6 +61,11 @@ INIT_TYPE_LAYERS = {
     "MDN": r"Dense_\d+",
     "MDNv2": r"Dense_\d+",
     "ResSkipF0FFConvLSTM": r"Dense_\d+",
+    "FFN": r"Dense_\d+",
+    "LSTMRNN": r"Dense_0",
+    "LSTMRNNSAR": r"proj",
+    "RMDN": r"Dense_0",
+    "ResF0VariancePredictor": r"(Conv|Dense)_\d+",
     # a ReflectConv1d carries its owner's init_type ("none" by default)
     "ReflectConv1d": r"Conv_0",
     "Conv2dD": r"Conv_\d+",
@@ -147,6 +155,10 @@ def _draw(path, shape, modules: Dict[str, nn.Module], gen):
     if (leaf in ("scale", "pos_embed_alpha")
             or leaf.endswith("/kernel/scale")):
         return torch.ones(shape)
+    if leaf == "taps":
+        return _normal(shape, 1.0 / shape[-1], gen)
+    if leaf in ("emb_rel_k", "emb_rel_v"):
+        return _normal(shape, shape[-1] ** -0.5, gen)
     if len(path) >= 2 and re.fullmatch(r"[ih][ifgo]", path[-2]):
         if path[-2][0] == "h":
             return _orthogonal(shape, 1.0, gen)
@@ -164,7 +176,9 @@ def _draw(path, shape, modules: Dict[str, nn.Module], gen):
                 and owner[-1] == f"conv{parent.n - 1}"):
             return _normal(shape, _GATE_STD, gen)
         if (type(parent).__name__ == "_FFTBlock"
-                and owner[-1] in ("in_proj", "out_proj")):
+                and owner[-1] in ("in_proj", "out_proj")) or (
+                type(parent).__name__ == "_RelativeSelfAttention"
+                and owner[-1] in ("conv_q", "conv_k", "conv_v")):
             return _glorot_uniform(shape, gen)
         pattern = INIT_TYPE_LAYERS.get(type(parent).__name__)
         if pattern and re.fullmatch(pattern, owner[-1]):

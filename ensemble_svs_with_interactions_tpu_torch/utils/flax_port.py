@@ -27,7 +27,9 @@ module converts its flax subtree to torch layouts:
   carries the bias; they concatenate, in gate order i, f, g, o, into
   ``w_x (C, 4H)``, ``w_h (H, 4H)`` and ``b (4H,)``;
 * a module's own parameters named in its ``FLAX_LEAVES`` (the FFT
-  encoder's ``pos_embed_alpha``) <- the flax leaf of the same name.
+  encoder's ``pos_embed_alpha``, the FIR filters' ``taps``, the relative
+  attention's ``emb_rel_k`` / ``emb_rel_v``) <- the flax leaf of the
+  same name.
 
 Every flax leaf must be consumed and every torch parameter and buffer set,
 or ``flax_to_torch`` raises.  ``torch_to_flax`` is its inverse: it splits

@@ -99,6 +99,9 @@ def _inputs(cuda, B, T, H, seed):
     # the mel voice's svs(): its DDPM's condition encoder at H = 128 over
     # the fixture (the group kernel at one row), and an odd length
     (1, 6656, 128), (1, 6653, 128),
+    # the multi-speaker voice's train step: its 512 x 3 encoder over the
+    # recipe's 4 crops of 256 frames (the group kernel)
+    (4, 256, 512),
 ])
 def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
     xw, w_h, _ = _inputs(cuda, B, T, H, B * 1000 + H)
@@ -295,6 +298,8 @@ def test_dwh_kernel_is_deterministic(cuda, B, T, H):
     # the mel voice's train step: 4 crops of 256 frames through the
     # biLSTMs at H = 64 and 128, the AR lf0 cell (256) over 256 / 4 steps
     (4, 256, 64), (4, 256, 128), (4, 64, 256),
+    # the multi-speaker voice's train step: the 512 x 3 encoder at 4 x 256
+    (4, 256, 512),
 ])
 def test_lstm_bptt_and_dwh_kernels_match_plain(cuda, B, T, H):
     xw, w_h, dy = _inputs(cuda, B, T, H, B * 7 + H)

@@ -424,13 +424,19 @@ def test_flow_matching_trains_as_jax(same_draws, monkeypatch):
 
 
 def test_multi_speaker_flow_matching_raises():
-    with pytest.raises(NotImplementedError,
-                       match=r"models/flow_matching\.py "
-                             r"\(MultiSpeakerFlowMatching\)"):
-        instantiate({"_target_":
-                     f"{PKG}.flow_matching.MultiSpeakerFlowMatching"})
-    assert set(gen.UNPORTED) == {"vibrato", "MultiSpeakerGaussianDiffusion",
-                                 "MultiSpeakerFlowMatching"}
+    """Named when the port refused the multi-speaker decoders; now both
+    build from their JAX ``_target_`` (``tests/test_torch_multi_speaker.py``
+    holds them against JAX) and ``gen.UNPORTED`` names only the vibrato
+    streams."""
+    spk = {"_target_": f"{PKG}.SpeakerEmbedding", "num_embeddings": 3,
+           "embedding_dim": 4}
+    for target in ("flow_matching.MultiSpeakerFlowMatching",
+                   "diffsinger.MultiSpeakerGaussianDiffusion"):
+        module = instantiate({"_target_": f"{PKG}.{target}", "in_dim": IN,
+                              "out_dim": M, "denoise_fn": diffnet(M, IN),
+                              "speaker_embedding": spk})
+        assert type(module).__name__ == target.split(".")[1]
+    assert set(gen.UNPORTED) == {"vibrato"}
 
 
 # ------------------------------------------------------------ the weights

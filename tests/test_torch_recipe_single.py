@@ -399,9 +399,11 @@ def test_chip_kernels_line_has_every_key():
     """The ``kernels`` line from rows of every phase: each kernel with the
     contract's keys, the single-track recipe's launches under
     ``launches_by_path`` and its rows under ``recipe_single_rows``, the
-    NPSS voice's under ``recipe_npss`` and ``recipe_npss_rows`` and the
-    mel voice's under ``mel_voice`` and ``mel_voice_rows`` (their errors
-    counted in ``max_abs_err``, dW_h's relative one in ``max_rel_err``)."""
+    NPSS voice's under ``recipe_npss`` and ``recipe_npss_rows``, the mel
+    voice's under ``mel_voice`` and ``mel_voice_rows`` and the
+    multi-speaker voice's under ``multi_speaker`` and
+    ``multi_speaker_rows`` (their errors counted in ``max_abs_err``, dW_h's
+    relative one in ``max_rel_err``)."""
     import chip_smoke as cs
 
     shapes = sorted(set(cs.RECURRENCE_SHAPES)
@@ -434,9 +436,14 @@ def test_chip_kernels_line_has_every_key():
         mel_rows[f"train {n} H=64 T=256"] = {
             **_fake_row(n), "H": 64, "max_abs_err": 2e-5,
             "max_rel_err": 5e-6}
+    ms = {k: 23 for k in cs.TRAIN_COUNTERS}
+    ms_rows = {f"train {n} H=512 T=256": {
+        **_fake_row(n), "H": 512, "max_abs_err": 6e-5, "max_rel_err": 7e-6}
+        for n in ("lstm_recurrence", "lstm_bptt", "lstm_dwh")}
     line = cs.kernels_line(kernel_rows, single_rows, train_rows, 3,
                            {"pairwise": 2}, ones, ones, ones, errs, ones,
-                           single, rows, npss, npss_rows, mel, mel_rows)
+                           single, rows, npss, npss_rows, mel, mel_rows,
+                           ms, ms_rows)
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -453,9 +460,12 @@ def test_chip_kernels_line_has_every_key():
             "H"] == 1024
         assert k["launches_by_path"]["mel_voice"] == 13
         assert f"train {k['name']} H=64 T=256" in k["mel_voice_rows"]
+        assert k["launches_by_path"]["multi_speaker"] == 23
+        assert list(k["multi_speaker_rows"]) == [
+            f"train {k['name']} H=512 T=256"]
     by = {k["name"]: k for k in line["kernels"]}
-    assert by["lstm_recurrence"]["max_abs_err"] == 4e-5
+    assert by["lstm_recurrence"]["max_abs_err"] == 6e-5
     assert list(by["lstm_recurrence"]["mel_voice_rows"]) == [
         "svs B=1 H=128", "train lstm_recurrence H=64 T=256"]
-    assert by["lstm_bptt"]["max_abs_err"] == 3e-5
-    assert by["lstm_dwh"]["max_rel_err"] == 5e-6
+    assert by["lstm_bptt"]["max_abs_err"] == 6e-5
+    assert by["lstm_dwh"]["max_rel_err"] == 7e-6

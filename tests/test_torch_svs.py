@@ -394,6 +394,7 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.models.diffsinger\n"
         "import ensemble_svs_with_interactions_tpu_torch.models"
         ".flow_matching\n"
+        "import ensemble_svs_with_interactions_tpu_torch.models.wavenet\n"
         "import ensemble_svs_with_interactions_tpu_torch.models.vocoders\n"
         "import ensemble_svs_with_interactions_tpu_torch.train.vocoder\n"
         "import ensemble_svs_with_interactions_tpu_torch.train"
