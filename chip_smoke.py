@@ -216,7 +216,9 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     and its ``svs()`` of
     the eval utterance card against CPU; the H = 1024 forward, BPTT and
     dW_h timed and held against their plain versions at stage 5's shapes
-    and at the recipe's full batch, with bounds and cuDNN's times;
+    and at the recipe's full batch, with bounds (the forward's also at
+    the 3xTF32 rate its kernel uses) and cuDNN's times, and the forward
+    at 200 rows (NPSS_WIDE_B);
 11f. ``mel_voice``: the mel voice (``mel_phases``: the JAX package's
     ``configs/acoustic/acoustic_melf0_ar_f0_diff_mel.yaml``,
     ``configs/postfilter/postfilter_mel.yaml`` and the recipe's
@@ -998,6 +1000,15 @@ def recurrence_bound_times(B, T, H, want_c):
             1e3 * recurrence_ops(B, T, H) / PEAK_FP32_FLOP_PER_S)
 
 
+def recurrence_3xtf32_bound_ms(B, T, H, want_c):
+    """The recurrence's least time with its h @ W_h multiply-adds on the
+    TF32 tensor cores in 3xTF32, the instruction the H > 512 kernel uses
+    (PEAK_3XTF32_FLOP_PER_S), beside ``recurrence_bound_times``'
+    float32 FMA rate: the larger of the bytes time and that."""
+    t_bytes, _ = recurrence_bound_times(B, T, H, want_c)
+    return max(t_bytes, 1e3 * recurrence_ops(B, T, H) / PEAK_3XTF32_FLOP_PER_S)
+
+
 def bptt_bound_times(B, T, H):
     """(bytes time, operations time) in ms for the whole BPTT launch: xw,
     W_h, h, c and dy read once, dxw written once; the gates' operations
@@ -1159,9 +1170,12 @@ def phase_kernels(lr, B=N_TRACKS, modes=(False, True), phase="kernel",
                    "atol": KERNEL_ATOL, "ms": ms, "us_per_step": 1e3 * ms / T,
                    "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bound_3xtf32_ms": recurrence_3xtf32_bound_ms(
+                       B, T, H, want_c),
                    "bytes_ms": t_bytes, "operations_ms": t_ops,
                    "library_ms": library_ms,
-                   "library_input_gemm_ms": gemm_ms}
+                   "library_input_gemm_ms": gemm_ms,
+                   "library_tf32": torch.backends.cudnn.allow_tf32}
             emit(row)
             assert np.isfinite(err) and err < KERNEL_ATOL, row
             results[(H, want_c)] = row
@@ -1196,7 +1210,10 @@ def phase_train_kernels(lr, B=TRAIN_B, shapes=TRAIN_LAUNCHES_BY_SHAPE,
                    "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_reference(
                        xw, w_h, want_c), 1),
                    "bytes_ms": t_bytes, "operations_ms": t_ops,
-                   "library_ms": library_ms, "library_input_gemm_ms": gemm_ms}
+                   "bound_3xtf32_ms": recurrence_3xtf32_bound_ms(
+                       B, T, H, want_c),
+                   "library_ms": library_ms, "library_input_gemm_ms": gemm_ms,
+                   "library_tf32": torch.backends.cudnn.allow_tf32}
             row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
             emit(row)
             assert np.isfinite(err) and err < KERNEL_ATOL, row
@@ -3050,7 +3067,7 @@ def seeded_state_dict(cfg, seed):
 
 TRAIN_WEIGHTS = {"logf0_diff": 1.0, "mgc_diff": 1.0}
 TRAIN_COUNTERS = ("lstm_recurrence", "lstm_bptt", "lstm_dwh")
-HAND_WRITTEN = ("lstm_recurrence_kernel", "lstm_recurrence_small_kernel",
+HAND_WRITTEN = ("lstm_recurrence_mma_kernel", "lstm_recurrence_small_kernel",
                 "lstm_recurrence_group_kernel", "lstm_gates_kernel",
                 "lstm_bptt_small_kernel", "lstm_gates_mma_kernel",
                 "lstm_bptt_group_kernel", "lstm_dwh_kernel",
@@ -5236,6 +5253,9 @@ NPSS_SVS_LAUNCHES = 20
 NPSS_H = 1024                       # the mgc decoder's cells
 NPSS_R = 2                          # its reduction factor
 NPSS_FULL_B, NPSS_FULL_FRAMES = 64, 256  # the recipe's batch: 64 crops
+# a batch past what the earlier H > 512 forward kernel took (128 rows at
+# H = 1024), held against the plain loop in both modes
+NPSS_WIDE_B, NPSS_WIDE_T = 200, 33
 # the card-vs-CPU train step: NPSS_REF_B utterances of NPSS_REF_T frames,
 # dropout off (card and CPU draw masks from other generators)
 NPSS_REF_B, NPSS_REF_T = 2, 64
@@ -5429,7 +5449,9 @@ def phase_recipe_npss(lr, root) -> tuple:
     modes), BPTT (pre-pass and loop) and dW_h timed and held against
     their plain versions at the shapes stage 5 gave them and at the
     recipe's full batch (NPSS_FULL_B crops of NPSS_FULL_FRAMES frames, T =
-    128 decoder steps), with their bounds and cuDNN's times.  Returns the
+    128 decoder steps), with their bounds and cuDNN's times, and the
+    forward at NPSS_WIDE_B x NPSS_WIDE_T (a batch the earlier H > 512
+    kernel refused).  Returns the
     AR voice's launches summed and the kernel rows by shape."""
     t0 = time.time()
     voices = {name: npss_voice(lr, root, name) for name in NPSS_CONFIGS}
@@ -5440,6 +5462,11 @@ def phase_recipe_npss(lr, root) -> tuple:
         rows[f"dev B={B} T={T // NPSS_R}"] = phase_kernels(
             lr, B=B, modes=(False,), phase="recipe_npss_kernel",
             shapes=[NPSS_H], T=-(-T // NPSS_R))[(NPSS_H, False)]
+    for (_, want_c), row in phase_kernels(
+            lr, B=NPSS_WIDE_B, phase="recipe_npss_kernel", shapes=[NPSS_H],
+            T=NPSS_WIDE_T).items():
+        rows[f"check{'_c' if want_c else ''} B={NPSS_WIDE_B} "
+             f"T={NPSS_WIDE_T}"] = row
     train = sorted(clock.shapes["train"]) + [(NPSS_FULL_B,
                                               NPSS_FULL_FRAMES)]
     for B, T in train:
@@ -5472,7 +5499,8 @@ def phase_recipe_npss(lr, root) -> tuple:
           "want_launches": want, "snr_bound_db": SNR_DB,
           "kernel_rows": {k: {f: r[f] for f in (
               "kernel", "B", "T", "H", "max_abs_err", "ms", "us_per_step",
-              "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "plain_ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
+              "library_ms", "library_input_gemm_ms", "library_tf32",
               "loop_bound_ms", "prepass_ms", "prepass_bound_ms",
               "prepass_library_ms") if f in r}
               for k, r in rows.items()},
@@ -6193,9 +6221,10 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
 
     def recipe_rows(name, rows=single_recipe_rows):
         keep = ("B", "T", "H", "kernel", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "max_abs_err", "max_rel_err",
-                "loop_bound_ms", "prepass_ms", "prepass_bound_ms",
-                "prepass_library_ms")
+                "bound_by", "bound_3xtf32_ms", "library_ms",
+                "library_input_gemm_ms", "library_tf32", "max_abs_err",
+                "max_rel_err", "loop_bound_ms", "prepass_ms",
+                "prepass_bound_ms", "prepass_library_ms")
         return {k: {f: r[f] for f in keep if f in r}
                 for k, r in rows.items() if r["name"] == name}
 

@@ -1,13 +1,15 @@
 // Pieces shared by the LSTM recurrence kernels (lstm_recurrence.cu, the
 // forward; lstm_bptt.cu, the reverse-time backward and dW_h): the
 // activations, asynchronous global-to-shared copies, the grid-wide barrier
-// of the multi-block kernels, and the residency plans that keep their
-// cooperative launches within what the card holds at once.  At H <= kSmallH
-// the forward and the BPTT each have their own kernels, one block per
-// batch row and no grid barrier.  At 64 < H <= kMaxGroupH both have a
-// group kernel (kUnitsG units x a group of batch rows a block, W_h rows in
-// registers), planned by plan_groups.  make_split and plan_rows serve the
-// forward's older kernel, which keeps the widths above kMaxGroupH.
+// of the multi-block kernels, the residency plan that keeps the group
+// kernels' cooperative launches within what the card holds at once, and
+// the 3xTF32 tensor-core product.  At H <= kSmallH the forward and the
+// BPTT each have their own kernels, one block per batch row and no grid
+// barrier.  At 64 < H <= kMaxGroupH both have a group kernel (kUnitsG
+// units x a group of batch rows a block, W_h rows in registers), planned
+// by plan_groups.  Above kMaxGroupH the forward is a 3xTF32 mma.sync
+// kernel (lstm_recurrence.cu) and the BPTT loop a split kernel
+// (lstm_bptt.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,7 +20,6 @@
 namespace lstm {
 
 constexpr int kThreads = 256;
-constexpr int kMaxRows = 4;  // batch rows per dot-product pass
 constexpr int kSmallH = 64;  // widest H of the one-block-per-row kernels
 constexpr int kMaxGroupH = 512;  // widest H of the group kernels
 constexpr int kUnitsG = 16;      // units per block of the group kernels
@@ -150,69 +151,6 @@ __device__ __forceinline__ void grid_barrier_release(unsigned int* counter,
   __syncthreads();
 }
 
-// Units per block and the split of each gate column's dot product: a block
-// owns U hidden units, i.e. the K = 4U gate columns {j, H+j, 2H+j, 3H+j};
-// thread (k, s) of the gate sums adds column k over the hidden units
-// s, s + S, ...  The shared slice of W_h is stored column-major with a row
-// pitch == S (mod 32), so the lanes of a warp hit distinct banks.
-struct Split {
-  int U, nblk, S, pitch;
-};
-
-inline Split make_split(int H) {
-  Split p;
-  p.U = H <= 64 ? H : std::max(4, (H + 127) / 128);
-  p.nblk = (H + p.U - 1) / p.U;
-  const int K = 4 * p.U;
-  p.S = 1;
-  while (p.S < 32 && K * p.S * 2 <= kThreads) p.S *= 2;
-  p.pitch = H + (((p.S - H) % 32) + 32) % 32;
-  return p;
-}
-
-// Batch rows go to grid rows (blockIdx.y) in groups of kMaxRows.  A
-// multi-block launch spins at a grid barrier, so every block must be
-// resident at once: when nblk * groups blocks do not fit, each grid row
-// takes `gpb` groups and loops over them inside every step.  A block's
-// threads take its (row, unit) cells, up to kCellPasses each, so
-// gpb * kMaxRows * U <= kCellPasses * kThreads (at H = 1024, U = 8: 128
-// rows in the one grid row the card holds).
-constexpr int kCellPasses = 4;
-struct Rows {
-  int groups, gpb, grid_rows;
-};
-
-// smem_for(gpb) is the dynamic shared memory of a block taking gpb groups.
-template <typename Kernel, typename SmemFor>
-cudaError_t plan_rows(Kernel kernel, int B, int U, int nblk, SmemFor smem_for,
-                      Rows* out) {
-  Rows r;
-  r.groups = (B + kMaxRows - 1) / kMaxRows;
-  r.gpb = 1;
-  r.grid_rows = r.groups;
-  if (nblk > 1) {
-    const int max_gpb = kCellPasses * kThreads / (kMaxRows * U);
-    int sms = 0, per_sm = 0;
-    cudaError_t err;
-    if ((err = sm_count(&sms)) != cudaSuccess) return err;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)smem_for(max_gpb))) != cudaSuccess)
-      return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kThreads, smem_for(max_gpb))) != cudaSuccess)
-      return err;
-    const int rows_fit = per_sm * sms / nblk;
-    if (rows_fit < 1) return cudaErrorCooperativeLaunchTooLarge;
-    const int grid_rows = r.groups < rows_fit ? r.groups : rows_fit;
-    r.gpb = (r.groups + grid_rows - 1) / grid_rows;
-    if (r.gpb > max_gpb) return cudaErrorCooperativeLaunchTooLarge;
-    r.grid_rows = (r.groups + r.gpb - 1) / r.gpb;
-  }
-  *out = r;
-  return cudaSuccess;
-}
-
 // The group kernels' plan.  Groups of rows go to grid rows.  Every block
 // of the cooperative launch must be resident at once, so when nblk blocks
 // per group do not fit, each grid row takes gpb groups in turn (its shared
@@ -246,6 +184,30 @@ cudaError_t plan_groups(Kernel kernel, int groups, int nblk, SmemFor smem_for,
     }
     gpb = need;
   }
+}
+
+// 3xTF32: a float32-accurate product on the TF32 tensor cores (the
+// precision argument stands above lstm_dwh_kernel in lstm_bptt.cu, which
+// keeps its own copy of these two helpers).  hi keeps the sign, exponent
+// and 10 mantissa bits of x (a TF32 value); lo = x - hi is exact in f32,
+// and the tensor core reads its top 19 bits.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b for one m16n8k8 TF32 tile (fragments as the PTX ISA lays them
+// out: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0
+// (t, g), b1 (t + 4, g); d0, d1 (g, 2t, 2t + 1), d2, d3 (g + 8, ...), for
+// lane 4 g + t).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 }  // namespace lstm

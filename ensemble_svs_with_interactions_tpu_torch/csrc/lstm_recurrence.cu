@@ -18,7 +18,7 @@
 // Three designs, chosen by H (the rule above lstm_recurrence_launch): one
 // block per batch row at H <= 64; at 64 < H <= 512 the group kernel (its
 // own section below: 16 units x a group of rows a block, W_h rows in
-// registers, a barrier per group of rows); above 512 the split kernel.
+// registers, a barrier per group of rows); above 512 the mma kernel.
 //
 // H <= 64 (lstm_recurrence_small_kernel): W_h is at most 64 KB, so one block
 // holds all of it, in registers.  The block's width is a compile-time
@@ -47,30 +47,11 @@
 // long as one.  xw rows stream in through an 8-step cp.async ring, far
 // ahead of the step that reads them.
 //
-// H > 512 (lstm_recurrence_kernel): W_h is 4 MiB at H = 512 against 227 KB
-// of shared memory per block, and past 512 its rows outgrow the group
-// kernel's registers.  So:
-//   * the hidden units are split across the blocks of the grid (blockIdx.x);
-//     a block owns the gate columns {j, H+j, 2H+j, 3H+j} of its U units, so
-//     the cell update stays local, and keeps that (H, 4U) slice of W_h in
-//     shared memory for the whole sequence (32 KB at H = 512, U = 4);
-//   * at each step a block reads h_{t-1} of ALL units from the output y
-//     (written by every block at step t-1, read through L2 with __ldcg),
-//     computes its 4U gate sums for its batch rows, updates its cells,
-//     writes h_t into y, and meets the other blocks at a grid barrier (a
-//     monotonic atomic counter; the launch is cooperative, so every block
-//     is resident and the spin cannot deadlock);
-//   * batch rows are independent: groups of up to kMaxRows rows run as
-//     separate grid rows (blockIdx.y), each with its own barrier counter.
-//     When the card cannot hold nblk blocks for every group (a training
-//     batch: B = 64 at H = 512 asks for 2048 blocks), a grid row takes
-//     several groups and runs the gate sums once per group inside each step
-//     (lstm_common.cuh: plan_rows).  That is the kGrouped instantiation; a
-//     grid row of one group runs the other;
-//   * the xw values of step t+1 are loaded while step t finishes, so their
-//     global-memory latency is off the critical path.
-//   Inside a block, thread (k, s) sums column k of W_h over the hidden units
-//   h = s, s+S, ...; the S partial sums meet with warp shuffles.
+// 512 < H <= 1024 (lstm_recurrence_mma_kernel, its own section below): a
+// cooperative launch of 8 units a block that does a step's (B, H) x (H, 32)
+// product for all batch rows at once on the tensor cores, in 3xTF32, with
+// its slice of W_h in registers.  Wider LSTMs raise (kMaxMmaH), as the
+// BPTT does.
 
 #include "lstm_common.cuh"
 
@@ -178,141 +159,6 @@ __global__ void __launch_bounds__(kSlices * HP)
     cp_async_wait<kXwStages - 2>();
     __syncthreads();
   }
-}
-
-// ------------------------------------------------------------------ H > 512
-// Its one-block branches (nblk == 1) are no longer taken, since H <= 64 has
-// its own kernel.  They stay: without them the single-group instantiation
-// compiles to 57 registers instead of 64 and ran 6-9% slower at B = 4 on
-// an H100.
-template <bool kGrouped>
-__global__ void __launch_bounds__(kThreads)
-    lstm_recurrence_kernel(const float* __restrict__ xw,
-                           const float* __restrict__ wh, float* y, float* cseq,
-                           unsigned int* counters, int B, int T, int H, int U,
-                           int S, int pitch, int gpb) {
-  extern __shared__ float smem[];
-  const int K = 4 * U;
-  const int H4 = 4 * H;
-  float* ws = smem;                    // [K][pitch]: this block's W_h columns
-  float* hs = ws + K * pitch;          // [kMaxRows][H]: h_{t-1} of one group
-  float* gs = hs + kMaxRows * H;       // [gpb * kMaxRows][K]: gate sums
-
-  const int tid = threadIdx.x;
-  const int nblk = gridDim.x;
-  const int j0 = blockIdx.x * U;
-  const int R = kGrouped ? gpb * kMaxRows : kMaxRows;  // rows per grid row
-  const int b0 = blockIdx.y * R;
-  const int rows = min(R, B - b0);
-  const int ngroups = kGrouped ? (rows + kMaxRows - 1) / kMaxRows : 1;
-
-  // column k of the slice is gate k / U of unit j0 + k % U
-  for (int idx = tid; idx < K * H; idx += kThreads) {
-    const int k = idx / H, h = idx - (idx / H) * H;
-    const int j = j0 + k % U;
-    ws[k * pitch + h] =
-        (j < H) ? wh[(size_t)h * H4 + (k / U) * H + j] : 0.0f;
-  }
-  for (int idx = tid; idx < kMaxRows * H; idx += kThreads) hs[idx] = 0.0f;
-
-  // gate-sum role: column k1, hidden units s1, s1 + S, ...
-  const int k1 = tid / S, s1 = tid - (tid / S) * S;
-  const bool dot_active = k1 < K;
-  const float* wk = ws + (dot_active ? k1 : 0) * pitch;
-
-  // cell role: pass q takes cell tid + q kThreads, batch row b2[q] of the
-  // grid row and unit j2[q] (the grouped kernel's rows may outnumber the
-  // threads: R U <= kCellPasses kThreads)
-  constexpr int kPasses = kGrouped ? kCellPasses : 1;
-  int b2[kPasses], j2[kPasses];
-  bool cell_active[kPasses];
-  const float* xrow[kPasses];
-  float c[kPasses];
-  float xg[kPasses][4];
-#pragma unroll
-  for (int q = 0; q < kPasses; ++q) {
-    const int ci = tid + q * kThreads;
-    b2[q] = ci / U;
-    j2[q] = j0 + ci % U;
-    cell_active[q] = ci < R * U && b2[q] < rows && j2[q] < H;
-    xrow[q] = cell_active[q] ? xw + (size_t)(b0 + b2[q]) * T * H4 + j2[q]
-                             : xw;
-    c[q] = 0.0f;
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-      xg[q][g] = cell_active[q] ? xrow[q][g * H] : 0.0f;
-  }
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    for (int grp = 0; grp < ngroups; ++grp) {
-      const int gb = kGrouped ? grp * kMaxRows : 0;
-      if (nblk > 1 && t > 0) {
-        const int grows = kGrouped ? min(kMaxRows, rows - gb) : rows;
-        for (int idx = tid; idx < grows * H; idx += kThreads) {
-          const int b = idx / H, h = idx - (idx / H) * H;
-          hs[b * H + h] =
-              __ldcg(y + ((size_t)(b0 + gb + b) * T + (t - 1)) * H + h);
-        }
-        __syncthreads();
-      }
-
-      float acc[kMaxRows];
-#pragma unroll
-      for (int b = 0; b < kMaxRows; ++b) acc[b] = 0.0f;
-      if (dot_active) {
-        for (int h = s1; h < H; h += S) {
-          const float w = wk[h];
-#pragma unroll
-          for (int b = 0; b < kMaxRows; ++b)
-            acc[b] = fmaf(hs[b * H + h], w, acc[b]);
-        }
-      }
-      for (int off = S >> 1; off > 0; off >>= 1) {
-#pragma unroll
-        for (int b = 0; b < kMaxRows; ++b)
-          acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], off);
-      }
-      if (dot_active && s1 == 0) {
-#pragma unroll
-        for (int b = 0; b < kMaxRows; ++b) gs[(gb + b) * K + k1] = acc[b];
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int q = 0; q < kPasses; ++q) {
-      if (!cell_active[q]) continue;
-      const int u = (tid + q * kThreads) % U;
-      const float* g_row = gs + b2[q] * K;
-      const float zi = xg[q][0] + g_row[u];
-      const float zf = xg[q][1] + g_row[U + u];
-      const float zg = xg[q][2] + g_row[2 * U + u];
-      const float zo = xg[q][3] + g_row[3 * U + u];
-      c[q] = sigmoid_f32(zf) * c[q] + sigmoid_f32(zi) * tanhf(zg);
-      const float h = sigmoid_f32(zo) * tanhf(c[q]);
-      const size_t o = ((size_t)(b0 + b2[q]) * T + t) * H + j2[q];
-      y[o] = h;
-      if (cseq != nullptr) cseq[o] = c[q];
-      if (nblk == 1) hs[b2[q] * H + j2[q]] = h;
-      if (t + 1 < T) {
-        const float* nxt = xrow[q] + (size_t)(t + 1) * H4;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) xg[q][g] = nxt[g * H];
-      }
-    }
-    if (nblk > 1) {
-      grid_barrier(counters + blockIdx.y, (unsigned int)(nblk * (t + 1)));
-    } else {
-      __syncthreads();
-    }
-  }
-}
-
-size_t smem_bytes(const Split& p, int H, int gpb) {
-  const int K = 4 * p.U;
-  return sizeof(float) * ((size_t)K * p.pitch + (size_t)kMaxRows * H +
-                          (size_t)gpb * kMaxRows * K);
 }
 
 // -------------------------------------------------------- 64 < H <= 512
@@ -569,13 +415,346 @@ cudaError_t launch_group(const float* xw, const float* wh, float* y,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ 512 < H <= 1024
+// lstm_recurrence_mma_kernel<NK, kVec>: past H = 512 the rows of W_h
+// outgrow the group kernel's registers.  A cooperative launch of
+// ceil(H / 8) blocks (128 at H = 1024, one an SM): block x owns kUnitsM =
+// 8 units, j0 = 8 x .. 8 x + 7, i.e. the 32 gate columns g H + j, for
+// every batch row, so the cell update stays in the block and the blocks
+// trade only h, through L2, at one grid barrier a step
+// (grid_barrier_release).  A step's work in a block is one
+// (B, H) x (H, 32) product, h_{t-1} times the block's slice of W_h, for
+// all batch rows at once on the tensor cores:
+//   - 3xTF32 mma.sync.m16n8k8 (split_tf32, mma_tf32 and the precision
+//     argument above lstm_dwh_kernel in lstm_bptt.cu: each k8 partial is
+//     summed from zero, then added to an f32 sum).  Plain TF32 would keep
+//     about three decimal digits of each product, which 1e-4 over
+//     thousands of steps does not allow;
+//   - split-K over the 8 warps: warp w sums over the hidden units
+//     [16 NK w, 16 NK (w + 1)) of h (NK = ceil(H / 128) k16 blocks, zero
+//     past H) and keeps its part of the slice, 16 NK x 32 floats, as B
+//     fragments in registers for the whole sequence (128 a thread at H =
+//     1024, split into hi and lo where they are used: the compiler must
+//     not hoist the splits out of the loop over m16 tiles, where they
+//     would need twice the registers), so no shared memory holds W_h and
+//     none is read for it.  n8 tile q is gate q of the block's 8 units;
+//   - inside each k16 block the k order is permuted, the same way for both
+//     operands: lane (g, t) takes k = 4 t .. 4 t + 3, two a k8 step, so
+//     its A fragment of rows g and g + 8 is two float4;
+//   - h_{t-1} streams from y (written by every block at step t - 1) through
+//     a kRingM-stage cp.async.cg ring per warp, one chunk (16 rows x 16 k)
+//     a stage, kRingM - 1 chunks ahead of the one being multiplied; .cg
+//     reads through L2, so it sees the other blocks' writes after the
+//     barrier.  Each lane copies the two float4 of its own A fragment; a
+//     warp sync after each wait lets the lanes read each other's rows (the
+//     path below) and frees the slot the warp read last;
+//   - a tile of at most kSimtRowsM = 8 rows (B = 1 serving, the 4 crops
+//     of a small train step) skips the tensor cores, whose m16 tile would
+//     be mostly padding: lane (g, t) multiplies the same W_h fragments,
+//     which hold its 4 k's of unit g for each gate, by those k's of each
+//     row in float32 FMAs, and the unit's 4 lanes meet by shuffles;
+//   - the batch runs in tiles of kRowTileM = 64 rows (4 m16 tiles, rows
+//     past B zero-filled by the copy), each tile's m16 tiles in turn, so
+//     any B runs in the same registers.  A launch takes up to kLaunchRowsM
+//     = 512 rows (their cells' c sits in shared memory); more rows take
+//     more launches, one after another on the stream, each with its own
+//     barrier counter.  No batch is refused for residency;
+//   - a tile's 8 warps leave their partial sums in shared memory, the 4
+//     gates of a (row, unit) side by side as one float4 (two buffers,
+//     alternating by tile; unit slots XOR-swizzled by row, so both the
+//     fragment-order writes and the row-order reads are conflict-free).
+//     After one __syncthreads, thread (row, unit) sums the 8 partials in
+//     warp order onto its xw (loaded a tile ahead, so behind the barrier
+//     and the product): a fixed order
+//     with no atomics, so two launches agree bitwise and h is the same with
+//     and without c.  It applies sigmoid_f32 / tanhf, as the plain loop's
+//     activations, keeps c in shared memory and writes h (and c).
+// What bounds it: the step's latency, not bytes.  Timed on an H100
+// (tools/bench_forward_builds.py) against builds that leave one part out,
+// at B = 64, T = 128, H = 1024 with c (16.9 us a step): the products take
+// about 9 us of it (6,144 mma.sync a block and step, about 10 cycles each
+// with their operand splits and adds), the copies of h 1.7 us and the
+// barrier 0.8 us.  Each block reads all of h_{t-1}, 256 KB at B = 64 (32
+// MiB a step over 128 blocks), yet L2 does not bound the step, so the
+// blocks share no copy through a cluster.  At B = 1 (4.2 us a step on the
+// CUDA-core path) the barrier takes 1.0 us and the copies 0.3 us.
+constexpr int kUnitsM = 8;          // units a block: 4 n8 tiles of gates
+constexpr int kWarpsM = kThreads / 32;
+constexpr int kRingM = 8;           // h chunks a warp's ring holds
+constexpr int kChunkM = 16 * 16;    // floats a chunk: 16 rows x 16 k
+constexpr int kRowTileM = 64;       // batch rows a tile
+constexpr int kSimtRowsM = 8;       // tiles of at most this many rows: FMAs
+constexpr int kLaunchRowsM = 512;   // batch rows a launch
+constexpr int kMaxMmaH = 1024;      // NK <= 8: 128 registers of W_h
+
+size_t mma_smem_bytes(int rows) {
+  return sizeof(float) * ((size_t)kWarpsM * kRingM * kChunkM +
+                          2 * (size_t)kWarpsM * kRowTileM * 4 * kUnitsM +
+                          (size_t)rows * kUnitsM);
+}
+
+template <int NK, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_recurrence_mma_kernel(const float* __restrict__ xw,
+                               const float* __restrict__ wh, float* y,
+                               float* cseq, unsigned int* counter, int B,
+                               int T, int H) {
+  constexpr int RS = kRowTileM * kUnitsM;  // float4 partials of a warp
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  float* ring = smem + warp * kRingM * kChunkM;  // [kRingM][16][16]
+  float4* red = reinterpret_cast<float4*>(smem + kWarpsM * kRingM * kChunkM);
+  float* cs = reinterpret_cast<float*>(red + 2 * kWarpsM * RS);  // [B][8]
+
+  const int H4 = 4 * H;
+  const int j0 = blockIdx.x * kUnitsM;
+  const unsigned int nblk = gridDim.x;
+  const int k0 = warp * 16 * NK + 4 * tig;  // lane's first k of k16 block 0
+
+  // wf[kb][s][q][e] = W_h[k0 + 16 kb + 2 s + e][q H + j0 + gid]: fragment
+  // b_e of k8 step s of k16 block kb, gate q; zero past H
+  float wf[NK][2][4][2];
+#pragma unroll
+  for (int kb = 0; kb < NK; ++kb)
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + 16 * kb + 2 * s + e, j = j0 + gid;
+          wf[kb][s][q][e] =
+              k < H && j < H ? __ldg(wh + (size_t)k * H4 + q * H + j) : 0.0f;
+        }
+  for (int i = tid; i < B * kUnitsM; i += kThreads) cs[i] = 0.0f;
+
+  const int nchunks = (B + 15) / 16 * NK;  // a warp's chunks a step
+  // cell role: rows cr and cr + 32 of a tile, unit cj
+  const int cr = tid / kUnitsM, cu = tid % kUnitsM, cj = j0 + cu;
+  // xv[e][g]: xw of gate g of cell (cr + 32 e, cj) in the tile of rows
+  // from r0 at step t, loaded one tile ahead of its cell update
+  float xv[2][4];
+  auto load_xv = [&](int r0, int t) {
+    const int rows = min(kRowTileM, B - r0);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = cr + 32 * e;
+      const bool cell = r < rows && cj < H;
+      const float* src =
+          xw + ((size_t)(r0 + (cell ? r : 0)) * T + t) * H4 + (cell ? cj : 0);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xv[e][g] = cell ? __ldg(src + g * H) : 0.0f;
+    }
+  };
+  load_xv(0, 0);
+  int buf = 0;
+
+  for (int t = 0; t < T; ++t) {
+    const float* hsrc = y + (size_t)(t > 0 ? t - 1 : 0) * H;
+    // chunk f: m16 tile f / NK of the launch, k16 block f % NK; the lane
+    // copies rows gid and gid + 8 at its k's
+    auto copy_chunk = [&](int f) {  // one commit group, empty past the last
+      if (f < nchunks) {
+        const int g = f / NK, k = k0 + 16 * (f - g * NK);
+        float* dst = ring + (f % kRingM) * kChunkM + 16 * gid + 4 * tig;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = 16 * g + gid + 8 * e;
+          const float* src = hsrc + (size_t)row * T * H + k;
+          if (kVec) {
+            const bool in = row < B && k < H;
+            cp_async16(dst + 128 * e, in ? src : y, in ? 16 : 0);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const bool in = row < B && k + i < H;
+              cp_async4(dst + 128 * e + i, in ? src + i : y, in ? 4 : 0);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    if (t > 0) {
+      for (int f = 0; f < kRingM - 1; ++f) copy_chunk(f);
+    }
+    int f = 0;  // the chunk being multiplied
+    // wait for chunk f (every lane's part), then refill the slot that
+    // chunk f - 1 took, which every lane of the warp has read
+    auto next_chunk = [&]() {
+      cp_async_wait<kRingM - 2>();
+      __syncwarp();
+      copy_chunk(f + kRingM - 1);
+      return ring + (f % kRingM) * kChunkM;
+    };
+    for (int r0 = 0; r0 < B; r0 += kRowTileM) {
+      const int rows = min(kRowTileM, B - r0);
+      float4* rb = red + buf * kWarpsM * RS;
+      if (t > 0 && rows <= kSimtRowsM) {
+        // a few rows: the same fragments and chunks on the CUDA cores;
+        // lane (gid, tig) holds W_h at k0 + 16 kb + 0 .. 3 for unit gid
+        float v[4 * kSimtRowsM];  // v[4 r + g]: row r, gate g
+#pragma unroll
+        for (int i = 0; i < 4 * kSimtRowsM; ++i) v[i] = 0.0f;
+#pragma unroll
+        for (int kb = 0; kb < NK; ++kb, ++f) {
+          const float* a = next_chunk() + 4 * tig;
+#pragma unroll
+          for (int r = 0; r < kSimtRowsM; ++r) {
+            if (r >= rows) break;
+            const float4 hv = *reinterpret_cast<const float4*>(a + 16 * r);
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              float& acc = v[4 * r + g];
+              acc = fmaf(hv.x, wf[kb][0][g][0], acc);
+              acc = fmaf(hv.y, wf[kb][0][g][1], acc);
+              acc = fmaf(hv.z, wf[kb][1][g][0], acc);
+              acc = fmaf(hv.w, wf[kb][1][g][1], acc);
+            }
+          }
+        }
+        // sum over the unit's 4 lanes: lane tig keeps the kSimtRowsM / 4
+        // rows from kSimtRowsM (2 (tig & 1) + (tig >> 1)) / 4
+        reduce_half<2 * kSimtRowsM>(v, 1, tig & 1);
+        reduce_half<kSimtRowsM>(v, 2, tig & 2);
+#pragma unroll
+        for (int i = 0; i < kSimtRowsM / 4; ++i) {
+          const int row = kSimtRowsM * (2 * (tig & 1) + (tig >> 1)) / 4 + i;
+          rb[warp * RS + row * kUnitsM + (gid ^ (row & 7))] =
+              make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+        }
+      } else if (t > 0) {
+#pragma unroll 1
+        for (int p = 0; p < (rows + 15) / 16; ++p) {
+          // W_h's fragments are the same for every m16 tile, and so are
+          // their splits: the compiler hoisted them out of this loop,
+          // where hi and lo of all of them need twice the registers, and
+          // spilled (444 bytes at NK = 8; 3.15 ms against 2.16 at B = 64,
+          // T = 128 on an H100).  An empty asm that may change them keeps
+          // each split where it is used.
+#pragma unroll
+          for (int kb = 0; kb < NK; ++kb)
+#pragma unroll
+            for (int s = 0; s < 2; ++s)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                asm volatile("" : "+f"(wf[kb][s][q][0]), "+f"(wf[kb][s][q][1]));
+          float acc[4][4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[q][i] = 0.0f;
+#pragma unroll
+          for (int kb = 0; kb < NK; ++kb, ++f) {
+            const float* a = next_chunk() + 16 * gid + 4 * tig;
+            const float4 lo = *reinterpret_cast<const float4*>(a);  // row gid
+            const float4 hi = *reinterpret_cast<const float4*>(a + 128);
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              unsigned ah[4], al[4];
+              split_tf32(s ? lo.z : lo.x, ah[0], al[0]);  // (gid, k)
+              split_tf32(s ? hi.z : hi.x, ah[1], al[1]);  // (gid + 8, k)
+              split_tf32(s ? lo.w : lo.y, ah[2], al[2]);  // (gid, k + 1)
+              split_tf32(s ? hi.w : hi.y, ah[3], al[3]);  // (gid + 8, k + 1)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                unsigned bh[2], bl[2];
+                split_tf32(wf[kb][s][q][0], bh[0], bl[0]);
+                split_tf32(wf[kb][s][q][1], bh[1], bl[1]);
+                float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                mma_tf32(d, al, bh);
+                mma_tf32(d, ah, bl);
+                mma_tf32(d, ah, bh);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[q][i] += d[i];
+              }
+            }
+          }
+          // d_i holds row gid + 8 (i / 2), unit 2 tig + i % 2
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = 16 * p + gid + 8 * (i >> 1);
+            rb[warp * RS + row * kUnitsM + ((2 * tig + (i & 1)) ^ gid)] =
+                make_float4(acc[0][i], acc[1][i], acc[2][i], acc[3][i]);
+          }
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = cr + 32 * e;
+        if (r >= rows || cj >= H) continue;
+        float z[4] = {xv[e][0], xv[e][1], xv[e][2], xv[e][3]};
+        if (t > 0) {
+#pragma unroll
+          for (int w = 0; w < kWarpsM; ++w) {
+            const float4 v = rb[w * RS + r * kUnitsM + (cu ^ (r & 7))];
+            z[0] += v.x;
+            z[1] += v.y;
+            z[2] += v.z;
+            z[3] += v.w;
+          }
+        }
+        float& c_ref = cs[(r0 + r) * kUnitsM + cu];
+        const float c =
+            sigmoid_f32(z[1]) * c_ref + sigmoid_f32(z[0]) * tanhf(z[2]);
+        const float h = sigmoid_f32(z[3]) * tanhf(c);
+        c_ref = c;
+        const size_t o = ((size_t)(r0 + r) * T + t) * H + cj;
+        y[o] = h;
+        if (cseq != nullptr) cseq[o] = c;
+      }
+      if (r0 + kRowTileM < B) {
+        load_xv(r0 + kRowTileM, t);
+      } else if (t + 1 < T) {
+        load_xv(0, t + 1);
+      }
+      buf ^= 1;
+    }
+    if (t + 1 < T)
+      grid_barrier_release(counter, nblk * (unsigned)(t + 1));
+  }
+}
+
+// Launches of up to kLaunchRowsM rows each, counters[i] the i-th's barrier.
+template <int NK>
+cudaError_t launch_mma(const float* xw, const float* wh, float* y,
+                       float* cseq, unsigned int* counters, int B, int T,
+                       int H, cudaStream_t st) {
+  const int nblk = (H + kUnitsM - 1) / kUnitsM;
+  const void* kernel =
+      H % 4 == 0 && aligned16(y)
+          ? (const void*)lstm_recurrence_mma_kernel<NK, true>
+          : (const void*)lstm_recurrence_mma_kernel<NK, false>;
+  for (int b0 = 0; b0 < B; b0 += kLaunchRowsM) {
+    int rows = std::min(kLaunchRowsM, B - b0);
+    const size_t smem = mma_smem_bytes(rows);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const float* xw_i = xw + (size_t)b0 * T * 4 * H;
+    float* y_i = y + (size_t)b0 * T * H;
+    float* c_i = cseq != nullptr ? cseq + (size_t)b0 * T * H : nullptr;
+    unsigned int* counter = counters + b0 / kLaunchRowsM;
+    void* args[] = {(void*)&xw_i,    (void*)&wh, (void*)&y_i,
+                    (void*)&c_i,     (void*)&counter, (void*)&rows,
+                    (void*)&T,       (void*)&H};
+    err = cudaLaunchCooperativeKernel(kernel, dim3(nblk), dim3(kThreads), args,
+                                      smem, st);
+    if (err != cudaSuccess) return err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // The kernel a launch at (B, H) runs; see the rule above
 // lstm_recurrence_launch.
-enum class Kernel { kSmall, kGroup, kSplit };
+enum class Kernel { kSmall, kGroup, kMma };
 
 Kernel kernel_for(int B, int H) {
   if (H <= kSmallH) return Kernel::kSmall;
-  if (H > kMaxGroupH) return Kernel::kSplit;
+  if (H > kMaxGroupH) return Kernel::kMma;
   return Kernel::kGroup;
 }
 
@@ -585,20 +764,23 @@ extern "C" {
 
 // Returns a cudaError_t (0 on success).  `counters` must hold
 // lstm_recurrence_counters(B, H) zeroed uint32 values; `cseq` may be null.
-// At H <= 64 xw must be 16-byte aligned (any tensor that starts at a row).
+// At H <= 64 xw must be 16-byte aligned (any tensor that starts at a row);
+// H > kMaxMmaH (1024) is refused (cudaErrorInvalidValue).
 //
 // Which kernel serves (B, H) (kernel_for): lstm_recurrence_small_kernel at
 // H <= 64, lstm_recurrence_group_kernel at 64 < H <= 512 (its register
-// limit), lstm_recurrence_kernel above.  The group kernel was faster than
-// lstm_recurrence_kernel at every shape timed, by device time in turns in
-// one call on an H100 (tools/bench_forward_builds.py): B = 4, T = 6656
-// 17.90-17.92 ms against 25.91 at H = 512, 15.40 against 19.63 at 256;
-// B = 64 with c, T = 256, 1.537-1.543 against 6.159-6.165 at 512 and
-// 0.761-0.762 against 2.056-2.059 at 256; T = 64 0.189 against 0.526.
+// limit), lstm_recurrence_mma_kernel above.  The group kernel was faster
+// than the split kernel that served 64 < H <= 512 before it at every
+// shape timed, by device time in turns in one call on an H100
+// (tools/bench_forward_builds.py): B = 4, T = 6656 17.90-17.92 ms against
+// 25.91 at H = 512, 15.40 against 19.63 at 256; B = 64 with c, T = 256,
+// 1.537-1.543 against 6.159-6.165 at 512 and 0.761-0.762 against
+// 2.056-2.059 at 256; T = 64 0.189 against 0.526.
 int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
                            float* cseq, unsigned int* counters, int B, int T,
                            int H, void* stream) {
-  if (B <= 0 || T <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || H <= 0 || H > kMaxMmaH)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (kernel_for(B, H)) {
     case Kernel::kSmall: {
@@ -615,43 +797,24 @@ int lstm_recurrence_launch(const float* xw, const float* wh, float* y,
                                      : launch_group<8>;
       return (int)launch(xw, wh, y, cseq, counters, B, T, H, st);
     }
-    case Kernel::kSplit:
+    case Kernel::kMma:
       break;
   }
-  const Split p = make_split(H);
-  const auto smem_for = [&](int gpb) { return smem_bytes(p, H, gpb); };
-  // one group per grid row if the single-group kernel fits, else groups
-  Rows r;
-  cudaError_t err = plan_rows(lstm_recurrence_kernel<false>, B, p.U, p.nblk,
-                              smem_for, &r);
-  if (err != cudaSuccess) return (int)err;
-  auto* kernel = lstm_recurrence_kernel<false>;
-  if (r.gpb > 1) {
-    kernel = lstm_recurrence_kernel<true>;
-    err = plan_rows(kernel, B, p.U, p.nblk, smem_for, &r);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const size_t smem = smem_for(r.gpb);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.nblk, r.grid_rows);
-  int U = p.U, S = p.S, pitch = p.pitch, gpb = r.gpb;
-  void* args[] = {(void*)&xw, (void*)&wh, (void*)&y,     (void*)&cseq,
-                  (void*)&counters, (void*)&B, (void*)&T, (void*)&H,
-                  (void*)&U,  (void*)&S,  (void*)&pitch, (void*)&gpb};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, grid,
-                                    dim3(kThreads), args, smem, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const auto launch = H <= 640   ? launch_mma<5>
+                      : H <= 768 ? launch_mma<6>
+                      : H <= 896 ? launch_mma<7>
+                                 : launch_mma<8>;
+  return (int)launch(xw, wh, y, cseq, counters, B, T, H, st);
 }
 
 // Number of barrier counters the launch needs for a batch of B rows at
-// width H: none at H <= 64, else one per group of kMaxRows rows (enough
-// for any grid-row plan of either multi-block kernel).
+// width H: none at H <= 64; at 64 < H <= 512 one per group of 4 rows (the
+// group kernel's smallest group, so enough for any of its plans); above,
+// one per launch of kLaunchRowsM rows.
 int lstm_recurrence_counters(int B, int H) {
-  return H <= kSmallH ? 0 : (B + kMaxRows - 1) / kMaxRows;
+  if (H <= kSmallH) return 0;
+  if (H > kMaxGroupH) return (B + kLaunchRowsM - 1) / kLaunchRowsM;
+  return (B + 3) / 4;
 }
 
 // The name of the kernel lstm_recurrence_launch runs at (B, H).
@@ -661,10 +824,10 @@ const char* lstm_recurrence_kernel_for(int B, int H) {
       return "lstm_recurrence_small_kernel";
     case Kernel::kGroup:
       return "lstm_recurrence_group_kernel";
-    case Kernel::kSplit:
+    case Kernel::kMma:
       break;
   }
-  return "lstm_recurrence_kernel";
+  return "lstm_recurrence_mma_kernel";
 }
 
 const char* lstm_recurrence_error_string(int err) {

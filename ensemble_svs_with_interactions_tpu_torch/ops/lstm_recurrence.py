@@ -37,11 +37,21 @@ across steps on chip (see the headers of the CUDA sources):
   the batch, each block holds the rows of W_h of its 16 units in
   registers, and only the blocks that share a group of batch rows
   exchange h (forward) or dz (BPTT) and meet at a barrier;
-* H > 512, forward, and 512 < H <= 1024, BPTT loop: each block holds its
-  slice of W_h in shared memory for the whole sequence, the hidden units
-  are split across blocks so the per-step exchange (h, or every row's dz
-  read from L2) and a grid barrier are the only cross-block traffic.
-  Wider BPTTs raise: 8 rows of W_h outgrow a block's shared memory.
+* 512 < H <= 1024, forward: each block owns 8 units (their 32 gate
+  columns) for every batch row and does a step's (B, H) x (H, 32)
+  product for all rows at once on the tensor cores, in 3xTF32
+  ``mma.sync`` (float32-accurate), split over its 8 warps by the hidden
+  units of h, each warp's part of W_h in registers for the whole
+  sequence; h_{t-1} streams from L2 through a ``cp.async`` ring, the
+  warps' partial sums meet in shared memory in a fixed order, and any
+  batch runs in tiles of 64 rows (launches of up to 512 rows);
+* 512 < H <= 1024, BPTT loop: each block holds its slice of W_h in
+  shared memory for the whole sequence, the hidden units are split
+  across blocks so reading every row's dz from L2 and a grid barrier
+  are the only cross-block traffic.
+* Wider LSTMs raise, forward and backward: 8 rows of W_h outgrow a
+  block's shared memory (BPTT), a warp's part of W_h its registers
+  (forward).
 
 dW_h is a tiled product over all steps, run after the loop, bound by the
 tensor cores' rate: 3xTF32 ``mma.sync`` (float32-accurate), fed by a
@@ -303,6 +313,7 @@ def _stream(t):
 
 
 SMALL_H = 64  # kSmallH of csrc/lstm_common.cuh
+MAX_FORWARD_H = 1024  # kMaxMmaH of csrc/lstm_recurrence.cu
 MAX_BPTT_H = 1024  # kMaxBpttH of csrc/lstm_bptt.cu
 
 
@@ -314,6 +325,9 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
     if xw.device.type == "cpu":
         return lstm_recurrence_reference(xw, w_h, want_c)
     B, T, H = _check_shapes("lstm_recurrence", xw, w_h)
+    if H > MAX_FORWARD_H:
+        raise ValueError(f"lstm_recurrence: H = {H}, the kernels take H <= "
+                         f"{MAX_FORWARD_H}")
     xw, w_h = _check_cuda("lstm_recurrence", xw, xw=xw, w_h=w_h)
     if H <= SMALL_H and xw.data_ptr() % 16:
         xw = xw.clone()  # that kernel streams xw rows in 16-byte copies

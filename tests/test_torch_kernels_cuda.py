@@ -85,13 +85,22 @@ def _inputs(cuda, B, T, H, seed):
     # the group kernel (64 < H <= 512): every register width, one and two
     # steps and an odd length, groups of 4 rows (B <= 4) and of 16, ragged
     # last groups; blocks taking several groups (128, 300); the serving
-    # length; and the widths above 512 on the older kernel
+    # length; and the widths above 512 on the mma kernel
     *[(B, T, H) for H in GROUP_H for B in (1, 3, 4, 5, 16, 17, 64, 67)
       for T in (1, 2, 37)],
     (128, 37, 512), (300, 9, 512), (4, 6656, 512), (32, 9, 1024),
-    # the split kernel's batches past a thread a cell (U = 8 at H = 1024:
-    # 32 rows a pass): the recipe's 64 crops, 128 rows, a ragged 70 at 640
+    # the mma kernel (512 < H <= 1024): the recipe's 64 crops, 128 rows, a
+    # ragged 70 at 640 (tiles of 64 rows, ragged m16 tiles)
     (64, 31, 1024), (128, 5, 1024), (70, 9, 640),
+    # a batch the earlier H > 512 kernel refused for residency (more than
+    # 128 rows at H = 1024) and one it took (300 at 640, where 4 of its
+    # blocks fit an SM); the NPSS recipe's full batch of 64 x
+    # 128 decoder steps and its dev pass, 1 x 1984; a width whose k16
+    # blocks run past H (1000), one whose rows of h are not 16-byte
+    # multiples (999: 4-byte copies) with a ragged last block of units;
+    # more rows than one launch takes (600: two launches)
+    (200, 33, 1024), (300, 9, 640), (64, 128, 1024), (1, 1984, 1024),
+    (17, 37, 1000), (5, 9, 999), (600, 5, 768),
     # single-singer serving (SPSVS.svs): one row over the fixture's padded
     # length at every serving width, and an odd length whose xw starts
     # off a 16-byte boundary (MISALIGNED)
@@ -124,11 +133,13 @@ def test_lstm_recurrence_kernel_matches_plain(cuda, B, T, H):
 def test_lstm_recurrence_dispatch(cuda):
     """The kernel each width and batch runs: the train step's H = 256 and
     512 forwards on the group kernel, H <= 64 on the one-row-a-block
-    kernel, H > 512 on the older split kernel."""
-    for B in (64, 67, 4):
+    kernel, H > 512 on the 3xTF32 mma kernel."""
+    for B in (64, 67, 4, 200):
         assert lstm_recurrence_kernel_name(B, 62) == (
             "lstm_recurrence_small_kernel")
-        assert lstm_recurrence_kernel_name(B, 1024) == "lstm_recurrence_kernel"
+        for H in (520, 640, 1000, 1024):
+            assert lstm_recurrence_kernel_name(B, H) == (
+                "lstm_recurrence_mma_kernel")
     for H in (256, 512):
         assert lstm_recurrence_kernel_name(64, H) == (
             "lstm_recurrence_group_kernel")
@@ -139,12 +150,25 @@ def test_lstm_recurrence_dispatch(cuda):
     for H in (256, 512):
         assert lstm_recurrence_kernel_name(1, H) == (
             "lstm_recurrence_group_kernel")
-    assert lstm_recurrence_kernel_name(1, 1024) == "lstm_recurrence_kernel"
+    assert lstm_recurrence_kernel_name(1, 1024) == (
+        "lstm_recurrence_mma_kernel")
+
+
+@pytest.mark.cuda
+def test_lstm_recurrence_refuses_wider_than_1024(cuda):
+    """H > 1024 raises naming the width (a warp's part of W_h would
+    outgrow its registers), as the BPTT does."""
+    xw, w_h, _ = _inputs(cuda, 2, 3, 1032, 0)
+    before = lstm_recurrence.launches
+    with pytest.raises(ValueError, match="H = 1032"):
+        lstm_recurrence(xw, w_h)
+    assert lstm_recurrence.launches == before
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H", [(67, 37, 98), (67, 40, 256), (4, 300, 512),
-                                   (300, 9, 512)])
+                                   (300, 9, 512), (64, 37, 1024),
+                                   (3, 50, 768)])
 def test_lstm_recurrence_kernel_is_deterministic(cuda, B, T, H):
     """Two launches on the same inputs give bitwise equal h and c: the
     warps' partial sums meet in a fixed order, with no atomics."""
@@ -161,6 +185,23 @@ def test_group_forward_saturates_like_the_plain_loop(cuda, B, T, H):
     """Gate pre-activations up to about +-200 at 64 < H <= 512: the group
     kernel's hardware exp2 / reciprocal activations saturate to the same
     0, 1 and -1 as the plain loop's."""
+    xw, w_h, _ = _inputs(cuda, B, T, H, 43)
+    xw *= 40.0
+    w_h *= 10.0
+    y, c = lstm_recurrence(xw, w_h, want_c=True)
+    y_ref, c_ref = lstm_recurrence_reference(xw, w_h, want_c=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(c).all()
+    assert (y - y_ref).abs().max().item() < ATOL
+    assert (c - c_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [(3, 50, 1024), (70, 50, 1024)])
+def test_mma_forward_saturates_like_the_plain_loop(cuda, B, T, H):
+    """Gate pre-activations up to about +-200 at H = 1024: the mma kernel's
+    3xTF32 products (operands split into TF32 hi and lo parts) and its
+    activations saturate to the same 0, 1 and -1 as the plain loop's."""
     xw, w_h, _ = _inputs(cuda, B, T, H, 43)
     xw *= 40.0
     w_h *= 10.0

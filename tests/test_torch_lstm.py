@@ -20,9 +20,13 @@ from ensemble_svs_with_interactions_tpu.ops.pallas_lstm import (
     extract_flax_lstm_weights,
     lstm_layer_pallas,
 )
+from ensemble_svs_with_interactions_tpu.ops.pallas_lstm import (
+    lstm_recurrence as pallas_recurrence,
+)
 from ensemble_svs_with_interactions_tpu_torch.models.layers import LSTM
 from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence,
+    lstm_recurrence_reference,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
     flax_to_torch,
@@ -78,6 +82,28 @@ def test_want_c_matches_pallas_forward_kernel():
     np.testing.assert_array_equal(
         lstm_recurrence(torch.from_numpy(xw), torch.from_numpy(w_h)).numpy(),
         h.numpy())
+
+
+@pytest.mark.parametrize("want_c", [False, True])
+def test_plain_recurrence_matches_pallas_above_512(want_c):
+    """The plain loop that the card holds its 512 < H <= 1024 kernel
+    against, at H = 520: h against ``_lstm_kernel``, h and c against
+    ``_lstm_fwd_kernel``, both in interpret mode."""
+    B, T, H = 3, 9, 520
+    rng = np.random.default_rng(11)
+    xw = rng.normal(size=(B, T, 4 * H)).astype(np.float32)
+    w_h = (rng.normal(size=(H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    got = lstm_recurrence_reference(torch.from_numpy(xw),
+                                    torch.from_numpy(w_h), want_c)
+    if want_c:
+        ref = _recurrence_fwd_pallas(jnp.asarray(xw), jnp.asarray(w_h), T, B,
+                                     True)
+    else:
+        got, ref = (got,), (pallas_recurrence(jnp.asarray(xw),
+                                              jnp.asarray(w_h), chunk=T,
+                                              interpret=True),)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
 
 
 @pytest.mark.parametrize("num_layers", [1, 2])

@@ -403,7 +403,8 @@ def test_chip_kernels_line_has_every_key():
     voice's under ``mel_voice`` and ``mel_voice_rows`` and the
     multi-speaker voice's under ``multi_speaker`` and
     ``multi_speaker_rows`` (their errors counted in ``max_abs_err``, dW_h's
-    relative one in ``max_rel_err``)."""
+    relative one in ``max_rel_err``; the rows keep cuDNN's input GEMM
+    time)."""
     import chip_smoke as cs
 
     shapes = sorted(set(cs.RECURRENCE_SHAPES)
@@ -456,8 +457,9 @@ def test_chip_kernels_line_has_every_key():
         assert k["launches_by_path"]["recipe_npss"] == 25
         assert list(k["recipe_npss_rows"]) == [
             f"train {k['name']} B=64 T=128"]
-        assert k["recipe_npss_rows"][f"train {k['name']} B=64 T=128"][
-            "H"] == 1024
+        npss_row = k["recipe_npss_rows"][f"train {k['name']} B=64 T=128"]
+        assert npss_row["H"] == 1024
+        assert npss_row["library_input_gemm_ms"] == 1.0
         assert k["launches_by_path"]["mel_voice"] == 13
         assert f"train {k['name']} H=64 T=256" in k["mel_voice_rows"]
         assert k["launches_by_path"]["multi_speaker"] == 23
