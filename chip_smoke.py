@@ -980,15 +980,31 @@ def recurrence_ops(B, T, H):
 
 def gates_ops(B, T, H):
     """Operations of the BPTT's gate pre-pass: the h_{t-1} W_h
-    multiply-adds plus the bias add."""
-    return 2 * B * T * H * 4 * H + B * T * 4 * H
+    multiply-adds of the T - 1 steps after the first (h_{-1} = 0, as
+    ``dwh_flops`` counts) plus the bias add of every step."""
+    return 2 * B * (T - 1) * H * 4 * H + B * T * 4 * H
 
 
 def bptt_loop_ops(B, T, H):
     """Operations of the BPTT's reverse loop: the dz_{t+1} W_h^T
-    multiply-adds plus about 30 elementwise operations per unit and
-    step."""
-    return 2 * B * T * 4 * H * H + 30 * B * T * H
+    multiply-adds of the T - 1 steps before the last (dz_T = 0) plus about
+    30 elementwise operations per unit and step."""
+    return 2 * B * (T - 1) * 4 * H * H + 30 * B * T * H
+
+
+BPTT_LAUNCH_ROWS = 512  # kLaunchRowsB in csrc/lstm_bptt.cu
+BPTT_SIMT_ROWS = 8      # kSimtRowsB there: launches this small take FMAs
+
+
+def bptt_mma_rows(kernel, B):
+    """Rows of a batch of B whose reverse loop multiplies on the tensor
+    cores in 3xTF32: none unless ``kernel`` is lstm_bptt_mma_kernel; there,
+    the rows of each launch (BPTT_LAUNCH_ROWS rows at most) of more than
+    BPTT_SIMT_ROWS rows.  The other rows' loop runs on float32 FMAs."""
+    if kernel != "lstm_bptt_mma_kernel":
+        return 0
+    last = B % BPTT_LAUNCH_ROWS
+    return B - last + (last if last > BPTT_SIMT_ROWS else 0)
 
 
 def recurrence_bound_times(B, T, H, want_c):
@@ -1009,14 +1025,16 @@ def recurrence_3xtf32_bound_ms(B, T, H, want_c):
     return max(t_bytes, 1e3 * recurrence_ops(B, T, H) / PEAK_3XTF32_FLOP_PER_S)
 
 
-def bptt_bound_times(B, T, H):
+def bptt_bound_times(B, T, H, mma_rows=0):
     """(bytes time, operations time) in ms for the whole BPTT launch: xw,
     W_h, h, c and dy read once, dxw written once; the gates' operations
-    (``gates_bound_times``) plus the loop's (``bptt_loop_bound_times``),
-    each at the rate of the instruction that does them."""
+    (``gates_bound_times``) plus the loop's (``bptt_loop_bound_times``,
+    with ``mma_rows`` of the B rows on the tensor cores), each at the rate
+    of the instruction that does them."""
     nbytes = 4 * (2 * B * T * 4 * H + H * 4 * H + 3 * B * T * H)
     return (1e3 * nbytes / PEAK_BYTES_PER_S,
-            gates_bound_times(B, T, H)[1] + bptt_loop_bound_times(B, T, H)[1])
+            gates_bound_times(B, T, H)[1]
+            + bptt_loop_bound_times(B, T, H, mma_rows)[1])
 
 
 def gates_bound_times(B, T, H):
@@ -1030,14 +1048,62 @@ def gates_bound_times(B, T, H):
     return 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * gates_ops(B, T, H) / rate
 
 
-def bptt_loop_bound_times(B, T, H):
+def bptt_loop_bound_times(B, T, H, mma_rows=0):
     """(bytes time, operations time) in ms for the BPTT's reverse loop
     after the pre-pass: the gates, c and dy read once and W_h once, dz
     written once; the dz_{t+1} W_h^T multiply-adds plus about 30
-    elementwise operations per unit and step over the float32 rate."""
+    elementwise operations per unit and step (``bptt_loop_ops``), those of
+    ``mma_rows`` rows at the 3xTF32 tensor-core rate
+    (PEAK_3XTF32_FLOP_PER_S) and the rest at the float32 FMA rate."""
     nbytes = 4 * (2 * B * T * 4 * H + H * 4 * H + 2 * B * T * H)
     return (1e3 * nbytes / PEAK_BYTES_PER_S,
-            1e3 * bptt_loop_ops(B, T, H) / PEAK_FP32_FLOP_PER_S)
+            1e3 * (bptt_loop_ops(mma_rows, T, H) / PEAK_3XTF32_FLOP_PER_S
+                   + bptt_loop_ops(B - mma_rows, T, H)
+                   / PEAK_FP32_FLOP_PER_S))
+
+
+def bptt_row(lr, xw, w_h, h, c, dy, base, library=True):
+    """The BPTT launch (pre-pass and loop) on these inputs against the plain
+    loop: its error, the loop kernel that served it, its time and the
+    plain version's, its bounds (whole launch and loop alone) with the
+    loop's products at the rate of the instruction that served them
+    (``bptt_mma_rows``), the pre-pass alone (``prepass_row``) and, unless
+    ``library`` is False, cuDNN's backward as its yardstick.  Rows of
+    lstm_bptt_mma_kernel also carry both bounds with every row's loop at
+    the float32 FMA rate (``*_fma_ms``, the figures earlier rows give) and
+    on the tensor cores in 3xTF32 (``*_3xtf32_ms``).  Returns the row,
+    dxw and the plain (dxw, dW_h)."""
+    B, T, H = h.shape
+    dxw = lr.lstm_bptt(xw, w_h, h, c, dy)
+    dxw_ref, dwh_ref = lr.lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
+    err = (dxw - dxw_ref).abs().max().item()
+    kernel = lr.lstm_bptt_kernel_name(B, H)
+    mma_rows = bptt_mma_rows(kernel, B)
+    t_bytes, t_ops = bptt_bound_times(B, T, H, mma_rows)
+    library_ms, gemm_ms = (cudnn_lstm_bwd_ms(xw, w_h, dy, 5) if library
+                           else (None, None))
+    ms = cuda_ms(lambda: lr.lstm_bptt(xw, w_h, h, c, dy), 10)
+    row = {**base, "name": "lstm_bptt", "kernel": kernel,
+           "loop_mma_rows": mma_rows, "max_abs_err": err,
+           "atol": KERNEL_ATOL, "ms": ms, "us_per_step": 1e3 * ms / T,
+           "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_bwd_reference(
+               xw, w_h, h, c, dy), 1),
+           "bytes_ms": t_bytes, "operations_ms": t_ops,
+           "library_ms": library_ms, "library_input_gemm_ms": gemm_ms,
+           "loop_bound_ms": bound(*bptt_loop_bound_times(
+               B, T, H, mma_rows))[0],
+           **prepass_row(lr, xw, w_h, h)}
+    if kernel == "lstm_bptt_mma_kernel":
+        for key, rows in (("fma", 0), ("3xtf32", B)):
+            row[f"bound_{key}_ms"] = bound(*bptt_bound_times(B, T, H,
+                                                             rows))[0]
+            row[f"loop_bound_{key}_ms"] = bound(*bptt_loop_bound_times(
+                B, T, H, rows))[0]
+    row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
+    emit(row)
+    assert np.isfinite(err) and err < KERNEL_ATOL, row
+    assert row["prepass_max_abs_err"] < KERNEL_ATOL, row
+    return row, dxw, dxw_ref, dwh_ref
 
 
 def dwh_flops(B, T, H):
@@ -1220,24 +1286,7 @@ def phase_train_kernels(lr, B=TRAIN_B, shapes=TRAIN_LAUNCHES_BY_SHAPE,
             rows["lstm_recurrence", H, T, want_c] = row
 
         h, c = lr.lstm_recurrence(xw, w_h, want_c=True)
-        dxw = lr.lstm_bptt(xw, w_h, h, c, dy)
-        dxw_ref, dwh_ref = lr.lstm_recurrence_bwd_reference(xw, w_h, h, c, dy)
-        err = (dxw - dxw_ref).abs().max().item()
-        t_bytes, t_ops = bptt_bound_times(B, T, H)
-        library_ms, gemm_ms = cudnn_lstm_bwd_ms(xw, w_h, dy, 5)
-        ms = cuda_ms(lambda: lr.lstm_bptt(xw, w_h, h, c, dy), 10)
-        row = {**base, "name": "lstm_bptt", "max_abs_err": err,
-               "atol": KERNEL_ATOL, "ms": ms, "us_per_step": 1e3 * ms / T,
-               "plain_ms": cuda_ms(lambda: lr.lstm_recurrence_bwd_reference(
-                   xw, w_h, h, c, dy), 1),
-               "bytes_ms": t_bytes, "operations_ms": t_ops,
-               "library_ms": library_ms, "library_input_gemm_ms": gemm_ms,
-               "loop_bound_ms": bound(*bptt_loop_bound_times(B, T, H))[0],
-               **prepass_row(lr, xw, w_h, h)}
-        row["bound_ms"], row["bound_by"] = bound(t_bytes, t_ops)
-        emit(row)
-        assert np.isfinite(err) and err < KERNEL_ATOL, row
-        assert row["prepass_max_abs_err"] < KERNEL_ATOL, row
+        row, dxw, dxw_ref, dwh_ref = bptt_row(lr, xw, w_h, h, c, dy, base)
         rows["lstm_bptt", H, T, None] = row
 
         # dW_h alone on the plain loop's dz, and the two kernels together
@@ -3070,8 +3119,8 @@ TRAIN_COUNTERS = ("lstm_recurrence", "lstm_bptt", "lstm_dwh")
 HAND_WRITTEN = ("lstm_recurrence_mma_kernel", "lstm_recurrence_small_kernel",
                 "lstm_recurrence_group_kernel", "lstm_gates_kernel",
                 "lstm_bptt_small_kernel", "lstm_gates_mma_kernel",
-                "lstm_bptt_group_kernel", "lstm_dwh_kernel",
-                "lstm_dwh_reduce_kernel")
+                "lstm_bptt_group_kernel", "lstm_bptt_mma_kernel",
+                "lstm_dwh_kernel", "lstm_dwh_reduce_kernel")
 
 
 def train_lstm_shapes(netg, T: int) -> dict:
@@ -5256,6 +5305,10 @@ NPSS_FULL_B, NPSS_FULL_FRAMES = 64, 256  # the recipe's batch: 64 crops
 # a batch past what the earlier H > 512 forward kernel took (128 rows at
 # H = 1024), held against the plain loop in both modes
 NPSS_WIDE_B, NPSS_WIDE_T = 200, 33
+# a batch the earlier H > 512 BPTT loop refused (its dc carry of every row
+# outgrew shared memory past 3040 rows at H = 1024), held against the
+# plain loop
+NPSS_BPTT_WIDE_B, NPSS_BPTT_WIDE_T = 3072, 2
 # the card-vs-CPU train step: NPSS_REF_B utterances of NPSS_REF_T frames,
 # dropout off (card and CPU draw masks from other generators)
 NPSS_REF_B, NPSS_REF_T = 2, 64
@@ -5449,9 +5502,10 @@ def phase_recipe_npss(lr, root) -> tuple:
     modes), BPTT (pre-pass and loop) and dW_h timed and held against
     their plain versions at the shapes stage 5 gave them and at the
     recipe's full batch (NPSS_FULL_B crops of NPSS_FULL_FRAMES frames, T =
-    128 decoder steps), with their bounds and cuDNN's times, and the
-    forward at NPSS_WIDE_B x NPSS_WIDE_T (a batch the earlier H > 512
-    kernel refused).  Returns the
+    128 decoder steps), with their bounds and cuDNN's times, the forward
+    at NPSS_WIDE_B x NPSS_WIDE_T and the BPTT at NPSS_BPTT_WIDE_B x
+    NPSS_BPTT_WIDE_T (batches the earlier H > 512 kernels refused).
+    Returns the
     AR voice's launches summed and the kernel rows by shape."""
     t0 = time.time()
     voices = {name: npss_voice(lr, root, name) for name in NPSS_CONFIGS}
@@ -5467,6 +5521,16 @@ def phase_recipe_npss(lr, root) -> tuple:
             T=NPSS_WIDE_T).items():
         rows[f"check{'_c' if want_c else ''} B={NPSS_WIDE_B} "
              f"T={NPSS_WIDE_T}"] = row
+    B, T = NPSS_BPTT_WIDE_B, NPSS_BPTT_WIDE_T
+    g = torch.Generator(device="cuda").manual_seed(SEED + B)
+    xw = torch.randn(B, T, 4 * NPSS_H, device="cuda", generator=g)
+    w_h = (torch.randn(NPSS_H, 4 * NPSS_H, device="cuda", generator=g)
+           / NPSS_H ** 0.5)
+    dy = torch.randn(B, T, NPSS_H, device="cuda", generator=g)
+    h, c = lr.lstm_recurrence(xw, w_h, want_c=True)
+    rows[f"check_bptt B={B} T={T}"] = bptt_row(
+        lr, xw, w_h, h, c, dy, {"phase": "recipe_npss_kernel", "B": B,
+                                "T": T, "H": NPSS_H}, library=False)[0]
     train = sorted(clock.shapes["train"]) + [(NPSS_FULL_B,
                                               NPSS_FULL_FRAMES)]
     for B, T in train:
@@ -5499,10 +5563,11 @@ def phase_recipe_npss(lr, root) -> tuple:
           "want_launches": want, "snr_bound_db": SNR_DB,
           "kernel_rows": {k: {f: r[f] for f in (
               "kernel", "B", "T", "H", "max_abs_err", "ms", "us_per_step",
-              "plain_ms", "bound_ms", "bound_by", "bound_3xtf32_ms",
-              "library_ms", "library_input_gemm_ms", "library_tf32",
-              "loop_bound_ms", "prepass_ms", "prepass_bound_ms",
-              "prepass_library_ms") if f in r}
+              "plain_ms", "bound_ms", "bound_by", "bound_fma_ms",
+              "bound_3xtf32_ms", "library_ms", "library_input_gemm_ms",
+              "library_tf32", "loop_mma_rows", "loop_bound_ms",
+              "loop_bound_fma_ms", "loop_bound_3xtf32_ms", "prepass_ms",
+              "prepass_bound_ms", "prepass_library_ms") if f in r}
               for k, r in rows.items()},
           "seconds": time.time() - t0})
     assert ar["launches"] == want, (ar["launches"], want)
@@ -6221,9 +6286,10 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
 
     def recipe_rows(name, rows=single_recipe_rows):
         keep = ("B", "T", "H", "kernel", "ms", "plain_ms", "bound_ms",
-                "bound_by", "bound_3xtf32_ms", "library_ms",
+                "bound_by", "bound_fma_ms", "bound_3xtf32_ms", "library_ms",
                 "library_input_gemm_ms", "library_tf32", "max_abs_err",
-                "max_rel_err", "loop_bound_ms", "prepass_ms",
+                "max_rel_err", "loop_mma_rows", "loop_bound_ms",
+                "loop_bound_fma_ms", "loop_bound_3xtf32_ms", "prepass_ms",
                 "prepass_bound_ms", "prepass_library_ms")
         return {k: {f: r[f] for f in keep if f in r}
                 for k, r in rows.items() if r["name"] == name}

@@ -16,8 +16,8 @@
 //     64 < H <= kMaxGroupH (512): lstm_gates_mma_kernel, then
 //               lstm_bptt_group_kernel (the H > 64 section below);
 //     kMaxGroupH < H <= kMaxBpttH (1024): lstm_gates_mma_kernel, then
-//               lstm_bptt_split_kernel (the 512 < H <= 1024 section);
-//     wider: refused (its rows of W_h outgrow a block's shared memory)
+//               lstm_bptt_mma_kernel (the 512 < H <= 1024 section);
+//     wider: refused (a warp's part of W_h would outgrow its registers)
 //   lstm_dwh_kernel (+ lstm_dwh_reduce_kernel): dW_h = sum over (b, t) of
 //     h_{t-1}^T dz_t, a tiled reduction over the B(T-1) steps with t >= 1
 //     (h_{-1} = 0), split over the reduction and summed in a fixed order.
@@ -39,6 +39,8 @@
 // Padding needs no mask: the layer zeroes its outputs at padded steps, so dy
 // is 0 there, and padding is a suffix, so dh and dc enter the valid steps
 // as 0.
+
+#include <atomic>
 
 #include "lstm_common.cuh"
 
@@ -352,23 +354,6 @@ constexpr int kStagesD = 3;
 constexpr int kPadD = 8;
 constexpr int kThreadsD = 256;
 constexpr int kMinRun = 256;  // reduction rows per slice, at least
-
-// hi keeps the sign, exponent and 10 mantissa bits of x (a TF32 value);
-// lo = x - hi is exact in f32, and the tensor core reads its top 19 bits.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int kBI>
 constexpr size_t dwh_smem_bytes() {
@@ -977,167 +962,490 @@ cudaError_t launch_bptt_group(const float* wh, const float* c,
 
 // ------------------------------------------------------ 512 < H <= 1024
 // The gate pre-pass is lstm_gates_mma_kernel, as above.  The reverse loop,
-// lstm_bptt_split_kernel, is the forward's H > 512 layout (lstm_recurrence
-// .cu, lstm_recurrence_kernel) turned around.  W_h is 16 MiB at H = 1024,
-// and the group kernel's 16 rows of it outgrow the registers, so a
-// cooperative grid of ceil(H / kUnitsS) blocks (128 at H = 1024, one per
-// SM) splits the units: block x owns units j0 = kUnitsS x .. j0 + 7, keeps
-// their rows of W_h (8 x 4H floats, 128 KiB at H = 1024) in shared memory
-// for the whole loop and takes every batch row, kRowsS rows a pass.  Each
-// step, for each pass:
-//   - the cell threads (row r, unit u) = (tid / 8, tid % 8) load the
-//     operands of step t (the unit's 4 gates from dxw[b, t] through
-//     __ldcg, as this launch overwrites them with dz_t; c_t, c_{t-1},
-//     dy_t) before the product;
-//   - dh (8 rows x 8 units) = dz_{t+1} W_rows^T: thread tid takes the
-//     float4 columns q = tid + 256 k of dz_{t+1}, read from L2 with
-//     __ldcg (the other blocks wrote them before the barrier), against
-//     the 8 rows' float4 of W_h from shared memory, into 64 sums; a
-//     reduce-scatter over the warp (32 + 16 + 8 + 4 + 2 __shfl_xor) leaves
-//     lane l the sums of (row, unit) 2 l and 2 l + 1, and the 8 warps'
-//     partials meet in shared memory, summed in warp order by the cell
-//     thread, one __syncthreads a pass;
-//   - the cell thread does the cell arithmetic (dc_next of every row in
-//     shared memory) and writes its unit's dz_t into dxw.
-// Then one grid barrier a step.  Each block reads all of dz_{t+1}, B x 4H
-// floats, a step: the grid's L2 traffic is nblk x B x 16H bytes a step,
-// which bounds the loop.  Units past H have zero weights and are not
-// written; rows past B are not read.  c, dy and the gates are read as
-// floats at any alignment; dxw, read in 16-byte pieces, is the caller's
-// 16-byte aligned allocation, and its rows (4H floats) keep that.
-// Padding needs no mask, as above.
-constexpr int kMaxBpttH = 1024;  // widest H of lstm_bptt_launch
-constexpr int kUnitsS = 8;       // units a block
-constexpr int kRowsS = 8;        // batch rows a pass
-constexpr int kCellsS = kRowsS * kUnitsS;
-constexpr int kChunksS = kMaxBpttH / kThreads;  // float4 columns a thread
+// lstm_bptt_mma_kernel<NK>, is a cooperative launch of clusters of two
+// blocks (128 blocks at H = 1024, one an SM).  Cluster c owns kUnitsB = 16
+// units, j0 = 16 c .. 16 c + 15, for every batch row; a reverse step's work
+// in it is one (B, 4H) x (4H, 16) product, dz_{t+1} times its 16 rows of
+// W_h transposed, split by k between its two blocks: rank 0 takes the gate
+// columns [0, kh), rank 1 [kh, 4H) (kh = 2H rounded up to a k16 block).
+// Each block multiplies all batch rows of the step at once on the tensor
+// cores, its (B, kh) x (kh, 16) half:
+//   - 3xTF32 mma.sync.m16n8k8 (split_tf32, mma_tf32 and the precision
+//     argument above lstm_dwh_kernel: each k8 partial is summed from zero,
+//     then added to an f32 sum).  Plain TF32 keeps about three decimal
+//     digits of each product, which 1e-4 over hundreds of reverse steps
+//     does not allow;
+//   - split-K over the 8 warps: warp w sums over the columns [16 NK w,
+//     16 NK (w + 1)) of the block's half (NK = kNkB = 16 k16 blocks, the
+//     widest half's 2048 columns over 8 warps; at a narrower H the columns
+//     past the half have zero weights and zero-filled copies, so one
+//     instantiation serves every width) and keeps its part of the 16 rows,
+//     16 NK x 16 floats,
+//     as B fragments of two n8 tiles in registers for the whole sequence
+//     (128 a thread at H = 1024), split into hi and lo where they are used
+//     (an empty asm over them each m16 tile keeps the compiler from
+//     hoisting the splits out of the loops, which would need twice the
+//     registers).  wgmma, Hopper's full-rate product, reads B from shared
+//     memory, where the hi and lo parts of a block's slice (256 KiB at H =
+//     1024) do not fit; it was not tried;
+//   - inside each k16 block the k order is permuted, the same way for both
+//     operands: lane (g, t) takes k = 4 t .. 4 t + 3, two a k8 step, so
+//     its A fragment of rows g and g + 8 is two float4, and each A
+//     fragment (split once) feeds both n8 tiles;
+//   - the block's half of dz_{t+1} (written by every cluster at step t + 1)
+//     streams from dxw through a kRingB-stage cp.async.cg ring per warp,
+//     one chunk (16 rows x 16 k) a stage, kRingB - 1 chunks ahead of the
+//     one being multiplied; .cg reads through L2, so it sees the other
+//     blocks' writes after the barrier.  Each lane copies the two float4
+//     of its own A fragment; a warp sync after each wait lets the lanes
+//     read each other's rows (the path below) and frees the slot the warp
+//     read last;
+//   - a launch of at most kSimtRowsB = 8 rows (the 4 crops of a small train
+//     step) skips the tensor cores, whose m16 tile would be mostly
+//     padding: each lane copies its row's k's of the whole step at once
+//     (one round trip to L2) and multiplies the same W_h fragments, its 4
+//     k's of units g and 8 + g, by them in float32 FMAs; the units' 4
+//     lanes meet by shuffles;
+//   - the batch runs in tiles of kRowTileB = 64 rows (4 m16 tiles, rows
+//     past B zero-filled by the copy), each tile's m16 tiles in turn, so
+//     any B runs in the same registers.  A launch takes up to
+//     kLaunchRowsB = 512 rows (their dc carry sits in shared memory); more
+//     rows take more launches, one after another on the stream, each with
+//     its own barrier counter.  No batch is refused for residency;
+//   - a tile's 8 warps leave their partial sums of dh in shared memory
+//     (two buffers, alternating by tile).  After one __syncthreads, thread
+//     (row, unit) adds the 8 partials in warp order for one of the block's
+//     8 cell units (rank 0 updates units j0 .. j0 + 7, rank 1 the other 8)
+//     and for the same unit of the partner's, which it stores into the
+//     partner's shared memory (distributed shared memory, one cluster
+//     barrier a tile).  dh = dy_t + rank 0's half + rank 1's half, in that
+//     order in both blocks: no atomics, so two launches agree bitwise.
+//     The cell operands (the unit's 4 gates from dxw[b, t] through __ldcg,
+//     as this launch overwrites them with dz_t; c_t, c_{t-1}, dy_t) are
+//     loaded a tile ahead, behind the barrier and the product.  The thread
+//     does the cell arithmetic, keeps dc_next in shared memory and writes
+//     dz_t into dxw.
+// Then one grid barrier a step (grid_barrier_release).  Units past H have
+// zero weights and are not written; rows past B are not read.  c, dy and
+// the gates are read as floats at any alignment; dxw, read in 16-byte
+// pieces, is the caller's 16-byte aligned allocation, and its rows (4H
+// floats) and both halves of them keep that.  Padding needs no mask, as
+// above.
+//
+// What bounds it, timed on an H100 (tools/bench_bptt_builds.py, builds
+// that leave one part out, B = 64, T = 128, H = 1024: 24.8 us a step):
+// the products about 10.4 us, the copies of dz 7.4, the rest (the reads
+// of the A fragments from shared memory, the cell update with its
+// cluster exchange, 0.7 of barrier) 6.8; the parts add up, they do not
+// overlap.  Each block reads half of dz_{t+1}, 512 KiB at B = 64 (64 MiB a
+// step over 128 blocks), through L2 into shared memory and out again.
+// The first design, one block per 8 units reading all of dz_{t+1} (a (B,
+// 4H) x (4H, 8) product a block), took 35 us a step in the same timing
+// (products 11.5, copies 14, rest 8.5: twice the bytes through L2 and
+// shared memory, and each A fragment split for one n8 tile); neither a
+// deeper or shallower ring (8 to 20 chunks), nor chunks of 4 m16 tiles
+// sharing one split of W_h (7.24-7.35 ms a launch against 5.74-5.98), nor
+// each block taking the k16 blocks in its own order (6.2 against 5.8)
+// moved it, and sharing each chunk between a cluster's 2 blocks by TMA
+// multicast (boxes of 16 rows x 16 k, an mbarrier ring) took 14.7 ms.  A
+// cluster of 4 is not resident at 128 blocks (error 720).  At B = 4 a step
+// takes 5.7 us, by block 0's clock counts 55% in the copies and FMAs, 24%
+// in the cell update and 20% in the barrier.
+constexpr int kMaxBpttH = 1024;    // widest H of lstm_bptt_launch
+constexpr int kUnitsB = 16;        // units a cluster: two n8 tiles
+constexpr int kCellsB = kUnitsB / 2;  // units whose cells a block updates
+constexpr int kRingB = 16;         // dz chunks a warp's ring holds
+constexpr int kChunkB = 16 * 16;   // floats a chunk: 16 rows x 16 k
+constexpr int kRowTileB = 64;      // batch rows a tile
+constexpr int kSimtRowsB = 8;      // launches of at most this many rows: FMAs
+constexpr int kLaunchRowsB = 512;  // batch rows a launch
+constexpr int kNkB = 2 * kMaxBpttH / 16 / kWarpsG;  // k16 blocks a warp
+// a launch of at most kSimtRowsB rows holds a step's dz in its warps' rings
+static_assert(kRingB * kChunkB >= kMaxBpttH / 64 * 16 * kSimtRowsB,
+              "the ring holds a step of the CUDA-core path");
 
-size_t split_smem_bytes(int H, int B) {
-  return sizeof(float) * ((size_t)kUnitsS * 4 * H +
-                          2 * kWarpsG * kCellsS + (size_t)B * kUnitsS);
+size_t bptt_mma_smem_bytes(int rows) {
+  return sizeof(float) * ((size_t)kWarpsG * kRingB * kChunkB +
+                          2 * (size_t)kWarpsG * kRowTileB * kUnitsB +
+                          2 * (size_t)kRowTileB * kCellsB +
+                          (size_t)rows * kCellsB);
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    lstm_bptt_split_kernel(const float* __restrict__ wh,
-                           const float* __restrict__ cseq,
-                           const float* __restrict__ dy, float* dxw,
-                           unsigned int* counter, int B, int T, int H) {
-  extern __shared__ __align__(16) float smem[];
-  const int H4 = 4 * H;
-  float* ws = smem;                        // [kUnitsS][4H]: W_h rows
-  float* red = ws + kUnitsS * H4;          // [2][kWarpsG][kCellsS]
-  float* dcs = red + 2 * kWarpsG * kCellsS;  // [B][kUnitsS]: dc_next
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int j0 = blockIdx.x * kUnitsS;
-  const unsigned int nblk = gridDim.x;
+// The gate columns [0, kh) go to rank 0 of a cluster, [kh, 4H) to rank 1:
+// kh = 2H rounded up to a k16 block, so both halves start 16-byte aligned.
+__device__ __forceinline__ int k_half(int H) { return (2 * H + 15) & ~15; }
 
-  for (int i = tid; i < kUnitsS * H4; i += kThreads) {
-    const int u = i / H4, n = i - u * H4;
-    ws[i] = j0 + u < H ? __ldg(wh + (size_t)(j0 + u) * H4 + n) : 0.0f;
-  }
-  for (int i = tid; i < B * kUnitsS; i += kThreads) dcs[i] = 0.0f;
-  // cell role: row r of the pass, unit j
-  const int r = tid / kUnitsS, u = tid % kUnitsS, j = j0 + u;
-  __syncthreads();
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// arrive at the cluster's barrier, then wait for the other block: the
+// shared-memory writes before it are seen by both blocks after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// v into the float at the same offset as `p` in the cluster's block `rank`
+__device__ __forceinline__ void st_cluster(float* p, unsigned rank, float v) {
+  asm volatile(
+      "{\n.reg .b32 r;\n"
+      "mapa.shared::cluster.u32 r, %0, %1;\n"
+      "st.shared::cluster.f32 [r], %2;\n}\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(p)),
+      "r"(rank), "f"(v)
+      : "memory");
+}
+
+template <int NK>
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_bptt_mma_kernel(const float* __restrict__ wh,
+                         const float* __restrict__ cseq,
+                         const float* __restrict__ dy, float* dxw,
+                         unsigned int* counter, int B, int T, int H) {
+  constexpr int RS = kRowTileB * kUnitsB;  // partials of a warp
+  constexpr int CT = 4 * NK;               // chunks of a full tile
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  float* ring = smem + warp * kRingB * kChunkB;  // [kRingB][16][16]
+  float* red = smem + kWarpsG * kRingB * kChunkB;  // [2][kWarpsG][64][16]
+  float* xch = red + 2 * kWarpsG * RS;  // [2][64][8]: the partner's sums
+  float* dcs = xch + 2 * kRowTileB * kCellsB;  // [B][8]: dc_next
+
+  const int H4 = 4 * H;
+  const unsigned rank = cluster_rank(), other = rank ^ 1;
+  const int j0 = (blockIdx.x >> 1) * kUnitsB;
+  const unsigned int nblk = gridDim.x;
+  const int kh = k_half(H);
+  const int kbase = rank ? kh : 0, klen = rank ? H4 - kh : kh;
+  // the lane's first k of k16 block 0, in its block's half of the columns
+  const int k0 = warp * 16 * NK + 4 * tig;
+
+  // wf[kb][n][s][e] = W_h[j0 + 8 n + gid][kbase + k0 + 16 kb + 2 s + e]:
+  // fragment b_e of k8 step s of k16 block kb, n8 tile n; zero past H and
+  // past the half
+  float wf[NK][2][2][2];
+#pragma unroll
+  for (int kb = 0; kb < NK; ++kb)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + 16 * kb + 2 * s + e, j = j0 + 8 * n + gid;
+          wf[kb][n][s][e] = k < klen && j < H
+                                ? __ldg(wh + (size_t)j * H4 + kbase + k)
+                                : 0.0f;
+        }
+  for (int i = tid; i < B * kCellsB; i += kThreads) dcs[i] = 0.0f;
+
+  // a step's chunks on the tensor-core path: CT for each full tile, then
+  // the last tile's m16 tiles x NK
+  const int ntiles = (B + kRowTileB - 1) / kRowTileB;
+  const int nchunks =
+      (ntiles - 1) * CT + (B - kRowTileB * (ntiles - 1) + 15) / 16 * NK;
+  const bool simt = B <= kSimtRowsB;
+  // cell role: rows cr and cr + 32 of a tile, unit cj of the block's 8;
+  // the partner's unit cu (pj) is summed here too
+  const int cr = tid / kCellsB, cu = tid % kCellsB;
+  const int cj = j0 + kCellsB * rank + cu, pj = j0 + kCellsB * other + cu;
+  // op[e]: the operands of cell (cr + 32 e, cj) in the tile of rows from r0
+  // at step t, loaded one tile ahead of its cell update: gates i, f, g, o,
+  // c_t, c_{t-1}, dy_t
+  float op[2][7];
+  auto load_op = [&](int r0, int t) {
+    const int rows = min(kRowTileB, B - r0);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = cr + 32 * e;
+      const bool cell = r < rows && cj < H;
+      const size_t row = (size_t)(r0 + (cell ? r : 0)) * T + t;
+      const int j = cell ? cj : 0;
+      const float* gz = dxw + row * H4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) op[e][g] = cell ? __ldcg(gz + g * H) : 0.0f;
+      op[e][4] = cell ? __ldg(cseq + row * H + j) : 0.0f;
+      op[e][5] = cell && t > 0 ? __ldg(cseq + (row - 1) * H + j) : 0.0f;
+      op[e][6] = cell ? __ldg(dy + row * H + j) : 0.0f;
+    }
+  };
+  load_op(0, T - 1);
   int buf = 0;
 
   for (int t = T - 1; t >= 0; --t) {
     const bool next = t + 1 < T;  // dz_T = 0
-    for (int b0 = 0; b0 < B; b0 += kRowsS) {
-      const int rows = min(kRowsS, B - b0);
-      const bool cell = tid < kCellsS && r < rows && j < H;
-      const size_t row = (size_t)(b0 + (cell ? r : 0)) * T + t;
-      float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f;
-      float c_t = 0.0f, c_p = 0.0f, dy_t = 0.0f;
-      if (cell) {
-        const float* gz = dxw + row * H4 + j;
-        gi = __ldcg(gz);
-        gf = __ldcg(gz + H);
-        gg = __ldcg(gz + 2 * H);
-        go = __ldcg(gz + 3 * H);
-        c_t = __ldg(cseq + row * H + j);
-        c_p = t > 0 ? __ldg(cseq + (row - 1) * H + j) : 0.0f;
-        dy_t = __ldg(dy + row * H + j);
+    // row b of dz_{t+1} in the block's half of the columns: + b T 4H
+    const float* zsrc = dxw + (size_t)(t + 1) * H4 + kbase;
+    // chunk f: tile f / CT, its m16 tile p, k16 block kb; the lane copies
+    // rows gid and gid + 8 at its k's
+    auto copy_chunk = [&](int f) {  // one commit group, empty past the last
+      if (f < nchunks) {
+        const int tile = f / CT, rem = f - tile * CT;
+        const int p = rem / NK, k = k0 + 16 * (rem - p * NK);
+        float* dst = ring + (f % kRingB) * kChunkB + 16 * gid + 4 * tig;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = kRowTileB * tile + 16 * p + gid + 8 * e;
+          const bool in = row < B && k < klen;
+          cp_async16(dst + 128 * e,
+                     in ? zsrc + (size_t)row * T * H4 + k : dxw,
+                     in ? 16 : 0);
+        }
       }
-
-      float v[kCellsS];  // v[8 rr + uu]: row b0 + rr, unit j0 + uu
+      cp_async_commit();
+    };
+    if (next && simt) {
+      // a few rows: the lane copies row gid at its k's of every k16 block
+      // at once, [kb][row][16 k] in its warp's ring, so the step waits for
+      // one round trip to L2
+      if (gid < B) {
+        const float* src = zsrc + (size_t)gid * T * H4;
+        float* dst = ring + 16 * gid + 4 * tig;
 #pragma unroll
-      for (int i = 0; i < kCellsS; ++i) v[i] = 0.0f;
-      if (next) {
+        for (int kb = 0; kb < NK; ++kb) {
+          const int k = k0 + 16 * kb;
+          cp_async16(dst + 128 * kb, k < klen ? src + k : dxw,
+                     k < klen ? 16 : 0);
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncwarp();
+    } else if (next) {
+      for (int f = 0; f < kRingB - 1; ++f) copy_chunk(f);
+    }
+    int f = 0;  // the chunk being multiplied
+    // wait for chunk f (every lane's part), then refill the slot that
+    // chunk f - 1 took, which every lane of the warp has read
+    auto next_chunk = [&]() {
+      cp_async_wait<kRingB - 2>();
+      __syncwarp();
+      copy_chunk(f + kRingB - 1);
+      return ring + (f % kRingB) * kChunkB;
+    };
+    for (int r0 = 0; r0 < B; r0 += kRowTileB) {
+      const int rows = min(kRowTileB, B - r0);
+      float* rb = red + buf * kWarpsG * RS;
+      if (next && simt) {
+        // the same fragments on the CUDA cores; lane (gid, tig) holds W_h
+        // at k0 + 16 kb + 0 .. 3 for units gid and 8 + gid
+        float v[2 * kSimtRowsB];  // v[8 n + r]: row r, n8 tile n
 #pragma unroll
-        for (int k = 0; k < kChunksS; ++k) {
-          const int q = tid + kThreads * k;  // float4 column of dz
-          if (q < H) {
-            float4 w[kUnitsS];
+        for (int i = 0; i < 2 * kSimtRowsB; ++i) v[i] = 0.0f;
 #pragma unroll
-            for (int uu = 0; uu < kUnitsS; ++uu)
-              w[uu] = *reinterpret_cast<const float4*>(ws + uu * H4 + 4 * q);
+        for (int kb = 0; kb < NK; ++kb) {
+          const float* a = ring + 128 * kb + 4 * tig;
 #pragma unroll
-            for (int rr = 0; rr < kRowsS; ++rr) {
-              if (rr < rows) {
-                const float4 d = __ldcg(
-                    reinterpret_cast<const float4*>(
-                        dxw + ((size_t)(b0 + rr) * T + t + 1) * H4) +
-                    q);
+          for (int r = 0; r < kSimtRowsB; ++r) {
+            if (r >= rows) break;
+            const float4 zv = *reinterpret_cast<const float4*>(a + 16 * r);
 #pragma unroll
-                for (int uu = 0; uu < kUnitsS; ++uu) {
-                  float& a = v[kUnitsS * rr + uu];
-                  a = fmaf(d.x, w[uu].x, a);
-                  a = fmaf(d.y, w[uu].y, a);
-                  a = fmaf(d.z, w[uu].z, a);
-                  a = fmaf(d.w, w[uu].w, a);
-                }
-              }
+            for (int n = 0; n < 2; ++n) {
+              float& acc = v[kSimtRowsB * n + r];
+              acc = fmaf(zv.x, wf[kb][n][0][0], acc);
+              acc = fmaf(zv.y, wf[kb][n][0][1], acc);
+              acc = fmaf(zv.z, wf[kb][n][1][0], acc);
+              acc = fmaf(zv.w, wf[kb][n][1][1], acc);
             }
           }
         }
-      }
-      reduce_half<32>(v, 16, lane & 16);
-      reduce_half<16>(v, 8, lane & 8);
-      reduce_half<8>(v, 4, lane & 4);
-      reduce_half<4>(v, 2, lane & 2);
-      reduce_half<2>(v, 1, lane & 1);
-      float* rb = red + buf * kWarpsG * kCellsS;
-      *reinterpret_cast<float2*>(rb + warp * kCellsS + 2 * lane) =
-          make_float2(v[0], v[1]);
-      __syncthreads();
-
-      if (cell) {
-        float dh = dy_t;
+        // sum over the units' 4 lanes: lane tig keeps n8 tile tig & 1,
+        // rows 4 (tig >> 1) .. 4 (tig >> 1) + 3
+        reduce_half<kSimtRowsB>(v, 1, tig & 1);
+        reduce_half<kSimtRowsB / 2>(v, 2, tig & 2);
 #pragma unroll
-        for (int k = 0; k < kWarpsG; ++k) dh += rb[k * kCellsS + tid];
-        float& dc_next = dcs[(b0 + r) * kUnitsS + u];
-        const float tc = tanhf(c_t);
+        for (int i = 0; i < kSimtRowsB / 2; ++i)
+          rb[warp * RS + (4 * (tig >> 1) + i) * kUnitsB + 8 * (tig & 1) +
+             gid] = v[i];
+      } else if (next) {
+#pragma unroll 1
+        for (int p = 0; p < (rows + 15) / 16; ++p) {
+          // W_h's fragments are the same for every m16 tile, and so are
+          // their splits: an empty asm that may change them keeps each
+          // split where it is used (lstm_recurrence_mma_kernel's note)
+#pragma unroll
+          for (int kb = 0; kb < NK; ++kb)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+              for (int s = 0; s < 2; ++s)
+                asm volatile("" : "+f"(wf[kb][n][s][0]), "+f"(wf[kb][n][s][1]));
+          float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+          for (int kb = 0; kb < NK; ++kb, ++f) {
+            const float* a = next_chunk() + 16 * gid + 4 * tig;
+            const float4 lo = *reinterpret_cast<const float4*>(a);  // row gid
+            const float4 hi = *reinterpret_cast<const float4*>(a + 128);
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+              unsigned ah[4], al[4];
+              split_tf32(s ? lo.z : lo.x, ah[0], al[0]);  // (gid, k)
+              split_tf32(s ? hi.z : hi.x, ah[1], al[1]);  // (gid + 8, k)
+              split_tf32(s ? lo.w : lo.y, ah[2], al[2]);  // (gid, k + 1)
+              split_tf32(s ? hi.w : hi.y, ah[3], al[3]);  // (gid + 8, k + 1)
+#pragma unroll
+              for (int n = 0; n < 2; ++n) {
+                unsigned bh[2], bl[2];
+                split_tf32(wf[kb][n][s][0], bh[0], bl[0]);
+                split_tf32(wf[kb][n][s][1], bh[1], bl[1]);
+                float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                mma_tf32(d, al, bh);
+                mma_tf32(d, ah, bl);
+                mma_tf32(d, ah, bh);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) acc[n][i] += d[i];
+              }
+            }
+          }
+          // d_i holds row gid + 8 (i / 2), unit 8 n + 2 tig + i % 2
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<float2*>(
+                  rb + warp * RS + (16 * p + gid + 8 * e) * kUnitsB + 8 * n +
+                  2 * tig) = make_float2(acc[n][2 * e], acc[n][2 * e + 1]);
+        }
+      }
+      __syncthreads();
+      // the 8 warps' partials in warp order: this block's half of dh for
+      // its own units, and for the partner's, which go to the partner
+      float own[2] = {0.0f, 0.0f};
+      float* xb = xch + buf * kRowTileB * kCellsB;
+      if (next) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = cr + 32 * e;
+          if (r >= rows) continue;
+          float part = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kWarpsG; ++w) {
+            own[e] += rb[w * RS + r * kUnitsB + kCellsB * rank + cu];
+            part += rb[w * RS + r * kUnitsB + kCellsB * other + cu];
+          }
+          if (pj < H) st_cluster(xb + r * kCellsB + cu, other, part);
+        }
+        cluster_sync();
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = cr + 32 * e;
+        if (r >= rows || cj >= H) continue;
+        // dh = dy_t + rank 0's half + rank 1's half, in that order in both
+        // blocks
+        float dh = op[e][6];
+        if (next) {
+          const float mine = own[e], theirs = xb[r * kCellsB + cu];
+          dh += rank ? theirs : mine;
+          dh += rank ? mine : theirs;
+        }
+        const float gi = op[e][0], gf = op[e][1], gg = op[e][2],
+                    go = op[e][3];
+        float& dc_next = dcs[(r0 + r) * kCellsB + cu];
+        const float tc = tanhf(op[e][4]);
         const float dc = dh * go * (1.0f - tc * tc) + dc_next;
-        float* dz = dxw + row * H4 + j;
+        float* dz = dxw + ((size_t)(r0 + r) * T + t) * H4 + cj;
         dz[0] = dc * gg * gi * (1.0f - gi);
-        dz[H] = dc * c_p * gf * (1.0f - gf);
+        dz[H] = dc * op[e][5] * gf * (1.0f - gf);
         dz[2 * H] = dc * gi * (1.0f - gg * gg);
         dz[3 * H] = dh * tc * go * (1.0f - go);
         dc_next = dc * gf;
       }
+      if (r0 + kRowTileB < B) {
+        load_op(r0 + kRowTileB, t);
+      } else if (t > 0) {
+        load_op(0, t - 1);
+      }
       buf ^= 1;
     }
-    if (t > 0) grid_barrier(counter, nblk * (unsigned)(T - t));
+    if (t > 0) grid_barrier_release(counter, nblk * (unsigned)(T - t));
   }
 }
 
-cudaError_t launch_bptt_split(const float* wh, const float* c,
-                              const float* dy, float* dxw,
-                              unsigned int* counter, int B, int T, int H,
-                              cudaStream_t st) {
-  const auto kernel = lstm_bptt_split_kernel;
-  const size_t smem = split_smem_bytes(H, B);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Clusters of lstm_bptt_mma_kernel resident at once on the current device
+// for a launch of `rows` rows (cfg: its shape and shared memory).  The
+// attribute and the query are host-side calls whose answer depends on the
+// device and the rows alone, so each (device, rows) asks once: the
+// attribute is set to a full launch's shared memory, which covers every
+// launch.
+cudaError_t resident_clusters(cudaLaunchConfig_t* cfg, int rows,
+                              int* clusters) {
+  constexpr int kDevices = 16;  // devices with a cached answer
+  static std::atomic<int> known[kDevices][kLaunchRowsB + 1];  // answer + 1
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const int nblk = (H + kUnitsS - 1) / kUnitsS;
-  void* args[] = {(void*)&wh,      (void*)&c, (void*)&dy, (void*)&dxw,
-                  (void*)&counter, (void*)&B, (void*)&T,  (void*)&H};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(nblk),
-                                    dim3(kThreads), args, smem, st);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  std::atomic<int>* slot = dev < kDevices ? &known[dev][rows] : nullptr;
+  if (slot != nullptr && (*clusters = slot->load() - 1) >= 0)
+    return cudaSuccess;
+  const void* kernel = (const void*)lstm_bptt_mma_kernel<kNkB>;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)bptt_mma_smem_bytes(kLaunchRowsB))) != cudaSuccess)
+    return err;
+  const unsigned n_attrs = cfg->numAttrs;
+  cfg->numAttrs = 1;  // the residency query takes the cluster shape alone
+  err = cudaOccupancyMaxActiveClusters(clusters, kernel, cfg);
+  cfg->numAttrs = n_attrs;
+  if (err == cudaSuccess && slot != nullptr) slot->store(*clusters + 1);
+  return err;
+}
+
+// Launches of up to kLaunchRowsB rows each, counters[i] the i-th's barrier:
+// cooperative launches of clusters of 2 blocks, refused unless every
+// cluster is resident at once.
+cudaError_t launch_bptt_mma(const float* wh, const float* c, const float* dy,
+                            float* dxw, unsigned int* counters, int B, int T,
+                            int H, cudaStream_t st) {
+  const int nblk = 2 * ((H + kUnitsB - 1) / kUnitsB);
+  const void* kernel = (const void*)lstm_bptt_mma_kernel<kNkB>;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 2;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nblk);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  for (int b0 = 0; b0 < B; b0 += kLaunchRowsB) {
+    int rows = std::min(kLaunchRowsB, B - b0);
+    cfg.dynamicSmemBytes = bptt_mma_smem_bytes(rows);
+    int clusters = 0;
+    cudaError_t err = resident_clusters(&cfg, rows, &clusters);
+    if (err != cudaSuccess) return err;
+    if (2 * clusters < nblk) return cudaErrorCooperativeLaunchTooLarge;
+    const float* c_i = c + (size_t)b0 * T * H;
+    const float* dy_i = dy + (size_t)b0 * T * H;
+    float* dxw_i = dxw + (size_t)b0 * T * 4 * H;
+    unsigned int* counter = counters + b0 / kLaunchRowsB;
+    void* args[] = {(void*)&wh,    (void*)&c_i,     (void*)&dy_i,
+                    (void*)&dxw_i, (void*)&counter, (void*)&rows,
+                    (void*)&T,     (void*)&H};
+    if ((err = cudaLaunchKernelExC(&cfg, kernel, args)) != cudaSuccess)
+      return err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The loop kernel a launch at (B, H) runs; see lstm_bptt_launch.
+enum class Kernel { kSmall, kGroup, kMma };
+
+Kernel kernel_for(int H) {
+  if (H <= kSmallH) return Kernel::kSmall;
+  if (H > kMaxGroupH) return Kernel::kMma;
+  return Kernel::kGroup;
 }
 
 }  // namespace
@@ -1149,6 +1457,12 @@ extern "C" {
 // values.  The gate pre-pass writes dxw first and the loop reads it back
 // in 16-byte copies, so dxw must be 16-byte aligned (any tensor that
 // starts at a row); the inputs may start anywhere.
+//
+// Which loop kernel serves width H (kernel_for): lstm_bptt_small_kernel at
+// H <= kSmallH (64), lstm_bptt_group_kernel at 64 < H <= kMaxGroupH (512,
+// its register limit), lstm_bptt_mma_kernel above; all after the gate
+// pre-pass.  A launch the card refuses returns its error: there is no
+// other route.
 int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
                      const float* c, const float* dy, float* dxw,
                      unsigned int* counters, int B, int T, int H,
@@ -1159,26 +1473,49 @@ int lstm_bptt_launch(const float* xw, const float* wh, const float* h,
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = launch_gates(xw, wh, h, dxw, B, T, H, st);
   if (err != cudaSuccess) return (int)err;
-  if (H > kMaxGroupH)
-    return (int)launch_bptt_split(wh, c, dy, dxw, counters, B, T, H, st);
-  if (H > kSmallH) {
-    const auto launch = H <= 128   ? launch_bptt_group<2>
-                        : H <= 256 ? launch_bptt_group<4>
-                                   : launch_bptt_group<8>;
-    return (int)launch(wh, c, dy, dxw, counters, B, T, H, st);
+  switch (kernel_for(H)) {
+    case Kernel::kSmall: {
+      const int hp = H <= 32 ? 32 : 64;
+      auto* kernel =
+          hp == 32 ? lstm_bptt_small_kernel<32> : lstm_bptt_small_kernel<64>;
+      kernel<<<B, 2 * hp, 0, st>>>(wh, c, dy, dxw, T, H);
+      return (int)cudaGetLastError();
+    }
+    case Kernel::kGroup: {
+      const auto launch = H <= 128   ? launch_bptt_group<2>
+                          : H <= 256 ? launch_bptt_group<4>
+                                     : launch_bptt_group<8>;
+      return (int)launch(wh, c, dy, dxw, counters, B, T, H, st);
+    }
+    case Kernel::kMma:
+      break;
   }
-  const int hp = H <= 32 ? 32 : 64;
-  auto* kernel =
-      hp == 32 ? lstm_bptt_small_kernel<32> : lstm_bptt_small_kernel<64>;
-  kernel<<<B, 2 * hp, 0, st>>>(wh, c, dy, dxw, T, H);
-  return (int)cudaGetLastError();
+  return (int)launch_bptt_mma(wh, c, dy, dxw, counters, B, T, H, st);
 }
 
-// Barrier counters lstm_bptt_launch needs: none at H <= kSmallH, else one
-// per group of kRowsG rows (the split kernel above kMaxGroupH uses the
-// first).
+// Barrier counters lstm_bptt_launch needs for a batch of B rows at width
+// H: none at H <= kSmallH; at kSmallH < H <= kMaxGroupH one per group of
+// kRowsG rows; above, one per launch of kLaunchRowsB rows.
 int lstm_bptt_counters(int B, int H) {
-  return H <= kSmallH ? 0 : (B + kRowsG - 1) / kRowsG;
+  if (H <= kSmallH) return 0;
+  if (H > kMaxGroupH) return (B + kLaunchRowsB - 1) / kLaunchRowsB;
+  return (B + kRowsG - 1) / kRowsG;
+}
+
+// The name of the loop kernel lstm_bptt_launch runs at (B, H).  No loop
+// kernel depends on B today (lstm_bptt_mma_kernel takes its FMA path for
+// <= kSimtRowsB rows inside the same kernel); B stays in the signature so
+// that the name is asked as the forward's lstm_recurrence_kernel_for(B, H).
+const char* lstm_bptt_kernel_for(int /*B*/, int H) {
+  switch (kernel_for(H)) {
+    case Kernel::kSmall:
+      return "lstm_bptt_small_kernel";
+    case Kernel::kGroup:
+      return "lstm_bptt_group_kernel";
+    case Kernel::kMma:
+      break;
+  }
+  return "lstm_bptt_mma_kernel";
 }
 
 // The gate pre-pass of lstm_bptt_launch alone (any H; above kSmallH gates

@@ -7,9 +7,8 @@
 // BPTT each have their own kernels, one block per batch row and no grid
 // barrier.  At 64 < H <= kMaxGroupH both have a group kernel (kUnitsG
 // units x a group of batch rows a block, W_h rows in registers), planned
-// by plan_groups.  Above kMaxGroupH the forward is a 3xTF32 mma.sync
-// kernel (lstm_recurrence.cu) and the BPTT loop a split kernel
-// (lstm_bptt.cu).
+// by plan_groups.  Above kMaxGroupH the forward and the BPTT loop are
+// 3xTF32 mma.sync kernels (lstm_recurrence.cu, lstm_bptt.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -137,7 +136,8 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter,
 // as acquire loads, and no fences: the __syncthreads before the release
 // orders the block's writes before it, and the one after the acquire
 // orders every read of the block after it (the arrive / wait pattern of
-// CUTLASS's GenericBarrier).  The 64 < H <= 512 forward uses it.
+// CUTLASS's GenericBarrier).  The forward's kernels above kSmallH and the
+// BPTT loop above kMaxGroupH use it.
 __device__ __forceinline__ void grid_barrier_release(unsigned int* counter,
                                                      unsigned int target) {
   __syncthreads();
@@ -187,8 +187,7 @@ cudaError_t plan_groups(Kernel kernel, int groups, int nblk, SmemFor smem_for,
 }
 
 // 3xTF32: a float32-accurate product on the TF32 tensor cores (the
-// precision argument stands above lstm_dwh_kernel in lstm_bptt.cu, which
-// keeps its own copy of these two helpers).  hi keeps the sign, exponent
+// precision argument stands above lstm_dwh_kernel in lstm_bptt.cu).  hi keeps the sign, exponent
 // and 10 mantissa bits of x (a TF32 value); lo = x - hi is exact in f32,
 // and the tensor core reads its top 19 bits.
 __device__ __forceinline__ void split_tf32(float x, unsigned& hi,

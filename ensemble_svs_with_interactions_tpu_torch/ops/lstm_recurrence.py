@@ -45,13 +45,17 @@ across steps on chip (see the headers of the CUDA sources):
   sequence; h_{t-1} streams from L2 through a ``cp.async`` ring, the
   warps' partial sums meet in shared memory in a fixed order, and any
   batch runs in tiles of 64 rows (launches of up to 512 rows);
-* 512 < H <= 1024, BPTT loop: each block holds its slice of W_h in
-  shared memory for the whole sequence, the hidden units are split
-  across blocks so reading every row's dz from L2 and a grid barrier
-  are the only cross-block traffic.
-* Wider LSTMs raise, forward and backward: 8 rows of W_h outgrow a
-  block's shared memory (BPTT), a warp's part of W_h its registers
-  (forward).
+* 512 < H <= 1024, BPTT loop: clusters of two blocks, each cluster owning
+  16 units for every batch row; a reverse step's (B, 4H) x (4H, 16)
+  product, dz_{t+1} times its rows of W_h transposed, is split by the gate
+  columns between the two blocks, and each multiplies all rows at once in
+  3xTF32 ``mma.sync``, split over its 8 warps, each warp's part of W_h in
+  registers; its half of dz_{t+1} streams from L2 through a ``cp.async``
+  ring, the halves' sums meet through the cluster's shared memory in a
+  fixed order, launches of at most 8 rows take float32 FMAs, and any batch
+  runs in tiles of 64 rows (launches of up to 512 rows).
+* Wider LSTMs raise, forward and backward: a warp's part of W_h would
+  outgrow its registers.
 
 dW_h is a tiled product over all steps, run after the loop, bound by the
 tensor cores' rate: 3xTF32 ``mma.sync`` (float32-accurate), fed by a
@@ -267,6 +271,7 @@ def _bptt_library():
     lib = ctypes.CDLL(str(build()["lstm_bptt"]))
     _bind(lib, "lstm_bptt_launch", *[_PTR] * 7, _INT, _INT, _INT, _PTR)
     _bind(lib, "lstm_bptt_counters", _INT, _INT)
+    _bind(lib, "lstm_bptt_kernel_for", _INT, _INT, restype=ctypes.c_char_p)
     _bind(lib, "lstm_gates_launch", *[_PTR] * 4, _INT, _INT, _INT, _PTR)
     _bind(lib, "lstm_dwh_splits", _INT, _INT, _INT)
     _bind(lib, "lstm_dwh_launch", *[_PTR] * 4, _INT, _INT, _INT, _INT, _PTR)
@@ -356,6 +361,14 @@ def lstm_recurrence_kernel_name(B: int, H: int) -> str:
     of B rows at width H (the rule in ``csrc/lstm_recurrence.cu``, above
     ``lstm_recurrence_launch``).  Builds the library at first use."""
     return _library().lstm_recurrence_kernel_for(B, H).decode()
+
+
+def lstm_bptt_kernel_name(B: int, H: int) -> str:
+    """The name of the loop kernel :func:`lstm_bptt` launches after its
+    gate pre-pass for a batch of B rows at width H (the rule in
+    ``csrc/lstm_bptt.cu``, above ``lstm_bptt_launch``).  Builds the library
+    at first use."""
+    return _bptt_library().lstm_bptt_kernel_for(B, H).decode()
 
 
 def lstm_bptt(xw, w_h, h, c, dy):

@@ -370,8 +370,8 @@ def test_train_lstm_shapes_give_the_launch_table():
     B = chip_smoke.TRAIN_B
     H, T = 512, 256
     one = (2 * B * T * H * 4 * H + 12 * B * T * H          # forward
-           + 2 * B * T * H * 4 * H + B * T * 4 * H         # pre-pass
-           + 2 * B * T * 4 * H * H + 30 * B * T * H        # loop
+           + 2 * B * (T - 1) * H * 4 * H + B * T * 4 * H   # pre-pass
+           + 2 * B * (T - 1) * 4 * H * H + 30 * B * T * H  # loop
            + 2 * B * (T - 1) * H * 4 * H)                  # dW_h
     assert chip_smoke.lstm_kernel_flops({(H, T): 1}, B) == one
 

@@ -34,6 +34,7 @@ import torch
 
 from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
     lstm_bptt,
+    lstm_bptt_kernel_name,
     lstm_dwh,
     lstm_dwh_reference,
     lstm_gates,
@@ -152,6 +153,20 @@ def test_lstm_recurrence_dispatch(cuda):
             "lstm_recurrence_group_kernel")
     assert lstm_recurrence_kernel_name(1, 1024) == (
         "lstm_recurrence_mma_kernel")
+
+
+@pytest.mark.cuda
+def test_lstm_bptt_dispatch(cuda):
+    """The loop kernel the BPTT runs after its gate pre-pass: H <= 64 on
+    the one-row-a-block kernel, 64 < H <= 512 on the group kernel, H > 512
+    on the 3xTF32 mma kernel, at every batch."""
+    for B in (1, 4, 8, 9, 64, 67, 600, 3072):
+        for H in (8, 62, 64):
+            assert lstm_bptt_kernel_name(B, H) == "lstm_bptt_small_kernel"
+        for H in (98, 256, 512):
+            assert lstm_bptt_kernel_name(B, H) == "lstm_bptt_group_kernel"
+        for H in (520, 640, 1000, 1024):
+            assert lstm_bptt_kernel_name(B, H) == "lstm_bptt_mma_kernel"
 
 
 @pytest.mark.cuda
@@ -409,7 +424,7 @@ def test_group_bptt_matches_plain(cuda, B, T, H):
     assert (dxw - dxw_ref).abs().max().item() < ATOL
 
 
-# the 512 < H <= 1024 BPTT loop (lstm_bptt_split_kernel): a ragged unit
+# the 512 < H <= 1024 BPTT loop (lstm_bptt_mma_kernel): a ragged unit
 # block (644), the widths between, the mgc decoder's 1024
 SPLIT_H = [644, 768, 1024]
 
@@ -418,12 +433,21 @@ SPLIT_H = [644, 768, 1024]
 @pytest.mark.parametrize("B,T,H", [
     *[(B, T, H) for H in SPLIT_H for B in (1, 3, 9) for T in (1, 2, 37)],
     (64, 128, 1024), (36, 64, 1024), (4, 301, 640), (17, 33, 1000),
+    # the edges of the loop's plan: the FMA and tensor-core paths (batches
+    # of 8 and 9 rows), ragged tiles of 64 rows (63, 65, and 72: a last
+    # tile of 8 rows on the tensor cores after a full one), more rows than
+    # one launch takes (600: two launches), and a batch the H > 512 loop
+    # before it refused for shared memory (3072 rows at H = 1024)
+    (8, 37, 1024), (9, 37, 1024), (63, 9, 1024), (65, 9, 1024),
+    (72, 5, 1024), (600, 3, 1024), (3072, 2, 1024),
 ])
 def test_split_bptt_matches_plain(cuda, B, T, H):
     """The 512 < H <= 1024 BPTT (the 3xTF32 gate pre-pass, then the loop
-    whose blocks each hold 8 units' rows of W_h in shared memory) against
-    the plain loop, counted as one launch; an xw that starts 4 bytes past
-    a 16-byte boundary gives the same dxw."""
+    that multiplies all rows of a reverse step at once, 3xTF32 mma.sync or
+    FMAs for batches of up to 8 rows) against the plain loop, counted as
+    one launch;
+    an xw that starts 4 bytes past a 16-byte boundary gives the same
+    dxw."""
     xw, w_h, dy = _inputs(cuda, B, T, H, B * 10 + T + H)
     h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
     before = (lstm_bptt.launches, lstm_gates.launches)
@@ -436,6 +460,20 @@ def test_split_bptt_matches_plain(cuda, B, T, H):
     if T == 37:
         moved = lstm_bptt(_unaligned(xw), w_h, h, c, dy)
         assert (moved - dxw_ref).abs().max().item() < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H", [(64, 128, 1024), (4, 33, 1024)])
+def test_split_bptt_is_deterministic(cuda, B, T, H):
+    """Two launches of the 512 < H <= 1024 BPTT on the same inputs give
+    bitwise equal dxw: the warps' partial sums meet in a fixed order, with
+    no atomics (the tensor-core path at 64 rows, the FMA path at 4)."""
+    xw, w_h, dy = _inputs(cuda, B, T, H, 43)
+    h, c = lstm_recurrence_reference(xw, w_h, want_c=True)
+    first = lstm_bptt(xw, w_h, h, c, dy)
+    second = lstm_bptt(xw, w_h, h, c, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

@@ -389,7 +389,9 @@ def _fake_row(name):
     import chip_smoke
 
     row = {k: 1.0 for k in chip_smoke.TIMES + chip_smoke.PREPASS + (
-        "library_input_gemm_ms", "loop_bound_ms", "bound_ms")}
+        "library_input_gemm_ms", "loop_bound_ms", "bound_ms",
+        "bound_fma_ms", "bound_3xtf32_ms", "loop_bound_fma_ms",
+        "loop_bound_3xtf32_ms", "loop_mma_rows")}
     row.update(name=name, kernel="k", bound_by="operations", B=1, T=8,
                H=256, max_abs_err=1e-7, max_rel_err=1e-6)
     return row
@@ -404,7 +406,9 @@ def test_chip_kernels_line_has_every_key():
     multi-speaker voice's under ``multi_speaker`` and
     ``multi_speaker_rows`` (their errors counted in ``max_abs_err``, dW_h's
     relative one in ``max_rel_err``; the rows keep cuDNN's input GEMM
-    time)."""
+    time, and the NPSS rows the kernel that served them and both bounds,
+    the BPTT's at the float32 FMA and the tensor cores' rates with the
+    rows its loop took on the tensor cores)."""
     import chip_smoke as cs
 
     shapes = sorted(set(cs.RECURRENCE_SHAPES)
@@ -460,6 +464,13 @@ def test_chip_kernels_line_has_every_key():
         npss_row = k["recipe_npss_rows"][f"train {k['name']} B=64 T=128"]
         assert npss_row["H"] == 1024
         assert npss_row["library_input_gemm_ms"] == 1.0
+        assert npss_row["kernel"] == "k"
+        assert npss_row["bound_3xtf32_ms"] == 1.0
+        if k["name"] == "lstm_bptt":
+            assert npss_row["loop_bound_3xtf32_ms"] == 1.0
+            assert npss_row["bound_fma_ms"] == 1.0
+            assert npss_row["loop_bound_fma_ms"] == 1.0
+            assert npss_row["loop_mma_rows"] == 1.0
         assert k["launches_by_path"]["mel_voice"] == 13
         assert f"train {k['name']} H=64 T=256" in k["mel_voice_rows"]
         assert k["launches_by_path"]["multi_speaker"] == 23
