@@ -218,7 +218,17 @@ PyTorch version on the card.  Phases, each printing JSON lines:
     dW_h timed and held against their plain versions at stage 5's shapes
     and at the recipe's full batch, with bounds (the forward's also at
     the 3xTF32 rate its kernel uses) and cuDNN's times, and the forward
-    at 200 rows (NPSS_WIDE_B);
+    at 200 rows (NPSS_WIDE_B) and the BPTT at NPSS_BPTT_WIDE_B rows;
+11h. ``ar_options``: the AR decoder options on the same recipe
+    (``ar_option_voice``): stages 5-7 of two voices that
+    ``ar_option_netg`` builds from ``acoustic_npss_ar_mgcf0bap.yaml``,
+    ``npss_ar_tacotron`` (every AR decoder with a 2-layer pre-net and
+    zoneout 0.1, so its teacher-forced cells step in PyTorch) and
+    ``npss_mdn_ar`` (the MDN cascade, pre-nets on, zoneout 0), each stage
+    timed, the launches counted over 5 and 7 and checked against
+    ``ar_option_launches`` of the packed model, a train step card against
+    CPU with every mask on (one CPU generator) and ``svs()`` of the eval
+    utterance card against CPU;
 11f. ``mel_voice``: the mel voice (``mel_phases``: the JAX package's
     ``configs/acoustic/acoustic_melf0_ar_f0_diff_mel.yaml``,
     ``configs/postfilter/postfilter_mel.yaml`` and the recipe's
@@ -973,9 +983,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def recurrence_ops(B, T, H):
-    """Operations of the recurrence: the h @ W_h multiply-adds plus the gate
-    arithmetic, about 12 operations per unit and step."""
-    return 2 * B * T * H * 4 * H + 12 * B * T * H
+    """Operations of the recurrence: the h_{t-1} @ W_h multiply-adds of
+    the T - 1 steps after the first (h_{-1} = 0, as ``gates_ops`` and
+    ``dwh_flops`` count) plus the gate arithmetic, about 12 operations
+    per unit and step."""
+    return 2 * B * (T - 1) * H * 4 * H + 12 * B * T * H
 
 
 def gates_ops(B, T, H):
@@ -1062,13 +1074,13 @@ def bptt_loop_bound_times(B, T, H, mma_rows=0):
                    / PEAK_FP32_FLOP_PER_S))
 
 
-def bptt_row(lr, xw, w_h, h, c, dy, base, library=True):
+def bptt_row(lr, xw, w_h, h, c, dy, base):
     """The BPTT launch (pre-pass and loop) on these inputs against the plain
     loop: its error, the loop kernel that served it, its time and the
     plain version's, its bounds (whole launch and loop alone) with the
     loop's products at the rate of the instruction that served them
-    (``bptt_mma_rows``), the pre-pass alone (``prepass_row``) and, unless
-    ``library`` is False, cuDNN's backward as its yardstick.  Rows of
+    (``bptt_mma_rows``), the pre-pass alone (``prepass_row``) and cuDNN's
+    backward as its yardstick.  Rows of
     lstm_bptt_mma_kernel also carry both bounds with every row's loop at
     the float32 FMA rate (``*_fma_ms``, the figures earlier rows give) and
     on the tensor cores in 3xTF32 (``*_3xtf32_ms``).  Returns the row,
@@ -1080,8 +1092,7 @@ def bptt_row(lr, xw, w_h, h, c, dy, base, library=True):
     kernel = lr.lstm_bptt_kernel_name(B, H)
     mma_rows = bptt_mma_rows(kernel, B)
     t_bytes, t_ops = bptt_bound_times(B, T, H, mma_rows)
-    library_ms, gemm_ms = (cudnn_lstm_bwd_ms(xw, w_h, dy, 5) if library
-                           else (None, None))
+    library_ms, gemm_ms = cudnn_lstm_bwd_ms(xw, w_h, dy, 5)
     ms = cuda_ms(lambda: lr.lstm_bptt(xw, w_h, h, c, dy), 10)
     row = {**base, "name": "lstm_bptt", "kernel": kernel,
            "loop_mma_rows": mma_rows, "max_abs_err": err,
@@ -5314,9 +5325,45 @@ NPSS_BPTT_WIDE_B, NPSS_BPTT_WIDE_T = 3072, 2
 NPSS_REF_B, NPSS_REF_T = 2, 64
 
 
-def npss_recipe(root, name):
+# the AR decoder options' voices (phase 11h): acoustic_npss_ar_mgcf0bap.yaml
+# with ar_option_netg's overrides, trained, packed and served like
+# NPSS_CONFIGS on the same corpus, dump, scalers and timing models
+AR_OPTION_VOICES = ("npss_ar_tacotron", "npss_mdn_ar")
+AR_DECODERS = ("lf0_model", "mgc_model", "bap_model")
+AR_GAUSSIANS = 4
+AR_ZONEOUT = 0.1     # the decoder classes' default
+AR_PRENET_LAYERS = 2  # the decoder classes' default
+
+
+def ar_option_netg(net: dict, name: str) -> dict:
+    """A copy of ``net`` (the netG of ``acoustic_npss_ar_mgcf0bap.yaml``,
+    or a config of its shape) as the voice ``name``: ``npss_ar_tacotron``
+    gives every AR decoder (lf0, mgc, bap) AR_PRENET_LAYERS pre-net
+    layers (each keeps its ``prenet_hidden_dim``) and zoneout AR_ZONEOUT;
+    ``npss_mdn_ar`` makes it the MDN cascade: the lf0 decoder's MDN head,
+    mgc and bap ``BiLSTMMDNNonAttentiveDecoder``s without Post-Nets,
+    AR_GAUSSIANS components each, the pre-nets on and zoneout 0."""
+    if name not in AR_OPTION_VOICES:
+        raise ValueError(f"unknown voice {name}")
+    net = json.loads(json.dumps(net))
+    mdn = name == "npss_mdn_ar"
+    for k in AR_DECODERS:
+        net[k].update(prenet_layers=AR_PRENET_LAYERS,
+                      zoneout=0.0 if mdn else AR_ZONEOUT)
+    if mdn:
+        acoustic = f"{PKG}.models.acoustic"
+        net["_target_"] = f"{acoustic}.NPSSMDNMultistreamParametricModel"
+        net["lf0_model"].update(use_mdn=True, num_gaussians=AR_GAUSSIANS)
+        for k in ("mgc_model", "bap_model"):
+            net[k].update(_target_=f"{acoustic}.BiLSTMMDNNonAttentiveDecoder",
+                          num_gaussians=AR_GAUSSIANS, postnet_layers=0)
+    return net
+
+
+def npss_recipe(root, name, model_config=None):
     """(work directory, recipe path) of ``single_recipe`` with the
-    acoustic phase's model the shipped ``NPSS_CONFIGS[name]``, its own
+    acoustic phase's model ``model_config`` (by default the shipped
+    ``NPSS_CONFIGS[name]``), its own
     ``exp`` and ``packed_model`` under ``<root>/<name>``, and the dump,
     the scalers (links) and the timing models' checkpoints (copies) of
     phase ``recipe_single``'s ``<root>/work``, so stages 0-4 need not run
@@ -5333,7 +5380,8 @@ def npss_recipe(root, name):
     for phase in ("timelag", "duration"):
         shutil.copytree(single / "exp" / phase, work / "exp" / phase)
     recipe = single_recipe(root / "corpus", work)
-    recipe["acoustic"]["model_config"] = str(CONFIGS / NPSS_CONFIGS[name])
+    recipe["acoustic"]["model_config"] = str(
+        model_config or CONFIGS / NPSS_CONFIGS[name])
     path = root / f"{name}.yaml"
     save_config(recipe, path)
     return work, path
@@ -5359,7 +5407,8 @@ def npss_step(net, ss, variables, batch, device, dtype=torch.float32,
     model ``net`` from flax ``variables`` (SGD at rate 0, clipping at 1 as
     the recipe's, the pitch regularization at 1): (metrics, {name:
     clipped gradient}, {name: buffer}), the tensors on the CPU in
-    float64."""
+    float64.  The random masks come from a CPU generator seeded SEED, so
+    that the card and the CPU draw the same."""
     from ensemble_svs_with_interactions_tpu_torch.train import loop
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
         instantiate,
@@ -5374,16 +5423,16 @@ def npss_step(net, ss, variables, batch, device, dtype=torch.float32,
     step, _ = loop.create_train_step(module, opt, {"stream_sizes": ss},
                                      scheduler=sched, pitch_reg_weight=1.0,
                                      use_amp=use_amp, device=device)
-    metrics = step(batch, torch.Generator(device=device).manual_seed(SEED))
+    metrics = step(batch, torch.Generator().manual_seed(SEED))
     return (metrics,
             {n: p.grad.detach().cpu().double()
              for n, p in module.named_parameters()},
             {n: b.detach().cpu().double() for n, b in module.named_buffers()})
 
 
-def npss_net(name, work) -> dict:
-    """The shipped ``NPSS_CONFIGS[name]`` netG as stage 6 packed it (its
-    lf0 statistics from the scalers), every dropout at 0."""
+def npss_net(name, work, masks: bool = False) -> dict:
+    """The netG of the voice in ``work`` as stage 6 packed it (its lf0
+    statistics from the scalers), every dropout at 0 unless ``masks``."""
     from ensemble_svs_with_interactions_tpu_torch.utils.config import (
         load_config,
     )
@@ -5392,14 +5441,16 @@ def npss_net(name, work) -> dict:
         Path(work) / "packed_model" / "acoustic_model.yaml")["netG"])))
     for k in ("lf0_model", "mgc_model", "bap_model", "vuv_model"):
         for key in ("dropout", "prenet_dropout"):
-            if key in net[k]:
+            if key in net[k] and not masks:
                 net[k][key] = 0.0
     return net
 
 
-def hold_npss_step(name, work) -> dict:
+def hold_npss_step(name, work, masks: bool = False) -> dict:
     """One full-width train step of the voice, NPSS_REF_B x NPSS_REF_T,
-    dropout off, on the card against the same step on the CPU, each
+    dropout off (with ``masks`` every dropout, pre-net and zoneout mask
+    on, drawn from one CPU generator seeded SEED on both sides), on
+    the card against the same step on the CPU, each
     clipped gradient by ``judge_amp``: in float32 with the CPU's float64
     step as the oracle, in the AMP arm with the CPU's float32 step; the
     losses within TRAIN_LOSS_RTOL and AMP_LOSS_RTOL.  cuDNN's float32
@@ -5417,7 +5468,7 @@ def hold_npss_step(name, work) -> dict:
     )
 
     t0 = time.time()
-    net = npss_net(name, work)
+    net = npss_net(name, work, masks)
     ss = [60, 1, 1, 5]
     variables = init_variables(instantiate(net), seed=SEED)
     batch = npss_batch(NPSS_REF_B, NPSS_REF_T)
@@ -5441,6 +5492,7 @@ def hold_npss_step(name, work) -> dict:
     rel = lambda a, b: abs(a["Loss"] - b["Loss"]) / abs(b["Loss"])  # noqa
     worst = max(strict, key=lambda n: strict[n]["rel_of_scale"])
     out = {"B": NPSS_REF_B, "T": NPSS_REF_T, "params": len(strict),
+           "masks": "one CPU generator" if masks else "dropout off",
            "loss": [m_gpu["Loss"], m_cpu["Loss"]],
            "loss_rel_err": rel(m_gpu, m_cpu),
            "f32": amp_summary(judged["f32"]),
@@ -5530,7 +5582,7 @@ def phase_recipe_npss(lr, root) -> tuple:
     h, c = lr.lstm_recurrence(xw, w_h, want_c=True)
     rows[f"check_bptt B={B} T={T}"] = bptt_row(
         lr, xw, w_h, h, c, dy, {"phase": "recipe_npss_kernel", "B": B,
-                                "T": T, "H": NPSS_H}, library=False)[0]
+                                "T": T, "H": NPSS_H})[0]
     train = sorted(clock.shapes["train"]) + [(NPSS_FULL_B,
                                               NPSS_FULL_FRAMES)]
     for B, T in train:
@@ -5584,6 +5636,128 @@ def phase_recipe_npss(lr, root) -> tuple:
     total = {k: sum(v[k] for v in ar["launches"].values())
              for k in TRAIN_COUNTERS}
     return total, rows
+
+
+def ar_option_launches(module) -> dict:
+    """The kernel launches of the cascade ``module``, derived from its
+    layers: a teacher-forced train step (each of forward, BPTT and dW_h)
+    or dev batch (the forward) runs every masked LSTM direction
+    (``_MaskedLSTMLayer``) once and each AR decoder's cells once where
+    its zoneout is 0 (they step in PyTorch where it is not); a
+    free-running ``svs()`` call runs the directions only (the decoders
+    step in PyTorch).  Returns {"step": n, "svs": n, "by_hidden": {H:
+    n a step}}."""
+    from ensemble_svs_with_interactions_tpu_torch.models.layers import (
+        _MaskedLSTMLayer,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.models.tacotron import (
+        _ARDecoderCore,
+    )
+
+    by_hidden = {}
+    directions = 0
+    for m in module.modules():
+        runs = 0
+        if isinstance(m, _MaskedLSTMLayer):
+            runs, H = 1, m.w_h.shape[0]
+            directions += 1
+        elif isinstance(m, _ARDecoderCore) and m.zoneout <= 0:
+            runs, H = m.layers, m.hidden_dim
+        if runs:
+            by_hidden[H] = by_hidden.get(H, 0) + runs
+    return {"step": sum(by_hidden.values()), "svs": directions,
+            "by_hidden": dict(sorted(by_hidden.items()))}
+
+
+def ar_option_voice(lr, root, name) -> dict:
+    """Stages 5-7 of the voice ``name`` (``ar_option_netg`` of
+    ``acoustic_npss_ar_mgcf0bap.yaml``, its model config written into
+    ``root``) through ``bin/run_recipe.main`` on the card, as
+    ``npss_voice`` runs them, in its own work directory
+    (``npss_recipe``): each stage timed, the launches counted over 5 and
+    over 7 and derived from the packed model (``ar_option_launches``),
+    the train step held card against CPU with every mask on, drawn from
+    one CPU generator (``hold_npss_step``), ``svs()`` of the eval
+    utterance card against CPU (``single_svs_on_cpu``)."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        instantiate,
+        load_config,
+        save_config,
+    )
+
+    cfg = shipped_config(NPSS_CONFIGS["npss_ar"])
+    cfg["netG"] = ar_option_netg(cfg["netG"], name)
+    model_config = Path(root) / f"{name}_model.yaml"
+    save_config(cfg, model_config)
+    work, recipe = npss_recipe(root, name, model_config)
+    seconds = {}
+
+    def stages(first, last):
+        seconds.update(run_recipe_stages(first, last, [], recipe=recipe))
+
+    with SingleTrainerClocks() as seen:
+        launches = {"stage_5": count_launches(lr, lambda: stages(5, 5))}
+    stages(6, 6)
+    launches["stage_7"] = count_launches(lr, lambda: stages(7, 7))
+    packed = load_config(work / "packed_model" / "acoustic_model.yaml")
+    derived = ar_option_launches(instantiate(dict(packed["netG"])))
+    clock = seen.clocks["acoustic"]
+    steps, dev = clock.calls["train"], clock.calls["dev"]
+    want = {"stage_5": {"lstm_recurrence": derived["step"] * (steps + dev),
+                        "lstm_bptt": derived["step"] * steps,
+                        "lstm_dwh": derived["step"] * steps},
+            "stage_7": {"lstm_recurrence": derived["svs"], "lstm_bptt": 0,
+                        "lstm_dwh": 0}}
+    eval_lab = next((Path(root) / "corpus" / "eval_lab").glob("*.lab"))
+    return {"seconds": seconds, "launches": launches, "derived": derived,
+            "want_launches": want, "train_steps": steps, "dev_batches": dev,
+            "train_shapes": sorted(clock.shapes["train"]),
+            "step_hold": hold_npss_step(name, work, masks=True),
+            "svs_reference": single_svs_on_cpu(
+                work / "packed_model", eval_lab, post_filter_type="gv")}
+
+
+def phase_ar_options(lr, root) -> dict:
+    """The AR decoder options (phase 11h), after phase ``recipe_npss`` in
+    the same ``root``: the voices AR_OPTION_VOICES, built from
+    ``acoustic_npss_ar_mgcf0bap.yaml`` by ``ar_option_netg``, each through
+    stages 5-7 on the card (``ar_option_voice``): ``npss_ar_tacotron``'s
+    decoders with the pre-net and zoneout (their teacher-forced cells
+    step in PyTorch), ``npss_mdn_ar``'s with the pre-net and the MDN
+    heads (its cells on the kernels, the mgc decoder's at H = 1024).  The
+    launches must equal what ``ar_option_launches`` derives; the train
+    steps and ``svs()`` calls must hold card against CPU as phase
+    ``recipe_npss``'s do.  The kernels run at that phase's shapes and
+    are not timed again.  Returns the launches summed over both
+    voices."""
+    t0 = time.time()
+    voices = {name: ar_option_voice(lr, root, name)
+              for name in AR_OPTION_VOICES}
+    emit({"phase": "ar_options", "device": "cuda",
+          "base_config": NPSS_CONFIGS["npss_ar"],
+          "overrides": {name: "chip_smoke.ar_option_netg"
+                        for name in AR_OPTION_VOICES},
+          "cuts": {"epochs": f"{SINGLE_EPOCHS} of 100 in stage 5",
+                   "step_hold": f"{NPSS_REF_B} x {NPSS_REF_T} frames, "
+                                "every mask on, one CPU generator"},
+          **{name: {"stage_s": {str(k): t for k, t in v["seconds"].items()},
+                    **{k: v[k] for k in (
+                        "launches", "want_launches", "derived",
+                        "train_steps", "dev_batches", "train_shapes",
+                        "step_hold", "svs_reference")}}
+             for name, v in voices.items()},
+          "snr_bound_db": SNR_DB, "seconds": time.time() - t0})
+    for name, v in voices.items():
+        ref = v["svs_reference"]
+        assert v["launches"] == v["want_launches"], (name, v["launches"],
+                                                     v["want_launches"])
+        assert v["step_hold"]["ok"], (name, v["step_hold"])
+        assert ref["durations_equal"] and ref["snr_db"] >= SNR_DB, (name,
+                                                                    ref)
+        assert ref["svs_finite_nonzero"], (name, ref)
+    return {k: sum(n[k] for v in voices.values()
+                   for n in v["launches"].values())
+            for k in TRAIN_COUNTERS}
 
 
 # the mel voice (phase 11f): single-direction LSTM recurrences a svs()
@@ -6222,8 +6396,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                  path_launches, train_launches, amp_launches,
                  trainer_launches, trainer_errs, recipe_launches,
                  single_recipe_launches, single_recipe_rows,
-                 npss_launches, npss_rows, mel_launches, mel_rows,
-                 multi_speaker_launches, multi_speaker_rows):
+                 npss_launches, npss_rows, ar_launches, mel_launches,
+                 mel_rows, multi_speaker_launches, multi_speaker_rows):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -6257,7 +6431,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     voice's stages 5 and 7 under ``recipe_npss`` (``npss_launches``), with
     the H = 1024 rows at its shapes and the recipe's full batch under
     ``recipe_npss_rows`` (``phase_recipe_npss``; their errors count
-    too), and the mel voice's svs calls and trainer run under
+    too), the AR option voices' stages 5 and 7 under ``ar_options``
+    (``ar_launches``, ``phase_ar_options``), and the mel voice's svs calls and trainer run under
     ``mel_voice`` (``mel_launches``), with its rows (the forward at B = 1
     over the fixture at H = 64 and 128, the train step's shapes at B =
     4) under ``mel_voice_rows`` (``phase_mel_voice``; their errors count
@@ -6320,6 +6495,7 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                     "recipe": recipe_launches[name],
                     "recipe_single": single_recipe_launches[name],
                     "recipe_npss": npss_launches[name],
+                    "ar_options": ar_launches[name],
                     "mel_voice": mel_launches[name],
                     "multi_speaker": multi_speaker_launches[name]}
              for name in TRAIN_COUNTERS}
@@ -6472,6 +6648,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         single_launches, single_recipe_rows = phase_recipe_single(lr, root)
         npss_launches, npss_rows = phase_recipe_npss(lr, root)
+        ar_launches = phase_ar_options(lr, root)
     mel_launches, mel_rows = phase_mel_voice(lr, labels[0])
     ms_launches, ms_rows = phase_multi_speaker(lr, labels[0])
     trainer_errs = {k: max(v, recipe_errs[k]) for k, v in trainer_errs.items()}
@@ -6479,8 +6656,8 @@ def main() -> int:
                       path_launches, train_launches, amp_launches,
                       trainer_launches, trainer_errs, recipe_launches,
                       single_launches, single_recipe_rows, npss_launches,
-                      npss_rows, mel_launches, mel_rows, ms_launches,
-                      ms_rows))
+                      npss_rows, ar_launches, mel_launches, mel_rows,
+                      ms_launches, ms_rows))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

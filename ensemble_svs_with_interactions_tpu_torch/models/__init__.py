@@ -1,5 +1,6 @@
-"""The port's model zoo (the serving and training paths' models); the
-diffusion models and the FFT-block encoder are in ``models/diffsinger.py``,
+"""The port's model zoo (the serving and training paths' models); the AR
+Tacotron decoders and their ``Prenet`` are in ``models/tacotron.py``, the
+diffusion models and the FFT-block encoder in ``models/diffsinger.py``,
 the flow-matching decoder in ``models/flow_matching.py``, the conditional
 WaveNet in ``models/wavenet.py``, the postfilters' GAN discriminator in
 ``models/discriminators.py``."""
@@ -23,6 +24,11 @@ from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F
     SpeakerEmbedding,
     TransformerEncoder,
     VariancePredictor,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.tacotron import (  # noqa: F401,E402,E501
+    MDNNonAttentiveDecoder,
+    NonAttentiveDecoder,
+    Prenet,
 )
 from ensemble_svs_with_interactions_tpu_torch.models import (  # noqa: F401,E402
     diffsinger,

@@ -11,9 +11,12 @@ from ensemble_svs_with_interactions_tpu_torch.models.acoustic.multistream import
     MultiTrackMultistreamSeparateF0ParametricModelv3,
 )
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.tacotron_f0 import (  # noqa: F401,E501
+    BiLSTMMDNNonAttentiveDecoder,
     BiLSTMNonAttentiveDecoder,
     BiLSTMResF0NonAttentiveDecoder,
+    MDNResF0NonAttentiveDecoder,
     MultiTrackBiLSTMResF0NonAttentiveDecoder,
+    ResF0NonAttentiveDecoder,
 )
 from ensemble_svs_with_interactions_tpu_torch.models.acoustic.npss import (  # noqa: F401,E501
     MultiSpeakerNPSSMDNMultistreamParametricModel,

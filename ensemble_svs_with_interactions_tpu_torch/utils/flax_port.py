@@ -5,7 +5,9 @@ The port's submodules carry the flax scope names, so a torch module path
 (``LSTM_0.l0_fwd``) is the flax path (``LSTM_0/l0_fwd``).  Each leaf
 module converts its flax subtree to torch layouts:
 
-* ``nn.Linear``    <- Dense ``kernel (in, out)`` (transposed) and ``bias``;
+* ``nn.Linear``    <- Dense ``kernel (in, out)`` (transposed) and ``bias``
+  (among them the AR decoder's ``prenet/fc{i}`` and its MDN heads
+  ``log_pi``, ``log_sigma``, ``mu``);
 * ``nn.Conv1d``, ``nn.Conv2d`` and the vocoder discriminators'
   ``SameConv`` <- Conv ``kernel (*k, Cin/groups, Cout)`` as (Cout,
   Cin/groups, *k) and ``bias`` where the conv has one, which covers the

@@ -369,7 +369,7 @@ def test_train_lstm_shapes_give_the_launch_table():
     assert shapes == chip_smoke.TRAIN_LAUNCHES_BY_SHAPE
     B = chip_smoke.TRAIN_B
     H, T = 512, 256
-    one = (2 * B * T * H * 4 * H + 12 * B * T * H          # forward
+    one = (2 * B * (T - 1) * H * 4 * H + 12 * B * T * H    # forward
            + 2 * B * (T - 1) * H * 4 * H + B * T * 4 * H   # pre-pass
            + 2 * B * (T - 1) * 4 * H * H + 30 * B * T * H  # loop
            + 2 * B * (T - 1) * H * 4 * H)                  # dW_h

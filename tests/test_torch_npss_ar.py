@@ -286,22 +286,6 @@ def test_flax_init_templates_match_jax(case):
         assert 0.5 < kernel.var() / (2.0 / kernel.shape[0]) < 1.5
 
 
-@pytest.mark.parametrize("option,value,where", [
-    ("prenet_layers", 2, "Prenet"),
-    ("zoneout", 0.1, "zoneout_blend"),
-    ("use_mdn", True, "_ARDecoderCore.s MDN head"),
-    ("prenet_noise_std", 0.1, "_ARDecoderCore.s prenet noise"),
-])
-def test_refused_decoder_options_name_their_jax_module(option, value,
-                                                       where):
-    """The AR decoder options no shipped config sets raise and name the
-    JAX module that has them."""
-    net = {**decoder_config(), option: value}
-    with pytest.raises(NotImplementedError,
-                       match=f"models/tacotron.py \\({where}"):
-        instantiate(net)
-
-
 def test_shipped_config_builds_in_the_port():
     """``instantiate`` builds ``acoustic_npss_ar_mgcf0bap.yaml`` (its lf0
     statistics filled as the runner fills them) into the port's classes,

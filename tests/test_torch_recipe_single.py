@@ -401,7 +401,8 @@ def test_chip_kernels_line_has_every_key():
     """The ``kernels`` line from rows of every phase: each kernel with the
     contract's keys, the single-track recipe's launches under
     ``launches_by_path`` and its rows under ``recipe_single_rows``, the
-    NPSS voice's under ``recipe_npss`` and ``recipe_npss_rows``, the mel
+    NPSS voice's under ``recipe_npss`` and ``recipe_npss_rows``, the AR
+    option voices' under ``ar_options``, the mel
     voice's under ``mel_voice`` and ``mel_voice_rows`` and the
     multi-speaker voice's under ``multi_speaker`` and
     ``multi_speaker_rows`` (their errors counted in ``max_abs_err``, dW_h's
@@ -434,6 +435,7 @@ def test_chip_kernels_line_has_every_key():
     npss_rows = {f"train {n} B=64 T=128": {**_fake_row(n), "H": 1024,
                                            "max_abs_err": 3e-5}
                  for n in ("lstm_recurrence", "lstm_bptt", "lstm_dwh")}
+    ar = {k: 45 for k in cs.TRAIN_COUNTERS}
     mel = {k: 13 for k in cs.TRAIN_COUNTERS}
     mel_rows = {"svs B=1 H=128": {**_fake_row("lstm_recurrence"), "H": 128,
                                   "max_abs_err": 4e-5}}
@@ -447,8 +449,8 @@ def test_chip_kernels_line_has_every_key():
         for n in ("lstm_recurrence", "lstm_bptt", "lstm_dwh")}
     line = cs.kernels_line(kernel_rows, single_rows, train_rows, 3,
                            {"pairwise": 2}, ones, ones, ones, errs, ones,
-                           single, rows, npss, npss_rows, mel, mel_rows,
-                           ms, ms_rows)
+                           single, rows, npss, npss_rows, ar, mel,
+                           mel_rows, ms, ms_rows)
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -459,6 +461,7 @@ def test_chip_kernels_line_has_every_key():
         assert list(k["recipe_single_rows"]) == [
             f"train {k['name']} B=4 T=256"]
         assert k["launches_by_path"]["recipe_npss"] == 25
+        assert k["launches_by_path"]["ar_options"] == 45
         assert list(k["recipe_npss_rows"]) == [
             f"train {k['name']} B=64 T=128"]
         npss_row = k["recipe_npss_rows"][f"train {k['name']} B=64 T=128"]

@@ -471,8 +471,28 @@ def test_single_track_modules_load_every_flax_weight(engines):
         prefix="lf0")}
     assert names == {"PhonemeContextEmbedding_0", "_SinsyEncoder_0",
                      "conv_downsample", "ar_core"}
-    with pytest.raises(NotImplementedError, match="zoneout"):
-        BiLSTMResF0NonAttentiveDecoder(in_dim=86, zoneout=0.1,
-                                       prenet_layers=0,
-                                       downsample_by_conv=True,
-                                       reduction_factor=4)
+    # zoneout builds too (its cells step in PyTorch) and matches JAX,
+    # teacher-forced and free-running, at evaluation (zoneout's blend)
+    import torch
+
+    from tests.test_torch_npss_ar import LENGTHS, RNGS, close, inputs, targets
+    from tests.test_torch_npss_ar import twins as npss_twins
+
+    net = {"_target_": "ensemble_svs_with_interactions_tpu.models.acoustic."
+           "BiLSTMResF0NonAttentiveDecoder", "in_dim": 86, "zoneout": 0.1,
+           "prenet_layers": 0, "prenet_dropout": 0.0,
+           "downsample_by_conv": True, "reduction_factor": 4,
+           "ff_hidden_dim": 8, "conv_hidden_dim": 6, "lstm_hidden_dim": 4,
+           "num_lstm_layers": 1, "decoder_layers": 1,
+           "decoder_hidden_dim": 5, "out_dim": 1, "in_lf0_idx": 51,
+           "out_lf0_idx": 0}
+    port, jm, variables = npss_twins(net)
+    assert isinstance(port, BiLSTMResF0NonAttentiveDecoder)
+    x, y = inputs(86, seed=2), targets(1, seed=2)
+    with torch.no_grad():
+        close(port(torch.from_numpy(x), torch.from_numpy(LENGTHS),
+                   y=torch.from_numpy(y)),
+              jm.apply(variables, x, LENGTHS, y, rngs=RNGS))
+        close(port.inference(torch.from_numpy(x), torch.from_numpy(LENGTHS)),
+              jm.apply(variables, x, LENGTHS, method=jm.inference,
+                       rngs=RNGS))

@@ -328,13 +328,6 @@ def test_nan_loss_skips_the_update(flagship):
             assert torch.equal(t, opt_state[k][n]), n
 
 
-def test_unported_training_options_raise(flagship):
-    bad = _config()
-    bad["lf0_model"]["zoneout"] = 0.1
-    with pytest.raises(NotImplementedError, match="zoneout"):
-        instantiate(bad)
-
-
 # ------------------------------------------------- optimizers and schedules
 @pytest.mark.parametrize("opt_cfg", [
     {"name": "Adam", "params": {"lr": 1e-2}},
