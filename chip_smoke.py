@@ -133,6 +133,21 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    multi-period, feature matching) and PWG at tiny widths
    (``tiny_vocoder_trainings``), card against CPU in float32 and float64
    (``hold_gan_step``);
+6m. ``surface`` (run right after ``world_params``, on its engines): the
+   score-to-audio surface over the stock single-track voice: the
+   packaged example MusicXML and UST scores through
+   ``frontend.load_score`` and the ``NEUTRINO`` engine on the card
+   (timing, phraselist, f0/mgc/bap, the ``NSF`` waveform); N_CALLS timed
+   ``SPSVS.svs_streaming`` calls on the fixture (seconds to the first
+   chunk, RTF) with the launch counts by width reset just before and
+   read just after each (LAUNCHES_BY_HIDDEN a segment); one call at
+   depth 1, bitwise equal to depth 2's; one with the learned postfilter
+   (cuDNN's TF32 switch off after it); the first SURFACE_REF_SEGMENTS
+   chunks against the CPU engine with the card's noise; the HTTP server
+   (``bin/neutrino_server.py``) in a thread: /healthcheck, /timing,
+   /acoustic, /waveform and /stream alone and SURFACE_STREAMS at once,
+   each equal to a serial render; ``bin/run_svs.main`` through
+   ``pretrained.register_model``;
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -1919,6 +1934,322 @@ def phase_world_params(engine, mcep_dir, label):
         assert r["length"] > 30 * engine.sample_rate, (name, r)
         assert r["snr_db"] > SNR_DB, (name, r["snr_db"])
     assert streams["mcep_aperiodicity"][3].shape[1] == MCEP_AP_DIM
+
+
+SURFACE_REF_SEGMENTS = 2   # the fixture's first segments, card vs CPU
+SURFACE_STREAMS = 2        # concurrent /stream requests to the server
+
+
+def surface_scores(engine) -> dict:
+    """The port's packaged example scores through ``frontend.load_score``
+    (MusicXML and UST, as uploads: bytes) and the NEUTRINO engine on the
+    card: timing labels, phraselist, (f0, mgc, bap) and the ``NSF``
+    waveform of each."""
+    from ensemble_svs_with_interactions_tpu_torch.frontend import load_score
+    from ensemble_svs_with_interactions_tpu_torch.utils import misc
+
+    out = {}
+    for path in (misc.example_xml_file(), misc.example_ust_file()):
+        t0 = time.time()
+        full = load_score(Path(path).name, Path(path).read_bytes())
+        timing = engine.predict_timing(full)
+        phraselist = engine.get_phraselist(full, timing)
+        f0, mgc, bap = engine.predict_acoustic_neutrino(
+            full, timing_labels=timing)
+        wav = engine.predict_waveform_neutrino(f0, mgc, bap)
+        out[Path(path).suffix[1:]] = {
+            "seconds": time.time() - t0, "labels": len(full),
+            "phones": [c.split("-")[1].split("+")[0] for c in full.contexts],
+            "phrases": engine.get_num_phrases(full),
+            "phraselist_lines": len(phraselist.splitlines()),
+            "frames": len(f0), "voiced": float((f0 > 0).mean()),
+            "finite": bool(all(np.isfinite(a).all() for a in (f0, mgc, bap))),
+            "samples": len(wav), "wav_peak": int(np.abs(
+                wav.astype(np.int64)).max())}
+    return out
+
+
+def timed_stream(engine, label, **kw) -> tuple:
+    """(chunks, seconds to the first chunk, seconds in all) of one
+    ``svs_streaming`` call."""
+    t0 = time.time()
+    chunks, first = [], None
+    for chunk in engine.svs_streaming(label.copy(), **kw):
+        if first is None:
+            first = time.time() - t0
+        chunks.append(chunk)
+    return chunks, first, time.time() - t0
+
+
+def stream_on_cpu(cpu, card, label, n: int) -> list:
+    """The first ``n`` chunks of ``cpu.svs_streaming`` (the whole song's
+    timing, only the first ``n`` segments rendered), with the card's WORLD
+    noise: ``gen.vocoder_noise`` draws on ``card``'s device and moves the
+    draw to the CPU."""
+    from ensemble_svs_with_interactions_tpu_torch import gen
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+
+    segment, noise = hts.segment_labels, gen.vocoder_noise
+    hts.segment_labels = lambda *a, **k: segment(*a, **k)[:n]
+    gen.vocoder_noise = lambda N, S, device: noise(N, S, card).to(device)
+    try:
+        return list(cpu.svs_streaming(label.copy(), pipeline_depth=1))
+    finally:
+        hts.segment_labels, gen.vocoder_noise = segment, noise
+
+
+def read_stream(base: str, body: dict) -> tuple:
+    """(PCM chunks, seconds to the first PCM chunk) of one POST /stream,
+    read off the socket frame by frame (the first frame, the RIFF header,
+    is checked and dropped)."""
+    import socket
+
+    host, port = base.rsplit("/", 1)[-1].split(":")
+    data = json.dumps(body).encode()
+    t0 = time.time()
+    with socket.create_connection((host, int(port))) as s:
+        s.sendall(b"POST /stream HTTP/1.1\r\nHost: localhost\r\n"
+                  b"Content-Type: application/json\r\n"
+                  + f"Content-Length: {len(data)}\r\n\r\n".encode() + data)
+        f = s.makefile("rb")
+        status = f.readline()
+        assert b" 200 " in status, status
+        while f.readline() not in (b"\r\n", b""):
+            pass
+        frames, first = [], None
+        while True:
+            n = int(f.readline().strip(), 16)
+            frame = f.read(n)
+            assert f.read(2) == b"\r\n"
+            if n == 0:
+                break
+            if frames and first is None:
+                first = time.time() - t0
+            frames.append(frame)
+    assert frames[0][:4] == b"RIFF" and frames[0][8:12] == b"WAVE"
+    return [np.frombuffer(b, np.int16) for b in frames[1:]], first
+
+
+def surface_server(lr, model_dir, neutrino, label, score_path) -> dict:
+    """``bin/neutrino_server.py`` in a thread on 127.0.0.1 (port 0) over
+    ``model_dir``'s parent, its engines on ``neutrino``'s device (the
+    card): /healthcheck, /timing
+    of the MusicXML score's text, /acoustic by the stored name, /waveform
+    of those features, each equal to ``neutrino``'s serial render; then
+    one /stream request for ``label`` alone and SURFACE_STREAMS concurrent
+    ones, each equal to a serial int16 ``svs_streaming``, with the
+    forward's launches reset just before the first and read just after
+    the last."""
+    import base64
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from ensemble_svs_with_interactions_tpu_torch.bin import (
+        neutrino_server as srv,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.frontend import load_score
+
+    srv._MODEL_ROOT, srv._DEVICE = Path(model_dir).parent, neutrino.device
+    name = Path(model_dir).name
+    server = ThreadingHTTPServer(("127.0.0.1", 0), srv.Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, obj):
+        req = urllib.request.Request(f"{base}{path}", json.dumps(obj).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req) as r:
+            return json.loads(r.read())
+
+    try:
+        t0 = time.time()
+        with urllib.request.urlopen(f"{base}/healthcheck") as r:
+            health = json.loads(r.read())
+        xml = Path(score_path).read_text(encoding="utf-8")
+        timing = post("/timing", {"model": name, "musicxml": xml,
+                                  "name": "score"})
+        load_request_s = time.time() - t0
+        full = load_score("score.musicxml", xml)
+        ref_timing = neutrino.predict_timing(full)
+        ac = post("/acoustic", {"model": name, "name": "score"})
+        feats = neutrino.predict_acoustic_neutrino(full)
+        got = [srv._unb64(ac[k], np.float64, d) for k, d in
+               (("f0", 1), ("mgc", ac["mgc_dim"]), ("bap", ac["bap_dim"]))]
+        wav = post("/waveform", {"model": name, **{
+            k: ac[k] for k in ("f0", "mgc", "bap", "mgc_dim", "bap_dim")}})
+        ref_wav = neutrino.predict_waveform_neutrino(*feats)
+        body = {"model": name, "labels": str(label)}
+        serial = list(neutrino.svs_streaming(label.copy(), dtype=np.int16))
+        results = [None] * SURFACE_STREAMS
+
+        def fetch(i):
+            results[i] = read_stream(base, body)
+
+        reset_launches(lr)
+        t0 = time.time()
+        alone = read_stream(base, body)
+        alone_s = time.time() - t0
+        t0 = time.time()
+        threads = [threading.Thread(target=fetch, args=(i,))
+                   for i in range(SURFACE_STREAMS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        streams_s = time.time() - t0
+        launches = lr.lstm_recurrence.launches
+        by_width = dict(lr.lstm_recurrence.launches_by_width)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    return {
+        "healthcheck": health == {"healthcheck": "OK"},
+        "first_requests_s": load_request_s,
+        "timing_equal": timing["timing_labels"] == str(ref_timing)
+        and timing["phraselist"] == neutrino.get_phraselist(full, ref_timing),
+        "acoustic_equal": all(np.array_equal(a, b)
+                              for a, b in zip(got, feats)),
+        "acoustic_max_abs": max(float(np.abs(a - b).max())
+                                for a, b in zip(got, feats)),
+        "waveform_equal": np.array_equal(
+            np.frombuffer(base64.b64decode(wav["wav"]), np.int16), ref_wav),
+        "stream_alone_s": alone_s, "stream_alone_first_chunk_s": alone[1],
+        "stream_alone_equal_serial": len(alone[0]) == len(serial) and all(
+            np.array_equal(a, b) for a, b in zip(alone[0], serial)),
+        "streams": SURFACE_STREAMS, "streams_s": streams_s,
+        "stream_first_chunk_s": [r[1] for r in results],
+        "streams_equal_serial": [
+            len(r[0]) == len(serial)
+            and all(np.array_equal(a, b) for a, b in zip(r[0], serial))
+            for r in results],
+        "chunks": len(serial), "launches": launches,
+        "launches_by_width": by_width}
+
+
+def phase_surface(lr, engine, cpu, model_dir, label):
+    """The score-to-audio surface over the stock single-track voice of
+    phase ``single`` (``engine``, its ``model_dir``; ``cpu``, the same
+    pack on the CPU): the packaged example scores through
+    ``frontend.load_score`` and the NEUTRINO engine on the card
+    (``surface_scores``); N_CALLS timed ``svs_streaming`` calls on the
+    fixture (depth 2) with the forward's launches by width reset just
+    before and read just after each (LAUNCHES_BY_HIDDEN per segment),
+    seconds to the first chunk and RTF; one call at depth 1, bitwise equal;
+    one with the learned postfilter (cuDNN's TF32 switch must end off);
+    the first SURFACE_REF_SEGMENTS chunks against the CPU engine with the
+    card's noise (durations equal, SNR_DB); the server
+    (``surface_server``); ``bin/run_svs.main`` through
+    ``pretrained.register_model``.  Returns the launches of the timed
+    calls and of the server's concurrent streams."""
+    from ensemble_svs_with_interactions_tpu_torch import pretrained
+    from ensemble_svs_with_interactions_tpu_torch.bin import run_svs
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+    from ensemble_svs_with_interactions_tpu_torch.neutrino import NEUTRINO
+    from ensemble_svs_with_interactions_tpu_torch.utils import misc
+
+    t_phase = time.time()
+    t0 = time.time()
+    neutrino = NEUTRINO(model_dir, device="cuda")
+    load_s = time.time() - t0
+    scores = surface_scores(neutrino)
+
+    dm = engine.predict_timing(label.copy())
+    n_seg = len(hts.segment_labels(dm))
+    want = {H: n * n_seg for H, n in LAUNCHES_BY_HIDDEN.items()}
+    timed_stream(engine, label)  # warm-up
+    runs, by_width, launches = [], [], 0
+    for _ in range(N_CALLS):
+        reset_launches(lr)
+        chunks, first, total = timed_stream(engine, label)
+        launches += lr.lstm_recurrence.launches
+        by_width.append(dict(lr.lstm_recurrence.launches_by_width))
+        audio_s = sum(len(c) for c in chunks) / engine.sample_rate
+        runs.append({"first_chunk_s": first, "seconds": total,
+                     "rtf": total / audio_s, "chunks": len(chunks)})
+    deep = chunks
+    shallow, shallow_first, shallow_s = timed_stream(engine, label,
+                                                     pipeline_depth=1)
+    bitwise = len(shallow) == len(deep) and all(
+        np.array_equal(a, b) for a, b in zip(shallow, deep))
+    # the learned postfilter's convolutions hold cuDNN's process-wide TF32
+    # switch under a lock on every worker thread; it must end as it began
+    nnsvs, _, nnsvs_s = timed_stream(engine, label, post_filter_type="nnsvs")
+    tf32_after = torch.backends.cudnn.allow_tf32
+
+    t0 = time.time()
+    dm_cpu = cpu.predict_timing(label.copy())
+    ref = stream_on_cpu(cpu, engine.device, label, SURFACE_REF_SEGMENTS)
+    ref_s = time.time() - t0
+    same_times = (list(dm.start_times) == list(dm_cpu.start_times)
+                  and list(dm.end_times) == list(dm_cpu.end_times))
+    ref_snr = [snr_db(r, g) for r, g in zip(ref, deep)]
+    ref_lengths = [(len(r), len(g)) for r, g in zip(ref, deep)]
+
+    t0 = time.time()
+    server = surface_server(lr, model_dir, neutrino, label,
+                            misc.example_xml_file())
+    server_s = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        lab = Path(tmp) / "song.lab"
+        label.save(lab)
+        pretrained.register_model("chip_smoke/stock_voice", model_dir)
+        t0 = time.time()
+        try:
+            rc = run_svs.main(["chip_smoke/stock_voice", str(lab),
+                               str(Path(tmp) / "song.wav")])
+        finally:
+            pretrained.model_registry.pop("chip_smoke/stock_voice")
+        run_svs_s = time.time() - t0
+        from scipy.io import wavfile
+
+        sr, wav = wavfile.read(Path(tmp) / "song.wav")
+    emit({"phase": "surface", "load_s": load_s, "scores": scores,
+          "segments": n_seg, "calls": N_CALLS, "runs": runs,
+          "launches_per_call_expected": sum(want.values()),
+          "launches_by_width": [{str(H): n for H, n in sorted(w.items())}
+                                for w in by_width],
+          "depth1": {"first_chunk_s": shallow_first, "seconds": shallow_s},
+          "depth1_bitwise_equal_depth2": bitwise,
+          "nnsvs": {"seconds": nnsvs_s, "chunks": len(nnsvs),
+                    "finite": bool(all(np.isfinite(c).all() for c in nnsvs))},
+          "cudnn_allow_tf32_after": tf32_after,
+          "reference": {"segments": len(ref), "seconds": ref_s,
+                        "durations_equal": same_times, "snr_db": ref_snr,
+                        "lengths": ref_lengths, "snr_min_db": SNR_DB},
+          "server": {**server, "seconds": server_s},
+          "run_svs": {"rc": rc, "seconds": run_svs_s, "sample_rate": sr,
+                      "samples": len(wav)},
+          "seconds": time.time() - t_phase})
+    xml, ust = scores["musicxml"], scores["ust"]
+    assert xml["phones"] == ust["phones"], (xml["phones"], ust["phones"])
+    for s in (xml, ust):
+        assert s["finite"] and s["frames"] > 0 and s["wav_peak"] > 0, s
+        assert s["phrases"] >= 1 and s["phraselist_lines"] >= 1, s
+    assert n_seg > 1, n_seg
+    for w in by_width:
+        assert w == want, (w, want)
+    for r in runs:
+        assert r["chunks"] == n_seg, r
+    assert bitwise
+    assert len(nnsvs) == n_seg and all(np.isfinite(c).all() for c in nnsvs)
+    assert tf32_after is False
+    assert same_times
+    assert len(ref) == SURFACE_REF_SEGMENTS
+    assert all(a == b for a, b in ref_lengths), ref_lengths
+    assert all(s > SNR_DB for s in ref_snr), ref_snr
+    assert server["healthcheck"] and server["timing_equal"], server
+    assert server["acoustic_equal"] and server["waveform_equal"], server
+    assert server["stream_alone_equal_serial"], server
+    assert all(server["streams_equal_serial"]), server
+    assert server["chunks"] == n_seg
+    assert server["launches_by_width"] == {
+        H: n * (1 + SURFACE_STREAMS) for H, n in want.items()}, server
+    assert rc == 0 and sr == engine.sample_rate and len(wav) > 30 * sr
+    return {"svs_streaming": launches,
+            "neutrino_server_stream": server["launches"]}
 
 
 def late_copy(labels, lag: int = SUB_LAG):
@@ -6620,6 +6951,8 @@ def main() -> int:
         pack_phases(mcep_dir, glob_mcep, phases_mcep,
                     random_state_dicts(phases_mcep, SEED))
         phase_world_params(engine, mcep_dir, labels[0])
+        path_launches.update(phase_surface(lr, engine, cpu, model_dir,
+                                           labels[0]))
     del engine, cpu
     path_launches["pairwise"] = pair_launches
     with tempfile.TemporaryDirectory() as model_dir:

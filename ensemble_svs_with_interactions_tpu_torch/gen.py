@@ -12,9 +12,6 @@ Device (torch): model inference (the learned postfilter too), the WORLD
 vocoder, with frame counts padded to buckets as in the JAX package so both
 see the same padded inputs, and the neural vocoders (``pwg``, ``usfgan``),
 unpadded as in the JAX package.
-
-Not ported, and named by the ``NotImplementedError`` that refuses them
-(``UNPORTED``): vibrato streams (``ops/pitch.gen_sine_vibrato``).
 """
 
 from __future__ import annotations
@@ -40,6 +37,7 @@ from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.pitch import (
     bandpass_filter,
+    gen_sine_vibrato,
     interp1d,
     lowpass_filter,
 )
@@ -68,16 +66,9 @@ AR_SEED = 1234
 # seed of the diffusion decoders' sampling chains (the JAX package feeds
 # them a split of the same key)
 CHAIN_SEED = 1234
-# the JAX package's modules that unported options need
-_JAX = "ensemble_svs_with_interactions_tpu"
-UNPORTED = {
-    "vibrato": f"{_JAX}/ops/pitch.py (gen_sine_vibrato)",
-}
-
-
-def unported(option: str, what: str):
-    return NotImplementedError(f"{what} needs {UNPORTED[option]}, which the "
-                               "port has not ported")
+# option -> the JAX package's module an unported option needs: none is
+# left (the vibrato streams were the last)
+UNPORTED: dict = {}
 
 
 def _round_up(n: int, multiple: int) -> int:
@@ -593,9 +584,13 @@ def gen_spsvs_static_features(labels, acoustic_features: np.ndarray,
                               force_fix_vuv: bool = True,
                               linguistic_features=None):
     """Static streams -> (mgc, lf0, vuv, bap): V/UV fixes by phone, the
-    score lf0 added back under relative F0, unvoiced frames' lf0 filled by
-    interpolation.  ``linguistic_features`` (raw frame features) may be
-    passed to skip recomputing them.  Vibrato streams raise."""
+    score lf0 added back under relative F0, the vibrato streams applied,
+    unvoiced frames' lf0 filled by interpolation.  A fifth stream is a
+    vibrato difference in Hz added to F0 (times ``vibrato_scale``); a fifth
+    and sixth are the sine vibrato's (amplitude, rate) and its flags, the
+    parameters zeroed where the flag is below 0.5, then
+    ``ops/pitch.gen_sine_vibrato``.  ``linguistic_features`` (raw frame
+    features) may be passed to skip recomputing them."""
     hts_frame_shift = int(frame_period * 1e4)
     if pitch_idx is None:
         pitch_idx = hts.get_pitch_index(binary_dict, numeric_dict)
@@ -603,11 +598,11 @@ def gen_spsvs_static_features(labels, acoustic_features: np.ndarray,
                                             has_dynamic_features, num_windows)
                     if np.any(has_dynamic_features) else stream_sizes)
     streams = split_streams(acoustic_features.copy(), list(static_sizes))
-    if len(streams) in (5, 6):
-        raise unported("vibrato", "a vibrato stream")
-    if len(streams) != 4:
+    if len(streams) not in (4, 5, 6):
         raise RuntimeError(f"unsupported number of streams: {len(streams)}")
-    mgc, target_f0, vuv, bap = streams
+    mgc, target_f0, vuv, bap = streams[:4]
+    vib = streams[4] if len(streams) > 4 else None
+    vib_flags = streams[5] if len(streams) > 5 else None
     if linguistic_features is None:
         linguistic_features = fe.linguistic_features(
             labels, binary_dict, numeric_dict, add_frame_features=True,
@@ -615,6 +610,8 @@ def gen_spsvs_static_features(labels, acoustic_features: np.ndarray,
     n = min(len(linguistic_features), len(mgc))
     linguistic_features = linguistic_features[:n]
     mgc, target_f0, vuv, bap = mgc[:n], target_f0[:n], vuv[:n], bap[:n]
+    vib = vib[:n] if vib is not None else None
+    vib_flags = vib_flags[:n] if vib_flags is not None else None
     if force_fix_vuv:
         vuv = correct_vuv_by_phone(vuv, binary_dict, linguistic_features)
     if relative_f0:
@@ -627,6 +624,17 @@ def gen_spsvs_static_features(labels, acoustic_features: np.ndarray,
         f0 = target_f0.copy()
     f0[vuv < vuv_threshold] = 0
     f0[np.nonzero(f0)] = np.exp(f0[np.nonzero(f0)])
+    if vib is not None:
+        if vib_flags is not None:
+            off = vib_flags.flatten() < 0.5
+            m_a, m_f = vib[:, 0].copy(), vib[:, 1].copy()
+            m_a[off] = 0
+            m_f[off] = 0
+            sr_f0 = int(1 / (frame_period * 0.001))
+            f0 = gen_sine_vibrato(f0.flatten(), sr_f0, m_a, m_f,
+                                  vibrato_scale)
+        else:
+            f0 = f0.flatten() + vibrato_scale * vib.flatten()
     lf0 = f0.copy()
     lf0[np.nonzero(lf0)] = np.log(f0[np.nonzero(lf0)])
     lf0 = interp1d(lf0)

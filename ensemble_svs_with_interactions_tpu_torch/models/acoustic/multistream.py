@@ -52,8 +52,10 @@ class MultistreamSeparateF0ParametricModel(BaseModel):
     """The single-track model.  Sub-models arrive built
     (``utils.config.instantiate`` builds nested ``_target_`` nodes first);
     the lf0 fields (``in_lf0_*``, ``out_lf0_*``) belong to the lf0
-    sub-model's own config and are accepted and unused.  Vibrato streams
-    (``vib_model``, ``vib_flags_model``) are not ported and raise."""
+    sub-model's own config and are accepted and unused, and so are
+    ``vib_model`` and ``vib_flags_model``, as the JAX model's ``setup``
+    builds nothing from them (a vibrato stream comes from ``out_dim`` and
+    ``stream_sizes``, not from a sub-model)."""
 
     def __init__(self, in_dim: int, out_dim: int, stream_sizes: Sequence[int],
                  reduction_factor: int, encoder: Any, mgc_model: Any,
@@ -66,10 +68,6 @@ class MultistreamSeparateF0ParametricModel(BaseModel):
                  out_lf0_scale: float = 0.23435173188961034,
                  lf0_teacher_forcing: bool = True):
         super().__init__()
-        if vib_model is not None or vib_flags_model is not None:
-            raise NotImplementedError(
-                "vibrato streams need ensemble_svs_with_interactions_tpu/ops/"
-                "pitch.py gen_sine_vibrato, which the port has not ported")
         self.in_dim, self.out_dim = in_dim, out_dim
         self.stream_sizes = list(stream_sizes)
         self.in_rest_idx = in_rest_idx
@@ -153,12 +151,15 @@ class MultiTrackMultistreamSeparateF0ParametricModel(BaseModel):
 
     ``compat_sub_encoder_outs=True`` feeds the MAIN track's encoder output
     to the sub-track decoders, as the reference does (for its
-    checkpoints); the default routes the sub track's own."""
+    checkpoints); the default routes the sub track's own.  ``vib_model``
+    and ``vib_flags_model`` are accepted and unused, as in the JAX
+    model."""
 
     def __init__(self, in_dim: int, out_dim: int, stream_sizes: Sequence[int],
                  reduction_factor: int, encoder: Any, mgc_model: Any,
                  lf0_model: Any, vuv_model: Any, bap_model: Any,
-                 speaker_embedding: Any, in_rest_idx: int = 1,
+                 speaker_embedding: Any, vib_model: Any = None,
+                 vib_flags_model: Any = None, in_rest_idx: int = 1,
                  in_lf0_idx: int = 300, in_lf0_min: float = 5.3936276,
                  in_lf0_max: float = 6.491111, out_lf0_idx: int = 180,
                  out_lf0_mean: float = 5.953093881972361,

@@ -76,6 +76,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -212,37 +213,42 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+_BUILD_LOCK = threading.Lock()
+
+
 def build() -> dict:
     """Compile every kernel source into ``_build/`` (keyed by the hash of
     the source and the shared header, so an edit is rebuilt), one ``nvcc``
     per source, all started together.  Returns {name: library path}.
     nvcc's report (registers, shared memory, spills) is kept beside each
-    library as ``.log``."""
-    libs = {name: _library_path(name) for name in SOURCES}
-    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
-    if not todo:
+    library as ``.log``.  One thread builds at a time (a server's first
+    requests may arrive together)."""
+    with _BUILD_LOCK:
+        libs = {name: _library_path(name) for name in SOURCES}
+        todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+        if not todo:
+            return libs
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _find_nvcc()
+        procs = {}
+        for name, lib in todo.items():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failures = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"nvcc failed ({proc.returncode}) on "
+                                f"{SOURCES[name]}:\n{out}")
+                continue
+            libs[name].with_suffix(".log").write_text(out)
+            os.replace(tmp, libs[name])  # atomic: no one sees half a file
+        if failures:
+            raise RuntimeError("\n".join(failures))
         return libs
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _find_nvcc()
-    procs = {}
-    for name, lib in todo.items():
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failures = []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f"nvcc failed ({proc.returncode}) on "
-                            f"{SOURCES[name]}:\n{out}")
-            continue
-        libs[name].with_suffix(".log").write_text(out)
-        os.replace(tmp, libs[name])  # atomic: no one sees half a file
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return libs
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
@@ -313,6 +319,20 @@ def _raise_launch(fn, lib_err, err, **dims):
                        f"{err}: {msg}")
 
 
+# renders on several threads (``SPSVS.svs_streaming``, the NEUTRINO
+# server) launch at once: the counts are kept under one lock
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper, H=None):
+    """Add one launch to ``wrapper``'s count (and to its count by width
+    ``H``, the forward's)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if H is not None:
+            wrapper.launches_by_width[H] += 1
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -351,8 +371,7 @@ def lstm_recurrence(xw, w_h, want_c: bool = False):
     if err != 0:
         _raise_launch("lstm_recurrence", lib.lstm_recurrence_error_string,
                       err, B=B, T=T, H=H)
-    lstm_recurrence.launches += 1
-    lstm_recurrence.launches_by_width[H] += 1
+    _count(lstm_recurrence, H)
     return (y, c) if want_c else y
 
 
@@ -399,7 +418,7 @@ def lstm_bptt(xw, w_h, h, c, dy):
     if err != 0:
         _raise_launch("lstm_bptt", lib.lstm_bptt_error_string, err,
                       B=B, T=T, H=H)
-    lstm_bptt.launches += 1
+    _count(lstm_bptt)
     return dxw
 
 
@@ -423,7 +442,7 @@ def lstm_gates(xw, w_h, h):
     if err != 0:
         _raise_launch("lstm_gates", lib.lstm_bptt_error_string, err,
                       B=B, T=T, H=H)
-    lstm_gates.launches += 1
+    _count(lstm_gates)
     return gates
 
 
@@ -453,7 +472,7 @@ def lstm_dwh(h, dz):
     if err != 0:
         _raise_launch("lstm_dwh", lib.lstm_bptt_error_string, err,
                       B=B, T=T, H=H)
-    lstm_dwh.launches += 1
+    _count(lstm_dwh)
     return dwh
 
 

@@ -5,7 +5,8 @@ postprocess, ``lowpass_filter`` (trajectory smoothing) and
 ``bandpass_filter`` (the waveform's 70 Hz high-pass), the note
 segmentation of the trainers' pitch regularization, ``note_segments``,
 and what feature extraction calls: cents, the score-based F0
-correction, smoothed F0 and the vibrato extractors.
+correction, smoothed F0 and the vibrato extractors, and the sine
+vibrato re-synthesis of the host postprocess (``gen_sine_vibrato``).
 Host NumPy/SciPy."""
 
 from __future__ import annotations
@@ -323,3 +324,24 @@ def extract_vibrato_parameters(
         m_a[s + c0 : s + c1] = ma_seg
         m_f[s + c0 : s + c1] = mf_seg
     return flags, m_a, m_f
+
+
+def gen_sine_vibrato(f0: np.ndarray, sr: int, m_a: np.ndarray,
+                     m_f: np.ndarray, scale: float = 1.0) -> np.ndarray:
+    """Re-synthesize vibrato as sinusoidal modulation of F0: amplitude
+    ``m_a`` (cents, clipped to 30-150) and rate ``m_f`` (Hz, clipped to
+    3-8) over each run where ``m_a`` is nonzero, then a 12 Hz low-pass up
+    to the end of the voiced run it lies in."""
+    out = f0.copy()
+    voiced_ends = np.asarray([e for _, e in nonzero_segments(f0)])
+    for s, e in nonzero_segments(m_a):
+        mf_seg = np.clip(m_f[s:e], 3, 8)
+        ma_seg = np.clip(m_a[s:e], 30, 150)
+        cent = scale * ma_seg * np.sin(2 * np.pi / sr * mf_seg
+                                       * np.arange(e - s))
+        out[s:e] = f0[s:e] * np.exp(cent * np.log(2) / 1200)
+        nxt = voiced_ends[voiced_ends > e]
+        if len(nxt) > 0:
+            ve = int(nxt[0])
+            out[s:ve] = lowpass_filter(out[s:ve], sr, cutoff=12)
+    return out

@@ -8,6 +8,8 @@ neural vocoder on the device and the host's band-pass and normalization.
 (cross-conditioned) model, the paper's flagship, or over a single-track
 one, with the device-resident postprocess and WORLD vocoder where the
 configuration allows, else the host postprocess.
+``svs_streaming`` renders one singer phrase by phrase, yielding each
+segment's waveform as soon as it is ready.
 ``predict_timing_multitrack`` and ``predict_acoustic_multitrack`` run one
 pair of a multitrack model, as the recipe's synthesis stage
 (``bin/synthesis_multitrack.py``) calls them.
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import inspect
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
@@ -46,6 +49,7 @@ from ensemble_svs_with_interactions_tpu_torch.models.vocoders.usfgan import (
     VocoderPack,
 )
 from ensemble_svs_with_interactions_tpu_torch.ops import device_post
+from ensemble_svs_with_interactions_tpu_torch.ops.pitch import bandpass_filter
 from ensemble_svs_with_interactions_tpu_torch.ops.world.synthesis import (
     quantize_peak_norm_int16,
     synthesize_from_streams,
@@ -509,6 +513,73 @@ class SPSVS:
                          len(segments), end - start, self.last_rtf,
                          ", ".join(f"{k} {v:.3f}s" for k, v in times.items()))
         return wav, self.sample_rate
+
+    def svs_streaming(self, labels, vocoder_type: str = "world",
+                      post_filter_type: str = "gv",
+                      trajectory_smoothing: bool = True,
+                      trajectory_smoothing_cutoff: float = 50,
+                      trajectory_smoothing_cutoff_f0: float = 20,
+                      vuv_threshold: float = 0.5, style_shift: float = 0,
+                      force_fix_vuv: bool = False,
+                      fill_silence_to_rest: bool = False,
+                      dtype=np.float32, gain: float = 1.0,
+                      pipeline_depth: int = 2):
+        """Phrase-streamed synthesis: a generator yielding one waveform
+        chunk per rest-delimited segment of the timed labels
+        (``io/hts.segment_labels``), in order, as soon as it is rendered.
+        The signature and defaults are the JAX package's.
+
+        Each segment goes through ``svs(segmented_synthesis=True)``'s chain
+        (acoustic, host postprocess, vocoder), then its own 70 Hz
+        band-pass, times ``gain``; ``dtype=np.int16`` clips at full scale.
+        There is no whole-song peak or loudness normalization: use
+        ``svs()`` for mastered output.  Segments render ``pipeline_depth``
+        deep on worker threads; every draw comes from a generator made per
+        call, so the chunks do not depend on the depth.  The threads share
+        the card's current stream, so their kernels run one after another:
+        the pipeline overlaps host work only.  A multitrack pack raises
+        ValueError, as in JAX."""
+        vocoder_type = self._validate_synthesis_args(vocoder_type,
+                                                     post_filter_type)
+        if self.is_multitrack:
+            raise ValueError(
+                "this pack holds a multitrack (cross-conditioned) model; "
+                "streaming is single-track (use svs_ensemble for pairs)")
+        duration_modified_labels = self.predict_timing(labels)
+        segments = hts.segment_labels(duration_modified_labels)
+        hts_frame_shift = int(self.frame_period * 1e4)
+
+        def _render(seg):
+            seg.frame_shift = hts_frame_shift
+            acoustic = self.predict_acoustic(
+                seg, f0_shift_in_cent=style_shift * 100)
+            streams = self.postprocess_acoustic(
+                acoustic, seg, post_filter_type=post_filter_type,
+                trajectory_smoothing=trajectory_smoothing,
+                trajectory_smoothing_cutoff=trajectory_smoothing_cutoff,
+                trajectory_smoothing_cutoff_f0=trajectory_smoothing_cutoff_f0,
+                force_fix_vuv=force_fix_vuv,
+                fill_silence_to_rest=fill_silence_to_rest,
+                f0_shift_in_cent=-style_shift * 100)
+            wav = self.predict_waveform(streams, vocoder_type=vocoder_type,
+                                        vuv_threshold=vuv_threshold)
+            chunk = np.asarray(bandpass_filter(
+                np.asarray(wav, np.float64).reshape(-1),
+                self.sample_rate)) * gain
+            if dtype in (np.int16, "int16"):
+                return (np.clip(chunk, -1.0, 1.0) * 32767.0).astype(np.int16)
+            return chunk.astype(dtype) if dtype is not None else chunk
+
+        depth = max(pipeline_depth, 1)
+        with ThreadPoolExecutor(max_workers=depth) as ex:
+            pending = deque(ex.submit(_render, seg)
+                            for seg in segments[:depth])
+            for seg in segments[depth:]:
+                done = pending.popleft()
+                pending.append(ex.submit(_render, seg))
+                yield done.result()
+            while pending:
+                yield pending.popleft().result()
 
     def _frame_features(self, duration_modified):
         """Per-track frame-level features (threaded host work): (normalized

@@ -426,8 +426,8 @@ def test_flow_matching_trains_as_jax(same_draws, monkeypatch):
 def test_multi_speaker_flow_matching_raises():
     """Named when the port refused the multi-speaker decoders; now both
     build from their JAX ``_target_`` (``tests/test_torch_multi_speaker.py``
-    holds them against JAX) and ``gen.UNPORTED`` names only the vibrato
-    streams."""
+    holds them against JAX) and ``gen.UNPORTED`` names nothing (the vibrato
+    streams, the last it named, are ported)."""
     spk = {"_target_": f"{PKG}.SpeakerEmbedding", "num_embeddings": 3,
            "embedding_dim": 4}
     for target in ("flow_matching.MultiSpeakerFlowMatching",
@@ -436,7 +436,7 @@ def test_multi_speaker_flow_matching_raises():
                               "out_dim": M, "denoise_fn": diffnet(M, IN),
                               "speaker_embedding": spk})
         assert type(module).__name__ == target.split(".")[1]
-    assert set(gen.UNPORTED) == {"vibrato"}
+    assert set(gen.UNPORTED) == set()
 
 
 # ------------------------------------------------------------ the weights

@@ -369,9 +369,10 @@ def test_encoderless_decoders_ignore_the_speakers_as_jax(same_draws, cls):
 
 
 def test_unported_holds_only_vibrato():
-    """Every multi-speaker model builds; ``gen.UNPORTED`` names only the
-    vibrato streams."""
-    assert set(gen.UNPORTED) == {"vibrato"}
+    """Every multi-speaker model builds; ``gen.UNPORTED`` named only the
+    vibrato streams, and names nothing since they were ported
+    (tests/test_torch_streaming.py)."""
+    assert set(gen.UNPORTED) == set()
     for net in (diffusion(), diffusion("flow_matching.MultiSpeakerFlowMatching"),
                 npss_mdn(), ffconvlstm(), multistream()["netG"]):
         assert instantiate(net).speaker_embedding is not None

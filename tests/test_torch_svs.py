@@ -366,7 +366,9 @@ def test_port_imports_no_jax():
     the trainers with their datasets, metrics, renders, initializers and
     CLIs, the recipe's data stages -1 to 2 with the native WORLD analysis,
     their CLIs, the recipe runner with stages 3-7, 10 and 11, the
-    synthesis, timing-evaluation, multi-speaker training and sweep CLIs),
+    synthesis, timing-evaluation, multi-speaker training and sweep CLIs,
+    the score front ends, the NEUTRINO engine, its CLIs and server, the
+    model registry and ``run_svs``),
     chip_smoke.py's and both benches' own imports leave JAX, flax, yaml,
     msgpack and the JAX package out of the process.  The port's name
     starts with the JAX package's, so the check is on exact names and the
@@ -435,6 +437,16 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.bin"
         ".train_acoustic_multi\n"
         "import ensemble_svs_with_interactions_tpu_torch.bin.sweep\n"
+        "import ensemble_svs_with_interactions_tpu_torch.frontend.musicxml\n"
+        "import ensemble_svs_with_interactions_tpu_torch.frontend.ust\n"
+        "import ensemble_svs_with_interactions_tpu_torch.frontend._inventory\n"
+        "import ensemble_svs_with_interactions_tpu_torch.neutrino\n"
+        "import ensemble_svs_with_interactions_tpu_torch.pretrained\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.neutrino\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.nsf\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".neutrino_server\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.run_svs\n"
         "import chip_smoke\n"
         "import bench_cuda\n"
         "import bench_train_cuda\n"

@@ -38,7 +38,6 @@ from ensemble_svs_with_interactions_tpu.utils.scalers import (
 from ensemble_svs_with_interactions_tpu_torch import gen
 from ensemble_svs_with_interactions_tpu_torch.io import hts
 from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
-from ensemble_svs_with_interactions_tpu_torch.utils.config import instantiate
 from tests.test_torch_svs import _short_labels
 from tests.test_torch_svs import run_cached
 from tests.test_torch_svs import tiny_phases
@@ -413,15 +412,11 @@ def test_svs_ensemble_host_path_matches_jax(engines, monkeypatch):
             assert w.dtype == r.dtype and w.shape == r.shape
 
 
-def _streams(n_streams):
-    T = 40
-    return np.zeros((T, 8 + 1 + 1 + 3 + 2 * (n_streams - 4)), np.float32)
-
-
 # case -> (call, what it raises): a neural vocoder type on a pack with no
 # packed vocoder, and mel features on the WORLD vocoder, raise ValueError,
 # as the JAX engine does; unported options raise NotImplementedError
-# naming their JAX module
+# naming their JAX module (none is left: the vibrato streams and
+# ``vib_model`` are held against JAX in tests/test_torch_streaming.py)
 REFUSED = {
     "pwg": (lambda e: e.svs(_short_labels(hts), vocoder_type="pwg"),
             (ValueError, "packed neural vocoder")),
@@ -431,14 +426,6 @@ REFUSED = {
         (np.zeros((40, 80)), np.zeros((40, 1)), np.ones((40, 1))),
         feature_type="melf0", device="cpu"),
         (ValueError, "invalid feature type for WORLD vocoder")),
-    "vibrato_stream": (lambda e: gen.gen_spsvs_static_features(
-        None, _streams(5), e.binary_dict, e.numeric_dict, [8, 1, 1, 3, 2],
-        [False] * 5, num_windows=1, linguistic_features=np.zeros((40, 86))),
-        "gen_sine_vibrato"),
-    "vibrato_model": (lambda e: instantiate(dict(
-        single_track_configs()[2]["netG"],
-        vib_model=single_track_configs()[2]["netG"]["vuv_model"])),
-        "gen_sine_vibrato"),
 }
 
 
