@@ -20,7 +20,8 @@ scalers) on the host, then its runner's training, packing, synthesis,
 vocoder and timing-evaluation stages on the card; and the single-track
 recipe with its learned postfilter trained and merged (stages 0 to 9),
 then its acoustic phase with the NPSS voices trained, packed and served;
-and the mel voice (log-mel features, a DDPM mel decoder, the mel
+a reference NNSVS voice converted by the importer and served; and the mel
+voice (log-mel features, a DDPM mel decoder, the mel
 postfilter and the hn-uSFGAN on the mel) served and trained.
 It holds every hand-written kernel of those paths against its plain
 PyTorch version on the card.  Phases, each printing JSON lines:
@@ -148,6 +149,20 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    /acoustic, /waveform and /stream alone and SURFACE_STREAMS at once,
    each equal to a serial render; ``bin/run_svs.main`` through
    ``pretrained.register_model``;
+6n. ``importer`` (after ``pairwise``): a reference NNSVS pack in the
+   published tarballs' layout (``write_reference_pack``: the shipped
+   ``timelag_mdn.yaml``, ``duration_mdn.yaml`` and
+   ``acoustic_resf0convlstm.yaml`` at full width under the reference's
+   ``_target_`` names, seeded ``torch.nn`` layers in the reference's names)
+   converted by ``bin/enunu2nnsvs.convert_nnsvs_pack`` and served by
+   ``SPSVS(voice_dir)``: the weights bitwise the reference's, N_CALLS
+   ``svs()`` calls with the launches by width reset just before and read
+   just after each (IMPORTER_LAUNCHES_BY_HIDDEN), card against CPU;
+   ``bin/generate.py`` on the card and the CPU; the device MLPG against
+   the host path at MLPG_T x MLPG_D; ``postfilter_sp.yaml`` and
+   ``vocoder_hifigan.yaml`` at the shipped widths (a forward and one GAN
+   step each, card against CPU with a float64 oracle); ``bin/anasyn.py``
+   card against CPU;
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -2252,6 +2267,598 @@ def phase_surface(lr, engine, cpu, model_dir, label):
             "neutrino_server_stream": server["launches"]}
 
 
+# ------------------------------------------------------------------
+# Phase ``importer``: a reference NNSVS pack converted and served
+# ------------------------------------------------------------------
+
+# the published pretrained packs' three phases, at the shipped widths
+REFERENCE_CONFIGS = {"timelag": "timelag/timelag_mdn.yaml",
+                     "duration": "duration/duration_mdn.yaml",
+                     "acoustic": "acoustic/acoustic_resf0convlstm.yaml"}
+# the reference's module path of each model class the pack names
+REFERENCE_TARGETS = {
+    "MDN": "nnsvs.model.MDN", "MDNv2": "nnsvs.model.MDNv2",
+    "LSTMRNN": "nnsvs.model.LSTMRNN", "FFConvLSTM": "nnsvs.model.FFConvLSTM",
+    "TransformerEncoder": "nnsvs.model.TransformerEncoder",
+    "ResSkipF0FFConvLSTM": "nnsvs.acoustic_models.ResSkipF0FFConvLSTM",
+    "BiLSTMResF0NonAttentiveDecoder":
+        "nnsvs.acoustic_models.BiLSTMResF0NonAttentiveDecoder",
+}
+# the converted voice's biLSTM launches an svs() call: the acoustic
+# model's 256 x 2 layers x 2 directions (the MDN timing models have none)
+IMPORTER_LAUNCHES_BY_HIDDEN = {256: 4}
+IMPORTER_UNITS = {"timelag": 6, "duration": 6, "acoustic": 14}
+MLPG_T, MLPG_D, MLPG_WINDOWS = T_FRAMES, 60, 3  # the device MLPG's shape
+MLPG_ATOL = 1e-4   # float32 band Cholesky vs LAPACK in float64, T = 6656
+MLPG_CALLS = 2
+
+
+def _ref_mdn(prefix, port, hidden, out_dim, n_gauss, dim_wise=False):
+    """The reference ``MDNLayer``: log_pi, log_sigma, mu."""
+    n_pi = n_gauss * out_dim if dim_wise else n_gauss
+    return [(f"{prefix}.log_pi", torch.nn.Linear(hidden, n_pi),
+             f"{port}.log_pi"),
+            (f"{prefix}.log_sigma", torch.nn.Linear(hidden, out_dim * n_gauss),
+             f"{port}.log_sigma"),
+            (f"{prefix}.mu", torch.nn.Linear(hidden, out_dim * n_gauss),
+             f"{port}.mu")]
+
+
+def _ref_sinsy_encoder(net, port, lf0: bool):
+    """The reference FF + conv + biLSTM front (``ff``, ``conv``, ``lstm``):
+    3 Linear, 3 x (Conv1d k = 7, BatchNorm1d) behind reflection pads, a
+    bidirectional ``nn.LSTM``; the conv input takes the lf0 column too
+    where ``lf0``.  ``port`` gives the port's scope names."""
+    ff, conv = net["ff_hidden_dim"], net["conv_hidden_dim"]
+    dims = [net["in_dim"], ff, ff, ff]
+    out = [(f"ff.{2 * i}", torch.nn.Linear(dims[i], dims[i + 1]),
+            f"{port['dense']}{i}") for i in range(3)]
+    c_in = ff + (1 if lf0 else 0)
+    for i in range(3):
+        out += [(f"conv.{4 * i + 1}",
+                 torch.nn.Conv1d(c_in if i == 0 else conv, conv, 7),
+                 f"{port['conv']}{i}.Conv_0"),
+                (f"conv.{4 * i + 2}", torch.nn.BatchNorm1d(conv),
+                 f"{port['bn']}{i}")]
+    out.append(("lstm", torch.nn.LSTM(conv, net["lstm_hidden_dim"],
+                                      net.get("num_lstm_layers", 2),
+                                      bidirectional=True, batch_first=True),
+                port["lstm"]))
+    return out
+
+
+def reference_layers(net: dict) -> list:
+    """The layers of the reference NNSVS model that ``net`` (a reference
+    ``netG`` config) names, in the reference's definition order: [(state
+    dict prefix, torch.nn layer or bare parameter tensor, the port's module
+    path of its counterpart)]."""
+    name = net["_target_"].rsplit(".", 1)[-1]
+    L = torch.nn.Linear
+    if name in ("MDN", "MDNv2"):
+        step = 3 if name == "MDNv2" else 2   # Linear, ReLU[, Dropout]
+        n = net.get("num_layers", 1)
+        dims = [net["in_dim"]] + [net["hidden_dim"]] * n
+        out = [(f"model.{step * i}", L(dims[i], dims[i + 1]), f"Dense_{i}")
+               for i in range(n)]
+        return out + _ref_mdn(f"model.{step * n}", "MDNLayer_0",
+                              net["hidden_dim"], net["out_dim"],
+                              net.get("num_gaussians", 8),
+                              net.get("dim_wise", False))
+    if name == "LSTMRNN":
+        dirs = 2 if net.get("bidirectional", True) else 1
+        return [("lstm", torch.nn.LSTM(net["in_dim"], net["hidden_dim"],
+                                       net.get("num_layers", 1),
+                                       bidirectional=dirs == 2,
+                                       batch_first=True), "LSTM_0"),
+                ("hidden2out", L(dirs * net["hidden_dim"], net["out_dim"]),
+                 "Dense_0")]
+    if name in ("FFConvLSTM", "ResSkipF0FFConvLSTM"):
+        stack = "_ConvBNReLUStack_0." if name == "FFConvLSTM" else ""
+        out = _ref_sinsy_encoder(net, {
+            "dense": "Dense_", "conv": f"{stack}ReflectConv1d_",
+            "bn": f"{stack}MaskedBatchNorm_", "lstm": "LSTM_0"},
+            lf0=name != "FFConvLSTM")
+        last = 2 * net["lstm_hidden_dim"] + (
+            net["in_dim"] if net.get("skip_inputs") else 0)
+        return out + [("fc", L(last, net["out_dim"]), "Dense_3")]
+    if name == "BiLSTMResF0NonAttentiveDecoder":
+        e = "_SinsyEncoder_0."
+        out = _ref_sinsy_encoder(net, {
+            "dense": f"{e}Dense_", "conv": f"{e}ReflectConv1d_",
+            "bn": f"{e}MaskedBatchNorm_", "lstm": f"{e}LSTM_0"}, lf0=True)
+        d_in = 2 * net["lstm_hidden_dim"] + 1
+        pre, hid = net["prenet_hidden_dim"], net["decoder_hidden_dim"]
+        p_in = net["out_dim"]
+        for i in range(net["prenet_layers"]):
+            out.append((f"decoder.prenet.prenet.{i}.0", L(p_in, pre),
+                        f"ar_core.prenet.fc{i}"))
+            p_in = pre
+        for i in range(net["decoder_layers"]):
+            out.append((f"decoder.lstm.{i}.cell",
+                        torch.nn.LSTMCell(d_in + pre if i == 0 else hid, hid),
+                        f"ar_core.cell{i}"))
+        return out + [("decoder.feat_out",
+                       L(d_in + hid, net["out_dim"] * net.get(
+                           "reduction_factor", 1), bias=False),
+                       "ar_core.feat_out")]
+    if name == "TransformerEncoder":
+        C, heads = net["hidden_dim"], net.get("num_heads", 2)
+        window = net.get("window_size", 4)
+        out = [("fc", L(net["in_dim"], C), "Dense_0")]
+        for i in range(net.get("num_layers", 2)):
+            enc, blk = "encoder.", f"_TransformerBlock_{i}."
+            for k in ("k", "v"):
+                out.append((f"{enc}attn_layers.{i}.emb_rel_{k}",
+                            torch.randn(1, 2 * window + 1, C // heads)
+                            * (C // heads) ** -0.5,
+                            f"{blk}attn.emb_rel_{k}"))
+            for k in ("q", "k", "v", "o"):
+                out.append((f"{enc}attn_layers.{i}.conv_{k}",
+                            torch.nn.Conv1d(C, C, 1), f"{blk}attn.conv_{k}"))
+            for j, (ffn, norm) in enumerate(((None, "norm_layers_1"),
+                                             ("ffn_layers", "norm_layers_2"))):
+                if ffn:
+                    F, k = net["attention_dim"], net.get("kernel_size", 3)
+                    out += [(f"{enc}{ffn}.{i}.conv_1",
+                             torch.nn.Conv1d(C, F, k), f"{blk}ffn_conv1"),
+                            (f"{enc}{ffn}.{i}.conv_2",
+                             torch.nn.Conv1d(F, C, k), f"{blk}ffn_conv2")]
+                for leaf in ("gamma", "beta"):
+                    out.append((f"{enc}{norm}.{i}.{leaf}", torch.randn(C),
+                                f"{blk}norm_{j + 1}.{leaf}"))
+        return out + [("fc_out", L(C, net["out_dim"]), "Dense_1")]
+    raise ValueError(f"no reference layout for {name}")
+
+
+def reference_state_dict(net: dict, seed: int):
+    """(state dict, layers): the reference model of ``net`` built from
+    seeded ``torch.nn`` layers (torch's own initialisers; the batch norms'
+    affine weights and running statistics drawn too), its state dict in
+    the reference's names and order."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        layers = reference_layers(net)
+        for _, layer, _ in layers:
+            if isinstance(layer, torch.nn.BatchNorm1d):
+                with torch.no_grad():
+                    layer.weight.uniform_(0.5, 1.5)
+                    layer.bias.normal_(0.0, 0.1)
+                    layer.running_mean.normal_(0.0, 0.5)
+                    layer.running_var.uniform_(0.5, 2.0)
+    sd = {}
+    for prefix, layer, _ in layers:
+        if isinstance(layer, torch.Tensor):
+            sd[prefix] = layer.clone()
+        else:
+            for k, v in layer.state_dict().items():
+                sd[f"{prefix}.{k}"] = v.clone()
+    return sd, layers
+
+
+def reference_voice(tiny: bool = False):
+    """A reference NNSVS voice as the published packs hold it: (global
+    config, {phase: (model yaml with the reference's ``_target_``, in
+    scaler, out scaler)}).  The shipped ``timelag_mdn.yaml``,
+    ``duration_mdn.yaml`` (MDNv2) and ``acoustic_resf0convlstm.yaml``
+    (ResSkipF0FFConvLSTM: FF 2048, conv 1024, biLSTM 256 x 2), the lf0
+    fields filled as a recipe fills them from data; ``tiny=True`` narrows
+    the widths for the CPU tests."""
+    from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
+        MinMaxScaler,
+        StandardScaler,
+    )
+
+    glob, _ = single_phases()
+    phases = {}
+    for phase, rel in REFERENCE_CONFIGS.items():
+        cfg = shipped_config(rel)
+        net = cfg["netG"]
+        net["_target_"] = REFERENCE_TARGETS[net["_target_"].rsplit(".")[-1]]
+        net.update({k: v for k, v in SINGLE_LF0.items() if net.get(k, 0)
+                    is None})
+        if tiny:
+            w = TINY
+            for k, v in (("hidden_dim", w["tl"]), ("ff_hidden_dim", w["ff"]),
+                         ("conv_hidden_dim", w["conv"]),
+                         ("lstm_hidden_dim", w["lstm"])):
+                if k in net:
+                    net[k] = v
+        out = sum(cfg["stream_sizes"])
+        if phase == "acoustic":
+            mean, scale = np.zeros(out), np.ones(out) * 0.1
+            lf0 = net["out_lf0_idx"]
+            mean[lf0], scale[lf0] = SINGLE_LF0["out_lf0_mean"], \
+                SINGLE_LF0["out_lf0_scale"]
+            sc_out = StandardScaler(mean, scale ** 2, scale)
+        else:
+            sc_out = StandardScaler(np.ones(1) * (10 if phase == "duration"
+                                                  else 0),
+                                    np.ones(1) * 4, np.ones(1) * 2)
+        n_in = net["in_dim"]
+        phases[phase] = (cfg, MinMaxScaler(np.zeros(n_in), np.ones(n_in)),
+                         sc_out)
+    return glob, phases
+
+
+def write_reference_pack(root, tiny: bool = False, seed: int = SEED) -> dict:
+    """Write a reference NNSVS pack in the published tarballs' layout
+    (``config.yaml``, ``qst.hed``, ``{phase}_model.yaml`` and
+    ``{phase}_model.pth`` holding ``{"state_dict": ...}``, the scalers as
+    ``.npy``) into ``root``; returns {phase: reference layers} for
+    ``assert_reference_weights``."""
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import (
+        save_config,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
+        save_scaler,
+    )
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    glob, phases = reference_voice(tiny)
+    save_config(glob, root / "config.yaml")
+    shutil.copyfile(packaged_question_path(), root / "qst.hed")
+    layers = {}
+    for phase, (cfg, sc_in, sc_out) in phases.items():
+        save_config(cfg, root / f"{phase}_model.yaml")
+        sd, layers[phase] = reference_state_dict(
+            cfg["netG"], seed + PHASE_SEEDS[phase])
+        torch.save({"state_dict": sd}, root / f"{phase}_model.pth")
+        save_scaler(sc_in, str(root / f"in_{phase}_scaler"))
+        save_scaler(sc_out, str(root / f"out_{phase}_scaler"))
+    return layers
+
+
+@torch.no_grad()
+def assert_reference_weights(module, layers) -> int:
+    """Every tensor of the reference ``layers`` sits bitwise in the port's
+    ``module`` at the counterpart's path, in the port's layout (a Linear or
+    Conv1d as it is; an LSTM's gates as ``w_x = weight_ih.T``, ``w_h =
+    weight_hh.T``, ``b = bias_ih + bias_hh``; a batch norm's affine weights
+    and running statistics; a LayerNorm's gamma and beta); returns the
+    number of tensors checked."""
+    subs = dict(module.named_modules())
+    pairs = []
+
+    def cell(port, w_ih, w_hh, b_ih, b_hh):
+        pairs.extend([(subs[port].w_x, w_ih.T), (subs[port].w_h, w_hh.T),
+                      (subs[port].b, b_ih + b_hh)])
+
+    for _, layer, port in layers:
+        if isinstance(layer, torch.Tensor):
+            owner, leaf = port.rsplit(".", 1)
+            got = getattr(subs[owner], {"gamma": "weight", "beta": "bias"}
+                          .get(leaf, leaf))
+            pairs.append((got, layer))
+        elif isinstance(layer, torch.nn.LSTM):
+            for k in range(layer.num_layers):
+                for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+                    if d == "bwd" and not layer.bidirectional:
+                        continue
+                    cell(f"{port}.l{k}_{d}",
+                         *(getattr(layer, f"{w}_l{k}{sfx}") for w in (
+                             "weight_ih", "weight_hh", "bias_ih", "bias_hh")))
+        elif isinstance(layer, torch.nn.LSTMCell):
+            cell(port, layer.weight_ih, layer.weight_hh, layer.bias_ih,
+                 layer.bias_hh)
+        else:
+            mod = subs[port]
+            names = ["weight", "bias"] + (
+                ["running_mean", "running_var"]
+                if isinstance(layer, torch.nn.BatchNorm1d) else [])
+            pairs += [(getattr(mod, n), getattr(layer, n)) for n in names
+                      if getattr(layer, n, None) is not None]
+    for got, want in pairs:
+        if not torch.equal(got.detach().cpu(), want.detach()):
+            raise AssertionError("converted weights differ from the "
+                                 "reference's")
+    return len(pairs)
+
+
+IMPORTER_GEN_FRAMES = (1000, 2000)  # bin/generate.py's two input dumps
+PF_SP_CONFIG = "postfilter/postfilter_sp.yaml"
+PF_SP_FRAMES = 512        # the sp postfilter's forward, card vs CPU
+PF_SP_GAN_FRAMES = 16     # its GAN step, card vs CPU (float64 oracle)
+VOCODER_HIFIGAN_CONFIG = "vocoder/vocoder_hifigan.yaml"
+HIFIGAN_CROP_FRAMES = 12  # one crop a GAN step, card vs CPU
+# The shipped HiFiGAN's float32 step on the card lies farther from the
+# float64 step than the CPU's (tools/chip_hifigan_precision.py, 12
+# frames, H100): the STFT losses by cuFFT's float32 rounding (the loss
+# alone 2.5e-5 from float64 in Loss_STFT_Mag, the CPU 6.7e-6; the step
+# 2.5e-5), and G's gradient in the card's float32 backward through the
+# generator (the float64 upstream gradient carried back 4.4e-3 from
+# float64, the CPU 1.1e-6; the same with cuDNN disabled), while the
+# float64 runs agree within 1e-12.  Where ``hold_gan_step``'s rule fails
+# for a loss or for G's gradient, it also passes when the float64 runs
+# agree (VOCODER_F64_RTOL: the card computes the CPU's function) and the
+# card's float32 run lies within HIFIGAN_F32_RTOL of the float64 step:
+# 4x the card's 2.1e-5 / 2.5e-5 for the losses, 2.2x its 4.4e-3 / 4.6e-3
+# for G's gradient.
+HIFIGAN_F32_RTOL = {"loss": 1e-4, "G": 1e-2}
+
+
+def device_mlpg() -> dict:
+    """The device MLPG (``ops/mlpg.mlpg`` on a CUDA tensor, a loop over
+    time of small torch ops) at MLPG_T x MLPG_D with MLPG_WINDOWS windows
+    against the host LAPACK path (NumPy float64) on the same inputs:
+    seconds a call of each (MLPG_CALLS calls, the card's synchronized) and
+    the largest difference, which must stay under MLPG_ATOL."""
+    from ensemble_svs_with_interactions_tpu_torch.ops import mlpg
+
+    rng = np.random.default_rng(SEED)
+    W = MLPG_WINDOWS * MLPG_D
+    means = rng.standard_normal((MLPG_T, W)).astype(np.float32)
+    var = rng.uniform(0.05, 2.0, (MLPG_T, W)).astype(np.float32)
+    host_s, card_s = [], []
+    for _ in range(MLPG_CALLS):
+        t0 = time.time()
+        host = mlpg.mlpg(means.astype(np.float64), var.astype(np.float64),
+                         MLPG_WINDOWS)
+        host_s.append(time.time() - t0)
+    m, v = (torch.from_numpy(a).cuda() for a in (means, var))
+    for _ in range(MLPG_CALLS + 1):   # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = mlpg.mlpg(m, v, MLPG_WINDOWS)
+        torch.cuda.synchronize()
+        card_s.append(time.time() - t0)
+    err = float(np.abs(card.cpu().numpy() - host).max())
+    return {"T": MLPG_T, "D": MLPG_D, "windows": MLPG_WINDOWS,
+            "card_s": card_s[1:], "card_warmup_s": card_s[0],
+            "host_s": host_s, "max_abs_err": err, "atol": MLPG_ATOL,
+            "ok": err <= MLPG_ATOL}
+
+
+def generate_on_card(lr, voice, root) -> dict:
+    """``bin/generate.py`` over the converted voice on the card (launches
+    reset just before and read just after) and on the CPU, over two seeded
+    input dumps of IMPORTER_GEN_FRAMES frames: the features' largest
+    difference over their scale."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import generate
+
+    feats = Path(root) / "gen_in"
+    feats.mkdir()
+    rng = np.random.default_rng(SEED)
+    for i, T in enumerate(IMPORTER_GEN_FRAMES):
+        np.save(feats / f"u{i}-feats.npy",
+                rng.uniform(0, 1, (T, 86)).astype(np.float32))
+    out = {}
+    for device in ("cuda", "cpu"):
+        reset_launches(lr)
+        t0 = time.time()
+        assert generate.main([str(voice), str(feats),
+                              str(Path(root) / f"gen_{device}"),
+                              "--device", device]) == 0
+        out[device] = (time.time() - t0,
+                       dict(lr.lstm_recurrence.launches_by_width))
+    err = 0.0
+    for p in sorted((Path(root) / "gen_cpu").glob("*.npy")):
+        ref = np.load(p)
+        got = np.load(Path(root) / "gen_cuda" / p.name)
+        assert got.shape == ref.shape and np.isfinite(got).all(), p
+        err = max(err, float(np.abs(got - ref).max()
+                             / max(np.abs(ref).max(), 1e-12)))
+    return {"utterances": len(IMPORTER_GEN_FRAMES),
+            "frames": list(IMPORTER_GEN_FRAMES), "card_s": out["cuda"][0],
+            "cpu_s": out["cpu"][0],
+            "launches_by_width": {str(H): n for H, n in out["cuda"][1].items()},
+            "cpu_launches": sum(out["cpu"][1].values()),
+            "err_over_scale": err, "rtol": MODULE_ATOL}
+
+
+def postfilter_sp_on_card(root) -> dict:
+    """``postfilter_sp.yaml`` at the shipped widths on the card: the
+    model built from its file with the flax schemes' weights, its
+    inference on PF_SP_FRAMES frames card against CPU (the noise from one
+    CPU generator on both), and one GAN step of stage 9's trainer config
+    around it (``run_recipe.postfilter_train_config``) card against CPU
+    with a float64 oracle (``hold_pf_gan`` on PF_SP_GAN_FRAMES frames of a
+    seeded pair)."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import run_recipe
+    from ensemble_svs_with_interactions_tpu_torch.train import (
+        postfilter_trainer as pt,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import _wrap
+    from ensemble_svs_with_interactions_tpu_torch.utils.flax_init import (
+        init_module,
+    )
+
+    t0 = time.time()
+    cfg = shipped_config(PF_SP_CONFIG)
+    work = Path(root) / "pf_sp"
+    D = sum(cfg["stream_sizes"])
+    rng = np.random.default_rng(SEED)
+    for kind in ("in_postfilter", "out_postfilter"):
+        d = work / "postfilter" / "train_no_dev" / kind
+        d.mkdir(parents=True)
+        np.save(d / "u0-feats.npy",
+                rng.standard_normal((PF_SP_FRAMES, D)).astype(np.float32))
+    train_cfg = run_recipe.postfilter_train_config(
+        _wrap({"postfilter": {"model": cfg}}), work)
+    cpu = init_module(pt.build_postfilter(train_cfg), seed=0).eval()
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.from_numpy(rng.standard_normal((1, PF_SP_FRAMES, D)).astype(
+        np.float32))
+    with torch.no_grad():
+        ref = cpu.inference(x)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        got = card.inference(x.cuda()).cpu()
+        card_ms = 1e3 * (time.time() - t1)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    held = hold_pf_gan(train_cfg, work, frames=PF_SP_GAN_FRAMES)
+    return {"config": PF_SP_CONFIG, "frames": PF_SP_FRAMES,
+            "params": sum(p.numel() for p in cpu.parameters()),
+            "forward_err_over_scale": err, "rtol": POSTFILTER_RTOL,
+            "forward_card_ms": card_ms, "gan_hold": held,
+            "seconds": time.time() - t0}
+
+
+def hifigan_on_card(root) -> dict:
+    """``vocoder_hifigan.yaml`` at the shipped widths on the card: the
+    generator forward card against CPU (``hold_generator``), and one
+    ``train_vocoder`` GAN step on one crop of HIFIGAN_CROP_FRAMES frames
+    judged by ``hold_gan_step`` (card against CPU, float32 and float64),
+    the losses and G's gradient also by HIFIGAN_F32_RTOL."""
+    t0 = time.time()
+    corpus = write_vocoder_corpus(Path(root) / "voc_in", n=2, frames=40)
+    cfg = vocoder_train_config(corpus, Path(root) / "voc_exp",
+                               VOCODER_HIFIGAN_CONFIG,
+                               data={"crop_frames": HIFIGAN_CROP_FRAMES},
+                               batch_size=1)
+    gen = hold_generator(dict(cfg.model.generator), None,
+                         torch.device("cuda"), frames=HIFIGAN_CROP_FRAMES)
+    held = hold_gan_step(cfg, torch.device("cuda"))
+
+    def ok(r, tol):
+        return r["ok"] or (r["f64_rel"] < VOCODER_F64_RTOL
+                           and r["card_to_f64"] <= tol)
+
+    gan_ok = (all(ok(r, HIFIGAN_F32_RTOL["loss"])
+                  for r in held["losses"].values())
+              and ok(held["grads"]["G"], HIFIGAN_F32_RTOL["G"])
+              and held["grads"]["D"]["ok"])
+    return {"config": VOCODER_HIFIGAN_CONFIG,
+            "crop_frames": HIFIGAN_CROP_FRAMES, "generator": gen,
+            "gan_hold": held, "f32_rtol": HIFIGAN_F32_RTOL,
+            "gan_ok": bool(gan_ok), "seconds": time.time() - t0}
+
+
+def anasyn_on_card(root, label) -> dict:
+    """``bin/anasyn.py`` on 2 s of the fixture's singing stand-in at 48
+    kHz: the host WORLD analysis, then synthesis on the card and on the
+    CPU from the same CPU-seeded excitation, the waveforms by SNR."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import anasyn
+    from ensemble_svs_with_interactions_tpu_torch.io import hts
+    from ensemble_svs_with_interactions_tpu_torch.utils import (
+        packaged_question_path,
+    )
+    from scipy.io import wavfile
+
+    binary_dict, numeric_dict = hts.load_question_set(
+        packaged_question_path())
+    x = synth_wav(trim_labels(label, 2.0), binary_dict, numeric_dict,
+                  np.random.default_rng(SEED), RECIPE_SR)[: 2 * RECIPE_SR]
+    src = Path(root) / "anasyn.wav"
+    wavfile.write(src, RECIPE_SR, x)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.time()
+        assert anasyn.main([str(src), str(Path(root) / f"{device}.wav"),
+                            "--device", device]) == 0
+        out[device] = (time.time() - t0,
+                       wavfile.read(Path(root) / f"{device}.wav")[1])
+    ref, got = (out[d][1].astype(np.float64) for d in ("cpu", "cuda"))
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    return {"seconds_audio": len(x) / RECIPE_SR, "card_s": out["cuda"][0],
+            "cpu_s": out["cpu"][0], "snr_db": snr_db(ref, got)}
+
+
+def phase_importer(lr, label) -> dict:
+    """A published-style NNSVS voice converted and served (phase 12): a
+    reference pack (``write_reference_pack``: the shipped MDNv2 timing and
+    ResSkipF0FFConvLSTM acoustic configs at full width, reference
+    ``_target_`` names and layer names, seeded ``torch.nn`` weights) through
+    ``bin/enunu2nnsvs.convert_nnsvs_pack`` (the units counted,
+    IMPORTER_UNITS) into ``SPSVS(voice_dir)`` on the card: the converted
+    weights bitwise the reference's (``assert_reference_weights``), a
+    warm-up then N_CALLS ``svs()`` calls of the fixture with the forward's
+    launches reset just before and read just after each
+    (IMPORTER_LAUNCHES_BY_HIDDEN a call), the card against the CPU
+    (``single_svs_on_cpu``: durations equal, SNR_DB); ``bin/generate.py``
+    on the card and the CPU (``generate_on_card``); the device MLPG
+    against the host path (``device_mlpg``); ``postfilter_sp.yaml`` and
+    ``vocoder_hifigan.yaml`` at the shipped widths
+    (``postfilter_sp_on_card``, ``hifigan_on_card``); ``bin/anasyn.py``
+    card against CPU.  Returns the launches of the timed ``svs()`` calls
+    and of ``generate``, by path."""
+    from ensemble_svs_with_interactions_tpu_torch.bin import enunu2nnsvs
+    from ensemble_svs_with_interactions_tpu_torch.svs import SPSVS
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        layers = write_reference_pack(root / "reference")
+        write_s = time.time() - t0
+        t0 = time.time()
+        ported = dict(enunu2nnsvs.convert_nnsvs_pack(root / "reference",
+                                                     root / "voice"))
+        convert_s = time.time() - t0
+        t0 = time.time()
+        engine = SPSVS(root / "voice", device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        checked = {phase: assert_reference_weights(
+            getattr(engine, f"{phase}_model").module, layers[phase])
+            for phase in REFERENCE_CONFIGS}
+        t0 = time.time()
+        engine.svs(label.copy())
+        warm_s = time.time() - t0
+        runs = []
+        for _ in range(N_CALLS):
+            reset_launches(lr)
+            t0 = time.time()
+            wav, sr = engine.svs(label.copy())
+            runs.append({"seconds": time.time() - t0,
+                         "rtf": engine.last_rtf,
+                         "stages": dict(engine.last_stage_times),
+                         "launches_by_width": dict(
+                             lr.lstm_recurrence.launches_by_width)})
+        by_kernel = {lr.lstm_recurrence_kernel_name(1, H): n for H, n in
+                     IMPORTER_LAUNCHES_BY_HIDDEN.items()}
+        del engine
+        reference = single_svs_on_cpu(root / "voice", FIXTURE,
+                                      post_filter_type="gv")
+        generated = generate_on_card(lr, root / "voice", root)
+        mlpg_row = device_mlpg()
+        pf_sp = postfilter_sp_on_card(root)
+        hifigan = hifigan_on_card(root)
+        copy_synthesis = anasyn_on_card(root, label)
+    emit({"phase": "importer", "units": ported,
+          "weights_checked": checked, "write_s": write_s,
+          "convert_s": convert_s, "load_s": load_s, "warmup_s": warm_s,
+          "runs_s": [r["seconds"] for r in runs],
+          "rtf": [r["rtf"] for r in runs],
+          "stages": runs[-1]["stages"], "audio_s": len(wav) / sr,
+          "launches_by_width": [{str(H): n for H, n in
+                                 r["launches_by_width"].items()}
+                                for r in runs],
+          "launches_by_kernel_per_call": by_kernel,
+          "svs_reference": reference, "generate": generated,
+          "mlpg": mlpg_row, "postfilter_sp": pf_sp, "hifigan": hifigan,
+          "anasyn": copy_synthesis, "snr_bound_db": SNR_DB,
+          "seconds": time.time() - t_phase})
+    assert ported == IMPORTER_UNITS, ported
+    for r in runs:
+        assert r["launches_by_width"] == IMPORTER_LAUNCHES_BY_HIDDEN, r
+    assert np.abs(wav).max() > 0 and np.isfinite(wav).all()
+    assert reference["durations_equal"], reference
+    assert reference["snr_db"] >= SNR_DB, reference
+    assert max(reference["stream_err_over_scale"].values()) <= POST_ATOL, \
+        reference
+    gen_launches = sum(int(v) for v in
+                       generated["launches_by_width"].values())
+    assert generated["launches_by_width"] == {
+        str(H): n * len(IMPORTER_GEN_FRAMES)
+        for H, n in IMPORTER_LAUNCHES_BY_HIDDEN.items()}, generated
+    assert generated["cpu_launches"] == 0, generated
+    assert generated["err_over_scale"] <= MODULE_ATOL, generated
+    assert mlpg_row["ok"], mlpg_row
+    assert pf_sp["forward_err_over_scale"] <= POSTFILTER_RTOL, pf_sp
+    assert pf_sp["gan_hold"]["ok"], pf_sp
+    assert hifigan["generator"]["finite"], hifigan
+    assert hifigan["generator"]["rel_err"] <= VOCODER_RTOL, hifigan
+    assert hifigan["gan_ok"], hifigan
+    assert copy_synthesis["snr_db"] >= SNR_DB, copy_synthesis
+    return {"importer_svs": sum(sum(r["launches_by_width"].values())
+                                for r in runs),
+            "generate": gen_launches}
+
+
 def late_copy(labels, lag: int = SUB_LAG):
     """The labels sung ``lag`` (100 ns units) late: every time but the
     first start."""
@@ -3356,9 +3963,14 @@ def hold_gan_step(cfg, device) -> dict:
     every case, when the float64 runs agree within VOCODER_F64_RTOL (the
     card computes the CPU's function)."""
     cpu = torch.device("cpu")
-    runs = {(side, dtype): reference_gan_step(cfg, dev, dtype)
-            for side, dev in (("card", device), ("cpu", cpu))
-            for dtype in (torch.float32, torch.float64)}
+    return hold_runs({(side, dtype): reference_gan_step(cfg, dev, dtype)
+                      for side, dev in (("card", device), ("cpu", cpu))
+                      for dtype in (torch.float32, torch.float64)})
+
+
+def hold_runs(runs) -> dict:
+    """``hold_gan_step``'s verdict on its four ``reference_gan_step``
+    runs, keyed (``"card"`` or ``"cpu"``, dtype)."""
     card, ref = runs[("card", torch.float32)], runs[("cpu", torch.float32)]
     card64, f64 = (runs[("card", torch.float64)],
                    runs[("cpu", torch.float64)])
@@ -5356,14 +5968,14 @@ def pf_gan_run(train_cfg, work, device, frames=None, steps=1,
             list(zip(grads[::2], grads[1::2])), step, netG, netD, batch)
 
 
-def hold_pf_gan(train_cfg, work) -> dict:
+def hold_pf_gan(train_cfg, work, frames: int = PF_HOLD_FRAMES) -> dict:
     """One full-width GAN step of ``train_cfg``'s pair on the card against
-    the same step on the CPU, on PF_HOLD_FRAMES frames of the first batch,
+    the same step on the CPU, on ``frames`` frames of the first batch,
     both float32, and the CPU's in float64 as the oracle: each loss
     relative to its value, each network's gradient (L2) relative to its
     norm; each holds within PF_GAN_RTOL, or where the card is no farther
     from the oracle than PF_GAN_HEADROOM times the CPU's float32 run."""
-    runs = {(dev, dt): pf_gan_run(train_cfg, work, dev, PF_HOLD_FRAMES,
+    runs = {(dev, dt): pf_gan_run(train_cfg, work, dev, frames,
                                   dtype=dt)[:2]
             for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
                             ("cpu", torch.float64))}
@@ -5389,7 +6001,7 @@ def hold_pf_gan(train_cfg, work) -> dict:
               for k in cpu[0] if k.startswith("Loss")}
     grads = {net: judge(card[1][0][i], cpu[1][0][i], f64[1][0][i], l2)
              for i, net in enumerate(("G", "D"))}
-    return {"frames": PF_HOLD_FRAMES, "losses": losses, "grads": grads,
+    return {"frames": frames, "losses": losses, "grads": grads,
             "rtol": PF_GAN_RTOL, "headroom": PF_GAN_HEADROOM,
             "ok": all(r["ok"] for r in (*losses.values(),
                                         *grads.values()))}
@@ -6955,6 +7567,7 @@ def main() -> int:
                                            labels[0]))
     del engine, cpu
     path_launches["pairwise"] = pair_launches
+    path_launches.update(phase_importer(lr, labels[0]))
     with tempfile.TemporaryDirectory() as model_dir:
         engine, path_launches["svs_ensemble_diffusion"] = phase_diffusion(
             lr, model_dir, labels)

@@ -3,7 +3,8 @@
 Inference entry points are ``inference(...)`` (MDN models return
 ``(mu, sigma)``); ``prediction_type()`` and
 ``has_residual_lf0_prediction()`` are the metadata the generation pipeline
-and the train steps read.
+and the train steps read; ``preprocess_target`` is the identity that the
+shallow-AR models override to filter their targets.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ class BaseModel(nn.Module):
 
     def inference(self, x, lengths=None):
         return self(x, lengths)
+
+    def preprocess_target(self, y):
+        """Hook for shallow-AR models that filter target features."""
+        return y
 
     def prediction_type(self) -> PredictionType:
         return PredictionType.DETERMINISTIC

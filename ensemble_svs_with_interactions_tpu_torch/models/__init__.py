@@ -1,10 +1,16 @@
-"""The port's model zoo (the serving and training paths' models); the AR
-Tacotron decoders and their ``Prenet`` are in ``models/tacotron.py``, the
-diffusion models and the FFT-block encoder in ``models/diffsinger.py``,
-the flow-matching decoder in ``models/flow_matching.py``, the conditional
+"""The port's model zoo, under the names the JAX package's ``models``
+exports: the base contract (``BaseModel``, ``PredictionType``), the
+generic models, the masked ``LSTM``, the AR Tacotron decoders and their
+``Prenet``, the flow-matching decoders and the learned postfilters
+(``Conv2dPostFilter``, ``MultistreamPostFilter``).  The diffusion models
+and the FFT-block encoder are in ``models/diffsinger.py``, the conditional
 WaveNet in ``models/wavenet.py``, the postfilters' GAN discriminator in
-``models/discriminators.py``."""
+``models/discriminators.py``, the acoustic models in ``models/acoustic``."""
 
+from ensemble_svs_with_interactions_tpu_torch.base import (  # noqa: F401
+    BaseModel,
+    PredictionType,
+)
 from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F401
     FFN,
     LSTMRNN,
@@ -25,6 +31,9 @@ from ensemble_svs_with_interactions_tpu_torch.models.generic import (  # noqa: F
     TransformerEncoder,
     VariancePredictor,
 )
+from ensemble_svs_with_interactions_tpu_torch.models.layers import (  # noqa: F401,E402,E501
+    LSTM,
+)
 from ensemble_svs_with_interactions_tpu_torch.models.tacotron import (  # noqa: F401,E402,E501
     MDNNonAttentiveDecoder,
     NonAttentiveDecoder,
@@ -41,4 +50,8 @@ from ensemble_svs_with_interactions_tpu_torch.models.flow_matching import (  # n
 )
 from ensemble_svs_with_interactions_tpu_torch.models.wavenet import (  # noqa: F401,E402,E501
     WaveNet,
+)
+from ensemble_svs_with_interactions_tpu_torch.models.postfilters import (  # noqa: F401,E402,E501
+    Conv2dPostFilter,
+    MultistreamPostFilter,
 )

@@ -755,6 +755,9 @@ class _RelativeSelfAttention(nn.Module):
     ``emb_rel_v``, (1, 2w + 1, d_k)); masked scores are -1e4."""
 
     FLAX_LEAVES = ("emb_rel_k", "emb_rel_v")
+    # the flax twin's creation order of its scope's children
+    FLAX_ORDER = ("conv_q", "conv_k", "conv_v", "emb_rel_k", "emb_rel_v",
+                  "conv_o")
 
     def __init__(self, channels: int, num_heads: int, dropout: float,
                  window_size: Optional[int] = 4):

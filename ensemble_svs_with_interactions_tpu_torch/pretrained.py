@@ -11,10 +11,11 @@ Names resolve, in order, to
 
 The named entries of ``model_registry`` are NNSVS's published models.
 A named entry whose pack is complete in the cache directory resolves as
-above; one that is not there would be downloaded and converted, which
-needs the JAX package's ``bin/enunu2nnsvs.py`` and ``utils/torch_port.py``:
-the port has not ported them, and :func:`retrieve_pretrained_model`
-raises ``NotImplementedError`` naming them.  It never downloads.
+above.  One whose published tarball lies extracted in the cache, as
+``{name with _}_torch``, is converted there by the port's
+``bin/enunu2nnsvs.convert_nnsvs_pack`` into ``{name with _}``, as the JAX
+package converts it after its download.  The port never downloads: any
+other named entry raises ``NotImplementedError`` naming the converter.
 """
 
 from __future__ import annotations
@@ -44,10 +45,8 @@ model_registry: Dict[str, dict] = {
     },
 }
 
-# what converting a downloaded NNSVS pack needs
-UNPORTED_CONVERSION = ("ensemble_svs_with_interactions_tpu/bin/enunu2nnsvs.py"
-                       " and ensemble_svs_with_interactions_tpu/utils/"
-                       "torch_port.py")
+# the converter of a published NNSVS pack
+CONVERTER = "ensemble_svs_with_interactions_tpu_torch/bin/enunu2nnsvs.py"
 
 
 def register_model(name: str, path, target: Optional[str] = None) -> None:
@@ -93,17 +92,15 @@ def is_pretrained_model_ready(name: str) -> bool:
 
 def retrieve_pretrained_model(name: str) -> Path:
     """Resolve a model name to a packed-model directory.  A named entry
-    not in the cache raises ``NotImplementedError``: its download and
-    conversion are not ported."""
+    not in the cache is converted from its extracted tarball there
+    (``_convert_cached``) or raises ``NotImplementedError``: the port does
+    not download."""
     entry, cands = _candidate_paths(name)
     for p in cands:
         if _is_complete_pack(p):
             return p
     if entry and entry.get("url"):
-        raise NotImplementedError(
-            f"{name} is not in the cache directory {DEFAULT_CACHE_DIR}; "
-            f"downloading and converting it needs {UNPORTED_CONVERSION}, "
-            "which the port has not ported")
+        return _convert_cached(name)
     # directories without a config.yaml resolve last, so an incomplete
     # pack surfaces a load error instead of masking a registry entry
     for p in cands:
@@ -112,6 +109,44 @@ def retrieve_pretrained_model(name: str) -> Path:
     raise ValueError(
         f"unknown pretrained model: {name}. Registered: "
         f"{get_available_model_ids()}; cache dir: {DEFAULT_CACHE_DIR}")
+
+
+def _convert_cached(name: str) -> Path:
+    """Convert the published tarball of ``name`` extracted in the cache
+    (``{safe}_torch``, or one directory nested in it) into ``{safe}``
+    through a ``.partial`` staging directory renamed into place only on
+    success, as the JAX package's ``_download_and_port`` does after its
+    download."""
+    import shutil
+
+    from ensemble_svs_with_interactions_tpu_torch.bin.enunu2nnsvs import (
+        convert_nnsvs_pack,
+    )
+
+    safe = name.replace("/", "_")
+    raw_dir = DEFAULT_CACHE_DIR / f"{safe}_torch"
+    if not raw_dir.is_dir():
+        raise NotImplementedError(
+            f"{name} is not in the cache directory {DEFAULT_CACHE_DIR}; the "
+            "port does not download it: extract its published tarball into "
+            f"{raw_dir} and it is converted there by {CONVERTER}")
+    src = raw_dir
+    if not (src / "config.yaml").exists():
+        subdirs = [d for d in src.iterdir() if d.is_dir()]
+        if len(subdirs) == 1:
+            src = subdirs[0]
+    out_dir = DEFAULT_CACHE_DIR / safe
+    out_staging = DEFAULT_CACHE_DIR / f"{safe}.partial"
+    shutil.rmtree(out_staging, ignore_errors=True)
+    try:
+        convert_nnsvs_pack(src, out_staging)
+        if out_dir.exists():  # replace a torn directory of an old failure
+            shutil.rmtree(out_dir)
+        out_staging.rename(out_dir)
+    except BaseException:
+        shutil.rmtree(out_staging, ignore_errors=True)
+        raise
+    return out_dir
 
 
 def create_svs_engine(name: str, **kwargs):

@@ -35,7 +35,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ensemble_svs_with_interactions_tpu_torch.base import PredictionType
+from ensemble_svs_with_interactions_tpu_torch.base import BaseModel, PredictionType
 from ensemble_svs_with_interactions_tpu_torch.train import losses as L
 from ensemble_svs_with_interactions_tpu_torch.utils import flax_msgpack
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
@@ -283,9 +283,9 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
     between a diffusion or flow-matching decoder's drawn target and its
     prediction (``(noise, x_recon)``), or the criterion (each refinement
     stage summed); ``pitch_reg_weight`` weighs the L1 of
-    the residual lf0 of a model that predicts one.  A model with a
-    ``preprocess_target`` (the shallow-AR models) is taught, and scored,
-    on its filtered target.  Clipping, the NaN-skip
+    the residual lf0 of a model that predicts one.  A model that
+    overrides ``preprocess_target`` (the shallow-AR models) is taught, and
+    scored, on its filtered target.  Clipping, the NaN-skip
     and ``use_amp`` as in ``train.multitrack``'s steps.
     ``eval_step(batch)`` returns (metrics without ``GradNorm``, the
     prediction) without touching anything (prenet dropout from a generator
@@ -298,8 +298,11 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
     params = [p for p in module.parameters() if p.requires_grad]
     dtype = params[0].dtype
     takes_y, takes_spks = _accepts(module, "y"), _accepts(module, "spks")
-    # shallow-AR models train against their analysis-filtered targets
-    target_filter = getattr(module, "preprocess_target", None)
+    # shallow-AR models override the base hook to train against their
+    # analysis-filtered targets; the identity skips the AMP round trip
+    filters_target = (getattr(type(module), "preprocess_target",
+                              BaseModel.preprocess_target)
+                      is not BaseModel.preprocess_target)
 
     def to_device(batch):
         b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
@@ -337,10 +340,10 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
         mask = (torch.arange(T, device=device)[None, :]
                 < b["lengths"][:, None]).to(dtype)[:, :, None]
         out_feats = y = b["out_feats"]
-        if target_filter is not None:
+        if filters_target:
             # filtered before the forward pass, in the model's dtype, so
             # teacher forcing and the loss both see the filtered target
-            y = target_filter(amp_cast(y) if use_amp else y)
+            y = module.preprocess_target(amp_cast(y) if use_amp else y)
             out_feats = amp_uncast(y)
         args = [b["in_feats"]]
         if takes_spks and "spks" in b:

@@ -368,7 +368,8 @@ def test_port_imports_no_jax():
     their CLIs, the recipe runner with stages 3-7, 10 and 11, the
     synthesis, timing-evaluation, multi-speaker training and sweep CLIs,
     the score front ends, the NEUTRINO engine, its CLIs and server, the
-    model registry and ``run_svs``),
+    model registry and ``run_svs``, the device MLPG, the reference
+    checkpoint importer and the remaining host CLIs),
     chip_smoke.py's and both benches' own imports leave JAX, flax, yaml,
     msgpack and the JAX package out of the process.  The port's name
     starts with the JAX package's, so the check is on exact names and the
@@ -447,6 +448,24 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.bin"
         ".neutrino_server\n"
         "import ensemble_svs_with_interactions_tpu_torch.bin.run_svs\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.mlpg\n"
+        "import ensemble_svs_with_interactions_tpu_torch.models\n"
+        "import ensemble_svs_with_interactions_tpu_torch.utils.torch_port\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.enunu2nnsvs\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.generate\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.anasyn\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.sv56\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".pitch_augmentation\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".overwrite_phoneme_flags\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.opencpop2nnsvs\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.nnsvs2opencpop\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.nnsvs2usfgan\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.plot_metrics\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin"
+        ".visualize_vibrato\n"
+        "import ensemble_svs_with_interactions_tpu_torch.bin.compare_parity\n"
         "import chip_smoke\n"
         "import bench_cuda\n"
         "import bench_train_cuda\n"
