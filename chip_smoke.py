@@ -163,6 +163,20 @@ PyTorch version on the card.  Phases, each printing JSON lines:
    ``vocoder_hifigan.yaml`` at the shipped widths (a forward and one GAN
    step each, card against CPU with a float64 oracle); ``bin/anasyn.py``
    card against CPU;
+6o. ``parallel`` (after ``pairwise``, on its engine): the 4-part
+   ensemble under ``set_mesh(make_mesh())`` (bitwise the one-device
+   render on one card) and over a PAR_WORLD-entry mesh of cuda:0 (streams
+   within PAR_STREAM_ATOL, int16 waveforms by the JAX tests' bound,
+   launches per shard); one track's streams through
+   ``synthesize_from_streams_time_sharded`` over PAR_WORLD shards of
+   cuda:0 against one device (SNR, seconds); the flagship's train step at
+   full width on PAR_WORLD processes sharing the card over gloo (a global
+   batch of PAR_B x TRAIN_T, mixed lengths and a padding row, PAR_STEPS
+   SGD steps) against one process on the whole batch (loss and summed
+   update by the train step's rule, 46 launches of each kernel a step on
+   each rank); ``train_multitrack_model`` for one epoch in a process of
+   its own under an NCCL group of one rank, bitwise the run with no group
+   (``tools/chip_parallel.py`` runs the phase alone);
 7. ``train``: ``bench_train.py``'s workload, 64 pairs x 256 frames with
    Adam, 2 warm-up steps and TRAIN_STEPS timed ones with the launch counts
    reset just before and read just after, then one step split into
@@ -4032,10 +4046,10 @@ def train_batch(B: int, T: int, out_dim: int):
 
 
 def build_trainer(cfg, ss, state_dict, device, dtype=torch.float32,
-                  use_amp=False):
-    """(module, train_step) of the flagship acoustic model: Adam at 1e-3,
-    pitch_reg_weight 1, sub_require_grad True, clip 1.0 (bench_train.py),
-    float32 or the bf16 AMP arm."""
+                  use_amp=False, optimizer=None):
+    """(module, train_step) of the flagship acoustic model: Adam at 1e-3
+    (or ``optimizer``), pitch_reg_weight 1, sub_require_grad True, clip
+    1.0 (bench_train.py), float32 or the bf16 AMP arm."""
     from ensemble_svs_with_interactions_tpu_torch.train.loop import (
         build_optimizer,
     )
@@ -4049,7 +4063,7 @@ def build_trainer(cfg, ss, state_dict, device, dtype=torch.float32,
     module = instantiate(cfg)
     module.load_state_dict(state_dict)
     module.to(dtype)
-    opt, sched = build_optimizer(module.parameters(),
+    opt, sched = build_optimizer(module.parameters(), optimizer or
                                  {"name": "Adam", "params": {"lr": 1e-3}})
     step, _ = create_multitrack_acoustic_train_step(
         module, opt, {"stream_sizes": list(ss)}, scheduler=sched,
@@ -4347,7 +4361,8 @@ def phase_train_reference():
     return runs
 
 
-def judge_f32(got, ref, oracle, rtol=TRAIN_GRAD_RTOL, nudged=None):
+def judge_f32(got, ref, oracle, rtol=TRAIN_GRAD_RTOL, nudged=None,
+              also=()):
     """{name: {...}} of float32 tensors ``got`` against ``ref``, with the
     same step in float64 as the ``oracle``: each passes within ``rtol`` of
     its scale, max(its largest oracle entry, GRAD_SCALE_FLOOR x the
@@ -4357,14 +4372,20 @@ def judge_f32(got, ref, oracle, rtol=TRAIN_GRAD_RTOL, nudged=None):
     measure of how the step's kinks, ReLUs near zero before training-mode
     batch norms, answer a change far below the kernels' tolerance), the
     last clause takes the larger of ``ref``'s distance from the oracle and
-    its distance from ``nudged``."""
+    its distance from ``nudged``.  ``also`` are other float32 runs of the
+    same step (another decomposition of the batch, another device): the
+    last clause takes the largest of their distances and ``ref``'s from
+    the oracle, since float32 resolves a gradient that is a small
+    difference of large terms only as far as the order of its sums, and
+    one run's order may cancel exactly where another's does not."""
     floor = GRAD_SCALE_FLOOR * max(v.abs().max().item()
                                    for v in oracle.values())
     out = {}
     for n, o in oracle.items():
         err = (got[n] - ref[n]).abs().max().item()
         to_oracle = (got[n] - o).abs().max().item()
-        ref_to_oracle = (ref[n] - o).abs().max().item()
+        ref_to_oracle = max((r[n] - o).abs().max().item()
+                            for r in (ref, *also))
         spread = (0.0 if nudged is None
                   else (nudged[n] - ref[n]).abs().max().item())
         rel = err / max(o.abs().max().item(), floor)
@@ -7317,6 +7338,597 @@ def phase_multi_speaker(lr, label) -> tuple:
     return launches, rows
 
 
+# ---------------------------------------------------------------- parallel
+# phase ``parallel``: the flagship's train step on PAR_WORLD ranks sharing
+# the card over gloo (one global batch of PAR_B x TRAIN_T, mixed lengths,
+# the last row a length-0 padding row), PAR_STEPS SGD steps against one
+# process on the whole batch; the multitrack trainer under an NCCL group
+# of one rank against the same run with no group; the ensemble under
+# set_mesh; time-sharded WORLD synthesis over PAR_WORLD shards of cuda:0
+PAR_WORLD = 2
+PAR_B = 8
+PAR_STEPS = 3
+PAR_LENGTHS = (256, 256, 203, 160, 256, 131, 96, 0)
+PAR_SGD = {"name": "SGD", "params": {"lr": 1e-2}}
+PAR_PARAM_ULPS = 4
+# the ranks in float64 on the CPU against one process in float64: the
+# data-parallel decomposition is the global step up to float64 rounding
+# (6e-13 of the scale at tiny widths on the CPU)
+PAR_F64_RTOL = 1e-9
+
+
+def par_threads() -> int:
+    """Threads of each of the 2 x PAR_WORLD + 2 processes that run the CPU
+    references of ``parallel_step_held`` at once (two groups of ranks, one
+    process in float32 and in float64)."""
+    import os
+
+    return max(1, (os.cpu_count() or 1) // (2 * PAR_WORLD + 2))
+PAR_CORPUS = dict(n_train=3, n_dev=1, frames=(300, 420))
+PAR_STREAM_ATOL = 1e-4
+PAR_WAV_RMS = 1e-4       # of full scale, tests/test_svs_ensemble.py's
+PAR_WAV_CORR = 0.9999
+
+
+def parallel_step_config(tiny: bool = False):
+    """The flagship at full width (or ``tiny``), dropout off (the ranks'
+    masks would differ from one process's), its seeded weights, the
+    global batch."""
+    ac, ss = flagship_acoustic_config(4, tiny=tiny)
+    cfg = copy.deepcopy(ac["netG"])
+    cfg["mgc_model"]["dropout"] = cfg["vuv_model"]["dropout"] = 0.0
+    cfg["lf0_model"]["prenet_dropout"] = 0.0
+    state = seeded_state_dict(cfg, SEED)
+    batch = train_batch(PAR_B, TRAIN_T, sum(ss))
+    lengths = np.asarray(PAR_LENGTHS, np.int32)
+    valid = (np.arange(TRAIN_T)[None, :] < lengths[:, None])[:, :, None]
+    for k in ("in_feats0", "in_feats1", "out_feats0", "out_feats1"):
+        batch[k] = (batch[k] * valid).astype(np.float32)
+    batch["lengths"] = lengths
+    batch["spks0"] = np.arange(PAR_B, dtype=np.int32) % 4
+    batch["spks1"] = (np.arange(PAR_B, dtype=np.int32) + 1) % 4
+    return cfg, ss, state, batch
+
+
+def parallel_steps(lr, rows, cfg, ss, state, device,
+                   dtype=torch.float32) -> dict:
+    """PAR_STEPS SGD steps of the flagship on ``rows`` in ``dtype``: the
+    metrics, each step's host seconds, the launches of each kernel, the
+    sum of the steps' (reduced, clipped) gradients and the parameters
+    after them (on the CPU, float64)."""
+    module, step = build_trainer(cfg, ss, state, device, dtype,
+                                 optimizer=PAR_SGD)
+    grads = {n: 0.0 for n, _ in module.named_parameters()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for name in TRAIN_COUNTERS:
+        getattr(lr, name).launches = 0
+    metrics, seconds = [], []
+    for _ in range(PAR_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(step(rows, TRAIN_WEIGHTS, gen))
+        seconds.append(time.perf_counter() - t0)
+        for n, p in module.named_parameters():
+            grads[n] = grads[n] + p.grad.detach().cpu().double()
+    return {"metrics": metrics, "step_s": seconds,
+            "launches": {n: getattr(lr, n).launches for n in TRAIN_COUNTERS},
+            "grads": grads,
+            "params": {n: p.detach().cpu().double()
+                       for n, p in module.named_parameters()}}
+
+
+def parallel_rank(rank: int, port: int, out: str, runs,
+                  tiny: bool = False) -> int:
+    """One rank of the phase's data-parallel step, in its own process:
+    joins the gloo group (on the card when a run is there), then for each
+    (name, device, dtype, unsynced_bn) of ``runs`` takes its rows of the
+    global batch (``parallel.shard_batch``) on that device, starts from
+    rank 0's weights (``replicate_tree``) and runs ``parallel_steps`` in
+    that dtype; saves {name: result}.  ``unsynced_bn`` plants a naive
+    port's fault, the control the hold must refuse: batch norm takes this
+    rank's statistics, not the group's."""
+    from ensemble_svs_with_interactions_tpu_torch.models import layers
+    from ensemble_svs_with_interactions_tpu_torch.ops import (
+        lstm_recurrence as lr,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.parallel import mesh as M
+
+    torch.set_num_threads(par_threads())
+    cuda = [d for _, d, _, _ in runs if d == "cuda"]
+    M.maybe_initialize_distributed(f"127.0.0.1:{port}", PAR_WORLD, rank,
+                                   device=cuda[0] if cuda else "cpu",
+                                   backend="gloo")
+    cfg, ss, state, batch = parallel_step_config(tiny)
+    synced = layers.all_reduce_sum, layers.all_reduce_sum_autograd
+    results = {}
+    for name, device, dtype, unsynced_bn in runs:
+        mesh = M.make_mesh(device=[torch.device(device, 0)
+                                   if device == "cuda"
+                                   else torch.device(device)])
+        M.replicate_tree(state, mesh)
+        rows, = M.shard_batch(batch, mesh)
+        if unsynced_bn:
+            layers.all_reduce_sum = layers.all_reduce_sum_autograd = (
+                lambda t: t)
+        try:
+            results[name] = parallel_steps(lr, rows, cfg, ss, state,
+                                           mesh.devices[0],
+                                           getattr(torch, dtype))
+        finally:
+            layers.all_reduce_sum, layers.all_reduce_sum_autograd = synced
+    torch.save({"runs": results, "world_size": mesh.world_size,
+                "rank": mesh.rank,
+                "backend": torch.distributed.get_backend()}, out)
+    M.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_one(out: str, device: str, dtype: str,
+                 tiny: bool = False) -> int:
+    """``parallel_steps`` of one process on the whole global batch in its
+    own process, saved to ``out``."""
+    from ensemble_svs_with_interactions_tpu_torch.ops import (
+        lstm_recurrence as lr,
+    )
+
+    torch.set_num_threads(par_threads())
+    cfg, ss, state, batch = parallel_step_config(tiny)
+    rows = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    torch.save(parallel_steps(lr, rows, cfg, ss, state, torch.device(device),
+                              getattr(torch, dtype)), out)
+    return 0
+
+
+def parallel_trainer(config_json: str, port: int, device: str = "cuda",
+                     deterministic: bool = True) -> int:
+    """The multitrack acoustic trainer in its own process: with ``port``,
+    one rank of a group of world size 1 (NCCL on the card) joined from the
+    config's ``distributed`` section; else no group.  ``deterministic``
+    runs torch's deterministic algorithms (cuBLAS with a fixed workspace):
+    the card's default ones do not repeat a training run bitwise."""
+    import os
+
+    from ensemble_svs_with_interactions_tpu_torch.train import (
+        multitrack_trainer,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.utils.config import Config
+
+    if deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+
+    cfg = json.loads(Path(config_json).read_text())
+    if port:
+        cfg["distributed"] = {"coordinator": f"127.0.0.1:{port}",
+                              "num_processes": 1, "process_id": 0}
+    multitrack_trainer.train_multitrack_model(Config(cfg), True,
+                                              device=device)
+    if port:
+        assert torch.distributed.get_backend() == (
+            "nccl" if device == "cuda" else "gloo")
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawn(code: str) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _wait(procs, timeout: float = 300.0) -> list:
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-6000:]
+    return logs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_ranks(root, tag, runs, tiny) -> tuple:
+    """Start PAR_WORLD ``parallel_rank`` processes of ``runs`` in a group
+    of their own: (their result files, the processes)."""
+    port = _free_port()
+    outs = [Path(root) / f"{tag}{r}.pt" for r in range(PAR_WORLD)]
+    return outs, [_spawn(f"import chip_smoke; chip_smoke.parallel_rank({r}, "
+                         f"{port}, {str(outs[r])!r}, {runs!r}, {tiny})")
+                  for r in range(PAR_WORLD)]
+
+
+def _scaled_err(got, want, floor) -> float:
+    """The largest of max|got - want| / max(max|want|, floor) over a
+    {name: tensor} tree."""
+    return max((got[n] - w).abs().max().item()
+               / max(w.abs().max().item(), floor) for n, w in want.items())
+
+
+def parallel_params_held(got, refs, oracle, floor) -> dict:
+    """{name: error} of the parameters ``got`` after PAR_STEPS SGD steps
+    that break the train step's rule (``judge_f32``) against the float32
+    runs ``refs`` (the first the one compared) and the float64 ``oracle``:
+    within lr x TRAIN_GRAD_RTOL of the gradient scale of ``refs[0]``, or
+    no farther from the oracle than AR_HEADROOM times the farthest of
+    ``refs``, each plus PAR_PARAM_ULPS float32 roundings of the
+    parameter's own scale."""
+    lr_sgd = PAR_SGD["params"]["lr"]
+    eps = float(np.finfo(np.float32).eps)
+    bad = {}
+    for n, v in refs[0]["params"].items():
+        ulps = PAR_PARAM_ULPS * eps * v.abs().max().item()
+        p64 = oracle["params"][n]
+        err = (got[n] - v).abs().max().item()
+        room = lr_sgd * TRAIN_GRAD_RTOL * max(
+            oracle["grads"][n].abs().max().item(), floor)
+        resolution = max((r["params"][n] - p64).abs().max().item()
+                         for r in refs)
+        if (err > room + ulps and (got[n] - p64).abs().max().item()
+                > AR_HEADROOM * resolution + ulps):
+            bad[n] = err
+    return bad
+
+
+def parallel_step_held(lr, root, device: str = "cuda",
+                       tiny: bool = False, check: bool = True,
+                       meanwhile=None) -> dict:
+    """Part 1 of phase ``parallel``: PAR_STEPS steps of the flagship, one
+    process on the whole batch on the device (timed), then PAR_WORLD ranks
+    over gloo sharing the device, each in its own process (timed); then,
+    at once, each in processes of its own: the one-process steps on the
+    CPU in float32 and in float64 (the oracle), ranks in float32 on the
+    CPU, and ranks that run the steps with batch norm unsynced on the
+    device (the planted control), then in float64 on the CPU.
+
+    The checks: the float64 ranks hold the float64 one process within
+    PAR_F64_RTOL (the decomposition is the global step, so the CPU's
+    float32 ranks are a float32 run of it); the device's ranks hold the
+    device's one process by the train step's rule (``judge_f32``, the
+    float64 one process the oracle, the CPU's float32 one process and
+    ranks ``also``: each float32 run cancels some gradients in front of
+    training-mode batch norms exactly by the order of its sums, where
+    another does not); the losses within
+    TRAIN_LOSS_RTOL; both ranks end bitwise alike, each launching each
+    LSTM kernel ``expected_per_step`` times a step; the planted control
+    breaks the rule.  ``readings`` gives each float32 run's distance from
+    the oracle on the tensors where the runs disagree most, and
+    ``one_run_rule`` the judgement with the device's one process alone as
+    the float32 run.  ``meanwhile``, a callable, runs while the references
+    do (its result under ``meanwhile``).  Raises on a failed check
+    (``check``); ``tiny`` and ``device="cpu"`` rehearse it on the CPU."""
+    cfg, ss, state, batch = parallel_step_config(tiny)
+    dev = torch.device(device)
+    rows = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    one = parallel_steps(lr, rows, cfg, ss, state, dev)
+    t0 = time.time()
+    outs, procs = parallel_ranks(root, "rank", [("card", device, "float32",
+                                                 False)], tiny)
+    _wait(procs)
+    ranks_s = time.time() - t0
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    card = [r["runs"]["card"] for r in ranks]
+    t0 = time.time()
+    outs, procs = parallel_ranks(root, "reference", [
+        ("planted", device, "float32", True),
+        ("cpu_f64", "cpu", "float64", False)], tiny)
+    outs_f32, procs_f32 = parallel_ranks(root, "cpu_f32", [
+        ("cpu_f32", "cpu", "float32", False)], tiny)
+    one_outs = {dtype: Path(root) / f"one_{dtype}.pt"
+                for dtype in ("float32", "float64")}
+    procs += procs_f32 + [_spawn(
+        f"import chip_smoke; chip_smoke.parallel_one({str(out)!r}, 'cpu', "
+        f"{dtype!r}, {tiny})") for dtype, out in one_outs.items()]
+    try:
+        meanwhile_result = meanwhile() if meanwhile else None
+    finally:
+        _wait(procs, timeout=900.0)
+    reference_s = time.time() - t0
+    ref = {**torch.load(outs[0], weights_only=False)["runs"],
+           **torch.load(outs_f32[0], weights_only=False)["runs"]}
+    cpu_one, oracle = (torch.load(one_outs[d], weights_only=False)
+                       for d in ("float32", "float64"))
+
+    g64 = oracle["grads"]
+    floor = GRAD_SCALE_FLOOR * max(g.abs().max().item() for g in g64.values())
+    decomposition = {
+        "grads": _scaled_err(ref["cpu_f64"]["grads"], g64, floor),
+        "params": _scaled_err(ref["cpu_f64"]["params"], oracle["params"],
+                              0.0)}
+    refs = [one, cpu_one, ref["cpu_f32"]]
+    also = [r["grads"] for r in refs[1:]]
+    judged = judge_f32(card[0]["grads"], one["grads"], g64, also=also)
+    worst = max(judged, key=lambda n: judged[n]["rel_of_scale"])
+    by_oracle = sorted((n for n, v in judged.items()
+                        if v["rel_of_scale"] >= TRAIN_GRAD_RTOL),
+                       key=lambda n: -judged[n]["rel_of_scale"])
+    param_bad = parallel_params_held(card[0]["params"], refs, oracle, floor)
+    planted = judge_f32(ref["planted"]["grads"], one["grads"], g64,
+                        also=also)
+    planted_bad = sorted((n for n, v in planted.items() if not v["ok"]),
+                         key=lambda n: -planted[n]["rel_of_scale"])
+    one_run = judge_f32(card[0]["grads"], one["grads"], g64)
+    runs = {"card_ranks": card[0], "card_one_process": one,
+            "cpu_one_process": cpu_one, "cpu_ranks": ref["cpu_f32"]}
+    readings = {n: {k: (r["grads"][n] - g64[n]).abs().max().item()
+                    for k, r in runs.items()} for n in by_oracle[:6]}
+    loss_rel = lambda got, want: max(  # noqa: E731
+        abs(r["Loss"] - o["Loss"]) / abs(o["Loss"])
+        for r, o in zip(got["metrics"], want["metrics"]))
+    per_step = {n: [c["launches"][n] / PAR_STEPS for c in card]
+                for n in TRAIN_COUNTERS}
+    result = {
+        "world": PAR_WORLD, "backend": ranks[0]["backend"], "tiny": tiny,
+        "global_batch": [PAR_B, TRAIN_T], "lengths": list(PAR_LENGTHS),
+        "steps": PAR_STEPS, "optimizer": PAR_SGD,
+        "loss": [[m["Loss"] for m in c["metrics"]] for c in card],
+        "loss_one_process": [m["Loss"] for m in one["metrics"]],
+        "loss_float64": [m["Loss"] for m in oracle["metrics"]],
+        "loss_rel_err": loss_rel(card[0], one),
+        "float64_ranks_vs_one_process": decomposition,
+        "grad_sum_max_rel_err": judged[worst]["rel_of_scale"],
+        "worst_grad": worst, "params": len(judged),
+        "judged_by_oracle": len(by_oracle),
+        "failed": {n: v for n, v in judged.items() if not v["ok"]},
+        "params_out_of_rule": param_bad,
+        "readings": readings,
+        "one_run_rule_failed": sorted(n for n, v in one_run.items()
+                                      if not v["ok"]),
+        "ranks_agree": all(torch.equal(card[0]["params"][n],
+                                       card[1]["params"][n])
+                           for n in judged),
+        "planted_unsynced_bn": {
+            "loss_rel_err": loss_rel(ref["planted"], one),
+            "grads_failed": len(planted_bad),
+            "worst": {n: planted[n] for n in planted_bad[:3]},
+            "params_out_of_rule": len(parallel_params_held(
+                ref["planted"]["params"], refs, oracle, floor))},
+        "launches_per_step_by_rank": per_step,
+        "expected_per_step": sum(train_lstm_shapes(cfg, TRAIN_T).values()),
+        "one_process_launches_per_step": {
+            n: v / PAR_STEPS for n, v in one["launches"].items()},
+        "step_s_by_rank": [c["step_s"] for c in card],
+        "one_process_step_s": one["step_s"], "ranks_wall_s": ranks_s,
+        "references_wall_s": reference_s,
+        "reference_step_s": {
+            "cpu_one_process_f32": sum(cpu_one["step_s"]),
+            "cpu_one_process_f64": sum(oracle["step_s"]),
+            **{f"ranks_{k}": sum(ref[k]["step_s"]) for k in ref}},
+        "meanwhile": meanwhile_result,
+        "limits": {"loss_rtol": TRAIN_LOSS_RTOL,
+                   "grad_rtol_of_max": TRAIN_GRAD_RTOL,
+                   "grad_oracle_headroom": AR_HEADROOM,
+                   "param_ulps": PAR_PARAM_ULPS,
+                   "float64_rtol": PAR_F64_RTOL}}
+    if not check:
+        return result
+    assert all(r["world_size"] == PAR_WORLD for r in ranks)
+    assert max(decomposition.values()) < PAR_F64_RTOL, decomposition
+    assert result["loss_rel_err"] < TRAIN_LOSS_RTOL, result["loss_rel_err"]
+    assert not result["failed"], result["failed"]
+    assert not param_bad, param_bad
+    assert result["ranks_agree"]
+    assert planted_bad, result["planted_unsynced_bn"]
+    if dev.type == "cuda":
+        for n in TRAIN_COUNTERS:
+            assert per_step[n] == [result["expected_per_step"]] * PAR_WORLD, \
+                per_step
+    return result
+
+
+def parallel_trainers(root, runs, device: str = "cuda",
+                      tiny: bool = False) -> dict:
+    """``train_multitrack_model`` for one epoch on PAR_CORPUS, ``runs``
+    {name: (under a group of one rank, deterministic)}, each in its own
+    process, all at once: {name: {file: bytes}} of their checkpoints and
+    metrics, and the wall seconds."""
+    corpus = write_corpus(Path(root) / "corpus", **PAR_CORPUS)
+    procs = []
+    for name, (group, deterministic) in runs.items():
+        cfg_t = recipe_phase_config(
+            "acoustic", corpus, Path(root) / name,
+            **{"train.nepochs": 1, "train.use_amp": False})
+        if tiny:
+            cfg_t["model"] = flagship_acoustic_config(3, tiny=True)[0]
+        path = Path(root) / f"{name}.json"
+        path.write_text(json.dumps(cfg_t))
+        port = _free_port() if group else 0
+        procs.append(_spawn(
+            f"import chip_smoke; chip_smoke.parallel_trainer({str(path)!r}, "
+            f"{port}, {device!r}, {bool(deterministic)})"))
+    t0 = time.time()
+    _wait(procs)
+    return {name: {f: (Path(root) / name / f).read_bytes()
+                   for f in ("latest.ckpt", "metrics.jsonl")}
+            for name in runs}, time.time() - t0
+
+
+def parallel_trainers_held(root, device: str = "cuda",
+                           tiny: bool = False) -> dict:
+    """Part 2 of phase ``parallel``: the trainer with no group and under a
+    group of one rank (NCCL on the card), both on torch's deterministic
+    algorithms (``parallel_trainer``); their checkpoints and metrics must
+    be bitwise equal."""
+    files, wall = parallel_trainers(
+        root, {"no_group": (False, True), "group": (True, True)}, device,
+        tiny)
+    result = {"backend": "nccl" if device == "cuda" else "gloo",
+              "world": 1, "corpus": PAR_CORPUS, "deterministic": True,
+              "bitwise": {f: files["group"][f] == files["no_group"][f]
+                          for f in ("latest.ckpt", "metrics.jsonl")},
+              "wall_s": wall}
+    assert all(result["bitwise"].values()), result
+    return result
+
+
+def mesh_streams(engine, labels, mesh):
+    """The flagship ensemble's fused (mgc, lf0, vuv, bap) under
+    ``set_mesh(mesh)`` as host arrays, the lengths, and the forward's
+    launches."""
+    from ensemble_svs_with_interactions_tpu_torch.ops import (
+        lstm_recurrence as lr,
+    )
+
+    N = len(labels)
+    spk_ids, pairs = list(range(N)), [(i + 1) % N for i in range(N)]
+    engine.set_mesh(mesh)
+    try:
+        dm = engine.predict_timing_multitrack_batch(
+            [lab.copy() for lab in labels], spk_ids, pairs)
+        feats, raw = engine._frame_features(dm)
+        reset_launches(lr)
+        out, lengths = engine.acoustic_model.inference_batch(
+            feats, spks=(spk_ids, [spk_ids[p] for p in pairs]),
+            sub_index=pairs, method="inference_main", device_out=True)
+        launches = lr.lstm_recurrence.launches
+        streams = engine._fused_postprocess(out, lengths, raw, "gv")
+        host = [s.cpu().numpy() for s in streams]
+    finally:
+        engine.set_mesh(None)
+    return host, list(lengths), launches
+
+
+def parallel_serve(engine, labels, device: str = "cuda") -> dict:
+    """Part 3 and 4 of phase ``parallel``: the 4-part ensemble under
+    ``set_mesh(make_mesh())`` (every card; bitwise the one-device render
+    on one) and over an explicit PAR_WORLD-entry mesh of cuda:0, the
+    streams and int16 waveforms against ``set_mesh(None)``, launches per
+    shard; one track's coded streams through
+    ``synthesize_from_streams_time_sharded`` over PAR_WORLD shards of
+    cuda:0 against the one-device synthesis with the same noise."""
+    from ensemble_svs_with_interactions_tpu_torch.ops.world import (
+        synthesize_from_streams,
+        synthesize_from_streams_time_sharded,
+    )
+    from ensemble_svs_with_interactions_tpu_torch.parallel import make_mesh
+
+    first = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    meshes = {"none": None, "cards": make_mesh(device=device),
+              "cuda0_x2": make_mesh(device=[first] * PAR_WORLD)}
+    N = len(labels)
+    streams, wavs, seconds, launches = {}, {}, {}, {}
+    for name, mesh in meshes.items():
+        streams[name], lengths, launches[name] = mesh_streams(engine, labels,
+                                                              mesh)
+        engine.set_mesh(mesh)
+        try:
+            engine.svs_ensemble([lab.copy() for lab in labels],
+                                spk_ids=list(range(N)))   # warm
+            t0 = time.perf_counter()
+            wavs[name], _ = engine.svs_ensemble(
+                [lab.copy() for lab in labels], spk_ids=list(range(N)))
+            seconds[name] = time.perf_counter() - t0
+        finally:
+            engine.set_mesh(None)
+
+    def stream_err(name):
+        return max(float(np.abs(g[i, :n] - r[i, :n]).max())
+                   for g, r in zip(streams[name], streams["none"])
+                   for i, n in enumerate(lengths))
+
+    def wav_held(name):
+        out = []
+        for g, r in zip(wavs[name], wavs["none"]):
+            a, b = g.astype(np.float64) / 32767, r.astype(np.float64) / 32767
+            out.append({"rms": float(np.sqrt(((a - b) ** 2).mean())),
+                        "corr": float(np.corrcoef(a, b)[0, 1]),
+                        "same_length": len(g) == len(r)})
+        return out
+
+    # one track's coded streams, time-sharded against one device
+    n0 = lengths[0]
+    track = [torch.from_numpy(s[0, :n0]).to(first)
+             for s in streams["none"]]
+    sr, fp = engine.sample_rate, engine.frame_period
+    hop = int(sr * fp / 1000)
+    syn = {}
+    def sync():
+        if first.type == "cuda":
+            torch.cuda.synchronize(first)
+
+    for name in ("one_device", "sharded", "one_device_2", "sharded_2"):
+        sync()
+        t0 = time.perf_counter()
+        if name.startswith("one"):
+            from ensemble_svs_with_interactions_tpu_torch import gen
+
+            out = synthesize_from_streams(
+                *(t[None] for t in track),
+                gen.vocoder_noise(1, n0 * hop, first), sr, fp,
+                highpass_cutoff=70.0)[0]
+        else:
+            out = synthesize_from_streams_time_sharded(
+                *track, sr, fp, highpass_cutoff=70.0,
+                mesh=meshes["cuda0_x2"])
+        sync()
+        syn[name] = (time.perf_counter() - t0, out.cpu().numpy())
+    snr = snr_db(syn["one_device"][1], syn["sharded"][1])
+    result = {
+        "tracks": N, "meshes": {k: None if m is None else
+                                [str(d) for d in m.devices]
+                                for k, m in meshes.items()},
+        "stream_max_abs_err": {k: stream_err(k) for k in ("cards",
+                                                          "cuda0_x2")},
+        "forward_launches": launches,
+        "launches_per_shard": {k: launches[k] / (1 if m is None
+                                                 else len(m.devices))
+                               for k, m in meshes.items()},
+        "svs_ensemble_s": seconds,
+        "wav_bitwise_cards": all(np.array_equal(a, b) for a, b in
+                                 zip(wavs["cards"], wavs["none"])),
+        "wav_cuda0_x2": wav_held("cuda0_x2"),
+        "sharded_synthesis": {
+            "frames": int(n0), "seconds": int(n0) * fp / 1000, "snr_db": snr,
+            "one_device_s": [syn["one_device"][0], syn["one_device_2"][0]],
+            "sharded_s": [syn["sharded"][0], syn["sharded_2"][0]]},
+        "limits": {"stream_atol": PAR_STREAM_ATOL, "wav_rms": PAR_WAV_RMS,
+                   "wav_corr": PAR_WAV_CORR, "snr_db": SNR_DB}}
+    if len(meshes["cards"].devices) == 1:
+        assert result["stream_max_abs_err"]["cards"] == 0.0
+        assert result["wav_bitwise_cards"]
+    assert result["stream_max_abs_err"]["cuda0_x2"] < PAR_STREAM_ATOL, result
+    for w in result["wav_cuda0_x2"]:
+        assert w["same_length"] and w["rms"] < PAR_WAV_RMS, w
+        assert w["corr"] > PAR_WAV_CORR, w
+    # the acoustic forward's launches (all of an svs_ensemble call's),
+    # once a shard
+    assert launches["none"] == LAUNCHES_PER_CALL, launches
+    assert launches["cuda0_x2"] == PAR_WORLD * LAUNCHES_PER_CALL, launches
+    assert snr > SNR_DB, snr
+    return result
+
+
+def phase_parallel(lr, engine, labels) -> dict:
+    """Phase ``parallel``: ``parallel_serve`` on ``engine`` (the flagship),
+    then ``parallel_step_held`` with ``parallel_trainers_held`` run while
+    its CPU references compute; a JSON line each.  Returns the launches
+    of each kernel on the phase's paths."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        serve = parallel_serve(engine, labels)
+        emit({"phase": "parallel_serve", **serve})
+        train = parallel_step_held(
+            lr, root, meanwhile=lambda: parallel_trainers_held(root))
+        trainer = train.pop("meanwhile")
+        emit({"phase": "parallel_step", **train})
+    emit({"phase": "parallel", "trainer": trainer,
+          "seconds": time.time() - t0})
+    launches = {n: sum(train["launches_per_step_by_rank"][n]) * PAR_STEPS
+                for n in TRAIN_COUNTERS}
+    launches["lstm_recurrence"] += sum(serve["forward_launches"].values())
+    return launches
+
+
 def _sum_rows(rows, counts, keys):
     """{key: sum of count * row[key]} over rows weighted by counts."""
     return {k: sum(n * rows[s][k] for s, n in counts.items()) for k in keys}
@@ -7340,7 +7952,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                  trainer_launches, trainer_errs, recipe_launches,
                  single_recipe_launches, single_recipe_rows,
                  npss_launches, npss_rows, ar_launches, mel_launches,
-                 mel_rows, multi_speaker_launches, multi_speaker_rows):
+                 mel_rows, multi_speaker_launches, multi_speaker_rows,
+                 parallel_launches):
     """One entry per kernel.  ``launches`` counts the kernel's launches in
     the paths' runs (N_CALLS svs_ensemble calls; of the single-track voice
     N_CALLS svs calls, one svs_ensemble call and N_CALLS svs calls with the
@@ -7383,7 +7996,9 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
     ``multi_speaker`` (``multi_speaker_launches``), with its rows (the
     train step's new shapes at B = 4: H = 512 and 64) under
     ``multi_speaker_rows`` (``phase_multi_speaker``; their errors count
-    too)."""
+    too), and phase ``parallel``'s (its ranks' train steps, summed over
+    the ranks, and for the forward also its sharded ensembles) under
+    ``parallel``."""
     serving = {H: kernel_rows[(H, False)] for H in RECURRENCE_SHAPES}
     serve = _sum_rows(serving, LAUNCHES_BY_HIDDEN,
                       TIMES + ("library_input_gemm_ms",))
@@ -7440,7 +8055,8 @@ def kernels_line(kernel_rows, single_rows, train_rows, slice_launches,
                     "recipe_npss": npss_launches[name],
                     "ar_options": ar_launches[name],
                     "mel_voice": mel_launches[name],
-                    "multi_speaker": multi_speaker_launches[name]}
+                    "multi_speaker": multi_speaker_launches[name],
+                    "parallel": parallel_launches[name]}
              for name in TRAIN_COUNTERS}
     paths["lstm_recurrence"]["svs_ensemble"] = slice_launches
     paths["lstm_recurrence"].update(path_launches)
@@ -7547,7 +8163,9 @@ def main() -> int:
     phase_packed(engine, weights, labels)
     cpu = phase_reference(engine, weights, labels)
     pair_launches = phase_pairwise(lr, engine, cpu, labels[0])
-    del engine, cpu
+    del cpu
+    parallel_launches = phase_parallel(lr, engine, labels)
+    del engine
     glob, phases = single_phases(postfilter=True)
     glob_mcep, phases_mcep = single_phases(bap_dim=MCEP_AP_DIM)
     with tempfile.TemporaryDirectory() as model_dir, \
@@ -7603,7 +8221,7 @@ def main() -> int:
                       trainer_launches, trainer_errs, recipe_launches,
                       single_launches, single_recipe_rows, npss_launches,
                       npss_rows, ar_launches, mel_launches, mel_rows,
-                      ms_launches, ms_rows))
+                      ms_launches, ms_rows, parallel_launches))
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ unpadded as in the JAX package.
 
 from __future__ import annotations
 
+import copy
 import inspect
 import math
 from typing import Any
@@ -51,6 +52,9 @@ from ensemble_svs_with_interactions_tpu_torch.ops.world.codec import (
 from ensemble_svs_with_interactions_tpu_torch.ops.world.synthesis import (
     synthesize,
     synthesize_from_streams,
+)
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    drawing_rows,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
     MinMaxScaler,
@@ -103,13 +107,37 @@ class ModelPack:
         self.module = module.eval()
         self.config = config
         self.bucket = bucket
+        self.mesh = None
         self.to(device)
 
     def to(self, device) -> "ModelPack":
         """Move the weights to ``device``; later calls run there."""
         self.device = torch.device(device)
         self.module.to(self.device)
+        return self.set_mesh(self.mesh)
+
+    def set_mesh(self, mesh) -> "ModelPack":
+        """Shard each batch over the devices of ``mesh``
+        (``parallel.make_mesh``; one process's): the module replicated on
+        each device, the batch padded to a multiple of the mesh size with
+        rows of length 1, each device running its contiguous rows (their
+        launches overlap across cards; a repeated device runs its shards
+        in turn).  Random draws are the whole batch's, cut to each shard's
+        rows (``parallel.mesh.drawing_rows``).  The outputs are gathered on
+        the pack's device, the padding rows dropped.  ``None`` returns to
+        the pack's one device."""
+        if mesh is not None and mesh.world_size > 1:
+            raise ValueError("set_mesh: a mesh of one process's devices")
+        self.mesh = mesh
+        self._replicas = {self.device: self.module}
+        for d in self._devices():
+            if d not in self._replicas:
+                self._replicas[d] = (self.module if _same_device(d, self.device)
+                                     else copy.deepcopy(self.module).to(d))
         return self
+
+    def _devices(self) -> tuple:
+        return self.mesh.devices if self.mesh is not None else (self.device,)
 
     def prediction_type(self):
         return self.module.prediction_type()
@@ -118,64 +146,78 @@ class ModelPack:
         return arg in inspect.signature(
             getattr(self.module, method)).parameters
 
-    def _speakers(self, spks):
-        """``spks`` on the device as the module takes them: a tuple is the
-        multitrack models' per-track form (one id sequence per track,
-        each a tensor); anything else (an int, or ids of shape (B,) or
-        (B, 1)) is one tensor, passed as given, as the JAX package passes
-        a single-track model's ``spks``."""
-        def ids(s):
-            return torch.as_tensor(np.asarray(s, np.int64),
-                                   device=self.device)
-
-        if isinstance(spks, tuple):
-            return tuple(ids(s) for s in spks)
-        return ids(spks)
-
-    def _pack(self, seqs, B: int, T_pad: int):
-        b = np.zeros((B, T_pad, seqs[0].shape[1]), np.float32)
-        for i, s in enumerate(seqs):
-            b[i, : len(s)] = s
-        return torch.from_numpy(b).to(self.device)
-
     @torch.no_grad()
     def inference_batch(self, xs, spks=None, sub_index=None,
                         method="inference", block=True, device_out=False,
                         xs_sub=None):
         """Batched inference over a list of (T_i, D) sequences, padded to a
-        common bucketed length and run as one (B, T, D) batch.
+        common bucketed length and run as one (B, T, D) batch (over a mesh,
+        ``set_mesh``: padded to a multiple of its size, one shard of rows a
+        device, gathered on the pack's device without the padding rows).
 
         Multitrack models take the sub-track features as ``xs_sub`` (per
         item, padded with ``xs``) or, when they are a permutation of
-        ``xs``, as ``sub_index`` (per-item index into ``xs``, gathered on
-        the device).  ``spks`` is a tuple of per-item speaker-id
-        sequences, one a track, for multitrack models, or a single-track
-        model's ids (an int, or an array of shape (B,) or (B, 1)).
-        ``device_out=True`` returns ``(device output, lengths)`` with no
-        host copy; otherwise per-item host arrays trimmed to their lengths
-        (a zero-argument callable producing them when ``block=False``).
+        ``xs``, as ``sub_index`` (per-item index into ``xs``).  ``spks`` is
+        a tuple of per-item speaker-id sequences, one a track, for
+        multitrack models, or a single-track model's ids (an int, or an
+        array of shape (B,) or (B, 1)).  ``device_out=True`` returns
+        ``(device output, lengths)`` with no host copy; otherwise per-item
+        host arrays trimmed to their lengths (a zero-argument callable
+        producing them when ``block=False``).
         """
+        devices = self._devices()
         B = len(xs)
+        B_pad = _round_up(B, len(devices))
         T_pad = _round_up(max(len(x) for x in list(xs) + list(xs_sub or [])),
                           self.bucket)
         lengths = np.asarray([len(x) for x in xs], np.int64)
-        x = self._pack(xs, B, T_pad)
-        args = [x]
-        if sub_index is not None:
-            idx = torch.as_tensor(np.asarray(sub_index, np.int64),
-                                  device=self.device)
-            args.append(x.index_select(0, idx))
+        x = np.zeros((B_pad, T_pad, xs[0].shape[1]), np.float32)
+        for i, s in enumerate(xs):
+            x[i, : len(s)] = s
+        x_sub = None
+        if sub_index is not None and len(devices) > 1:
+            x_sub = x[_pad_rows(np.asarray(sub_index, np.int64), B_pad)]
         elif xs_sub is not None:
-            args.append(self._pack(xs_sub, B, T_pad))
-        if spks is not None:
-            args.append(self._speakers(spks))
-        kw = {"lengths": torch.as_tensor(lengths, device=self.device)}
-        if self._takes(method, "generator"):
-            kw["generator"] = torch.Generator().manual_seed(AR_SEED)
-        if self._takes(method, "chain_generator"):
-            kw["chain_generator"] = torch.Generator(
-                self.device).manual_seed(CHAIN_SEED)
-        out = getattr(self.module, method)(*args, **kw)
+            x_sub = np.zeros_like(x)
+            for i, s in enumerate(xs_sub):
+                x_sub[i, : len(s)] = s
+        if isinstance(spks, tuple):
+            spks = tuple(_pad_rows(np.asarray(s, np.int64), B_pad)
+                         for s in spks)
+        elif spks is not None and np.ndim(spks) > 0:
+            spks = _pad_rows(np.asarray(spks, np.int64), B_pad)
+        # padding rows are zeros of length 1 (a length of 0 would divide
+        # by zero in mask-normalised reductions of some models)
+        lens = np.ones(B_pad, np.int64)
+        lens[:B] = lengths
+        per = B_pad // len(devices)
+        outs = []
+        for k, d in enumerate(devices):
+            rows = slice(k * per, (k + 1) * per)
+            args = [torch.from_numpy(x[rows]).to(d)]
+            if x_sub is not None:
+                args.append(torch.from_numpy(x_sub[rows]).to(d))
+            elif sub_index is not None:  # one shard: gathered on the device
+                args.append(args[0].index_select(0, torch.as_tensor(
+                    np.asarray(sub_index, np.int64), device=d)))
+            if spks is not None:
+                args.append(_rows_on(spks, rows, d))
+            kw = {"lengths": torch.from_numpy(lens[rows]).to(d)}
+            if self._takes(method, "generator"):
+                kw["generator"] = torch.Generator().manual_seed(AR_SEED)
+            if self._takes(method, "chain_generator"):
+                kw["chain_generator"] = torch.Generator(d).manual_seed(
+                    CHAIN_SEED)
+            with drawing_rows(rows, B_pad):
+                outs.append(getattr(self._replicas[d], method)(*args, **kw))
+
+        def gather(parts):
+            if len(parts) == 1:
+                return parts[0]
+            return torch.cat([p.to(self.device) for p in parts])[:B]
+
+        out = (tuple(gather([o[j] for o in outs]) for j in range(len(outs[0])))
+               if isinstance(outs[0], tuple) else gather(outs))
         if device_out:
             return out, lengths
 
@@ -197,6 +239,32 @@ class ModelPack:
         return self.inference_batch(
             [x], spks=spks, method=method,
             xs_sub=None if x_sub is None else [x_sub])[0]
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card)."""
+    def index(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.cuda.current_device()
+        return d.index
+
+    return a.type == b.type and index(a) == index(b)
+
+
+def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
+    """``a`` with zero rows appended up to ``rows``."""
+    pad = np.zeros((rows - a.shape[0],) + a.shape[1:], a.dtype)
+    return np.concatenate([a, pad])
+
+
+def _rows_on(spks, rows: slice, device):
+    """A shard's speaker ids on its device: a tuple of per-track ids, one
+    tensor of ids, or an int for every row."""
+    if isinstance(spks, tuple):
+        return tuple(torch.from_numpy(s[rows]).to(device) for s in spks)
+    if np.ndim(spks) == 0:
+        return torch.as_tensor(np.asarray(spks, np.int64), device=device)
+    return torch.from_numpy(spks[rows]).to(device)
 
 
 def vocoder_noise(N: int, samples: int, device) -> torch.Tensor:

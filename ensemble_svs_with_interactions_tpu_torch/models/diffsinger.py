@@ -57,6 +57,7 @@ from ensemble_svs_with_interactions_tpu_torch.models.generic import (
     condition_on_speakers,
     speaker_embeddings,
 )
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import shard_draw
 from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
     conv_precision,
 )
@@ -231,8 +232,9 @@ def _normal(shape, generator, device):
         raise ValueError("the diffusion and flow-matching decoders draw "
                          "their noise from a torch.Generator: pass "
                          "chain_generator")
-    return torch.randn(shape, generator=generator,
-                       device=generator.device).to(device)
+    return shard_draw(lambda s: torch.randn(s, generator=generator,
+                                            device=generator.device),
+                      shape, 0).to(device)
 
 
 class GaussianDiffusion(BaseModel):

@@ -22,6 +22,11 @@ from ensemble_svs_with_interactions_tpu_torch.ops.lstm_recurrence import (
     lstm_recurrence,
     lstm_recurrence_trainable,
 )
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    all_reduce_sum_autograd,
+    shard_draw,
+)
 
 
 def recurrence(xw, w_h):
@@ -50,15 +55,17 @@ def lstm_sequence(x, w_x, b, w_h):
 def dropout(x, p: float, generator):
     """flax ``nn.Dropout`` in training: keep each unit with probability
     1 - p and scale it by 1 / (1 - p).  The mask is drawn on the
-    ``generator``'s device and moved to ``x``'s."""
+    ``generator``'s device and moved to ``x``'s (a batch shard's rows of
+    the whole batch's mask, ``parallel.mesh.shard_draw``; x batch first)."""
     if p <= 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator,
-                      device=generator.device) < (1.0 - p)
+    keep = shard_draw(lambda s: torch.rand(s, generator=generator,
+                                           device=generator.device),
+                      x.shape, 0) < (1.0 - p)
     return torch.where(keep.to(x.device), x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -162,7 +169,11 @@ class MaskedBatchNorm(nn.Module):
     statistics over the valid steps of ``mask`` (biased variance,
     E[x^2] - E[x]^2) and updates the running ones in place, in the flax
     convention ``running = momentum * running + (1 - momentum) * batch``,
-    with the Bessel-corrected variance over the valid count."""
+    with the Bessel-corrected variance over the valid count.  Under a
+    process group the count, sum and sum of squares are summed over the
+    ranks first (the gradient flows back through the sums), so every rank
+    normalises, and updates its running statistics, with the global
+    batch's, as the JAX package's global-view program does."""
 
     momentum = 0.9
 
@@ -180,10 +191,11 @@ class MaskedBatchNorm(nn.Module):
         else:
             m = (torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
                  if mask is None else mask.to(x.dtype))[:, :, None]
-            count = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum(dim=(0, 1)) / count
-            var = torch.clamp((x * x * m).sum(dim=(0, 1)) / count
-                              - mean * mean, min=0.0)
+            count = torch.clamp(all_reduce_sum(m.sum()), min=1.0)
+            mean = all_reduce_sum_autograd((x * m).sum(dim=(0, 1))) / count
+            var = torch.clamp(
+                all_reduce_sum_autograd((x * x * m).sum(dim=(0, 1))) / count
+                - mean * mean, min=0.0)
             with torch.no_grad():
                 unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
                 self.running_mean.mul_(self.momentum).add_(
@@ -198,6 +210,16 @@ def leaky_relu(x, slope: float = 0.2):
     """flax's ``leaky_relu``, ``where(x >= 0, x, slope * x)``: its gradient
     at 0 is 1, where torch's is ``slope``."""
     return torch.where(x >= 0, x, slope * x)
+
+
+def reflect_pad(x, pad: int):
+    """``F.pad(x, (pad, pad), mode="reflect")`` on the last axis, built
+    from flipped slices: the same values, and a backward that sums each
+    position's gradients in a fixed order (reflection_pad1d's backward on
+    the card accumulates them with atomics, so a training run would not
+    repeat bitwise)."""
+    return torch.cat([x[..., 1: pad + 1].flip(-1), x,
+                      x[..., -pad - 1: -1].flip(-1)], dim=-1)
 
 
 class ReflectConv1d(nn.Module):
@@ -230,7 +252,7 @@ class ReflectConv1d(nn.Module):
     def forward(self, x):
         h = x.transpose(1, 2)
         if self.pad:
-            h = F.pad(h, (self.pad, self.pad), mode="reflect")
+            h = reflect_pad(h, self.pad)
         conv = self.Conv_0
         if isinstance(conv, nn.Conv1d):
             return conv(h).transpose(1, 2)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ensemble_svs_with_interactions_tpu_torch.base import BaseModel
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import shard_draw
 from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
     conv_precision,
 )
@@ -78,7 +79,7 @@ def draw_noise(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
     seeded 0 when None)."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return torch.randn(shape, generator=generator)
+    return shard_draw(lambda s: torch.randn(s, generator=generator), shape, 0)
 
 
 class Conv2dPostFilter(BaseModel):

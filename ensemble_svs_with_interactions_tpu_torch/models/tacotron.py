@@ -54,6 +54,7 @@ from ensemble_svs_with_interactions_tpu_torch.models.layers import (
     lstm_weights_init,
     time_mask,
 )
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import shard_draw
 from ensemble_svs_with_interactions_tpu_torch.ops.mdn import (
     mdn_get_most_probable_sigma_and_mu,
 )
@@ -95,18 +96,21 @@ class LSTMCell(nn.Module):
         return c, torch.sigmoid(o) * torch.tanh(c)
 
 
-def _uniform(shape, generator, device):
+def _uniform(shape, generator, device, batch_axis: int):
     """Uniform draws in [0, 1) from ``generator`` on its own device, moved
-    to ``device``."""
-    return torch.rand(shape, generator=generator,
-                      device=generator.device).to(device)
+    to ``device``; the batch at ``batch_axis`` (a mesh shard's rows cut
+    from the whole batch's draw, ``parallel.mesh.shard_draw``)."""
+    return shard_draw(lambda s: torch.rand(s, generator=generator,
+                                           device=generator.device),
+                      shape, batch_axis).to(device)
 
 
-def _normal(shape, generator, device, dtype):
+def _normal(shape, generator, device, dtype, batch_axis: int):
     """Standard normal draws from ``generator`` on its own device, moved to
-    ``device`` in ``dtype``."""
-    return torch.randn(shape, generator=generator,
-                       device=generator.device).to(device, dtype)
+    ``device`` in ``dtype``; the batch at ``batch_axis``."""
+    return shard_draw(lambda s: torch.randn(s, generator=generator,
+                                            device=generator.device),
+                      shape, batch_axis).to(device, dtype)
 
 
 def prenet_dropout_scales(shape, p: float, generator, device,
@@ -116,7 +120,7 @@ def prenet_dropout_scales(shape, p: float, generator, device,
     in the ``dtype`` of the frames they scale.  Drawn from ``generator``
     on its own device and moved to ``device``, so a CPU generator gives
     the same masks on every device."""
-    keep = _uniform(shape, generator, device) < (1.0 - p)
+    keep = _uniform(shape, generator, device, 1) < (1.0 - p)
     return keep.to(dtype) / (1.0 - p)
 
 
@@ -145,7 +149,7 @@ class Prenet(nn.Module):
         if generator is None:
             raise ValueError("prenet dropout needs a torch.Generator")
         return _uniform((2 * self.layers, *lead_shape, self.hidden_dim),
-                        generator, device) < (1.0 - self.dropout)
+                        generator, device, 2) < (1.0 - self.dropout)
 
     def forward(self, x, masks=None):
         def drop(v, k):
@@ -253,12 +257,13 @@ class _ARDecoderCore(nn.Module):
         if want["prenet"]:
             out["prenet"] = self.prenet.draw_masks((T, B), generator, device)
         if want["noise"]:
-            out["noise"] = _normal((T, B, D), generator, device, dtype)
+            out["noise"] = _normal((T, B, D), generator, device, dtype, 1)
         if want["zoneout"]:
             out["zoneout"] = _uniform((self.layers, 2, T, B, Hd), generator,
-                                      device) < self.zoneout
+                                      device, 3) < self.zoneout
         if want["eps"]:
-            out["eps"] = _normal((T, B, self.r, D), generator, device, dtype)
+            out["eps"] = _normal((T, B, self.r, D), generator, device, dtype,
+                                 1)
         return out
 
     # ------------------------------------------------------------ heads

@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -222,33 +223,46 @@ def build() -> dict:
     per source, all started together.  Returns {name: library path}.
     nvcc's report (registers, shared memory, spills) is kept beside each
     library as ``.log``.  One thread builds at a time (a server's first
-    requests may arrive together)."""
+    requests may arrive together), and one process: the ranks of a
+    data-parallel run start together on a clean ``_build/``, so the first
+    to take the file lock ``_build/.lock`` builds and the rest wait for
+    it and load its libraries."""
     with _BUILD_LOCK:
         libs = {name: _library_path(name) for name in SOURCES}
-        todo = {name: lib for name, lib in libs.items() if not lib.exists()}
-        if not todo:
+        if all(lib.exists() for lib in libs.values()):
             return libs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _find_nvcc()
-        procs = {}
-        for name, lib in todo.items():
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        failures = []
-        for name, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                failures.append(f"nvcc failed ({proc.returncode}) on "
-                                f"{SOURCES[name]}:\n{out}")
-                continue
-            libs[name].with_suffix(".log").write_text(out)
-            os.replace(tmp, libs[name])  # atomic: no one sees half a file
-        if failures:
-            raise RuntimeError("\n".join(failures))
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when it closes
+            return _build_missing(libs)
+
+
+def _build_missing(libs: dict) -> dict:
+    """Run ``nvcc`` on each source whose library is missing (another
+    process may have built them while this one waited for the lock)."""
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
         return libs
+    nvcc = _find_nvcc()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}) on "
+                            f"{SOURCES[name]}:\n{out}")
+            continue
+        libs[name].with_suffix(".log").write_text(out)
+        os.replace(tmp, libs[name])  # atomic: no one sees half a file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int

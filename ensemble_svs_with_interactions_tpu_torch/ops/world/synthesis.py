@@ -49,6 +49,12 @@ def minimum_phase_spectrum(power_spec, fft_size: int):
 
 def _overlap_add(chunks, hop: int, out_len: int):
     """OLA (B, T, L) chunks at stride ``hop`` into (B, out_len) signals."""
+    return overlap_add_full(chunks, hop)[:, :out_len]
+
+
+def overlap_add_full(chunks, hop: int):
+    """OLA (B, T, L) chunks at stride ``hop`` into (B, (T + K) * hop)
+    signals, K = ceil(L / hop): the whole tail kept."""
     B, T, L = chunks.shape
     K = -(-L // hop)
     chunks = F.pad(chunks, (0, K * hop - L))
@@ -56,7 +62,7 @@ def _overlap_add(chunks, hop: int, out_len: int):
     acc = chunks.new_zeros(B, T + K, hop)
     for k in range(K):
         acc[:, k: k + T] += pieces[:, :, k, :]
-    return acc.reshape(B, -1)[:, :out_len]
+    return acc.reshape(B, -1)
 
 
 def _wrapped_phase(inc):
@@ -81,22 +87,41 @@ def _synthesize_from_transfer(f0, H, ap, noise, fs: int, hop: int,
     """Excitation + time-varying filtering: f0 (B, T) Hz (0 = unvoiced),
     H (B, T, fft//2+1) complex min-phase transfer function, ap (B, T,
     fft//2+1) aperiodicity, noise (B, T*hop) -> (B, T*hop)."""
-    B, T = f0.shape
-    N = T * hop
+    T = f0.shape[1]
+    f0_samples, inc, amp = sample_f0(f0, hop, fs)
+    phase = _wrapped_phase(inc)
+    prev_phase = torch.cat([phase.new_zeros(phase.shape[0], 1),
+                            phase[:, :-1]], dim=1)
+    pulses = pulse_train(phase, prev_phase, inc, f0_samples, amp)
+    y = filter_frames(pulses, noise, f0 > 0.0, H, ap, hop, fft_size)
+    return _overlap_add(y, hop, T * hop)
+
+
+def sample_f0(f0, hop: int, fs: int):
+    """Per-sample (f0, phase increment, pulse amplitude) of f0 (B, T) Hz,
+    each (B, T * hop)."""
     voiced = f0 > 0.0
     f0_safe = torch.where(voiced, f0, torch.ones_like(f0))
     f0_samples = torch.repeat_interleave(
         torch.where(voiced, f0, torch.zeros_like(f0)), hop, dim=1)
     inc = f0_samples / fs
-    phase = _wrapped_phase(inc)
-    prev_phase = torch.cat([phase.new_zeros(B, 1), phase[:, :-1]], dim=1)
-    new_pulse = phase < prev_phase
     amp = PULSE_CALIBRATION * torch.sqrt(
         fs / torch.repeat_interleave(f0_safe, hop, dim=1))
+    return f0_samples, inc, amp
+
+
+# the fractional pulse delay's taps reach PULSE_HALF samples back and
+# PULSE_HALF - 1 forward
+PULSE_HALF = 4
+
+
+def pulse_train(phase, prev_phase, inc, f0_samples, amp):
+    """The pulse train (B, N): a pulse where the phase wraps, delayed by
+    its fraction of a sample through an 8-tap Hann-windowed sinc split."""
+    new_pulse = phase < prev_phase
     mu = (phase / inc.clamp_min(1e-9)).clamp(0.0, 1.0)
     a = torch.where(new_pulse & (f0_samples > 0), amp, torch.zeros_like(amp))
-    # fractional pulse delay: an 8-tap Hann-windowed sinc split
-    HALF = 4
+    HALF = PULSE_HALF
     pulses = torch.zeros_like(a)
     for j in range(-HALF, HALF):
         u = j + mu
@@ -106,7 +131,14 @@ def _synthesize_from_transfer(f0, H, ap, noise, fs: int, hop: int,
         elif j > 0:
             tap = F.pad(tap[:, :-j], (j, 0))
         pulses = pulses + tap
+    return pulses
 
+
+def filter_frames(pulses, noise, voiced, H, ap, hop: int, fft_size: int):
+    """Each frame's excitation (its hop of pulses and noise, mixed by the
+    aperiodicity; voiced (B, T)) filtered by its transfer function H:
+    (B, T, fft_size) chunks for the overlap-add."""
+    B, T = voiced.shape
     ap2 = ap.clamp(0.0, 1.0) ** 2
     ap2 = torch.where(voiced[..., None], ap2, torch.ones_like(ap2))
     exc = torch.stack([pulses, noise.to(torch.float32)], dim=1).reshape(
@@ -115,8 +147,7 @@ def _synthesize_from_transfer(f0, H, ap, noise, fs: int, hop: int,
     w_per = torch.sqrt((1.0 - ap2).clamp_min(0.0))
     w_apr = torch.sqrt(ap2)
     Y = (X[:, 0] * w_per + X[:, 1] * w_apr) * H
-    y = torch.fft.irfft(Y, n=fft_size, dim=-1)
-    return _overlap_add(y, hop, N)
+    return torch.fft.irfft(Y, n=fft_size, dim=-1)
 
 
 def _highpass_mask(fs: int, fft_size: int, cutoff: float):
@@ -149,6 +180,16 @@ def synthesize_from_streams(mgc, lf0, vuv, bap, noise, fs: int,
     ``fs`` (2048 at 48 kHz)."""
     hop = int(fs * frame_period / 1000.0)
     fft_size = get_cheaptrick_fft_size(fs)
+    f0, H, ap = decode_streams(mgc, lf0, vuv, bap, fs, hop, fft_size,
+                               vuv_threshold, highpass_cutoff)
+    return _synthesize_from_transfer(f0, H, ap, noise, fs, hop, fft_size)
+
+
+def decode_streams(mgc, lf0, vuv, bap, fs: int, hop: int, fft_size: int,
+                   vuv_threshold: float, highpass_cutoff: float):
+    """Coded streams -> (f0 (B, T) Hz, H (B, T, fft//2+1) transfer
+    function with the high-pass, aperiodicity (B, T, fft//2+1)), frame by
+    frame."""
     if fft_size < 4 * hop:
         raise ValueError(f"fft_size {fft_size} too small for hop {hop}")
     dev = mgc.device
@@ -166,7 +207,7 @@ def synthesize_from_streams(mgc, lf0, vuv, bap, noise, fs: int,
     ap = ap.clamp(0.0, 1.0)
     f0 = torch.where(voiced, torch.exp(lf0[..., 0]),
                      torch.zeros_like(lf0[..., 0]))
-    return _synthesize_from_transfer(f0, H, ap, noise, fs, hop, fft_size)
+    return f0, H, ap
 
 
 def synthesize(f0, sp, ap, noise, fs: int, frame_period: float = 5.0):

@@ -278,6 +278,19 @@ class SPSVS:
         self.logger.info("set_device(%s)", self.device)
         return self
 
+    def set_mesh(self, mesh):
+        """Shard the batched timing, acoustic and postfilter calls (the
+        ensemble's tracks or pairs) over the devices of ``mesh``
+        (``parallel.make_mesh``), each model replicated on each device
+        (``gen.ModelPack.set_mesh``); the postprocess and the vocoder run
+        on the engine's device on the gathered rows.  ``None`` returns to
+        the engine's one device."""
+        for pack in (self.timelag_model, self.duration_model,
+                     self.acoustic_model, self.postfilter_model):
+            if pack is not None:
+                pack.set_mesh(mesh)
+        return self
+
     def __repr__(self):
         return (f"{type(self).__name__}(model_dir="
                 f"{str(self.model_dir) if self.model_dir else None!r}, "

@@ -10,6 +10,10 @@ is masked over the padded frames only where its time axis is the batch's
 an input too short for the kernels leaves empty has a NaN mean, as in
 JAX, and adds nothing to the gradients.
 
+Under a process group the losses are the global batch's and the
+gradients are summed over the ranks before clipping, as in
+``train/vocoder.py``.
+
 The convolutions run float32 with cuDNN's TF32 off (``utils/precision.
 conv_precision``); nothing in the step falls back to the CPU.
 """
@@ -29,6 +33,8 @@ from ensemble_svs_with_interactions_tpu_torch.train.vocoder import (
     _apply,
     _clip,
     _grads,
+    batch_mean,
+    reduce_grads,
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
     conv_precision,
@@ -47,7 +53,7 @@ def _d_mean(vals, mask):
         m = mask.reshape(mask.shape[0], mask.shape[1],
                          *([1] * (vals.ndim - 2)))
         return masked_mean(vals, m)
-    return torch.mean(vals)
+    return batch_mean(vals)
 
 
 def create_gan_train_step(netG, netD, optG, optD, adv_weight: float = 1.0,
@@ -157,6 +163,10 @@ def create_gan_train_step(netG, netD, optG, optD, adv_weight: float = 1.0,
         with conv_precision(device):
             gradsG = _grads(lossG, paramsG, retain_graph=True)
             gradsD = _grads(lossD, paramsD)
+        metrics = reduce_grads(gradsG + gradsD, {
+            "Loss_G": lossG, "Loss_Recon": loss_recon, "Loss_Adv": loss_adv,
+            "Loss_FM": loss_fm, "Loss_D": lossD, "Loss_D_Real": loss_real,
+            "Loss_D_Fake": loss_fake})
         gnormG, finiteG = _clip(gradsG, clip_norm)
         gnormD, finiteD = _clip(gradsD, clip_norm)
         okG, okD = torch.stack([finiteG, finiteD]).tolist()
@@ -168,10 +178,6 @@ def create_gan_train_step(netG, netD, optG, optD, adv_weight: float = 1.0,
                 if sched is not None:
                     sched.step()
         state["step"] += 1
-        metrics = {"Loss_G": lossG, "Loss_Recon": loss_recon,
-                   "Loss_Adv": loss_adv, "Loss_FM": loss_fm,
-                   "Loss_D": lossD, "Loss_D_Real": loss_real,
-                   "Loss_D_Fake": loss_fake}
         return {**{k: v.detach() for k, v in metrics.items()},
                 "GradNorm_G": gnormG, "GradNorm_D": gnormD}
 

@@ -34,8 +34,14 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ensemble_svs_with_interactions_tpu_torch.base import BaseModel, PredictionType
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    group_up,
+)
 from ensemble_svs_with_interactions_tpu_torch.train import losses as L
 from ensemble_svs_with_interactions_tpu_torch.utils import flax_msgpack
 from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
@@ -222,6 +228,45 @@ def amp_forward(module, args, kwargs, use_amp: bool, train: bool):
     return amp_uncast(outs)
 
 
+def reduce_grads(grads, metrics):
+    """Data parallelism's one collective a step: under a process group the
+    gradients ``grads`` are SUMMED over the ranks in place (each rank's
+    loss is its part of the global-batch loss, ``train/losses.py``, so the
+    sum is the global-batch gradient) together with the metrics (so every
+    rank reads the global loss, and the NaN-skip decides alike on every
+    rank), in one flat all-reduce.  Returns the metrics, reduced; without
+    a group the gradients and the metrics as they are."""
+    if not group_up():
+        return metrics
+    values = [torch.as_tensor(v).detach().reshape(()) for v in metrics.values()]
+    flat = torch.cat([_flatten_dense_tensors(grads),
+                      torch.stack([v.to(grads[0]) for v in values])])
+    dist.all_reduce(flat)
+    for g, r in zip(grads, _unflatten_dense_tensors(flat[: -len(values)],
+                                                    grads)):
+        g.copy_(r)
+    return dict(zip(metrics, flat[-len(values):].to(values[0].dtype)))
+
+
+def param_grads(params):
+    """Each parameter's ``.grad``, zeros made for those the loss did not
+    reach (as ``clip_grads`` takes them)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+def global_metrics(metrics):
+    """The metrics (local parts of global means) summed over the process
+    group in one all-reduce; as they are without a group."""
+    if not group_up():
+        return metrics
+    values = [torch.as_tensor(v) for v in metrics.values()]
+    return dict(zip(metrics, all_reduce_sum(torch.stack(
+        [v.detach().to(values[0].dtype) for v in values]))))
+
+
 def clip_grads(params, loss, clip_norm: float):
     """Scale the gradients in place by ``min(1, clip / max(|g|, 1e-12))``;
     returns (global norm, whether the loss and the norm are finite)."""
@@ -369,7 +414,8 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
         optimizer.zero_grad(set_to_none=False)
         loss, metrics, _ = loss_fn(b, generator, True)
         loss.backward()
-        gnorm, finite = clip_grads(params, loss, clip_norm)
+        metrics = reduce_grads(param_grads(params), metrics)
+        gnorm, finite = clip_grads(params, metrics["Loss"], clip_norm)
         metrics["GradNorm"] = gnorm
         out = metrics_to_floats(metrics, device)
         apply_update(finite, optimizer, scheduler)
@@ -379,7 +425,7 @@ def create_train_step(module, optimizer, model_config: Dict, scheduler=None,
     def eval_step(batch):
         generator = torch.Generator(device=device).manual_seed(0)
         _, metrics, pred_out = loss_fn(to_device(batch), generator, False)
-        return metrics_to_floats(metrics, device), pred_out
+        return metrics_to_floats(global_metrics(metrics), device), pred_out
 
     return train_step, eval_step
 

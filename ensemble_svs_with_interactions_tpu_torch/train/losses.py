@@ -2,7 +2,13 @@
 the pitch regularization, as ``ensemble_svs_with_interactions_tpu/train/
 losses.py`` defines them.  Plain torch ops on the training device; the
 pitch regularization's per-frame weights are NumPy, built on the host with
-each batch."""
+each batch.
+
+Under a process group (``parallel/mesh.py``) every normaliser is the
+GLOBAL count, the sum of the ranks' counts (:func:`global_count`), so each
+rank's loss is its own numerator over the global count, the ranks' losses
+sum to the global-batch loss and their summed gradients are its gradient,
+as the JAX package's one global-view program computes it."""
 
 from __future__ import annotations
 
@@ -16,12 +22,22 @@ from ensemble_svs_with_interactions_tpu_torch.ops.multistream import (
     split_streams,
 )
 from ensemble_svs_with_interactions_tpu_torch.ops.pitch import note_segments
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+)
+
+
+def global_count(count):
+    """A normaliser: the count summed over the process group (no
+    gradient), at least 1."""
+    return torch.clamp(all_reduce_sum(torch.as_tensor(count)), min=1.0)
 
 
 def masked_mean(x, mask):
-    """Mean of x over positions where mask (broadcastable) is 1."""
+    """Mean of x over positions where mask (broadcastable) is 1, over the
+    global batch."""
     mask = torch.broadcast_to(mask, x.shape)
-    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (x * mask).sum() / global_count(mask.sum())
 
 
 def _error(pred, target, kind: str):
@@ -103,7 +119,7 @@ def multistream_loss(pred_streams, out_feats, mask,
         else:
             add(i, _error(pred, target, criterion), mask)
     if not stream_wise:
-        loss = loss / torch.clamp(torch.as_tensor(total_n), min=1.0)
+        loss = loss / global_count(total_n)
     return loss
 
 

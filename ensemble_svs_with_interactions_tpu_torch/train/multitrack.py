@@ -34,7 +34,10 @@ from ensemble_svs_with_interactions_tpu_torch.train.loop import (
     amp_forward,
     apply_update,
     clip_grads,
+    global_metrics,
     metrics_to_floats,
+    param_grads,
+    reduce_grads,
 )
 
 BATCH_KEYS = ("in_feats0", "in_feats1", "out_feats0", "out_feats1", "spks0",
@@ -230,7 +233,8 @@ def create_multitrack_acoustic_train_step(
         if blocked_phase_times:
             t0 = lap(times, "forward", t0)
         loss.backward()
-        gnorm, finite = clip_grads(params, loss, clip_norm)
+        metrics = reduce_grads(param_grads(params), metrics)
+        gnorm, finite = clip_grads(params, metrics["Loss"], clip_norm)
         if blocked_phase_times:
             t0 = lap(times, "backward", t0)
         metrics["GradNorm"] = gnorm
@@ -248,7 +252,7 @@ def create_multitrack_acoustic_train_step(
         generator = torch.Generator(device=device).manual_seed(0)
         _, metrics, pred_main = loss_fn(to_device(batch), weights, generator,
                                         False)
-        return metrics_to_floats(metrics, device), pred_main
+        return metrics_to_floats(global_metrics(metrics), device), pred_main
 
     return train_step, eval_step
 
@@ -294,14 +298,16 @@ def create_multitrack_timing_train_step(module, optimizer, scheduler=None,
         optimizer.zero_grad(set_to_none=False)
         loss = loss_fn(b, generator, True)
         loss.backward()
-        gnorm, finite = clip_grads(params, loss, clip_norm)
-        out = metrics_to_floats({"Loss": loss, "GradNorm": gnorm}, device)
+        metrics = reduce_grads(param_grads(params), {"Loss": loss})
+        gnorm, finite = clip_grads(params, metrics["Loss"], clip_norm)
+        out = metrics_to_floats({**metrics, "GradNorm": gnorm}, device)
         apply_update(finite, optimizer, scheduler)
         return out
 
     @torch.no_grad()
     def eval_step(batch):
         b = _batch_to_device(batch, TIMING_BATCH_KEYS, device, dtype)
-        return metrics_to_floats({"Loss": loss_fn(b, None, False)}, device)
+        return metrics_to_floats(global_metrics(
+            {"Loss": loss_fn(b, None, False)}), device)
 
     return train_step, eval_step

@@ -5,9 +5,10 @@ one window across both tracks for the acoustic model), a dev pass each
 epoch with objective distortions, ``latest`` / ``best_loss`` /
 ``epoch%04d`` checkpoints, ``metrics.jsonl`` and ``dev_metrics.json``.
 
-It runs on ``device="cuda"`` unless the caller passes ``"cpu"``, on one
-device: a ``distributed`` config that asks for more than one process
-raises.  Batches are built on a prefetch thread, which pins them on the
+It runs on ``device="cuda"`` unless the caller passes ``"cpu"``; with
+``distributed.coordinator`` set it is one rank of a data-parallel run
+(``trainer.join_group``, ``parallel/mesh.py``): every rank builds the same
+global batches and trains on its rows, and rank 0 writes.  Batches are built on a prefetch thread, which pins them on the
 card's host; the copy to the card is issued on the training thread with
 ``non_blocking=True``.  The steps return their metrics as floats (one
 device-to-host copy a step); the trainer reads nothing else from the card
@@ -25,6 +26,10 @@ from ensemble_svs_with_interactions_tpu_torch.data.multitrack import (
     MultiTrackBatchIterator,
     MultiTrackFeatsDataset,
 )
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    replicate_tree,
+)
 from ensemble_svs_with_interactions_tpu_torch.train.loop import (
     TrainState,
     build_optimizer,
@@ -37,8 +42,8 @@ from ensemble_svs_with_interactions_tpu_torch.train.multitrack import (
     interaction_weight,
 )
 from ensemble_svs_with_interactions_tpu_torch.train.trainer import (
-    check_single_process,
     dev_distortions,
+    join_group,
     load_out_scaler,
     pitch_reg_weights,
     run_epochs,
@@ -66,8 +71,7 @@ def train_multitrack_model(config: Config, is_acoustic: bool,
     logger = getLogger(verbose=config.get("verbose", 1), name="train_mt")
     seed = int(config.get("seed", 1234))
     init_seed(seed)
-    check_single_process(config)
-    device = torch.device(device)
+    device, mesh = join_group(config, device)
 
     module = instantiate(config.model.netG)
     # the flax twin's schemes, drawn at seed 0 as JAX's module.init
@@ -78,6 +82,7 @@ def train_multitrack_model(config: Config, is_acoustic: bool,
         logger.info("warm-started %d tensors from %s", copied, resume_path)
     flax_to_torch(module, variables)
     module.to(device)
+    replicate_tree(module.state_dict(), mesh)  # every rank starts as rank 0
 
     spk_names = list(config.data.get("spk_names", []) or [])
     datasets = {}
@@ -92,7 +97,8 @@ def train_multitrack_model(config: Config, is_acoustic: bool,
     sync = "frames" if is_acoustic else "notes"
     batch_max_frames = int(config.data.get("batch_max_frames", 32000))
     # epoch-quantized schedules tick per epoch in the reference; their
-    # transition counts scale by the planned batches per epoch
+    # transition counts scale by the planned batches per epoch (planned
+    # without the world size's batch multiple, as the JAX trainer plans)
     steps_per_epoch = max(len(MultiTrackBatchIterator(
         datasets["train_no_dev"], sync=sync, max_tokens=batch_max_frames,
         shuffle=False, seed=0)), 1)
@@ -144,7 +150,8 @@ def train_multitrack_model(config: Config, is_acoustic: bool,
         train = split == "train_no_dev"
         return MultiTrackBatchIterator(
             datasets[split], sync=sync, max_tokens=batch_max_frames,
-            time_multiple=time_multiple, batch_multiple=1, shuffle=train,
+            time_multiple=time_multiple, batch_multiple=mesh.world_size,
+            shuffle=train,
             seed=epoch,
             length_cap=(segment_length if (train and is_acoustic
                                            and use_random_segments)
@@ -166,6 +173,7 @@ def train_multitrack_model(config: Config, is_acoustic: bool,
         if isinstance(pred_main, (tuple, list)):  # MDN streams -> mu
             pred_main = torch.cat([_stream_to_point(p) for p in pred_main],
                                   dim=-1)
+        pred_main = all_gather_rows(pred_main)
         if (out_scaler is not None
                 and pred_main.shape[-1] == sum(stream_sizes)):
             metrics.update(dev_distortions(
@@ -175,4 +183,5 @@ def train_multitrack_model(config: Config, is_acoustic: bool,
 
     return run_epochs(config, out_dir, logger, device, batches, pitch_reg,
                       run_batch, lambda: TrainState.capture(
-                          module, optimizer, scheduler, steps[0]), observe)
+                          module, optimizer, scheduler, steps[0]), observe,
+                      mesh)

@@ -6,7 +6,10 @@ statics and ``out_dir`` the ground-truth statics, both normalized, paired
 by ``{utt}-feats.npy`` name (the recipe's stage 8 writes them).  The
 postfilter ``model.netG`` trains against ``model.netD`` with
 ``train/gan.py``'s step on ``device="cuda"`` unless the caller passes
-``"cpu"``, in one process.
+``"cpu"``; with ``distributed.coordinator`` set it is one rank of a
+data-parallel run (``trainer.join_group``): every rank builds the same
+global batches, trains on its rows (G's noise the global batch's, cut to
+them) and rank 0 writes.
 
 Batches are the JAX trainer's: ``BucketedBatchIterator`` over
 ``FeatsDataset``, shuffled with ``seed=epoch``, built and pinned on a
@@ -47,9 +50,17 @@ from ensemble_svs_with_interactions_tpu_torch.train.loop import (
     save_checkpoint,
 )
 from ensemble_svs_with_interactions_tpu_torch.train.losses import masked_mean
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    barrier,
+    batch_sharding,
+    replicate_tree,
+)
 from ensemble_svs_with_interactions_tpu_torch.train.trainer import (
-    check_single_process,
+    NoWriter,
+    join_group,
     pin_batch,
+    rows_of,
     to_device,
 )
 from ensemble_svs_with_interactions_tpu_torch.train.vocoder_trainer import (
@@ -149,12 +160,14 @@ def train_postfilter(config: Config, device="cuda") -> Dict[str, float]:
     logger = getLogger(verbose=config.get("verbose", 1), name="train_pf")
     seed = int(config.get("seed", 1234))
     init_seed(seed)
-    check_single_process(config)
-    device = torch.device(device)
+    device, mesh = join_group(config, device)
+    lead = mesh.rank == 0
 
     netG = init_module(build_postfilter(config), seed=0)
     netD = init_module(instantiate(config.model.netD), seed=2)
     step_fn = gan_step(config, netG, netD, device)
+    for net in (netG, netD):  # every rank starts as rank 0
+        replicate_tree(net.state_dict(), mesh)
 
     max_frames = int(config.data.get("filter_num_frames", 6000))
     batch_max_frames = int(config.data.get("batch_max_frames", 8000))
@@ -167,20 +180,23 @@ def train_postfilter(config: Config, device="cuda") -> Dict[str, float]:
         logger.info("%s: %d utterances", split, len(datasets[split]))
 
     out_dir = Path(config.train.out_dir)
-    writer = MetricsWriter(out_dir, use_tensorboard=config.train.get(
-        "use_tensorboard", False))
+    writer = (MetricsWriter(out_dir, use_tensorboard=config.train.get(
+        "use_tensorboard", False)) if lead else NoWriter())
     nepochs = int(config.train.get("nepochs", 10))
     generator = torch.Generator().manual_seed(seed)
     best = float("inf")
     last: Dict[str, float] = {}
 
     def batches(split, epoch):
+        """(global batch, this rank's rows pinned) pairs."""
         train = split == "train_no_dev"
         for batch in BucketedBatchIterator(
                 datasets[split], max_tokens=batch_max_frames,
-                time_multiple=time_multiple, shuffle=train,
-                seed=epoch if train else 0):
-            yield pin_batch(batch, device)
+                time_multiple=time_multiple, batch_multiple=mesh.world_size,
+                shuffle=train, seed=epoch if train else 0):
+            (_, sl), = batch_sharding(mesh, len(batch["lengths"]))
+            yield batch, pin_batch({k: v[sl] for k, v in batch.items()},
+                                   device)
 
     @torch.no_grad()
     def eval_recon(b):
@@ -189,18 +205,22 @@ def train_postfilter(config: Config, device="cuda") -> Dict[str, float]:
                 < lengths[:, None]).to(torch.float32)[:, :, None]
         fake = netG(x, lengths, train=False,
                     generator=torch.Generator().manual_seed(0))
-        return masked_mean((fake - y) ** 2, mask)
+        return all_reduce_sum(masked_mean((fake - y) ** 2, mask))
 
     for epoch in range(1, nepochs + 1):
         epoch_metrics = []
-        for pinned in prefetch_batches(batches("train_no_dev", epoch)):
-            metrics = step_fn(to_device(pinned, device), generator)
+        for batch, pinned in prefetch_batches(batches("train_no_dev",
+                                                       epoch)):
+            with rows_of(mesh, batch):
+                metrics = step_fn(to_device(pinned, device), generator)
             epoch_metrics.append(torch.stack(list(metrics.values())))
         means = dict(zip(metrics, torch.stack(epoch_metrics).mean(0)
                          .tolist())) if epoch_metrics else {}
         writer.log(epoch, means, prefix="train_no_dev/")
-        dev_losses = [eval_recon(to_device(pinned, device))
-                      for pinned in prefetch_batches(batches("dev", 0))]
+        dev_losses = []
+        for batch, pinned in prefetch_batches(batches("dev", 0)):
+            with rows_of(mesh, batch):
+                dev_losses.append(eval_recon(to_device(pinned, device)))
         if dev_losses:
             means["Dev_Loss_Recon"] = float(torch.stack(dev_losses).mean())
             writer.log(epoch, {"Loss_Recon": means["Dev_Loss_Recon"]},
@@ -210,8 +230,10 @@ def train_postfilter(config: Config, device="cuda") -> Dict[str, float]:
         last = means
         gen_loss = means.get("Dev_Loss_Recon",
                              means.get("Loss_Recon", float("inf")))
-        save_checkpoint(out_dir, step_fn.g_checkpoint(), epoch,
-                        is_best=gen_loss < best)
+        if lead:
+            save_checkpoint(out_dir, step_fn.g_checkpoint(), epoch,
+                            is_best=gen_loss < best)
+        barrier()
         best = min(best, gen_loss)
     writer.close()
     return last

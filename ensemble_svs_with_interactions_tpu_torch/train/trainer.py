@@ -3,18 +3,20 @@
 parts both trainers share: the host-side batch pipeline (pitch
 regularization weights, pinning, the copy to the card), the dev pass's
 distortions and renders, the metrics writer from a config, and the
-single-process check.
+data-parallel set-up (``join_group``).
 
 ``train_model`` reads ``*-feats.npy`` dumps (with speaker ids from the
 file names when ``data.spk_names`` is set), trains on length-bucketed
 batches (random crops with ``use_random_segments``), runs a dev pass each
 epoch and writes ``latest`` / ``best_loss`` / ``epoch%04d`` checkpoints,
 ``metrics.jsonl`` and ``dev_metrics.json``, on ``device="cuda"`` unless
-the caller passes ``"cpu"``.
+the caller passes ``"cpu"``.  With ``distributed.coordinator`` set it is
+one rank of a data-parallel run (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Dict
@@ -28,6 +30,16 @@ from ensemble_svs_with_interactions_tpu_torch.data.dataset import (
     FeatsDataset,
     MultiSpeakerFeatsDataset,
     prefetch_batches,
+)
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    barrier,
+    batch_sharding,
+    drawing_rows,
+    make_mesh,
+    maybe_initialize_distributed,
+    rank,
+    replicate_tree,
 )
 from ensemble_svs_with_interactions_tpu_torch.train import losses as L
 from ensemble_svs_with_interactions_tpu_torch.train import metrics as M
@@ -58,6 +70,9 @@ from ensemble_svs_with_interactions_tpu_torch.utils.flax_port import (
 )
 from ensemble_svs_with_interactions_tpu_torch.utils.logger import getLogger
 from ensemble_svs_with_interactions_tpu_torch.utils.misc import init_seed
+from ensemble_svs_with_interactions_tpu_torch.utils.profiling import (
+    enable_detect_anomaly,
+)
 from ensemble_svs_with_interactions_tpu_torch.utils.scalers import (
     StandardScaler,
 )
@@ -69,13 +84,46 @@ def load_out_scaler(path_prefix) -> StandardScaler:
                           np.load(f"{path_prefix}_scale.npy"))
 
 
-def check_single_process(config: Config) -> None:
-    """The port's trainers run one process on one device."""
-    dist = dict(config.get("distributed", None) or {})
-    if int(dist.get("num_processes") or 1) > 1:
-        raise NotImplementedError(
-            "data-parallel training (the JAX package's parallel/mesh.py) is "
-            "not ported: the port's trainers run one process on one device")
+def join_group(config: Config, device):
+    """The data-parallel set-up both trainers share, as the JAX trainers'
+    head: join the process group of ``config.distributed``
+    (``coordinator`` "host:port", ``num_processes``, ``process_id``, which
+    default to torchrun's ``WORLD_SIZE`` / ``RANK``; no coordinator: one
+    process), then turn on ``train.use_detect_anomaly``.  Returns (this rank's device, its
+    one-device mesh: ``mesh.world_size`` ranks split each global batch)."""
+    dist_cfg = dict(config.get("distributed", None) or {})
+    maybe_initialize_distributed(
+        dist_cfg.get("coordinator"), dist_cfg.get("num_processes"),
+        dist_cfg.get("process_id"), device=device)
+    if config.train.get("use_detect_anomaly", False):
+        enable_detect_anomaly()
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device, make_mesh(device=[device])
+
+
+def rows_of(mesh, batch):
+    """Under a process group, the context in which this rank's random
+    draws are the global batch's, cut to its rows
+    (``parallel.mesh.drawing_rows``); else a no-op."""
+    if mesh is None or mesh.world_size == 1:
+        return contextlib.nullcontext()
+    rows = len(batch["lengths"])
+    (_, sl), = batch_sharding(mesh, rows)
+    return drawing_rows(sl, rows)
+
+
+class NoWriter:
+    """The metrics writer of a rank that writes nothing (all but rank 0)."""
+
+    tb = mlflow = None
+
+    def log(self, step, metrics, prefix=""):
+        pass
+
+    def close(self):
+        pass
 
 
 def metrics_writer(config: Config, out_dir) -> MetricsWriter:
@@ -139,7 +187,7 @@ def dev_distortions(config: Config, out_dir, epoch: int, pred, out_feats,
     model = config.model
     args = (out_scaler, list(model.stream_sizes),
             list(model.has_dynamic_features), int(model.num_windows))
-    if render and config.train.get("eval_render", False):
+    if render and config.train.get("eval_render", False) and rank() == 0:
         from ensemble_svs_with_interactions_tpu_torch.train.eval_render import (  # noqa: E501
             render_eval_outputs,
         )
@@ -151,7 +199,8 @@ def dev_distortions(config: Config, out_dir, epoch: int, pred, out_feats,
 
 
 def run_epochs(config: Config, out_dir, logger, device, batches, pitch_reg,
-               run_batch, capture, observe=None) -> Dict[str, float]:
+               run_batch, capture, observe=None,
+               mesh=None) -> Dict[str, float]:
     """The loop both trainers share: for each of ``train.nepochs`` epochs
     the training split, then the dev split, ``batches(split, epoch)``
     built on the prefetch thread (with ``pitch_reg(batch)`` added as
@@ -167,8 +216,20 @@ def run_epochs(config: Config, out_dir, logger, device, batches, pitch_reg,
     batch after it ran: the host seconds of its copy to the device and its
     step (each step ends in a host copy of its metrics, so these are the
     device's seconds too, without the wait for the prefetch thread), its
-    host arrays and the prediction."""
-    writer = metrics_writer(config, out_dir)
+    host arrays and the prediction.
+
+    Under a process group (``mesh.world_size`` ranks) each global batch
+    (every rank builds the same one, ``batches`` padding it to a multiple
+    of the world size) is cut to this rank's rows before it is pinned;
+    ``run_batch`` gets those rows as tensors and the global batch as
+    arrays, draws the global batch's random masks cut to its rows
+    (``rows_of``: every rank's generator takes the same seed, so the run
+    draws what one process draws), and returns global metrics and the
+    global prediction.  Only
+    rank 0 writes the metrics, checkpoints and ``dev_metrics.json``; the
+    others wait for each checkpoint at a barrier."""
+    lead = mesh is None or mesh.rank == 0
+    writer = metrics_writer(config, out_dir) if lead else NoWriter()
     nepochs = int(config.train.get("nepochs", 10))
     best_dev, best_epoch = float("inf"), 0
     best_metrics: Dict[str, float] = {}
@@ -181,14 +242,20 @@ def run_epochs(config: Config, out_dir, logger, device, batches, pitch_reg,
                 for batch in it:
                     if pitch_reg is not None:
                         batch["pitch_reg_dyn_ws"] = pitch_reg(batch)
-                    yield batch, pin_batch(batch, device)
+                    rows = batch
+                    if mesh is not None:
+                        (_, sl), = batch_sharding(mesh, len(batch["lengths"]))
+                        rows = {k: v[sl] for k, v in batch.items()}
+                    yield batch, pin_batch(rows, device)
 
             epoch_metrics: Dict[str, list] = {}
             for i, (batch, pinned) in enumerate(
                     prefetch_batches(host_pipeline())):
                 t0 = time.perf_counter()
-                metrics, pred = run_batch(to_device(pinned, device), batch,
-                                          train, epoch, i == 0, writer)
+                with rows_of(mesh, batch):
+                    metrics, pred = run_batch(to_device(pinned, device),
+                                              batch, train, epoch, i == 0,
+                                              writer)
                 if observe is not None:
                     observe(split, time.perf_counter() - t0, batch, pred)
                 for k, v in metrics.items():
@@ -203,12 +270,17 @@ def run_epochs(config: Config, out_dir, logger, device, batches, pitch_reg,
                 best_dev = min(best_dev, dev_loss)
                 if is_best:
                     best_epoch, best_metrics = epoch, means
-                save_checkpoint(out_dir, capture(), epoch, is_best=is_best,
-                                save_interval=int(config.train.get(
-                                    "checkpoint_interval", 0)))
+                if lead:
+                    save_checkpoint(out_dir, capture(), epoch,
+                                    is_best=is_best,
+                                    save_interval=int(config.train.get(
+                                        "checkpoint_interval", 0)))
+                barrier()
                 last_metrics = means
     writer.close()
-    write_dev_metrics(out_dir, best_epoch, best_metrics, last_metrics)
+    if lead:
+        write_dev_metrics(out_dir, best_epoch, best_metrics, last_metrics)
+    barrier()
     return last_metrics
 
 
@@ -238,8 +310,7 @@ def train_model(config: Config, is_acoustic: bool = False,
     logger = getLogger(verbose=config.get("verbose", 1), name="train")
     seed = int(config.get("seed", 1234))
     init_seed(seed)
-    check_single_process(config)
-    device = torch.device(device)
+    device, mesh = join_group(config, device)
 
     module = instantiate(config.model.netG)
     # the flax twin's schemes, drawn at seed 0 as JAX's module.init
@@ -252,6 +323,7 @@ def train_model(config: Config, is_acoustic: bool = False,
         logger.info("warm-started %d tensors from %s", copied, resume_path)
     flax_to_torch(module, variables)
     module.to(device)
+    replicate_tree(module.state_dict(), mesh)  # every rank starts as rank 0
 
     max_frames = int(config.data.get("filter_num_frames", 6000))
     batch_max_frames = int(config.data.get("batch_max_frames", 32000))
@@ -272,7 +344,8 @@ def train_model(config: Config, is_acoustic: bool = False,
     # transition counts scale by the planned batches per epoch
     steps_per_epoch = max(len(BucketedBatchIterator(
         datasets["train_no_dev"], max_tokens=batch_max_frames,
-        time_multiple=time_multiple, shuffle=False, seed=0)), 1)
+        time_multiple=time_multiple, batch_multiple=mesh.world_size,
+        shuffle=False, seed=0)), 1)
     optimizer, scheduler = build_optimizer(
         module.parameters(), dict(config.train.optim.optimizer),
         dict(config.train.optim.get("lr_scheduler", {}) or {}),
@@ -306,7 +379,8 @@ def train_model(config: Config, is_acoustic: bool = False,
         train = split == "train_no_dev"
         return BucketedBatchIterator(
             datasets[split], max_tokens=batch_max_frames,
-            time_multiple=time_multiple, shuffle=train, seed=epoch,
+            time_multiple=time_multiple, batch_multiple=mesh.world_size,
+            shuffle=train, seed=epoch,
             length_cap=(segment_length if (train and use_random_segments)
                         else None))
 
@@ -316,6 +390,8 @@ def train_model(config: Config, is_acoustic: bool = False,
             return train_step(b, generator), None
         metrics, pred_out = eval_step(b)
         pred = _point(module, pred_out, stream_sizes)
+        if pred is not None:
+            pred = all_gather_rows(pred)
         if (is_acoustic and out_scaler is not None and pred is not None
                 and pred.shape[-1] == sum(stream_sizes)):
             metrics.update(dev_distortions(
@@ -325,4 +401,5 @@ def train_model(config: Config, is_acoustic: bool = False,
 
     return run_epochs(config, out_dir, logger, device, batches, pitch_reg,
                       run_batch, lambda: TrainState.capture(
-                          module, optimizer, scheduler, steps[0]), observe)
+                          module, optimizer, scheduler, steps[0]), observe,
+                      mesh)

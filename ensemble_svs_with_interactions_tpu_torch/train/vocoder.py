@@ -11,6 +11,12 @@ The reference behaviour the port copies, on purpose:
   shorter of the two framings sets the frame count;
 * the spectral convergence is one Frobenius ratio over the whole batch.
 
+Under a process group (``parallel/mesh.py``) every loss is the global
+batch's: a mean is each rank's own over the world size (the ranks hold
+equal shards), the spectral convergence's norms sum the ranks' squares,
+and each network's gradients and the metrics are summed over the ranks in
+one all-reduce before clipping, so the NaN-skip decides alike everywhere.
+
 The step runs float32 with cuDNN's TF32 off (``utils/precision.
 conv_precision``); nothing in it falls back to the CPU.
 """
@@ -29,6 +35,12 @@ from ensemble_svs_with_interactions_tpu_torch.data.data_source import (
 from ensemble_svs_with_interactions_tpu_torch.models.vocoders.discriminators import (  # noqa: E501
     stft_mag,
 )
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    all_reduce_sum_autograd,
+    world_size,
+)
+from ensemble_svs_with_interactions_tpu_torch.train.loop import reduce_grads
 from ensemble_svs_with_interactions_tpu_torch.utils.precision import (
     conv_precision,
 )
@@ -67,6 +79,25 @@ def generator_outputs(generator, inputs):
     return generator(*inputs)
 
 
+def batch_mean(x):
+    """The mean of ``x`` over the global batch: under a process group each
+    rank holds an equal shard, so its part is its own mean over the world
+    size (the ranks' parts sum to the global mean); ``x.mean()`` without
+    one."""
+    n = world_size()
+    return torch.mean(x) / n if n > 1 else torch.mean(x)
+
+
+def _frobenius(x, grad: bool = True):
+    """||x|| over the global batch: the ranks' sums of squares summed
+    (differentiably with ``grad``)."""
+    if world_size() == 1:
+        return torch.linalg.vector_norm(x)
+    sq = (x * x).sum()
+    return torch.sqrt(all_reduce_sum_autograd(sq) if grad
+                      else all_reduce_sum(sq))
+
+
 def stft_loss(y_hat, y, fft_sizes: Sequence[int] = (1024, 2048, 512),
               hop_sizes: Sequence[int] = (120, 240, 50),
               win_lengths: Sequence[int] = (600, 1200, 240)):
@@ -76,12 +107,13 @@ def stft_loss(y_hat, y, fft_sizes: Sequence[int] = (1024, 2048, 512),
     for fft, hop, win in zip(fft_sizes, hop_sizes, win_lengths):
         m_hat = stft_mag(y_hat, fft, hop, win)
         m = stft_mag(y, fft, hop, win)
-        sc = (torch.linalg.vector_norm(m - m_hat)
-              / torch.clamp(torch.linalg.vector_norm(m), min=1e-6))
-        mag = torch.mean(torch.abs(torch.log(m) - torch.log(m_hat)))
+        sc = (_frobenius(m - m_hat)
+              / torch.clamp(_frobenius(m, grad=False), min=1e-6))
+        mag = batch_mean(torch.abs(torch.log(m) - torch.log(m_hat)))
         sc_total, mag_total = sc_total + sc, mag_total + mag
     n = len(fft_sizes)
-    return sc_total / n, mag_total / n
+    # each rank carries its part of the global ratio
+    return sc_total / n / world_size(), mag_total / n
 
 
 def mel_spectral_loss(y_hat, y, fb, fft_size: int = 2048,
@@ -93,7 +125,7 @@ def mel_spectral_loss(y_hat, y, fb, fft_size: int = 2048,
     fb = fb.to(m.dtype)
     lm_hat = torch.log(torch.clamp(m_hat @ fb.T, min=1e-7))
     lm = torch.log(torch.clamp(m @ fb.T, min=1e-7))
-    return torch.mean(torch.abs(lm_hat - lm))
+    return batch_mean(torch.abs(lm_hat - lm))
 
 
 def residual_source_loss(layer, source, y, f0, fb=None):
@@ -112,7 +144,7 @@ def residual_source_loss(layer, source, y, f0, fb=None):
     diff = s_src[:, :T] - (s_y[:, :T] - env[:, :T]).detach()
     if fb is not None:
         diff = diff @ fb.to(diff.dtype).T
-    return torch.mean(diff ** 2)
+    return batch_mean(diff ** 2)
 
 
 def _flatten_d_outs(outs):
@@ -227,7 +259,7 @@ def create_vocoder_gan_train_step(
     state = {"step": 0}
 
     def lsgan(outs, target):
-        return sum(torch.mean((f[-1] - target) ** 2)
+        return sum(batch_mean((f[-1] - target) ** 2)
                    for f in outs) / len(outs)
 
     def g_loss(batch, adv_on: float):
@@ -263,7 +295,7 @@ def create_vocoder_gan_train_step(
                 d_real = _flatten_d_outs(discriminator(y))
             for fr, fk in zip(d_real, d_fake):
                 for r, k in zip(fr[:-1], fk[:-1]):
-                    loss_fm = loss_fm + torch.mean(torch.abs(k - r))
+                    loss_fm = loss_fm + batch_mean(torch.abs(k - r))
             loss_fm = loss_fm * adv_on
         loss = (stft_weight * loss_stft + adv_weight * loss_adv
                 + fm_weight * loss_fm + source_weight * loss_source)
@@ -287,6 +319,7 @@ def create_vocoder_gan_train_step(
             gradsG = _grads(lossG, paramsG)
             lossD, auxD = d_loss(batch, y_hat.detach())
             gradsD = _grads(lossD, paramsD)
+        metrics = reduce_grads(gradsG + gradsD, {**metrics, **auxD})
         gnormG, finiteG = _clip(gradsG, clip_norm)
         gnormD, finiteD = _clip(gradsD, clip_norm)
         okG, okD = torch.stack([finiteG, finiteD]).tolist()
@@ -295,7 +328,7 @@ def create_vocoder_gan_train_step(
         if okD and adv_on > 0:
             _apply(paramsD, gradsD, optD)
         state["step"] += 1
-        metrics = {k: v.detach() for k, v in {**metrics, **auxD}.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
         return {**metrics, "GradNorm_G": gnormG, "GradNorm_D": gnormD}
 
     train_step.state = state

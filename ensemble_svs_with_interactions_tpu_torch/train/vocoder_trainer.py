@@ -7,7 +7,10 @@ in the WORLD layout [mgc, lf0, vuv, bap]) and ``{utt}-wave.npy`` pairs
 crops with their sine / noise excitation (``SignalGenerator``) and
 pitch-dependent dilation factors, and trains the generator and the
 discriminator with ``train/vocoder.py``'s GAN step on ``device="cuda"``
-unless the caller passes ``"cpu"``, in one process.
+unless the caller passes ``"cpu"``; with ``distributed.coordinator`` set
+it is one rank of a data-parallel run (``trainer.join_group``): every
+rank draws the same global batch of crops and trains on its rows, and
+rank 0 writes.
 
 The crops are the JAX trainer's bit for bit from the same seed: one numpy
 ``Generator`` seeded ``seed`` draws, per item, the utterance, the start
@@ -48,8 +51,14 @@ from ensemble_svs_with_interactions_tpu_torch.train.loop import (
     build_optimizer,
     save_checkpoint,
 )
+from ensemble_svs_with_interactions_tpu_torch.parallel.mesh import (
+    barrier,
+    batch_sharding,
+    replicate_tree,
+)
 from ensemble_svs_with_interactions_tpu_torch.train.trainer import (
-    check_single_process,
+    NoWriter,
+    join_group,
     pin_batch,
     to_device,
 )
@@ -269,12 +278,14 @@ def train_vocoder(config: Config, device="cuda") -> Dict[str, float]:
     logger = getLogger(verbose=config.get("verbose", 1), name="train_voc")
     seed = int(config.get("seed", 1234))
     init_seed(seed)
-    check_single_process(config)
-    device = torch.device(device)
+    device, mesh = join_group(config, device)
+    lead = mesh.rank == 0
 
     generator = init_module(build_generator(config), seed=0)
     discriminator = init_module(instantiate(config.model.discriminator),
                                 seed=1)
+    for net in (generator, discriminator):  # every rank starts as rank 0
+        replicate_tree(net.state_dict(), mesh)
     crops = vocoder_crops(config)
     logger.info("vocoder corpus: %d utterances", len(crops.items))
     rng_np = np.random.default_rng(seed)
@@ -282,17 +293,21 @@ def train_vocoder(config: Config, device="cuda") -> Dict[str, float]:
     step_fn = gan_step(config, generator, discriminator, device)
 
     out_dir = Path(config.train.out_dir)
-    writer = MetricsWriter(out_dir, use_tensorboard=config.train.get(
-        "use_tensorboard", False))
+    writer = (MetricsWriter(out_dir, use_tensorboard=config.train.get(
+        "use_tensorboard", False)) if lead else NoWriter())
     nepochs = int(config.train.get("nepochs", 10))
     steps_per_epoch = int(config.train.get("steps_per_epoch", 100))
     batch_size = int(config.train.get("batch_size", 8))
     best = float("inf")
     last: Dict[str, float] = {}
 
+    (_, rows), = batch_sharding(mesh, batch_size)
+
     def crop_batches(n):
+        """This rank's rows of each global batch of crops, pinned."""
         for _ in range(n):
-            yield pin_batch(crops.batch(rng_np, batch_size), device)
+            batch = crops.batch(rng_np, batch_size)
+            yield pin_batch({k: v[rows] for k, v in batch.items()}, device)
 
     for epoch in range(1, nepochs + 1):
         epoch_metrics = []
@@ -308,11 +323,13 @@ def train_vocoder(config: Config, device="cuda") -> Dict[str, float]:
         last = means
         stft = means.get("Loss_STFT_Mag", float("inf"))
         step = step_fn.state["step"]
-        save_checkpoint(out_dir, TrainState(
-            params=torch_to_flax(generator)["params"], batch_stats={},
-            opt_state=adam_state(generator, step_fn.optimizers[0]),
-            step=step),
-            epoch, is_best=stft < best)
+        if lead:
+            save_checkpoint(out_dir, TrainState(
+                params=torch_to_flax(generator)["params"], batch_stats={},
+                opt_state=adam_state(generator, step_fn.optimizers[0]),
+                step=step),
+                epoch, is_best=stft < best)
+        barrier()
         best = min(best, stft)
     writer.close()
     return last

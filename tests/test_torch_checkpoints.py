@@ -298,9 +298,13 @@ def test_checkpoint_interval_is_the_key_jax_reads(corpus, tmp_path):
 
 
 def test_trainers_refuse_more_than_one_process(corpus, tmp_path):
+    """A data-parallel config (``parallel/mesh.py``) that names a
+    coordinator and two processes but not this process's rank is refused
+    before it joins anything."""
     cfg = merge(acoustic_config(corpus, tmp_path),
-                {"distributed": {"num_processes": 2, "process_id": 0}})
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
+                {"distributed": {"coordinator": "127.0.0.1:1",
+                                 "num_processes": 2}})
+    with pytest.raises(ValueError, match="process_id"):
         train_multitrack_model(cfg, True, device="cpu")
 
 

@@ -958,3 +958,24 @@ def test_vocoder_gan_step_on_the_card_matches_the_cpu(cuda, family,
                                             tmp_path / "exp")[family]
     held = chip_smoke.hold_gan_step(cfg, cuda)
     assert held["ok"], held
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_sharing_the_card_hold_the_one_process_step(
+        cuda, tmp_path):
+    """The flagship's train step at full width on two processes sharing
+    the card over gloo (``chip_smoke.parallel_step_held``: a global batch
+    of mixed lengths with a padding row, 3 SGD steps) against one process
+    on the whole batch: the ranks in float64 on the CPU within 1e-9 of one
+    process in float64, the card's ranks' summed gradients and parameters
+    by the train step's rule against the CPU's float32 ranks with the
+    float64 process as the oracle, the loss within 1e-4 of one process on
+    the card, both ranks alike, each rank launching each LSTM kernel 46
+    times a step, and ranks with batch norm unsynced refused."""
+    import chip_smoke
+    from ensemble_svs_with_interactions_tpu_torch.ops import (
+        lstm_recurrence as lr,
+    )
+
+    held = chip_smoke.parallel_step_held(lr, tmp_path, "cuda")
+    assert held["backend"] == "gloo" and held["ranks_agree"]

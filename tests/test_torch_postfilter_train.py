@@ -196,9 +196,11 @@ def test_trainer_checkpoints_g_as_jax(trained):
 
 
 def test_trainer_refuses_more_than_one_process(tmp_path):
+    """Two processes at a coordinator without this process's rank: refused
+    before the trainer joins a group."""
     cfg = config(tmp_path, tmp_path / "out")
-    cfg["distributed"] = {"num_processes": 2}
-    with pytest.raises(NotImplementedError, match="one process"):
+    cfg["distributed"] = {"coordinator": "127.0.0.1:1", "num_processes": 2}
+    with pytest.raises(ValueError, match="process_id"):
         postfilter_trainer.train_postfilter(_wrap(cfg), device="cpu")
 
 

@@ -405,7 +405,8 @@ def test_chip_kernels_line_has_every_key():
     option voices' under ``ar_options``, the mel
     voice's under ``mel_voice`` and ``mel_voice_rows`` and the
     multi-speaker voice's under ``multi_speaker`` and
-    ``multi_speaker_rows`` (their errors counted in ``max_abs_err``, dW_h's
+    ``multi_speaker_rows``, phase ``parallel``'s under ``parallel`` (their
+    errors counted in ``max_abs_err``, dW_h's
     relative one in ``max_rel_err``; the rows keep cuDNN's input GEMM
     time, and the NPSS rows the kernel that served them and both bounds,
     the BPTT's at the float32 FMA and the tensor cores' rates with the
@@ -447,10 +448,11 @@ def test_chip_kernels_line_has_every_key():
     ms_rows = {f"train {n} H=512 T=256": {
         **_fake_row(n), "H": 512, "max_abs_err": 6e-5, "max_rel_err": 7e-6}
         for n in ("lstm_recurrence", "lstm_bptt", "lstm_dwh")}
+    par = {k: 92 for k in cs.TRAIN_COUNTERS}
     line = cs.kernels_line(kernel_rows, single_rows, train_rows, 3,
                            {"pairwise": 2}, ones, ones, ones, errs, ones,
                            single, rows, npss, npss_rows, ar, mel,
-                           mel_rows, ms, ms_rows)
+                           mel_rows, ms, ms_rows, par)
     keys = {"name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
@@ -477,6 +479,7 @@ def test_chip_kernels_line_has_every_key():
         assert k["launches_by_path"]["mel_voice"] == 13
         assert f"train {k['name']} H=64 T=256" in k["mel_voice_rows"]
         assert k["launches_by_path"]["multi_speaker"] == 23
+        assert k["launches_by_path"]["parallel"] == 92
         assert list(k["multi_speaker_rows"]) == [
             f"train {k['name']} H=512 T=256"]
     by = {k["name"]: k for k in line["kernels"]}

@@ -369,7 +369,8 @@ def test_port_imports_no_jax():
     synthesis, timing-evaluation, multi-speaker training and sweep CLIs,
     the score front ends, the NEUTRINO engine, its CLIs and server, the
     model registry and ``run_svs``, the device MLPG, the reference
-    checkpoint importer and the remaining host CLIs),
+    checkpoint importer and the remaining host CLIs, the parallel layer,
+    time-sharded WORLD synthesis and the profiling helpers),
     chip_smoke.py's and both benches' own imports leave JAX, flax, yaml,
     msgpack and the JAX package out of the process.  The port's name
     starts with the JAX package's, so the check is on exact names and the
@@ -466,6 +467,14 @@ def test_port_imports_no_jax():
         "import ensemble_svs_with_interactions_tpu_torch.bin"
         ".visualize_vibrato\n"
         "import ensemble_svs_with_interactions_tpu_torch.bin.compare_parity\n"
+        "import ensemble_svs_with_interactions_tpu_torch.parallel\n"
+        "import ensemble_svs_with_interactions_tpu_torch.parallel.mesh\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.world\n"
+        "import ensemble_svs_with_interactions_tpu_torch.ops.world"
+        ".synthesis_sharded\n"
+        "import ensemble_svs_with_interactions_tpu_torch.utils.profiling\n"
+        "import ensemble_svs_with_interactions_tpu_torch.train"
+        ".postfilter_trainer\n"
         "import chip_smoke\n"
         "import bench_cuda\n"
         "import bench_train_cuda\n"

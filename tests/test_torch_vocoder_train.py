@@ -489,7 +489,9 @@ def test_prepare_voc_features_writes_jax_files(tmp_path):
 
 
 def test_train_vocoder_refuses_more_than_one_process(tmp_path):
+    """Two processes at a coordinator without this process's rank: refused
+    before the trainer joins a group."""
     cfg = config("pwg", write_corpus(tmp_path / "in"), tmp_path / "exp")
-    cfg["distributed"] = {"num_processes": 2}
-    with pytest.raises(NotImplementedError):
+    cfg["distributed"] = {"coordinator": "127.0.0.1:1", "num_processes": 2}
+    with pytest.raises(ValueError, match="process_id"):
         trainer.train_vocoder(cfg, device="cpu")
